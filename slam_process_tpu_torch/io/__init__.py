@@ -1,0 +1,3 @@
+from slam_process_tpu_torch.io.hexlog import read_hex_log, tokenize_hex
+
+__all__ = ["read_hex_log", "tokenize_hex"]
