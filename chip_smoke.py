@@ -7,27 +7,46 @@ NVIDIA GPU.
 Phases, each printing one JSON line:
 
   1. env        the card (nvidia-smi name and power limit), torch and CUDA.
-  2. build      nvcc builds kernels K1-K3 from ``slam_process_tpu_torch/csrc``.
+  2. build      nvcc builds kernels K1-K4 from ``slam_process_tpu_torch/csrc``.
   3. kernels    each kernel against its plain PyTorch version on the card, at
-                the main path's shapes and on edge cases: K1 and K2 equal
+                the main path's shapes and on edge cases: K1, K2 and K4 equal
                 element for element; K3 ``blurred`` within 1e-5 relative,
                 ``norm_t`` within 1e-4 absolute, the same NaN pattern, LUT-bin
                 flips in under 0.1 % of cells, premultiplied rgba within 1e-3.
+                K4's cases: the full session's filtered rows (58 sweeps), an
+                unsorted stream over 65 sweeps, out-of-range ids and invalid
+                rows, one cell summing to 2^24 - 1, 66 sweeps, no rows.
   4. main_path  ``Session.from_log`` on hex-text logs: one full-size session
                 (58 groups x 64 beams x 43 frames, one group of >= 4,400
-                frames) and 19 dataset-scale sessions (~56 k frames each).
+                frames), 19 dataset-scale sessions (~56 k frames each) and
+                the full size again with planted multipath RSS.
                 The launch counters are set to 0 just before and read just
                 after; every kernel must have launched.  Every
                 ``DeviceSessionOut`` field on the card is then held against
                 the same pipeline with ``device="cpu"`` (integer and bool
                 fields and ``mean_grid`` exactly, the raster as in phase 3),
-                and each dataset session's frames / corrected_bs / filtered
-                against its CPU run.
-  5. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
-                alone, its plain version on the card, and the whole
-                ``run_session_on_device`` in frames/s at both sizes; then
-                one full-size session under ``torch.profiler``: the device's
-                busy time, its share of the session time, the top ops.
+                and each other session's frames / corrected_bs / filtered
+                against its CPU run.  Two logs past the corrector's default
+                bounds (300 groups; 300 baselines in a group) must rerun K2
+                on the card with bounds sized to them and equal their CPU
+                run.
+  5. sweep_paths ``Session.sweep_paths`` (per-sweep NN-OMP, 886 x 886 grids)
+                on the 21 CUDA sessions of phase 4 with a seeded 64-beam
+                angle table, K4's launch counter set to 0 just before and
+                read just after; each result against the same session's
+                ``device="cpu"`` run: sweep_valid, n_iters, indices and valid
+                equal, power within rtol 2e-4 / atol 1e-6, and
+                ``sweep_intensity`` counts and mean (NaN included) equal.
+  6. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
+                alone, its plain version on the card, K4's library yardstick
+                (two ``torch.bincount`` calls), the whole
+                ``run_session_on_device`` in frames/s at both sizes, and
+                ``sweep_paths`` in sweeps/s (a cleared memo: the host prep,
+                K4 and the estimator; and a warm memo: the estimator); then
+                one full-size session and the full-size ``sweep_paths`` of the
+                noise and the multipath session (cold, then warm) under
+                ``torch.profiler``: the device's busy time, its share, the top
+                ops, and the estimator's host syncs.
 
 Then the ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  Data
@@ -59,6 +78,16 @@ FULL = dict(n_groups=58, frames_per_beam=43, baselines_per_group=93, junk_frac=0
             big_group=4400, seed=0)
 DATASET = [dict(n_groups=20, frames_per_beam=44, baselines_per_group=93, junk_frac=0.02,
                 big_group=0, seed=100 + i) for i in range(19)]
+# The full session's shape with RSS from three planted multipath scenes
+# (the traffic the estimator is built for), and logs past the corrector's
+# default bounds of 256 groups and 256 baselines in a group.
+MULTIPATH = dict(FULL, seed=1, n_paths=3)
+OVERFLOW = {"groups_300": dict(n_groups=300, frames_per_beam=1, baselines_per_group=1,
+                               junk_frac=0.02, seed=200),
+            "baselines_300": dict(n_groups=3, frames_per_beam=10, baselines_per_group=300,
+                                  junk_frac=0.02, seed=201)}
+DS = slice(1, 1 + len(DATASET))      # the dataset sessions among phase 4's
+MP = 1 + len(DATASET)                # the multipath session's index
 MAX_GROUPS = MAX_BASELINES = 256
 N_TIMED = 20
 
@@ -90,13 +119,24 @@ def main() -> None:
     # No TF32 anywhere: the port's float work is plain f32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke-") as tmp:
+        run(Path(tmp))
+
+
+def run(tmp: Path) -> None:
+    """The phases and the last lines; temporary files go under ``tmp``."""
+    import numpy as np
+    import torch
 
     from slam_process_tpu_torch.ops import (
-        _build, correct, cuda_correct, cuda_decode, cuda_raster, decode, raster)
+        _build, correct, cuda_correct, cuda_decode, cuda_raster, cuda_sweep_sums, decode, nnls,
+        raster, scene)
     from slam_process_tpu_torch.pipeline.device import (
         bucket_size, pad_bytes, run_session_on_device)
     from slam_process_tpu_torch.pipeline.session import Session
-    from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes, to_hex_text
+    from slam_process_tpu_torch.utils.synthetic import (
+        synthetic_session_bytes, to_hex_text, write_angle_table)
 
     dev = torch.device("cuda")
 
@@ -130,15 +170,24 @@ def main() -> None:
     gid, packed, _ = correct.baseline_table(frames, valid, MAX_GROUPS, MAX_BASELINES)
     clk = frames[:, 4].contiguous()
     tile = out_full.mean_grid.T.contiguous()[None]
+    # K4's: the full session's filtered rows (as Session.from_log keeps
+    # them) with their sweep ids, p = gid * 64 + ue.
+    keep_h = out_full.keep.cpu().numpy()
+    ue_h = frames[:, 1].cpu().numpy()[keep_h]
+    sweep_h = correct.detect_groups_np(ue_h)
+    n_sweeps = int(sweep_h.max()) + 1
+    k4_p = torch.from_numpy((sweep_h * 64 + ue_h).astype(np.int32)).to(dev)
+    k4_bs = out_full.corrected_bs[out_full.keep].contiguous()
+    k4_val = frames[:, 3][out_full.keep].contiguous()
     torch.cuda.synchronize()
 
     # -- 3. kernels against their plain versions --------------------------------
-    err = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    err = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
     cases = []
 
     def exact(key, case, got, want):
         for g, w in zip(got, want):
-            if g.shape != w.shape or not torch.equal(g, w):
+            if g.shape != w.shape or not torch.equal(g, w.to(g.device)):
                 fail(f"{key} {case}: kernel and plain version differ")
         cases.append(f"{key}:{case}")
 
@@ -203,63 +252,133 @@ def main() -> None:
             raster_close("K3", f"{case}_log={use_log}",
                          cuda_raster.raster_tiles_cuda(mats, lut, taps, use_log),
                          raster.raster_tiles_plain(mats, lut, taps, use_log))
+
+    # K4: (a) the main path's rows; (b)-(f) the edge cases.
+    for case, (p4, b4, v4, s4) in k4_cases(np, torch, dev, k4_p, k4_bs, k4_val,
+                                           n_sweeps).items():
+        exact("K4", case, cuda_sweep_sums.sweep_sums_cuda(p4, b4, v4, s4),
+              scene.sweep_sums_plain(p4, b4, v4, s4))
+    rng = np.random.default_rng(21)
+    rows = [torch.from_numpy(x).to(dev) for x in (
+        rng.integers(-2, 67, 30_000).astype(np.int32), rng.integers(-1, 65, 30_000).astype(
+            np.int32), rng.integers(0, 1 << 18, 30_000).astype(np.int32),
+        rng.integers(-1, 8, 30_000).astype(np.int32), rng.random(30_000) < 0.8)]
+    exact("K4", "ids_out_of_range_via_intensity_per_sweep_sums",
+          scene.intensity_per_sweep_sums(*rows, max_sweeps=6),
+          scene.intensity_per_sweep_sums(*(t.cpu() for t in rows), max_sweeps=6))
     torch.cuda.synchronize()
     emit({"phase": "kernels", "cases": cases, "max_abs_err": err})
 
     # -- 4. main path ------------------------------------------------------------
-    with tempfile.TemporaryDirectory(dir=REPO / "build", prefix="chip_smoke-") as tmp:
-        specs = [("full", FULL)] + [(f"dataset_{i:02d}", c) for i, c in enumerate(DATASET)]
-        paths, raws = [], []
-        for name, cfg in specs:
-            raw = synthetic_session_bytes(**cfg)
-            path = Path(tmp) / f"{name}.txt"
-            path.write_bytes(to_hex_text(raw))
-            paths.append(path)
-            raws.append(raw)
+    specs = ([("full", FULL)] + [(f"dataset_{i:02d}", c) for i, c in enumerate(DATASET)]
+             + [("full_multipath", MULTIPATH)])
+    paths, raws = [], []
+    for name, cfg in specs:
+        raw = synthetic_session_bytes(**cfg)
+        path = tmp / f"{name}.txt"
+        path.write_bytes(to_hex_text(raw))
+        paths.append(path)
+        raws.append(raw)
 
-        for m in (cuda_decode, cuda_correct, cuda_raster):
-            m.LAUNCHES = 0
-        t0 = time.perf_counter()
-        sessions = [Session.from_log(p) for p in paths]
-        torch.cuda.synchronize()
-        main_s = time.perf_counter() - t0
-        launches = {"K1": cuda_decode.LAUNCHES, "K2": cuda_correct.LAUNCHES,
-                    "K3": cuda_raster.LAUNCHES}
-        if min(launches.values()) == 0:
-            fail(f"a kernel of the main path never launched: {launches}")
+    for m in (cuda_decode, cuda_correct, cuda_raster):
+        m.LAUNCHES = 0
+    t0 = time.perf_counter()
+    sessions = [Session.from_log(p) for p in paths]
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {"K1": cuda_decode.LAUNCHES, "K2": cuda_correct.LAUNCHES,
+                "K3": cuda_raster.LAUNCHES}
+    if min(launches.values()) == 0:
+        fail(f"a kernel of the main path never launched: {launches}")
 
-        for (name, cfg), s in zip(specs, sessions):
-            if len(s.frames) != expected_frames(cfg):
-                fail(f"{name}: decoded {len(s.frames)} frames, wrote {expected_frames(cfg)}")
-            if len(s.filtered) == 0:
-                fail(f"{name}: no frame was corrected")
-        for path, s in zip(paths[1:], sessions[1:]):
-            ref = Session.from_log(path, device="cpu")
-            for field in ("frames", "corrected_bs", "filtered"):
-                if not np.array_equal(getattr(s, field), getattr(ref, field)):
-                    fail(f"{path.name}: {field} differs between cuda and cpu")
+    for (name, cfg), s in zip(specs, sessions):
+        if len(s.frames) != expected_frames(cfg):
+            fail(f"{name}: decoded {len(s.frames)} frames, wrote {expected_frames(cfg)}")
+        if len(s.filtered) == 0:
+            fail(f"{name}: no frame was corrected")
+    for path, s in zip(paths[1:], sessions[1:]):
+        ref = Session.from_log(path, device="cpu")
+        for field in ("frames", "corrected_bs", "filtered"):
+            if not np.array_equal(getattr(s, field), getattr(ref, field)):
+                fail(f"{path.name}: {field} differs between cuda and cpu")
+    for name, cfg in OVERFLOW.items():
+        path = tmp / f"{name}.txt"
+        path.write_bytes(to_hex_text(synthetic_session_bytes(**cfg)))
+        k2_before = cuda_correct.LAUNCHES
+        s = Session.from_log(path)
+        if cuda_correct.LAUNCHES - k2_before != 2:
+            fail(f"{name}: the corrector was not rerun on the card past its default bounds")
+        ref = Session.from_log(path, device="cpu")
+        for field in ("frames", "corrected_bs", "filtered"):
+            if not np.array_equal(getattr(s, field), getattr(ref, field)):
+                fail(f"{name}: {field} differs between cuda and cpu")
+        if len(s.filtered) == 0:
+            fail(f"{name}: no frame was corrected")
 
-        out_cpu = run_session_on_device(raw_full, device="cpu")
-        for field in out_full._fields:
-            a, b = getattr(out_full, field).cpu(), getattr(out_cpu, field)
-            if field in ("rgba", "blurred", "norm_t"):
-                continue
-            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
-                    torch.nan_to_num(a, nan=-1.0) if a.is_floating_point() else a,
-                    torch.nan_to_num(b, nan=-1.0) if b.is_floating_point() else b):
-                fail(f"full session: {field} differs between cuda and cpu")
-        raster_close("pipeline", "full_cuda_vs_cpu",
-                     tuple(getattr(out_full, f).cpu()[None] for f in ("rgba", "norm_t", "blurred")),
-                     tuple(getattr(out_cpu, f)[None] for f in ("rgba", "norm_t", "blurred")))
-        if out_full.rgba.shape != (64, 64, 4) or not torch.isfinite(out_full.rgba).all():
-            fail("full session: rgba is not a finite [64, 64, 4] raster")
+    out_cpu = run_session_on_device(raw_full, device="cpu")
+    for field in out_full._fields:
+        a, b = getattr(out_full, field).cpu(), getattr(out_cpu, field)
+        if field in ("rgba", "blurred", "norm_t"):
+            continue
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                torch.nan_to_num(a, nan=-1.0) if a.is_floating_point() else a,
+                torch.nan_to_num(b, nan=-1.0) if b.is_floating_point() else b):
+            fail(f"full session: {field} differs between cuda and cpu")
+    raster_close("pipeline", "full_cuda_vs_cpu",
+                 tuple(getattr(out_full, f).cpu()[None] for f in ("rgba", "norm_t", "blurred")),
+                 tuple(getattr(out_cpu, f)[None] for f in ("rgba", "norm_t", "blurred")))
+    if out_full.rgba.shape != (64, 64, 4) or not torch.isfinite(out_full.rgba).all():
+        fail("full session: rgba is not a finite [64, 64, 4] raster")
     emit({"phase": "main_path", "sessions": len(sessions),
           "frames": sum(len(s.frames) for s in sessions),
           "kept": sum(len(s.filtered) for s in sessions), "seconds": main_s,
-          "launches": launches, "full_session_rows": int(frames.shape[0]),
+          "launches": launches, "overflow_logs_equal_cpu": list(OVERFLOW),
+          "full_session_rows": int(frames.shape[0]),
           "full_session_bytes": len(raw_full)})
 
-    # -- 5. timing ---------------------------------------------------------------
+    # -- 5. sweep_paths: per-sweep NN-OMP on the phase-4 sessions ----------------
+    angles = write_angle_table(tmp / "beam_angle.xlsx")
+    cuda_sweep_sums.LAUNCHES = 0
+    t0 = time.perf_counter()
+    results = [s.sweep_paths(angles) for s in sessions]
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches["K4"] = cuda_sweep_sums.LAUNCHES
+    if launches["K4"] == 0:
+        fail("K4 never launched on the per-sweep path")
+
+    n_sweeps_all = 0
+    for (name, _), s, (got, got_valid) in zip(specs, sessions, results):
+        ref, ref_valid = s.sweep_paths(angles, device="cpu")
+        if not np.array_equal(got_valid, ref_valid) or not got_valid.any():
+            fail(f"{name}: sweep_valid differs between cuda and cpu, or no sweep is valid")
+        for field in ("n_iters", "aoa_idx", "aod_idx", "valid", "aoa", "aod"):
+            if not np.array_equal(getattr(got, field), getattr(ref, field)):
+                fail(f"{name}: sweep_paths {field} differs between cuda and cpu")
+        if not np.allclose(got.power, ref.power, rtol=2e-4, atol=1e-6):
+            fail(f"{name}: sweep_paths power beyond rtol 2e-4 between cuda and cpu")
+        if not (np.isfinite(got.power).all() and got.valid.any()):
+            fail(f"{name}: sweep_paths gave non-finite power or no valid path")
+        mean, counts = s.sweep_intensity()
+        mean_ref, counts_ref = s.sweep_intensity(device="cpu")
+        if not (np.array_equal(counts, counts_ref)
+                and np.array_equal(mean, mean_ref, equal_nan=True)):
+            fail(f"{name}: sweep_intensity differs between cuda and cpu")
+        n_sweeps_all += len(got_valid)
+    full_dict = sessions[0]._sweep_host_prep(angles)[4]   # the memoized dictionary
+    mp_paths = results[MP][0]
+    emit({"phase": "sweep_paths", "sessions": len(sessions), "sweeps": n_sweeps_all,
+          "full_session_sweeps": len(results[0][1]), "seconds": sweep_s,
+          "launches": launches["K4"], "compared_with_cpu": len(sessions),
+          "grid": [full_dict.aoa_grid.size, full_dict.aod_grid.size],
+          **{f"{key}_valid_paths": int(results[i][0].valid.sum())
+             for key, i in (("full_session", 0), ("multipath", MP))},
+          "multipath_n_iters_mean": float(mp_paths.n_iters.mean()),
+          "multipath_first_sweep": {"aoa": mp_paths.aoa[0].tolist(),
+                                    "aod": mp_paths.aod[0].tolist(),
+                                    "power": mp_paths.power[0].tolist()}})
+
+    # -- 6. timing ---------------------------------------------------------------
     def cuda_ms(fn, inner=1, primed=True):
         """Median ms per call over N_TIMED event-timed runs of ``inner``
         calls.  ``primed``: a ~20 ms device sleep queued first lets the
@@ -302,27 +421,150 @@ def main() -> None:
     k3_args = (tile.data_ptr(), 1, 64, 64, lut.data_ptr(), 256, taps.data_ptr(), 7, 7, 1,
                *(t.data_ptr() for t in k3_out), _build.stream_of(tile))
 
+    # K4 is timed through its wrapper: the scratch zeroing it needs, the
+    # scatter and the conversion.  Its library yardstick is the pair of
+    # torch.bincount calls that give the same sums and counts (timed only).
+    k4_cells = n_sweeps * 4096
+    k4_cell = torch.where(k4_p >= 0, k4_p.long() * 64 + k4_bs.long(), k4_cells)
+    k4_weights = k4_val.double()
     ms = {"K1": cuda_ms(lambda: k1(*k1_args), inner=20),
           "K2": cuda_ms(lambda: k2(*k2_args), inner=20),
-          "K3": cuda_ms(lambda: k3(*k3_args), inner=20)}
+          "K3": cuda_ms(lambda: k3(*k3_args), inner=20),
+          "K4": cuda_ms(lambda: cuda_sweep_sums.sweep_sums_cuda(k4_p, k4_bs, k4_val, n_sweeps),
+                        inner=20)}
     plain_ms = {"K1": cuda_ms(lambda: decode.decode_rows_plain(padded)),
                 "K2": cuda_ms(lambda: correct.baseline_plane_verdicts(gid, clk, packed,
                                                                       **verdict_args)),
-                "K3": cuda_ms(lambda: raster.raster_tiles_plain(tile, lut, taps, True))}
+                "K3": cuda_ms(lambda: raster.raster_tiles_plain(tile, lut, taps, True)),
+                "K4": cuda_ms(lambda: scene.sweep_sums_plain(k4_p, k4_bs, k4_val, n_sweeps))}
+    library_ms = {"K4": cuda_ms(lambda: (
+        torch.bincount(k4_cell, weights=k4_weights, minlength=k4_cells + 1),
+        torch.bincount(k4_cell, minlength=k4_cells + 1)), inner=20)}
     session_ms = cuda_ms(lambda: run_session_on_device(raw_full, device=dev), primed=False)
-    dataset_ms = cuda_ms(lambda: [run_session_on_device(r, device=dev) for r in raws[1:]],
+    dataset_ms = cuda_ms(lambda: [run_session_on_device(r, device=dev) for r in raws[DS]],
                          primed=False)
     dataset_frames = sum(expected_frames(c) for c in DATASET)
 
-    # Where the session's time goes: one profiled full-size session.  Busy
-    # time is the union of the device activities' intervals (kernels,
-    # copies, memsets; not the CPU-side aten rows, which would count each
-    # kernel twice, nor the profiler's own buffer requests).
+    # sweep_paths: "cold" rebinds ``filtered`` first, which drops the
+    # session's sweep memo, so the host prep (angle table, pivot,
+    # dictionary), the host-to-device copies, K4 and the estimator all
+    # run; "warm" reuses the memo: the estimator on device-resident inputs.
+    def cold(s):
+        s.filtered = s.filtered
+        return s.sweep_paths(angles)
+
+    sweeps_full = len(results[0][1])
+    sweeps_mp = len(results[MP][1])
+    sweeps_dataset = sum(len(r[1]) for r in results[DS])
+    sweep_ms = {"full_cold": cuda_ms(lambda: cold(sessions[0]), primed=False),
+                "full_warm": cuda_ms(lambda: sessions[0].sweep_paths(angles), primed=False),
+                "multipath_cold": cuda_ms(lambda: cold(sessions[MP]), primed=False),
+                "multipath_warm": cuda_ms(lambda: sessions[MP].sweep_paths(angles),
+                                          primed=False),
+                "dataset_cold": cuda_ms(lambda: [cold(s) for s in sessions[DS]], primed=False),
+                "dataset_warm": cuda_ms(lambda: [s.sweep_paths(angles) for s in sessions[DS]],
+                                        primed=False)}
+
+    # Where the time goes: one profiled full-size session and one profiled
+    # full-size sweep_paths (cold).
+    busy, acts, top = device_profile(
+        torch, lambda: run_session_on_device(raw_full, device=dev))
+    emit({"phase": "profile", "device_busy_ms": busy,
+          "busy_share_of_session": busy / session_ms, "device_activities": acts,
+          "top_us": top})
+    for key, i in (("full", 0), ("multipath", MP)):
+        nnls.HOST_SYNCS = 0
+        busy, acts, top = device_profile(torch, lambda: cold(sessions[i]))
+        syncs = nnls.HOST_SYNCS
+        busy_w, acts_w, top_w = device_profile(torch, lambda: sessions[i].sweep_paths(angles))
+        emit({"phase": "profile_sweep_paths", "session": key, "device_busy_ms": busy,
+              "busy_share_of_sweep_paths": busy / sweep_ms[f"{key}_cold"],
+              "device_activities": acts, "nnls_host_syncs": syncs, "top_us": top,
+              "warm": {"device_busy_ms": busy_w,
+                       "busy_share": busy_w / sweep_ms[f"{key}_warm"],
+                       "device_activities": acts_w, "top_us": top_w[:5]}})
+
+    emit({"phase": "timing", "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+          "full_session": {"frames": n_full, "ms": session_ms,
+                           "frames_per_s": n_full / (session_ms / 1e3)},
+          "dataset": {"sessions": len(DATASET), "frames": dataset_frames, "ms": dataset_ms,
+                      "frames_per_s": dataset_frames / (dataset_ms / 1e3)},
+          **{f"sweep_paths_{key}": {
+              "sweeps": n, "ms_cold": sweep_ms[f"{key}_cold"],
+              "sweeps_per_s_cold": n / (sweep_ms[f"{key}_cold"] / 1e3),
+              "ms_warm": sweep_ms[f"{key}_warm"],
+              "sweeps_per_s_warm": n / (sweep_ms[f"{key}_warm"] / 1e3)}
+             for key, n in (("full", sweeps_full), ("multipath", sweeps_mp))},
+          "sweep_paths_dataset": {"sessions": len(DATASET), "sweeps": sweeps_dataset,
+                                  "ms_cold": sweep_ms["dataset_cold"],
+                                  "sweeps_per_s_cold": sweeps_dataset
+                                  / (sweep_ms["dataset_cold"] / 1e3),
+                                  "ms_warm": sweep_ms["dataset_warm"],
+                                  "sweeps_per_s_warm": sweeps_dataset
+                                  / (sweep_ms["dataset_warm"] / 1e3)}})
+
+    # Bounds: the larger of bytes moved (each input read once, each output
+    # written once) over HBM bandwidth and the operations this run's data
+    # needs over the peak rate.  K1: a flag test (3 ops) at every position,
+    # the ten tag-class tests (30 ops) only where a flag byte sits, the
+    # assembly and row write (28 ops) only at the frame starts.  K2: 8 ops
+    # per (real frame, live baseline of its group) pair and 10 per row.  K4:
+    # 12 B per row read and 8 B per cell of float32 written (its integer
+    # scratch is the kernel's choice, not the function's); two atomics per
+    # kept row.
+    flag_positions = int(((padded == 0xCC) | (padded == 0x33)).sum())
+    n_starts = int(out_full.n_frames)
+    live = packed[:, 3 * MAX_BASELINES].long().clamp(max=MAX_BASELINES)[gid.long()]
+    k2_pairs = int(live[valid].sum())
+    bounds = {
+        "K1": (n_bytes + rows * 21 + 4, n_bytes * 3 + flag_positions * 30 + n_starts * 28,
+               PEAK_INT32_PER_S),
+        "K2": (rows * 8 + packed.numel() * 4 + rows * 9, k2_pairs * 8 + rows * 10,
+               PEAK_INT32_PER_S),
+        "K3": (64 * 64 * 4 + 256 * 16 + 49 * 4 + 64 * 64 * 24, 64 * 64 * (49 * 4 + 30),
+               PEAK_F32_PER_S),
+        "K4": (k4_p.numel() * 12 + k4_cells * 8, 2 * int((k4_p >= 0).sum()),
+               PEAK_INT32_PER_S),
+    }
+    meta = {
+        "K1": ("decode_rows", "decode.cu", "slam_process_tpu/ops/pallas_decode.py:130"),
+        "K2": ("correct_verdicts", "correct.cu", "slam_process_tpu/ops/pallas_correct.py:109"),
+        "K3": ("raster_tiles", "raster.cu", "slam_process_tpu/ops/pallas_raster.py:136"),
+        "K4": ("sweep_sums", "sweep_sums.cu", "slam_process_tpu/ops/pallas_sweep_sums.py:158"),
+    }
+    rows_out = []
+    for key, (name, src, replaces) in meta.items():
+        n_b, n_ops, peak = bounds[key]
+        t_bytes, t_ops = n_b / PEAK_BYTES_PER_S * 1e3, n_ops / peak * 1e3
+        rows_out.append({
+            "name": f"{key} {name}", "route": "cuda",
+            "source": f"slam_process_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches[key], "max_abs_err": err[key], "ms": ms[key],
+            "plain_ms": plain_ms[key], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms.get(key)})
+    emit({"phase": "bounds", "k1_flag_positions": flag_positions, "k1_starts": n_starts,
+          "k2_row_baseline_pairs": k2_pairs,
+          "K1_bytes_ops": bounds["K1"][:2], "K2_bytes_ops": bounds["K2"][:2],
+          "K3_bytes_ops": bounds["K3"][:2], "K4_rows": k4_p.numel(), "K4_sweeps": n_sweeps,
+          "K4_bytes_ops": bounds["K4"][:2]})
+    print(smi, flush=True)
+    emit({"kernels": rows_out})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+def device_profile(torch, fn):
+    """Run ``fn`` once under ``torch.profiler``: (device busy ms, device
+    activities, top 10 names by device us).  Busy time is the union of the
+    device activities' intervals (kernels, copies, memsets; not the
+    CPU-side aten rows, which would count each kernel twice, nor the
+    profiler's own buffer requests)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_session_on_device(raw_full, device=dev)
+        fn()
         torch.cuda.synchronize()
     acts = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                    and not e.name.startswith("Activity Buffer")),
@@ -335,58 +577,35 @@ def main() -> None:
     by_name = {}
     for e in acts:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
-    emit({"phase": "profile", "device_busy_ms": busy_us / 1e3,
-          "busy_share_of_session": busy_us / 1e3 / session_ms, "device_activities": len(acts),
-          "top_us": sorted(by_name.items(), key=lambda kv: -kv[1])[:10]})
+    return busy_us / 1e3, len(acts), sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
 
-    emit({"phase": "timing", "kernel_ms": ms, "plain_ms": plain_ms,
-          "full_session": {"frames": n_full, "ms": session_ms,
-                           "frames_per_s": n_full / (session_ms / 1e3)},
-          "dataset": {"sessions": len(DATASET), "frames": dataset_frames, "ms": dataset_ms,
-                      "frames_per_s": dataset_frames / (dataset_ms / 1e3)}})
 
-    # Bounds: the larger of bytes moved (each input read once, each output
-    # written once) over HBM bandwidth and the operations this run's data
-    # needs over the peak rate.  K1: a flag test (3 ops) at every position,
-    # the ten tag-class tests (30 ops) only where a flag byte sits, the
-    # assembly and row write (28 ops) only at the frame starts.  K2: 8 ops
-    # per (real frame, live baseline of its group) pair and 10 per row.
-    flag_positions = int(((padded == 0xCC) | (padded == 0x33)).sum())
-    n_starts = int(out_full.n_frames)
-    live = packed[:, 3 * MAX_BASELINES].long().clamp(max=MAX_BASELINES)[gid.long()]
-    k2_pairs = int(live[valid].sum())
-    bounds = {
-        "K1": (n_bytes + rows * 21 + 4, n_bytes * 3 + flag_positions * 30 + n_starts * 28,
-               PEAK_INT32_PER_S),
-        "K2": (rows * 8 + packed.numel() * 4 + rows * 9, k2_pairs * 8 + rows * 10,
-               PEAK_INT32_PER_S),
-        "K3": (64 * 64 * 4 + 256 * 16 + 49 * 4 + 64 * 64 * 24, 64 * 64 * (49 * 4 + 30),
-               PEAK_F32_PER_S),
-    }
-    meta = {
-        "K1": ("decode_rows", "decode.cu", "slam_process_tpu/ops/pallas_decode.py:130"),
-        "K2": ("correct_verdicts", "correct.cu", "slam_process_tpu/ops/pallas_correct.py:109"),
-        "K3": ("raster_tiles", "raster.cu", "slam_process_tpu/ops/pallas_raster.py:136"),
-    }
-    rows_out = []
-    for key, (name, src, replaces) in meta.items():
-        n_b, n_ops, peak = bounds[key]
-        t_bytes, t_ops = n_b / PEAK_BYTES_PER_S * 1e3, n_ops / peak * 1e3
-        rows_out.append({
-            "name": f"{key} {name}", "route": "cuda",
-            "source": f"slam_process_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": launches[key], "max_abs_err": err[key], "ms": ms[key],
-            "plain_ms": plain_ms[key], "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
-    emit({"phase": "bounds", "k1_flag_positions": flag_positions, "k1_starts": n_starts,
-          "k2_row_baseline_pairs": k2_pairs,
-          "K1_bytes_ops": bounds["K1"][:2], "K2_bytes_ops": bounds["K2"][:2],
-          "K3_bytes_ops": bounds["K3"][:2]})
-    print(smi, flush=True)
-    emit({"kernels": rows_out})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+def k4_cases(np, torch, dev, p, bs, val, n_sweeps):
+    """K4's inputs {case: (p, bs, val, max_sweeps)} on the card: (a) the
+    full session's rows; (b) an unsorted stream over 65 sweeps (the TPU
+    kernel's spill case); (c) p and bs outside their ranges and dropped
+    rows; (d) every row in one cell, summing to 2^24 - 1; (e) 66 sweeps,
+    wider than the TPU kernel's 4224 columns; (f) no rows."""
+    rng = np.random.default_rng(5)
+
+    def put(*xs):
+        return tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+                     for x in xs)
+
+    f = 200_000
+    out = {"a_main_path": (p, bs, val, n_sweeps)}
+    out["b_unsorted_65_sweeps"] = (*put(rng.integers(0, 65 * 64, f), rng.integers(0, 64, f),
+                                        rng.integers(0, 1 << 18, f)), 65)
+    out["c_out_of_range_and_dropped"] = (*put(
+        np.where(rng.random(f) < 0.1, -1, rng.integers(-70, 8 * 64 + 70, f)),
+        rng.integers(-2, 66, f), rng.integers(0, 1 << 18, f)), 8)
+    n = 255                       # 255 x 65,793 = 2^24 - 1
+    out["d_one_cell_2^24-1"] = (*put(np.full(n, 3 * 64 + 17), np.full(n, 40),
+                                     np.full(n, 65_793)), 4)
+    out["e_66_sweeps"] = (*put(np.sort(rng.integers(0, 66 * 64, f)), rng.integers(0, 64, f),
+                               rng.integers(0, 1 << 18, f)), 66)
+    out["f_no_rows"] = (*put(np.zeros(0), np.zeros(0), np.zeros(0)), 5)
+    return out
 
 
 def planted_table(torch):

@@ -1,9 +1,10 @@
 """Typed configuration of the session pipeline's stages.
 
-A copy of the three stage configs of ``slam_process_tpu/config.py``
-(``DecodeConfig``, ``CorrectConfig``, ``SceneConfig``) with the same
-fields and defaults; ``convert.configs_from_reference`` builds these from
-any objects that carry the same field names.
+A copy of the stage configs of ``slam_process_tpu/config.py``
+(``DecodeConfig``, ``CorrectConfig``, ``SceneConfig``, ``DictionaryConfig``,
+``OmpConfig``) with the same fields and defaults, and a ``PipelineConfig``
+holding the ones ``Session`` reads; ``convert.configs_from_reference`` builds
+these from any objects that carry the same field names.
 """
 
 from __future__ import annotations
@@ -47,3 +48,37 @@ class SceneConfig:
     fill_with_min: bool = True        # fillna(global min of cell means)
     keep_nan: bool = False            # keep NaN for empty cells
     flag_filter: Optional[int] = None  # keep only rows with this FLAG
+
+
+@dataclasses.dataclass(frozen=True)
+class DictionaryConfig:
+    """Gaussian-beam dictionary for the sparse estimators: sigma =
+    beam_width / 2.355 (FWHM), grid step grid_res with a floor of
+    min_grid_points per axis; grid_kind "linspace", "arange" or
+    "arange_inclusive"."""
+
+    grid_res: float = 0.1
+    beam_width: float = 1.4
+    min_grid_points: int = 10
+    grid_kind: str = "linspace"
+
+
+@dataclasses.dataclass(frozen=True)
+class OmpConfig:
+    """NN-OMP estimation loop."""
+
+    max_paths: int = 20
+    min_power_ratio: float = 3e-4
+    # Bounded outer iterations of the NNLS active-set solve.
+    nnls_max_iter: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """The session's decode and correct stages: the fields of the JAX
+    package's ``PipelineConfig`` that ``Session`` reads.  The per-sweep
+    estimator takes its dictionary and NN-OMP settings as keyword overrides
+    of ``sweep_paths``, as the JAX package's does."""
+
+    decode: DecodeConfig = dataclasses.field(default_factory=DecodeConfig)
+    correct: CorrectConfig = dataclasses.field(default_factory=CorrectConfig)

@@ -19,10 +19,18 @@ plain PyTorch on both devices, exact in integers: "previous valid row" is
 a ``cummax`` over ``where(valid, arange, -1)``, group ids a clipped
 ``cumsum``, group baseline counts a ``bincount``, and the table is built
 by writing each baseline's integer payload to its unique (gid, rank) cell.
+
+The host engine (``correct_frames_np``, numpy) is a copy of the JAX
+package's: int64 arithmetic on a padded [G, Bmax] baseline table sized
+to the data (no static bounds), the score ``resid (Bmax + 1) + column``
+with a ``2**60`` sentinel, and ``np.argmin``'s first index on ties.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
+import numpy as np
 import torch
 
 from slam_process_tpu_torch.config import CorrectConfig
@@ -38,7 +46,8 @@ def _check_bounds(bmax: int, tol: int, mod_base: int) -> None:
     # below the 2^30 sentinel.
     if (tol * (bmax + 1) + bmax) * 1024 + 1023 >= _SENTINEL or mod_base > 256:
         raise ValueError(f"tol={tol}, bmax={bmax}, mod_base={mod_base} overflow "
-                         "the packed verdict")
+                         "the packed verdict (the host engine, Session.from_log("
+                         "engine='host'), has no such bound)")
 
 
 def baseline_plane_verdicts(gid: torch.Tensor, clk: torch.Tensor, packed: torch.Tensor, *,
@@ -90,6 +99,32 @@ def correct_verdicts(gid: torch.Tensor, clk: torch.Tensor, packed: torch.Tensor,
     return baseline_plane_verdicts(gid, clk, packed, bmax=bmax, cycle=cycle, tol=tol)
 
 
+def _segments(frames: torch.Tensor, valid: torch.Tensor):
+    """(boundary [F] bool: a sweep group starts here, is_bl [F] bool: a
+    baseline row, prev_clk [F]: the previous valid row's CLK)."""
+    flag, ue, _, rss, clk = frames.unbind(dim=1)
+    # Previous valid row of every row (-1: none).
+    pos = torch.arange(frames.shape[0], device=frames.device)
+    last = torch.cummax(torch.where(valid, pos, -1), dim=0).values
+    prev = torch.cat([last.new_full((1,), -1), last[:-1]])
+    has_prev = prev >= 0
+    prev = prev.clamp(min=0)
+    boundary = valid & (~has_prev | (ue[prev] > ue))
+    is_bl = (valid & has_prev & (flag == 1) & (flag[prev] == 0) & (rss == rss[prev])
+             & ~boundary)
+    return boundary, is_bl, clk[prev]
+
+
+def correct_bounds(frames: torch.Tensor, valid: torch.Tensor) -> Tuple[int, int]:
+    """(sweep groups, most baselines in one group) of the masked rows: the
+    least ``max_groups`` and ``max_baselines_per_group`` with which
+    ``baseline_table`` does not overflow on them."""
+    boundary, is_bl, _ = _segments(frames, valid.to(torch.bool))
+    gid = torch.cumsum(boundary, dim=0) - 1
+    per_group = torch.bincount(gid[is_bl])
+    return int(boundary.sum()), int(per_group.max()) if per_group.numel() else 0
+
+
 def baseline_table(frames: torch.Tensor, valid: torch.Tensor, max_groups: int = 128,
                    max_baselines_per_group: int = 256, cfg: CorrectConfig = _DEFAULT):
     """Group ids and the residue-form baseline table of the masked rows.
@@ -98,27 +133,14 @@ def baseline_table(frames: torch.Tensor, valid: torch.Tensor, max_groups: int = 
     scalar tensor), the inputs of ``correct_verdicts``.  ``overflow`` is
     True when more than ``max_groups`` groups or more than B =
     ``max_baselines_per_group`` baselines in a group occur; the table is
-    then unusable.
+    then unusable (``correct_bounds`` gives the bounds that fit).
     """
     bmax = max_baselines_per_group
     _check_bounds(bmax, cfg.tol, cfg.mod_base)
     dev = frames.device
-    flag, ue, bs, rss, clk = frames.unbind(dim=1)
-    valid = valid.to(torch.bool)
-    f = frames.shape[0]
-
-    # Previous valid row of every row (-1: none).
-    pos = torch.arange(f, device=dev)
-    last = torch.cummax(torch.where(valid, pos, -1), dim=0).values
-    prev = torch.cat([last.new_full((1,), -1), last[:-1]])
-    has_prev = prev >= 0
-    prev = prev.clamp(min=0)
-    prev_flag, prev_ue, prev_rss, prev_clk = flag[prev], ue[prev], rss[prev], clk[prev]
-
-    boundary = valid & (~has_prev | (prev_ue > ue))
+    bs = frames[:, 2]
+    boundary, is_bl, prev_clk = _segments(frames, valid.to(torch.bool))
     gid = (torch.cumsum(boundary, dim=0, dtype=torch.int32) - 1).clamp(0, max_groups - 1)
-    is_bl = (valid & has_prev & (flag == 1) & (prev_flag == 0) & (rss == prev_rss)
-             & ~boundary)
 
     # Baseline count per group; rows that are not baselines land in bin G.
     group_counts = torch.bincount(torch.where(is_bl, gid, max_groups).long(),
@@ -169,3 +191,81 @@ def correct_rows(frames: torch.Tensor, valid: torch.Tensor, max_groups: int = 12
     keep = (flag == 0) & valid.to(torch.bool) & has
     corrected_bs = torch.where(keep, cand, bs)
     return corrected_bs, keep, overflow
+
+
+# ---------------------------------------------------------------------------
+# numpy host engine
+# ---------------------------------------------------------------------------
+
+
+def detect_groups_np(ue: np.ndarray) -> np.ndarray:
+    """Sweep segmentation: group id per row (a UE decrease starts a group)."""
+    ue = np.asarray(ue)
+    boundary = np.ones(len(ue), dtype=bool)
+    if len(ue) > 1:
+        boundary[1:] = ue[:-1] > ue[1:]
+    return np.cumsum(boundary) - 1
+
+
+def identify_baselines_np(flag: np.ndarray, rss: np.ndarray, bs: np.ndarray,
+                          clk: np.ndarray, gid: np.ndarray
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(baseline_gid, clk_b, bs_b) in row order: a FLAG 0 -> 1 step with
+    equal RSS against the previous row of the same group."""
+    n = len(flag)
+    mask = np.zeros(n, dtype=bool)
+    if n > 1:
+        mask[1:] = ((flag[1:] == 1) & (flag[:-1] == 0) & (rss[1:] == rss[:-1])
+                    & (gid[1:] == gid[:-1]))
+    idx = np.nonzero(mask)[0]
+    return gid[idx], clk[idx - 1], bs[idx]
+
+
+class CorrectResult(NamedTuple):
+    filtered: np.ndarray       # [K, 4] (ue, corrected_bs, rss, clk), kept rows
+    corrected_bs: np.ndarray   # [F] per-row corrected BS
+    keep: np.ndarray           # [F] bool: row appears in filtered output
+    n_baselines: int
+    n_groups: int
+
+
+def correct_frames_np(frames: np.ndarray, cfg: CorrectConfig = _DEFAULT) -> CorrectResult:
+    """Host correct + filter of frames [F, 5] (flag, ue, bs, rss, clk)."""
+    frames = np.asarray(frames, dtype=np.int64)
+    flag, ue, bs, rss, clk = (frames[:, i] for i in range(5))
+    n = len(flag)
+    gid = detect_groups_np(ue)
+    b_gid, b_clk, b_bs = identify_baselines_np(flag, rss, bs, clk, gid)
+    n_groups = int(gid[-1]) + 1 if n else 0
+
+    corrected = bs.copy()   # rows without a verdict keep the raw BS
+    keep = np.zeros(n, dtype=bool)
+    if b_gid.size:
+        counts = np.bincount(b_gid, minlength=n_groups)
+        bmax = int(counts.max())
+        offs = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        rank = np.arange(len(b_gid)) - offs[b_gid]
+        tbl_clk = np.zeros((n_groups, bmax), dtype=np.int64)
+        tbl_bs = np.zeros((n_groups, bmax), dtype=np.int64)
+        tbl_valid = np.zeros((n_groups, bmax), dtype=bool)
+        tbl_clk[b_gid, rank] = b_clk
+        tbl_bs[b_gid, rank] = b_bs
+        tbl_valid[b_gid, rank] = True
+
+        d = clk[:, None] - tbl_clk[gid]                       # [F, Bmax]
+        k = (d + cfg.cycle // 2) // cfg.cycle                  # floor division
+        resid = np.abs(d - k * cfg.cycle)
+        accept = (resid <= cfg.tol) & tbl_valid[gid]
+        score = np.where(accept, resid * (bmax + 1) + np.arange(bmax), 2**60)
+        best = np.argmin(score, axis=1)
+        has = accept[np.arange(n), best]
+        k_best = k[np.arange(n), best]
+        bs_best = tbl_bs[gid, best]
+        cand = (bs_best + k_best) % cfg.mod_base
+
+        normal = flag == 0
+        corrected = np.where(normal & has, cand, corrected)
+        keep = normal & has
+
+    filtered = np.stack([ue[keep], corrected[keep], rss[keep], clk[keep]], axis=1)
+    return CorrectResult(filtered, corrected, keep, int(b_gid.size), n_groups)

@@ -12,12 +12,18 @@ there is one.  Frames appear in stream order with gaps.
 
 ``decode_rows`` launches kernel K1 (``ops/cuda_decode.py``) on a CUDA
 tensor and runs ``decode_rows_plain`` on a CPU tensor.
+
+The host engine (``decode_frames_np``, numpy, int64) is a copy of the JAX
+package's: the same frames, plus the reference's discard counter.  It is
+what ``Session.from_log`` uses with ``engine="host"`` and when the device
+corrector's static bounds overflow.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from slam_process_tpu_torch.config import DecodeConfig
@@ -104,3 +110,76 @@ def decode_frames(b: torch.Tensor, capacity: int, cfg: DecodeConfig = _DEFAULT,
 def frame_capacity(n_bytes: int, cfg: DecodeConfig = _DEFAULT) -> int:
     """Static frame-count upper bound for a byte-stream length."""
     return n_bytes // cfg.frame_len + 1
+
+
+# ---------------------------------------------------------------------------
+# numpy host engine
+# ---------------------------------------------------------------------------
+
+
+def frame_start_mask(b: np.ndarray, cfg: DecodeConfig = _DEFAULT) -> np.ndarray:
+    """ok[i] == a frame starts at byte i; positions within 10 bytes of the
+    end are always False (a full frame does not fit)."""
+    b = np.asarray(b, dtype=np.uint8)
+    n = b.shape[0]
+    ok = (b == cfg.flag_true) | (b == cfg.flag_false)
+    top = (b >> 6).astype(np.uint8)
+    for d, tag in enumerate(_OFFSET_TAGS, start=1):
+        m = max(n - d, 0)
+        shifted = np.zeros(n, dtype=bool)
+        shifted[:m] = top[d:d + m] == tag
+        ok &= shifted
+    return ok
+
+
+def extract_fields(b: np.ndarray, starts: np.ndarray) -> np.ndarray:
+    """frames [F, 5] int64 (FLAG, UE, BS, RSS, CLK) at the start indices:
+    CLK from five little-endian 6-bit limbs, RSS from three."""
+    b = np.asarray(b, dtype=np.int64)
+    w = b[starts[:, None] + np.arange(11)]
+    flag = (w[:, 0] == _DEFAULT.flag_true).astype(np.int64)
+    ue = w[:, 1] & 0x3F
+    bs = w[:, 2] & 0x3F
+    clk = np.zeros(len(starts), dtype=np.int64)
+    for k in range(5):
+        clk |= (w[:, 3 + k] & 0x3F) << (6 * k)
+    rss = (w[:, 8] & 0x3F) | ((w[:, 9] & 0x3F) << 6) | ((w[:, 10] & 0x3F) << 12)
+    return np.stack([flag, ue, bs, rss, clk], axis=1)
+
+
+class DecodeResult(NamedTuple):
+    frames: np.ndarray      # [F, 5] int64 (flag, ue, bs, rss, clk)
+    valid: int              # == F
+    discarded: int          # the reference's discard counter
+
+
+def decode_frames_np(b: np.ndarray, cfg: DecodeConfig = _DEFAULT) -> DecodeResult:
+    """Host decode with the reference's counter semantics.
+
+    The discard counter counts cursor-visited flag bytes that fail the tag
+    checks; a visited flag byte within 10 bytes of the end counts once and
+    stops the parse.  Visited == not covered by an emitted frame.
+    """
+    b = np.asarray(b, dtype=np.uint8)
+    n = b.shape[0]
+    ok = frame_start_mask(b, cfg)
+    starts = np.nonzero(ok)[0]
+    frames = extract_fields(b, starts) if starts.size else np.zeros((0, 5), np.int64)
+
+    isflag = (b == cfg.flag_true) | (b == cfg.flag_false)
+    covered = np.zeros(n + 1, dtype=np.int32)
+    if starts.size:
+        covered[starts] += 1
+        covered[np.minimum(starts + cfg.frame_len, n)] -= 1
+    visited = np.cumsum(covered[:n]) == 0
+    visited_flags = isflag & visited
+    # Truncated tail: the first visited flag with < frame_len bytes left
+    # counts one discard and ends the parse.
+    tail_lo = max(n - cfg.frame_len + 1, 0)
+    tail_hits = np.nonzero(visited_flags[tail_lo:])[0]
+    if tail_hits.size:
+        break_at = tail_lo + tail_hits[0]
+        discarded = int(np.count_nonzero(visited_flags[:break_at] & ~ok[:break_at])) + 1
+    else:
+        discarded = int(np.count_nonzero(visited_flags & ~ok))
+    return DecodeResult(frames, int(starts.size), discarded)

@@ -1,4 +1,4 @@
-"""Kernels K1-K3 against their plain PyTorch versions, on the card.
+"""Kernels K1-K4 against their plain PyTorch versions, on the card.
 
 Marked ``cuda`` and skipped where ``torch.cuda.is_available()`` is False
 (the condition is evaluated when each test is set up).  On a machine with
@@ -7,7 +7,11 @@ what ``chip_smoke.py`` checks; they do not replace it.  K1 and K2 must equal
 their plain versions element for element; K3 holds blurred within 1e-5
 relative, norm_t within 1e-4 absolute, the same NaN pattern, LUT-bin flips
 under 0.1 % and premultiplied rgba within 1e-3 (the card's logf and the
-CPU's log may differ in the last bit).
+CPU's log may differ in the last bit).  K4 must equal its plain version
+element for element, ``Session.from_log`` on logs past the corrector's
+default bounds must rerun K2 on the card and equal its CPU run, and
+``Session.sweep_paths`` on the card must equal its CPU run (power within
+rtol 2e-4).
 """
 
 import numpy as np
@@ -15,7 +19,7 @@ import pytest
 import torch
 
 from slam_process_tpu_torch.ops import (
-    correct, cuda_correct, cuda_decode, cuda_raster, decode, raster)
+    correct, cuda_correct, cuda_decode, cuda_raster, cuda_sweep_sums, decode, raster, scene)
 from slam_process_tpu_torch.pipeline.device import run_session_on_device
 from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes
 
@@ -93,3 +97,59 @@ def test_pipeline_on_card_matches_cpu_and_counts_launches():
     fin = torch.isfinite(want.norm_t)
     assert torch.equal(torch.isfinite(got.norm_t.cpu()), fin)
     assert float((got.norm_t.cpu()[fin] - want.norm_t[fin]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("s", [3, 66])
+def test_sweep_sums_kernel_matches_plain(s):
+    rng = np.random.default_rng(s)
+    f = 50_000
+    p = torch.from_numpy(rng.integers(-3, s * 64 + 3, f).astype(np.int32))
+    bs = torch.from_numpy(rng.integers(-1, 65, f).astype(np.int32))
+    val = torch.from_numpy(rng.integers(0, 1 << 18, f).astype(np.int32))
+    cuda_sweep_sums.LAUNCHES = 0
+    got = cuda_sweep_sums.sweep_sums_cuda(p.cuda(), bs.cuda(), val.cuda(), s)
+    want = scene.sweep_sums_plain(p, bs, val, s)
+    assert cuda_sweep_sums.LAUNCHES == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert float(got[1].sum()) > 0
+
+
+def test_sweep_paths_on_card_matches_cpu(tmp_path):
+    from slam_process_tpu_torch.pipeline.session import Session
+    from slam_process_tpu_torch.utils.synthetic import to_hex_text, write_angle_table
+
+    path = tmp_path / "s.txt"
+    path.write_bytes(to_hex_text(synthetic_session_bytes(
+        n_groups=5, frames_per_beam=43, baselines_per_group=9, junk_frac=0.02, seed=4,
+        n_paths=3)))
+    angles = write_angle_table(tmp_path / "angles.xlsx")
+    s = Session.from_log(path)
+    cuda_sweep_sums.LAUNCHES = 0
+    paths, valid = s.sweep_paths(angles)
+    assert cuda_sweep_sums.LAUNCHES == 1
+    ref, ref_valid = s.sweep_paths(angles, device="cpu")
+    np.testing.assert_array_equal(valid, ref_valid)
+    for field in paths._fields:
+        if field == "power":
+            np.testing.assert_allclose(paths.power, ref.power, rtol=2e-4, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(getattr(paths, field), getattr(ref, field),
+                                          err_msg=field)
+
+
+@pytest.mark.parametrize("kw", [dict(n_groups=257, frames_per_beam=1, baselines_per_group=1),
+                                dict(n_groups=2, frames_per_beam=10, baselines_per_group=300)])
+def test_session_overflow_reruns_on_card(tmp_path, kw):
+    from slam_process_tpu_torch.pipeline.session import Session
+    from slam_process_tpu_torch.utils.synthetic import to_hex_text
+
+    path = tmp_path / "overflow.txt"
+    path.write_bytes(to_hex_text(synthetic_session_bytes(junk_frac=0.02, seed=6, **kw)))
+    cuda_correct.LAUNCHES = 0
+    got = Session.from_log(path)
+    assert cuda_correct.LAUNCHES == 2
+    want = Session.from_log(path, device="cpu")
+    for field in ("frames", "corrected_bs", "filtered"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field), err_msg=field)
+    assert len(got.filtered) > 0

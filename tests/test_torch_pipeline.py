@@ -9,7 +9,9 @@ premultiplied rgba within 1e-3.  Near the grid's minimum the shifted log
 magnifies the float32 rounding of RSS-sized blurred values (JAX blurs with
 separable matmuls, the port with direct 7 x 7 sums), so the 2e-5 bound of
 the raster unit test does not carry over.  ``Session.from_log`` against
-JAX's device engine, and the configs carried over by
+JAX's device engine (and its name), the host engine against JAX's host
+engine, the corrector-overflow rerun with bounds sized to the log against
+JAX's host fallback, and the configs carried over by
 ``configs_from_reference``.
 """
 
@@ -96,9 +98,15 @@ def test_configs_from_reference_match_jax():
                 jax_config.SceneConfig(keep_nan=True, fill_with_min=False))
     port_cfgs = configs_from_reference(*jax_cfgs)
     assert [type(c) for c in port_cfgs] == [config.DecodeConfig, config.CorrectConfig,
-                                            config.SceneConfig]
+                                            config.SceneConfig, config.DictionaryConfig,
+                                            config.OmpConfig]
     assert port_cfgs[1] == config.CorrectConfig(cycle=60_000, tol=300)
     assert port_cfgs[2].keep_nan and not port_cfgs[2].fill_with_min
+    assert port_cfgs[3:] == (config.DictionaryConfig(), config.OmpConfig())
+    extra = configs_from_reference(*jax_cfgs, jax_config.DictionaryConfig(grid_res=0.5),
+                                   jax_config.OmpConfig(max_paths=3, nnls_max_iter=8))
+    assert extra[3] == config.DictionaryConfig(grid_res=0.5)
+    assert extra[4] == config.OmpConfig(max_paths=3, nnls_max_iter=8)
     raw = synthetic_session_bytes(**SESSIONS["seed0"])
     got, want = run_both(raw, use_log=False, jax_correct=jax_cfgs[1], port_configs=port_cfgs)
     assert_outputs_match(got, want)
@@ -140,19 +148,69 @@ def test_session_from_log_matches_jax(tmp_path):
         n_groups=3, frames_per_beam=2, baselines_per_group=5, junk_frac=0.2, seed=8)))
     want = JaxSession.from_log(path, engine="device")
     got = Session.from_log(path, device="cpu")
-    for field in ("frames", "corrected_bs", "filtered"):
-        g, w = getattr(got, field), getattr(want, field)
-        assert g.dtype == w.dtype == np.int64
-        np.testing.assert_array_equal(g, w, err_msg=field)
+    assert got.name == want.name == "2026-10-16 120000"
+    assert_sessions_equal(got, want)
     assert len(got.filtered) > 0
 
 
-def test_session_overflow_raises_naming_bounds(tmp_path):
+def assert_sessions_equal(got, want):
+    for field in ("frames", "corrected_bs", "filtered"):
+        g, w = getattr(got, field), getattr(want, field)
+        assert g.dtype == w.dtype == np.int64, field
+        np.testing.assert_array_equal(g, w, err_msg=field)
+
+
+def test_session_host_engine_matches_jax(tmp_path):
+    from slam_process_tpu.pipeline.session import Session as JaxSession
+
+    path = tmp_path / "host.txt"
+    path.write_bytes(to_hex_text(synthetic_session_bytes(
+        n_groups=3, frames_per_beam=2, baselines_per_group=5, junk_frac=0.3, seed=9)))
+    want = JaxSession.from_log(path, engine="host")
+    got = Session.from_log(path, engine="host")
+    assert got.name == want.name == "host"
+    np.testing.assert_array_equal(got.frames, want.frames)
+    assert got.filtered is None and want.filtered is None
+    got.correct()
+    want.correct()
+    assert_sessions_equal(got, want)
+    with pytest.raises(ValueError, match="engine"):
+        Session.from_log(path, engine="gpu")
+
+
+def test_session_overflow_resizes_on_device(tmp_path, caplog):
+    """257 sweep groups overflow the device corrector's default bounds: the
+    port reruns it on the same device with bounds sized to the log, where
+    JAX's device engine falls back to its host engine; the frames,
+    corrected beams and filtered rows equal JAX's after ``correct()``."""
+    from slam_process_tpu.pipeline.session import Session as JaxSession
+
     path = tmp_path / "many_groups.txt"
     path.write_bytes(to_hex_text(synthetic_session_bytes(
         n_groups=257, frames_per_beam=1, baselines_per_group=1, junk_frac=0.0, seed=2)))
-    with pytest.raises(RuntimeError, match="max_groups=256.*max_baselines_per_group=256"):
-        Session.from_log(path, device="cpu")
+    want = JaxSession.from_log(path, engine="device")
+    assert want.filtered is None
+    want.correct()
+    with caplog.at_level("INFO"):
+        got = Session.from_log(path, device="cpu")
+    assert "257 sweep groups" in caplog.text
+    assert_sessions_equal(got, want)
+    assert len(got.frames) == 64 * 257 and len(got.filtered) > 0
+    filtered = got.filtered
+    got.correct()
+    np.testing.assert_array_equal(got.filtered, filtered)
+
+
+def test_correct_bounds_sizes_the_table():
+    from slam_process_tpu_torch.ops.correct import baseline_table, correct_bounds
+
+    raw = synthetic_session_bytes(n_groups=5, frames_per_beam=2, baselines_per_group=7,
+                                  junk_frac=0.1, seed=4)
+    out = device.run_session_on_device(raw, device="cpu")
+    assert correct_bounds(out.frames, out.frame_valid) == (5, 7)
+    for groups, baselines, overflow in ((5, 7, False), (4, 7, True), (5, 6, True)):
+        _, _, flag = baseline_table(out.frames, out.frame_valid, groups, baselines)
+        assert bool(flag) == overflow
 
 
 def test_run_session_on_device_layout():

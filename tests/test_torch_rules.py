@@ -69,11 +69,22 @@ def test_entry_points_need_cuda_without_falling_back(monkeypatch, tmp_path):
         run_session_on_device(raw, device="cuda")
     assert int(run_session_on_device(raw, device="cpu").n_frames) == 64
 
+    from slam_process_tpu_torch.utils.synthetic import write_angle_table
+
+    s = Session.from_log(path, device="cpu")
+    angles = write_angle_table(tmp_path / "angles.xlsx")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        s.sweep_paths(angles)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        s.sweep_intensity()
+    assert s.sweep_intensity(device="cpu")[1].sum() == len(s.filtered)
+
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    from slam_process_tpu_torch.ops import cuda_correct, cuda_decode, cuda_raster
+    from slam_process_tpu_torch.ops import cuda_correct, cuda_decode, cuda_raster, cuda_sweep_sums
 
-    for m in (cuda_decode, cuda_correct, cuda_raster):
+    kernels = (cuda_decode, cuda_correct, cuda_raster, cuda_sweep_sums)
+    for m in kernels:
         m.LAUNCHES = 0
     with pytest.raises(ValueError, match="CUDA"):
         cuda_decode.decode_rows_cuda(torch.zeros(22, dtype=torch.uint8), 22, 0xCC, 0x33)
@@ -84,7 +95,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_raster.raster_tiles_cuda(torch.zeros(1, 4, 4), torch.zeros(256, 4),
                                       torch.ones(1, 1), True)
-    assert cuda_decode.LAUNCHES == cuda_correct.LAUNCHES == cuda_raster.LAUNCHES == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_sweep_sums.sweep_sums_cuda(i32, i32, i32, 2)
+    assert [m.LAUNCHES for m in kernels] == [0, 0, 0, 0]
 
 
 def test_dispatch_refuses_other_devices():
