@@ -7,15 +7,19 @@ NVIDIA GPU.
 Phases, each printing one JSON line:
 
   1. env        the card (nvidia-smi name and power limit), torch and CUDA.
-  2. build      nvcc builds kernels K1-K4 from ``slam_process_tpu_torch/csrc``.
+  2. build      nvcc builds kernels K1-K6 from ``slam_process_tpu_torch/csrc``.
   3. kernels    each kernel against its plain PyTorch version on the card, at
-                the main path's shapes and on edge cases: K1, K2 and K4 equal
-                element for element; K3 ``blurred`` within 1e-5 relative,
+                the main path's shapes and on edge cases: K1, K2, K4, K5 and
+                K6 equal element for element; K3 ``blurred`` within 1e-5 relative,
                 ``norm_t`` within 1e-4 absolute, the same NaN pattern, LUT-bin
                 flips in under 0.1 % of cells, premultiplied rgba within 1e-3.
                 K4's cases: the full session's filtered rows (58 sweeps), an
                 unsorted stream over 65 sweeps, out-of-range ids and invalid
                 rows, one cell summing to 2^24 - 1, 66 sweeps, no rows.
+                K5's: the dataset replay's second 1 MiB window (carry
+                compaction and emit-ring append), a masked count past the
+                capacity, no masked row.  K6's: 65 lanes (33 live) from a
+                carry, 9 lanes, planted ties at the gate, m_eff = 0.
   4. main_path  ``Session.from_log`` on hex-text logs: one full-size session
                 (58 groups x 64 beams x 43 frames, one group of >= 4,400
                 frames), 19 dataset-scale sessions (~56 k frames each) and
@@ -37,9 +41,35 @@ Phases, each printing one JSON line:
                 ``device="cpu"`` run: sweep_valid, n_iters, indices and valid
                 equal, power within rtol 2e-4 / atol 1e-6, and
                 ``sweep_intensity`` counts and mean (NaN included) equal.
-  6. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
-                alone, its plain version on the card, K4's library yardstick
-                (two ``torch.bincount`` calls), the whole
+  6. streaming  ``DeviceStreamingSession`` on the card, the launch counters
+                set to 0 just before and read just after (K1, K2, K4, K5 and
+                K6 must launch): (1) the live feed, the full multipath
+                session in 64 KiB chunks with s_step=8, ``collect_filtered``
+                and ``collect_paths`` at full width (64 x 64 beams, 886 x 886
+                grids, K = 3, T = 8); (2) the dataset replay, the 19 dataset
+                sessions as one stream through ``replay_log_device`` at 1 MiB
+                windows with s_step=64 (an emit ring of > 2^18 rows); (3) the
+                straddle, the full noise session in 16 KiB windows with
+                ``collect_filtered`` (its 4,416-frame group 0 crosses several
+                window edges); (4) the live feed saved halfway, restored and
+                finished; (5) the dataset fed in 1 MiB chunks with the
+                default emit ring, which must grow in place past 2^18 rows.
+                Each against the host engine (``filtered``,
+                ``intensity()``), its paths readers against the offline
+                ``Session.sweep_paths`` / ``path_tracks(beam_ids=...)`` on the
+                card exactly, (1), (3) and (4) against the same stream with
+                ``device="cpu"`` (power within rtol 2e-4), no overflow.  Then
+                bytes/s and frames/s of (1) and (2) (CUDA events around feed,
+                finalize and ``block_until_ready``, median of 5 after a
+                warm-up), ms per window, host ms per full and per short
+                window (synchronized around each), the host syncs of (1),
+                (2) and (3) by source line under
+                ``torch.cuda.set_sync_debug_mode``, which must equal the
+                counters' sum, and the device busy share of (1) under
+                ``torch.profiler``.
+  7. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
+                alone, its plain version on the card, the library yardsticks
+                (K4: two ``torch.bincount`` calls; K5: ``rows[mask]``), the whole
                 ``run_session_on_device`` in frames/s at both sizes, and
                 ``sweep_paths`` in sweeps/s (a cleared memo: the host prep,
                 K4 and the estimator; and a warm memo: the estimator); then
@@ -48,7 +78,7 @@ Phases, each printing one JSON line:
                 ``torch.profiler``: the device's busy time, its share, the top
                 ops, and the estimator's host syncs.
 
-Then the ``kernels`` JSON line, and as the last line
+Then the ``bounds`` and ``kernels`` JSON lines, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  Data
 is synthetic, made from fixed seeds; temporary logs go under ``build/``.
 """
@@ -90,6 +120,11 @@ DS = slice(1, 1 + len(DATASET))      # the dataset sessions among phase 4's
 MP = 1 + len(DATASET)                # the multipath session's index
 MAX_GROUPS = MAX_BASELINES = 256
 N_TIMED = 20
+N_STREAM_RUNS = 5
+LIVE_CHUNK = 1 << 16                 # the live feed's serial chunks
+REPLAY_CHUNK = 1 << 20               # the dataset replay's windows
+STRADDLE_CHUNK = 1 << 14
+GCAP = 8192                          # DeviceStreamingSession's default group_capacity
 
 
 def emit(obj) -> None:
@@ -130,8 +165,9 @@ def run(tmp: Path) -> None:
     import torch
 
     from slam_process_tpu_torch.ops import (
-        _build, correct, cuda_correct, cuda_decode, cuda_raster, cuda_sweep_sums, decode, nnls,
-        raster, scene)
+        _build, compact, correct, cuda_compact, cuda_correct, cuda_decode, cuda_raster,
+        cuda_sweep_sums, cuda_tracker, decode, nnls, raster, scene, tracker)
+    from slam_process_tpu_torch.parallel import streaming_device as sd
     from slam_process_tpu_torch.pipeline.device import (
         bucket_size, pad_bytes, run_session_on_device)
     from slam_process_tpu_torch.pipeline.session import Session
@@ -182,7 +218,7 @@ def run(tmp: Path) -> None:
     torch.cuda.synchronize()
 
     # -- 3. kernels against their plain versions --------------------------------
-    err = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
+    err = {key: 0.0 for key in ("K1", "K2", "K3", "K4", "K5", "K6")}   # exact ones stay 0
     cases = []
 
     def exact(key, case, got, want):
@@ -266,6 +302,24 @@ def run(tmp: Path) -> None:
     exact("K4", "ids_out_of_range_via_intensity_per_sweep_sums",
           scene.intensity_per_sweep_sums(*rows, max_sweeps=6),
           scene.intensity_per_sweep_sums(*(t.cpu() for t in rows), max_sweeps=6))
+
+    # K5: the dataset replay's second window; K6: the streams' lane shapes.
+    raw_ds = np.concatenate([synthetic_session_bytes(**c) for c in DATASET])
+    k5 = k5_inputs(torch, sd, raw_ds, dev)
+    exact("K5", "carry_1MiB_window", cuda_compact.compact_rows_cuda(k5["rows"], k5["open"], GCAP),
+          compact.compact_rows_plain(k5["rows"], k5["open"], GCAP))
+    exact("K5", "emit_append_1MiB_window", cuda_compact.compact_rows_cuda(
+        k5["kept"], k5["keep"], k5["ecap"], out=k5["ring"].clone(), offset=k5["offset"]),
+        compact.compact_rows_plain(k5["kept"], k5["keep"], k5["ecap"], out=k5["ring"].clone(),
+                                   offset=k5["offset"]))
+    for case, mask in (("past_capacity", k5["rows"][:, 1] >= 0),
+                       ("no_masked_row", torch.zeros_like(k5["open"]))):
+        exact("K5", case, cuda_compact.compact_rows_cuda(k5["rows"], mask, GCAP),
+              compact.compact_rows_plain(k5["rows"], mask, GCAP))
+    k6 = k6_cases(np, torch, dev)
+    for case, (args, gate) in k6.items():
+        exact("K6", case, cuda_tracker.track_block_cuda(*args, gate),
+              tracker.track_block_plain(*args, gate))
     torch.cuda.synchronize()
     emit({"phase": "kernels", "cases": cases, "max_abs_err": err})
 
@@ -378,7 +432,14 @@ def run(tmp: Path) -> None:
                                     "aod": mp_paths.aod[0].tolist(),
                                     "power": mp_paths.power[0].tolist()}})
 
-    # -- 6. timing ---------------------------------------------------------------
+    # -- 6. streaming ------------------------------------------------------------
+    stream_out = streaming_phase(np, torch, sd, nnls, tmp, angles, raws[MP], raw_ds, raws[0],
+                                 {"K1": cuda_decode, "K2": cuda_correct, "K4": cuda_sweep_sums,
+                                  "K5": cuda_compact, "K6": cuda_tracker}, dev)
+    launches.update(K5=stream_out["launches"]["K5"], K6=stream_out["launches"]["K6"])
+    emit({"phase": "streaming", **stream_out})
+
+    # -- 7. timing ---------------------------------------------------------------
     def cuda_ms(fn, inner=1, primed=True):
         """Median ms per call over N_TIMED event-timed runs of ``inner``
         calls.  ``primed``: a ~20 ms device sleep queued first lets the
@@ -437,9 +498,16 @@ def run(tmp: Path) -> None:
                                                                       **verdict_args)),
                 "K3": cuda_ms(lambda: raster.raster_tiles_plain(tile, lut, taps, True)),
                 "K4": cuda_ms(lambda: scene.sweep_sums_plain(k4_p, k4_bs, k4_val, n_sweeps))}
+    k6_args, k6_gate = k6["main_65_lanes"]
+    ms["K5"] = cuda_ms(lambda: cuda_compact.compact_rows_cuda(k5["rows"], k5["open"], GCAP),
+                       inner=20)
+    ms["K6"] = cuda_ms(lambda: cuda_tracker.track_block_cuda(*k6_args, k6_gate), inner=20)
+    plain_ms["K5"] = cuda_ms(lambda: compact.compact_rows_plain(k5["rows"], k5["open"], GCAP))
+    plain_ms["K6"] = cuda_ms(lambda: tracker.track_block_plain(*k6_args, k6_gate))
     library_ms = {"K4": cuda_ms(lambda: (
         torch.bincount(k4_cell, weights=k4_weights, minlength=k4_cells + 1),
-        torch.bincount(k4_cell, minlength=k4_cells + 1)), inner=20)}
+        torch.bincount(k4_cell, minlength=k4_cells + 1)), inner=20),
+        "K5": cuda_ms(lambda: k5["rows"][k5["open"]], inner=20)}
     session_ms = cuda_ms(lambda: run_session_on_device(raw_full, device=dev), primed=False)
     dataset_ms = cuda_ms(lambda: [run_session_on_device(r, device=dev) for r in raws[DS]],
                          primed=False)
@@ -505,17 +573,24 @@ def run(tmp: Path) -> None:
 
     # Bounds: the larger of bytes moved (each input read once, each output
     # written once) over HBM bandwidth and the operations this run's data
-    # needs over the peak rate.  K1: a flag test (3 ops) at every position,
+    # needs over the peak rate.  K5: each mask byte read once, the 20 B
+    # payload only of the masked rows, each of the GCAP carry slots (20 B)
+    # written once; a mask test and a rank add per row.  K6: 13 B per (live
+    # lane, path) read, 13 B per (lane, track) written, the carry both ways;
+    # per live lane and round, 6 operations per (track, path) pair.  K1: a
+    # flag test (3 ops) at every position,
     # the ten tag-class tests (30 ops) only where a flag byte sits, the
     # assembly and row write (28 ops) only at the frame starts.  K2: 8 ops
     # per (real frame, live baseline of its group) pair and 10 per row.  K4:
-    # 12 B per row read and 8 B per cell of float32 written (its integer
-    # scratch is the kernel's choice, not the function's); two atomics per
-    # kept row.
+    # p (4 B) of every row read, bs and val (8 B) only of the kept rows, and
+    # 8 B per cell of float32 written (its integer scratch is the kernel's
+    # choice, not the function's); two atomics per kept row.
     flag_positions = int(((padded == 0xCC) | (padded == 0x33)).sum())
     n_starts = int(out_full.n_frames)
     live = packed[:, 3 * MAX_BASELINES].long().clamp(max=MAX_BASELINES)[gid.long()]
     k2_pairs = int(live[valid].sum())
+    k4_kept = int((k4_p >= 0).sum())
+    k5_masked = int(k5["open"].sum())
     bounds = {
         "K1": (n_bytes + rows * 21 + 4, n_bytes * 3 + flag_positions * 30 + n_starts * 28,
                PEAK_INT32_PER_S),
@@ -523,14 +598,19 @@ def run(tmp: Path) -> None:
                PEAK_INT32_PER_S),
         "K3": (64 * 64 * 4 + 256 * 16 + 49 * 4 + 64 * 64 * 24, 64 * 64 * (49 * 4 + 30),
                PEAK_F32_PER_S),
-        "K4": (k4_p.numel() * 12 + k4_cells * 8, 2 * int((k4_p >= 0).sum()),
-               PEAK_INT32_PER_S),
+        "K4": (k4_p.numel() * 4 + k4_kept * 8 + k4_cells * 8, 2 * k4_kept, PEAK_INT32_PER_S),
+        "K5": (k5["rows"].shape[0] + k5_masked * 20 + GCAP * 20,
+               2 * k5["rows"].shape[0], PEAK_INT32_PER_S),
+        "K6": (k6_bytes(k6_args), 6 * k6_live(k6_args) * k6_args[0].shape[1] ** 2
+               * k6_args[5].shape[0], PEAK_F32_PER_S),
     }
     meta = {
         "K1": ("decode_rows", "decode.cu", "slam_process_tpu/ops/pallas_decode.py:130"),
         "K2": ("correct_verdicts", "correct.cu", "slam_process_tpu/ops/pallas_correct.py:109"),
         "K3": ("raster_tiles", "raster.cu", "slam_process_tpu/ops/pallas_raster.py:136"),
         "K4": ("sweep_sums", "sweep_sums.cu", "slam_process_tpu/ops/pallas_sweep_sums.py:158"),
+        "K5": ("compact_rows", "compact.cu", "slam_process_tpu/ops/pallas_compact.py:117"),
+        "K6": ("track_block", "tracker.cu", "slam_process_tpu/ops/pallas_tracker.py:183"),
     }
     rows_out = []
     for key, (name, src, replaces) in meta.items():
@@ -547,7 +627,11 @@ def run(tmp: Path) -> None:
           "k2_row_baseline_pairs": k2_pairs,
           "K1_bytes_ops": bounds["K1"][:2], "K2_bytes_ops": bounds["K2"][:2],
           "K3_bytes_ops": bounds["K3"][:2], "K4_rows": k4_p.numel(), "K4_sweeps": n_sweeps,
-          "K4_bytes_ops": bounds["K4"][:2]})
+          "K4_kept": k4_kept, "K4_bytes_ops": bounds["K4"][:2],
+          "K5_rows": k5["rows"].shape[0], "K5_masked": k5_masked,
+          "K5_bytes_ops": bounds["K5"][:2], "K6_lanes_live": [k6_args[0].shape[0],
+                                                              k6_live(k6_args)],
+          "K6_bytes_ops": bounds["K6"][:2]})
     print(smi, flush=True)
     emit({"kernels": rows_out})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -606,6 +690,332 @@ def k4_cases(np, torch, dev, p, bs, val, n_sweeps):
                                rng.integers(0, 1 << 18, f)), 66)
     out["f_no_rows"] = (*put(np.zeros(0), np.zeros(0), np.zeros(0)), 5)
     return out
+
+
+def k5_inputs(torch, sd, raw, dev):
+    """K5's main-path inputs: the dataset replay's second 1 MiB window (the
+    first window's open group carried, then the window's rows), as the
+    stream hands them to the carry compaction and to the emit ring."""
+    s = sd.DeviceStreamingSession(chunk_bytes=REPLAY_CHUNK, collect_filtered=True,
+                                  emit_capacity=len(raw) // 11 + 1, device=dev)
+    s.feed(raw[:REPLAY_CHUNK])
+    lo = REPLAY_CHUNK - sd.CARRY_BYTES
+    piece = torch.from_numpy(raw[lo:lo + REPLAY_CHUNK].copy()).to(dev)
+    w = s._close_groups(piece, piece.numel())
+    return {"rows": w.combined, "open": w.open_mask, "kept": sd._kept_rows(w.combined, w.corrected),
+            "keep": w.keep, "ring": s._state.emit_buf, "offset": s._state.emit_count,
+            "ecap": s._ecap}
+
+
+def k6_cases(np, torch, dev):
+    """K6's inputs {case: (args, gate_deg)} on the card: 65 lanes (s_step
+    64) with 33 live from a carry of 3 tracks, 9 lanes (s_step 8) all live,
+    planted ties at the gate (``tests/test_torch_tracker.py``), m_eff 0."""
+    rng = np.random.default_rng(17)
+
+    def lanes(s1, k_n, live, t_n, n_created):
+        f32 = [torch.from_numpy(rng.uniform(lo, hi, (s1, k_n)).astype(np.float32)).to(dev)
+               for lo, hi in ((-45, 45), (-45, 45), (0, 1))]
+        pos = torch.from_numpy(rng.uniform(-45, 45, (t_n, 2)).astype(np.float32)).to(dev)
+        return (*f32, torch.from_numpy(rng.random((s1, k_n)) < 0.7).to(dev),
+                torch.tensor(live, dtype=torch.int32, device=dev), pos,
+                torch.arange(t_n, device=dev) < n_created,
+                torch.tensor(n_created, dtype=torch.int32, device=dev))
+
+    f32 = np.float32
+    planted = [torch.from_numpy(np.array(x, dtype)).to(dev) for x, dtype in (
+        ([[0, 10, 0], [5, 3, 13], [8, 2, 5]], f32), ([[0, 0, 0], [0, 4.0001, 4], [4, -4, 5]], f32),
+        ([[1, 2, 3], [4, 5, 6], [7, 8, 9]], f32), ([[1, 1, 0], [1, 1, 1], [1, 1, 1]], bool))]
+    planted += [torch.tensor(3, dtype=torch.int32, device=dev),
+                torch.zeros((4, 2), dtype=torch.float32, device=dev),
+                torch.zeros(4, dtype=torch.bool, device=dev),
+                torch.tensor(0, dtype=torch.int32, device=dev)]
+    return {"main_65_lanes": (lanes(65, 3, 33, 8, 3), 10.0),
+            "live_9_lanes": (lanes(9, 3, 9, 8, 0), 10.0),
+            "planted_ties_gate": (tuple(planted), 5.0),
+            "m_eff_0": (lanes(65, 3, 0, 8, 5), 10.0)}
+
+
+def k6_live(args) -> int:
+    return max(0, min(int(args[4]), args[0].shape[0]))
+
+
+def k6_bytes(args) -> int:
+    """Inputs of the live lanes only (a dead lane's paths are never read),
+    every output column, the carry both ways and m_eff."""
+    s1, k_n = args[0].shape
+    t_n = args[5].shape[0]
+    return k6_live(args) * k_n * 13 + s1 * t_n * 13 + 2 * (t_n * 9 + 4) + 4
+
+
+def streaming_phase(np, torch, sd, nnls, tmp, angles, raw_live, raw_ds, raw_straddle, kernels,
+                    dev):
+    """Phase 6: the five streams on the card, checked and timed."""
+    import traceback
+    import warnings
+
+    from slam_process_tpu_torch.ops.correct import correct_frames_np
+    from slam_process_tpu_torch.ops.decode import decode_frames_np
+    from slam_process_tpu_torch.ops.scene import intensity_grid_np
+    from slam_process_tpu_torch.pipeline.session import Session
+
+    live_spec = sd.make_paths_spec(angles, s_step=8)
+    ds_spec = sd.make_paths_spec(angles, s_step=64)
+
+    def feed(raw, chunk, device=dev, stop=None, **kw):
+        s = sd.DeviceStreamingSession(chunk_bytes=chunk, device=device, **kw)
+        for off in range(0, len(raw) if stop is None else stop, chunk):
+            s.feed(raw[off:off + chunk])
+        return s
+
+    def live_feed(device=dev):
+        s = feed(raw_live, LIVE_CHUNK, device, collect_filtered=True,
+                 collect_paths=live_spec)
+        s.finalize()
+        return s
+
+    def dataset_replay():
+        return sd.replay_log_device(raw_ds, chunk_bytes=REPLAY_CHUNK, collect_filtered=True,
+                                    collect_paths=ds_spec, device=dev)
+
+    def straddle(device=dev):
+        s = feed(raw_straddle, STRADDLE_CHUNK, device, collect_filtered=True)
+        s.finalize()
+        return s
+
+    def dataset_grow():
+        """The dataset as a live stream with the default emit ring: it
+        starts at 2^18 rows and must grow in place to hold the stream."""
+        s = feed(raw_ds, REPLAY_CHUNK, collect_filtered=True)
+        s.finalize()
+        return s
+
+    def resumed():
+        half = (len(raw_live) // LIVE_CHUNK // 2) * LIVE_CHUNK
+        s = feed(raw_live, LIVE_CHUNK, stop=half, collect_filtered=True,
+                 collect_paths=live_spec)
+        s.save_checkpoint(tmp / "live.ckpt", extra={"offset": half})
+        r = sd.DeviceStreamingSession.restore(tmp / "live.ckpt", device=dev)
+        if r.checkpoint_extra != {"offset": half}:
+            fail("checkpoint: extra did not round-trip")
+        for off in range(half, len(raw_live), LIVE_CHUNK):
+            r.feed(raw_live[off:off + LIVE_CHUNK])
+        r.finalize()
+        return r
+
+    for m in kernels.values():
+        m.LAUNCHES = 0
+    t0 = time.perf_counter()
+    streams = {"live_feed": live_feed(), "dataset_replay": dataset_replay(),
+               "straddle": straddle(), "checkpoint": resumed(), "dataset_grow": dataset_grow()}
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: m.LAUNCHES for k, m in kernels.items()}
+    if min(launches.values()) == 0:
+        fail(f"a kernel of the streaming path never launched: {launches}")
+
+    raw_of = {"live_feed": raw_live, "dataset_replay": raw_ds, "straddle": raw_straddle,
+              "checkpoint": raw_live, "dataset_grow": raw_ds}
+    spec_of = {"live_feed": live_spec, "dataset_replay": ds_spec, "checkpoint": live_spec}
+    cpu = {"live_feed": live_feed("cpu"), "straddle": straddle("cpu")}
+    cpu["checkpoint"] = cpu["live_feed"]
+    offline, summary = {}, {}
+    for name, s in streams.items():
+        raw = raw_of[name]
+        frames = decode_frames_np(raw).frames
+        want = correct_frames_np(frames).filtered
+        if s.overflow or s.n_frames != len(frames) or s.n_kept != len(want):
+            fail(f"stream {name}: overflow, or frame / kept counts differ from the host engine")
+        if not np.array_equal(s.filtered, want):
+            fail(f"stream {name}: filtered differs from the host engine")
+        grid, ours = intensity_grid_np(want[:, 0], want[:, 1], want[:, 2]), s.intensity()
+        if not (np.array_equal(ours.counts, grid.counts)
+                and np.array_equal(ours.mean, grid.mean, equal_nan=True)):
+            fail(f"stream {name}: intensity differs from the host pivot")
+        summary[name] = {"bytes": len(raw), "frames": s.n_frames, "kept": s.n_kept,
+                         "groups": s.n_groups}
+        if name in spec_of:
+            key = "live" if raw is raw_live else name     # streams 1 and 4 share one log
+            if key not in offline:
+                spec = spec_of[name][0]
+                off = Session(name)
+                off.frames = frames
+                beam_ids = (spec.ue_ids, spec.bs_ids)
+                paths, valid = off.sweep_paths(angles, beam_ids=beam_ids, device=dev)
+                offline[key] = ((paths, valid), off.sweep_times(len(valid)),
+                                off.path_tracks(angles, beam_ids=beam_ids, engine="device",
+                                                device=dev))
+            bad = paths_differ(np, stream_readers(s), offline[key], exact=True)
+            if bad:
+                fail(f"stream {name}: {bad} differ from the offline Session on the card")
+            p_valid = s.sweep_paths()[0].valid
+            summary[name].update(sweeps=s.n_sweeps_closed, valid_paths=int(p_valid.sum()),
+                                 tracks=int(s.path_tracks()[0].n_tracks))
+        if name in cpu:
+            c = cpu[name]
+            if not (np.array_equal(s.filtered, c.filtered)
+                    and np.array_equal(ours.mean, c.intensity().mean, equal_nan=True)):
+                fail(f"stream {name}: filtered or intensity differ between cuda and cpu")
+            if name in spec_of:
+                bad = paths_differ(np, stream_readers(s), stream_readers(c), exact=False)
+                if bad:
+                    fail(f"stream {name}: {bad} differ between cuda and cpu")
+    if streams["dataset_replay"].n_kept <= 1 << 18:
+        fail("dataset replay: the emit ring did not hold more than 2^18 rows")
+    if streams["dataset_grow"]._ecap <= 1 << 18:
+        fail("dataset as a live stream: the emit ring did not grow past its 2^18 rows")
+
+    # Throughput: CUDA events around feed + finalize + block_until_ready.
+    def timed(fn):
+        fn().block_until_ready()
+        times = []
+        for _ in range(N_STREAM_RUNS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn().block_until_ready()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times), times
+
+    # Host syncs: every synchronizing call torch reports in sync debug mode
+    # inside ``feed`` and ``finalize`` (the windows and the flush; not the
+    # constructor), by the line that made it, against the counters.  A sync
+    # the counters miss fails the run.
+    def sync_sites(fn):
+        cls = sd.DeviceStreamingSession
+        plain = {n: getattr(cls, n) for n in ("feed", "finalize")}
+
+        def watched(method):
+            def call(self, *args):
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return method(self, *args)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            return call
+
+        sites, notes = {}, {}
+
+        def record(message, *_):
+            """Each sync, by the innermost frame of the package's own code
+            on the stack (and the innermost frame, when it lies elsewhere)."""
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if not f.filename.endswith("warnings.py")]
+            if "synchroniz" not in str(message):
+                return
+            if stack[-1].name == "set_sync_debug_mode":     # torch's note on the mode itself
+                notes[str(message)[:120]] = notes.get(str(message)[:120], 0) + 1
+                return
+            pkg = REPO / "slam_process_tpu_torch"
+            ours = [f for f in stack if Path(f.filename).is_relative_to(pkg)]
+            key = "outside the package"
+            if ours:
+                f = ours[-1]
+                key = f"{Path(f.filename).relative_to(REPO)}:{f.lineno} {(f.line or '').strip()}"
+            if not ours or stack[-1] is not ours[-1]:
+                key += f" via {Path(stack[-1].filename).name}:{stack[-1].lineno} {stack[-1].name}"
+            sites[key] = sites.get(key, 0) + 1
+
+        sd.HOST_SYNCS = nnls.HOST_SYNCS = 0
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            for n, method in plain.items():
+                setattr(cls, n, watched(method))
+            try:
+                fn().block_until_ready()
+            finally:
+                for n, method in plain.items():
+                    setattr(cls, n, method)
+        return sites, notes, {"m_eff_reads": sd.HOST_SYNCS, "nnls": nnls.HOST_SYNCS}
+
+    # Per-window host time, synchronized before and after each window, split
+    # into full windows and the short ones (a feed of exactly chunk_bytes
+    # leaves 20 bytes for a second, padded window, as in the JAX package).
+    def window_ms(fn):
+        step, rec = sd.DeviceStreamingSession._step, []
+
+        def timed_step(self, chunk, n_bytes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(self, chunk, n_bytes)
+            torch.cuda.synchronize()
+            rec.append((n_bytes == self.chunk_bytes, (time.perf_counter() - t0) * 1e3))
+
+        sd.DeviceStreamingSession._step = timed_step
+        try:
+            fn()
+        finally:
+            sd.DeviceStreamingSession._step = step
+        out = {}
+        for kind, full in (("full", True), ("short", False)):
+            t = [ms for f, ms in rec if f == full]
+            out[f"{kind}_windows"] = len(t)
+            out[f"ms_per_{kind}_window_median"] = statistics.median(t) if t else None
+            out[f"ms_per_{kind}_window_mean"] = statistics.fmean(t) if t else None
+        return out
+
+    timing = {}
+    for name, fn in (("live_feed", live_feed), ("dataset_replay", dataset_replay),
+                     ("straddle", straddle)):
+        k1 = kernels["K1"].LAUNCHES
+        sites, notes, counted = sync_sites(fn)
+        windows = kernels["K1"].LAUNCHES - k1
+        synced = sum(sites.values())
+        if synced != sum(counted.values()):
+            fail(f"stream {name}: {synced} host syncs in sync debug mode, the counters say "
+                 f"{counted}: {sites}")
+        timing[name] = {"windows": windows, "host_syncs": synced, "host_sync_sites": sites,
+                        "sync_debug_mode_notes": notes,
+                        "host_syncs_per_window": {k: v / windows for k, v in counted.items()}}
+        if name == "straddle":
+            continue
+        ms, runs = timed(fn)
+        b, f = summary[name]["bytes"], summary[name]["frames"]
+        timing[name].update({"ms": ms, "runs_ms": runs, "ms_per_window": ms / windows,
+                             "bytes_per_s": b / (ms / 1e3), "frames_per_s": f / (ms / 1e3),
+                             "sweeps_per_s": summary[name]["sweeps"] / (ms / 1e3),
+                             "window_host_ms": window_ms(fn)})
+    busy, acts, top = device_profile(torch, lambda: live_feed().block_until_ready())
+    timing["live_feed"].update(device_busy_ms=busy,
+                               device_busy_share=busy / timing["live_feed"]["ms"],
+                               device_activities=acts, top_us=top[:6])
+    return {"seconds": run_s, "launches": launches, "streams": summary,
+            "compared_with_cpu": sorted(cpu), "timing": timing,
+            "emit_ring_rows": {k: streams[k]._ecap for k in ("dataset_replay", "dataset_grow")}}
+
+
+def stream_readers(s):
+    return s.sweep_paths(), s.sweep_times(), s.path_tracks()
+
+
+def paths_differ(np, a, b, exact):
+    """Names of the paths readers' fields that differ: (sweep_paths,
+    sweep_times, path_tracks) of two sources; power within rtol 2e-4 unless
+    ``exact``."""
+    (pa, va), ta, (tra, tta, vela) = a
+    (pb, vb), tb, (trb, ttb, velb) = b
+    bad = [n for n, x, y in (("sweep_valid", va, vb), ("sweep_times", ta, tb),
+                             ("track_times", tta, ttb)) if not np.array_equal(x, y)]
+    fields = [(f"paths.{n}", getattr(pa, n), getattr(pb, n)) for n in pb._fields]
+    fields += [(f"tracks.{n}", getattr(tra, n), getattr(trb, n)) for n in (
+        "pos_aoa", "pos_aod", "power", "observed", "created")]
+    for n, x, y in fields:
+        x, y = np.asarray(x), np.asarray(y)
+        if x.shape != y.shape:
+            bad.append(n)
+        elif n.endswith("power") and not exact:
+            if not np.allclose(x, y, rtol=2e-4, atol=1e-6):
+                bad.append(n)
+        elif not np.array_equal(x, y):
+            bad.append(n)
+    if int(tra.n_tracks) != int(trb.n_tracks):
+        bad.append("n_tracks")
+    if exact and not all(np.array_equal(x, y) for x, y in zip(vela, velb)):
+        bad.append("velocities")
+    return bad
 
 
 def planted_table(torch):

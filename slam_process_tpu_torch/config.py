@@ -75,10 +75,13 @@ class OmpConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """The session's decode and correct stages: the fields of the JAX
-    package's ``PipelineConfig`` that ``Session`` reads.  The per-sweep
-    estimator takes its dictionary and NN-OMP settings as keyword overrides
-    of ``sweep_paths``, as the JAX package's does."""
+    """The session's decode, correct and scene stages: the fields of the
+    JAX package's ``PipelineConfig`` that ``Session`` and the device
+    streaming session read (the stream reads ``scene``'s ``n_beams`` and
+    ``flag_filter``).  The per-sweep estimator takes its dictionary and
+    NN-OMP settings as keyword overrides of ``sweep_paths``, as the JAX
+    package's does."""
 
     decode: DecodeConfig = dataclasses.field(default_factory=DecodeConfig)
     correct: CorrectConfig = dataclasses.field(default_factory=CorrectConfig)
+    scene: SceneConfig = dataclasses.field(default_factory=SceneConfig)

@@ -2,10 +2,16 @@
 
 The system has no weights.  What its pipeline is handed is the stage
 configs, the colormap LUT (a numpy array, passed as it is), the
-corrector's static bounds (plain integers) and, for the estimators, the
-beam dictionary.  Configs are read field by field, and dictionaries array
-by array, from any objects that have the port's field names, so this
-module needs no import of the JAX package.
+corrector's static bounds (plain integers), for the estimators the beam
+dictionary, and for the device streaming session its online-paths spec.
+Configs are read field by field, and dictionaries array by array, from any
+objects that have the port's field names, so this module needs no import
+of the JAX package:
+
+  * ``configs_from_reference``: the stage configs;
+  * ``dictionary_from_reference``: a beam dictionary;
+  * ``paths_spec_from_reference``: a streaming ``StreamPathsSpec`` and its
+    dictionary arrays, so one spec drives both packages' streams.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from slam_process_tpu_torch.config import (
     CorrectConfig, DecodeConfig, DictionaryConfig, OmpConfig, SceneConfig)
@@ -44,3 +51,19 @@ def dictionary_from_reference(d, device=None) -> BeamDictionary:
     CUDA) from a reference dictionary's four arrays."""
     host = BeamDictionary(*(np.asarray(getattr(d, f)) for f in BeamDictionary._fields))
     return dictionary_to_device(host, resolve_device(device))
+
+
+def paths_spec_from_reference(spec, dict_args, device=None):
+    """(the port's StreamPathsSpec, dictionary tensors) from a reference
+    streaming spec and its (phi_rx, phi_tx, aoa_grid, aod_grid) arrays, for
+    ``DeviceStreamingSession(collect_paths=...)``.  The spec is read field
+    by field; its estimator key's config becomes the port's OmpConfig; the
+    arrays become float32 tensors on ``device`` (None: CUDA)."""
+    from slam_process_tpu_torch.parallel.streaming_device import StreamPathsSpec
+
+    name, cfg, keep_rule, stop_nonpositive = spec.est_key
+    fields = {f: getattr(spec, f) for f in StreamPathsSpec._fields}
+    fields["est_key"] = (name, _copy(OmpConfig, cfg), keep_rule, stop_nonpositive)
+    dev = resolve_device(device)
+    return (StreamPathsSpec(**fields),
+            tuple(torch.from_numpy(np.asarray(a, dtype=np.float32)).to(dev) for a in dict_args))

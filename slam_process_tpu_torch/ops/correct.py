@@ -17,7 +17,7 @@ baselines (see ``baseline_plane_verdicts``).  ``correct_verdicts``
 launches kernel K2 (``ops/cuda_correct.py``) for CUDA tensors.  Around it,
 plain PyTorch on both devices, exact in integers: "previous valid row" is
 a ``cummax`` over ``where(valid, arange, -1)``, group ids a clipped
-``cumsum``, group baseline counts a ``bincount``, and the table is built
+``cumsum``, group baseline counts an ``index_add_``, and the table is built
 by writing each baseline's integer payload to its unique (gid, rank) cell.
 
 The host engine (``correct_frames_np``, numpy) is a copy of the JAX
@@ -143,8 +143,10 @@ def baseline_table(frames: torch.Tensor, valid: torch.Tensor, max_groups: int = 
     gid = (torch.cumsum(boundary, dim=0, dtype=torch.int32) - 1).clamp(0, max_groups - 1)
 
     # Baseline count per group; rows that are not baselines land in bin G.
-    group_counts = torch.bincount(torch.where(is_bl, gid, max_groups).long(),
-                                  minlength=max_groups + 1)[:max_groups]
+    # index_add_, not bincount: bincount on CUDA reads the input's min and
+    # max back to the host.
+    group_counts = torch.zeros(max_groups + 1, dtype=torch.int64, device=dev).index_add_(
+        0, torch.where(is_bl, gid, max_groups).long(), is_bl.long())[:max_groups]
 
     # Rank of each baseline inside its group: baselines before it minus the
     # baselines before the group (the cumsum at the group's boundary row,

@@ -7,7 +7,9 @@ y||, x >= 0, given G = A^T A and b = A^T y.  JAX's two nested bounded
 lane keeps its own ``done`` flag and takes updates only while it is not
 done (what ``jnp.where`` does under vmap), and a loop ends when every lane
 is done or at ``max_outer`` / ``MAX_INNER``.  Each loop step asks the
-device once whether every lane is done (``HOST_SYNCS`` counts them).
+device once whether every lane is done (``HOST_SYNCS`` counts them); these
+are the solver's only host syncs (constants are Python scalars, not tensors
+copied to the device).
 
 Arithmetic is float32 as in JAX, with JAX's guards: ``jnp.maximum(x - z,
 1e-300)`` is ``max(x - z, 0)`` in float32 (1e-300 flushes to zero), and
@@ -90,7 +92,6 @@ def _inner(G, b, x, P, run, solver):
     """Lawson-Hanson inner loop over the lanes in ``run``: solve on the
     passive set, and while any passive coefficient is <= TOL step back to
     the feasible boundary and drop the zeroed atoms."""
-    inf = torch.tensor(float("inf"), dtype=G.dtype, device=G.device)
     x_c, P_c, done = x, P, ~run
     for _ in range(MAX_INNER):
         if _all(done):
@@ -98,7 +99,7 @@ def _inner(G, b, x, P, run, solver):
         z = _solve_passive(G, b, P_c, solver)
         neg = P_c & (z <= TOL)
         any_neg = neg.any(dim=1)
-        alpha = torch.where(neg, x_c / (x_c - z).clamp_min(0.0), inf).amin(dim=1)
+        alpha = torch.where(neg, x_c / (x_c - z).clamp_min(0.0), float("inf")).amin(dim=1)
         x_n = x_c + alpha[:, None] * (z - x_c)
         P_n = P_c & (x_n > TOL)
         live = ~done
@@ -129,12 +130,11 @@ def nnls_gram(G: torch.Tensor, b: torch.Tensor, max_outer: int = 64, solver: str
     P = torch.zeros_like(b, dtype=torch.bool) if P0 is None else P0.clone()
     done = torch.zeros(b.shape[0], dtype=torch.bool, device=b.device)
     cols = torch.arange(k, device=b.device)
-    neg_inf = torch.tensor(float("-inf"), dtype=G.dtype, device=G.device)
     for _ in range(max_outer):
         if _all(done):
             break
         w = b - _matvec(G, x)
-        w_masked = torch.where(P, neg_inf, w)
+        w_masked = torch.where(P, float("-inf"), w)
         j = w_masked.argmax(dim=1)
         can_add = (w_masked.gather(1, j[:, None])[:, 0] > w_tol) & ~P.all(dim=1)
         step = can_add & ~done

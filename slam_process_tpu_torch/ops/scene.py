@@ -38,10 +38,11 @@ class IntensityGrid(NamedTuple):
     fill_value: torch.Tensor  # scalar f32: min of observed cell means
 
 
-def intensity_sums(ue: torch.Tensor, bs: torch.Tensor, rss: torch.Tensor,
-                   valid: torch.Tensor, flag: Optional[torch.Tensor] = None,
-                   cfg: SceneConfig = _DEFAULT):
-    """(sums [U, B] f32, counts [U, B] f32) over the kept rows.
+def intensity_cell_sums(ue: torch.Tensor, bs: torch.Tensor, rss: torch.Tensor,
+                        valid: torch.Tensor, flag: Optional[torch.Tensor] = None,
+                        cfg: SceneConfig = _DEFAULT):
+    """(sums [U, B] int64, counts [U, B] int64) over the kept rows: exact
+    at any size, so running totals over a stream stay exact too.
 
     ``rss`` holds integer RSS values.  The pre-log transform
     (``cfg.log_transform``) needs float sums and is not ported yet.
@@ -60,15 +61,15 @@ def intensity_sums(ue: torch.Tensor, bs: torch.Tensor, rss: torch.Tensor,
     counts = torch.zeros_like(sums)
     sums.index_add_(0, cell, torch.where(keep, rss, 0).long())
     counts.index_add_(0, cell, keep.long())
-    return (sums[:-1].view(nb, nb).to(torch.float32),
-            counts[:-1].view(nb, nb).to(torch.float32))
+    return sums[:-1].view(nb, nb), counts[:-1].view(nb, nb)
 
 
 def intensity_grid(ue: torch.Tensor, bs: torch.Tensor, rss: torch.Tensor,
                    valid: torch.Tensor, flag: Optional[torch.Tensor] = None,
                    cfg: SceneConfig = _DEFAULT) -> IntensityGrid:
     """IntensityGrid with NaN in empty cells (``intensity_grid_jax``)."""
-    sums, counts = intensity_sums(ue, bs, rss, valid, flag, cfg)
+    sums, counts = (x.to(torch.float32)
+                    for x in intensity_cell_sums(ue, bs, rss, valid, flag, cfg))
     observed = counts > 0
     mean = torch.where(observed, sums / counts.clamp(min=1.0), float("nan"))
     fill = torch.where(observed, mean, float("inf")).min()

@@ -11,7 +11,9 @@ single-session paths:
     engine.  ``engine="host"`` is the numpy decode, corrected by
     ``correct()``.
   * ``sweep_intensity`` / ``sweep_paths`` build the per-sweep [S, 64, 64]
-    grids (kernel K4) and run the per-sweep NN-OMP estimator on a device.
+    grids (kernel K4) and run the per-sweep NN-OMP estimator on a device;
+    ``path_tracks`` associates the paths into CLK-anchored tracks (kernel
+    K6 by default; ``engine="host"`` is the numpy association).
 
 Every method that touches a device takes ``device=None``, meaning CUDA;
 ``device="cpu"`` runs the plain PyTorch versions.  Not ported yet: the
@@ -34,6 +36,8 @@ from slam_process_tpu_torch.models.dictionary import dictionary_to_device
 from slam_process_tpu_torch.models.nn_omp import OmpPaths
 from slam_process_tpu_torch.models.sweep_estimation import (
     sweep_estimator_body, sweep_estimator_setup)
+from slam_process_tpu_torch.models.tracking import (
+    Tracks, track_paths, track_paths_np, track_velocities)
 from slam_process_tpu_torch.ops.correct import (
     correct_bounds, correct_frames_np, detect_groups_np)
 from slam_process_tpu_torch.ops.decode import decode_frames_np
@@ -148,36 +152,47 @@ class Session:
         return unwrap_clk_anchors(times, self.logger)
 
     def _sweep_host_prep(self, angle_file: Union[str, Path], estimator: str = "nn_omp",
-                         max_sweeps: Optional[int] = None, **overrides):
+                         max_sweeps: Optional[int] = None, beam_ids=None, **overrides):
         """Host prep for per-sweep estimation, memoized per (angle file,
-        estimator, max_sweeps, overrides, filtered generation): sweep ids,
-        the session's compact beam ids (observed and mapped), the float64
-        dictionary and the estimator key."""
+        estimator, max_sweeps, beam ids, overrides, filtered generation):
+        sweep ids, the compact beam ids, the float64 dictionary and the
+        estimator key.  The beam ids are the session's observed and mapped
+        beams, or ``beam_ids = (ue_ids, bs_ids)`` used verbatim for the
+        submatrix and the dictionary (how a stream that fixed its beam set
+        up front is compared with the offline result)."""
         if self.filtered is None:
             self.correct()
-        memo_key = (str(angle_file), estimator, max_sweeps,
+        if beam_ids is not None:
+            beam_ids = tuple(tuple(int(i) for i in ids) for ids in beam_ids)
+        memo_key = (str(angle_file), estimator, max_sweeps, beam_ids,
                     tuple(sorted(overrides.items())), self._filtered_gen)
         if memo_key in self._sweep_prep_memo:
             return self._sweep_prep_memo[memo_key]
         gid, n_sweeps = self._sweep_ids(max_sweeps)
         lut = load_angle_lut(angle_file)
-        grid = intensity_grid_np(self.filtered[:, 0], self.filtered[:, 1],
-                                 self.filtered[:, 2], cfg=SceneConfig())
-        ue_ids = np.nonzero(np.asarray(grid.row_mask) & np.isfinite(lut))[0]
-        bs_ids = np.nonzero(np.asarray(grid.col_mask) & np.isfinite(lut))[0]
+        if beam_ids is not None:
+            ue_ids = np.asarray(beam_ids[0], dtype=np.int64)
+            bs_ids = np.asarray(beam_ids[1], dtype=np.int64)
+        else:
+            grid = intensity_grid_np(self.filtered[:, 0], self.filtered[:, 1],
+                                     self.filtered[:, 2], cfg=SceneConfig())
+            ue_ids = np.nonzero(np.asarray(grid.row_mask) & np.isfinite(lut))[0]
+            bs_ids = np.nonzero(np.asarray(grid.col_mask) & np.isfinite(lut))[0]
         d, est_key = sweep_estimator_setup(estimator, lut[ue_ids], lut[bs_ids], **overrides)
         result = (gid, n_sweeps, ue_ids, bs_ids, d, est_key)
         self._sweep_prep_memo[memo_key] = result
         return result
 
     def _sweep_estimation_inputs(self, angle_file: Union[str, Path], estimator: str,
-                                 max_sweeps: Optional[int], dev: torch.device, **overrides):
+                                 max_sweeps: Optional[int], dev: torch.device, beam_ids=None,
+                                 **overrides):
         """(sub [S, U, B] f32 on ``dev``, NaN where unobserved; the session
         dictionary as float32 tensors on ``dev``; est_key; n_sweeps),
         memoized beside the host prep."""
         gid, n_sweeps, ue_ids, bs_ids, d, est_key = self._sweep_host_prep(
-            angle_file, estimator, max_sweeps, **overrides)
+            angle_file, estimator, max_sweeps, beam_ids, **overrides)
         memo_key = ("inputs", str(dev), str(angle_file), estimator, max_sweeps,
+                    tuple(ue_ids.tolist()), tuple(bs_ids.tolist()),
                     tuple(sorted(overrides.items())), self._filtered_gen)
         if memo_key in self._sweep_prep_memo:
             return self._sweep_prep_memo[memo_key]
@@ -188,18 +203,50 @@ class Session:
         return result
 
     def sweep_paths(self, angle_file: Union[str, Path], estimator: str = "nn_omp",
-                    max_sweeps: Optional[int] = None, device=None, **overrides):
+                    max_sweeps: Optional[int] = None, device=None, beam_ids=None,
+                    **overrides):
         """Per-sweep multipath estimation on ``device`` (None: CUDA).
 
         Returns (paths, sweep_valid) as numpy: ``paths`` an OmpPaths of [S,
         K] arrays (f32 angles and power, bool valid, i32 indices; n_iters
         [S] i32), ``sweep_valid[s]`` False for sweeps with no observed cell
-        in the session's compact submatrix.
+        in the compact submatrix.  ``beam_ids = (ue_ids, bs_ids)`` fixes the
+        beam set (see ``_sweep_host_prep``).
         """
         dev = resolve_device(device)
         sub, d, est_key, n_sweeps = self._sweep_estimation_inputs(
-            angle_file, estimator, max_sweeps, dev, **overrides)
+            angle_file, estimator, max_sweeps, dev, beam_ids, **overrides)
         out, valid = sweep_estimator_body(est_key)(sub, d.phi_rx, d.phi_tx, d.aoa_grid,
                                                    d.aod_grid)
         paths = OmpPaths(*(x.cpu().numpy()[:n_sweeps] for x in out))
         return paths, valid.cpu().numpy()[:n_sweeps]
+
+    def path_tracks(self, angle_file: Union[str, Path], estimator: str = "nn_omp",
+                    max_tracks: int = 8, gate_deg: float = 10.0, engine: str = "device",
+                    device=None, **overrides):
+        """CLK-anchored multipath tracks: ``sweep_paths`` on ``device``
+        (None: CUDA), each sweep anchored on its first kept frame's CLK
+        (``sweep_times``), paths associated across sweeps into tracks with
+        per-track angular-velocity fits (deg per CLK tick).
+
+        ``engine`` picks the association: "device" (the default:
+        ``models/tracking.track_paths`` on ``device``, kernel K6 on CUDA) or
+        "host" (``track_paths_np``, numpy); both give the same tracks.  Returns (tracks, times,
+        (vel_aoa, vel_aod, vel_ok)) as numpy.
+        """
+        if engine not in ("host", "device"):
+            raise ValueError(f"unknown engine {engine!r}; use 'host' or 'device'")
+        paths, sweep_valid = self.sweep_paths(angle_file, estimator=estimator, device=device,
+                                              **overrides)
+        times = self.sweep_times(len(sweep_valid))
+        valid = np.asarray(paths.valid, bool) & sweep_valid[:, None] & (times >= 0)[:, None]
+        if engine == "device":
+            dev = resolve_device(device)
+            t = track_paths(*(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                              for x in (paths.aoa, paths.aod, paths.power, valid)),
+                            max_tracks=max_tracks, gate_deg=gate_deg)
+            tracks = Tracks(*(x.cpu().numpy() for x in t[:5]), int(t.n_tracks))
+        else:
+            tracks = track_paths_np(paths.aoa, paths.aod, paths.power, valid,
+                                    max_tracks=max_tracks, gate_deg=gate_deg)
+        return tracks, times, track_velocities(tracks, times)

@@ -1,4 +1,4 @@
-"""Kernels K1-K4 against their plain PyTorch versions, on the card.
+"""Kernels K1-K6 against their plain PyTorch versions, on the card.
 
 Marked ``cuda`` and skipped where ``torch.cuda.is_available()`` is False
 (the condition is evaluated when each test is set up).  On a machine with
@@ -11,7 +11,11 @@ CPU's log may differ in the last bit).  K4 must equal its plain version
 element for element, ``Session.from_log`` on logs past the corrector's
 default bounds must rerun K2 on the card and equal its CPU run, and
 ``Session.sweep_paths`` on the card must equal its CPU run (power within
-rtol 2e-4).
+rtol 2e-4).  K5 (compaction, both forms) and K6 (tracker block) must equal
+their plain versions element for element, and a short device stream on the
+card, launching K1, K2, K4, K5 and K6, must equal the same stream with
+``device="cpu"`` (power within rtol 2e-4).  ``Session.path_tracks`` with
+its defaults must launch K6 and equal the numpy association.
 """
 
 import numpy as np
@@ -19,7 +23,8 @@ import pytest
 import torch
 
 from slam_process_tpu_torch.ops import (
-    correct, cuda_correct, cuda_decode, cuda_raster, cuda_sweep_sums, decode, raster, scene)
+    compact, correct, cuda_compact, cuda_correct, cuda_decode, cuda_raster, cuda_sweep_sums,
+    cuda_tracker, decode, raster, scene, tracker)
 from slam_process_tpu_torch.pipeline.device import run_session_on_device
 from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes
 
@@ -153,3 +158,97 @@ def test_session_overflow_reruns_on_card(tmp_path, kw):
     for field in ("frames", "corrected_bs", "filtered"):
         np.testing.assert_array_equal(getattr(got, field), getattr(want, field), err_msg=field)
     assert len(got.filtered) > 0
+
+
+@pytest.mark.parametrize("f,cap,dens", [(103_518, 8192, 0.05), (20_000, 512, 0.9),
+                                        (5_000, 6_000, 0.0), (1, 4, 1.0)])
+def test_compact_kernel_matches_plain(f, cap, dens):
+    rng = np.random.default_rng(f)
+    rows = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, (f, 5)).astype(np.int32))
+    mask = torch.from_numpy(rng.random(f) < dens)
+    cuda_compact.LAUNCHES = 0
+    got, n = cuda_compact.compact_rows_cuda(rows.cuda(), mask.cuda(), cap)
+    want, n_want = compact.compact_rows_plain(rows, mask, cap)
+    assert cuda_compact.LAUNCHES == 1
+    assert torch.equal(got.cpu(), want) and int(n) == int(n_want)
+    ring = torch.from_numpy(rng.integers(-9, 9, (cap + 7, 5)).astype(np.int32))
+    for off in (0, cap // 3, cap):
+        offset = torch.tensor(off, dtype=torch.int32)
+        got, _ = cuda_compact.compact_rows_cuda(rows.cuda(), mask.cuda(), cap,
+                                                out=ring.cuda(), offset=offset.cuda())
+        want, _ = compact.compact_rows_plain(rows, mask, cap, out=ring.clone(), offset=offset)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("m_eff", [65, 15, 1, 0])
+def test_tracker_kernel_matches_plain(m_eff):
+    rng = np.random.default_rng(m_eff)
+    s1, k_n, t_n = 65, 3, 8
+    lanes = [torch.from_numpy(rng.uniform(-45, 45, (s1, k_n)).astype(np.float32))
+             for _ in range(2)]
+    lanes.append(torch.from_numpy(rng.uniform(0, 1, (s1, k_n)).astype(np.float32)))
+    val = torch.from_numpy(rng.random((s1, k_n)) < 0.6)
+    pos = torch.from_numpy(rng.uniform(-45, 45, (t_n, 2)).astype(np.float32))
+    created = torch.from_numpy(np.arange(t_n) < 3)
+    args = (torch.tensor(m_eff, dtype=torch.int32), pos, created,
+            torch.tensor(3, dtype=torch.int32))
+    cuda_tracker.LAUNCHES = 0
+    got = cuda_tracker.track_block_cuda(*(x.cuda() for x in (*lanes, val, *args)), 30.0)
+    want = tracker.track_block_plain(*lanes, val, *args, 30.0)
+    assert cuda_tracker.LAUNCHES == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_stream_on_card_matches_cpu(tmp_path):
+    from slam_process_tpu_torch.parallel.streaming_device import (
+        make_paths_spec, replay_log_device)
+    from slam_process_tpu_torch.utils.synthetic import write_angle_table
+
+    raw = synthetic_session_bytes(n_groups=5, frames_per_beam=8, baselines_per_group=9,
+                                  junk_frac=0.05, seed=3, n_paths=3)
+    spec = make_paths_spec(write_angle_table(tmp_path / "angles.xlsx"), s_step=8, grid_res=0.5)
+    kernels = (cuda_decode, cuda_correct, cuda_sweep_sums, cuda_compact, cuda_tracker)
+    for m in kernels:
+        m.LAUNCHES = 0
+    kw = dict(chunk_bytes=1 << 13, collect_filtered=True, collect_paths=spec)
+    got = replay_log_device(raw, **kw)
+    assert min(m.LAUNCHES for m in kernels) > 0
+    want = replay_log_device(raw, device="cpu", **kw)
+    for name in ("n_frames", "n_kept", "n_groups", "n_sweeps_closed", "overflow"):
+        assert getattr(got, name) == getattr(want, name), name
+    np.testing.assert_array_equal(got.filtered, want.filtered)
+    np.testing.assert_array_equal(got.intensity().mean, want.intensity().mean)
+    (paths, valid), (ref, ref_valid) = got.sweep_paths(), want.sweep_paths()
+    np.testing.assert_array_equal(valid, ref_valid)
+    np.testing.assert_array_equal(got.sweep_times(), want.sweep_times())
+    for field in paths._fields:
+        if field == "power":
+            np.testing.assert_allclose(paths.power, ref.power, rtol=2e-4, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(getattr(paths, field), getattr(ref, field),
+                                          err_msg=field)
+    tracks, tracks_ref = got.path_tracks()[0], want.path_tracks()[0]
+    for name in ("pos_aoa", "pos_aod", "observed", "created"):
+        np.testing.assert_array_equal(getattr(tracks, name), getattr(tracks_ref, name))
+    assert tracks.n_tracks == tracks_ref.n_tracks > 0
+
+
+def test_path_tracks_default_launches_the_tracker_kernel(tmp_path):
+    from slam_process_tpu_torch.pipeline.session import Session
+    from slam_process_tpu_torch.utils.synthetic import to_hex_text, write_angle_table
+
+    path = tmp_path / "multipath.txt"
+    path.write_bytes(to_hex_text(synthetic_session_bytes(
+        n_groups=5, frames_per_beam=8, baselines_per_group=9, junk_frac=0.05, seed=3,
+        n_paths=3)))
+    angles = write_angle_table(tmp_path / "angles.xlsx")
+    s = Session.from_log(path)
+    cuda_tracker.LAUNCHES = 0
+    tracks, times, _ = s.path_tracks(angles, grid_res=0.5)
+    assert cuda_tracker.LAUNCHES == 1
+    want, want_times, _ = s.path_tracks(angles, engine="host", grid_res=0.5)
+    np.testing.assert_array_equal(times, want_times)
+    for name in ("pos_aoa", "pos_aod", "power", "observed", "created"):
+        np.testing.assert_array_equal(getattr(tracks, name), getattr(want, name), err_msg=name)
+    assert tracks.n_tracks == want.n_tracks > 0

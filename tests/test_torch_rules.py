@@ -77,13 +77,49 @@ def test_entry_points_need_cuda_without_falling_back(monkeypatch, tmp_path):
         s.sweep_paths(angles)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         s.sweep_intensity()
+    for engine in ("host", "device"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            s.path_tracks(angles, engine=engine)
     assert s.sweep_intensity(device="cpu")[1].sum() == len(s.filtered)
+
+    from slam_process_tpu_torch.parallel.streaming_device import (
+        DeviceStreamingSession, replay_log_device)
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceStreamingSession()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        replay_log_device(raw)
+    assert replay_log_device(raw, device="cpu").n_frames == 64
+
+
+def test_path_tracks_defaults_to_the_device_tracker(monkeypatch, tmp_path):
+    """With its defaults, ``Session.path_tracks`` associates through
+    ``models/tracking.track_paths`` (kernel K6 on CUDA), never numpy."""
+    from slam_process_tpu_torch.pipeline import session as session_mod
+    from slam_process_tpu_torch.utils.synthetic import (
+        synthetic_session_bytes, to_hex_text, write_angle_table)
+
+    path = tmp_path / "s.txt"
+    path.write_bytes(to_hex_text(synthetic_session_bytes(
+        n_groups=2, frames_per_beam=2, baselines_per_group=3, seed=2, n_paths=3)))
+    calls = []
+    real = session_mod.track_paths
+    monkeypatch.setattr(session_mod, "track_paths",
+                        lambda *a, **k: calls.append(a[0].device) or real(*a, **k))
+    monkeypatch.setattr(session_mod, "track_paths_np",
+                        lambda *a, **k: pytest.fail("the default went to the numpy tracker"))
+    s = session_mod.Session.from_log(path, device="cpu")
+    tracks, _, _ = s.path_tracks(write_angle_table(tmp_path / "angles.xlsx"), device="cpu",
+                                 grid_res=2.0)
+    assert calls == [torch.device("cpu")] and tracks.n_tracks > 0
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    from slam_process_tpu_torch.ops import cuda_correct, cuda_decode, cuda_raster, cuda_sweep_sums
+    from slam_process_tpu_torch.ops import (
+        cuda_compact, cuda_correct, cuda_decode, cuda_raster, cuda_sweep_sums, cuda_tracker)
 
-    kernels = (cuda_decode, cuda_correct, cuda_raster, cuda_sweep_sums)
+    kernels = (cuda_decode, cuda_correct, cuda_raster, cuda_sweep_sums, cuda_compact,
+               cuda_tracker)
     for m in kernels:
         m.LAUNCHES = 0
     with pytest.raises(ValueError, match="CUDA"):
@@ -97,7 +133,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                       torch.ones(1, 1), True)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_sweep_sums.sweep_sums_cuda(i32, i32, i32, 2)
-    assert [m.LAUNCHES for m in kernels] == [0, 0, 0, 0]
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_compact.compact_rows_cuda(torch.zeros(4, 5, dtype=torch.int32),
+                                       torch.ones(4, dtype=torch.bool), 4)
+    f32 = torch.zeros(3, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_tracker.track_block_cuda(f32, f32, f32, f32 > 0, torch.tensor(3, dtype=torch.int32),
+                                      torch.zeros(4, 2), torch.zeros(4, dtype=torch.bool),
+                                      torch.tensor(0, dtype=torch.int32), 10.0)
+    assert [m.LAUNCHES for m in kernels] == [0] * 6
 
 
 def test_dispatch_refuses_other_devices():
