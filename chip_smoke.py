@@ -17,9 +17,16 @@ Phases, each printing one JSON line:
                 unsorted stream over 65 sweeps, out-of-range ids and invalid
                 rows, one cell summing to 2^24 - 1, 66 sweeps, no rows.
                 K5's: the dataset replay's second 1 MiB window (carry
-                compaction and emit-ring append), a masked count past the
-                capacity, no masked row.  K6's: 65 lanes (33 live) from a
-                carry, 9 lanes, planted ties at the gate, m_eff = 0.
+                compaction, emit-ring append, and the fused emit-ring +
+                paths call against two plain calls), a masked count past the
+                capacity, no masked row, an offset at the ring's capacity, a
+                ring that fills, no rows, and 4,194,304 rows at 50 %
+                density 200 times, every result equal (the look-back's race
+                test).  K6's: 65 lanes (33 live) from a carry, 9 lanes,
+                planted ties at the gate, m_eff = 0, T * K = 40, T = 16 and K
+                = 20 (uniform and on a grid of exact ties), 600 lanes at K = 3
+                and at K = 20, m_eff = s1 - 1, m_eff > s1.  Then one device
+                kernel per K5 / K6 wrapper call, under ``torch.profiler``.
   4. main_path  ``Session.from_log`` on hex-text logs: one full-size session
                 (58 groups x 64 beams x 43 frames, one group of >= 4,400
                 frames), 19 dataset-scale sessions (~56 k frames each) and
@@ -66,11 +73,15 @@ Phases, each printing one JSON line:
                 (2) and (3) by source line under
                 ``torch.cuda.set_sync_debug_mode``, which must equal the
                 counters' sum, and the device busy share of (1) under
-                ``torch.profiler``.
+                ``torch.profiler``, where the K5 and K6 device kernels must
+                equal the wrapper calls.  Across the five streams K5 runs
+                twice per window (the carry; one fused call for the kept
+                rows) and once per flush, or the run fails.
   7. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
                 alone, its plain version on the card, the library yardsticks
-                (K4: two ``torch.bincount`` calls; K5: ``rows[mask]``), the whole
-                ``run_session_on_device`` in frames/s at both sizes, and
+                (K4: two ``torch.bincount`` calls; K5: ``rows[mask]``), K5's
+                fused kept-row call against the two calls it replaced, the
+                whole ``run_session_on_device`` in frames/s at both sizes, and
                 ``sweep_paths`` in sweeps/s (a cleared memo: the host prep,
                 K4 and the estimator; and a warm memo: the estimator); then
                 one full-size session and the full-size ``sweep_paths`` of the
@@ -316,12 +327,49 @@ def run(tmp: Path) -> None:
                        ("no_masked_row", torch.zeros_like(k5["open"]))):
         exact("K5", case, cuda_compact.compact_rows_cuda(k5["rows"], mask, GCAP),
               compact.compact_rows_plain(k5["rows"], mask, GCAP))
+    # The stream's fused call (emit ring + the paths' fresh buffer), then an
+    # offset at the ring's capacity and a ring that fills (rows drop).
+    n_kept_w = int(k5["keep"].sum())
+    for case, ring_cap, ring_off in (
+            ("emit_and_paths_1MiB_window", k5["ecap"], k5["offset"]),
+            ("offset_at_capacity", k5["ecap"], torch.full_like(k5["offset"], k5["ecap"])),
+            ("dest_past_capacity", int(k5["offset"]) + n_kept_w // 2, k5["offset"])):
+        dests = [(ring_cap, k5["ring"].clone(), ring_off), (k5["kept"].shape[0], None, None)]
+        got_o, got_n = cuda_compact.compact_rows_multi_cuda(k5["kept"], k5["keep"], dests)
+        want = [compact.compact_rows_plain(k5["kept"], k5["keep"], cap, out, off)
+                for cap, out, off in [(ring_cap, k5["ring"].clone(), ring_off),
+                                      (k5["kept"].shape[0], None, None)]]
+        exact("K5", case, (*got_o, got_n), (want[0][0], want[1][0], want[0][1]))
+    empty = torch.zeros((0, 5), dtype=torch.int32, device=dev)
+    no_mask = torch.zeros(0, dtype=torch.bool, device=dev)
+    exact("K5", "no_rows", cuda_compact.compact_rows_cuda(empty, no_mask, GCAP),
+          compact.compact_rows_plain(empty, no_mask, GCAP))
+    k5_race_check(torch, compact, cuda_compact, dev)
+    cases.append("K5:4M_rows_50pct_x200")
     k6 = k6_cases(np, torch, dev)
     for case, (args, gate) in k6.items():
         exact("K6", case, cuda_tracker.track_block_cuda(*args, gate),
               tracker.track_block_plain(*args, gate))
     torch.cuda.synchronize()
-    emit({"phase": "kernels", "cases": cases, "max_abs_err": err})
+    # One device kernel per wrapper call, whatever the form: ten calls each
+    # under torch.profiler (before any other profiling in this process).
+    ring, n_w = k5["ring"].clone(), k5["kept"].shape[0]
+    fused = [(k5["ecap"], ring, k5["offset"]), (n_w, None, None)]
+    per_call = {}
+    for case, fn in (
+            ("K5", lambda: cuda_compact.compact_rows_cuda(k5["rows"], k5["open"], GCAP)),
+            ("K5_fused", lambda: cuda_compact.compact_rows_multi_cuda(k5["kept"], k5["keep"],
+                                                                      fused)),
+            ("K6", lambda: cuda_tracker.track_block_cuda(*k6["main_65_lanes"][0],
+                                                         k6["main_65_lanes"][1]))):
+        fn()
+        torch.cuda.synchronize()
+        per_call[case] = device_profile(torch, lambda: [fn() for _ in range(10)])[1] / 10
+        if per_call[case] != 1:
+            fail(f"{case}: a wrapper call ran {per_call[case]} device activities, not one "
+                 "kernel")
+    emit({"phase": "kernels", "cases": cases, "max_abs_err": err,
+          "device_activities_per_call": per_call})
 
     # -- 4. main path ------------------------------------------------------------
     specs = ([("full", FULL)] + [(f"dataset_{i:02d}", c) for i, c in enumerate(DATASET)]
@@ -504,6 +552,15 @@ def run(tmp: Path) -> None:
     ms["K6"] = cuda_ms(lambda: cuda_tracker.track_block_cuda(*k6_args, k6_gate), inner=20)
     plain_ms["K5"] = cuda_ms(lambda: compact.compact_rows_plain(k5["rows"], k5["open"], GCAP))
     plain_ms["K6"] = cuda_ms(lambda: tracker.track_block_plain(*k6_args, k6_gate))
+    # The stream's kept-row compaction at the same window: the fused call
+    # (emit ring + the paths' fresh buffer) against the two calls it replaced.
+    k5_kept_ms = {
+        "fused": cuda_ms(lambda: cuda_compact.compact_rows_multi_cuda(k5["kept"], k5["keep"],
+                                                                      fused), inner=20),
+        "two_calls": cuda_ms(lambda: (
+            cuda_compact.compact_rows_cuda(k5["kept"], k5["keep"], k5["ecap"], out=ring,
+                                           offset=k5["offset"]),
+            cuda_compact.compact_rows_cuda(k5["kept"], k5["keep"], n_w)), inner=20)}
     library_ms = {"K4": cuda_ms(lambda: (
         torch.bincount(k4_cell, weights=k4_weights, minlength=k4_cells + 1),
         torch.bincount(k4_cell, minlength=k4_cells + 1)), inner=20),
@@ -553,6 +610,7 @@ def run(tmp: Path) -> None:
                        "device_activities": acts_w, "top_us": top_w[:5]}})
 
     emit({"phase": "timing", "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+          "k5_kept_rows_1MiB_window_ms": k5_kept_ms,
           "full_session": {"frames": n_full, "ms": session_ms,
                            "frames_per_s": n_full / (session_ms / 1e3)},
           "dataset": {"sessions": len(DATASET), "frames": dataset_frames, "ms": dataset_ms,
@@ -591,6 +649,9 @@ def run(tmp: Path) -> None:
     k2_pairs = int(live[valid].sum())
     k4_kept = int((k4_p >= 0).sum())
     k5_masked = int(k5["open"].sum())
+    # The fused kept-row call: every mask byte, the 16 B payload of the kept
+    # rows read once and written to the ring, and the fresh [F, 4] buffer.
+    k5_fused_bytes = n_w + n_kept_w * 16 * 2 + n_w * 16
     bounds = {
         "K1": (n_bytes + rows * 21 + 4, n_bytes * 3 + flag_positions * 30 + n_starts * 28,
                PEAK_INT32_PER_S),
@@ -629,7 +690,9 @@ def run(tmp: Path) -> None:
           "K3_bytes_ops": bounds["K3"][:2], "K4_rows": k4_p.numel(), "K4_sweeps": n_sweeps,
           "K4_kept": k4_kept, "K4_bytes_ops": bounds["K4"][:2],
           "K5_rows": k5["rows"].shape[0], "K5_masked": k5_masked,
-          "K5_bytes_ops": bounds["K5"][:2], "K6_lanes_live": [k6_args[0].shape[0],
+          "K5_bytes_ops": bounds["K5"][:2], "K5_fused_kept_bytes": k5_fused_bytes,
+          "K5_fused_kept_bound_ms": k5_fused_bytes / PEAK_BYTES_PER_S * 1e3,
+          "K6_lanes_live": [k6_args[0].shape[0],
                                                               k6_live(k6_args)],
           "K6_bytes_ops": bounds["K6"][:2]})
     print(smi, flush=True)
@@ -638,12 +701,13 @@ def run(tmp: Path) -> None:
                                  "count": torch.cuda.device_count()}})
 
 
-def device_profile(torch, fn):
+def device_profile(torch, fn, count=()):
     """Run ``fn`` once under ``torch.profiler``: (device busy ms, device
-    activities, top 10 names by device us).  Busy time is the union of the
-    device activities' intervals (kernels, copies, memsets; not the
-    CPU-side aten rows, which would count each kernel twice, nor the
-    profiler's own buffer requests)."""
+    activities, top 10 names by device us), and with ``count`` a fourth
+    item, {name part: device activities whose name holds it}.  Busy time is
+    the union of the device activities' intervals (kernels, copies,
+    memsets; not the CPU-side aten rows, which would count each kernel
+    twice, nor the profiler's own buffer requests)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -661,7 +725,10 @@ def device_profile(torch, fn):
     by_name = {}
     for e in acts:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
-    return busy_us / 1e3, len(acts), sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    out = busy_us / 1e3, len(acts), sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    if count:
+        out += ({part: sum(part in e.name for e in acts) for part in count},)
+    return out
 
 
 def k4_cases(np, torch, dev, p, bs, val, n_sweeps):
@@ -707,15 +774,50 @@ def k5_inputs(torch, sd, raw, dev):
             "ecap": s._ecap}
 
 
+def k5_race_check(torch, compact, cuda_compact, dev):
+    """The look-back's race test (compute-sanitizer does not run on the
+    card's machine): 4,194,304 rows (4,096 tiles, more than the card holds
+    at once) at 50 % density into two destinations, 200 times; every result
+    must equal the first, and the first the plain version."""
+    f = 4_194_304
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = torch.randint(-(1 << 30), 1 << 30, (f, 5), generator=gen, dtype=torch.int32,
+                         device=dev)
+    mask = torch.rand(f, generator=gen, device=dev) < 0.5
+    cap = (1 << 21) + 5_000
+    ring = torch.zeros((f, 5), dtype=torch.int32, device=dev)
+    offset = torch.tensor(12_345, dtype=torch.int32, device=dev)
+    dests = [(cap, None, None), (f, ring, offset)]
+    (first, first_ring), n = cuda_compact.compact_rows_multi_cuda(rows, mask, dests)
+    first_ring = first_ring.clone()
+    (want, want_ring), n_want = compact.compact_rows_multi_plain(
+        rows, mask, [(cap, None, None), (f, torch.zeros_like(ring), offset)])
+    if not (torch.equal(first, want) and torch.equal(first_ring, want_ring)
+            and int(n) == int(n_want)):
+        fail("K5 4M_rows_50pct: kernel and plain version differ")
+    for rep in range(200):
+        (got, got_ring), n_got = cuda_compact.compact_rows_multi_cuda(rows, mask, dests)
+        if not (torch.equal(got, first) and torch.equal(got_ring, first_ring)
+                and int(n_got) == int(n)):
+            fail(f"K5 4M_rows_50pct: repetition {rep} differs from the first")
+
+
 def k6_cases(np, torch, dev):
     """K6's inputs {case: (args, gate_deg)} on the card: 65 lanes (s_step
     64) with 33 live from a carry of 3 tracks, 9 lanes (s_step 8) all live,
-    planted ties at the gate (``tests/test_torch_tracker.py``), m_eff 0."""
+    planted ties at the gate (``tests/test_torch_tracker.py``), m_eff 0;
+    then T * K = 40, just above one warp's 32 pairs; the limits T = 16, K =
+    20, all lanes live, with uniform angles and on an integer grid (exact
+    ties across the warp's threads); 600 lanes (the offline tracker's
+    length, two staging tiles at K = 3 and eight at K = 20); m_eff = s1 - 1
+    and m_eff > s1."""
     rng = np.random.default_rng(17)
 
-    def lanes(s1, k_n, live, t_n, n_created):
-        f32 = [torch.from_numpy(rng.uniform(lo, hi, (s1, k_n)).astype(np.float32)).to(dev)
-               for lo, hi in ((-45, 45), (-45, 45), (0, 1))]
+    def lanes(s1, k_n, live, t_n, n_created, grid=False):
+        bounds = ((-4, 5), (-4, 5), (0, 1)) if grid else ((-45, 45), (-45, 45), (0, 1))
+        f32 = [torch.from_numpy((rng.integers(lo, hi, (s1, k_n)) if grid and hi > 1 else
+                                 rng.uniform(lo, hi, (s1, k_n))).astype(np.float32)).to(dev)
+               for lo, hi in bounds]
         pos = torch.from_numpy(rng.uniform(-45, 45, (t_n, 2)).astype(np.float32)).to(dev)
         return (*f32, torch.from_numpy(rng.random((s1, k_n)) < 0.7).to(dev),
                 torch.tensor(live, dtype=torch.int32, device=dev), pos,
@@ -733,7 +835,14 @@ def k6_cases(np, torch, dev):
     return {"main_65_lanes": (lanes(65, 3, 33, 8, 3), 10.0),
             "live_9_lanes": (lanes(9, 3, 9, 8, 0), 10.0),
             "planted_ties_gate": (tuple(planted), 5.0),
-            "m_eff_0": (lanes(65, 3, 0, 8, 5), 10.0)}
+            "m_eff_0": (lanes(65, 3, 0, 8, 5), 10.0),
+            "T8_K5_65_lanes": (lanes(65, 5, 65, 8, 0), 10.0),
+            "T16_K20_all_live": (lanes(40, 20, 40, 16, 0), 15.0),
+            "T16_K20_grid_ties": (lanes(40, 20, 40, 16, 0, grid=True), 6.0),
+            "offline_600_lanes": (lanes(600, 3, 600, 8, 0), 10.0),
+            "offline_600_lanes_T16_K20": (lanes(600, 20, 600, 16, 0, grid=True), 6.0),
+            "m_eff_s1_minus_1": (lanes(65, 3, 64, 8, 3), 10.0),
+            "m_eff_past_s1": (lanes(65, 3, 80, 8, 3), 10.0)}
 
 
 def k6_live(args) -> int:
@@ -813,8 +922,13 @@ def streaming_phase(np, torch, sd, nnls, tmp, angles, raw_live, raw_ds, raw_stra
     launches = {k: m.LAUNCHES for k, m in kernels.items()}
     if min(launches.values()) == 0:
         fail(f"a kernel of the streaming path never launched: {launches}")
+    # Two K5 calls per window (K1 decodes once per window: the carry, and one
+    # fused call for the kept rows), and the fused one at each stream's flush.
+    if launches["K5"] != 2 * launches["K1"] + len(streams):
+        fail(f"streams: {launches['K5']} K5 calls in {launches['K1']} windows and "
+             f"{len(streams)} flushes, not two per window and one per flush")
 
-    raw_of = {"live_feed": raw_live, "dataset_replay": raw_ds, "straddle": raw_straddle,
+    raw_of ={"live_feed": raw_live, "dataset_replay": raw_ds, "straddle": raw_straddle,
               "checkpoint": raw_live, "dataset_grow": raw_ds}
     spec_of = {"live_feed": live_spec, "dataset_replay": ds_spec, "checkpoint": live_spec}
     cpu = {"live_feed": live_feed("cpu"), "straddle": straddle("cpu")}
@@ -978,10 +1092,18 @@ def streaming_phase(np, torch, sd, nnls, tmp, angles, raw_live, raw_ds, raw_stra
                              "bytes_per_s": b / (ms / 1e3), "frames_per_s": f / (ms / 1e3),
                              "sweeps_per_s": summary[name]["sweeps"] / (ms / 1e3),
                              "window_host_ms": window_ms(fn)})
-    busy, acts, top = device_profile(torch, lambda: live_feed().block_until_ready())
+    for m in kernels.values():
+        m.LAUNCHES = 0
+    busy, acts, top, named = device_profile(torch, lambda: live_feed().block_until_ready(),
+                                            count=("compact_kernel", "track_block_kernel"))
+    calls = {"K5": kernels["K5"].LAUNCHES, "K6": kernels["K6"].LAUNCHES}
+    if [named["compact_kernel"], named["track_block_kernel"]] != [calls["K5"], calls["K6"]]:
+        fail(f"live feed: device kernels {named} differ from the wrapper calls {calls}")
     timing["live_feed"].update(device_busy_ms=busy,
                                device_busy_share=busy / timing["live_feed"]["ms"],
-                               device_activities=acts, top_us=top[:6])
+                               device_activities=acts, top_us=top[:6],
+                               windows_profiled=kernels["K1"].LAUNCHES,
+                               wrapper_calls=calls, device_kernels=named)
     return {"seconds": run_s, "launches": launches, "streams": summary,
             "compared_with_cpu": sorted(cpu), "timing": timing,
             "emit_ring_rows": {k: streams[k]._ecap for k in ("dataset_replay", "dataset_grow")}}

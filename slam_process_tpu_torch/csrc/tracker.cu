@@ -16,22 +16,35 @@
 // Exactness: nvcc contracts a * a + b * b into an FMA by default, which
 // rounds once where numpy rounds twice and flips near-ties of the gate
 // and of the argmin; the cost is written with __fsub_rn / __fmul_rn /
-// __fadd_rn in the oracle's order.  The argmin reduces on the pair (cost,
-// flat index) packed into one 64-bit key: a non-negative float's bits are
-// monotone as an unsigned integer, and the flat index in the low half
-// makes the lowest index win a tie.  A NaN cost takes the smallest key, as
-// np.argmin returns the first NaN, and then fails the gate.
+// __fadd_rn in the oracle's order.  The argmin takes the smallest cost key
+// and then the smallest flat index among the pairs that hold it: a
+// non-negative float's bits are monotone as an unsigned integer, so the
+// key is bits + 1, and a NaN cost takes key 0, the smallest, as np.argmin
+// returns the first NaN, and then fails the gate.  gate2 = f32(gate)^2 is
+// rounded by the wrapper as the oracle rounds it.
 //
-// Bound on an H100: bytes, ~13 B per (lane, path) read and ~13 B per
-// (lane, track) written, about 11.5 KB at s1 = 65, K = 3, T = 8: a few ns.
-// In practice the launch and the lanes' serial dependence through the
-// carry are the floor.  Design: the TPU kernel ran a sequential grid over
-// the lanes with the carry in VMEM / SMEM scratch; here one block walks
-// the lanes in a loop with the carry in shared memory.  One thread holds
-// one (track, path) pair (T * K <= 320, at most ten warps); each round is
-// a warp-shuffle min of the keys, then a min over the warps' results by
-// thread 0, which applies the assignment.  The cost matrix is static
-// within a lane: a matched track is masked out in the round that moves it.
+// Bound on an H100: not bytes (~13 B per live (lane, path) read and per
+// (lane, track) written, about 8 KB at s1 = 65, 33 live, K = 3, T = 8: a
+// few ns) and not operations, but the lanes' serial dependence through the
+// carry, and the launch.  Design: one warp carries the whole chain, for
+// every legal shape (T <= 16, K <= 20): thread l holds the (track, path)
+// pairs l, l + 32, ... (at most ten) with their costs in registers, and
+// thread t < T holds track t (position, matched power, observed).  The
+// assigned / used / created / valid sets are 32-bit masks that every thread
+// keeps alike.  A round is a thread-local min over its pairs and two warp
+// reductions (__reduce_min_sync: the cost key, then the flat index among
+// the threads that hold it), so every thread knows the winner and applies
+// it to its own copy of the state: no shared memory, no barrier.  Leftover
+// paths open tracks by rank: path k's slot is count + popc(free & (1 << k)
+// - 1), the oracle's order.  The cost matrix is static within a lane (a
+// matched track is masked out in the round that moves it), so each lane
+// costs its pairs once.  The other warps of the block stage the live
+// lanes' inputs into shared memory with coalesced loads, a tile of lanes
+// ahead of the chain (two buffers; a __syncthreads separates one tile's
+// chain from the next tile's staging), so no lane waits on a dependent
+// global load, and s1 may be any length.  The chain stops at the last live
+// lane; once the carry is final, the whole block writes the dead lanes
+// [live, s1) in one parallel pass.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,134 +53,190 @@ namespace {
 
 constexpr int kMaxT = 16;
 constexpr int kMaxK = 20;
-constexpr int kMaxWarps = (kMaxT * kMaxK + 31) / 32;
-constexpr unsigned long long kNone = ~0ull;
+constexpr int kThreads = 256;     // warp 0: the chain; warps 1-7 stage the next tile
+constexpr int kSlots = 1536;      // (lane, path) slots in one staging buffer
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kNone = 0xffffffffu;
 
-__device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const unsigned long long w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = w < v ? w : v;
+struct Staged {
+  float a[2][kSlots], d[2][kSlots], p[2][kSlots];
+  uint8_t v[2][kSlots];
+};
+
+__device__ __forceinline__ void stage(Staged& s, int buf, const float* __restrict__ aoa,
+                                      const float* __restrict__ aod,
+                                      const float* __restrict__ pw,
+                                      const uint8_t* __restrict__ val, long long q0, int n,
+                                      int tid, int n_threads) {
+  for (int j = tid; j < n; j += n_threads) {
+    s.a[buf][j] = __ldg(aoa + q0 + j);
+    s.d[buf][j] = __ldg(aod + q0 + j);
+    s.p[buf][j] = __ldg(pw + q0 + j);
+    s.v[buf][j] = __ldg(val + q0 + j);
   }
-  return v;
 }
 
-__global__ void track_block_kernel(const float* __restrict__ aoa, const float* __restrict__ aod,
-                                   const float* __restrict__ pw, const uint8_t* __restrict__ val,
-                                   const int* __restrict__ m_eff,
-                                   const float* __restrict__ pos_in,
-                                   const uint8_t* __restrict__ created_in,
-                                   const int* __restrict__ count_in, int s1, int k_n, int t_n,
-                                   float gate2, float* __restrict__ c_aoa,
-                                   float* __restrict__ c_aod, float* __restrict__ c_pow,
-                                   uint8_t* __restrict__ c_obs, float* __restrict__ pos_out,
-                                   uint8_t* __restrict__ created_out, int* __restrict__ count_out) {
-  __shared__ float pa[kMaxT], pd[kMaxT], opow[kMaxT];
-  __shared__ int created[kMaxT], assigned[kMaxT], obs[kMaxT];
-  __shared__ float qa[kMaxK], qd[kMaxK], qp[kMaxK];
-  __shared__ int qv[kMaxK], used[kMaxK];
-  __shared__ unsigned long long warp_best[kMaxWarps];
-  __shared__ int count, stop;
+// P: (track, path) pairs per thread, ceil(T * K / 32).
+template <int P>
+__global__ void __launch_bounds__(kThreads) track_block_kernel(
+    const float* __restrict__ aoa, const float* __restrict__ aod, const float* __restrict__ pw,
+    const uint8_t* __restrict__ val, const int* __restrict__ m_eff,
+    const float* __restrict__ pos_in, const uint8_t* __restrict__ created_in,
+    const int* __restrict__ count_in, int s1, int k_n, int t_n, float gate2,
+    float* __restrict__ c_aoa, float* __restrict__ c_aod, float* __restrict__ c_pow,
+    uint8_t* __restrict__ c_obs, float* __restrict__ pos_out, uint8_t* __restrict__ created_out,
+    int* __restrict__ count_out) {
+  __shared__ Staged st;
+  __shared__ float fin_a[kMaxT], fin_d[kMaxT];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int pairs = t_n * k_n;
-  const int t = tid / k_n;
-  const int k = tid % k_n;
   const int live = max(0, min(*m_eff, s1));
+  const int tile_lanes = kSlots / k_n;
+  const int n_tiles = (live + tile_lanes - 1) / tile_lanes;
 
-  if (tid < t_n) {
-    pa[tid] = pos_in[2 * tid];
-    pd[tid] = pos_in[2 * tid + 1];
-    created[tid] = created_in[tid] != 0;
+  // The chain's state (warp 0): track `lane` and this thread's pairs.
+  float my_a = 0.0f, my_d = 0.0f, my_p = 0.0f;
+  uint8_t my_o = 0;
+  unsigned created = 0;
+  int count = 0;
+  int pt[P], pk[P];
+  if (warp == 0) {
+    if (lane < t_n) {
+      my_a = pos_in[2 * lane];
+      my_d = pos_in[2 * lane + 1];
+    }
+    created = __ballot_sync(kFull, lane < t_n && created_in[lane] != 0);
+    count = *count_in;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int f = lane + 32 * j;
+      pt[j] = f < t_n * k_n ? f / k_n : -1;
+      pk[j] = f < t_n * k_n ? f - (f / k_n) * k_n : 0;
+    }
   }
-  if (tid == 0) count = *count_in;
 
-  for (int i = 0; i < s1; ++i) {
-    if (tid < k_n) {
-      const long long q = static_cast<long long>(i) * k_n + tid;
-      qa[tid] = aoa[q];
-      qd[tid] = aod[q];
-      qp[tid] = pw[q];
-      qv[tid] = i < live && val[q] != 0;
-      used[tid] = 0;
-    }
-    if (tid < t_n) {
-      assigned[tid] = 0;
-      obs[tid] = 0;
-      opow[tid] = 0.0f;
-    }
-    __syncthreads();
+  if (n_tiles > 0) stage(st, 0, aoa, aod, pw, val, 0, min(live, tile_lanes) * k_n, tid, kThreads);
+  __syncthreads();
 
-    float cost = 0.0f;
-    if (tid < pairs) {
-      const float da = __fsub_rn(pa[t], qa[k]);
-      const float dd = __fsub_rn(pd[t], qd[k]);
-      cost = __fadd_rn(__fmul_rn(da, da), __fmul_rn(dd, dd));
-    }
-    const unsigned cost_key = isnan(cost) ? 0u : __float_as_uint(cost) + 1u;
-    for (int round = 0; round < k_n; ++round) {
-      unsigned long long key = kNone;
-      if (tid < pairs && created[t] && !assigned[t] && qv[k] && !used[k]) {
-        key = (static_cast<unsigned long long>(cost_key) << 32) | static_cast<unsigned>(tid);
-      }
-      key = warp_min(key);
-      if (lane == 0) warp_best[warp] = key;
-      __syncthreads();
-      if (tid == 0) {
-        unsigned long long best = warp_best[0];
-        for (int w = 1; w < n_warps; ++w) best = warp_best[w] < best ? warp_best[w] : best;
-        stop = 1;
-        const unsigned hi = static_cast<unsigned>(best >> 32);
-        if (best != kNone && hi != 0u && __uint_as_float(hi - 1u) <= gate2) {
-          const int flat = static_cast<int>(best & 0xffffffffull);
-          const int bt = flat / k_n;
-          const int bk = flat % k_n;
-          assigned[bt] = 1;
-          used[bk] = 1;
-          pa[bt] = qa[bk];
-          pd[bt] = qd[bk];
-          obs[bt] = 1;
-          opow[bt] = qp[bk];
-          stop = 0;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int buf = tile & 1;
+    const int i0 = tile * tile_lanes;
+    const int i1 = min(live, i0 + tile_lanes);
+    if (warp == 0) {
+      for (int i = i0; i < i1; ++i) {
+        const float* qa = st.a[buf] + (i - i0) * k_n;
+        const float* qd = st.d[buf] + (i - i0) * k_n;
+        const float* qp = st.p[buf] + (i - i0) * k_n;
+        const uint8_t* qv = st.v[buf] + (i - i0) * k_n;
+        unsigned free_k = __ballot_sync(kFull, lane < k_n && qv[lane] != 0);   // valid & unused
+        unsigned free_t = created;                                              // & unassigned
+
+        unsigned key[P];
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          const float pa = __shfl_sync(kFull, my_a, pt[j] < 0 ? 0 : pt[j]);
+          const float pd = __shfl_sync(kFull, my_d, pt[j] < 0 ? 0 : pt[j]);
+          const float da = __fsub_rn(pa, qa[pk[j]]);
+          const float dd = __fsub_rn(pd, qd[pk[j]]);
+          const float cost = __fadd_rn(__fmul_rn(da, da), __fmul_rn(dd, dd));
+          key[j] = pt[j] < 0 ? kNone : (isnan(cost) ? 0u : __float_as_uint(cost) + 1u);
         }
-      }
-      __syncthreads();
-      if (stop) break;
-    }
 
-    if (tid == 0) {
-      int c = count;
-      for (int kk = 0; kk < k_n; ++kk) {
-        if (qv[kk] && !used[kk] && c < t_n) {
-          pa[c] = qa[kk];
-          pd[c] = qd[kk];
-          created[c] = 1;
-          obs[c] = 1;
-          opow[c] = qp[kk];
-          ++c;
+        while (free_t != 0u && free_k != 0u) {
+          unsigned best = kNone, best_f = kNone;
+#pragma unroll
+          for (int j = 0; j < P; ++j) {
+            if (pt[j] >= 0 && ((free_t >> pt[j]) & 1u) && ((free_k >> pk[j]) & 1u) &&
+                key[j] < best) {
+              best = key[j];
+              best_f = static_cast<unsigned>(lane + 32 * j);
+            }
+          }
+          const unsigned g = __reduce_min_sync(kFull, best);
+          if (g == kNone || g == 0u || !(__uint_as_float(g - 1u) <= gate2)) break;
+          const int w = static_cast<int>(__reduce_min_sync(kFull, best == g ? best_f : kNone));
+          const int bt = w / k_n;
+          const int bk = w - bt * k_n;
+          if (lane == bt) {
+            my_a = qa[bk];
+            my_d = qd[bk];
+            my_p = qp[bk];
+            my_o = 1;
+          }
+          free_t &= ~(1u << bt);
+          free_k &= ~(1u << bk);
         }
+
+        // Leftover valid paths open tracks count, count + 1, ... in path order.
+        const int n_new = count >= 0 ? min(__popc(free_k), max(t_n - count, 0)) : 0;
+        if (n_new > 0) {
+          const int r = lane - count;
+          if (r >= 0 && r < n_new) {
+            unsigned b = free_k;
+            for (int s = 0; s < r; ++s) b &= b - 1u;
+            const int k = __ffs(b) - 1;
+            my_a = qa[k];
+            my_d = qd[k];
+            my_p = qp[k];
+            my_o = 1;
+          }
+          created |= ((1u << n_new) - 1u) << count;
+          count += n_new;
+        }
+
+        if (lane < t_n) {
+          const long long o = static_cast<long long>(i) * t_n + lane;
+          c_aoa[o] = my_a;
+          c_aod[o] = my_d;
+          c_pow[o] = my_p;
+          c_obs[o] = my_o;
+        }
+        my_p = 0.0f;
+        my_o = 0;
       }
-      count = c;
-    }
-    __syncthreads();
-    if (tid < t_n) {
-      const long long o = static_cast<long long>(i) * t_n + tid;
-      c_aoa[o] = pa[tid];
-      c_aod[o] = pd[tid];
-      c_pow[o] = opow[tid];
-      c_obs[o] = static_cast<uint8_t>(obs[tid]);
+    } else if (tile + 1 < n_tiles) {
+      const int j1 = min(live, i1 + tile_lanes);
+      stage(st, buf ^ 1, aoa, aod, pw, val, static_cast<long long>(i1) * k_n, (j1 - i1) * k_n,
+            tid - 32, kThreads - 32);
     }
     __syncthreads();
   }
 
-  if (tid < t_n) {
-    pos_out[2 * tid] = pa[tid];
-    pos_out[2 * tid + 1] = pd[tid];
-    created_out[tid] = static_cast<uint8_t>(created[tid]);
+  if (warp == 0) {
+    if (lane < t_n) {
+      fin_a[lane] = my_a;
+      fin_d[lane] = my_d;
+      pos_out[2 * lane] = my_a;
+      pos_out[2 * lane + 1] = my_d;
+      created_out[lane] = static_cast<uint8_t>((created >> lane) & 1u);
+    }
+    if (lane == 0) *count_out = count;
   }
-  if (tid == 0) *count_out = count;
+  __syncthreads();
+
+  // Dead lanes: the final carry's positions, no power, not observed.
+  const long long o0 = static_cast<long long>(live) * t_n;
+  const long long n_dead = static_cast<long long>(s1 - live) * t_n;
+  for (long long e = tid; e < n_dead; e += kThreads) {
+    const int t = static_cast<int>(e % t_n);
+    c_aoa[o0 + e] = fin_a[t];
+    c_aod[o0 + e] = fin_d[t];
+    c_pow[o0 + e] = 0.0f;
+    c_obs[o0 + e] = 0;
+  }
+}
+
+template <int P>
+void launch(cudaStream_t s, const float* aoa, const float* aod, const float* pw,
+            const uint8_t* val, const int* m_eff, const float* pos_in,
+            const uint8_t* created_in, const int* count_in, int s1, int k_n, int t_n,
+            float gate2, float* c_aoa, float* c_aod, float* c_pow, uint8_t* c_obs,
+            float* pos_out, uint8_t* created_out, int* count_out) {
+  track_block_kernel<P><<<1, kThreads, 0, s>>>(aoa, aod, pw, val, m_eff, pos_in, created_in,
+                                               count_in, s1, k_n, t_n, gate2, c_aoa, c_aod,
+                                               c_pow, c_obs, pos_out, created_out, count_out);
 }
 
 }  // namespace
@@ -175,7 +244,8 @@ __global__ void track_block_kernel(const float* __restrict__ aoa, const float* _
 // aoa, aod, pw: float32 [s1, k_n]; val: bool [s1, k_n]; m_eff, count_in:
 // int32 scalars on the device; pos_in: float32 [t_n, 2]; created_in: bool
 // [t_n]; outputs c_* [s1, t_n], pos_out, created_out, count_out.  1 <= t_n
-// <= 16, 1 <= k_n <= 20.  Returns cudaGetLastError() after the launch.
+// <= 16, 1 <= k_n <= 20.  One launch of one block.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int slam_track_block(const void* aoa, const void* aod, const void* pw,
                                 const void* val, const void* m_eff, const void* pos_in,
                                 const void* created_in, const void* count_in, int s1, int k_n,
@@ -185,15 +255,20 @@ extern "C" int slam_track_block(const void* aoa, const void* aod, const void* pw
   if (t_n < 1 || t_n > kMaxT || k_n < 1 || k_n > kMaxK || s1 < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = ((t_n * k_n + 31) / 32) * 32;
-  track_block_kernel<<<1, threads, 0, s>>>(
-      static_cast<const float*>(aoa), static_cast<const float*>(aod),
-      static_cast<const float*>(pw), static_cast<const uint8_t*>(val),
-      static_cast<const int*>(m_eff), static_cast<const float*>(pos_in),
-      static_cast<const uint8_t*>(created_in), static_cast<const int*>(count_in), s1, k_n, t_n,
-      gate2, static_cast<float*>(c_aoa), static_cast<float*>(c_aod), static_cast<float*>(c_pow),
-      static_cast<uint8_t*>(c_obs), static_cast<float*>(pos_out),
-      static_cast<uint8_t*>(created_out), static_cast<int*>(count_out));
+  using Launch = void (*)(cudaStream_t, const float*, const float*, const float*,
+                          const uint8_t*, const int*, const float*, const uint8_t*, const int*,
+                          int, int, int, float, float*, float*, float*, uint8_t*, float*,
+                          uint8_t*, int*);
+  static const Launch by_pairs[] = {launch<1>, launch<2>, launch<3>, launch<4>, launch<5>,
+                                    launch<6>, launch<7>, launch<8>, launch<9>, launch<10>};
+  by_pairs[(t_n * k_n + 31) / 32 - 1](
+      static_cast<cudaStream_t>(stream), static_cast<const float*>(aoa),
+      static_cast<const float*>(aod), static_cast<const float*>(pw),
+      static_cast<const uint8_t*>(val), static_cast<const int*>(m_eff),
+      static_cast<const float*>(pos_in), static_cast<const uint8_t*>(created_in),
+      static_cast<const int*>(count_in), s1, k_n, t_n, gate2, static_cast<float*>(c_aoa),
+      static_cast<float*>(c_aod), static_cast<float*>(c_pow), static_cast<uint8_t*>(c_obs),
+      static_cast<float*>(pos_out), static_cast<uint8_t*>(created_out),
+      static_cast<int*>(count_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,22 +8,29 @@ rows land at ``out[offset:]`` while they stay below ``capacity``, and the
 other rows of ``out`` are left as they are.  Both forms also return the
 total masked count, not clamped, as an int32 scalar tensor.
 
+``compact_rows_multi(rows, mask, dests)`` does the same for one or two
+destinations at once, each ``(capacity, out or None, offset or None)``,
+with the same ranks: one launch and one read of the mask and the rows.  The
+two ``out`` tensors must be different tensors.
+
 The device streaming session compacts its open-group carry with the first
-form, appends kept rows to its emit ring with the second, and compacts the
-kept rows its online paths segment.  ``compact_rows`` launches kernel K5
-(``ops/cuda_compact.py``) on CUDA tensors and runs ``compact_rows_plain``
-on CPU tensors; the plain version is what ``slam_process_tpu/ops/
-pallas_compact.py::compact_rows_pallas`` computes, ``rows[mask][:capacity]``
-zero-padded.
+form and, in one ``compact_rows_multi`` call, appends a window's kept rows
+to its emit ring and compacts them for its online paths.  Both functions
+launch kernel K5 (``ops/cuda_compact.py``) on CUDA tensors and run the
+plain version on CPU tensors; the plain version is what
+``slam_process_tpu/ops/pallas_compact.py::compact_rows_pallas`` computes,
+``rows[mask][:capacity]`` zero-padded, once per destination.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from slam_process_tpu_torch.ops import cuda_compact
+
+Dest = Tuple[int, Optional[torch.Tensor], Optional[torch.Tensor]]
 
 
 def compact_rows_plain(rows: torch.Tensor, mask: torch.Tensor, capacity: int,
@@ -40,13 +47,32 @@ def compact_rows_plain(rows: torch.Tensor, mask: torch.Tensor, capacity: int,
     return out, count
 
 
+def compact_rows_multi_plain(rows: torch.Tensor, mask: torch.Tensor, dests: Sequence[Dest]):
+    """Plain PyTorch form of ``compact_rows_multi``: one
+    ``compact_rows_plain`` call per destination.  Returns ([out...],
+    count)."""
+    done = [compact_rows_plain(rows, mask, cap, out, offset) for cap, out, offset in dests]
+    return [out for out, _ in done], done[0][1]
+
+
 def compact_rows(rows: torch.Tensor, mask: torch.Tensor, capacity: int,
                  out: Optional[torch.Tensor] = None, offset: Optional[torch.Tensor] = None):
     """Masked rows in stream order into ``out`` (a new zero-tailed
     [capacity, W] buffer when None) at ``offset``: kernel K5 on CUDA
     tensors, the plain version on CPU tensors.  Returns (out, count)."""
+    outs, count = compact_rows_multi(rows, mask, [(capacity, out, offset)])
+    return outs[0], count
+
+
+def compact_rows_multi(rows: torch.Tensor, mask: torch.Tensor, dests: Sequence[Dest]):
+    """Masked rows in stream order into one or two destinations, each
+    ``(capacity, out or None, offset or None)`` as in ``compact_rows``:
+    one launch of kernel K5 on CUDA tensors, the plain version on CPU
+    tensors.  Returns ([out per destination], count)."""
+    if not 1 <= len(dests) <= 2:
+        raise ValueError(f"compaction takes one or two destinations, got {len(dests)}")
     if rows.is_cuda:
-        return cuda_compact.compact_rows_cuda(rows, mask, capacity, out, offset)
+        return cuda_compact.compact_rows_multi_cuda(rows, mask, dests)
     if rows.device.type != "cpu":
         raise ValueError(f"compaction runs on CUDA or CPU tensors, got {rows.device}")
-    return compact_rows_plain(rows, mask, capacity, out, offset)
+    return compact_rows_multi_plain(rows, mask, dests)

@@ -2,18 +2,19 @@
 
 Replaces ``slam_process_tpu/ops/pallas_compact.py::compact_rows_pallas``:
 rows int32 [F, W] and a mask [F] in, the masked rows in stream order out,
-written at a device-side offset up to a logical capacity.  The plain
-PyTorch version it is held against is ``ops/compact.py::
-compact_rows_plain``; ``ops/compact.compact_rows`` dispatches here for CUDA
-tensors.  Bound: bytes (each row read once, each slot written once); see
-the source note in ``csrc/compact.cu``.
+written at a device-side offset up to a logical capacity, into one or two
+destinations that share the ranks.  The plain PyTorch version it is held
+against is ``ops/compact.py::compact_rows_multi_plain``;
+``ops/compact.compact_rows`` and ``compact_rows_multi`` dispatch here for
+CUDA tensors.  One launch per call, a single pass with decoupled
+look-back; see the source note in ``csrc/compact.cu``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -21,22 +22,40 @@ from slam_process_tpu_torch.ops import _build
 
 LAUNCHES = 0   # kernel launches since the caller last set it to 0
 _BLOCK = 1024
+_TAIL_ELEMS = 1 << 12     # tail blocks: one per 4,096 int32 elements of capacity, at most 8
+_MAX_TAIL = 8
+_scratch = {}             # (device index, stream) -> the look-back scratch
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = _build.library().slam_compact_rows
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def compact_rows_cuda(rows: torch.Tensor, mask: torch.Tensor, capacity: int,
-                      out: Optional[torch.Tensor] = None,
-                      offset: Optional[torch.Tensor] = None):
-    """(out, count) on the card: see ``ops/compact.compact_rows``."""
+def _scratch_for(dev: torch.device, stream: int, n_tiles: int) -> torch.Tensor:
+    """The ticket word, then one status word per tile: int64 [1 + tiles],
+    zeroed once when made (or grown); every launch leaves it ready for the
+    next on the same stream."""
+    key = (dev.index, stream)
+    s = _scratch.get(key)
+    if s is None or s.numel() < 1 + n_tiles:
+        s = torch.zeros(1 + max(n_tiles, 4096), dtype=torch.int64, device=dev)
+        _scratch[key] = s
+    return s
+
+
+def compact_rows_multi_cuda(rows: torch.Tensor, mask: torch.Tensor,
+                            dests: Sequence[Tuple[int, Optional[torch.Tensor],
+                                                  Optional[torch.Tensor]]]):
+    """([out per destination], count) on the card: see
+    ``ops/compact.compact_rows_multi``."""
     global LAUNCHES
     dev = rows.device
     if not rows.is_cuda or not mask.is_cuda or mask.device != dev:
@@ -49,29 +68,50 @@ def compact_rows_cuda(rows: torch.Tensor, mask: torch.Tensor, capacity: int,
     if mask.dtype != torch.bool or tuple(mask.shape) != (f,) or not mask.is_contiguous():
         raise ValueError(f"compaction kernel needs a contiguous bool [{f}] mask, got "
                          f"{mask.dtype} {list(mask.shape)}")
-    if out is None:
-        if offset is not None:
-            raise ValueError("an offset needs an out tensor")
-        out = torch.empty((capacity, width), dtype=torch.int32, device=dev)
-        zero_tail = 1
-    else:
-        zero_tail = 0
-        if (out.device != dev or out.dtype != torch.int32 or out.dim() != 2
-                or out.shape[1] != width or out.shape[0] < capacity or not out.is_contiguous()):
-            raise ValueError(f"compaction kernel needs a contiguous int32 [>= {capacity}, "
-                             f"{width}] out on {dev}, got {out.dtype} {list(out.shape)} on "
-                             f"{out.device}")
-        if offset is not None and (offset.device != dev or offset.dtype != torch.int32
-                                   or offset.numel() != 1):
-            raise ValueError(f"compaction kernel needs an int32 scalar offset on {dev}")
-    if capacity < 0 or width < 1:
-        raise ValueError(f"bad shape: capacity={capacity}, width={width}")
-    counts = torch.empty(max(1, -(-f // _BLOCK)), dtype=torch.int32, device=dev)
+    if not 1 <= len(dests) <= 2:
+        raise ValueError(f"compaction kernel takes one or two destinations, got {len(dests)}")
+    if width < 1 or f >= 1 << 31:
+        raise ValueError(f"bad shape: F={f}, width={width}")
+    outs, args, tail_elems = [], [], 0
+    for capacity, out, offset in dests:
+        if capacity < 0:
+            raise ValueError(f"bad capacity {capacity}")
+        if out is None:
+            if offset is not None:
+                raise ValueError("an offset needs an out tensor")
+            out = torch.empty((capacity, width), dtype=torch.int32, device=dev)
+            tail_elems = max(tail_elems, capacity * width)
+            zero_tail = int(capacity > 0)
+        else:
+            zero_tail = 0
+            if (out.device != dev or out.dtype != torch.int32 or out.dim() != 2
+                    or out.shape[1] != width or out.shape[0] < capacity
+                    or not out.is_contiguous()):
+                raise ValueError(f"compaction kernel needs a contiguous int32 [>= {capacity}, "
+                                 f"{width}] out on {dev}, got {out.dtype} {list(out.shape)} "
+                                 f"on {out.device}")
+            if offset is not None and (offset.device != dev or offset.dtype != torch.int32
+                                       or offset.numel() != 1):
+                raise ValueError(f"compaction kernel needs an int32 scalar offset on {dev}")
+        outs.append(out)
+        args += [out.data_ptr(), None if offset is None else offset.data_ptr(), capacity,
+                 zero_tail]
+    args += [None, None, 0, 0] * (2 - len(outs))
+    n_tail = min(_MAX_TAIL, -(-tail_elems // _TAIL_ELEMS))
+    stream = _build.stream_of(rows)
+    scratch = _scratch_for(dev, stream, max(1, -(-f // _BLOCK)))
     total = torch.empty((), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = _fn()(rows.data_ptr(), mask.data_ptr(), f, width, counts.data_ptr(),
-                    None if offset is None else offset.data_ptr(), capacity, zero_tail,
-                    out.data_ptr(), total.data_ptr(), _build.stream_of(rows))
+        err = _fn()(rows.data_ptr(), mask.data_ptr(), f, width, scratch.data_ptr(), len(outs),
+                    *args, n_tail, total.data_ptr(), stream)
     _build.check(err, "compaction kernel")
     LAUNCHES += 1
-    return out, total
+    return outs, total
+
+
+def compact_rows_cuda(rows: torch.Tensor, mask: torch.Tensor, capacity: int,
+                      out: Optional[torch.Tensor] = None,
+                      offset: Optional[torch.Tensor] = None):
+    """(out, count) on the card: see ``ops/compact.compact_rows``."""
+    outs, total = compact_rows_multi_cuda(rows, mask, [(capacity, out, offset)])
+    return outs[0], total

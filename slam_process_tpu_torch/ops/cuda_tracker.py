@@ -6,8 +6,9 @@ closed-lane count ``m_eff`` as a device int32 scalar, and the carry pos
 f32 [T, 2], created [T], count int32) and outputs (four [s1, T] column
 blocks and the new carry).  The plain PyTorch version it is held against
 is ``ops/tracker.py::track_block_plain``; ``ops/tracker.track_block``
-dispatches here for CUDA tensors.  One block runs every lane in order;
-see the source note in ``csrc/tracker.cu``.
+dispatches here for CUDA tensors.  One launch of one block: one warp runs
+the live lanes in order while the others stage their inputs, then the
+block writes the dead lanes; see the source note in ``csrc/tracker.cu``.
 """
 
 from __future__ import annotations

@@ -5,10 +5,11 @@ The port of ``slam_process_tpu/parallel/streaming_device.py``'s single
 stream (``DeviceStreamingSession``, ``replay_log_device``, the checkpoint
 helpers).  Each ``chunk_bytes`` window runs, on the session's device:
 decode (kernel K1), the corrector on the closed groups' rows (K2), the
-intensity sums, the open group's carry compaction (K5), the emit-ring
-append (K5), and with ``collect_paths`` the per-sweep sums of the kept
-rows (K4), NN-OMP on the sweeps the window closed and the tracker block
-(K6).  On CPU tensors every kernel's plain version runs instead.
+intensity sums, the open group's carry compaction (K5), one compaction of
+the kept rows (K5) into the emit ring and, with ``collect_paths``, into a
+fresh buffer for the online paths, then the per-sweep sums of those rows
+(K4), NN-OMP on the sweeps the window closed and the tracker block (K6).
+On CPU tensors every kernel's plain version runs instead.
 
 Semantics kept from the JAX package:
 
@@ -57,7 +58,7 @@ from slam_process_tpu_torch.models.nn_omp import OmpPaths
 from slam_process_tpu_torch.models.sweep_estimation import (
     sweep_estimator_body, sweep_estimator_setup)
 from slam_process_tpu_torch.models.tracking import Tracks, track_velocities
-from slam_process_tpu_torch.ops.compact import compact_rows
+from slam_process_tpu_torch.ops.compact import compact_rows, compact_rows_multi
 from slam_process_tpu_torch.ops.correct import correct_rows
 from slam_process_tpu_torch.ops.decode import decode_rows
 from slam_process_tpu_torch.ops.scene import (
@@ -193,32 +194,22 @@ def _kept_rows(frames: torch.Tensor, corrected: torch.Tensor) -> torch.Tensor:
     return torch.stack([frames[:, 1], corrected, frames[:, 3], frames[:, 4]], dim=1)
 
 
-def _emit_kept_rows(state: DeviceStreamState, kept: torch.Tensor, keep: torch.Tensor,
-                    ecap: int) -> None:
-    """Append the kept rows, in stream order, to the emit ring at
-    ``emit_count`` (kernel K5, offset read on the device).  Rows past the
-    logical capacity ``ecap`` are dropped and flagged."""
-    _, n = compact_rows(kept, keep, ecap, out=state.emit_buf, offset=state.emit_count)
-    state.emit_overflow |= state.emit_count + n > ecap
-    state.emit_count = (state.emit_count + n).clamp(max=ecap)
-
-
-def _paths_substep(p: PathsState, kept: torch.Tensor, keep: torch.Tensor,
+def _paths_substep(p: PathsState, kr: torch.Tensor, n_keep: torch.Tensor,
                    spec: StreamPathsSpec, dict_args, beam_ids, close_all: bool) -> None:
     """Advance the online-estimation state by one window's kept rows.
 
-    The kept rows, compacted in stream order (K5), are exactly the offline
-    filtered table's rows, so segmenting them by UE decrease, seeded with
-    ``last_kept_ue``, reproduces ``detect_groups_np(filtered[:, 0])``.  The
-    sweeps the window closes (and at the flush, ``close_all``, the open
-    one if it has cells) go through the per-sweep estimator and the tracker
-    block (K6); the open sweep's sums carry to the next window.
+    ``kr`` holds the window's kept rows compacted in stream order (K5), the
+    first ``n_keep`` of them; they are exactly the offline filtered table's
+    rows, so segmenting them by UE decrease, seeded with ``last_kept_ue``,
+    reproduces ``detect_groups_np(filtered[:, 0])``.  The sweeps the window
+    closes (and at the flush, ``close_all``, the open one if it has cells)
+    go through the per-sweep estimator and the tracker block (K6); the open
+    sweep's sums carry to the next window.
     """
     global HOST_SYNCS
-    dev = kept.device
-    t = kept.shape[0]
+    dev = kr.device
+    t = kr.shape[0]
     s1 = spec.s_step + 1
-    kr, n_keep = compact_rows(kept, keep, t)
     ue, bs, rss, clk = kr.unbind(dim=1)
     idx = torch.arange(t, dtype=torch.int32, device=dev)
     inside = idx < n_keep
@@ -456,6 +447,27 @@ class DeviceStreamingSession:
         return _Window(combined, valid & (rows >= closed), boundary, corrected, keep,
                        c_overflow, n_new)
 
+    def _emit_and_paths(self, kept: torch.Tensor, keep: torch.Tensor, close_all: bool) -> None:
+        """One compaction of the kept rows (K5) for both their consumers:
+        the emit-ring append at ``emit_count`` (offset read on the device;
+        rows past the logical capacity are dropped and flagged) and the
+        online paths' fresh buffer."""
+        st = self._state
+        dests = []
+        if self._ecap:
+            dests.append((self._ecap, st.emit_buf, st.emit_count))
+        if st.paths is not None:
+            dests.append((kept.shape[0], None, None))
+        if not dests:
+            return
+        outs, n = compact_rows_multi(kept, keep, dests)
+        if self._ecap:
+            st.emit_overflow |= st.emit_count + n > self._ecap
+            st.emit_count = (st.emit_count + n).clamp(max=self._ecap)
+        if st.paths is not None:
+            _paths_substep(st.paths, outs[-1], n, self._paths_spec, self._dict_args,
+                           self._beam_ids, close_all)
+
     def _step(self, chunk: torch.Tensor, n_bytes: int) -> None:
         """One window: the JAX package's ``_step_body``, in place."""
         st = self._state
@@ -466,12 +478,7 @@ class DeviceStreamingSession:
         st.counts += d_counts
 
         new_carry, n_carry = compact_rows(w.combined, w.open_mask, self._gcap)          # K5
-        kept = _kept_rows(w.combined, w.corrected)
-        if self._ecap:
-            _emit_kept_rows(st, kept, w.keep, self._ecap)                               # K5
-        if st.paths is not None:
-            _paths_substep(st.paths, kept, w.keep, self._paths_spec, self._dict_args,
-                           self._beam_ids, close_all=False)
+        self._emit_and_paths(_kept_rows(w.combined, w.corrected), w.keep, close_all=False)
 
         st.carry_frames = new_carry
         st.carry_count = n_carry.clamp(max=self._gcap)
@@ -494,12 +501,7 @@ class DeviceStreamingSession:
                                                st.carry_frames[:, 0], cfg.scene)
         st.sums += d_sums
         st.counts += d_counts
-        kept = _kept_rows(st.carry_frames, corrected)
-        if self._ecap:
-            _emit_kept_rows(st, kept, keep, self._ecap)
-        if st.paths is not None:
-            _paths_substep(st.paths, kept, keep, self._paths_spec, self._dict_args,
-                           self._beam_ids, close_all=True)
+        self._emit_and_paths(_kept_rows(st.carry_frames, corrected), keep, close_all=True)
         st.n_kept += keep.sum(dtype=torch.int32)
         st.n_groups += (st.carry_count > 0).to(torch.int32)
         st.overflow |= c_overflow

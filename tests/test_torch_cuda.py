@@ -11,7 +11,9 @@ CPU's log may differ in the last bit).  K4 must equal its plain version
 element for element, ``Session.from_log`` on logs past the corrector's
 default bounds must rerun K2 on the card and equal its CPU run, and
 ``Session.sweep_paths`` on the card must equal its CPU run (power within
-rtol 2e-4).  K5 (compaction, both forms) and K6 (tracker block) must equal
+rtol 2e-4).  K5 (compaction: one destination, two, no rows, 4 M rows
+repeated 200 times) and K6 (tracker block: T * K just above one warp, the
+T = 16, K = 20 limits, 600 lanes, m_eff = s1 - 1 and m_eff > s1) must equal
 their plain versions element for element, and a short device stream on the
 card, launching K1, K2, K4, K5 and K6, must equal the same stream with
 ``device="cpu"`` (power within rtol 2e-4).  ``Session.path_tracks`` with
@@ -198,6 +200,95 @@ def test_tracker_kernel_matches_plain(m_eff):
     assert cuda_tracker.LAUNCHES == 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("s1,k_n,t_n,m_eff,grid", [
+    (65, 5, 8, 65, False),      # T * K = 40: just above one warp's 32 pairs
+    (40, 20, 16, 40, False),    # the limits: 320 pairs, ten per thread
+    (40, 20, 16, 40, True),     # the limits on an integer grid: exact ties across threads
+    (600, 3, 8, 600, False),    # offline length: two staging tiles
+    (600, 20, 16, 600, True),   # eight staging tiles
+    (65, 3, 8, 64, False),      # m_eff = s1 - 1
+    (65, 3, 8, 80, False),      # m_eff > s1
+])
+def test_tracker_kernel_shapes_match_plain(s1, k_n, t_n, m_eff, grid):
+    rng = np.random.default_rng(s1 + k_n + t_n + m_eff + grid)
+    if grid:
+        lanes = [torch.from_numpy(rng.integers(-4, 5, (s1, k_n)).astype(np.float32))
+                 for _ in range(2)]
+    else:
+        lanes = [torch.from_numpy(rng.uniform(-45, 45, (s1, k_n)).astype(np.float32))
+                 for _ in range(2)]
+    lanes.append(torch.from_numpy(rng.uniform(0, 1, (s1, k_n)).astype(np.float32)))
+    val = torch.from_numpy(rng.random((s1, k_n)) < 0.6)
+    args = (torch.tensor(m_eff, dtype=torch.int32), torch.zeros((t_n, 2)),
+            torch.zeros(t_n, dtype=torch.bool), torch.tensor(0, dtype=torch.int32))
+    gate = 6.0 if grid else 15.0
+    cuda_tracker.LAUNCHES = 0
+    got = cuda_tracker.track_block_cuda(*(x.cuda() for x in (*lanes, val, *args)), gate)
+    want = tracker.track_block_plain(*lanes, val, *args, gate)
+    assert cuda_tracker.LAUNCHES == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(want[6]) == t_n and bool(want[3].any())
+
+
+def test_compact_kernel_no_rows():
+    rows = torch.zeros((0, 5), dtype=torch.int32, device="cuda")
+    mask = torch.zeros(0, dtype=torch.bool, device="cuda")
+    ring = torch.full((9, 5), 7, dtype=torch.int32, device="cuda")
+    (fresh, appended), n = cuda_compact.compact_rows_multi_cuda(
+        rows, mask, [(16, None, None), (9, ring, torch.tensor(3, dtype=torch.int32,
+                                                               device="cuda"))])
+    assert int(n) == 0 and not fresh.any() and fresh.shape == (16, 5)
+    assert appended is ring and bool((ring == 7).all())
+
+
+def test_compact_kernel_repeats_exactly_at_4m_rows():
+    """The race test of the look-back: 4,194,304 rows (4,096 tiles, more
+    than the card holds at once) at 50 % density, 200 times, every result
+    equal to the first and the first to the plain version."""
+    f = 4_194_304
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = torch.randint(-(1 << 30), 1 << 30, (f, 5), generator=gen, dtype=torch.int32,
+                         device="cuda")
+    mask = torch.rand(f, generator=gen, device="cuda") < 0.5
+    cap = (1 << 21) + 5_000          # about the masked count: rows drop or the tail is zeroed
+    ring = torch.zeros((f, 5), dtype=torch.int32, device="cuda")
+    offset = torch.tensor(12_345, dtype=torch.int32, device="cuda")
+    dests = [(cap, None, None), (f, ring, offset)]
+    (first, first_ring), n = cuda_compact.compact_rows_multi_cuda(rows, mask, dests)
+    (want, want_ring), n_want = compact.compact_rows_multi_plain(
+        rows, mask, [(cap, None, None), (f, torch.zeros_like(ring), offset)])
+    assert torch.equal(first, want) and torch.equal(first_ring, want_ring)
+    assert int(n) == int(n_want)
+    first_ring = first_ring.clone()
+    for _ in range(200):
+        (got, got_ring), n_got = cuda_compact.compact_rows_multi_cuda(rows, mask, dests)
+        assert torch.equal(got, first) and torch.equal(got_ring, first_ring)
+        assert int(n_got) == int(n)
+
+
+@pytest.mark.parametrize("offset,cap", [(8192, 8192), (0, 1000), (7000, 8192)])
+def test_compact_kernel_two_destinations_match_plain(offset, cap):
+    """The stream's fused call on a 1 MiB window's shape (103,518 rows):
+    the emit-ring append at ``offset`` (at the capacity: nothing lands;
+    a capacity below the masked count: rows drop) and the paths' fresh
+    buffer, against two plain calls."""
+    rng = np.random.default_rng(offset + cap)
+    f = 103_518
+    rows = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, (f, 4)).astype(np.int32))
+    mask = torch.from_numpy(rng.random(f) < 0.9)
+    ring = torch.from_numpy(rng.integers(-9, 9, (cap + 3, 4)).astype(np.int32))
+    off = torch.tensor(offset, dtype=torch.int32)
+    cuda_compact.LAUNCHES = 0
+    (got_ring, got_fresh), n = cuda_compact.compact_rows_multi_cuda(
+        rows.cuda(), mask.cuda(), [(cap, ring.cuda(), off.cuda()), (f, None, None)])
+    assert cuda_compact.LAUNCHES == 1
+    want_ring, n_want = compact.compact_rows_plain(rows, mask, cap, out=ring.clone(), offset=off)
+    want_fresh, _ = compact.compact_rows_plain(rows, mask, f)
+    assert torch.equal(got_ring.cpu(), want_ring) and torch.equal(got_fresh.cpu(), want_fresh)
+    assert int(n) == int(n_want)
 
 
 def test_stream_on_card_matches_cpu(tmp_path):

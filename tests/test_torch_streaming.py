@@ -130,6 +130,36 @@ def test_stream_equals_offline(raw, spec, offline, chunk):
     np.testing.assert_array_equal(raw_times, times)
 
 
+@pytest.mark.parametrize("kind", ["filtered_and_paths", "filtered", "paths"])
+def test_window_compacts_kept_rows_once(raw, spec, offline, monkeypatch, kind):
+    """A window makes two compactions: the open-group carry and one
+    ``compact_rows_multi`` of the kept rows for every consumer (the emit
+    ring and the online paths); the flush makes the second only.  The
+    stream still equals the offline port."""
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+
+    calls, windows = [], []
+    for name in ("compact_rows", "compact_rows_multi"):
+        real = getattr(sd, name)
+        monkeypatch.setattr(sd, name, lambda *a, _n=name, _f=real: (
+            calls.append((_n, len(a[2]) if _n == "compact_rows_multi" else 1)) or _f(*a)))
+    step = sd.DeviceStreamingSession._step
+    monkeypatch.setattr(sd.DeviceStreamingSession, "_step",
+                        lambda self, *a: windows.append(1) or step(self, *a))
+    kw = {"filtered_and_paths": dict(collect_filtered=True, collect_paths=spec),
+          "filtered": dict(collect_filtered=True), "paths": dict(collect_paths=spec)}[kind]
+    s = replay(raw, 1 << 12, **kw)
+    n_dest = 2 if kind == "filtered_and_paths" else 1
+    assert len(windows) > 5
+    assert calls == [("compact_rows", 1), ("compact_rows_multi", n_dest)] * len(windows) + [
+        ("compact_rows_multi", n_dest)]
+    _, res, paths, valid, times, tracks = offline
+    if "collect_filtered" in kw:
+        np.testing.assert_array_equal(s.filtered, res.filtered)
+    if "collect_paths" in kw:
+        assert_same_paths(readers(s), ((paths, valid), times, tracks))
+
+
 @pytest.fixture(scope="module")
 def jax_pair(raw, angles):
     """The same bytes through both packages' streams at 8 KiB windows,

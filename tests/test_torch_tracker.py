@@ -3,8 +3,9 @@
 ``ops/tracker.track_block_plain`` against ``track_block_pallas(...,
 interpret=True)`` and the numpy oracle ``track_sweep_step_np`` lane by
 lane, exactly: random blocks, any split of the sweep axis into blocks,
-``m_eff = 0`` (a carry no-op), planted exact ties (the lowest flat index
-``t * K + k`` wins) and costs exactly at and just past ``gate2``.  Then
+``m_eff = 0`` (a carry no-op), ``m_eff`` past s1, planted exact ties (the
+lowest flat index ``t * K + k`` wins), costs exactly at and just past
+``gate2``, and the largest block (T = 16, K = 20) with ties on a grid.  Then
 ``models/tracking.track_paths`` against ``track_paths_jax`` and
 ``track_paths_np``, and the copied numpy code against the JAX package's.
 ``tests/test_pallas_tracker.py`` is the model.
@@ -127,6 +128,43 @@ def test_planted_ties_and_gate_boundary():
     np.testing.assert_array_equal(ref.power[:, 1:], [[4, 7], [6, 0], [5, 9], [0, 8]])
     for fn in (track_block_plain, run_pallas):
         assert_tracks(run_blocks(fn, aoa, aod, pw, val, 4, 5.0, 3, [3]), ref)
+
+
+@pytest.mark.parametrize("grid,extra_lanes", [(False, 0), (True, 1), (True, 0)])
+def test_block_at_the_limits_matches_pallas_and_oracle(grid, extra_lanes):
+    """T = 16 tracks and K = 20 paths, the largest block the kernel takes
+    (320 pairs, ten per thread of its one warp).  On an integer grid many
+    costs tie exactly, so the lowest flat index must win across pairs that
+    different threads hold.  ``extra_lanes = 1`` leaves one dead lane after
+    the live ones (m_eff = s1 - 1)."""
+    rng = np.random.default_rng(16 + 20 * grid + extra_lanes)
+    s_n, k_n, t_n = 12, 20, 16
+    gate = 6.0 if grid else 15.0
+    aoa, aod, pw, val = random_case(rng, s_n, k_n)
+    if grid:
+        aoa = rng.integers(-4, 5, (s_n, k_n)).astype(np.float32)
+        aod = rng.integers(-4, 5, (s_n, k_n)).astype(np.float32)
+    ref = tracking.track_paths_np(aoa, aod, pw, val, max_tracks=t_n, gate_deg=gate)
+    assert ref.n_tracks >= t_n - 1 and ref.observed[:, 1:].sum() > 3 * (s_n - 1)
+    for fn in (track_block_plain, track_block, run_pallas):
+        assert_tracks(run_blocks(fn, aoa, aod, pw, val, t_n, gate, s_n + extra_lanes, [s_n]),
+                      ref)
+
+
+def test_meff_past_s1_runs_every_lane():
+    """m_eff > s1 (more sweeps closed than the block holds) runs all s1
+    lanes, as m_eff = s1 does."""
+    rng = np.random.default_rng(8)
+    s1, k_n, t_n = 9, 5, 8
+    lanes = [torch.from_numpy(x) for x in random_case(rng, s1, k_n)]
+    carry = (torch.zeros((t_n, 2)), torch.zeros(t_n, dtype=torch.bool),
+             torch.tensor(0, dtype=torch.int32))
+    want = track_block_plain(*lanes, torch.tensor(s1, dtype=torch.int32), *carry, 10.0)
+    assert int(want[6]) > 0
+    for fn in (track_block_plain, run_pallas):
+        got = fn(*lanes, torch.tensor(s1 + 7, dtype=torch.int32), *carry, 10.0)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("s_n,k_n,t_n", [(25, 3, 8), (7, 5, 3), (0, 3, 8)])
