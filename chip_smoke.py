@@ -10,9 +10,19 @@ Phases, each printing one JSON line:
   2. build      nvcc builds kernels K1-K6 from ``slam_process_tpu_torch/csrc``.
   3. kernels    each kernel against its plain PyTorch version on the card, at
                 the main path's shapes and on edge cases: K1, K2, K4, K5 and
-                K6 equal element for element; K3 ``blurred`` within 1e-5 relative,
+                K6 equal element for element; K3 ``blurred`` bit-equal,
                 ``norm_t`` within 1e-4 absolute, the same NaN pattern, LUT-bin
                 flips in under 0.1 % of cells, premultiplied rgba within 1e-3.
+                K2's cases: the full session, a planted exact-tol table and
+                every input of ``utils/synthetic.verdict_edge_cases`` (blocks
+                over three and over more than four groups, empty groups, gid
+                out of range and negative CLK, residues straddling 0 / cycle,
+                ties, resid == tol at the residue buckets' edges, cycle 60,000
+                with tol 300, bmax 4, 256 and 300 with 257 groups, residues
+                past cycle, 2 tol + 1 = cycle).  K3's: the session tile,
+                random tiles, all-NaN and one-cell tiles, then S = 1, 4 and
+                66 tiles of 64 x 64, 48 x 100 and 5 x 7 at sigma 0, 0.5, 1,
+                2.3 and 3, log and linear.
                 K4's cases: the full session's filtered rows (58 sweeps), an
                 unsorted stream over 65 sweeps, out-of-range ids and invalid
                 rows, one cell summing to 2^24 - 1, 66 sweeps, no rows.
@@ -78,7 +88,9 @@ Phases, each printing one JSON line:
                 twice per window (the carry; one fused call for the kept
                 rows) and once per flush, or the run fails.
   7. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
-                alone, its plain version on the card, the library yardsticks
+                alone, its plain version on the card, K1 and K2 at the two
+                stream windows (the live feed's 64 KiB window after its
+                carry, the replay's 1 MiB window), the library yardsticks
                 (K4: two ``torch.bincount`` calls; K5: ``rows[mask]``), K5's
                 fused kept-row call against the two calls it replaced, the
                 whole ``run_session_on_device`` in frames/s at both sizes, and
@@ -89,8 +101,11 @@ Phases, each printing one JSON line:
                 ``torch.profiler``: the device's busy time, its share, the top
                 ops, and the estimator's host syncs.
 
-Then the ``bounds`` and ``kernels`` JSON lines, and as the last line
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  Data
+Every kernel's launches are counted on each path (phases 4, 5 and 6, the
+counters set to 0 just before and read just after), reported in the
+``kernels`` line as ``launches_by_path``; ``launches`` is the count on the
+kernel's own path.  Then the ``bounds`` and ``kernels`` JSON lines, and as
+the last line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  Data
 is synthetic, made from fixed seeds; temporary logs go under ``build/``.
 """
 
@@ -107,10 +122,12 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor f32.
-# int32: the issue rate, one warp instruction per SM sub-partition per clock
-# = 128 lanes per SM (the 64-lane INT pipe and IMAD on the FMA pipe together),
-# x 132 SMs x 1.98 GHz boost.  No integer mix can exceed it, so a bound from
-# it never flatters a kernel.
+# int32: 128 instructions per SM per clock (four schedulers, one 32-lane
+# warp instruction each) x 132 SMs x 1.98 GHz boost = 33.45 T op/s.  The
+# white paper's 64 INT32 cores per SM are one pipe: IMAD issues to the FMA
+# pipe beside it.  tools/int32_rate.py measured per SM per clock 63.6 IMAD
+# alone and 101 integer instructions of add / xor code (compiled to LOP3 +
+# IMAD) on an NVIDIA H100 80GB HBM3 at 700.00 W, so 64 is not a peak.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_INT32_PER_S = 132 * 128 * 1.98e9
@@ -183,9 +200,18 @@ def run(tmp: Path) -> None:
         bucket_size, pad_bytes, run_session_on_device)
     from slam_process_tpu_torch.pipeline.session import Session
     from slam_process_tpu_torch.utils.synthetic import (
-        synthetic_session_bytes, to_hex_text, write_angle_table)
+        synthetic_session_bytes, to_hex_text, verdict_edge_cases, write_angle_table)
 
     dev = torch.device("cuda")
+    counted = {"K1": cuda_decode, "K2": cuda_correct, "K3": cuda_raster,
+               "K4": cuda_sweep_sums, "K5": cuda_compact, "K6": cuda_tracker}
+
+    def zero_counts():
+        for m in counted.values():
+            m.LAUNCHES = 0
+
+    def read_counts():
+        return {k: m.LAUNCHES for k, m in counted.items()}
 
     # -- 1. env ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -238,12 +264,15 @@ def run(tmp: Path) -> None:
                 fail(f"{key} {case}: kernel and plain version differ")
         cases.append(f"{key}:{case}")
 
-    def raster_close(key, case, got, want, flips_max=1e-3):
-        """got / want = (rgba, norm_t, blurred)."""
+    def raster_close(key, case, got, want, flips_max=1e-3, bit_equal=True):
+        """got / want = (rgba, norm_t, blurred); ``blurred`` bit-equal, or
+        within 1e-5 relative where two devices are compared."""
         (rgba, t, b), (rgba_p, t_p, b_p) = got, want
         if not torch.equal(torch.isnan(b), torch.isnan(b_p)) or not torch.equal(
                 torch.isnan(t), torch.isnan(t_p)):
             fail(f"{key} {case}: NaN patterns differ")
+        if bit_equal and not torch.equal(b.nan_to_num(0.0), b_p.nan_to_num(0.0)):
+            fail(f"{key} {case}: blurred is not bit-equal")
         if not torch.allclose(b, b_p, rtol=1e-5, atol=0.0, equal_nan=True):
             fail(f"{key} {case}: blurred beyond 1e-5 relative")
         fin = ~torch.isnan(t)
@@ -285,6 +314,10 @@ def run(tmp: Path) -> None:
         g_pl.to(dev), c_pl.to(dev), p_pl.to(dev), **pl_args))
     if not bool(got[0][3]):
         fail("K2 planted_tol: the baseline at exactly tol was not accepted")
+    for case, (g_e, c_e, p_e, kw) in verdict_edge_cases().items():
+        args = [torch.from_numpy(x).to(dev) for x in (g_e, c_e, p_e)]
+        exact("K2", case, cuda_correct.correct_verdicts_cuda(*args, **kw),
+              correct.baseline_plane_verdicts(*args, **kw))
 
     # K3: the session tile; random RSS-sized tiles with NaNs; all-NaN and
     # one-cell tiles; log and linear norm.
@@ -299,6 +332,12 @@ def run(tmp: Path) -> None:
             raster_close("K3", f"{case}_log={use_log}",
                          cuda_raster.raster_tiles_cuda(mats, lut, taps, use_log),
                          raster.raster_tiles_plain(mats, lut, taps, use_log))
+    for (s_n, shape, sigma), mats in k3_cases(torch).items():
+        mats, taps_s = mats.to(dev), raster.blur_taps(sigma, dev)
+        for use_log in (True, False):
+            raster_close("K3", f"S{s_n}_{shape[0]}x{shape[1]}_sigma{sigma}_log={use_log}",
+                         cuda_raster.raster_tiles_cuda(mats, lut, taps_s, use_log),
+                         raster.raster_tiles_plain(mats, lut, taps_s, use_log))
 
     # K4: (a) the main path's rows; (b)-(f) the edge cases.
     for case, (p4, b4, v4, s4) in k4_cases(np, torch, dev, k4_p, k4_bs, k4_val,
@@ -382,14 +421,13 @@ def run(tmp: Path) -> None:
         paths.append(path)
         raws.append(raw)
 
-    for m in (cuda_decode, cuda_correct, cuda_raster):
-        m.LAUNCHES = 0
+    zero_counts()
     t0 = time.perf_counter()
     sessions = [Session.from_log(p) for p in paths]
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {"K1": cuda_decode.LAUNCHES, "K2": cuda_correct.LAUNCHES,
-                "K3": cuda_raster.LAUNCHES}
+    by_path = {"main_path": read_counts()}
+    launches = {k: by_path["main_path"][k] for k in ("K1", "K2", "K3")}
     if min(launches.values()) == 0:
         fail(f"a kernel of the main path never launched: {launches}")
 
@@ -428,7 +466,8 @@ def run(tmp: Path) -> None:
             fail(f"full session: {field} differs between cuda and cpu")
     raster_close("pipeline", "full_cuda_vs_cpu",
                  tuple(getattr(out_full, f).cpu()[None] for f in ("rgba", "norm_t", "blurred")),
-                 tuple(getattr(out_cpu, f)[None] for f in ("rgba", "norm_t", "blurred")))
+                 tuple(getattr(out_cpu, f)[None] for f in ("rgba", "norm_t", "blurred")),
+                 bit_equal=False)
     if out_full.rgba.shape != (64, 64, 4) or not torch.isfinite(out_full.rgba).all():
         fail("full session: rgba is not a finite [64, 64, 4] raster")
     emit({"phase": "main_path", "sessions": len(sessions),
@@ -440,12 +479,13 @@ def run(tmp: Path) -> None:
 
     # -- 5. sweep_paths: per-sweep NN-OMP on the phase-4 sessions ----------------
     angles = write_angle_table(tmp / "beam_angle.xlsx")
-    cuda_sweep_sums.LAUNCHES = 0
+    zero_counts()
     t0 = time.perf_counter()
     results = [s.sweep_paths(angles) for s in sessions]
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
-    launches["K4"] = cuda_sweep_sums.LAUNCHES
+    by_path["sweep_paths"] = read_counts()
+    launches["K4"] = by_path["sweep_paths"]["K4"]
     if launches["K4"] == 0:
         fail("K4 never launched on the per-sweep path")
 
@@ -482,8 +522,8 @@ def run(tmp: Path) -> None:
 
     # -- 6. streaming ------------------------------------------------------------
     stream_out = streaming_phase(np, torch, sd, nnls, tmp, angles, raws[MP], raw_ds, raws[0],
-                                 {"K1": cuda_decode, "K2": cuda_correct, "K4": cuda_sweep_sums,
-                                  "K5": cuda_compact, "K6": cuda_tracker}, dev)
+                                 counted, dev)
+    by_path["streaming"] = stream_out["launches"]
     launches.update(K5=stream_out["launches"]["K5"], K6=stream_out["launches"]["K6"])
     emit({"phase": "streaming", **stream_out})
 
@@ -565,6 +605,23 @@ def run(tmp: Path) -> None:
         torch.bincount(k4_cell, weights=k4_weights, minlength=k4_cells + 1),
         torch.bincount(k4_cell, minlength=k4_cells + 1)), inner=20),
         "K5": cuda_ms(lambda: k5["rows"][k5["open"]], inner=20)}
+    # K1 and K2 at the two stream windows: the inputs of each stream's
+    # second full window (after the first one's open group is carried).
+    stream_windows = {}
+    for name, raw_w, chunk in (("live_64KiB", raws[MP], LIVE_CHUNK),
+                               ("replay_1MiB", raw_ds, REPLAY_CHUNK)):
+        (a1, k1w), (a2, k2w) = stream_window_inputs(sd, cuda_decode, cuda_correct, raw_w,
+                                                    chunk, dev)
+        n_b, n_r = a1[0].numel(), a2[0].numel()
+        rows_w = cuda_decode.decode_rows_cuda(*a1, **k1w)[0].shape[0]
+        cand_w, steps_w = k2_work(torch, *a2, **k2w)
+        k2_bytes_w, k2_ops_w = n_r * 17 + a2[2].numel() * 4, k2_ops(cand_w, steps_w, n_r)
+        stream_windows[name] = {
+            "bytes": n_b, "rows": n_r, "k2_candidates": cand_w, "k2_search_steps": steps_w,
+            "K1_ms": cuda_ms(lambda: cuda_decode.decode_rows_cuda(*a1, **k1w), inner=20),
+            "K2_ms": cuda_ms(lambda: cuda_correct.correct_verdicts_cuda(*a2, **k2w), inner=20),
+            "K1_bound_ms_bytes": (n_b + rows_w * 21 + 4) / PEAK_BYTES_PER_S * 1e3,
+            "K2_bound_ms": max(k2_bytes_w / PEAK_BYTES_PER_S, k2_ops_w / PEAK_INT32_PER_S) * 1e3}
     session_ms = cuda_ms(lambda: run_session_on_device(raw_full, device=dev), primed=False)
     dataset_ms = cuda_ms(lambda: [run_session_on_device(r, device=dev) for r in raws[DS]],
                          primed=False)
@@ -610,7 +667,7 @@ def run(tmp: Path) -> None:
                        "device_activities": acts_w, "top_us": top_w[:5]}})
 
     emit({"phase": "timing", "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-          "k5_kept_rows_1MiB_window_ms": k5_kept_ms,
+          "k5_kept_rows_1MiB_window_ms": k5_kept_ms, "stream_windows": stream_windows,
           "full_session": {"frames": n_full, "ms": session_ms,
                            "frames_per_s": n_full / (session_ms / 1e3)},
           "dataset": {"sessions": len(DATASET), "frames": dataset_frames, "ms": dataset_ms,
@@ -636,17 +693,16 @@ def run(tmp: Path) -> None:
     # written once; a mask test and a rank add per row.  K6: 13 B per (live
     # lane, path) read, 13 B per (lane, track) written, the carry both ways;
     # per live lane and round, 6 operations per (track, path) pair.  K1: a
-    # flag test (3 ops) at every position,
-    # the ten tag-class tests (30 ops) only where a flag byte sits, the
-    # assembly and row write (28 ops) only at the frame starts.  K2: 8 ops
-    # per (real frame, live baseline of its group) pair and 10 per row.  K4:
+    # flag test (3 ops) at every position, the ten tag-class tests (30 ops)
+    # only where a flag byte sits, the assembly and row write (28 ops) only
+    # at the frame starts.  K2: 17 B per row and the table; the operations
+    # of the candidates and search steps that ``k2_work`` counts.  K4:
     # p (4 B) of every row read, bs and val (8 B) only of the kept rows, and
     # 8 B per cell of float32 written (its integer scratch is the kernel's
     # choice, not the function's); two atomics per kept row.
     flag_positions = int(((padded == 0xCC) | (padded == 0x33)).sum())
     n_starts = int(out_full.n_frames)
-    live = packed[:, 3 * MAX_BASELINES].long().clamp(max=MAX_BASELINES)[gid.long()]
-    k2_pairs = int(live[valid].sum())
+    k2_cand, k2_steps = k2_work(torch, gid, clk, packed, **verdict_args)
     k4_kept = int((k4_p >= 0).sum())
     k5_masked = int(k5["open"].sum())
     # The fused kept-row call: every mask byte, the 16 B payload of the kept
@@ -655,7 +711,7 @@ def run(tmp: Path) -> None:
     bounds = {
         "K1": (n_bytes + rows * 21 + 4, n_bytes * 3 + flag_positions * 30 + n_starts * 28,
                PEAK_INT32_PER_S),
-        "K2": (rows * 8 + packed.numel() * 4 + rows * 9, k2_pairs * 8 + rows * 10,
+        "K2": (rows * 8 + packed.numel() * 4 + rows * 9, k2_ops(k2_cand, k2_steps, rows),
                PEAK_INT32_PER_S),
         "K3": (64 * 64 * 4 + 256 * 16 + 49 * 4 + 64 * 64 * 24, 64 * 64 * (49 * 4 + 30),
                PEAK_F32_PER_S),
@@ -680,12 +736,14 @@ def run(tmp: Path) -> None:
         rows_out.append({
             "name": f"{key} {name}", "route": "cuda",
             "source": f"slam_process_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": launches[key], "max_abs_err": err[key], "ms": ms[key],
+            "launches": launches[key],
+            "launches_by_path": {path: n[key] for path, n in by_path.items()},
+            "max_abs_err": err[key], "ms": ms[key],
             "plain_ms": plain_ms[key], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms.get(key)})
     emit({"phase": "bounds", "k1_flag_positions": flag_positions, "k1_starts": n_starts,
-          "k2_row_baseline_pairs": k2_pairs,
+          "k2_candidates": k2_cand, "k2_search_steps": k2_steps,
           "K1_bytes_ops": bounds["K1"][:2], "K2_bytes_ops": bounds["K2"][:2],
           "K3_bytes_ops": bounds["K3"][:2], "K4_rows": k4_p.numel(), "K4_sweeps": n_sweeps,
           "K4_kept": k4_kept, "K4_bytes_ops": bounds["K4"][:2],
@@ -729,6 +787,96 @@ def device_profile(torch, fn, count=()):
     if count:
         out += ({part: sum(part in e.name for e in acts) for part in count},)
     return out
+
+
+def k3_cases(torch) -> dict:
+    """K3's tiles {(S, (h, w), sigma): mats [S, h, w] on the CPU}: S = 1, 4
+    and 66 random RSS-sized tiles with 5 % NaN (where S > 1, tile 0 all NaN
+    and tile 1 one finite cell) of 64 x 64, 48 x 100 and 5 x 7 (fewer rows
+    than the cluster's eight bands), at sigma 0, 0.5, 1, 2.3 and 3 (1 x 1 to
+    19 x 19 taps: 7 x 7 through the kernel built for that width, the others
+    through the one that reads the width at run time)."""
+    out = {}
+    for s in (1, 4, 66):
+        for shape in ((64, 64), (48, 100), (5, 7)):
+            gen = torch.Generator().manual_seed(s * 1000 + shape[1])
+            mats = torch.rand((s, *shape), generator=gen) * (1 << 18)
+            mats[torch.rand((s, *shape), generator=gen) < 0.05] = float("nan")
+            if s > 1:
+                mats[:2] = float("nan")
+                mats[1, shape[0] // 2, shape[1] // 3] = 1234.0
+            for sigma in (0.0, 0.5, 1.0, 2.3, 3.0):
+                out[(s, shape, sigma)] = mats
+    return out
+
+
+def k2_work(torch, gid, clk, packed, *, bmax, cycle, tol):
+    """(candidates, search steps) that the corrector's verdicts need on these
+    inputs.  Candidates: per row, the live baselines of its group whose
+    residue lies within ``tol`` of the row's (resid <= tol, the formula of
+    ``ops/correct.py::baseline_plane_verdicts``), the only ones the minimum
+    is taken over.  Search steps: per row with a group, 2 ceil(log2(n + 1))
+    compares to find the two ends of its arc in the group's n sorted
+    residues.  Counted on the card, in slices of rows."""
+    g_rows = packed.shape[0]
+    r_tab = ((packed[:, :bmax].int() << 8) | packed[:, bmax:2 * bmax].int())
+    n_tab = packed[:, 3 * bmax].int().clamp(0, bmax)
+    cols = torch.arange(bmax, device=packed.device, dtype=torch.int32)
+    half = cycle // 2
+    cand = steps = 0
+    for lo in range(0, gid.numel(), 1 << 16):
+        g, c = gid[lo:lo + (1 << 16)], clk[lo:lo + (1 << 16)]
+        ok = (g >= 0) & (g < g_rows)
+        gg = g.long().clamp(0, g_rows - 1)
+        n = torch.where(ok, n_tab[gg], 0)
+        diff = torch.remainder(c, cycle)[:, None] - r_tab[gg]
+        k_frac = (diff >= cycle - half).int() - (diff < -half).int()
+        live = cols[None, :] < n[:, None]
+        cand += int((((diff - k_frac * cycle).abs() <= tol) & live).sum())
+        steps += int((2 * torch.ceil(torch.log2(n[ok].double() + 1))).sum())
+    return cand, steps
+
+
+def k2_ops(candidates, steps, rows):
+    """K2's int32 operations: 8 per candidate scored (difference, two
+    compares, the wrap, |.|, the test, the packed score, the minimum), 2 per
+    search step (a compare and a select), 10 per row (the floor division,
+    the outputs)."""
+    return candidates * 8 + steps * 2 + rows * 10
+
+
+def stream_window_inputs(sd, cuda_decode, cuda_correct, raw, chunk, dev):
+    """((args, kwargs) of K1's call, the same of K2's) in a stream's second
+    full window of ``chunk`` bytes, recorded from the wrappers while the
+    stream runs: the second window (a first feed of ``chunk`` bytes runs
+    one full window and keeps 10 bytes; the second feed runs a full window,
+    then a 20-byte one)."""
+    calls = {"K1": [], "K2": []}
+    plain = {"K1": (cuda_decode, "decode_rows_cuda"), "K2": (cuda_correct, "correct_verdicts_cuda")}
+
+    def recorder(key):
+        mod, attr = plain[key]
+        fn = getattr(mod, attr)
+
+        def call(*args, **kw):
+            calls[key].append((args, kw))
+            return fn(*args, **kw)
+        return call
+
+    originals = {key: getattr(mod, attr) for key, (mod, attr) in plain.items()}
+    for key, (mod, attr) in plain.items():
+        setattr(mod, attr, recorder(key))
+    try:
+        s = sd.DeviceStreamingSession(chunk_bytes=chunk, collect_filtered=True, device=dev)
+        s.feed(raw[:chunk])
+        s.feed(raw[chunk:2 * chunk])
+    finally:
+        for key, (mod, attr) in plain.items():
+            setattr(mod, attr, originals[key])
+    if min(len(calls["K1"]), len(calls["K2"])) < 2 or calls["K1"][1][0][1] != chunk:
+        fail(f"stream window of {chunk} bytes: the second window is not a full one "
+             f"({len(calls['K1'])} K1 and {len(calls['K2'])} K2 calls)")
+    return calls["K1"][1], calls["K2"][1]
 
 
 def k4_cases(np, torch, dev, p, bs, val, n_sweeps):
@@ -920,7 +1068,7 @@ def streaming_phase(np, torch, sd, nnls, tmp, angles, raw_live, raw_ds, raw_stra
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {k: m.LAUNCHES for k, m in kernels.items()}
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in ("K1", "K2", "K4", "K5", "K6")) == 0:
         fail(f"a kernel of the streaming path never launched: {launches}")
     # Two K5 calls per window (K1 decodes once per window: the carry, and one
     # fused call for the kept rows), and the fused one at each stream's flush.

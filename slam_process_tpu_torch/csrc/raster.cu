@@ -1,7 +1,6 @@
-// K3: fused raster of [S, H, W] intensity tiles, one thread block per tile:
-// NaN-aware normalised Gaussian blur with replicate padding, then the
-// shifted-log (or linear) norm over the tile's finite range, then the
-// colormap LUT.
+// K3: fused raster of [S, H, W] intensity tiles: NaN-aware normalised
+// Gaussian blur with replicate padding, then the shifted-log (or linear)
+// norm over the tile's finite range, then the colormap LUT.
 //
 // Replaces slam_process_tpu/ops/pallas_raster.py::pallas_rasterize_batch
 // (_raster_kernel).  Per tile: pad_v / pad_m = the tile's finite values
@@ -13,80 +12,160 @@
 //               max(log(max(mx - mn + 1e-6, 1e-30)) - log(1e-6), 1e-30),
 // linear:   t = (b - mn) / max(mx - mn, 1e-30); t clipped to [0, 1];
 // rgba = lut[clip(int(t * n_lut), 0, n_lut - 1)] for finite b, else 0.
-// The multiply-adds use __fmul_rn / __fadd_rn (no FMA contraction), so the
-// blur is bit-identical to the plain PyTorch version, which sums in the same
-// order.  f32 throughout; no tensor cores, so no TF32.
+// The multiply-adds use __fmul_rn / __fadd_rn (no FMA contraction) in the
+// same row-major order as the plain PyTorch version, so `blurred` is
+// bit-equal to it.  f32 throughout; no tensor cores, so no TF32.
 //
 // Bound on an H100: at 64 x 64 a tile moves ~120 KB (16 KB in, 96 KB of
-// outputs, the 4 KB LUT) and does ~0.4 M flops, well under a microsecond
-// either way, so one launch is bound by launch latency.  Design: one block
-// of 1,024 threads per tile holds the padded tile, its mask, the taps and
-// the LUT in shared memory (43 KB at 64 x 64), so each thread's chain of
-// dependent multiply-adds covers 4 pixels, not 16 as with 256 threads; the
-// colormap is a direct indexed read of the LUT, not the TPU's one-hot LUT
-// matmul.
+// outputs, the 4 KB LUT) and does ~0.9 M flops, well under a microsecond
+// either way.  What costs is latency: one block on one SM walking every
+// pixel's 49-tap chain leaves 131 SMs idle.  Design: one thread-block
+// cluster of 8 blocks per tile (S tiles -> S clusters).  Rank r owns a band
+// of ceil(h / 8) rows and stages only that band plus its kh - 1 halo rows of
+// values and mask in shared memory.  Each thread blurs a pair of vertically
+// adjacent pixels, so every staged value loaded for a padded row serves
+// both pixels' chains; the taps are broadcast from shared memory.  Each
+// block reduces its min / max with warp shuffles and pushes the pair into
+// every rank's shared memory (distributed shared memory stores); one
+// cluster barrier then publishes all eight pairs, so the tile's range needs
+// no global scratch, atomics, second launch or host state (the launch stays
+// capturable in a CUDA graph), and no block reads another's memory after
+// the barrier, so any may exit.  The first phase of the cluster barrier,
+// arrived at on entry and waited on before the pushes, guarantees every
+// block has started.  Then each block normalises and colour-maps its own
+// band, the LUT staged in shared memory beside the tile.  A band is empty
+// when h < 8; its block still joins both barrier phases.  For 7 taps
+// (sigma 1, every caller's) the width is a template parameter, so the tap
+// loops unroll; other widths read it at run time.  The shared-memory opt-in
+// is set once per (process, device) by slam_raster_init, not on every
+// launch.
 
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kBlock = 1024;  // 4 pixels a thread at 64 x 64
+constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
+constexpr int kRanks = 8;      // blocks per tile: the portable cluster size
 
-__global__ void __launch_bounds__(kBlock) raster_kernel(const float* __restrict__ mats, int h, int w,
-                              const float* __restrict__ lut, int n_lut,
-                              const float* __restrict__ taps, int kh, int kw, int use_log,
-                              float* __restrict__ rgba, float* __restrict__ norm_t,
-                              float* __restrict__ blurred) {
-  extern __shared__ float smem[];
-  const int ph = kh / 2, pw = kw / 2;
-  const int hp = h + kh - 1, wp = w + kw - 1;
-  float* pad_v = smem;
-  float* pad_m = pad_v + hp * wp;
-  float* s_lut = pad_m + hp * wp;
-  float* s_taps = s_lut + 4 * n_lut;
-  float* s_red = s_taps + kh * kw;  // [2 * kWarps]
-
-  const long long tile = static_cast<long long>(blockIdx.x) * h * w;
-  const float* mat = mats + tile;
-  for (int i = threadIdx.x; i < hp * wp; i += kBlock) {
-    const int y = min(max(i / wp - ph, 0), h - 1);
-    const int x = min(max(i % wp - pw, 0), w - 1);
-    const float v = mat[y * w + x];
-    const bool fin = isfinite(v);
-    pad_v[i] = fin ? v : 0.0f;
-    pad_m[i] = fin ? 1.0f : 0.0f;
+// One padded row of taps into a pixel's sums; KW > 0 fixes kw at compile
+// time so the loop unrolls and its loads issue together.
+template <int KW>
+__device__ __forceinline__ void blur_row(const float* rv, const float* rm, const float* tap,
+                                         int kw, float& num, float& den) {
+  const int n = KW > 0 ? KW : kw;
+#pragma unroll
+  for (int dx = 0; dx < n; ++dx) {
+    num = __fadd_rn(num, __fmul_rn(tap[dx], rv[dx]));
+    den = __fadd_rn(den, __fmul_rn(tap[dx], rm[dx]));
   }
-  for (int i = threadIdx.x; i < 4 * n_lut; i += kBlock) s_lut[i] = lut[i];
+}
+
+template <int KW>
+__global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kBlock)
+    raster_kernel(const float* __restrict__ mats, int h, int w, const float* __restrict__ lut,
+                  int n_lut, const float* __restrict__ taps, int kh, int kw, int use_log,
+                  float* __restrict__ rgba, float* __restrict__ norm_t,
+                  float* __restrict__ blurred) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float s_red[2 * kWarps];
+  __shared__ float s_all[2 * kRanks];    // every rank's (min, max), pushed by the ranks
+
+  // Arrive on the cluster barrier now and wait on it before the first
+  // remote store: every block of the cluster has then started.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ph = kh / 2, pw = kw / 2;
+  const int band = (h + kRanks - 1) / kRanks;
+  const int r0 = min(rank * band, h);
+  const int rows = min(r0 + band, h) - r0;     // 0 for an empty band
+  const int wp = w + kw - 1;
+  const int pad = (band + kh - 1) * wp;
+  float4* s_lut = reinterpret_cast<float4*>(smem);
+  float* pad_v = smem + 4 * n_lut;
+  float* pad_m = pad_v + pad;
+  float* s_taps = pad_m + pad;
+  float* s_b = s_taps + kh * kw;               // [band, w] blurred
+
+  const long long tile = static_cast<long long>(blockIdx.x / kRanks) * h * w;
+  const float* mat = mats + tile;
+  const int prn = rows > 0 ? rows + kh - 1 : 0;
+  // Stage the band: four loads in flight per thread before their stores.
+  for (int i0 = threadIdx.x; i0 < prn * wp; i0 += 4 * kBlock) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = i0 + j * kBlock;
+      const int y = min(max(r0 + i / wp - ph, 0), h - 1);
+      const int x = min(max(i % wp - pw, 0), w - 1);
+      v[j] = i < prn * wp ? mat[y * w + x] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = i0 + j * kBlock;
+      if (i < prn * wp) {
+        const bool fin = isfinite(v[j]);
+        pad_v[i] = fin ? v[j] : 0.0f;
+        pad_m[i] = fin ? 1.0f : 0.0f;
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < n_lut; i += kBlock)
+    s_lut[i] = reinterpret_cast<const float4*>(lut)[i];
   for (int i = threadIdx.x; i < kh * kw; i += kBlock) s_taps[i] = taps[i];
   __syncthreads();
 
-  // Blur; each thread keeps the NaN-skipping min / max of its own pixels.
+  // Blur: pixels (ya, x) and (ya + 1, x) of the band per unit; padded row
+  // ya + pr is tap row pr of the first and tap row pr - 1 of the second.
   float lo = INFINITY, hi = -INFINITY;
-  for (int p = threadIdx.x; p < h * w; p += kBlock) {
-    const int y = p / w, x = p % w;
-    float num = 0.0f, den = 0.0f;
-    for (int dy = 0; dy < kh; ++dy) {
-      const float* rv = pad_v + (y + dy) * wp + x;
-      const float* rm = pad_m + (y + dy) * wp + x;
-      for (int dx = 0; dx < kw; ++dx) {
-        const float wgt = s_taps[dy * kw + dx];
-        num = __fadd_rn(num, __fmul_rn(wgt, rv[dx]));
-        den = __fadd_rn(den, __fmul_rn(wgt, rm[dx]));
+  const int units = w * ((rows + 1) / 2);
+  for (int u = threadIdx.x; u < units; u += kBlock) {
+    const int x = u % w, ya = 2 * (u / w);
+    const bool two = ya + 1 < rows;
+    float na = 0.0f, da = 0.0f, nb = 0.0f, db = 0.0f;
+    blur_row<KW>(pad_v + ya * wp + x, pad_m + ya * wp + x, s_taps, kw, na, da);
+    for (int pr = 1; pr < kh; ++pr) {
+      const float* rv = pad_v + (ya + pr) * wp + x;
+      const float* rm = pad_m + (ya + pr) * wp + x;
+      const float* ta = s_taps + pr * kw;
+      const float* tb = ta - kw;
+#pragma unroll
+      for (int dx = 0; dx < (KW > 0 ? KW : kw); ++dx) {
+        const float v = rv[dx], m = rm[dx];
+        na = __fadd_rn(na, __fmul_rn(ta[dx], v));
+        da = __fadd_rn(da, __fmul_rn(ta[dx], m));
+        nb = __fadd_rn(nb, __fmul_rn(tb[dx], v));
+        db = __fadd_rn(db, __fmul_rn(tb[dx], m));
       }
     }
-    const float b = den > 1e-12f ? __fdiv_rn(num, fmaxf(den, 1e-30f)) : NAN;
-    blurred[tile + p] = b;
-    if (!isnan(b)) {
-      lo = fminf(lo, b);
-      hi = fmaxf(hi, b);
+    const float ba = da > 1e-12f ? __fdiv_rn(na, fmaxf(da, 1e-30f)) : NAN;
+    s_b[ya * w + x] = ba;
+    blurred[tile + static_cast<long long>(r0 + ya) * w + x] = ba;
+    if (!isnan(ba)) {
+      lo = fminf(lo, ba);
+      hi = fmaxf(hi, ba);
+    }
+    if (two) {
+      blur_row<KW>(pad_v + (ya + kh) * wp + x, pad_m + (ya + kh) * wp + x,
+               s_taps + (kh - 1) * kw, kw, nb, db);
+      const float bb = db > 1e-12f ? __fdiv_rn(nb, fmaxf(db, 1e-30f)) : NAN;
+      s_b[(ya + 1) * w + x] = bb;
+      blurred[tile + static_cast<long long>(r0 + ya + 1) * w + x] = bb;
+      if (!isnan(bb)) {
+        lo = fminf(lo, bb);
+        hi = fmaxf(hi, bb);
+      }
     }
   }
 
-  // Block-wide min / max: warp shuffles, then one value per warp.
+  // The block's min / max, then the tile's through distributed shared memory.
   for (int off = 16; off > 0; off >>= 1) {
     lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
     hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
@@ -97,22 +176,35 @@ __global__ void __launch_bounds__(kBlock) raster_kernel(const float* __restrict_
     s_red[kWarps + warp] = hi;
   }
   __syncthreads();
-  float mn = s_red[0], mx = s_red[kWarps];
-  for (int k = 1; k < kWarps; ++k) {
-    mn = fminf(mn, s_red[k]);
-    mx = fmaxf(mx, s_red[kWarps + k]);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (threadIdx.x < kRanks) {
+    // Thread r pushes the block's pair into rank r's s_all.
+    float mn = s_red[0], mx = s_red[kWarps];
+    for (int k = 1; k < kWarps; ++k) {
+      mn = fminf(mn, s_red[k]);
+      mx = fmaxf(mx, s_red[kWarps + k]);
+    }
+    float* remote = cluster.map_shared_rank(s_all, threadIdx.x);
+    remote[2 * rank] = mn;
+    remote[2 * rank + 1] = mx;
+  }
+  cluster.sync();   // every pair has landed; no block touches another's memory after
+  float mn = s_all[0], mx = s_all[1];
+  for (int k = 1; k < kRanks; ++k) {
+    mn = fminf(mn, s_all[2 * k]);
+    mx = fmaxf(mx, s_all[2 * k + 1]);
   }
 
   const float log_lo = logf(1e-6f);
   const float log_den = fmaxf(logf(fmaxf(__fadd_rn(__fsub_rn(mx, mn), 1e-6f), 1e-30f)) - log_lo,
                               1e-30f);
   const float lin_den = fmaxf(__fsub_rn(mx, mn), 1e-30f);
-  float4* out4 = reinterpret_cast<float4*>(rgba + 4 * tile);
-  // Each thread reads back only the blurred values it wrote itself.
-  for (int p = threadIdx.x; p < h * w; p += kBlock) {
-    const float b = blurred[tile + p];
+  float4* out4 = reinterpret_cast<float4*>(rgba + 4 * tile) + static_cast<long long>(r0) * w;
+  float* out_t = norm_t + tile + static_cast<long long>(r0) * w;
+  for (int p = threadIdx.x; p < rows * w; p += kBlock) {
+    const float b = s_b[p];
     if (isnan(b)) {
-      norm_t[tile + p] = NAN;
+      out_t[p] = NAN;
       out4[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       continue;
     }
@@ -124,38 +216,60 @@ __global__ void __launch_bounds__(kBlock) raster_kernel(const float* __restrict_
       t = __fdiv_rn(__fsub_rn(b, mn), lin_den);
     }
     t = fminf(fmaxf(t, 0.0f), 1.0f);
-    norm_t[tile + p] = t;
+    out_t[p] = t;
     const int idx = min(max(static_cast<int>(__fmul_rn(t, static_cast<float>(n_lut))), 0),
                         n_lut - 1);
-    out4[p] = make_float4(s_lut[4 * idx], s_lut[4 * idx + 1], s_lut[4 * idx + 2],
-                          s_lut[4 * idx + 3]);
+    out4[p] = s_lut[idx];
   }
 }
 
-// Shared memory one block needs for an h x w tile with kh x kw taps.
+// The kernel that reads kw at run time, and the one for 7 taps (sigma 1,
+// every caller's blur).
+const void* const kKernels[] = {reinterpret_cast<const void*>(raster_kernel<0>),
+                                reinterpret_cast<const void*>(raster_kernel<7>)};
+
+// Dynamic shared memory one block needs for an h x w tile with kh x kw taps.
 long long smem_bytes(int h, int w, int n_lut, int kh, int kw) {
-  const long long pad = static_cast<long long>(h + kh - 1) * (w + kw - 1);
-  return static_cast<long long>(sizeof(float)) * (2 * pad + 4LL * n_lut + kh * kw + 2 * kWarps);
+  const long long band = (h + kRanks - 1) / kRanks;
+  const long long pad = (band + kh - 1) * static_cast<long long>(w + kw - 1);
+  return static_cast<long long>(sizeof(float)) * (4LL * n_lut + 2 * pad + kh * kw + band * w);
 }
 
 }  // namespace
 
+// Once per (process, device), on the current device: lets the kernel opt
+// into all the shared memory a block may use.  Returns the CUDA error.
+extern "C" int slam_raster_init() {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  for (const void* kernel : kKernels) {
+    cudaFuncAttributes attr;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin - static_cast<int>(attr.sharedSizeBytes));
+  }
+  return static_cast<int>(err);
+}
+
 // mats [S, h, w] f32, lut [n_lut, 4] f32, taps [kh, kw] f32 (kh, kw odd);
-// rgba [S, h, w, 4], norm_t and blurred [S, h, w] f32, 16-byte aligned.
-// Returns the first CUDA error of the attribute call or the launch: a tile
-// whose shared memory exceeds what one block can opt into (227 KB on an
-// H100) fails the attribute call with cudaErrorInvalidValue.
+// rgba [S, h, w, 4], norm_t and blurred [S, h, w] f32, lut and rgba 16-byte
+// aligned; slam_raster_init has run on this device.  One cluster of 8
+// blocks per tile.  Returns the launch's CUDA error: a band whose shared
+// memory exceeds what one block can opt into (227 KB on an H100) fails with
+// cudaErrorInvalidValue.
 extern "C" int slam_raster(const void* mats, int s, int h, int w, const void* lut,
                            int n_lut, const void* taps, int kh, int kw, int use_log,
                            void* rgba, void* norm_t, void* blurred, void* stream) {
   const long long smem = smem_bytes(h, w, n_lut, kh, kw);
-  if (smem > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      raster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  raster_kernel<<<s, kBlock, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(mats), h, w, static_cast<const float*>(lut), n_lut,
-      static_cast<const float*>(taps), kh, kw, use_log, static_cast<float*>(rgba),
-      static_cast<float*>(norm_t), static_cast<float*>(blurred));
-  return static_cast<int>(cudaGetLastError());
+  if (smem > INT_MAX || static_cast<long long>(s) * kRanks > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int slot = kw == 7 ? 1 : 0;   // kKernels index
+  void* args[] = {&mats, &h, &w, &lut, &n_lut, &taps, &kh, &kw, &use_log, &rgba, &norm_t,
+                  &blurred};
+  return static_cast<int>(cudaLaunchKernel(kKernels[slot], dim3(s * kRanks), dim3(kBlock), args,
+                                           static_cast<size_t>(smem),
+                                           static_cast<cudaStream_t>(stream)));
 }

@@ -4,8 +4,10 @@ Replaces ``slam_process_tpu/ops/pallas_correct.py::correct_planes_pallas``
 with the same inputs (gid, clk, the residue-form packed table) and the
 same outputs (has, k_best, bs_best).  The plain PyTorch version it is held
 against is ``ops/correct.py::baseline_plane_verdicts``;
-``ops/correct.correct_verdicts`` dispatches here for CUDA tensors.  Bound:
-integer operations (rows x live baselines x ~8); see ``csrc/correct.cu``.
+``ops/correct.correct_verdicts`` dispatches here for CUDA tensors.  Each
+block stages its rows' groups once as int32 in shared memory and, where
+2 tol + 1 < cycle, scores only the baselines whose residues lie within tol
+of the row's on the circle (see ``csrc/correct.cu``).
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ def correct_verdicts_cuda(gid: torch.Tensor, clk: torch.Tensor, packed: torch.Te
                          f"and {tuple(clk.shape)}")
     if packed.dim() != 2 or packed.shape[1] < 3 * bmax + 1:
         raise ValueError(f"packed must be [G, >= {3 * bmax + 1}], got {tuple(packed.shape)}")
+    if cycle <= 0:
+        raise ValueError(f"corrector kernel needs cycle > 0, got {cycle}")
     f = gid.shape[0]
     has = torch.empty(f, dtype=torch.bool, device=gid.device)
     k_best = torch.empty(f, dtype=torch.int32, device=gid.device)

@@ -4,9 +4,10 @@ Replaces ``slam_process_tpu/ops/pallas_raster.py::pallas_rasterize_batch``
 and also returns the blurred tiles, which ``DeviceSessionOut.blurred``
 carries.  The plain PyTorch version it is held against is
 ``ops/raster.py::raster_tiles_plain``; ``ops/raster.rasterize_tiles``
-dispatches here for CUDA tensors.  Bound: launch latency at 64 x 64 (the
-tile's ~120 KB and ~0.4 M flops take well under a microsecond); see
-``csrc/raster.cu``.
+dispatches here for CUDA tensors.  One thread-block cluster of 8 blocks
+per tile, each block a band of rows; the tile's min / max meet through
+distributed shared memory (see ``csrc/raster.cu``).  The kernel's
+shared-memory opt-in is set once per device (``_ready``), not per launch.
 """
 
 from __future__ import annotations
@@ -32,6 +33,17 @@ def _fn():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _ready(index: int) -> None:
+    """Set the kernel's shared-memory opt-in on CUDA device ``index``, once
+    per process."""
+    init = _build.library().slam_raster_init
+    init.argtypes = []
+    init.restype = ctypes.c_int
+    with torch.cuda.device(index):
+        _build.check(init(), "raster kernel init")
+
+
 def raster_tiles_cuda(mats: torch.Tensor, lut: torch.Tensor, taps: torch.Tensor,
                       use_log: bool):
     """(rgba [S, H, W, 4], norm_t [S, H, W], blurred [S, H, W]) f32 on the card."""
@@ -45,6 +57,8 @@ def raster_tiles_cuda(mats: torch.Tensor, lut: torch.Tensor, taps: torch.Tensor,
     if mats.dim() != 3 or lut.dim() != 2 or lut.shape[1] != 4 or taps.dim() != 2:
         raise ValueError(f"raster kernel needs mats [S, H, W], lut [N, 4], taps [kh, kw]; "
                          f"got {tuple(mats.shape)}, {tuple(lut.shape)}, {tuple(taps.shape)}")
+    if lut.data_ptr() % 16:
+        raise ValueError("raster kernel needs a 16-byte aligned lut")
     kh, kw = taps.shape
     if kh % 2 == 0 or kw % 2 == 0:
         raise ValueError(f"raster kernel needs odd tap sizes, got {kh} x {kw}")
@@ -54,6 +68,7 @@ def raster_tiles_cuda(mats: torch.Tensor, lut: torch.Tensor, taps: torch.Tensor,
     blurred = torch.empty((s, h, w), dtype=torch.float32, device=mats.device)
     if s == 0 or h == 0 or w == 0:
         return rgba, norm_t, blurred
+    _ready(mats.device.index)
     with torch.cuda.device(mats.device):
         err = _fn()(mats.data_ptr(), s, h, w, lut.data_ptr(), lut.shape[0], taps.data_ptr(),
                  kh, kw, int(bool(use_log)), rgba.data_ptr(), norm_t.data_ptr(),

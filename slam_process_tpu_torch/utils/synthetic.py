@@ -133,3 +133,145 @@ def to_hex_text(b: np.ndarray) -> bytes:
     for i in range(0, b.size, 16):
         lines.append(tok[i:i + 16].tobytes() + b"\r\n")
     return "« ".encode() + b"".join(lines)
+
+
+def pack_verdict_table(r: np.ndarray, e: np.ndarray, n: np.ndarray, bmax: int) -> np.ndarray:
+    """The corrector's residue-form table [G, W] f32 (W = 3 bmax + 1 rounded
+    up to 128, the TPU kernel's layout): r as two 8-bit limbs, e, n."""
+    g = len(n)
+    packed = np.zeros((g, -(-(3 * bmax + 1) // 128) * 128), np.float32)
+    packed[:, :bmax] = r >> 8
+    packed[:, bmax:2 * bmax] = r & 0xFF
+    packed[:, 2 * bmax:3 * bmax] = e
+    packed[:, 3 * bmax] = n
+    return packed
+
+
+def verdict_edge_cases(seed: int = 0) -> dict:
+    """Inputs of the corrector's per-row verdicts at the edges a windowed
+    search over sorted residues can get wrong: {case: (gid [F] i32, clk [F]
+    i32, packed [G, W] f32, dict(bmax, cycle, tol))}, all from
+    ``default_rng(seed)``.  Rows sit near a baseline of their group (within
+    tol + 200 of a whole number of cycles) or anywhere."""
+    rng = np.random.default_rng(seed)
+
+    def table(g, bmax, cycle, n_lo=0, n_hi=None):
+        n = rng.integers(n_lo, (bmax if n_hi is None else n_hi) + 1, g)
+        r = rng.integers(0, cycle, (g, bmax))
+        e = rng.integers(0, 64, (g, bmax))
+        return r, e, n
+
+    def rows(gid, r, n, cycle, tol, near=0.7):
+        """clk near a live baseline of the row's group for a share `near`
+        of the rows with a group and a baseline, else uniform."""
+        f = len(gid)
+        clk = rng.integers(0, 1 << 30, f)
+        g_ok = (gid >= 0) & (gid < len(n))
+        gg = np.clip(gid, 0, len(n) - 1)
+        live = g_ok & (n[gg] > 0) & (rng.random(f) < near)
+        col = (rng.random(f) * np.maximum(n[gg], 1)).astype(np.int64)
+        k = rng.integers(1, (1 << 30) // cycle - 1, f)
+        noise = rng.integers(-tol - 200, tol + 201, f)
+        clk = np.where(live, r[gg, col] + k * cycle + noise, clk)
+        return clk.astype(np.int32)
+
+    def sorted_gid(f, g, mean_len):
+        return np.minimum(np.cumsum(rng.random(f) < 1.0 / mean_len), g - 1).astype(np.int32)
+
+    def case(gid, clk, r, e, n, bmax, cycle, tol):
+        return (gid.astype(np.int32), clk.astype(np.int32), pack_verdict_table(r, e, n, bmax),
+                dict(bmax=bmax, cycle=cycle, tol=tol))
+
+    out = {}
+    cyc, tol = 61_000, 500
+    # Blocks of 256 rows over 3-4 groups, and over more groups than a
+    # block stages.
+    for name, mean_len in (("three_groups_in_a_block", 90), ("many_groups_in_a_block", 25)):
+        r, e, n = table(32, 96, cyc, n_lo=40)
+        gid = sorted_gid(2048, 32, mean_len)
+        out[name] = case(gid, rows(gid, r, n, cyc, tol), r, e, n, 96, cyc, tol)
+    # Groups with no baseline, and a negative count.
+    r, e, n = table(16, 96, cyc)
+    n[[2, 5, 6, 9]] = 0
+    n[11] = -3
+    gid = sorted_gid(2048, 16, 120)
+    out["empty_groups"] = case(gid, rows(gid, r, n, cyc, tol), r, e, n, 96, cyc, tol)
+    # gid outside [0, G) (negative, G and past it), unsorted; negative clk.
+    r, e, n = table(16, 96, cyc)
+    gid = rng.integers(-3, 20, 2048)
+    clk = rows(gid, r, n, cyc, tol).astype(np.int64)
+    clk[rng.random(2048) < 0.5] -= 1 << 30
+    out["gid_out_of_range_negative_clk"] = case(gid, clk, r, e, n, 96, cyc, tol)
+    # Residues that straddle 0 / cycle, and rows there: the arc wraps.
+    r, e, n = table(8, 96, cyc, n_lo=90)
+    r = np.where(rng.random(r.shape) < 0.5, rng.integers(0, 700, r.shape),
+                 rng.integers(cyc - 700, cyc, r.shape))
+    gid = sorted_gid(2048, 8, 256)
+    k = rng.integers(1, 17_000, 2048) * cyc
+    clk = k + np.where(rng.random(2048) < 0.5, rng.integers(0, 700, 2048),
+                       rng.integers(cyc - 700, cyc, 2048))
+    out["arc_wrap"] = case(gid, clk, r, e, n, 96, cyc, tol)
+    # Ties at equal resid: duplicated residues, and pairs r_f - d / r_f + d.
+    r, e, n = table(8, 96, cyc, n_lo=60)
+    r[:, 1::3] = r[:, 0::3][:, :r[:, 1::3].shape[1]]
+    gid = sorted_gid(2048, 8, 256)
+    clk = rows(gid, r, n, cyc, tol, near=1.0)
+    rf = clk.astype(np.int64) % cyc
+    for g in range(8):
+        first = np.nonzero(gid == g)[0]
+        if len(first):
+            d = 123 + g
+            r[g, 2], r[g, 5] = (rf[first[0]] - d) % cyc, (rf[first[0]] + d) % cyc
+    out["ties"] = case(gid, clk, r, e, n, 96, cyc, tol)
+    # Baselines at exactly tol and tol + 1 on both sides, also across the
+    # wrap (row residues 100 and cycle - 100).
+    r, e, n = table(4, 96, cyc, n_lo=96)
+    gid = np.repeat(np.arange(4), 64).astype(np.int32)
+    rf = np.array([30_000, 100, cyc - 100, 250])
+    clk = (rng.integers(1, 17_000, 256) * cyc + rf[gid]).astype(np.int32)
+    for g in range(4):
+        r[g, 10:14] = (rf[g] + np.array([tol, tol + 1, -tol, -(tol + 1)])) % cyc
+    out["resid_eq_tol"] = case(gid, clk, r, e, n, 96, cyc, tol)
+    # The same at the edges of 64 equal residue buckets of the circle
+    # (width ceil(cycle / 64)): group 0 holds every other edge, group 1 the
+    # residue just below each; 2 x 954 apart, so a row sees one at most.
+    bw = -(-cyc // 64)
+    edges = np.arange(0, 64, 2) * bw
+    r = np.stack([edges, (edges - 1) % cyc])
+    e, n = rng.integers(0, 64, (2, 32)), np.array([32, 32])
+    offs = np.array([tol, -tol, tol + 1, -(tol + 1)])
+    rf = (r[:, :, None] + offs).reshape(2, -1) % cyc
+    gid = np.repeat(np.arange(2), rf.shape[1])
+    clk = rng.integers(1, 17_000, gid.shape) * cyc + rf.reshape(-1)
+    out["resid_eq_tol_bucket_edges"] = case(gid, clk, r, e, n, 32, cyc, tol)
+    # Another cycle and tolerance, and the table's width at its ends.
+    for name, bmax, c, t, g_n, mean_len in (
+            ("cycle_60000_tol_300", 96, 60_000, 300, 16, 128),
+            ("bmax_4", 4, cyc, tol, 16, 128),
+            ("bmax_256", 256, cyc, tol, 8, 256)):
+        r, e, n = table(g_n, bmax, c, n_lo=bmax // 2)
+        n[0] = bmax
+        gid = sorted_gid(2048, g_n, mean_len)
+        out[name] = case(gid, rows(gid, r, n, c, t), r, e, n, bmax, c, t)
+    # Past the default bounds, as the overflow rerun sizes them: 257
+    # groups, 300 baselines (groups of more than 256 live baselines).
+    r, e, n = table(257, 300, cyc, n_lo=1, n_hi=40)
+    n[rng.choice(257, 12, replace=False)] = 300
+    n[0] = 300
+    gid = sorted_gid(8192, 257, 32)
+    out["groups_257_bmax_300"] = case(gid, rows(gid, r, n, cyc, tol), r, e, n, 300, cyc, tol)
+    # Residues at or past cycle (r_hi8 up to 255): the table a windowed
+    # search must not trust.
+    r, e, n = table(8, 96, cyc, n_lo=60)
+    r[::2, ::5] = rng.integers(cyc, 1 << 16, r[::2, ::5].shape)
+    gid = sorted_gid(2048, 8, 256)
+    clk = rows(gid, r, n, cyc, tol)
+    clk[::7] = (rng.integers(1, 16_000, len(clk[::7])) * cyc + rng.integers(
+        cyc - 600, cyc, len(clk[::7]))).astype(np.int32)
+    out["residues_past_cycle"] = case(gid, clk, r, e, n, 96, cyc, tol)
+    # 2 tol + 1 = cycle (every column scanned) and one tick more cycle.
+    for name, c in (("tol_half_cycle", 1001), ("tol_just_under_half_cycle", 1002)):
+        r, e, n = table(8, 96, c, n_lo=10)
+        gid = sorted_gid(2048, 8, 256)
+        out[name] = case(gid, rows(gid, r, n, c, tol), r, e, n, 96, c, tol)
+    return out

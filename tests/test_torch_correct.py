@@ -6,7 +6,12 @@ masked rows; past the static bounds only the overflow flag is compared
 (JAX's values there are sums of colliding one-hot payloads).  The plain
 ``baseline_plane_verdicts`` against the Pallas corrector kernel in
 interpret mode, and the five corrector specs of
-``slam_process_tpu/ops/correct.py::self_test`` with every row valid.
+``slam_process_tpu/ops/correct.py::self_test`` with every row valid.  The
+plain verdicts on the seeded edge inputs of
+``utils/synthetic.verdict_edge_cases`` (the ones kernel K2's windowed
+search is held to on the card) against the JAX package's
+``baseline_plane_verdicts`` and, where the table fits its 128 groups, the
+Pallas kernel in interpret mode.
 """
 
 import functools
@@ -16,13 +21,14 @@ import pytest
 import torch
 
 from slam_process_tpu.config import CorrectConfig as JaxCorrectConfig
+from slam_process_tpu.ops.correct import baseline_plane_verdicts as jax_plane_verdicts
 from slam_process_tpu.ops.correct import correct_rows_jax
 from slam_process_tpu.ops.pallas_correct import correct_planes_pallas
 from slam_process_tpu_torch.config import CorrectConfig
 from slam_process_tpu_torch.ops.correct import (
     baseline_plane_verdicts, baseline_table, correct_rows)
 from slam_process_tpu_torch.ops.decode import decode_rows
-from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes
+from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes, verdict_edge_cases
 from tests.test_pallas_correct import BMAX, CYCLE, G_PAD, TOL, _pack
 
 
@@ -126,6 +132,40 @@ def test_plane_verdicts_match_pallas(seed):
     for g, w in zip(got, want):       # bit-exact, including rows with has False
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert bool(got[0][3]) and got[0].any() and not got[0].all()
+
+
+EDGE_CASES = verdict_edge_cases()
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_plane_verdicts_edge_cases_match_jax(name):
+    """Every row's (has, k_best, bs_best), the rows without a verdict
+    included, against the JAX XLA verdicts on the one-hot selection and,
+    for tables of at most 128 groups, the Pallas kernel (interpret mode,
+    on the first 512 rows: its interpreter unrolls each 256-row block)."""
+    import jax.numpy as jnp
+
+    gid, clk, packed, kw = EDGE_CASES[name]
+    got = [g.numpy() for g in baseline_plane_verdicts(
+        torch.from_numpy(gid), torch.from_numpy(clk), torch.from_numpy(packed), **kw)]
+    inside = (gid >= 0) & (gid < packed.shape[0])
+    sel = np.where(inside[:, None], packed[np.clip(gid, 0, packed.shape[0] - 1)], 0.0)
+    want = jax_plane_verdicts(jnp.asarray(sel), jnp.asarray(clk), **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    assert got[0].any()
+    if packed.shape[0] <= G_PAD:
+        table = np.zeros((G_PAD, packed.shape[1]), np.float32)
+        table[:packed.shape[0]] = packed
+        f = min(512, len(gid))
+        rows = -(-f // 256) * 256
+        g_p = np.full(rows, -1, np.int32)
+        c_p = np.zeros(rows, np.int32)
+        g_p[:f], c_p[:f] = np.where(inside[:f], gid[:f], -1), clk[:f]
+        want = correct_planes_pallas(jnp.asarray(g_p), jnp.asarray(c_p), jnp.asarray(table),
+                                     interpret=True, block_f=256, **kw)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[:f], np.asarray(w)[:f])
 
 
 # The reference's embedded corrector specs (ops/correct.py::self_test).

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time kernels K5 and K6 of two checkouts of the PyTorch / CUDA port on one
-NVIDIA GPU, in turns: base, change, change, base.
+"""Time kernels K2, K3, K5 and K6 of two checkouts of the PyTorch / CUDA port
+on one NVIDIA GPU, in turns: base, change, change, base.
 
     git archive <base-commit> | tar -x -C build/ab_base     # a directory .gitignore lists
     python3 tools/torch_kernel_ab.py build/ab_base .
@@ -17,7 +17,14 @@ with CUDA events, the median of 20 runs of 20 back-to-back calls after a
     calls, and as one fused call where the checkout has
     ``compact_rows_multi_cuda``;
   * K6 ``main_65_lanes``: 65 lanes, 33 live, K = 3, T = 8, from a carry of
-    three tracks (``chip_smoke.py``'s first K6 case).
+    three tracks (``chip_smoke.py``'s first K6 case);
+  * K2 ``full_session``: the corrector's verdicts on the full session's
+    rows and table (``chip_smoke.py``'s main K2 input), and ``live_64KiB``:
+    the live feed's second full 64 KiB window after its carry, recorded from
+    the wrapper while a stream runs;
+  * K3 ``S1``: the full session's 64 x 64 tile at sigma 1 (the main path),
+    and ``S58``: 58 seeded RSS-sized tiles with 5 % NaN, a per-sweep
+    render's shape.
 
 Then the streams of ``chip_smoke.py``'s streaming phase that run the
 estimator: the live feed (the full multipath session in 64 KiB chunks,
@@ -29,7 +36,7 @@ warm-up), and one live feed under ``torch.profiler``: the device busy time
 device microseconds.
 
 Prints one JSON line per turn, then a summary line of the medians per
-checkout.  Needs a GPU; the data is synthetic, made from fixed seeds.
+checkout and each key's spread (the smallest and largest turn).  Needs a GPU; the data is synthetic, made from fixed seeds.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+REPO = Path(__file__).resolve().parent.parent
 N_TIMED = 20
 INNER = 20
 REPLAY_CHUNK = 1 << 20
@@ -132,7 +140,77 @@ def turn(root: str) -> dict:
             torch.tensor(33, dtype=torch.int32, device=dev), pos,
             torch.arange(8, device=dev) < 3, torch.tensor(3, dtype=torch.int32, device=dev))
     out["K6_main_65_lanes_ms"] = cuda_ms(lambda: cuda_tracker.track_block_cuda(*args, 10.0))
+    out.update(k2_k3(dev))
     out.update(streams(dev, Path(root)))
+    return out
+
+
+def k2_full_session(dev):
+    """K2's inputs on the full session (``chip_smoke.py``'s main K2 case):
+    (gid, clk, packed) and the keyword arguments, and the session's output."""
+    from slam_process_tpu_torch.ops import correct
+    from slam_process_tpu_torch.pipeline.device import run_session_on_device
+    from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes
+
+    full = dict(MULTIPATH, seed=0)
+    del full["n_paths"]
+    out = run_session_on_device(synthetic_session_bytes(**full), device=dev)
+    gid, packed, _ = correct.baseline_table(out.frames, out.frame_valid, 256, 256)
+    return (gid, out.frames[:, 4].contiguous(), packed), dict(bmax=256, cycle=61_000,
+                                                              tol=500), out
+
+
+def k2_live_window(dev):
+    """(args, kwargs) of K2's call in the live feed's second full 64 KiB
+    window (after the first one's open group is carried), recorded from the
+    wrapper of the ``slam_process_tpu_torch`` on ``sys.path`` while a stream
+    runs, by this repository's ``chip_smoke.stream_window_inputs``."""
+    import importlib.util
+
+    from slam_process_tpu_torch.ops import cuda_correct, cuda_decode
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+    from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.stream_window_inputs(sd, cuda_decode, cuda_correct,
+                                      synthetic_session_bytes(**MULTIPATH), LIVE_CHUNK, dev)[1]
+
+
+def k3_tiles(dev, out_full):
+    """K3's inputs: the full session's 64 x 64 tile (from ``out_full``, its
+    ``run_session_on_device`` output), 58 seeded RSS-sized tiles with 5 %
+    NaN, the viridis LUT and the sigma-1 taps."""
+    import numpy as np
+    import torch
+
+    from slam_process_tpu_torch.ops import raster
+
+    rng = np.random.default_rng(58)
+    tiles = rng.random((58, 64, 64)).astype(np.float32) * (1 << 18)
+    tiles[rng.random(tiles.shape) < 0.05] = np.nan
+    return (out_full.mean_grid.T.contiguous()[None], torch.from_numpy(tiles).to(dev),
+            torch.from_numpy(raster.colormap_lut("viridis")).to(dev), raster.blur_taps(1.0, dev))
+
+
+def k2_k3(dev) -> dict:
+    """K2 at the full session and at the live feed's 64 KiB window; K3 at
+    S = 1 (the session tile) and S = 58, through the wrappers."""
+    from slam_process_tpu_torch.ops import cuda_correct, cuda_raster
+
+    args, kw, out_full = k2_full_session(dev)
+    out = {"k2_rows": int(args[0].numel())}
+    out["K2_full_session_ms"] = cuda_ms(lambda: cuda_correct.correct_verdicts_cuda(*args, **kw))
+
+    w_args, w_kw = k2_live_window(dev)
+    out["k2_window_rows"] = int(w_args[0].numel())
+    out["K2_live_64KiB_ms"] = cuda_ms(
+        lambda: cuda_correct.correct_verdicts_cuda(*w_args, **w_kw))
+
+    tile, tiles, lut, taps = k3_tiles(dev, out_full)
+    out["K3_S1_ms"] = cuda_ms(lambda: cuda_raster.raster_tiles_cuda(tile, lut, taps, True))
+    out["K3_S58_ms"] = cuda_ms(lambda: cuda_raster.raster_tiles_cuda(tiles, lut, taps, True))
     return out
 
 
@@ -228,6 +306,9 @@ def main() -> None:
                    if k.endswith(("_ms", "_kernels", "_window"))})
     print(json.dumps({"nvidia_smi": smi, "median_ms": {
         root: {k: statistics.median(ln[k] for ln in lines) for k in keys if k in lines[0]}
+        for root, lines in runs.items()}, "spread_ms": {
+        root: {k: [min(ln[k] for ln in lines), max(ln[k] for ln in lines)]
+               for k in keys if k in lines[0]}
         for root, lines in runs.items()}}), flush=True)
 
 
