@@ -23,9 +23,21 @@ Phases, each printing one JSON line:
                 random tiles, all-NaN and one-cell tiles, then S = 1, 4 and
                 66 tiles of 64 x 64, 48 x 100 and 5 x 7 at sigma 0, 0.5, 1,
                 2.3 and 3, log and linear.
+                K1's cases: the full session's bytes, junk with an n_valid
+                cut, 1 MiB of noise, every input of
+                ``utils/synthetic.decode_edge_cases`` (all bytes 0xCC,
+                frames back to back at every offset mod 11, a frame ending
+                at n_valid and one byte past it, N = 0, 1, 10, 11, 12,
+                5,119-5,121 and the edges of 256- and 1,024-row blocks), and
+                views at every offset mod 16, each called twice on one
+                stream (the count's scratch word must reset).
                 K4's cases: the full session's filtered rows (58 sweeps), an
                 unsorted stream over 65 sweeps, out-of-range ids and invalid
-                rows, one cell summing to 2^24 - 1, 66 sweeps, no rows.
+                rows, one cell summing to 2^24 - 1, 66 sweeps, no rows, every
+                input of ``utils/synthetic.sweep_sums_edge_cases`` (one cell
+                fed by 20,000 rows, sorted p with -1 runs and a -1 tail, S =
+                1, n_beams 32, 100 and 1,500), and calls of different S and
+                order interleaved on one stream.
                 K5's: the dataset replay's second 1 MiB window (carry
                 compaction, emit-ring append, and the fused emit-ring +
                 paths call against two plain calls), a masked count past the
@@ -36,7 +48,10 @@ Phases, each printing one JSON line:
                 planted ties at the gate, m_eff = 0, T * K = 40, T = 16 and K
                 = 20 (uniform and on a grid of exact ties), 600 lanes at K = 3
                 and at K = 20, m_eff = s1 - 1, m_eff > s1.  Then one device
-                kernel per K5 / K6 wrapper call, under ``torch.profiler``.
+                activity per ``decode_rows``, K4, K5 and K6 wrapper call,
+                under ``torch.profiler`` (no fill, no second kernel), and one
+                K4 kernel per ``intensity_per_sweep_sums`` call (whose row
+                filter is plain torch; its activities are reported).
   4. main_path  ``Session.from_log`` on hex-text logs: one full-size session
                 (58 groups x 64 beams x 43 frames, one group of >= 4,400
                 frames), 19 dataset-scale sessions (~56 k frames each) and
@@ -83,14 +98,17 @@ Phases, each printing one JSON line:
                 (2) and (3) by source line under
                 ``torch.cuda.set_sync_debug_mode``, which must equal the
                 counters' sum, and the device busy share of (1) under
-                ``torch.profiler``, where the K5 and K6 device kernels must
-                equal the wrapper calls.  Across the five streams K5 runs
-                twice per window (the carry; one fused call for the kept
-                rows) and once per flush, or the run fails.
+                ``torch.profiler``, where the K1, K4, K5 and K6 device
+                kernels must equal the wrapper calls.  Across the five
+                streams K5 runs twice per window (the carry; one fused call
+                for the kept rows) and once per flush, or the run fails.
   7. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
-                alone, its plain version on the card, K1 and K2 at the two
-                stream windows (the live feed's 64 KiB window after its
-                carry, the replay's 1 MiB window), the library yardsticks
+                (K1, K4, K5, K6 through their wrappers, K1 also as the bare
+                launch; K2, K3 as the bare launch), its plain version on the
+                card, K1 and K2 at three stream windows (the second full
+                window of the straddle's 16 KiB, the live feed's 64 KiB and
+                the replay's 1 MiB) and K4 at the live feed's (S = 9) and
+                the replay's (S = 65), the library yardsticks
                 (K4: two ``torch.bincount`` calls; K5: ``rows[mask]``), K5's
                 fused kept-row call against the two calls it replaced, the
                 whole ``run_session_on_device`` in frames/s at both sizes, and
@@ -200,7 +218,8 @@ def run(tmp: Path) -> None:
         bucket_size, pad_bytes, run_session_on_device)
     from slam_process_tpu_torch.pipeline.session import Session
     from slam_process_tpu_torch.utils.synthetic import (
-        synthetic_session_bytes, to_hex_text, verdict_edge_cases, write_angle_table)
+        decode_edge_cases, sweep_sums_edge_cases, synthetic_session_bytes, to_hex_text,
+        verdict_edge_cases, write_angle_table)
 
     dev = torch.device("cuda")
     counted = {"K1": cuda_decode, "K2": cuda_correct, "K3": cuda_raster,
@@ -302,6 +321,20 @@ def run(tmp: Path) -> None:
                           dtype=torch.uint8).to(dev)
     exact("K1", "noise", cuda_decode.decode_rows_cuda(noise, noise.numel(), 0xCC, 0x33),
           decode.decode_rows_plain(noise))
+    # K1's edge inputs (all flags, back-to-back frames at every offset mod
+    # 11, a frame ending at n_valid and one byte past it, N at the row
+    # blocks' edges); views at every 16-byte misalignment, each called twice
+    # on one stream (the count's scratch word must be back at 0).
+    for case, (raw_e, nv) in decode_edge_cases().items():
+        b_e = torch.from_numpy(raw_e)
+        exact("K1", case, cuda_decode.decode_rows_cuda(
+            b_e.to(dev), len(raw_e) if nv is None else nv, 0xCC, 0x33),
+            decode.decode_rows_plain(b_e, n_valid=nv))
+    for off in range(16):
+        want = decode.decode_rows_plain(junk[off:], n_valid=junk.numel() - off - 3)
+        for rep in range(2):
+            exact("K1", f"view_offset_{off}_call_{rep}", cuda_decode.decode_rows_cuda(
+                junk[off:], junk.numel() - off - 3, 0xCC, 0x33), want)
 
     # K2: the main path's table; a planted exact-tol / tol+1 table.
     verdict_args = dict(bmax=MAX_BASELINES, cycle=61_000, tol=500)
@@ -339,19 +372,30 @@ def run(tmp: Path) -> None:
                          cuda_raster.raster_tiles_cuda(mats, lut, taps_s, use_log),
                          raster.raster_tiles_plain(mats, lut, taps_s, use_log))
 
-    # K4: (a) the main path's rows; (b)-(f) the edge cases.
-    for case, (p4, b4, v4, s4) in k4_cases(np, torch, dev, k4_p, k4_bs, k4_val,
-                                           n_sweeps).items():
+    # K4: (a) the main path's rows; (b)-(f) the edge cases; the edge inputs
+    # of utils/synthetic.sweep_sums_edge_cases (one cell over many tiles,
+    # sorted p with -1 runs and a -1 tail, S = 1, n_beams 32, 100, 1,500);
+    # calls of different S and order interleaved on one stream.
+    k4 = k4_cases(np, torch, dev, k4_p, k4_bs, k4_val, n_sweeps)
+    for case, (p4, b4, v4, s4) in k4.items():
         exact("K4", case, cuda_sweep_sums.sweep_sums_cuda(p4, b4, v4, s4),
               scene.sweep_sums_plain(p4, b4, v4, s4))
+    for case, (p4, b4, v4, s4, nb4) in sweep_sums_edge_cases().items():
+        args = [torch.from_numpy(x).to(dev) for x in (p4, b4, v4)]
+        exact("K4", case, cuda_sweep_sums.sweep_sums_cuda(*args, s4, nb4),
+              scene.sweep_sums_plain(*args, s4, nb4))
+    for i, case in enumerate(("a_main_path", "b_unsorted_65_sweeps", "a_main_path",
+                              "e_66_sweeps", "b_unsorted_65_sweeps", "d_one_cell_2^24-1")):
+        exact("K4", f"interleaved_{i}_{case}", cuda_sweep_sums.sweep_sums_cuda(*k4[case]),
+              scene.sweep_sums_plain(*k4[case]))
     rng = np.random.default_rng(21)
-    rows = [torch.from_numpy(x).to(dev) for x in (
+    ips_rows = [torch.from_numpy(x).to(dev) for x in (
         rng.integers(-2, 67, 30_000).astype(np.int32), rng.integers(-1, 65, 30_000).astype(
             np.int32), rng.integers(0, 1 << 18, 30_000).astype(np.int32),
         rng.integers(-1, 8, 30_000).astype(np.int32), rng.random(30_000) < 0.8)]
     exact("K4", "ids_out_of_range_via_intensity_per_sweep_sums",
-          scene.intensity_per_sweep_sums(*rows, max_sweeps=6),
-          scene.intensity_per_sweep_sums(*(t.cpu() for t in rows), max_sweeps=6))
+          scene.intensity_per_sweep_sums(*ips_rows, max_sweeps=6),
+          scene.intensity_per_sweep_sums(*(t.cpu() for t in ips_rows), max_sweeps=6))
 
     # K5: the dataset replay's second window; K6: the streams' lane shapes.
     raw_ds = np.concatenate([synthetic_session_bytes(**c) for c in DATASET])
@@ -396,6 +440,8 @@ def run(tmp: Path) -> None:
     fused = [(k5["ecap"], ring, k5["offset"]), (n_w, None, None)]
     per_call = {}
     for case, fn in (
+            ("K1", lambda: decode.decode_rows(padded)),
+            ("K4", lambda: cuda_sweep_sums.sweep_sums_cuda(k4_p, k4_bs, k4_val, n_sweeps)),
             ("K5", lambda: cuda_compact.compact_rows_cuda(k5["rows"], k5["open"], GCAP)),
             ("K5_fused", lambda: cuda_compact.compact_rows_multi_cuda(k5["kept"], k5["keep"],
                                                                       fused)),
@@ -407,6 +453,15 @@ def run(tmp: Path) -> None:
         if per_call[case] != 1:
             fail(f"{case}: a wrapper call ran {per_call[case]} device activities, not one "
                  "kernel")
+    # intensity_per_sweep_sums runs its row filter (plain torch) before the
+    # one K4 launch: its activities are reported, its K4 kernels must be one.
+    _, acts, _, named = device_profile(
+        torch, lambda: [scene.intensity_per_sweep_sums(*ips_rows, max_sweeps=6)
+                       for _ in range(10)],
+        count=("sweep_sums_kernel",))
+    per_call["intensity_per_sweep_sums"] = acts / 10
+    if named["sweep_sums_kernel"] != 10:
+        fail(f"intensity_per_sweep_sums: {named['sweep_sums_kernel']} K4 kernels in 10 calls")
     emit({"phase": "kernels", "cases": cases, "max_abs_err": err,
           "device_activities_per_call": per_call})
 
@@ -551,12 +606,6 @@ def run(tmp: Path) -> None:
         return statistics.median(times)
 
     n_bytes, rows = padded.numel(), frames.shape[0]
-    k1_out = (torch.zeros((rows, 5), dtype=torch.int32, device=dev),
-              torch.zeros(rows, dtype=torch.bool, device=dev),
-              torch.zeros((), dtype=torch.int32, device=dev))
-    k1 = cuda_decode._fn()
-    k1_args = (padded.data_ptr(), n_bytes, n_bytes, 0xCC, 0x33,
-               *(t.data_ptr() for t in k1_out), _build.stream_of(padded))
     k2 = cuda_correct._fn()
     k2_out = (torch.empty(rows, dtype=torch.bool, device=dev),
               torch.empty(rows, dtype=torch.int32, device=dev),
@@ -570,13 +619,17 @@ def run(tmp: Path) -> None:
     k3_args = (tile.data_ptr(), 1, 64, 64, lut.data_ptr(), 256, taps.data_ptr(), 7, 7, 1,
                *(t.data_ptr() for t in k3_out), _build.stream_of(tile))
 
-    # K4 is timed through its wrapper: the scratch zeroing it needs, the
-    # scatter and the conversion.  Its library yardstick is the pair of
-    # torch.bincount calls that give the same sums and counts (timed only).
+    # K1 and K4 are timed through their wrappers (what callers pay: one
+    # launch each), K1 also as the bare launch.  K4's library yardstick is
+    # the pair of torch.bincount calls that give the same sums and counts
+    # (timed only).
     k4_cells = n_sweeps * 4096
     k4_cell = torch.where(k4_p >= 0, k4_p.long() * 64 + k4_bs.long(), k4_cells)
     k4_weights = k4_val.double()
-    ms = {"K1": cuda_ms(lambda: k1(*k1_args), inner=20),
+    bare_ms = {"K1": cuda_ms(k1_bare_launch(torch, _build, cuda_decode, padded, n_bytes),
+                             inner=20)}
+    ms = {"K1": cuda_ms(lambda: cuda_decode.decode_rows_cuda(padded, n_bytes, 0xCC, 0x33),
+                        inner=20),
           "K2": cuda_ms(lambda: k2(*k2_args), inner=20),
           "K3": cuda_ms(lambda: k3(*k3_args), inner=20),
           "K4": cuda_ms(lambda: cuda_sweep_sums.sweep_sums_cuda(k4_p, k4_bs, k4_val, n_sweeps),
@@ -605,23 +658,39 @@ def run(tmp: Path) -> None:
         torch.bincount(k4_cell, weights=k4_weights, minlength=k4_cells + 1),
         torch.bincount(k4_cell, minlength=k4_cells + 1)), inner=20),
         "K5": cuda_ms(lambda: k5["rows"][k5["open"]], inner=20)}
-    # K1 and K2 at the two stream windows: the inputs of each stream's
-    # second full window (after the first one's open group is carried).
+    # K1, K2 and K4 at the stream windows: the inputs of each stream's second
+    # full window (after the first one's open group is carried).  K1
+    # through its wrapper (what the stream pays) and as the bare launch; K4
+    # where the stream estimates paths (the live feed's s_step 8: S = 9; the
+    # replay's s_step 64: S = 65).
     stream_windows = {}
-    for name, raw_w, chunk in (("live_64KiB", raws[MP], LIVE_CHUNK),
-                               ("replay_1MiB", raw_ds, REPLAY_CHUNK)):
-        (a1, k1w), (a2, k2w) = stream_window_inputs(sd, cuda_decode, cuda_correct, raw_w,
-                                                    chunk, dev)
+    for name, raw_w, chunk, s_step in (("live_64KiB", raws[MP], LIVE_CHUNK, 8),
+                                       ("straddle_16KiB", raws[0], STRADDLE_CHUNK, None),
+                                       ("replay_1MiB", raw_ds, REPLAY_CHUNK, 64)):
+        spec = None if s_step is None else sd.make_paths_spec(angles, s_step=s_step)
+        win = stream_window_inputs(sd, raw_w, chunk, dev, spec)
+        (a1, k1w), (a2, k2w) = win["K1"], win["K2"]
         n_b, n_r = a1[0].numel(), a2[0].numel()
-        rows_w = cuda_decode.decode_rows_cuda(*a1, **k1w)[0].shape[0]
+        rows_w = -(-n_b // 11)
         cand_w, steps_w = k2_work(torch, *a2, **k2w)
         k2_bytes_w, k2_ops_w = n_r * 17 + a2[2].numel() * 4, k2_ops(cand_w, steps_w, n_r)
+        bare = k1_bare_launch(torch, _build, cuda_decode, a1[0], a1[1])
         stream_windows[name] = {
             "bytes": n_b, "rows": n_r, "k2_candidates": cand_w, "k2_search_steps": steps_w,
             "K1_ms": cuda_ms(lambda: cuda_decode.decode_rows_cuda(*a1, **k1w), inner=20),
+            "K1_bare_ms": cuda_ms(bare, inner=20),
             "K2_ms": cuda_ms(lambda: cuda_correct.correct_verdicts_cuda(*a2, **k2w), inner=20),
             "K1_bound_ms_bytes": (n_b + rows_w * 21 + 4) / PEAK_BYTES_PER_S * 1e3,
             "K2_bound_ms": max(k2_bytes_w / PEAK_BYTES_PER_S, k2_ops_w / PEAK_INT32_PER_S) * 1e3}
+        if "K4" in win:
+            a4, k4w = win["K4"]
+            kept4 = int(((a4[0] >= 0) & (a4[0] < a4[3] * 64)).sum())
+            cells4 = a4[3] * 64 * 64
+            stream_windows[name].update({
+                "k4_rows": a4[0].numel(), "k4_kept": kept4, "k4_sweeps": a4[3],
+                "K4_ms": cuda_ms(lambda: cuda_sweep_sums.sweep_sums_cuda(*a4, **k4w), inner=20),
+                "K4_bound_ms_bytes": (a4[0].numel() * 4 + kept4 * 8 + cells4 * 8)
+                / PEAK_BYTES_PER_S * 1e3})
     session_ms = cuda_ms(lambda: run_session_on_device(raw_full, device=dev), primed=False)
     dataset_ms = cuda_ms(lambda: [run_session_on_device(r, device=dev) for r in raws[DS]],
                          primed=False)
@@ -666,7 +735,8 @@ def run(tmp: Path) -> None:
                        "busy_share": busy_w / sweep_ms[f"{key}_warm"],
                        "device_activities": acts_w, "top_us": top_w[:5]}})
 
-    emit({"phase": "timing", "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    emit({"phase": "timing", "kernel_ms": ms, "kernel_bare_ms": bare_ms, "plain_ms": plain_ms,
+          "library_ms": library_ms,
           "k5_kept_rows_1MiB_window_ms": k5_kept_ms, "stream_windows": stream_windows,
           "full_session": {"frames": n_full, "ms": session_ms,
                            "frames_per_s": n_full / (session_ms / 1e3)},
@@ -739,6 +809,8 @@ def run(tmp: Path) -> None:
             "launches": launches[key],
             "launches_by_path": {path: n[key] for path, n in by_path.items()},
             "max_abs_err": err[key], "ms": ms[key],
+            "ms_of": "kernel launch" if key in ("K2", "K3") else "wrapper call",
+            "bare_ms": bare_ms.get(key),
             "plain_ms": plain_ms[key], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms.get(key)})
@@ -787,6 +859,21 @@ def device_profile(torch, fn, count=()):
     if count:
         out += ({part: sum(part in e.name for e in acts) for part in count},)
     return out
+
+
+def k1_bare_launch(torch, _build, cuda_decode, b, limit):
+    """K1's kernel alone on ``b``: one C launch into outputs made once (the
+    wrapper's checks and allocations, host work only, left out)."""
+    n = b.numel()
+    r = -(-n // 11)
+    outs = (torch.empty((r, 5), dtype=torch.int32, device=b.device),
+            torch.empty(r, dtype=torch.bool, device=b.device),
+            torch.empty((), dtype=torch.int32, device=b.device))
+    stream = _build.stream_of(b)
+    args = (b.data_ptr(), n, min(int(limit), n), 0xCC, 0x33, *(t.data_ptr() for t in outs),
+            cuda_decode.ticket_for(b.device, stream).data_ptr(), stream)
+    fn = cuda_decode._fn()
+    return lambda: fn(*args)
 
 
 def k3_cases(torch) -> dict:
@@ -845,38 +932,47 @@ def k2_ops(candidates, steps, rows):
     return candidates * 8 + steps * 2 + rows * 10
 
 
-def stream_window_inputs(sd, cuda_decode, cuda_correct, raw, chunk, dev):
-    """((args, kwargs) of K1's call, the same of K2's) in a stream's second
-    full window of ``chunk`` bytes, recorded from the wrappers while the
-    stream runs: the second window (a first feed of ``chunk`` bytes runs
-    one full window and keeps 10 bytes; the second feed runs a full window,
-    then a 20-byte one)."""
-    calls = {"K1": [], "K2": []}
-    plain = {"K1": (cuda_decode, "decode_rows_cuda"), "K2": (cuda_correct, "correct_verdicts_cuda")}
+WINDOW_WRAPPERS = {"K1": ("cuda_decode", "decode_rows_cuda"),
+                   "K2": ("cuda_correct", "correct_verdicts_cuda"),
+                   "K4": ("cuda_sweep_sums", "sweep_sums_cuda")}
+
+
+def stream_window_inputs(sd, raw, chunk, dev, paths_spec=None):
+    """{key: (args, kwargs)} of K1's, K2's and, with ``paths_spec`` (the
+    stream then estimates paths, K4 once a window), K4's call in a stream's
+    second full window of ``chunk`` bytes, recorded from the wrappers of the
+    ``slam_process_tpu_torch`` that ``sd`` belongs to while the stream runs (a
+    first feed of ``chunk`` bytes runs one full window and keeps 10 bytes;
+    the second feed runs a full window, then a 20-byte one)."""
+    import importlib
+
+    keys = ("K1", "K2", "K4") if paths_spec is not None else ("K1", "K2")
+    pkg = sd.__name__.split(".")[0]
+    mods = {k: (importlib.import_module(f"{pkg}.ops.{WINDOW_WRAPPERS[k][0]}"),
+                WINDOW_WRAPPERS[k][1]) for k in keys}
+    calls = {k: [] for k in keys}
+    originals = {k: getattr(mod, attr) for k, (mod, attr) in mods.items()}
 
     def recorder(key):
-        mod, attr = plain[key]
-        fn = getattr(mod, attr)
-
         def call(*args, **kw):
             calls[key].append((args, kw))
-            return fn(*args, **kw)
+            return originals[key](*args, **kw)
         return call
 
-    originals = {key: getattr(mod, attr) for key, (mod, attr) in plain.items()}
-    for key, (mod, attr) in plain.items():
+    for key, (mod, attr) in mods.items():
         setattr(mod, attr, recorder(key))
     try:
-        s = sd.DeviceStreamingSession(chunk_bytes=chunk, collect_filtered=True, device=dev)
+        s = sd.DeviceStreamingSession(chunk_bytes=chunk, collect_filtered=True,
+                                      collect_paths=paths_spec, device=dev)
         s.feed(raw[:chunk])
         s.feed(raw[chunk:2 * chunk])
     finally:
-        for key, (mod, attr) in plain.items():
+        for key, (mod, attr) in mods.items():
             setattr(mod, attr, originals[key])
-    if min(len(calls["K1"]), len(calls["K2"])) < 2 or calls["K1"][1][0][1] != chunk:
+    if min(len(c) for c in calls.values()) < 2 or calls["K1"][1][0][1] != chunk:
         fail(f"stream window of {chunk} bytes: the second window is not a full one "
-             f"({len(calls['K1'])} K1 and {len(calls['K2'])} K2 calls)")
-    return calls["K1"][1], calls["K2"][1]
+             f"({ {k: len(c) for k, c in calls.items()} } calls)")
+    return {k: c[1] for k, c in calls.items()}
 
 
 def k4_cases(np, torch, dev, p, bs, val, n_sweeps):
@@ -1242,10 +1338,12 @@ def streaming_phase(np, torch, sd, nnls, tmp, angles, raw_live, raw_ds, raw_stra
                              "window_host_ms": window_ms(fn)})
     for m in kernels.values():
         m.LAUNCHES = 0
+    names = {"K1": "decode_rows_kernel", "K4": "sweep_sums_kernel", "K5": "compact_kernel",
+             "K6": "track_block_kernel"}
     busy, acts, top, named = device_profile(torch, lambda: live_feed().block_until_ready(),
-                                            count=("compact_kernel", "track_block_kernel"))
-    calls = {"K5": kernels["K5"].LAUNCHES, "K6": kernels["K6"].LAUNCHES}
-    if [named["compact_kernel"], named["track_block_kernel"]] != [calls["K5"], calls["K6"]]:
+                                            count=tuple(names.values()))
+    calls = {k: kernels[k].LAUNCHES for k in names}
+    if [named[n] for n in names.values()] != list(calls.values()):
         fail(f"live feed: device kernels {named} differ from the wrapper calls {calls}")
     timing["live_feed"].update(device_busy_ms=busy,
                                device_busy_share=busy / timing["live_feed"]["ms"],

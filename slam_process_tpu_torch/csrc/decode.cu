@@ -1,4 +1,5 @@
-// K1: frame decode to the masked-row layout, one thread per byte position.
+// K1: frame decode to the masked-row layout, one thread per output row and
+// one launch per call.
 //
 // Replaces slam_process_tpu/ops/pallas_decode.py::decode_frames_pallas
 // (_decode_kernel) and computes what the production XLA form
@@ -6,86 +7,189 @@
 // b[p] is a flag byte (0xCC / 0x33), the ten following bytes carry the tag
 // classes (UE 00, BS 11, CLK x5 01, RSS x3 10) and the whole 11-byte window
 // lies below `limit` (= min(n, n_valid)).  By the >= 11-byte spacing theorem
-// no two starts share a row p / 11, so each start writes its row
-// (FLAG, UE, BS, RSS, CLK) and valid[p / 11] = 1 with no conflicts; the
-// caller zeroes the outputs.
+// the row [11 r, 11 r + 11) holds at most one start: rows[r] is its
+// (FLAG, UE, BS, RSS, CLK) or zeros, valid[r] says whether there is one, and
+// count is the number of starts.  (Were the flags set so that two starts
+// shared a row, the row would hold their fields' int32 sum, as the plain
+// version's masked row sum does.)
 //
-// Bound on an H100: bytes.  N bytes are read once and ~R * 21 bytes are
-// written (R = ceil(N / 11)), about 1.8 MB in and 3.5 MB out for a 160 k
-// frame session, ~1.6 us at 3.35 TB/s.  The work decode needs is a flag
-// test at every byte, the tag-class tests only where a flag byte sits and
-// the assembly only at frame starts, ~15 M integer operations (~0.5 us);
-// the kernel runs all eleven tests everywhere, branch-free.  Design: each block stages its 256 bytes plus the
-// 10-byte halo in shared memory with coalesced loads, so every byte is read
-// from device memory about once; the frame count is one __syncthreads_count
-// per block and one integer atomicAdd.  The TPU form's [R, 128] lane layout
-// and block-diagonal MXU row reduction were TPU workarounds and are not
-// carried over.
+// Bound on an H100: bytes.  N bytes are read once and R = ceil(N / 11) rows
+// of 20 B, R valid bytes and the count are written: N + 21 R + 4 bytes, 5.34
+// MB and 1.59 us at the full session's 1,835,008 padded bytes, 0.057 us at
+// a 64 KiB stream window.  The operations the function needs (a flag test at every byte, the
+// tag tests where a flag byte sits, the assembly at the starts) stay under
+// that.  So a call's floor is the launch and one round trip to device memory
+// each way, and the design is one launch per call with nothing else around
+// it:
+//   * a block of kRows threads owns kRows consecutive rows; it stages their
+//     byte span [11 r0, 11 r0 + 11 kRows + 10) in shared memory with 16-byte
+//     loads (single bytes where b is not 16-byte aligned), zeros past n;
+//   * thread r reads its row's 21 bytes (its 11 positions and the 10 after)
+//     as six 32-bit words, finds the flag bytes four at a time (__vcmpeq4),
+//     and for each flag position cuts the 11-byte window out of those words
+//     in registers: three masked compares test the tag classes, shifts and
+//     masks assemble the row;
+//   * every row is written, zeros where no frame starts, so the wrapper's
+//     outputs come from torch.empty: the block's rows go out through shared
+//     memory as 16-byte stores, valid as contiguous bytes;
+//   * the count: each block adds (1 << 32) + its count to one 64-bit word
+//     of a per-(device, stream) scratch; the block whose add finds every
+//     other block done writes the total and sets the word back to 0, so the
+//     scratch needs no reset launch and no host state.  The atomic goes out
+//     before the block's row stores and is read after them.  One atomic per
+//     kRows rows: 652 at the full session.
+// A block per 256 bytes (an empty kernel on that grid takes 6.1 us at the
+// full session) and three fills before the launch (5.8 us at a 64 KiB
+// window) cost more than the whole kernel does now
+// (tools/diag_torch_k1_phases.py).
+// The TPU form's [R, 128] lane layout and block-diagonal MXU row reduction
+// were TPU workarounds and are not carried over.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBlock = 256;
+constexpr int kRows = 256;                     // rows (and threads) per block
 constexpr int kFrame = 11;
+constexpr int kVecs = kFrame * kRows / 16 + 1;   // staged 16-byte words: the span and the halo
+static_assert(kFrame * kRows % 16 == 0, "a block's byte span must start 16-byte aligned");
 
-__global__ void decode_rows_kernel(const uint8_t* __restrict__ b, long long n,
-                                   long long limit, int flag_true, int flag_false,
-                                   int* __restrict__ rows, uint8_t* __restrict__ valid,
-                                   int* __restrict__ count) {
-  __shared__ uint8_t tile[kBlock + kFrame - 1];
-  const long long base = static_cast<long long>(blockIdx.x) * kBlock;
-  for (int i = threadIdx.x; i < kBlock + kFrame - 1; i += kBlock) {
-    const long long q = base + i;
-    tile[i] = q < n ? b[q] : 0;
+// One bit per byte of x that equals a flag, byte k at bit k (the multiply
+// gathers the four byte flags into bits 21-24 with no carries).
+__device__ __forceinline__ unsigned flags4(unsigned x, unsigned ft4, unsigned ff4) {
+  const unsigned m = (__vcmpeq4(x, ft4) | __vcmpeq4(x, ff4)) & 0x01010101u;
+  return ((m * 0x00204081u) >> 21) & 0xFu;
+}
+
+__global__ void __launch_bounds__(kRows) decode_rows_kernel(
+    const uint8_t* __restrict__ b, long long n, long long limit, int flag_true, int flag_false,
+    long long n_rows, int* __restrict__ rows, uint8_t* __restrict__ valid,
+    int* __restrict__ count, unsigned long long* __restrict__ ticket) {
+  __shared__ uint4 s_vec[kVecs];
+  __shared__ __align__(16) int s_rows[kRows * 5];
+  __shared__ int s_warp[kRows / 32];
+  const int tid = threadIdx.x;
+  const long long r0 = static_cast<long long>(blockIdx.x) * kRows;
+  const long long base = r0 * kFrame;
+
+  // Stage the block's bytes.
+  const bool aligned = (reinterpret_cast<uintptr_t>(b) & 15) == 0;
+  for (int i = tid; i < kVecs; i += kRows) {
+    const long long g = base + 16LL * i;
+    uint4 v;
+    if (aligned && g + 16 <= n) {
+      v = *reinterpret_cast<const uint4*>(b + g);
+    } else {
+      unsigned w[4] = {0u, 0u, 0u, 0u};
+      for (int k = 0; k < 16; ++k) {
+        if (g + k < n) w[k >> 2] |= static_cast<unsigned>(b[g + k]) << (8 * (k & 3));
+      }
+      v = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    s_vec[i] = v;
   }
   __syncthreads();
 
-  const long long p = base + threadIdx.x;
-  int ok = 0;
-  if (p + kFrame <= limit) {
-    const uint8_t* w = tile + threadIdx.x;
-    ok = (w[0] == flag_true) | (w[0] == flag_false);
-    ok &= (w[1] >> 6) == 0;    // UE
-    ok &= (w[2] >> 6) == 3;    // BS
-    ok &= (w[3] >> 6) == 1;    // CLK limbs
-    ok &= (w[4] >> 6) == 1;
-    ok &= (w[5] >> 6) == 1;
-    ok &= (w[6] >> 6) == 1;
-    ok &= (w[7] >> 6) == 1;
-    ok &= (w[8] >> 6) == 2;    // RSS limbs
-    ok &= (w[9] >> 6) == 2;
-    ok &= (w[10] >> 6) == 2;
-    if (ok) {
-      const int clk = (w[3] & 0x3F) | ((w[4] & 0x3F) << 6) | ((w[5] & 0x3F) << 12) |
-                      ((w[6] & 0x3F) << 18) | ((w[7] & 0x3F) << 24);
-      const int rss = (w[8] & 0x3F) | ((w[9] & 0x3F) << 6) | ((w[10] & 0x3F) << 12);
-      const long long r = p / kFrame;
-      int* row = rows + r * 5;
-      row[0] = w[0] == flag_true;
-      row[1] = w[1] & 0x3F;
-      row[2] = w[2] & 0x3F;
-      row[3] = rss;
-      row[4] = clk;
-      valid[r] = 1;
+  // This thread's row: its 21 bytes as words a[0..5] (a[5]: byte 20 only).
+  const long long r = r0 + tid;
+  const int off = kFrame * tid;
+  const unsigned* s_words = reinterpret_cast<const unsigned*>(s_vec);
+  const int k0 = off >> 2;
+  const unsigned sh = 8u * (off & 3);
+  unsigned a[6];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) a[i] = __funnelshift_r(s_words[k0 + i], s_words[k0 + i + 1], sh);
+  a[5] = s_words[k0 + 5] >> sh;
+  const unsigned ft4 = static_cast<unsigned>(flag_true) * 0x01010101u;
+  const unsigned ff4 = static_cast<unsigned>(flag_false) * 0x01010101u;
+  unsigned cand = flags4(a[0], ft4, ff4) | (flags4(a[1], ft4, ff4) << 4) |
+                  (flags4(a[2], ft4, ff4) << 8);
+  // Position 11 r + q starts a frame only if its window ends at or below limit.
+  const long long room = limit - r * kFrame - kFrame;    // the largest q allowed
+  cand &= room < 0 ? 0u : (room >= kFrame - 1 ? 0x7FFu : (2u << room) - 1u);
+
+  unsigned f[5] = {0u, 0u, 0u, 0u, 0u};
+  int found = 0;
+  while (cand) {
+    const int q = __ffs(cand) - 1;
+    cand &= cand - 1;
+    // Bytes q..q+11 of the row as x0, x1, x2 (x2's top byte unused).
+    const int k = q >> 2;
+    const unsigned s = 8u * (q & 3);
+    const unsigned y0 = k == 0 ? a[0] : (k == 1 ? a[1] : a[2]);
+    const unsigned y1 = k == 0 ? a[1] : (k == 1 ? a[2] : a[3]);
+    const unsigned y2 = k == 0 ? a[2] : (k == 1 ? a[3] : a[4]);
+    const unsigned y3 = k == 0 ? a[3] : (k == 1 ? a[4] : a[5]);
+    const unsigned x0 = __funnelshift_r(y0, y1, s);
+    const unsigned x1 = __funnelshift_r(y1, y2, s);
+    const unsigned x2 = __funnelshift_r(y2, y3, s);
+    // Tag classes (top two bits): UE 00, BS 11, CLK 01 x5, RSS 10 x3.
+    if ((x0 & 0xC0C0C000u) != 0x40C00000u || (x1 & 0xC0C0C0C0u) != 0x40404040u ||
+        (x2 & 0x00C0C0C0u) != 0x00808080u) {
+      continue;
     }
+    f[0] += (x0 & 0xFFu) == static_cast<unsigned>(flag_true);
+    f[1] += (x0 >> 8) & 0x3Fu;
+    f[2] += (x0 >> 16) & 0x3Fu;
+    f[3] += (x2 & 0x3Fu) | ((x2 >> 2) & 0xFC0u) | ((x2 >> 4) & 0x3F000u);
+    f[4] += ((x0 >> 24) & 0x3Fu) | ((x1 & 0x3Fu) << 6) | ((x1 << 4) & 0x3F000u) |
+            ((x1 << 2) & 0xFC0000u) | (x1 & 0x3F000000u);
+    ++found;
   }
-  const int block_count = __syncthreads_count(ok);
-  if (threadIdx.x == 0 && block_count > 0) atomicAdd(count, block_count);
+#pragma unroll
+  for (int c = 0; c < 5; ++c) s_rows[5 * tid + c] = static_cast<int>(f[c]);
+  if (r < n_rows) valid[r] = found > 0;
+
+  // The block's count, then the call's.
+  int warp_sum = __reduce_add_sync(0xffffffffu, found);
+  if ((tid & 31) == 0) s_warp[tid >> 5] = warp_sum;
+  __syncthreads();
+  // The ticket's atomic goes out before the row stores and its answer is
+  // read after them, so its round trip overlaps the stores.
+  unsigned block_count = 0;
+  unsigned long long old = 0;
+  if (tid == 0) {
+#pragma unroll
+    for (int w = 0; w < kRows / 32; ++w) block_count += static_cast<unsigned>(s_warp[w]);
+    old = atomicAdd(ticket, (1ull << 32) + block_count);
+  }
+
+  // The block's rows, 16 bytes a store where the block is whole.
+  const long long nr = n_rows - r0 < kRows ? n_rows - r0 : kRows;
+  if (nr == kRows) {
+    uint4* dst = reinterpret_cast<uint4*>(rows + r0 * 5);
+    const uint4* src = reinterpret_cast<const uint4*>(s_rows);
+    for (int i = tid; i < kRows * 5 / 4; i += kRows) dst[i] = src[i];
+  } else {
+    for (long long i = tid; i < nr * 5; i += kRows) rows[r0 * 5 + i] = s_rows[i];
+  }
+  if (tid == 0 && static_cast<unsigned>(old >> 32) == gridDim.x - 1) {
+    *count = static_cast<int>(static_cast<unsigned>(old) + block_count);
+    atomicExch(ticket, 0ull);
+  }
 }
 
 }  // namespace
 
-// rows [R, 5] int32, valid [R] uint8 and count [1] int32 must be zeroed by
-// the caller; R = ceil(n / 11).  Returns cudaGetLastError() after the launch.
-extern "C" int slam_decode_rows(const void* b, long long n, long long limit,
-                                int flag_true, int flag_false, void* rows, void* valid,
-                                void* count, void* stream) {
-  const long long blocks = (n + kBlock - 1) / kBlock;
-  decode_rows_kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
+// b: uint8 [n]; flags: byte values; rows int32 [R, 5] (16-byte aligned), valid uint8 [R] and
+// count int32 [1] need no initial value, R = ceil(n / 11); ticket: an 8-byte
+// scratch word, zero when first used (a call leaves it zero for the next on
+// the same stream).  One launch, also for n = 0.  Returns cudaGetLastError()
+// after it.
+extern "C" int slam_decode_rows(const void* b, long long n, long long limit, int flag_true,
+                                int flag_false, void* rows, void* valid, void* count,
+                                void* ticket, void* stream) {
+  if (n < 0 || (reinterpret_cast<uintptr_t>(rows) & 15) != 0 || flag_true < 0 ||
+      flag_true > 0xFF || flag_false < 0 || flag_false > 0xFF) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_rows = (n + kFrame - 1) / kFrame;
+  const long long blocks = n_rows > 0 ? (n_rows + kRows - 1) / kRows : 1;
+  decode_rows_kernel<<<static_cast<unsigned>(blocks), kRows, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(b), n, limit, flag_true, flag_false,
-      static_cast<int*>(rows), static_cast<uint8_t*>(valid), static_cast<int*>(count));
+      static_cast<const uint8_t*>(b), n, limit < n ? limit : n, flag_true, flag_false, n_rows,
+      static_cast<int*>(rows), static_cast<uint8_t*>(valid), static_cast<int*>(count),
+      static_cast<unsigned long long*>(ticket));
   return static_cast<int>(cudaGetLastError());
 }

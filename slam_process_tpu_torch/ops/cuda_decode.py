@@ -3,8 +3,9 @@
 Replaces ``slam_process_tpu/ops/pallas_decode.py::decode_frames_pallas``.
 It writes the masked-row layout of ``ops/decode.py::decode_rows_plain``,
 the plain PyTorch version it is held against; ``ops/decode.decode_rows``
-dispatches here for CUDA tensors.  Bound: bytes (N read, ~21 R written);
-see the source note in ``csrc/decode.cu``.
+dispatches here for CUDA tensors.  One launch per call: the kernel writes
+every row and the count, so the outputs come from ``torch.empty``.  Bound:
+bytes (N read, 21 R + 4 written); see the source note in ``csrc/decode.cu``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from slam_process_tpu_torch.ops import _build
 
 LAUNCHES = 0   # kernel launches since the caller last set it to 0
+_tickets = {}  # (device index, stream) -> the count's 8-byte scratch word
 
 
 @functools.lru_cache(maxsize=None)
@@ -24,9 +26,19 @@ def _fn():
     fn = _build.library().slam_decode_rows
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def ticket_for(dev: torch.device, stream: int) -> torch.Tensor:
+    """The count's scratch word on ``dev`` for ``stream``: zeroed once when
+    made; every launch leaves it zero for the next on the same stream."""
+    key = (dev.index, stream)
+    t = _tickets.get(key)
+    if t is None:
+        t = _tickets[key] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return t
 
 
 def decode_rows_cuda(b: torch.Tensor, limit: int, flag_true: int, flag_false: int):
@@ -38,16 +50,18 @@ def decode_rows_cuda(b: torch.Tensor, limit: int, flag_true: int, flag_false: in
     if b.dtype != torch.uint8 or b.dim() != 1 or not b.is_contiguous():
         raise ValueError(f"decode kernel needs contiguous uint8 [N], got "
                          f"{b.dtype} {tuple(b.shape)}")
+    if not (0 <= flag_true <= 0xFF and 0 <= flag_false <= 0xFF):
+        raise ValueError(f"flags must be byte values, got {flag_true} and {flag_false}")
     n = b.shape[0]
     r = -(-n // 11)
-    rows = torch.zeros((r, 5), dtype=torch.int32, device=b.device)
-    valid = torch.zeros(r, dtype=torch.bool, device=b.device)
-    count = torch.zeros((), dtype=torch.int32, device=b.device)
-    if n == 0:
-        return rows, valid, count
+    rows = torch.empty((r, 5), dtype=torch.int32, device=b.device)
+    valid = torch.empty(r, dtype=torch.bool, device=b.device)
+    count = torch.empty((), dtype=torch.int32, device=b.device)
+    stream = _build.stream_of(b)
     with torch.cuda.device(b.device):
         err = _fn()(b.data_ptr(), n, min(int(limit), n), int(flag_true), int(flag_false),
-                    rows.data_ptr(), valid.data_ptr(), count.data_ptr(), _build.stream_of(b))
+                    rows.data_ptr(), valid.data_ptr(), count.data_ptr(),
+                    ticket_for(b.device, stream).data_ptr(), stream)
     _build.check(err, "decode kernel")
     LAUNCHES += 1
     return rows, valid, count

@@ -275,3 +275,67 @@ def verdict_edge_cases(seed: int = 0) -> dict:
         gid = sorted_gid(2048, 8, 256)
         out[name] = case(gid, rows(gid, r, n, c, tol), r, e, n, 96, c, tol)
     return out
+
+
+def decode_edge_cases(seed: int = 0) -> dict:
+    """Inputs of the frame decode at its edges: {case: (bytes uint8 [N],
+    n_valid or None)}, from ``default_rng(seed)``.  Every byte a flag
+    (0xCC); frames back to back behind 0-10 junk bytes (a start at every
+    offset mod 11); a frame ending exactly at ``n_valid`` and one byte past
+    it; session bytes with junk cut to N = 0, 1, 10, 11, 12, 5,119, 5,120,
+    5,121, 11 x 256 +- 1 and 11 x 1,024 +- 1 (the edges of blocks of 256
+    and 1,024 rows)."""
+    rng = np.random.default_rng(seed)
+    out = {"all_flags_0xCC": (np.full(4096, 0xCC, np.uint8), None)}
+    frames = synthetic_session_bytes(n_groups=1, frames_per_beam=2, baselines_per_group=8,
+                                     junk_frac=0.0, seed=seed)[2:]       # back to back
+    for off in range(11):
+        out[f"back_to_back_offset_{off}"] = (
+            np.concatenate([rng.choice(_JUNK, off), frames]).astype(np.uint8), None)
+    lead = rng.choice(_JUNK, 3)
+    stream = np.concatenate([lead, frames]).astype(np.uint8)
+    end = 3 + 11 * 21                                    # frame 20 ends here
+    out["frame_ends_at_n_valid"] = (stream, end)
+    out["frame_one_byte_past_n_valid"] = (stream, end - 1)
+    raw = synthetic_session_bytes(n_groups=3, frames_per_beam=5, baselines_per_group=4,
+                                  junk_frac=0.3, seed=seed)
+    for n in (0, 1, 10, 11, 12, 5119, 5120, 5121, 11 * 256 - 1, 11 * 256 + 1,
+              11 * 1024 - 1, 11 * 1024 + 1):
+        out[f"n_{n}"] = (raw[:n].copy(), None)
+    return out
+
+
+def sweep_sums_edge_cases(seed: int = 0) -> dict:
+    """Inputs of the per-sweep sums at their edges: {case: (p, bs, val int32
+    [F], max_sweeps, n_beams)}, from ``default_rng(seed)``.  One cell fed by
+    20,000 rows (many 1,024-row tiles; its sum stays below 2^24); sorted p
+    with long runs of -1 inside and a -1 tail (the stream's paths buffer);
+    S = 1 with ids out of range; one cell summing to exactly 2^24 - 1; and
+    n_beams of 32, 100 and 1,500 (a sweep's UE row wider than 1,024 cells)."""
+    rng = np.random.default_rng(seed)
+
+    def case(p, bs, val, s, nb=64):
+        return tuple(np.ascontiguousarray(x, dtype=np.int32) for x in (p, bs, val)) + (s, nb)
+
+    out = {}
+    f = 20_000
+    out["one_cell_20000_rows"] = case(np.full(f, 2 * 64 + 5), np.full(f, 7),
+                                      rng.integers(0, 800, f), 4)
+    f, s = 24_000, 12
+    p = np.sort(rng.integers(0, s * 64, f))
+    for lo, hi in ((3_000, 6_500), (11_000, 11_100), (15_000, 17_000)):
+        p[lo:hi] = -1
+    p[20_000:] = -1
+    out["sorted_minus1_runs_and_tail"] = case(p, rng.integers(0, 64, f),
+                                              rng.integers(0, 1 << 18, f), s)
+    f = 5_000
+    out["S1_ids_out_of_range"] = case(rng.integers(-2, 66, f), rng.integers(-1, 65, f),
+                                      rng.integers(0, 1 << 18, f), 1)
+    out["one_cell_2^24-1"] = case(np.full(255, 3 * 64 + 17), np.full(255, 40),
+                                  np.full(255, 65_793), 4)          # 255 x 65,793 = 2^24 - 1
+    for nb, s in ((32, 5), (100, 3), (1500, 1)):
+        f = 30_000
+        out[f"n_beams_{nb}_S{s}"] = case(np.sort(rng.integers(-1, s * nb + 2, f)),
+                                         rng.integers(-1, nb + 1, f),
+                                         rng.integers(0, 1 << 18, f), s, nb)
+    return out

@@ -22,7 +22,14 @@ equal its plain version on the full session's shape and on every input of
 ``utils/synthetic.verdict_edge_cases``; K3 is also held for S = 1, 4 and
 66 tiles of 64 x 64, 48 x 100 and 5 x 7 (fewer rows than the cluster's
 eight bands) at sigma 0, 0.5, 1, 2.3 and 3, with all-NaN and one-cell
-tiles, log and linear.
+tiles, log and linear.  K1 and K4 are also held, one launch a call, on
+every input of ``utils/synthetic.decode_edge_cases`` (all-flag bytes,
+back-to-back frames at each offset mod 11, a frame ending at n_valid and one
+byte past it, N at the row blocks' edges) and ``sweep_sums_edge_cases`` (one
+cell over many tiles, sorted p with -1 runs and a -1 tail, S = 1, a cell at
+2^24 - 1, n_beams 32, 100 and 1,500), on byte views at every 16-byte
+misalignment, on calls repeated on one stream (the count scratch resets) and
+on interleaved K4 calls of different S.
 """
 
 import numpy as np
@@ -33,7 +40,8 @@ from slam_process_tpu_torch.ops import (
     compact, correct, cuda_compact, cuda_correct, cuda_decode, cuda_raster, cuda_sweep_sums,
     cuda_tracker, decode, raster, scene, tracker)
 from slam_process_tpu_torch.pipeline.device import run_session_on_device
-from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes, verdict_edge_cases
+from slam_process_tpu_torch.utils.synthetic import (
+    decode_edge_cases, sweep_sums_edge_cases, synthetic_session_bytes, verdict_edge_cases)
 
 pytestmark = [pytest.mark.cuda,
               pytest.mark.skipif("not torch.cuda.is_available()",
@@ -56,6 +64,69 @@ def test_decode_kernel_matches_plain(cut):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[2]) > 0
+
+
+K1_EDGES = decode_edge_cases()
+
+
+@pytest.mark.parametrize("name", sorted(K1_EDGES))
+def test_decode_kernel_edge_cases_match_plain(name):
+    raw, n_valid = K1_EDGES[name]
+    b = torch.from_numpy(raw)
+    limit = len(raw) if n_valid is None else n_valid
+    cuda_decode.LAUNCHES = 0
+    got = cuda_decode.decode_rows_cuda(b.cuda(), limit, 0xCC, 0x33)
+    assert cuda_decode.LAUNCHES == 1
+    for g, w in zip(got, decode.decode_rows_plain(b, n_valid=n_valid)):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+def test_decode_kernel_misaligned_views_and_repeated_calls():
+    """Views of a session's bytes at every offset mod 16 (the kernel's
+    16-byte staging loads apply only where b is aligned), each called twice
+    on one stream: the count's scratch word is back at 0 after every call."""
+    raw = torch.from_numpy(session(3))
+    dev_raw = raw.cuda()
+    for off in range(16):
+        want = decode.decode_rows_plain(raw[off:], n_valid=len(raw) - off - 5)
+        for _ in range(2):
+            got = cuda_decode.decode_rows_cuda(dev_raw[off:], len(raw) - off - 5, 0xCC, 0x33)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+        assert int(want[2]) > 0
+
+
+K4_EDGES = sweep_sums_edge_cases()
+
+
+@pytest.mark.parametrize("name", sorted(K4_EDGES))
+def test_sweep_sums_kernel_edge_cases_match_plain(name):
+    p, bs, val, s, nb = (torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                         for x in K4_EDGES[name])
+    cuda_sweep_sums.LAUNCHES = 0
+    got = cuda_sweep_sums.sweep_sums_cuda(p.cuda(), bs.cuda(), val.cuda(), s, nb)
+    assert cuda_sweep_sums.LAUNCHES == 1
+    for g, w in zip(got, scene.sweep_sums_plain(p, bs, val, s, nb)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_sweep_sums_kernel_interleaved_shapes_and_orders():
+    """Calls of S = 9 and S = 65 interleaved on one stream, and an unsorted
+    stream over 65 sweeps repeated: every result equals the plain version
+    bit for bit (integer sums, whatever the order of the adds)."""
+    rng = np.random.default_rng(9)
+    cases = []
+    for s, f, sort in ((9, 14_000, True), (65, 100_000, True), (65, 200_000, False)):
+        p = rng.integers(-1, s * 64, f)
+        p = np.sort(p) if sort else p
+        cases.append(tuple(torch.from_numpy(x.astype(np.int32)) for x in (
+            p, rng.integers(0, 64, f), rng.integers(0, 1 << 18, f))) + (s,))
+    want = [scene.sweep_sums_plain(*c) for c in cases]
+    on_card = [tuple(t.cuda() for t in c[:3]) + (c[3],) for c in cases]
+    for k in (0, 1, 0, 2, 1, 2, 2, 0):
+        got = cuda_sweep_sums.sweep_sums_cuda(*on_card[k])
+        for g, w in zip(got, want[k]):
+            assert torch.equal(g.cpu(), w)
 
 
 def test_correct_kernel_matches_plain():

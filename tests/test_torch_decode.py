@@ -2,9 +2,10 @@
 
 The same seeded bytes go through both packages: ``decode_rows`` against
 ``decode_rows_jax`` (rows, valid, count exactly, with and without
-``n_valid``), ``decode_frames`` against ``decode_frames_np`` and the Pallas
-kernel in interpret mode, and ``tokenize_hex`` against the JAX package's
-tokenizer.  Port tensors stay on the CPU, where the plain versions run.
+``n_valid``; also on the edge inputs of ``utils/synthetic.decode_edge_cases``,
+the contract kernel K1 is held to on the card), ``decode_frames`` against
+``decode_frames_np`` and the Pallas kernel in interpret mode, and
+``tokenize_hex`` against the JAX package's tokenizer.  Port tensors stay on the CPU, where the plain versions run.
 """
 
 import numpy as np
@@ -16,7 +17,8 @@ from slam_process_tpu.ops.decode import decode_frames_np, decode_rows_jax
 from slam_process_tpu.ops.pallas_decode import decode_frames_pallas
 from slam_process_tpu_torch.io import read_hex_log, tokenize_hex
 from slam_process_tpu_torch.ops.decode import decode_frames, decode_rows, frame_capacity
-from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes, to_hex_text
+from slam_process_tpu_torch.utils.synthetic import (
+    decode_edge_cases, synthetic_session_bytes, to_hex_text)
 
 
 def junk_heavy_bytes(seed: int) -> np.ndarray:
@@ -44,6 +46,34 @@ def test_decode_rows_matches_jax(seed, cut):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert int(got[2]) > 0
+
+
+DECODE_EDGES = decode_edge_cases()
+
+
+@pytest.mark.parametrize("name", sorted(DECODE_EDGES))
+def test_decode_rows_edge_cases_match_jax(name):
+    """All-flag bytes, back-to-back frames at each offset mod 11, a frame
+    ending exactly at n_valid and one byte past it, and N at the edges of
+    the kernel's row blocks: rows, valid and count equal JAX's, and the
+    count equals the host engine's frames inside n_valid."""
+    import jax.numpy as jnp
+
+    raw, n_valid = DECODE_EDGES[name]
+    got = decode_rows(torch.from_numpy(raw), n_valid=n_valid)
+    want = decode_rows_jax(jnp.asarray(raw),
+                           n_valid=None if n_valid is None else jnp.int32(n_valid))
+    assert got[0].shape == (-(-len(raw) // 11), 5)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    inside = raw if n_valid is None else raw[:n_valid]
+    assert int(got[2]) == decode_frames_np(inside).valid == int(got[1].sum())
+    if name.startswith("back_to_back"):
+        assert int(got[2]) == 128
+    if name == "frame_ends_at_n_valid":
+        assert int(got[2]) == 21
+    if name == "frame_one_byte_past_n_valid":
+        assert int(got[2]) == 20
 
 
 @pytest.mark.parametrize("seed", [3, 4])

@@ -5,8 +5,13 @@
 scan form and the Pallas kernel ``sweep_sums_pallas`` in interpret mode, on
 the seeded streams of ``tests/test_pallas_sweep_sums.py``: random rows with
 out-of-range ids at 8, 24 and 65 sweeps, the sorted narrow-window stream
-and the spill stream.  RSS is an integer < 2^18 and every cell sum stays
-below 2^24, so all three compute exact integers: equality is required.
+and the spill stream; and on the edge inputs of
+``utils/synthetic.sweep_sums_edge_cases``, the contract kernel K4 is held to
+on the card (one cell over many tiles, sorted p with -1 runs and a -1 tail,
+S = 1, a cell at 2^24 - 1; the n_beams other than 64, which the JAX forms
+do not take, against an int64 numpy sum).  RSS is an integer < 2^18 and
+every cell sum stays below 2^24, so all three compute exact integers:
+equality is required.
 """
 
 import numpy as np
@@ -17,6 +22,7 @@ from slam_process_tpu.config import SceneConfig as JaxSceneConfig
 from slam_process_tpu_torch.config import SceneConfig
 from slam_process_tpu_torch.ops.scene import (
     intensity_per_sweep, intensity_per_sweep_sums, sweep_sums_plain)
+from slam_process_tpu_torch.utils.synthetic import sweep_sums_edge_cases
 
 
 def random_rows(seed, s):
@@ -90,6 +96,44 @@ def test_sweep_sums_match_jax_scan_and_pallas(name):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w_scan))
             np.testing.assert_array_equal(g.numpy(), np.asarray(w_pallas))
     assert float(plain[1].sum()) == float(keep.sum())
+
+
+K4_EDGES = sweep_sums_edge_cases()
+
+
+@pytest.mark.parametrize("name", sorted(K4_EDGES))
+def test_sweep_sums_edge_cases_match_jax(name):
+    import jax.numpy as jnp
+
+    from slam_process_tpu.ops.pallas_sweep_sums import sweep_sums_pallas
+    from slam_process_tpu.ops.scene import intensity_per_sweep_sums_jax
+
+    p, bs, val, s, nb = K4_EDGES[name]
+    keep = (p >= 0) & (p < s * nb) & (bs >= 0) & (bs < nb)
+    want = [np.zeros(s * nb * nb + 1, np.int64) for _ in range(2)]
+    cell = np.where(keep, p.astype(np.int64) * nb + bs, s * nb * nb)
+    np.add.at(want[0], cell, np.where(keep, val, 0))
+    np.add.at(want[1], cell, keep.astype(np.int64))
+    want = [w[:-1].reshape(s, nb, nb).astype(np.float32) for w in want]
+    plain = sweep_sums_plain(*(torch.from_numpy(x) for x in (p, bs, val)), s, nb)
+    for g, w in zip(plain, want):
+        assert g.dtype == torch.float32 and g.shape == (s, nb, nb)
+        np.testing.assert_array_equal(g.numpy(), w)
+    if name == "one_cell_2^24-1":
+        assert float(plain[0].max()) == 2 ** 24 - 1
+    if nb != 64:
+        return
+    ue, gid = np.where(keep, p % 64, 0), np.where(keep, p // 64, -1)
+    scan = intensity_per_sweep_sums_jax(
+        jnp.asarray(ue), jnp.asarray(bs), jnp.asarray(val, jnp.float32), jnp.asarray(gid),
+        jnp.asarray(keep), max_sweeps=s, cfg=JaxSceneConfig(), engine="scan")
+    pad = -len(p) % 1024                 # the Pallas kernel takes whole 1,024-row blocks
+    pallas = sweep_sums_pallas(*(jnp.asarray(np.pad(x, (0, pad), constant_values=c))
+                                 for x, c in ((p, -1), (bs, 0), (val, 0))),
+                               max_sweeps=s, interpret=True)
+    for g, w_scan, w_pallas in zip(plain, scan, pallas):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_scan))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_pallas))
 
 
 def test_intensity_per_sweep_matches_jax():

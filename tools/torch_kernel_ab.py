@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time kernels K2, K3, K5 and K6 of two checkouts of the PyTorch / CUDA port
-on one NVIDIA GPU, in turns: base, change, change, base.
+"""Time kernels K1-K6 of two checkouts of the PyTorch / CUDA port on one
+NVIDIA GPU, in turns: base, change, change, base (``--rounds N``: that
+pattern N times).
 
     git archive <base-commit> | tar -x -C build/ab_base     # a directory .gitignore lists
-    python3 tools/torch_kernel_ab.py build/ab_base .
+    python3 tools/torch_kernel_ab.py build/ab_base . [--rounds N]
 
 Each turn is a fresh process that imports ``slam_process_tpu_torch`` from
 one checkout (its kernels built from that checkout's sources) and times,
@@ -24,7 +25,23 @@ with CUDA events, the median of 20 runs of 20 back-to-back calls after a
     the wrapper while a stream runs;
   * K3 ``S1``: the full session's 64 x 64 tile at sigma 1 (the main path),
     and ``S58``: 58 seeded RSS-sized tiles with 5 % NaN, a per-sweep
-    render's shape.
+    render's shape;
+  * K1 ``full_session``: the full session's padded bytes (the main path),
+    and the second full window of the straddle (16 KiB), the live feed
+    (64 KiB) and the dataset replay (1 MiB), recorded from the wrapper while
+    a stream runs: each through the wrapper (what a caller pays) and as the
+    bare launch (one C call into outputs made once);
+  * K4 ``full_session``: the full session's filtered rows (155,035 rows, S =
+    58, ``chip_smoke.py``'s main K4 input), ``live_S9`` and ``replay_S65``:
+    the live feed's and the replay's second full window with paths
+    (``s_step`` 8 and 64), recorded from the wrapper while the stream runs,
+    and ``unsorted_S65``: 200,000 rows in random order over 65 sweeps
+    (``chip_smoke.py``'s ``b_unsorted_65_sweeps``), through the wrapper;
+  * the host's microseconds per K1 call at the 64 KiB window and per K4
+    call at S = 9 (``time.perf_counter`` around 50 calls issued behind a
+    ~20 ms device sleep, so the device is busy throughout, as it runs
+    behind a stream's host): what a window pays the wrappers on the host;
+    a launch that waited for the device would show ~400 µs more a call.
 
 Then the streams of ``chip_smoke.py``'s streaming phase that run the
 estimator: the live feed (the full multipath session in 64 KiB chunks,
@@ -141,6 +158,7 @@ def turn(root: str) -> dict:
             torch.arange(8, device=dev) < 3, torch.tensor(3, dtype=torch.int32, device=dev))
     out["K6_main_65_lanes_ms"] = cuda_ms(lambda: cuda_tracker.track_block_cuda(*args, 10.0))
     out.update(k2_k3(dev))
+    out.update(k1_k4(dev, Path(root)))
     out.update(streams(dev, Path(root)))
     return out
 
@@ -160,22 +178,145 @@ def k2_full_session(dev):
                                                               tol=500), out
 
 
-def k2_live_window(dev):
-    """(args, kwargs) of K2's call in the live feed's second full 64 KiB
-    window (after the first one's open group is carried), recorded from the
-    wrapper of the ``slam_process_tpu_torch`` on ``sys.path`` while a stream
-    runs, by this repository's ``chip_smoke.stream_window_inputs``."""
+def smoke():
+    """This repository's ``chip_smoke.py`` as a module (its input makers)."""
     import importlib.util
 
-    from slam_process_tpu_torch.ops import cuda_correct, cuda_decode
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def window_calls(dev, raw, chunk, s_step=None, angles=None):
+    """{key: (args, kwargs)} of K1's, K2's and (with ``s_step``, the stream
+    estimating paths on the angle table ``angles``) K4's call in a stream's
+    second full window of ``chunk`` bytes, recorded from the wrappers of the
+    ``slam_process_tpu_torch`` on ``sys.path`` while the stream runs, by
+    this repository's ``chip_smoke.stream_window_inputs``."""
     from slam_process_tpu_torch.parallel import streaming_device as sd
+
+    spec = None if s_step is None else sd.make_paths_spec(angles, s_step=s_step)
+    return smoke().stream_window_inputs(sd, raw, chunk, dev, spec)
+
+
+def k2_live_window(dev):
+    """(args, kwargs) of K2's call in the live feed's second full 64 KiB
+    window (after the first one's open group is carried)."""
     from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes
 
-    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke.stream_window_inputs(sd, cuda_decode, cuda_correct,
-                                      synthetic_session_bytes(**MULTIPATH), LIVE_CHUNK, dev)[1]
+    return window_calls(dev, synthetic_session_bytes(**MULTIPATH), LIVE_CHUNK)["K2"]
+
+
+def k1_k4_inputs(dev, angles):
+    """K1's calls {name: (b, limit)}: the full session's padded bytes, and
+    the second full window of the straddle (the full noise session in 16
+    KiB windows), the live feed (64 KiB) and the dataset replay (1 MiB).
+    With them, K4's {name: (p, bs, val, max_sweeps, n_beams)}: the full
+    session's filtered rows, the live feed's (S = 9) and the replay's (S =
+    65) second window, and the unsorted 65-sweep stream."""
+    import numpy as np
+    import torch
+
+    from slam_process_tpu_torch.ops import correct
+    from slam_process_tpu_torch.pipeline.device import (
+        bucket_size, pad_bytes, run_session_on_device)
+    from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes
+
+    full = dict(MULTIPATH, seed=0)
+    del full["n_paths"]
+    raw_full = synthetic_session_bytes(**full)
+    padded = torch.from_numpy(pad_bytes(raw_full, bucket_size(len(raw_full)))).to(dev)
+    raw_ds = np.concatenate([synthetic_session_bytes(**c) for c in DATASET])
+    k1 = {"full_session": (padded, padded.numel())}
+    k4 = {}
+    for name, raw, chunk, s_step in (("straddle_16KiB", raw_full, 1 << 14, None),
+                                     ("live_64KiB", synthetic_session_bytes(**MULTIPATH),
+                                      LIVE_CHUNK, 8),
+                                     ("replay_1MiB", raw_ds, REPLAY_CHUNK, 64)):
+        calls = window_calls(dev, raw, chunk, s_step, angles)
+        k1[name] = calls["K1"][0][:2]
+        if "K4" in calls:
+            k4[f"{name.split('_')[0]}_S{s_step + 1}"] = calls["K4"][0]
+    out = run_session_on_device(raw_full, device=dev)
+    keep = out.keep.cpu().numpy()
+    ue = out.frames[:, 1].cpu().numpy()[keep]
+    sweep = correct.detect_groups_np(ue)
+    p = torch.from_numpy((sweep * 64 + ue).astype(np.int32)).to(dev)
+    k4["full_session"] = (p, out.corrected_bs[out.keep].contiguous(),
+                          out.frames[:, 3][out.keep].contiguous(), int(sweep.max()) + 1, 64)
+    rng = np.random.default_rng(5)           # chip_smoke.k4_cases' b_unsorted_65_sweeps
+    f = 200_000
+    k4["unsorted_S65"] = tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (
+        rng.integers(0, 65 * 64, f), rng.integers(0, 64, f),
+        rng.integers(0, 1 << 18, f))) + (65, 64)
+    return k1, k4
+
+
+def k1_bare(cuda_decode, b, limit):
+    """K1's kernel alone: one C launch into outputs made once; a checkout
+    whose kernel needs zeroed outputs (no count scratch) gets them zeroed
+    once, as ``chip_smoke.py`` timed it then."""
+    import torch
+
+    from slam_process_tpu_torch.ops import _build
+
+    n = b.numel()
+    r = -(-n // 11)
+    outs = (torch.zeros((r, 5), dtype=torch.int32, device=b.device),
+            torch.zeros(r, dtype=torch.bool, device=b.device),
+            torch.zeros((), dtype=torch.int32, device=b.device))
+    stream = _build.stream_of(b)
+    fn = cuda_decode._fn()
+    extra = ([cuda_decode.ticket_for(b.device, stream).data_ptr()]
+             if hasattr(cuda_decode, "ticket_for") else [])
+    args = (b.data_ptr(), n, min(int(limit), n), 0xCC, 0x33, *(t.data_ptr() for t in outs),
+            *extra, stream)
+    return lambda: fn(*args)
+
+
+def k1_k4(dev, root: Path) -> dict:
+    """K1 through the wrapper and bare, and K4 through the wrapper, at the
+    shapes ``k1_k4_inputs`` gives."""
+    import tempfile
+
+    from slam_process_tpu_torch.ops import cuda_decode, cuda_sweep_sums
+    from slam_process_tpu_torch.utils.synthetic import write_angle_table
+
+    (root / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        k1, k4 = k1_k4_inputs(dev, write_angle_table(Path(tmp) / "beam_angle.xlsx"))
+    out = {}
+    for name, (b, limit) in k1.items():
+        out[f"K1_{name}_ms"] = cuda_ms(lambda: cuda_decode.decode_rows_cuda(b, limit, 0xCC, 0x33))
+        out[f"K1_{name}_bare_ms"] = cuda_ms(k1_bare(cuda_decode, b, limit))
+    for name, args in k4.items():
+        out[f"k4_{name}_rows"] = int(args[0].numel())
+        out[f"K4_{name}_ms"] = cuda_ms(lambda: cuda_sweep_sums.sweep_sums_cuda(*args))
+    b, limit = k1["live_64KiB"]
+    out["K1_live_64KiB_host_us"] = host_us(
+        lambda: cuda_decode.decode_rows_cuda(b, limit, 0xCC, 0x33))
+    out["K4_live_S9_host_us"] = host_us(
+        lambda: cuda_sweep_sums.sweep_sums_cuda(*k4["live_S9"]))
+    return out
+
+
+def host_us(fn, n=50) -> float:
+    """Host microseconds per call of ``fn`` over ``n`` calls issued behind
+    a ~20 ms device sleep, with no sync between them."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def k3_tiles(dev, out_full):
@@ -286,15 +427,20 @@ def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "--turn":
         print(json.dumps(turn(sys.argv[2])), flush=True)
         return
-    if len(sys.argv) != 3:
+    args = sys.argv[1:]
+    rounds = 1
+    if len(args) == 4 and args[2] == "--rounds":
+        rounds = int(args.pop())
+        args.pop()
+    if len(args) != 2 or rounds < 1:
         raise SystemExit(__doc__)
-    base, change = sys.argv[1:]
+    base, change = args
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     runs = {base: [], change: []}
-    for root in (base, change, change, base):
+    for root in (base, change, change, base) * rounds:
         res = subprocess.run([sys.executable, __file__, "--turn", root], capture_output=True,
                              text=True, timeout=900)
         if res.returncode != 0:
@@ -303,7 +449,7 @@ def main() -> None:
         print(json.dumps(line), flush=True)
         runs[root].append(line)
     keys = sorted({k for lines in runs.values() for ln in lines for k in ln
-                   if k.endswith(("_ms", "_kernels", "_window"))})
+                   if k.endswith(("_ms", "_kernels", "_window", "_us"))})
     print(json.dumps({"nvidia_smi": smi, "median_ms": {
         root: {k: statistics.median(ln[k] for ln in lines) for k in keys if k in lines[0]}
         for root, lines in runs.items()}, "spread_ms": {
