@@ -102,9 +102,31 @@ Phases, each printing one JSON line:
                 kernels must equal the wrapper calls.  Across the five
                 streams K5 runs twice per window (the carry; one fused call
                 for the kept rows) and once per flush, or the run fails.
-  7. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
+  7. cli        the user surface, on the card and then with ``--device
+                cpu``: ``cli.main`` ``decode`` (the full session, a log with
+                flag bytes spliced in, v1 and v2 streams, the 257-group
+                log), ``correct --output`` / ``--in-place`` on the full
+                session's Parsed xlsx, ``correct --run-tests`` (K2 must
+                launch), ``correct`` on the 257-group xlsx (K2 exactly
+                twice); the ``session`` command's Session calls one by one
+                (``from_log``, ``correct``, ``export_parsed`` /
+                ``export_filtered`` of 161,280 / 155,035 rows,
+                ``render_heatmap(mapping, None)``, ``save_npz``), read back
+                (``from_parsed_xlsx`` + ``correct``, ``from_filtered_xlsx``,
+                ``load_npz``); the heatmap command's variants v1, v2, v3,
+                ``--no-logscale``, vmin / vmax, and a table with unmapped
+                beams.  The card's and the CPU's xlsx sheet XML equal byte
+                for byte, npz arrays exactly, printed lines and counters
+                equal, rasters within 1e-4 on norm_t with < 0.1 % bin flips;
+                K1, K2 and K3 launched.  Before them (not counted): K3 with
+                explicit vmin / vmax against its plain version at S = 1 and
+                4, 64 x 64 and 59 x 61.  Host ms per step on both devices.
+                The PNG is not drawn where matplotlib is missing (the card's
+                machine); a line says so.
+  8. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
                 (K1, K4, K5, K6 through their wrappers, K1 also as the bare
-                launch; K2, K3 as the bare launch), its plain version on the
+                launch; K2, K3 as the bare launch, K3 also with vmin /
+                vmax), its plain version on the
                 card, K1 and K2 at three stream windows (the second full
                 window of the straddle's 16 KiB, the live feed's 64 KiB and
                 the replay's 1 MiB) and K4 at the live feed's (S = 9) and
@@ -119,8 +141,8 @@ Phases, each printing one JSON line:
                 ``torch.profiler``: the device's busy time, its share, the top
                 ops, and the estimator's host syncs.
 
-Every kernel's launches are counted on each path (phases 4, 5 and 6, the
-counters set to 0 just before and read just after), reported in the
+Every kernel's launches are counted on each path (phases 4, 5, 6 and 7,
+the counters set to 0 just before and read just after), reported in the
 ``kernels`` line as ``launches_by_path``; ``launches`` is the count on the
 kernel's own path.  Then the ``bounds`` and ``kernels`` JSON lines, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  Data
@@ -257,7 +279,7 @@ def run(tmp: Path) -> None:
     padded = torch.from_numpy(pad_bytes(raw_full, bucket_size(len(raw_full)))).to(dev)
     lut = torch.from_numpy(raster.colormap_lut("viridis")).to(dev)
     taps = raster.blur_taps(1.0, dev)
-    out_full = run_session_on_device(raw_full, device=dev)
+    out_full = run_session_on_device(raw_full, device=dev, count_discards=True)
     frames, valid = out_full.frames, out_full.frame_valid
     gid, packed, _ = correct.baseline_table(frames, valid, MAX_GROUPS, MAX_BASELINES)
     clk = frames[:, 4].contiguous()
@@ -510,7 +532,7 @@ def run(tmp: Path) -> None:
         if len(s.filtered) == 0:
             fail(f"{name}: no frame was corrected")
 
-    out_cpu = run_session_on_device(raw_full, device="cpu")
+    out_cpu = run_session_on_device(raw_full, device="cpu", count_discards=True)
     for field in out_full._fields:
         a, b = getattr(out_full, field).cpu(), getattr(out_cpu, field)
         if field in ("rgba", "blurred", "norm_t"):
@@ -582,7 +604,16 @@ def run(tmp: Path) -> None:
     launches.update(K5=stream_out["launches"]["K5"], K6=stream_out["launches"]["K6"])
     emit({"phase": "streaming", **stream_out})
 
-    # -- 7. timing ---------------------------------------------------------------
+    # -- 7. cli: the user surface on the full session ------------------------------
+    t0 = time.perf_counter()
+    cli_out = cli_phase(np, torch, tmp, paths[0], angles, zero_counts, read_counts,
+                        raster_close, lut, taps, dev)
+    by_path["cli"] = cli_out.pop("launches")
+    print(smi, flush=True)
+    emit({"phase": "cli", "seconds": time.perf_counter() - t0, "launches": by_path["cli"],
+          **cli_out})
+
+    # -- 8. timing ---------------------------------------------------------------
     def cuda_ms(fn, inner=1, primed=True):
         """Median ms per call over N_TIMED event-timed runs of ``inner``
         calls.  ``primed``: a ~20 ms device sleep queued first lets the
@@ -617,7 +648,9 @@ def run(tmp: Path) -> None:
     k3_out = (torch.empty((1, 64, 64, 4), device=dev), torch.empty((1, 64, 64), device=dev),
               torch.empty((1, 64, 64), device=dev))
     k3_args = (tile.data_ptr(), 1, 64, 64, lut.data_ptr(), 256, taps.data_ptr(), 7, 7, 1,
-               *(t.data_ptr() for t in k3_out), _build.stream_of(tile))
+               0, 0.0, 0, 0.0, *(t.data_ptr() for t in k3_out), _build.stream_of(tile))
+    # The same launch with the heatmap's explicit bounds (--vmin / --vmax).
+    k3_bounds_args = k3_args[:10] + (1, 60_000.0, 1, 140_000.0) + k3_args[14:]
 
     # K1 and K4 are timed through their wrappers (what callers pay: one
     # launch each), K1 also as the bare launch.  K4's library yardstick is
@@ -632,6 +665,7 @@ def run(tmp: Path) -> None:
                         inner=20),
           "K2": cuda_ms(lambda: k2(*k2_args), inner=20),
           "K3": cuda_ms(lambda: k3(*k3_args), inner=20),
+          "K3_vmin_vmax": cuda_ms(lambda: k3(*k3_bounds_args), inner=20),
           "K4": cuda_ms(lambda: cuda_sweep_sums.sweep_sums_cuda(k4_p, k4_bs, k4_val, n_sweeps),
                         inner=20)}
     plain_ms = {"K1": cuda_ms(lambda: decode.decode_rows_plain(padded)),
@@ -692,6 +726,14 @@ def run(tmp: Path) -> None:
                 "K4_bound_ms_bytes": (a4[0].numel() * 4 + kept4 * 8 + cells4 * 8)
                 / PEAK_BYTES_PER_S * 1e3})
     session_ms = cuda_ms(lambda: run_session_on_device(raw_full, device=dev), primed=False)
+    # The decoder's discard count inside the session (plain torch on K1's
+    # rows): its device time (primed) and what a caller pays (unprimed).
+    def discards():
+        return decode.discard_count(padded, frames, valid, n_valid=len(raw_full))
+
+    discard_ms = {"device": cuda_ms(discards, inner=20),
+                  "with_host": cuda_ms(discards, inner=20, primed=False),
+                  "device_activities": device_profile(torch, discards)[1]}
     dataset_ms = cuda_ms(lambda: [run_session_on_device(r, device=dev) for r in raws[DS]],
                          primed=False)
     dataset_frames = sum(expected_frames(c) for c in DATASET)
@@ -738,6 +780,7 @@ def run(tmp: Path) -> None:
     emit({"phase": "timing", "kernel_ms": ms, "kernel_bare_ms": bare_ms, "plain_ms": plain_ms,
           "library_ms": library_ms,
           "k5_kept_rows_1MiB_window_ms": k5_kept_ms, "stream_windows": stream_windows,
+          "discard_count_ms": discard_ms,
           "full_session": {"frames": n_full, "ms": session_ms,
                            "frames_per_s": n_full / (session_ms / 1e3)},
           "dataset": {"sessions": len(DATASET), "frames": dataset_frames, "ms": dataset_ms,
@@ -811,6 +854,7 @@ def run(tmp: Path) -> None:
             "max_abs_err": err[key], "ms": ms[key],
             "ms_of": "kernel launch" if key in ("K2", "K3") else "wrapper call",
             "bare_ms": bare_ms.get(key),
+            **({"ms_vmin_vmax": ms["K3_vmin_vmax"]} if key == "K3" else {}),
             "plain_ms": plain_ms[key], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms.get(key)})
@@ -829,6 +873,230 @@ def run(tmp: Path) -> None:
     emit({"kernels": rows_out})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+CLI_OVERFLOW = dict(n_groups=257, frames_per_beam=1, baselines_per_group=1, junk_frac=0.02,
+                    seed=202)
+K3_BOUNDS = {"vmin_vmax": (40_000.0, 200_000.0), "vmax_only": (None, 120_000.0),
+             "vmin_below_min": (-5.0, None), "vmax_below_min": (None, -5.0)}
+
+
+def cli_phase(np, torch, tmp, log, angles, zero_counts, read_counts, raster_close, lut, taps,
+              dev) -> dict:
+    """The CLI's commands and the session / heatmap steps on the card, each
+    output against the same call with ``--device cpu``; K3's explicit-bound
+    cases against its plain version first (not counted)."""
+    import zipfile
+
+    from slam_process_tpu_torch.ops import cuda_correct, cuda_raster, raster
+    from slam_process_tpu_torch.pipeline import cli
+    from slam_process_tpu_torch.pipeline.session import Session
+    from slam_process_tpu_torch.utils.synthetic import (
+        legacy_stream_bytes, synthetic_session_bytes, to_hex_text, with_flag_junk,
+        write_angle_table)
+
+    # K3 with explicit vmin / vmax: S = 1 and 4, 64 x 64 and non-square.
+    k3_cases = []
+    for (s_n, shape) in ((1, (64, 64)), (4, (64, 64)), (1, (59, 61)), (4, (59, 61))):
+        gen = torch.Generator().manual_seed(s_n * 31 + shape[1])
+        mats = torch.rand((s_n, *shape), generator=gen) * (1 << 18)
+        mats[torch.rand((s_n, *shape), generator=gen) < 0.05] = float("nan")
+        mats = mats.to(dev)
+        for name, (vmin, vmax) in K3_BOUNDS.items():
+            for use_log in (True, False):
+                k3_cases.append(f"bounds_{name}_S{s_n}_{shape[0]}x{shape[1]}_log={use_log}")
+                raster_close("K3", k3_cases[-1],
+                             cuda_raster.raster_tiles_cuda(mats, lut, taps, use_log, vmin, vmax),
+                             raster.raster_tiles_plain(mats, lut, taps, use_log, vmin, vmax))
+
+    work = {d: tmp / f"cli_{d}" for d in ("cuda", "cpu")}
+    logs = {"full": log, "overflow_257_groups": tmp / "cli_overflow.txt",
+            "flag_junk": tmp / "cli_flag_junk.txt",
+            "v1": tmp / "cli_v1.txt", "v2": tmp / "cli_v2.txt"}
+    logs["overflow_257_groups"].write_bytes(to_hex_text(synthetic_session_bytes(**CLI_OVERFLOW)))
+    logs["flag_junk"].write_bytes(to_hex_text(with_flag_junk(synthetic_session_bytes(
+        n_groups=6, frames_per_beam=4, baselines_per_group=20, junk_frac=0.1, seed=203),
+        n_bursts=200, cut=5, seed=203)))
+    for fmt in ("v1", "v2"):
+        logs[fmt].write_bytes(to_hex_text(legacy_stream_bytes(fmt, n_frames=20_000, seed=204)))
+    partial = write_angle_table(tmp / "cli_angles_partial.xlsx", unmapped=(0, 9, 33, 63))
+
+    def call(argv):
+        """stdout lines of ``cli.main(argv)``, which must exit 0."""
+        import contextlib
+        import io
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            try:
+                rc = cli.main(argv)
+            except SystemExit as e:   # --run-tests reports through its exit code
+                rc = e.code
+        if rc != 0:
+            fail(f"cli {' '.join(argv[:2])}: exit code {rc}: {buf.getvalue()[-500:]}")
+        return buf.getvalue().splitlines()
+
+    def heatmaps(device, parsed, filtered):
+        """{case: RenderedHeatmap} of the heatmap command's variants, on the
+        sessions read from the Parsed and filtered xlsx."""
+        cases = {"v1": ["--variant", "v1"], "v2": ["--variant", "v2"], "v3": [],
+                 "v3_linear": ["--no-logscale"],
+                 "v3_vmin_vmax": ["--vmin", "60000", "--vmax", "140000"],
+                 "v1_linear_vmin_vmax_partial": ["--variant", "v1", "--no-logscale", "--vmin",
+                                                 "30000", "--vmax", "200000"]}
+        out = {}
+        for case, extra in cases.items():
+            mapping = partial if case.endswith("partial") else angles
+            args = cli.build_parser().parse_args(
+                ["heatmap", "--input", "x.xlsx", "--mapping", str(mapping), *extra,
+                 "--device", device])
+            source = "filtered" if args.variant == "v3" else "parsed"
+            s = filtered if source == "filtered" else parsed
+            out[case] = s.render_heatmap(mapping, None, *cli.heatmap_configs(args),
+                                         source=source, device=device)
+        return out
+
+    def drive(device, tag):
+        out_dir = work[tag]
+        out_dir.mkdir()
+        dv = ["--device", device]
+        ms, lines = {}, {}
+
+        def timed(key, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            ms[key] = (time.perf_counter() - t0) * 1e3
+            return result
+
+        # The decode and correct commands through cli.main.
+        lines["decode"] = timed("cli_decode_full", lambda: call(
+            ["decode", str(logs["full"]), str(out_dir / "full_parsed.xlsx"), *dv]))
+        lines["decode_flag_junk"] = call(
+            ["decode", str(logs["flag_junk"]), str(out_dir / "flag_junk_parsed.xlsx"), *dv])
+        for fmt in ("v1", "v2"):
+            lines[f"decode_{fmt}"] = call(["decode", str(logs[fmt]),
+                                           str(out_dir / f"{fmt}_parsed.xlsx"), "--format", fmt,
+                                           *dv])
+        lines["correct"] = timed("cli_correct_full", lambda: call(
+            ["correct", "--input", str(out_dir / "full_parsed.xlsx"), "--output",
+             str(out_dir / "full_filtered.xlsx"), *dv]))
+        lines["correct_in_place"] = timed("cli_correct_in_place_full", lambda: call(
+            ["correct", "--input", str(out_dir / "full_parsed.xlsx"), "--in-place", *dv]))
+        k2 = cuda_correct.LAUNCHES
+        lines["run_tests"] = call(["correct", "--run-tests", *dv])
+        run_tests_k2 = cuda_correct.LAUNCHES - k2
+        lines["decode_overflow"] = call(["decode", str(logs["overflow_257_groups"]),
+                                         str(out_dir / "over_parsed.xlsx"), *dv])
+        k2 = cuda_correct.LAUNCHES
+        lines["correct_overflow"] = call(["correct", "--input", str(out_dir / "over_parsed.xlsx"),
+                                          "--output", str(out_dir / "over_filtered.xlsx"), *dv])
+        overflow_k2 = cuda_correct.LAUNCHES - k2
+
+        # The session command's Session calls, one by one (host ms,
+        # synchronized); then the xlsx and npz read back.
+        s = timed("from_log", lambda: Session.from_log(logs["full"], device=device,
+                                                       count_discards=True))
+        timed("correct", lambda: s.correct(device=device))
+        timed("xlsx_write_parsed", lambda: s.export_parsed(out_dir / f"{s.name}.xlsx"))
+        timed("xlsx_write_filtered",
+              lambda: s.export_filtered(out_dir / f"{s.name}_filtered.xlsx"))
+        timed("render", lambda: s.render_heatmap(angles, None, device=device))
+        timed("npz_save", lambda: s.save_npz(out_dir / f"{s.name}.npz"))
+        parsed = timed("xlsx_read_parsed",
+                       lambda: Session.from_parsed_xlsx(out_dir / f"{s.name}.xlsx"))
+        timed("correct_from_xlsx", lambda: parsed.correct(device=device))
+        filtered = timed("xlsx_read_filtered", lambda: Session.from_filtered_xlsx(
+            out_dir / f"{s.name}_filtered.xlsx"))
+        loaded = timed("npz_load", lambda: Session.load_npz(out_dir / f"{s.name}.npz"))
+        if not all(np.array_equal(a, b) for a, b in (
+                (loaded.frames, s.frames), (loaded.filtered, s.filtered),
+                (parsed.frames, s.frames), (parsed.filtered, s.filtered),
+                (parsed.corrected_bs, s.corrected_bs), (filtered.filtered, s.filtered))):
+            fail(f"cli {device}: the xlsx or npz round trip changed the session")
+        rendered = timed("heatmaps_6", lambda: heatmaps(device, parsed, filtered))
+        return dict(ms=ms, lines=lines, rendered=rendered, run_tests_k2=run_tests_k2,
+                    overflow_k2=overflow_k2, frames=len(s.frames), kept=len(s.filtered),
+                    n_discarded=s.n_discarded, counters={c.name: c.counts for c in s.counters})
+
+    zero_counts()
+    got = drive("cuda", "cuda")
+    launches = read_counts()
+    for key in ("K1", "K2", "K3"):
+        if launches[key] == 0:
+            fail(f"cli: {key} never launched: {launches}")
+    if got["run_tests_k2"] == 0:
+        fail("cli correct --run-tests did not run K2 on the card")
+    if got["overflow_k2"] != 2:
+        fail(f"cli correct on 257 groups ran K2 {got['overflow_k2']} times, not 2")
+    want = drive("cpu", "cpu")
+
+    xlsx = sorted(str(p.relative_to(work["cuda"])) for p in work["cuda"].rglob("*.xlsx"))
+    if xlsx != sorted(str(p.relative_to(work["cpu"])) for p in work["cpu"].rglob("*.xlsx")):
+        fail("cli: cuda and cpu wrote different xlsx files")
+    for rel in xlsx:
+        with zipfile.ZipFile(work["cuda"] / rel) as a, zipfile.ZipFile(work["cpu"] / rel) as b:
+            for member in ("xl/worksheets/sheet1.xml", "xl/workbook.xml"):
+                if a.read(member) != b.read(member):
+                    fail(f"cli: {rel} {member} differs between cuda and cpu")
+    npz = sorted(str(p.relative_to(work["cuda"])) for p in work["cuda"].rglob("*.npz"))
+    for rel in npz:
+        with np.load(work["cuda"] / rel) as a, np.load(work["cpu"] / rel) as b:
+            if sorted(a.files) != sorted(b.files) or any(
+                    a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]) for k in a.files):
+                fail(f"cli: {rel} differs between cuda and cpu")
+    def printed(lines):
+        """The command's own lines, its output paths cut (log records go to
+        the logger's first stream)."""
+        return [ln.replace(str(work["cuda"]), "").replace(str(work["cpu"]), "")
+                for ln in lines if not ln.startswith(("INFO ", "WARNING ", "ERROR "))]
+
+    for key in got["lines"]:
+        if printed(got["lines"][key]) != printed(want["lines"][key]):
+            fail(f"cli {key}: printed {got['lines'][key]} on cuda, {want['lines'][key]} on cpu")
+    if got["counters"] != want["counters"]:
+        fail(f"cli: session counters differ: {got['counters']} / {want['counters']}")
+    rasters = {}
+    for case, r in got["rendered"].items():
+        w = want["rendered"][case]
+        if not (np.array_equal(r.aod_angles, w.aod_angles)
+                and np.array_equal(r.aoa_angles, w.aoa_angles)):
+            fail(f"cli heatmap {case}: angle vectors differ between cuda and cpu")
+        if not (np.array_equal(np.isnan(r.blurred), np.isnan(w.blurred))
+                and np.array_equal(np.isnan(r.norm_t), np.isnan(w.norm_t))):
+            fail(f"cli heatmap {case}: NaN patterns differ between cuda and cpu")
+        if not np.allclose(r.blurred, w.blurred, rtol=1e-5, atol=0.0, equal_nan=True):
+            fail(f"cli heatmap {case}: blurred beyond 1e-5 relative of the cpu's")
+        fin = ~np.isnan(r.norm_t)
+        if not fin.any():
+            fail(f"cli heatmap {case}: no finite cell")
+        d_t = float(np.abs(r.norm_t[fin] - w.norm_t[fin]).max())
+        bins = [np.clip((np.nan_to_num(x.norm_t) * 256).astype(int), 0, 255) for x in (r, w)]
+        flips = float((bins[0] != bins[1]).mean())
+        same_bin = (bins[0] == bins[1])[..., None]
+        if d_t > 1e-4 or flips >= 1e-3 or not np.array_equal(np.where(same_bin, r.rgba, 0),
+                                                             np.where(same_bin, w.rgba, 0)):
+            fail(f"cli heatmap {case}: norm_t differs by {d_t}, {flips:.4%} bin flips, or "
+                 "the colors of equal bins differ")
+        rasters[case] = {"shape": list(r.rgba.shape[:2]), "norm_t_max_abs_err": d_t,
+                         "bin_flips": flips}
+    if got["n_discarded"] != want["n_discarded"] or got["frames"] != 161_280:
+        fail(f"cli: full session decoded {got['frames']} frames, discarded "
+             f"{got['n_discarded']} (cpu {want['n_discarded']})")
+    import importlib.util
+
+    if importlib.util.find_spec("matplotlib") is None:
+        print("cli: the heatmap PNG was not drawn: matplotlib is not installed on this "
+              "machine (the CPU tests draw it)", flush=True)
+    return {"launches": launches, "k3_bounds_cases": k3_cases,
+            "host_ms_cuda": got["ms"], "host_ms_cpu": want["ms"],
+            "frames": got["frames"], "kept": got["kept"], "discarded": got["n_discarded"],
+            "xlsx_equal_cpu": xlsx, "npz_equal_cpu": npz, "rasters_close_cpu": rasters,
+            "printed": {k: printed(v) for k, v in got["lines"].items() if k != "run_tests"},
+            "session_counters": got["counters"],
+            "run_tests": got["lines"]["run_tests"][-1], "run_tests_k2": got["run_tests_k2"],
+            "overflow_xlsx_k2": got["overflow_k2"]}
 
 
 def device_profile(torch, fn, count=()):

@@ -2,15 +2,16 @@
 
 A copy of the stage configs of ``slam_process_tpu/config.py``
 (``DecodeConfig``, ``CorrectConfig``, ``SceneConfig``, ``DictionaryConfig``,
-``OmpConfig``) with the same fields and defaults, and a ``PipelineConfig``
-holding the ones ``Session`` reads; ``convert.configs_from_reference`` builds
-these from any objects that carry the same field names.
+``OmpConfig``, ``RenderConfig``) with the same fields and defaults, and a
+``PipelineConfig`` holding the ones ``Session`` reads;
+``convert.configs_from_reference`` and ``convert.render_config_from_reference``
+build these from any objects that carry the same field names.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,9 +75,26 @@ class OmpConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Heatmap raster and figure settings: blur sigma, shifted-log or
+    linear norm with optional explicit bounds, colormap, figure dpi; the
+    RBF background fields are kept for the estimation figure."""
+
+    colormap: str = "viridis"
+    use_log: bool = True
+    blur_sigma: float = 1.0
+    vmin: Optional[float] = None
+    vmax: Optional[float] = None
+    grid_size: Tuple[int, int] = (100, 100)   # RBF background resample
+    contour_levels: int = 50
+    dpi: int = 150
+    rbf_smooth: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """The session's decode, correct and scene stages: the fields of the
-    JAX package's ``PipelineConfig`` that ``Session`` and the device
+    """The session's decode, correct, scene and render stages: the fields
+    of the JAX package's ``PipelineConfig`` that ``Session`` and the device
     streaming session read (the stream reads ``scene``'s ``n_beams`` and
     ``flag_filter``).  The per-sweep estimator takes its dictionary and
     NN-OMP settings as keyword overrides of ``sweep_paths``, as the JAX
@@ -85,3 +103,4 @@ class PipelineConfig:
     decode: DecodeConfig = dataclasses.field(default_factory=DecodeConfig)
     correct: CorrectConfig = dataclasses.field(default_factory=CorrectConfig)
     scene: SceneConfig = dataclasses.field(default_factory=SceneConfig)
+    render: RenderConfig = dataclasses.field(default_factory=RenderConfig)

@@ -9,6 +9,7 @@ objects that have the port's field names, so this module needs no import
 of the JAX package:
 
   * ``configs_from_reference``: the stage configs;
+  * ``render_config_from_reference``: the heatmap's render config;
   * ``dictionary_from_reference``: a beam dictionary;
   * ``paths_spec_from_reference``: a streaming ``StreamPathsSpec`` and its
     dictionary arrays, so one spec drives both packages' streams.
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from slam_process_tpu_torch.config import (
-    CorrectConfig, DecodeConfig, DictionaryConfig, OmpConfig, SceneConfig)
+    CorrectConfig, DecodeConfig, DictionaryConfig, OmpConfig, RenderConfig, SceneConfig)
 from slam_process_tpu_torch.models.dictionary import BeamDictionary, dictionary_to_device
 from slam_process_tpu_torch.pipeline.device import resolve_device
 
@@ -44,6 +45,13 @@ def configs_from_reference(decode_cfg, correct_cfg, scene_cfg, dictionary_cfg=No
             DictionaryConfig() if dictionary_cfg is None else _copy(DictionaryConfig,
                                                                     dictionary_cfg),
             OmpConfig() if omp_cfg is None else _copy(OmpConfig, omp_cfg))
+
+
+def render_config_from_reference(render_cfg) -> RenderConfig:
+    """The port's frozen RenderConfig from a reference object's nine fields
+    (raises AttributeError on a missing field)."""
+    cfg = _copy(RenderConfig, render_cfg)
+    return dataclasses.replace(cfg, grid_size=tuple(cfg.grid_size))
 
 
 def dictionary_from_reference(d, device=None) -> BeamDictionary:

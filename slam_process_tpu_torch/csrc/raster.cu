@@ -8,10 +8,16 @@
 // num = sum_k w_k pad_v, den = sum_k w_k pad_m over the kh x kw taps in
 // row-major order; blurred = den > 1e-12 ? num / max(den, 1e-30) : NaN;
 // mn / mx = NaN-skipping min / max of blurred over the tile;
-// log norm: t = (log(max(b - mn + 1e-6, 1e-30)) - log(1e-6)) /
-//               max(log(max(mx - mn + 1e-6, 1e-30)) - log(1e-6), 1e-30),
-// linear:   t = (b - mn) / max(mx - mn, 1e-30); t clipped to [0, 1];
-// rgba = lut[clip(int(t * n_lut), 0, n_lut - 1)] for finite b, else 0.
+// log norm: t = (log(max(b - mn + 1e-6, 1e-30)) - L) / max(H - L, 1e-30),
+//           L = log(1e-6), or log(max(vmin - mn + 1e-6, 1e-30)) given vmin,
+//           H = log(max(mx - mn + 1e-6, 1e-30)), or log(vmax - mn + 1e-6)
+//           given vmax (NaN when vmax lies below the tile's minimum, and
+//           then every cell's t is NaN, as in the JAX package);
+// linear:   t = (b - lo) / max(hi - lo, 1e-30), lo = vmin or mn, hi = vmax
+//           or mx; t clipped to [0, 1];
+// rgba = lut[clip(int(t * n_lut), 0, n_lut - 1)] where t is a number, else
+// 0 and t NaN.  Explicit bounds change only the norm's lo and hi: the log
+// form's shift keeps the tile's own minimum.
 // The multiply-adds use __fmul_rn / __fadd_rn (no FMA contraction) in the
 // same row-major order as the plain PyTorch version, so `blurred` is
 // bit-equal to it.  f32 throughout; no tensor cores, so no TF32.
@@ -71,6 +77,7 @@ template <int KW>
 __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kBlock)
     raster_kernel(const float* __restrict__ mats, int h, int w, const float* __restrict__ lut,
                   int n_lut, const float* __restrict__ taps, int kh, int kw, int use_log,
+                  int has_vmin, float vmin, int has_vmax, float vmax,
                   float* __restrict__ rgba, float* __restrict__ norm_t,
                   float* __restrict__ blurred) {
   extern __shared__ __align__(16) float smem[];
@@ -196,24 +203,31 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kBlock)
   }
 
   const float log_lo = logf(1e-6f);
-  const float log_den = fmaxf(logf(fmaxf(__fadd_rn(__fsub_rn(mx, mn), 1e-6f), 1e-30f)) - log_lo,
-                              1e-30f);
-  const float lin_den = fmaxf(__fsub_rn(mx, mn), 1e-30f);
+  const float lo_log =
+      has_vmin ? logf(fmaxf(__fadd_rn(__fsub_rn(vmin, mn), 1e-6f), 1e-30f)) : log_lo;
+  const float hi_log = has_vmax ? logf(__fadd_rn(__fsub_rn(vmax, mn), 1e-6f))
+                                : logf(fmaxf(__fadd_rn(__fsub_rn(mx, mn), 1e-6f), 1e-30f));
+  const float log_span = __fsub_rn(hi_log, lo_log);
+  const float log_den = isnan(log_span) ? log_span : fmaxf(log_span, 1e-30f);
+  const float lin_lo = has_vmin ? vmin : mn;
+  const float lin_den = fmaxf(__fsub_rn(has_vmax ? vmax : mx, lin_lo), 1e-30f);
   float4* out4 = reinterpret_cast<float4*>(rgba + 4 * tile) + static_cast<long long>(r0) * w;
   float* out_t = norm_t + tile + static_cast<long long>(r0) * w;
   for (int p = threadIdx.x; p < rows * w; p += kBlock) {
     const float b = s_b[p];
-    if (isnan(b)) {
+    float t = NAN;
+    if (!isnan(b)) {   // fmaxf would turn a NaN b into a number
+      if (use_log) {
+        const float shifted = __fadd_rn(__fsub_rn(b, mn), 1e-6f);
+        t = __fdiv_rn(__fsub_rn(logf(fmaxf(shifted, 1e-30f)), lo_log), log_den);
+      } else {
+        t = __fdiv_rn(__fsub_rn(b, lin_lo), lin_den);
+      }
+    }
+    if (isnan(t)) {   // b is NaN, or vmax lies below the tile's minimum
       out_t[p] = NAN;
       out4[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       continue;
-    }
-    float t;
-    if (use_log) {
-      const float shifted = __fadd_rn(__fsub_rn(b, mn), 1e-6f);
-      t = __fdiv_rn(__fsub_rn(logf(fmaxf(shifted, 1e-30f)), log_lo), log_den);
-    } else {
-      t = __fdiv_rn(__fsub_rn(b, mn), lin_den);
     }
     t = fminf(fmaxf(t, 0.0f), 1.0f);
     out_t[p] = t;
@@ -255,20 +269,21 @@ extern "C" int slam_raster_init() {
 }
 
 // mats [S, h, w] f32, lut [n_lut, 4] f32, taps [kh, kw] f32 (kh, kw odd);
-// rgba [S, h, w, 4], norm_t and blurred [S, h, w] f32, lut and rgba 16-byte
+// the norm's explicit bounds vmin / vmax where has_vmin / has_vmax; rgba [S, h, w, 4], norm_t and blurred [S, h, w] f32, lut and rgba 16-byte
 // aligned; slam_raster_init has run on this device.  One cluster of 8
 // blocks per tile.  Returns the launch's CUDA error: a band whose shared
 // memory exceeds what one block can opt into (227 KB on an H100) fails with
 // cudaErrorInvalidValue.
 extern "C" int slam_raster(const void* mats, int s, int h, int w, const void* lut,
                            int n_lut, const void* taps, int kh, int kw, int use_log,
-                           void* rgba, void* norm_t, void* blurred, void* stream) {
+                           int has_vmin, float vmin, int has_vmax, float vmax, void* rgba,
+                           void* norm_t, void* blurred, void* stream) {
   const long long smem = smem_bytes(h, w, n_lut, kh, kw);
   if (smem > INT_MAX || static_cast<long long>(s) * kRanks > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const int slot = kw == 7 ? 1 : 0;   // kKernels index
-  void* args[] = {&mats, &h, &w, &lut, &n_lut, &taps, &kh, &kw, &use_log, &rgba, &norm_t,
-                  &blurred};
+  void* args[] = {&mats, &h, &w, &lut, &n_lut, &taps, &kh, &kw, &use_log, &has_vmin, &vmin,
+                  &has_vmax, &vmax, &rgba, &norm_t, &blurred};
   return static_cast<int>(cudaLaunchKernel(kKernels[slot], dim3(s * kRanks), dim3(kBlock), args,
                                            static_cast<size_t>(smem),
                                            static_cast<cudaStream_t>(stream)));

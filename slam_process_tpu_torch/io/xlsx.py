@@ -1,9 +1,9 @@
 """Minimal xlsx reader / writer for numeric tables (zipfile + regex).
 
-A copy of ``slam_process_tpu/io/xlsx.py``'s ``read_xlsx_table`` and
-``write_xlsx_table``: sheets are read as XML with regular expressions over
-``<row>`` blocks and written by string assembly into a zip, so no
-spreadsheet package is needed.
+A copy of ``slam_process_tpu/io/xlsx.py``'s ``read_xlsx_table``,
+``write_xlsx_table`` and ``write_xlsx_mixed``: sheets are read as XML with
+regular expressions over ``<row>`` blocks and written by string assembly
+into a zip, so no spreadsheet package is needed.
 """
 
 from __future__ import annotations
@@ -178,8 +178,55 @@ def write_xlsx_table(path: Union[str, Path], columns: Sequence[str], data: np.nd
                         for c in range(data.shape[1]))
         parts.append(f"<row>{cells}</row>")
     parts.append("</sheetData></worksheet>")
-    sheet_xml = "".join(parts)
+    return _save_xlsx(path, "".join(parts), sheet_name)
 
+
+def write_xlsx_mixed(path: Union[str, Path], columns: Sequence[str], cols_data: Sequence[Sequence],
+                     sheet_name: str = "Sheet1") -> Path:
+    """Write a table with per-column types: a column whose first value is a
+    str becomes inlineStr cells, any other numeric value cells (the v1 / v2
+    legacy exports mix raw hex-string columns with decimal ones).
+    ``cols_data`` is one sequence per column, all the same length."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if len(cols_data) != len(columns):
+        raise ValueError("one data column per header required")
+    n_rows = len(cols_data[0]) if cols_data else 0
+    cols_txt: List[List[str]] = []
+    for col in cols_data:
+        if len(col) != n_rows:
+            raise ValueError("ragged columns")
+        vals = list(col)
+        if vals and isinstance(vals[0], str):
+            cols_txt.append([f'<c t="inlineStr"><is><t>{_esc(v)}</t></is></c>' for v in vals])
+            continue
+        txt = []
+        for v in vals:
+            f = float(v)
+            if f != f:   # NaN
+                txt.append("<c/>")
+            elif f.is_integer() and abs(f) < 1e15:
+                txt.append(f"<c><v>{int(f)}</v></c>")
+            else:
+                txt.append(f"<c><v>{f!r}</v></c>")
+        cols_txt.append(txt)
+    parts: List[str] = [
+        '<?xml version="1.0" encoding="UTF-8" standalone="yes"?>'
+        '<worksheet xmlns="http://schemas.openxmlformats.org/spreadsheetml/2006/main">'
+        "<sheetData>"
+    ]
+    hdr = "".join(f'<c t="inlineStr"><is><t>{_esc(str(c))}</t></is></c>' for c in columns)
+    parts.append(f"<row>{hdr}</row>")
+    for r in range(n_rows):
+        parts.append("<row>" + "".join(c[r] for c in cols_txt) + "</row>")
+    parts.append("</sheetData></worksheet>")
+    return _save_xlsx(path, "".join(parts), sheet_name)
+
+
+def _save_xlsx(path: Path, sheet_xml: str, sheet_name: str) -> Path:
+    """Zip one worksheet with its workbook and the static parts; a locked
+    target (e.g. open in a spreadsheet program) is retried once as
+    <stem>_out.xlsx.  Returns the path written."""
     workbook_xml = (
         '<?xml version="1.0" encoding="UTF-8" standalone="yes"?>'
         '<workbook xmlns="http://schemas.openxmlformats.org/spreadsheetml/2006/main" '
@@ -198,8 +245,6 @@ def write_xlsx_table(path: Union[str, Path], columns: Sequence[str], data: np.nd
     try:
         _save(path)
     except PermissionError:
-        # A locked target (e.g. open in a spreadsheet program): retry once
-        # as <stem>_out.xlsx.
         path = path.with_name(path.stem + "_out.xlsx")
         _save(path)
     return path

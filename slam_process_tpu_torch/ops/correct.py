@@ -20,6 +20,9 @@ a ``cummax`` over ``where(valid, arange, -1)``, group ids a clipped
 ``cumsum``, group baseline counts an ``index_add_``, and the table is built
 by writing each baseline's integer payload to its unique (gid, rank) cell.
 
+``self_test`` replays the reference's embedded corrector specs through
+``correct_rows`` on a device (``cli correct --run-tests``).
+
 The host engine (``correct_frames_np``, numpy) is a copy of the JAX
 package's: int64 arithmetic on a padded [G, Bmax] baseline table sized
 to the data (no static bounds), the score ``resid (Bmax + 1) + column``
@@ -123,6 +126,13 @@ def correct_bounds(frames: torch.Tensor, valid: torch.Tensor) -> Tuple[int, int]
     gid = torch.cumsum(boundary, dim=0) - 1
     per_group = torch.bincount(gid[is_bl])
     return int(boundary.sum()), int(per_group.max()) if per_group.numel() else 0
+
+
+def group_counts(frames: torch.Tensor, valid: torch.Tensor) -> Tuple[int, int]:
+    """(sweep groups, baselines) of the masked rows: the host engine's
+    ``n_groups`` and ``n_baselines`` for the same frames."""
+    boundary, is_bl, _ = _segments(frames, valid.to(torch.bool))
+    return int(boundary.sum()), int(is_bl.sum())
 
 
 def baseline_table(frames: torch.Tensor, valid: torch.Tensor, max_groups: int = 128,
@@ -271,3 +281,97 @@ def correct_frames_np(frames: np.ndarray, cfg: CorrectConfig = _DEFAULT) -> Corr
 
     filtered = np.stack([ue[keep], corrected[keep], rss[keep], clk[keep]], axis=1)
     return CorrectResult(filtered, corrected, keep, int(b_gid.size), n_groups)
+
+
+def self_test(verbose: bool = True, device=None) -> bool:
+    """The reference's embedded corrector specs (its ``--run-tests``) on
+    the port's production corrector: ``correct_rows`` on ``device`` (None:
+    CUDA, where the verdicts are kernel K2).  Five specs: baseline
+    identification, the modular correction (bs_b + k) % 64, the tolerance
+    boundary at exactly tol and tol + 1, a negative CLK difference, and a
+    filtered output of only the corrected rows (two rows: the reference's
+    own test asserts one, but its implementation, which made the shipped
+    filtered files, emits two).  A sixth check holds every spec's input
+    against the numpy host engine.  Returns True when all hold.
+    """
+    from slam_process_tpu_torch.pipeline.device import resolve_device
+
+    dev = resolve_device(device)
+    cycle, tol, mod = _DEFAULT.cycle, _DEFAULT.tol, _DEFAULT.mod_base
+    checks = []
+
+    def check(name, ok):
+        checks.append((name, bool(ok)))
+        if verbose:
+            print(f"  {name}: {'ok' if ok else 'FAIL'}")
+
+    def run(rows):
+        """(corrected_bs, keep, filtered) of frames [F, 5] on ``dev``."""
+        f = np.asarray(rows, dtype=np.int64)
+        frames = torch.from_numpy(f).to(dev, torch.int32)
+        valid = torch.ones(len(f), dtype=torch.bool, device=dev)
+        corrected, keep, overflow = correct_rows(frames, valid, cfg=_DEFAULT)
+        if bool(overflow):
+            raise RuntimeError("self-test input overflowed the corrector's bounds")
+        corrected = corrected.cpu().numpy().astype(np.int64)
+        keep = keep.cpu().numpy()
+        return corrected, keep, np.stack([f[keep, 1], corrected[keep], f[keep, 3], f[keep, 4]],
+                                         axis=1)
+
+    # 1. baseline identification (FLAG 0 -> 1 with equal RSS): one baseline
+    # in the table, with the previous row's CLK and the flag row's BS.
+    clk0, rss = 1_000_000, 42
+    group = np.asarray([(0, 0, 10, rss, clk0), (1, 1, 12, rss, clk0 + 100),
+                        (0, 2, 99, rss, clk0 + cycle + 50),
+                        (0, 3, 99, rss, clk0 + 2 * cycle - 480),
+                        (0, 4, 99, rss, clk0 + 3 * cycle + 600),
+                        (0, 5, 99, rss, clk0 - cycle + 100)], dtype=np.int64)
+    frames = torch.from_numpy(group).to(dev, torch.int32)
+    valid = torch.ones(len(group), dtype=torch.bool, device=dev)
+    _, packed, _ = baseline_table(frames, valid, max_groups=1, max_baselines_per_group=1)
+    r_hi, r_lo, e, n = (int(x) for x in packed[0, :4].tolist())
+    check("baseline_identification", n == 1 and (r_hi << 8 | r_lo) == clk0 % cycle
+          and e == (12 - clk0 // cycle) % mod)
+
+    # 2. modular correction (bs_b + k) % 64.
+    corrected, _, _ = run(group)
+    check("correction_logic", corrected[1] == 12 and corrected[2] == (12 + 1) % mod
+          and corrected[3] == (12 + 2) % mod)
+
+    # 3. tolerance boundary at exactly +-tol and tol + 1.
+    c0 = 5_000_000
+    tol_rows = [(0, 0, 3, 7, c0), (1, 1, 8, 7, c0 + 10), (0, 2, 0, 7, c0 + cycle + tol),
+                (0, 3, 0, 7, c0 + cycle + tol + 1)]
+    corrected, _, _ = run(tol_rows)
+    check("boundary_tolerance", corrected[2] == (8 + 1) % mod
+          and corrected[3] == tol_rows[3][2])
+
+    # 4. negative CLK difference -> (bs_b - 1) % 64.
+    c0 = 7_000_000
+    neg_rows = [(0, 0, 60, 13, c0), (1, 1, 5, 13, c0 + 1), (0, 2, 0, 13, c0 - cycle + 10)]
+    corrected, _, _ = run(neg_rows)
+    check("negative_diff", corrected[2] == (5 - 1) % mod)
+
+    # 5. filtered output: only corrected rows, in the filtered column order.
+    c0 = 2_000_000
+    filter_rows = [(0, 0, 10, 21, c0), (1, 1, 12, 21, c0 + 50), (0, 2, 99, 21, c0 + cycle + 20),
+                   (0, 3, 99, 21, c0 + cycle + tol + 10)]
+    _, _, filtered = run(filter_rows)
+    check("filter_only_corrected_rows",
+          filtered.shape == (2, 4) and filtered[0].tolist() == [0, 12, 21, c0]
+          and filtered[1].tolist() == [2, 13, 21, c0 + cycle + 20])
+
+    # 6. the numpy host engine agrees on every spec's input.
+    agree = True
+    for f in (group, tol_rows, neg_rows, filter_rows):
+        corrected, keep, filtered = run(f)
+        host = correct_frames_np(np.asarray(f, dtype=np.int64))
+        agree &= (np.array_equal(corrected, host.corrected_bs)
+                  and np.array_equal(keep, host.keep)
+                  and np.array_equal(filtered, host.filtered))
+    check("host_engine_agrees", agree)
+
+    ok = all(v for _, v in checks)
+    if verbose:
+        print(f"corrector self-test: {sum(v for _, v in checks)}/{len(checks)} specs ok")
+    return ok

@@ -6,14 +6,17 @@ carries.  The plain PyTorch version it is held against is
 ``ops/raster.py::raster_tiles_plain``; ``ops/raster.rasterize_tiles``
 dispatches here for CUDA tensors.  One thread-block cluster of 8 blocks
 per tile, each block a band of rows; the tile's min / max meet through
-distributed shared memory (see ``csrc/raster.cu``).  The kernel's
-shared-memory opt-in is set once per device (``_ready``), not per launch.
+distributed shared memory (see ``csrc/raster.cu``).  Explicit norm bounds
+``vmin`` / ``vmax`` (``cli heatmap --vmin/--vmax``) replace the tile's lo
+and hi in the norm.  The kernel's shared-memory opt-in is set once per
+device (``_ready``), not per launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -27,8 +30,9 @@ def _fn():
     fn = _build.library().slam_raster
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -45,8 +49,11 @@ def _ready(index: int) -> None:
 
 
 def raster_tiles_cuda(mats: torch.Tensor, lut: torch.Tensor, taps: torch.Tensor,
-                      use_log: bool):
-    """(rgba [S, H, W, 4], norm_t [S, H, W], blurred [S, H, W]) f32 on the card."""
+                      use_log: bool, vmin: Optional[float] = None,
+                      vmax: Optional[float] = None):
+    """(rgba [S, H, W, 4], norm_t [S, H, W], blurred [S, H, W]) f32 on the
+    card; ``vmin`` / ``vmax`` (float32) replace the tile's range in the
+    norm where given."""
     global LAUNCHES
     for name, t in (("mats", mats), ("lut", lut), ("taps", taps)):
         if not t.is_cuda or t.device != mats.device:
@@ -71,8 +78,10 @@ def raster_tiles_cuda(mats: torch.Tensor, lut: torch.Tensor, taps: torch.Tensor,
     _ready(mats.device.index)
     with torch.cuda.device(mats.device):
         err = _fn()(mats.data_ptr(), s, h, w, lut.data_ptr(), lut.shape[0], taps.data_ptr(),
-                 kh, kw, int(bool(use_log)), rgba.data_ptr(), norm_t.data_ptr(),
-                 blurred.data_ptr(), _build.stream_of(mats))
+                    kh, kw, int(bool(use_log)), int(vmin is not None),
+                    0.0 if vmin is None else float(vmin), int(vmax is not None),
+                    0.0 if vmax is None else float(vmax), rgba.data_ptr(), norm_t.data_ptr(),
+                    blurred.data_ptr(), _build.stream_of(mats))
     _build.check(err, "raster kernel")
     LAUNCHES += 1
     return rgba, norm_t, blurred

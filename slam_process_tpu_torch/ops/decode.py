@@ -11,7 +11,9 @@ block r (FLAG, UE, BS, RSS, CLK as int32) and ``valid[r]`` says whether
 there is one.  Frames appear in stream order with gaps.
 
 ``decode_rows`` launches kernel K1 (``ops/cuda_decode.py``) on a CUDA
-tensor and runs ``decode_rows_plain`` on a CPU tensor.
+tensor and runs ``decode_rows_plain`` on a CPU tensor.  ``discard_count``
+gives the reference's discard counter from the masked rows, on the same
+device.
 
 The host engine (``decode_frames_np``, numpy, int64) is a copy of the JAX
 package's: the same frames, plus the reference's discard counter.  It is
@@ -21,6 +23,7 @@ corrector's static bounds overflow.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -46,13 +49,7 @@ def decode_rows_plain(b: torch.Tensor, cfg: DecodeConfig = _DEFAULT,
     """
     n = b.shape[0]
     dev = b.device
-    limit = _limit(n, n_valid)
-    ok = (b == cfg.flag_true) | (b == cfg.flag_false)
-    pad_top = torch.cat([b >> 6, torch.full((10,), 255, dtype=torch.uint8, device=dev)])
-    for d, tag in enumerate(_OFFSET_TAGS, start=1):
-        ok &= pad_top[d:d + n] == tag
-    ok &= torch.arange(n, device=dev) + cfg.frame_len <= limit
-
+    ok = _start_mask(b, cfg, _limit(n, n_valid))
     pad_b = torch.cat([b, torch.zeros(10, dtype=torch.uint8, device=dev)]).to(torch.int32)
     sh = [pad_b[d:d + n] for d in range(11)]
     clk = sh[3] & 0x3F
@@ -70,6 +67,76 @@ def decode_rows_plain(b: torch.Tensor, cfg: DecodeConfig = _DEFAULT,
     okr = torch.cat([ok, ok.new_zeros(pad)]).view(r, 11)
     rows = fields.sum(dim=1, dtype=torch.int32)
     return rows, okr.any(dim=1), ok.sum(dtype=torch.int32)
+
+
+def _start_mask(b: torch.Tensor, cfg: DecodeConfig, limit: int) -> torch.Tensor:
+    """ok [N] bool: a frame starts at byte p and ends by ``limit``."""
+    n = b.shape[0]
+    ok = (b == cfg.flag_true) | (b == cfg.flag_false)
+    pad_top = torch.cat([b >> 6, torch.full((10,), 255, dtype=torch.uint8, device=b.device)])
+    for d, tag in enumerate(_OFFSET_TAGS, start=1):
+        ok &= pad_top[d:d + n] == tag
+    return ok & (torch.arange(n, device=b.device) + cfg.frame_len <= limit)
+
+
+@functools.lru_cache(maxsize=None)
+def _offset_tags(device: torch.device) -> torch.Tensor:
+    """``_OFFSET_TAGS`` as a uint8 tensor on ``device``, made once."""
+    return torch.tensor(_OFFSET_TAGS, dtype=torch.uint8, device=device)
+
+
+def _interior(rows: torch.Tensor, d: int) -> torch.Tensor:
+    """The 6-bit value of frame offset ``d`` (1..10) from the rows' fields:
+    UE, BS, CLK's five limbs, RSS's three."""
+    if d <= 2:
+        return rows[:, d]
+    field, k = (rows[:, 4], d - 3) if d <= 7 else (rows[:, 3], d - 8)
+    return (field >> (6 * k)) & 0x3F
+
+
+def discard_count(b: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
+                  cfg: DecodeConfig = _DEFAULT, n_valid: Optional[int] = None) -> torch.Tensor:
+    """The reference's discard counter of ``b[:n_valid]`` (what
+    ``decode_frames_np`` gives) from its masked rows, as an int32 scalar
+    tensor on ``b``'s device.
+
+    The cursor discards every flag byte it visits, and visits every byte no
+    emitted frame covers.  Inside a frame a flag byte can sit only at the
+    start or at an interior offset whose tag class is the flag's top two
+    bits with the same low six bits (for 0xCC / 0x33: a BS byte 0xCC or a
+    UE byte 0x33), which the row's fields give.  So the visited flags are
+    the flag bytes less, per frame, 1 plus those interior matches.  The
+    truncated tail then counts once: the first visited flag in the last
+    ``frame_len - 1`` bytes ends the parse, so the visited flags from there
+    on count 1 together.  Those bytes can be covered only by a frame that
+    starts in the ``2 frame_len - 1`` bytes before the end, whose windows
+    are tested here.
+    """
+    fl = cfg.frame_len
+    n = _limit(b.shape[0], n_valid)
+    head = b[:n]
+    is_flag = (head == cfg.flag_true) | (head == cfg.flag_false)
+    inside = valid.to(torch.int64)
+    for d, tag in enumerate(_OFFSET_TAGS, start=1):
+        for f in {cfg.flag_true, cfg.flag_false}:
+            if f >> 6 == tag:
+                inside = inside + (valid & (_interior(rows, d) == (f & 0x3F))).to(torch.int64)
+    visited = is_flag.sum(dtype=torch.int64) - inside.sum()
+
+    lo = max(n - 2 * fl + 1, 0)
+    tail = max(n - fl + 1, 0)
+    tail_flags = is_flag[tail:]
+    if n - lo >= fl:
+        # Every window fully inside the last 2 fl - 1 bytes; window j covers
+        # positions [lo + j, lo + j + fl).
+        w = head[lo:].unfold(0, fl, 1)
+        ok = ((((w[:, 0] == cfg.flag_true) | (w[:, 0] == cfg.flag_false))
+               & ((w[:, 1:] >> 6) == _offset_tags(b.device)).all(dim=1)))
+        gap = (torch.arange(tail, n, device=b.device)[None, :] - lo
+               - torch.arange(w.shape[0], device=b.device)[:, None])
+        tail_flags = tail_flags & ~(ok[:, None] & (gap >= 0) & (gap < fl)).any(dim=0)
+    tail_visited = tail_flags.sum(dtype=torch.int64)
+    return (visited - tail_visited + (tail_visited > 0).to(torch.int64)).to(torch.int32)
 
 
 def decode_rows(b: torch.Tensor, cfg: DecodeConfig = _DEFAULT,

@@ -5,13 +5,16 @@
     sum(data * k * mask) / sum(k * mask), NaN where the weight is ~0;
   * shifted log norm: value' = value - min + 1e-6, log-normalised over the
     shifted range (or a linear norm), clipped to [0, 1], NaN kept;
+    explicit ``vmin`` / ``vmax`` replace the range's ends (in the log form
+    they are shifted by the data's own minimum, as the JAX package's are);
   * colormap with matplotlib index semantics idx = clip(int(x N), 0, N - 1);
     NaN cells are fully transparent (0, 0, 0, 0).
 
 Norms reduce over the last two axes, so a batch [S, H, W] is normalised
 tile by tile.  ``rasterize_tiles`` launches kernel K3
 (``ops/cuda_raster.py``) for CUDA tensors and runs ``raster_tiles_plain``,
-the same formulas in the same order, for CPU tensors.
+the same formulas in the same order, for CPU tensors.  ``to_u8`` is the
+PNG-encoding form of a float raster.
 """
 
 from __future__ import annotations
@@ -19,22 +22,28 @@ from __future__ import annotations
 import functools
 import math
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
 from slam_process_tpu_torch.ops import cuda_raster
+from slam_process_tpu_torch.render.figures import colormap_table
 
 _ASSETS = Path(__file__).resolve().parent.parent / "assets"
 
 
 def colormap_lut(name: str = "viridis") -> np.ndarray:
-    """[256, 4] float32 RGBA table of a colormap shipped with the package
-    (generated from matplotlib's colormap of the same name)."""
+    """[256, 4] float32 RGBA table of a matplotlib colormap name.
+
+    viridis ships with the package (``assets/viridis_256.npy``, matplotlib's
+    table); any other name is built by matplotlib
+    (``render/figures.colormap_table``), so it raises ImportError where
+    matplotlib is not installed."""
     path = _ASSETS / f"{name}_256.npy"
-    if not path.exists():
-        raise ValueError(f"colormap {name!r} is not shipped (have: viridis)")
-    return np.load(path)
+    if path.exists():
+        return np.load(path)
+    return colormap_table(name)
 
 
 def gaussian_kernel_np(sigma: float) -> np.ndarray:
@@ -89,20 +98,35 @@ def _finite_range(values: torch.Tensor):
     return finite, mn, mx
 
 
-def shifted_log_norm(values: torch.Tensor) -> torch.Tensor:
-    """Shifted LogNorm of each [H, W] tile -> [0, 1] (NaN preserved)."""
+def shifted_log_norm(values: torch.Tensor, vmin: Optional[float] = None,
+                     vmax: Optional[float] = None) -> torch.Tensor:
+    """Shifted LogNorm of each [H, W] tile -> [0, 1] (NaN preserved).
+
+    ``vmin`` / ``vmax`` are in the unshifted domain: the norm runs from
+    log(max(vmin - min + 1e-6, 1e-30)) to log(vmax - min + 1e-6), min the
+    tile's own; a ``vmax`` below the tile's minimum makes every t NaN.
+    """
     finite, mn, mx = _finite_range(values)
     log_lo = torch.log(values.new_tensor(1e-6))
-    log_hi = torch.log((mx - mn + 1e-6).clamp(min=1e-30))
+    if vmin is not None:
+        log_lo = torch.log(((values.new_tensor(vmin) - mn) + 1e-6).clamp(min=1e-30))
+    if vmax is None:
+        log_hi = torch.log((mx - mn + 1e-6).clamp(min=1e-30))
+    else:
+        log_hi = torch.log((values.new_tensor(vmax) - mn) + 1e-6)
     t = (torch.log((values - mn + 1e-6).clamp(min=1e-30)) - log_lo) / (
         (log_hi - log_lo).clamp(min=1e-30))
     return torch.where(finite, t.clamp(0.0, 1.0), float("nan"))
 
 
-def linear_norm(values: torch.Tensor) -> torch.Tensor:
-    """Linear norm of each [H, W] tile over its finite range -> [0, 1]."""
+def linear_norm(values: torch.Tensor, vmin: Optional[float] = None,
+                vmax: Optional[float] = None) -> torch.Tensor:
+    """Linear norm of each [H, W] tile -> [0, 1] from ``vmin`` (default: the
+    tile's finite minimum) to ``vmax`` (default: its maximum)."""
     finite, mn, mx = _finite_range(values)
-    t = (values - mn) / (mx - mn).clamp(min=1e-30)
+    lo = mn if vmin is None else values.new_tensor(vmin)
+    hi = mx if vmax is None else values.new_tensor(vmax)
+    t = (values - lo) / (hi - lo).clamp(min=1e-30)
     return torch.where(finite, t.clamp(0.0, 1.0), float("nan"))
 
 
@@ -115,23 +139,32 @@ def apply_colormap_float(norm_values: torch.Tensor, lut: torch.Tensor) -> torch.
     return torch.where(finite[..., None], lut[idx], 0.0)
 
 
+def to_u8(rgba_float: torch.Tensor) -> torch.Tensor:
+    """Float RGBA -> uint8 for PNG encoding (round half up)."""
+    return (rgba_float * 255.0 + 0.5).to(torch.uint8)
+
+
 def raster_tiles_plain(mats: torch.Tensor, lut: torch.Tensor, taps: torch.Tensor,
-                       use_log: bool):
+                       use_log: bool, vmin: Optional[float] = None,
+                       vmax: Optional[float] = None):
     """Plain PyTorch version of kernel K3: (rgba, norm_t, blurred)."""
     blurred = blur_nan_aware(mats, taps)
-    norm_t = shifted_log_norm(blurred) if use_log else linear_norm(blurred)
+    norm = shifted_log_norm if use_log else linear_norm
+    norm_t = norm(blurred, vmin, vmax)
     return apply_colormap_float(norm_t, lut), norm_t, blurred
 
 
 def rasterize_tiles(mats: torch.Tensor, lut: torch.Tensor, blur_sigma: float = 1.0,
-                    use_log: bool = True):
+                    use_log: bool = True, vmin: Optional[float] = None,
+                    vmax: Optional[float] = None):
     """[S, H, W] f32 intensity tiles -> (rgba [S, H, W, 4], norm_t
     [S, H, W], blurred [S, H, W]); kernel K3 on CUDA tensors, the plain
-    version on CPU tensors (``pallas_rasterize_batch``'s counterpart)."""
+    version on CPU tensors (``pallas_rasterize_batch``'s counterpart, with
+    ``rasterize``'s explicit bounds)."""
     taps = blur_taps(blur_sigma, mats.device)
     if mats.is_cuda:
         return cuda_raster.raster_tiles_cuda(mats.contiguous(), lut.contiguous(), taps,
-                                             use_log)
+                                             use_log, vmin, vmax)
     if mats.device.type != "cpu":
         raise ValueError(f"the raster runs on CUDA or CPU tensors, got {mats.device}")
-    return raster_tiles_plain(mats, lut, taps, use_log)
+    return raster_tiles_plain(mats, lut, taps, use_log, vmin, vmax)

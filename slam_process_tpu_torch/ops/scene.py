@@ -11,7 +11,8 @@ K4 (``ops/cuda_sweep_sums.py``) on CUDA tensors and its plain version
 ``sweep_sums_plain`` on CPU tensors; both are exact integer sums, equal to
 the JAX package's scan form and Pallas kernel while cell sums stay below
 2^24.  The numpy host pivot (``intensity_grid_np``) gives a session's
-observed-beam masks.
+observed-beam masks; ``compact_grid`` cuts a grid to its observed and
+mapped beams for the heatmap.
 """
 
 from __future__ import annotations
@@ -84,6 +85,25 @@ def fill_grid(grid: IntensityGrid, cfg: SceneConfig = _DEFAULT) -> torch.Tensor:
         return grid.mean
     inside = grid.row_mask[:, None] & grid.col_mask[None, :]
     return torch.where(inside & torch.isnan(grid.mean), grid.fill_value, grid.mean)
+
+
+def compact_grid(grid: IntensityGrid, filled: torch.Tensor, angle_lut: np.ndarray):
+    """The observed and mapped submatrix and its angle vectors, as the
+    reference pivots it: rows the sorted observed UE ids with a finite
+    angle, columns the sorted observed BS ids likewise.
+
+    The masks come to the host; the submatrix is an index select on
+    ``filled``'s device.  Returns (matrix [U', B'] tensor, ue_angles,
+    bs_angles, ue_ids, bs_ids), the last four numpy
+    (``slam_process_tpu/ops/scene.py::compact_grid``).
+    """
+    mapped = np.isfinite(angle_lut)
+    ue_ids = np.nonzero(grid.row_mask.cpu().numpy() & mapped)[0]
+    bs_ids = np.nonzero(grid.col_mask.cpu().numpy() & mapped)[0]
+    rows = torch.from_numpy(ue_ids).to(filled.device)
+    cols = torch.from_numpy(bs_ids).to(filled.device)
+    matrix = filled.index_select(0, rows).index_select(1, cols)
+    return matrix, angle_lut[ue_ids], angle_lut[bs_ids], ue_ids, bs_ids
 
 
 def sweep_sums_plain(p: torch.Tensor, bs: torch.Tensor, val: torch.Tensor, max_sweeps: int,

@@ -10,14 +10,14 @@ joins them.  The counterpart of ``slam_process_tpu/pipeline/device.py``.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from slam_process_tpu_torch.config import CorrectConfig, DecodeConfig, SceneConfig
 from slam_process_tpu_torch.ops.correct import correct_rows
-from slam_process_tpu_torch.ops.decode import decode_rows
+from slam_process_tpu_torch.ops.decode import decode_rows, discard_count
 from slam_process_tpu_torch.ops.raster import colormap_lut, rasterize_tiles
 from slam_process_tpu_torch.ops.scene import fill_grid, intensity_grid
 
@@ -26,6 +26,8 @@ class DeviceSessionOut(NamedTuple):
     frames: torch.Tensor            # [R, 5] i32 masked-row layout (see below)
     frame_valid: torch.Tensor       # [R] bool: which rows hold real frames
     n_frames: torch.Tensor          # scalar i32 (== frame_valid.sum())
+    n_discarded: Optional[torch.Tensor]  # scalar i32, the reference's discard
+                                         # counter, where asked for; else None
     corrected_bs: torch.Tensor      # [R] i32
     keep: torch.Tensor              # [R] bool
     correct_overflow: torch.Tensor  # scalar bool: static bounds exceeded
@@ -51,13 +53,19 @@ def session_pipeline(
     max_baselines_per_group: int = 256,
     decode_cfg: DecodeConfig = DecodeConfig(),
     correct_cfg: CorrectConfig = CorrectConfig(),
+    discards_in: Optional[int] = None,
 ) -> DeviceSessionOut:
     """Full per-session pipeline on ``byte_tensor``'s device.
 
     Pad the byte tensor with 0x00 (never a flag byte), so padded regions
-    decode to nothing.
+    decode to nothing.  With ``discards_in`` (the length before the
+    padding, which the truncated-tail rule reads) the decoder's discard
+    counter is counted too; it costs ~30 small device operations, which
+    only ``cli decode`` asks for.
     """
     frames, valid, count = decode_rows(byte_tensor, cfg=decode_cfg)
+    discarded = (None if discards_in is None
+                 else discard_count(byte_tensor, frames, valid, decode_cfg, discards_in))
     corrected_bs, keep, overflow = correct_rows(
         frames, valid, max_groups=max_groups,
         max_baselines_per_group=max_baselines_per_group, cfg=correct_cfg)
@@ -71,6 +79,7 @@ def session_pipeline(
         frames=frames,
         frame_valid=valid,
         n_frames=count,
+        n_discarded=discarded,
         corrected_bs=corrected_bs,
         keep=keep,
         correct_overflow=overflow,
@@ -106,10 +115,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 @functools.lru_cache(maxsize=None)
-def device_lut(device: torch.device) -> torch.Tensor:
-    """The viridis LUT on ``device``, loaded and copied once per device;
-    callers must not write to the tensor."""
-    return torch.from_numpy(colormap_lut("viridis")).to(device)
+def device_lut(device: torch.device, name: str = "viridis") -> torch.Tensor:
+    """The colormap ``name``'s LUT on ``device``, made and copied once per
+    (device, name); callers must not write to the tensor."""
+    return torch.from_numpy(colormap_lut(name)).to(device)
 
 
 def run_session_on_device(raw_bytes: np.ndarray, blur_sigma: float = 1.0,
@@ -117,11 +126,13 @@ def run_session_on_device(raw_bytes: np.ndarray, blur_sigma: float = 1.0,
                           max_baselines_per_group: int = 256, *, device=None,
                           decode_cfg: DecodeConfig = DecodeConfig(),
                           correct_cfg: CorrectConfig = CorrectConfig(),
-                          ) -> DeviceSessionOut:
-    """Tokenized bytes -> pipeline outputs on ``device`` (None: CUDA)."""
+                          count_discards: bool = False) -> DeviceSessionOut:
+    """Tokenized bytes -> pipeline outputs on ``device`` (None: CUDA);
+    ``count_discards`` also counts the decoder's discards."""
     dev = resolve_device(device)
     padded = torch.from_numpy(pad_bytes(raw_bytes, bucket_size(len(raw_bytes)))).to(dev)
     return session_pipeline(padded, device_lut(dev), blur_sigma=blur_sigma, use_log=use_log,
                             max_groups=max_groups,
                             max_baselines_per_group=max_baselines_per_group,
-                            decode_cfg=decode_cfg, correct_cfg=correct_cfg)
+                            decode_cfg=decode_cfg, correct_cfg=correct_cfg,
+                            discards_in=len(raw_bytes) if count_discards else None)

@@ -14,7 +14,11 @@ row's RSS and carry the true BS beam.  Beyond that generator it adds:
     instead of uniform noise: a few Gaussian-beam paths over the 64-beam
     angle table, drifting slowly across sweeps, plus noise;
   * ``to_hex_text``, the serial-log text form that ``read_hex_log`` reads,
-    and ``write_angle_table``, the beam -> angle xlsx table.
+    and ``write_angle_table``, the beam -> angle xlsx table (optionally
+    with unmapped beams);
+  * ``with_flag_junk``: bursts of bytes dense in flag bytes spliced into a
+    stream, so the decoder discards (and ``legacy_stream_bytes``, streams
+    in the older v1 / v2 wire formats).
 
 All randomness comes from ``numpy.random.default_rng(seed)`` (the
 multipath scene from a second stream of the same seed, so the default
@@ -111,13 +115,60 @@ def multipath_rss(ue: np.ndarray, bs: np.ndarray, sweep: np.ndarray, n_paths: in
     return np.clip(np.rint(level * (1 << 17)), 1, (1 << 18) - 1).astype(np.int64)
 
 
-def write_angle_table(path: Union[str, Path]) -> Path:
+def write_angle_table(path: Union[str, Path], unmapped=()) -> Path:
     """Write the (BeamID, Angle) table of ``ANGLES`` as xlsx, one row per
-    beam."""
+    beam except the ``unmapped`` beam ids."""
     from slam_process_tpu_torch.io.xlsx import write_xlsx_table
 
-    return write_xlsx_table(path, ["BeamID", "Angle"],
-                            np.stack([np.arange(len(ANGLES)), ANGLES], axis=1))
+    ids = np.setdiff1d(np.arange(len(ANGLES)), np.asarray(unmapped, dtype=np.int64))
+    return write_xlsx_table(path, ["BeamID", "Angle"], np.stack([ids, ANGLES[ids]], axis=1))
+
+
+def with_flag_junk(raw: np.ndarray, n_bursts: int = 20, cut: int = 5, seed: int = 0,
+                   flags=(0xCC, 0x33)) -> np.ndarray:
+    """``raw`` with ``n_bursts`` bursts of 1-30 bytes spliced in at random
+    offsets (frames cut in two included), each byte a flag byte with
+    probability 1/2 and otherwise a byte of any tag class, and the last
+    ``cut`` bytes dropped (a truncated tail): input on which the decoder
+    discards flag bytes."""
+    rng = np.random.default_rng(seed)
+    raw = np.asarray(raw, dtype=np.uint8)
+    at = np.sort(rng.integers(0, len(raw) + 1, n_bursts))
+    parts, prev = [], 0
+    for a in at:
+        n = int(rng.integers(1, 31))
+        burst = np.where(rng.random(n) < 0.5, rng.choice(np.asarray(flags, np.uint8), n),
+                         rng.integers(0, 256, n)).astype(np.uint8)
+        parts += [raw[prev:a], burst]
+        prev = a
+    out = np.concatenate(parts + [raw[prev:]])
+    return out[:max(len(out) - cut, 0)]
+
+
+def legacy_stream_bytes(fmt: str, n_frames: int = 300, junk_frac: float = 0.3,
+                        seed: int = 0) -> np.ndarray:
+    """A seeded byte stream of the older wire formats: ``"v1"`` 5-byte
+    frames [UE 01][BS 00, or 11 (the sentinel)][RSS x3 10], ``"v2"`` 6-byte
+    frames [FLAG 0xCC / 0x33][UE 01][BS 0xFF or 00][RSS x3 10]; after each
+    frame, with probability ``junk_frac``, 1-8 bytes of any value."""
+    rng = np.random.default_rng(seed)
+    n = n_frames
+    ue = 0x40 | rng.integers(0, 64, n)
+    if fmt == "v1":
+        bs = np.where(rng.random(n) < 0.1, 0xC0 | rng.integers(0, 64, n), rng.integers(0, 64, n))
+        head = [ue, bs]
+    elif fmt == "v2":
+        flag = np.where(rng.random(n) < 0.2, 0xCC, 0x33)
+        bs = np.where(rng.random(n) < 0.1, 0xFF, rng.integers(0, 64, n))
+        head = [flag, ue, bs]
+    else:
+        raise ValueError(f"unknown legacy format {fmt!r}; use 'v1' or 'v2'")
+    frames = np.stack(head + [0x80 | rng.integers(0, 64, n) for _ in range(3)], axis=1)
+    junk = np.where(rng.random(n) < junk_frac, rng.integers(1, 9, n), 0)
+    parts = []
+    for f, j in zip(frames.astype(np.uint8), junk):
+        parts += [f, rng.integers(0, 256, j).astype(np.uint8)]
+    return np.concatenate(parts)
 
 
 def to_hex_text(b: np.ndarray) -> bytes:

@@ -484,3 +484,90 @@ def test_path_tracks_default_launches_the_tracker_kernel(tmp_path):
     for name in ("pos_aoa", "pos_aod", "power", "observed", "created"):
         np.testing.assert_array_equal(getattr(tracks, name), getattr(want, name), err_msg=name)
     assert tracks.n_tracks == want.n_tracks > 0
+
+
+K3_BOUNDS = {"vmin_vmax": (40_000.0, 200_000.0), "vmin_only": (90_000.0, None),
+             "vmax_only": (None, 120_000.0), "vmin_below_min": (-5.0, None),
+             "vmax_below_min": (None, -5.0)}
+
+
+@pytest.mark.parametrize("bounds", sorted(K3_BOUNDS))
+@pytest.mark.parametrize("shape", [(64, 64), (59, 61)])
+def test_raster_kernel_bounds_match_plain(shape, bounds):
+    """K3 with explicit vmin / vmax (``cli heatmap --vmin/--vmax``) against
+    its plain version at S = 1 and 4, square and non-square, log and
+    linear; a vmax below the data's minimum makes every log t NaN in both."""
+    vmin, vmax = K3_BOUNDS[bounds]
+    lut = torch.from_numpy(raster.colormap_lut()).cuda()
+    taps = raster.blur_taps(1.0, "cuda")
+    for s in (1, 4):
+        gen = torch.Generator().manual_seed(s * 7 + shape[1])
+        mats = torch.rand((s, *shape), generator=gen) * (1 << 18)
+        mats[torch.rand((s, *shape), generator=gen) < 0.05] = float("nan")
+        mats = mats.cuda()
+        for use_log in (True, False):
+            cuda_raster.LAUNCHES = 0
+            got = cuda_raster.raster_tiles_cuda(mats, lut, taps, use_log, vmin, vmax)
+            assert cuda_raster.LAUNCHES == 1
+            assert_raster_matches(got, raster.raster_tiles_plain(mats, lut, taps, use_log,
+                                                                 vmin, vmax))
+            if bounds == "vmax_below_min" and use_log:
+                assert bool(torch.isnan(got[1]).all())
+
+
+def test_correct_from_parsed_xlsx_on_card(tmp_path):
+    """``Session.correct()`` on the frames of a Parsed xlsx runs K2 on the
+    card (twice past the default bounds) and equals the host engine on every
+    row."""
+    from slam_process_tpu_torch.io.schemas import write_parsed_table
+    from slam_process_tpu_torch.ops.decode import decode_frames_np
+    from slam_process_tpu_torch.pipeline.session import Session
+
+    for kw, launches in ((dict(n_groups=4, frames_per_beam=3, baselines_per_group=9), 1),
+                         (dict(n_groups=257, frames_per_beam=1, baselines_per_group=1), 2)):
+        frames = decode_frames_np(synthetic_session_bytes(junk_frac=0.1, seed=4, **kw)).frames
+        write_parsed_table(tmp_path / "parsed.xlsx", frames)
+        s = Session.from_parsed_xlsx(tmp_path / "parsed.xlsx")
+        cuda_correct.LAUNCHES = 0
+        s.correct()
+        assert cuda_correct.LAUNCHES == launches
+        want = correct.correct_frames_np(s.frames)
+        np.testing.assert_array_equal(s.corrected_bs, want.corrected_bs)
+        np.testing.assert_array_equal(s.filtered, want.filtered)
+
+
+def test_self_test_on_card():
+    cuda_correct.LAUNCHES = 0
+    assert correct.self_test(verbose=False, device="cuda")
+    assert cuda_correct.LAUNCHES >= 5
+
+
+def test_render_heatmap_on_card_matches_cpu(tmp_path):
+    """``render_heatmap`` on the card (K3) against ``device="cpu"``: norm_t
+    within 1e-4, LUT-bin flips under 0.1 %, on a non-square tile, with and
+    without bounds; and the discard count equals the host decoder's."""
+    from slam_process_tpu_torch.config import RenderConfig
+    from slam_process_tpu_torch.ops.decode import decode_frames_np
+    from slam_process_tpu_torch.pipeline.session import Session
+    from slam_process_tpu_torch.utils.synthetic import (
+        to_hex_text, with_flag_junk, write_angle_table)
+
+    raw = with_flag_junk(session(3), n_bursts=30, cut=6, seed=3)
+    path = tmp_path / "heat.txt"
+    path.write_bytes(to_hex_text(raw))
+    angles = write_angle_table(tmp_path / "angles.xlsx", unmapped=(1, 2, 60))
+    s = Session.from_log(path, count_discards=True)
+    assert s.n_discarded == decode_frames_np(raw).discarded > 0
+    for cfg in (RenderConfig(), RenderConfig(use_log=False, vmin=50_000.0, vmax=150_000.0)):
+        cuda_raster.LAUNCHES = 0
+        got = s.render_heatmap(angles, render_cfg=cfg)
+        assert cuda_raster.LAUNCHES == 1
+        want = s.render_heatmap(angles, render_cfg=cfg, device="cpu")
+        assert got.norm_t.shape == want.norm_t.shape == (61, 61)
+        assert (np.isnan(got.norm_t) == np.isnan(want.norm_t)).all()
+        fin = ~np.isnan(want.norm_t)
+        assert np.abs(got.norm_t[fin] - want.norm_t[fin]).max() <= 1e-4
+        flips = (np.clip((np.nan_to_num(got.norm_t) * 256).astype(int), 0, 255)
+                 != np.clip((np.nan_to_num(want.norm_t) * 256).astype(int), 0, 255)).mean()
+        assert flips < 1e-3
+        np.testing.assert_allclose(got.blurred, want.blurred, rtol=1e-5, equal_nan=True)

@@ -18,7 +18,7 @@ from slam_process_tpu.ops.pallas_decode import decode_frames_pallas
 from slam_process_tpu_torch.io import read_hex_log, tokenize_hex
 from slam_process_tpu_torch.ops.decode import decode_frames, decode_rows, frame_capacity
 from slam_process_tpu_torch.utils.synthetic import (
-    decode_edge_cases, synthetic_session_bytes, to_hex_text)
+    decode_edge_cases, synthetic_session_bytes, to_hex_text, with_flag_junk)
 
 
 def junk_heavy_bytes(seed: int) -> np.ndarray:
@@ -126,3 +126,53 @@ def test_read_hex_log_round_trip(tmp_path):
     path.write_bytes(to_hex_text(raw))
     np.testing.assert_array_equal(read_hex_log(path), raw)
     np.testing.assert_array_equal(jax_tokenize_hex(path.read_bytes()), raw)
+
+
+def discard_inputs():
+    """{name: (bytes, n_valid, (flag_true, flag_false))} for the discard
+    counter: junk-heavy sessions, flag bursts with truncated tails (every
+    cut from 0 to 21 bytes), dense random flag bytes, the K1 edge inputs,
+    a padded tensor cut by n_valid and flags of another value."""
+    out = {f"junk_heavy_{seed}": (junk_heavy_bytes(seed), None, (0xCC, 0x33))
+           for seed in (0, 1)}
+    base = synthetic_session_bytes(n_groups=2, frames_per_beam=1, baselines_per_group=3,
+                                   junk_frac=0.2, seed=5)
+    for cut in range(22):
+        out[f"flag_bursts_cut_{cut}"] = (with_flag_junk(base, 15, cut, seed=cut), None,
+                                         (0xCC, 0x33))
+    rng = np.random.default_rng(9)
+    alphabet = np.array([0xCC, 0x33, 0x05, 0xC1, 0x41, 0x81, 0x13], np.uint8)
+    for i in range(6):
+        out[f"dense_flags_{i}"] = (rng.choice(alphabet, int(rng.integers(0, 400))), None,
+                                   (0xCC, 0x33))
+    for name, (raw, n_valid) in DECODE_EDGES.items():
+        out[f"edge_{name}"] = (raw, n_valid, (0xCC, 0x33))
+    padded = np.concatenate([out["flag_bursts_cut_7"][0], np.zeros(300, np.uint8)])
+    out["padded_n_valid"] = (padded, len(out["flag_bursts_cut_7"][0]), (0xCC, 0x33))
+    other = base.copy()
+    other[base == 0xCC], other[base == 0x33] = 0xC3, 0x3C
+    out["other_flags"] = (with_flag_junk(other, 20, 5, seed=2, flags=(0xC3, 0x3C)), None,
+                          (0xC3, 0x3C))
+    return out
+
+
+DISCARD_INPUTS = discard_inputs()
+
+
+@pytest.mark.parametrize("name", sorted(DISCARD_INPUTS))
+def test_discard_count_matches_jax_host_decoder(name):
+    """``discard_count`` from the masked rows equals the reference's
+    counter as JAX's host decoder keeps it, on ``b[:n_valid]``."""
+    from slam_process_tpu import config as jax_config
+    from slam_process_tpu_torch.config import DecodeConfig
+    from slam_process_tpu_torch.ops.decode import discard_count
+
+    raw, n_valid, (ft, ff) = DISCARD_INPUTS[name]
+    cfg = DecodeConfig(flag_true=ft, flag_false=ff)
+    b = torch.from_numpy(np.ascontiguousarray(raw))
+    rows, valid, _ = decode_rows(b, cfg, n_valid)
+    got = discard_count(b, rows, valid, cfg, n_valid)
+    head = raw if n_valid is None else raw[:n_valid]
+    want = decode_frames_np(head, jax_config.DecodeConfig(flag_true=ft, flag_false=ff))
+    assert got.dtype == torch.int32 and int(got) == want.discarded
+

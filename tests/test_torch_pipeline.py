@@ -171,7 +171,7 @@ def test_session_host_engine_matches_jax(tmp_path):
     assert got.name == want.name == "host"
     np.testing.assert_array_equal(got.frames, want.frames)
     assert got.filtered is None and want.filtered is None
-    got.correct()
+    got.correct(engine="host")
     want.correct()
     assert_sessions_equal(got, want)
     with pytest.raises(ValueError, match="engine"):
@@ -197,7 +197,7 @@ def test_session_overflow_resizes_on_device(tmp_path, caplog):
     assert_sessions_equal(got, want)
     assert len(got.frames) == 64 * 257 and len(got.filtered) > 0
     filtered = got.filtered
-    got.correct()
+    got.correct(device="cpu")
     np.testing.assert_array_equal(got.filtered, filtered)
 
 
@@ -222,3 +222,104 @@ def test_run_session_on_device_layout():
     assert out.mean_grid.shape == out.norm_t.shape == out.blurred.shape == (64, 64)
     assert out.rgba.shape == (64, 64, 4) and out.counts.dtype == torch.int32
     assert int(out.n_frames) == int(out.frame_valid.sum()) == 64 * 4 * 2
+
+
+@pytest.mark.parametrize("log", ["junk", "groups_257"])
+def test_correct_on_device_matches_host_engine(tmp_path, monkeypatch, log):
+    """``Session.correct()`` runs ``correct_rows`` (kernel K2 on the card)
+    on the frames of a Parsed xlsx; ``corrected_bs`` of every row, ``keep``
+    and ``filtered`` equal the numpy host engine's, and the in-place export
+    equals JAX's byte for byte.  257 groups pass the default bounds: the
+    corrector reruns once with bounds sized to them (two calls), with no
+    host fallback."""
+    import zipfile
+
+    from slam_process_tpu.pipeline.session import Session as JaxSession
+    from slam_process_tpu_torch.pipeline import session as session_mod
+
+    kw = (dict(n_groups=4, frames_per_beam=2, baselines_per_group=6, junk_frac=0.4, seed=6)
+          if log == "junk" else dict(n_groups=257, frames_per_beam=1, baselines_per_group=1,
+                                     junk_frac=0.0, seed=3))
+    path = tmp_path / f"{log}.txt"
+    path.write_bytes(to_hex_text(synthetic_session_bytes(**kw)))
+    jax_s = JaxSession.from_log(path)
+    jax_s.export_parsed(tmp_path / "parsed.xlsx")
+    jax_s.correct()
+    calls = []
+    real = session_mod.correct_rows
+    monkeypatch.setattr(session_mod, "correct_rows",
+                        lambda *a, **k: calls.append(a[0].device) or real(*a, **k))
+    monkeypatch.setattr(session_mod, "correct_frames_np",
+                        lambda *a, **k: pytest.fail("correct() went to the host engine"))
+    s = Session.from_parsed_xlsx(tmp_path / "parsed.xlsx")
+    s.correct(device="cpu")
+    assert calls == [torch.device("cpu")] * (2 if log == "groups_257" else 1)
+    assert_sessions_equal(s, jax_s)
+    assert s.counters[-1].counts == jax_s.counters[-1].counts
+    s.export_corrected(tmp_path / "port.xlsx")
+    jax_s.export_corrected(tmp_path / "jax.xlsx")
+    for name in ("xl/worksheets/sheet1.xml", "xl/workbook.xml"):
+        with zipfile.ZipFile(tmp_path / "port.xlsx") as a, \
+                zipfile.ZipFile(tmp_path / "jax.xlsx") as b:
+            assert a.read(name) == b.read(name)
+
+
+def test_correct_engines_agree_and_validate(tmp_path):
+    path = tmp_path / "eng.txt"
+    path.write_bytes(to_hex_text(synthetic_session_bytes(
+        n_groups=3, frames_per_beam=2, baselines_per_group=5, junk_frac=0.3, seed=8)))
+    host = Session.from_log(path, engine="host")
+    dev = Session.from_log(path, engine="host")
+    host.correct(engine="host")
+    dev.correct(device="cpu")
+    np.testing.assert_array_equal(dev.corrected_bs, host.corrected_bs)
+    np.testing.assert_array_equal(dev.filtered, host.filtered)
+    assert dev.counters == host.counters
+    with pytest.raises(ValueError, match="engine"):
+        dev.correct(engine="gpu")
+    dev.frames = dev.frames.copy()
+    dev.frames[0, 4] = 1 << 40
+    with pytest.raises(ValueError, match="engine='host'"):
+        dev.correct(device="cpu")
+    empty = Session("empty")
+    with pytest.raises(ValueError, match="no decoded frames"):
+        empty.correct(device="cpu")
+
+
+def test_npz_round_trip_and_loaders(tmp_path):
+    from slam_process_tpu.pipeline.session import Session as JaxSession
+
+    path = tmp_path / "npz.txt"
+    path.write_bytes(to_hex_text(synthetic_session_bytes(
+        n_groups=2, frames_per_beam=2, baselines_per_group=3, junk_frac=0.2, seed=4)))
+    s = Session.from_log(path, device="cpu")
+    s.save_npz(tmp_path / "a.npz")
+    t = Session.load_npz(tmp_path / "a.npz")
+    want = JaxSession.load_npz(tmp_path / "a.npz")
+    assert t.name == want.name == "a"
+    np.testing.assert_array_equal(t.frames, s.frames)
+    np.testing.assert_array_equal(t.filtered, s.filtered)
+    s.export_filtered(tmp_path / "f.xlsx")
+    np.testing.assert_array_equal(Session.from_filtered_xlsx(tmp_path / "f.xlsx").filtered,
+                                  s.filtered)
+
+
+def test_discards_are_counted_where_asked(tmp_path):
+    """The device engine counts the decoder's discards (on the device) only
+    with ``count_discards``; the count equals the host engine's and JAX's."""
+    from slam_process_tpu.ops.decode import decode_frames_np as jax_decode_frames_np
+    from slam_process_tpu_torch.utils.synthetic import with_flag_junk
+
+    raw = with_flag_junk(synthetic_session_bytes(n_groups=3, frames_per_beam=2,
+                                                 baselines_per_group=4, junk_frac=0.2, seed=7),
+                         n_bursts=30, cut=3, seed=7)
+    want = jax_decode_frames_np(raw).discarded
+    assert want > 0
+    assert device.run_session_on_device(raw, device="cpu").n_discarded is None
+    got = device.run_session_on_device(raw, device="cpu", count_discards=True).n_discarded
+    assert got.dtype == torch.int32 and int(got) == want
+    path = tmp_path / "junk.txt"
+    path.write_bytes(to_hex_text(raw))
+    assert Session.from_log(path, device="cpu").n_discarded is None
+    assert Session.from_log(path, device="cpu", count_discards=True).n_discarded == want
+    assert Session.from_log(path, engine="host").n_discarded == want

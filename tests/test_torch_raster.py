@@ -88,8 +88,10 @@ def test_viridis_asset_equals_matplotlib():
     lut = raster.colormap_lut("viridis")
     assert lut.dtype == np.float32 and lut.shape == (256, 4)
     np.testing.assert_array_equal(lut, jax_raster.colormap_lut("viridis"))
-    with pytest.raises(ValueError):
-        raster.colormap_lut("magma")
+    # Names not shipped come from matplotlib, as the JAX package's do.
+    np.testing.assert_array_equal(raster.colormap_lut("magma"), jax_raster.colormap_lut("magma"))
+    with pytest.raises(KeyError):
+        raster.colormap_lut("no_such_colormap")
 
 
 @pytest.mark.parametrize("sigma", [0.0, 0.5, 1.0, 2.3])

@@ -120,17 +120,17 @@ def test_sweep_memo_invalidated_on_recorrect(files):
     log, angles = files
     s = Session("memo_check")
     s.frames = decode_frames_np(read_hex_log(log)).frames
-    s.correct()
+    s.correct(device="cpu")
     _, valid_full = s.sweep_paths(angles, device="cpu")
 
     s.frames = s.frames[: len(s.frames) // 2]
-    s.correct()
+    s.correct(device="cpu")
     paths_half, valid_half = s.sweep_paths(angles, device="cpu")
     assert len(valid_half) < len(valid_full)
 
     fresh = Session("memo_fresh")
     fresh.frames = s.frames
-    fresh.correct()
+    fresh.correct(device="cpu")
     paths_ref, valid_ref = fresh.sweep_paths(angles, device="cpu")
     np.testing.assert_array_equal(valid_half, valid_ref)
     np.testing.assert_array_equal(paths_half.aoa_idx, paths_ref.aoa_idx)

@@ -87,10 +87,10 @@ extern "C" int k3_phase(int phase, const void* mats, int s, int h, int w, const 
   float* b = static_cast<float*>(blurred);
   switch (phase) {
     case 0: empty_kernel<<<s * kRanks, kBlock, 0, st>>>(); break;
-    case 1: raster_kernel<7, 1><<<s * kRanks, kBlock, smem, st>>>(m, h, w, l, n_lut, t, kh, kw, use_log, o, nt, b); break;
-    case 2: raster_kernel<7, 2><<<s * kRanks, kBlock, smem, st>>>(m, h, w, l, n_lut, t, kh, kw, use_log, o, nt, b); break;
-    case 3: raster_kernel<7, 3><<<s * kRanks, kBlock, smem, st>>>(m, h, w, l, n_lut, t, kh, kw, use_log, o, nt, b); break;
-    default: raster_kernel<7, 4><<<s * kRanks, kBlock, smem, st>>>(m, h, w, l, n_lut, t, kh, kw, use_log, o, nt, b);
+    case 1: raster_kernel<7, 1><<<s * kRanks, kBlock, smem, st>>>(m, h, w, l, n_lut, t, kh, kw, use_log, 0, 0.0f, 0, 0.0f, o, nt, b); break;
+    case 2: raster_kernel<7, 2><<<s * kRanks, kBlock, smem, st>>>(m, h, w, l, n_lut, t, kh, kw, use_log, 0, 0.0f, 0, 0.0f, o, nt, b); break;
+    case 3: raster_kernel<7, 3><<<s * kRanks, kBlock, smem, st>>>(m, h, w, l, n_lut, t, kh, kw, use_log, 0, 0.0f, 0, 0.0f, o, nt, b); break;
+    default: raster_kernel<7, 4><<<s * kRanks, kBlock, smem, st>>>(m, h, w, l, n_lut, t, kh, kw, use_log, 0, 0.0f, 0, 0.0f, o, nt, b);
   }
   return static_cast<int>(cudaGetLastError());
 }
