@@ -123,7 +123,32 @@ Phases, each printing one JSON line:
                 4, 64 x 64 and 59 x 61.  Host ms per step on both devices.
                 The PNG is not drawn where matplotlib is missing (the card's
                 machine); a line says so.
-  8. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
+  8. estimate   the session estimator: the ``estimate`` command's steps on
+                the full multipath log on the card, launches counted (K1, K2,
+                K3, K4 and K6 must launch): decode + correct, ``run_estimator``
+                for the five NN-OMP flavors at full width (886 x 886 grids,
+                K = 20 for v1-7), ``--per-sweep`` through ``cli.main``, and
+                ``--tracks --changes`` through the command's own helpers (the
+                track PNG needs matplotlib; a line says it was not drawn);
+                the same with ``--device cpu``: printed lines equal, the
+                three xlsx read back with integer columns equal and the rest
+                within rtol 2e-4.  Each flavor's NN-OMP on the card against
+                ``device="cpu"`` and the float64 host engine: selections,
+                ``n_iters`` and ``valid`` equal, power within rtol 2e-4
+                (a difference is excused only where the oracle's top two
+                correlations sit within 1e-5 of the surface's scale), labels
+                equal outside 0.0017 dB of a classifier threshold.
+                ``estimate_sessions`` over the 21 sessions (v1-7, v1)
+                against their per-session card runs.  The RBF background
+                of the full scene (4,096 centres) on the card against
+                numpy float64, within 1e-6 of the range.  Times (CUDA
+                events, median of 5 after a warm-up, host work inside):
+                ``run_estimator`` on the card and with ``engine="host"``,
+                the bare ``run_nn_omp``, ``estimate_sessions`` in
+                sessions/s, the RBF on the card and in numpy, LU against
+                Gauss-Jordan NNLS at K = 20 for one session and for 21;
+                NNLS host syncs per call; one profiled ``run_estimator``.
+  9. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
                 (K1, K4, K5, K6 through their wrappers, K1 also as the bare
                 launch; K2, K3 as the bare launch, K3 also with vmin /
                 vmax), its plain version on the
@@ -141,7 +166,7 @@ Phases, each printing one JSON line:
                 ``torch.profiler``: the device's busy time, its share, the top
                 ops, and the estimator's host syncs.
 
-Every kernel's launches are counted on each path (phases 4, 5, 6 and 7,
+Every kernel's launches are counted on each path (phases 4 to 8,
 the counters set to 0 just before and read just after), reported in the
 ``kernels`` line as ``launches_by_path``; ``launches`` is the count on the
 kernel's own path.  Then the ``bounds`` and ``kernels`` JSON lines, and as
@@ -152,6 +177,7 @@ is synthetic, made from fixed seeds; temporary logs go under ``build/``.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -613,7 +639,16 @@ def run(tmp: Path) -> None:
     emit({"phase": "cli", "seconds": time.perf_counter() - t0, "launches": by_path["cli"],
           **cli_out})
 
-    # -- 8. timing ---------------------------------------------------------------
+    # -- 8. estimate: the session estimator on the full multipath session --------
+    t0 = time.perf_counter()
+    est_out = estimate_phase(np, torch, nnls, tmp, paths[MP], sessions, angles, zero_counts,
+                             read_counts, dev, smi)
+    by_path["estimate"] = est_out.pop("launches")
+    print(smi, flush=True)
+    emit({"phase": "estimate", "seconds": time.perf_counter() - t0,
+          "launches": by_path["estimate"], **est_out})
+
+    # -- 9. timing ---------------------------------------------------------------
     def cuda_ms(fn, inner=1, primed=True):
         """Median ms per call over N_TIMED event-timed runs of ``inner``
         calls.  ``primed``: a ~20 ms device sleep queued first lets the
@@ -1097,6 +1132,331 @@ def cli_phase(np, torch, tmp, log, angles, zero_counts, read_counts, raster_clos
             "session_counters": got["counters"],
             "run_tests": got["lines"]["run_tests"][-1], "run_tests_k2": got["run_tests_k2"],
             "overflow_xlsx_k2": got["overflow_k2"]}
+
+
+EST_TIMED = 5                        # event-timed calls per median in the estimate phase
+NEAR_TIE = 1e-5                      # tests/test_torch_nn_omp.py's near-tie margin
+RTOL = 2e-4
+# Two powers each within RTOL can move a ratio to the LoS by this much (dB).
+MARGIN_DB = 2 * 10 * math.log10(1 + RTOL)
+# Each flavor's classifier thresholds on 10 log10(p / p_LoS), in dB.
+THRESHOLDS_DB = {"nn_omp": (-0.15, -0.01), "nn_omp_v1": (),
+                 "nn_omp_v14": (10 * math.log10(0.5),), "nn_omp_v15": (-10.0,),
+                 "nn_omp_v16": (-0.15, -0.01)}
+
+
+def selection_margin(np, d, mat, n_iters, aoa_idx, aod_idx):
+    """Smallest gap, over the float64 oracle's iterations, between the top
+    two values of the residual correlation surface, relative to the
+    largest |corr_y| (``tests/test_torch_nn_omp.selection_margin``)."""
+    from scipy.optimize import nnls as scipy_nnls
+
+    y = mat.ravel()
+    scale = np.abs(d.phi_rx.T @ mat @ d.phi_tx).max()
+    resid, selected, margin = y, [], np.inf
+    for r, t in zip(aoa_idx[:n_iters], aod_idx[:n_iters]):
+        corr = (d.phi_rx.T @ resid.reshape(mat.shape) @ d.phi_tx).ravel()
+        top2 = np.partition(corr, -2)[-2:]
+        margin = min(margin, (top2[1] - top2[0]) / scale)
+        selected.append((r, t))
+        A = np.column_stack([np.outer(d.phi_rx[:, a], d.phi_tx[:, b]).ravel()
+                             for a, b in selected])
+        resid = y - A @ scipy_nnls(A, y)[0]
+    return float(margin)
+
+
+def paths_agree(np, got, want, valid_only=False):
+    """Why two OmpPaths differ (None when they agree): valid equal, the
+    selections of every slot (of the valid ones with ``valid_only``) and
+    n_iters equal, power within RTOL."""
+    if not np.array_equal(got.valid, want.valid):
+        return "valid"
+    keep = want.valid if valid_only else slice(None)
+    for field in ("aoa_idx", "aod_idx"):
+        if not np.array_equal(np.asarray(getattr(got, field))[keep],
+                              np.asarray(getattr(want, field))[keep]):
+            return field
+    if not valid_only and int(got.n_iters) != int(want.n_iters):
+        return "n_iters"
+    sel = want.valid if valid_only else slice(0, int(want.n_iters))
+    if not np.allclose(np.asarray(got.power)[sel], np.asarray(want.power)[sel], rtol=RTOL,
+                       atol=1e-6):
+        return "power"
+    return None
+
+
+def near_threshold(np, power, valid, thresholds_db):
+    """(the LoS near a tie, per path: its ratio to the LoS lies within
+    MARGIN_DB of a classifier threshold)."""
+    power = np.asarray(power, np.float64)
+    valid = np.asarray(valid, bool)
+    near = np.zeros(len(power), bool)
+    if not valid.any():
+        return False, near
+    los = int(np.argmax(np.where(valid, power, -np.inf)))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = 10 * np.log10(power / power[los])
+    others = valid.copy()
+    others[los] = False
+    for th in thresholds_db:
+        near |= valid & (np.abs(ratio - th) < MARGIN_DB)
+    return bool((others & (np.abs(ratio) < MARGIN_DB)).any()), near
+
+
+def xlsx_close(np, a, b, int_cols):
+    """Why two xlsx tables differ (None when they agree): the same columns
+    and rows, ``int_cols`` equal, the rest within RTOL."""
+    from slam_process_tpu_torch.io.xlsx import read_xlsx_table
+
+    (na, va), (nb, vb) = read_xlsx_table(a), read_xlsx_table(b)
+    if na != nb or va.shape != vb.shape:
+        return f"columns {na} / {nb} or shapes {va.shape} / {vb.shape}"
+    for i, name in enumerate(na):
+        same = (np.array_equal(va[:, i], vb[:, i]) if name in int_cols
+                else np.allclose(va[:, i], vb[:, i], rtol=RTOL, atol=1e-12))
+        if not same:
+            return name
+    return None
+
+
+def estimate_phase(np, torch, nnls, tmp, log, sessions, angles, zero_counts, read_counts,
+                   dev, smi) -> dict:
+    """The session estimator on the card: the estimate command's steps on
+    the full multipath log (counted), each against ``device="cpu"`` and the
+    float64 host engine; ``estimate_sessions`` over the 21 sessions against
+    their per-session card runs; the RBF background against numpy; the LU
+    and Gauss-Jordan NNLS solves; times and host syncs."""
+    from slam_process_tpu_torch.io.xlsx import write_xlsx_table
+    from slam_process_tpu_torch.models import registry
+    from slam_process_tpu_torch.models.batch_estimation import (
+        estimate_sessions, flavor_config, pack_scenes, packed_to_device)
+    from slam_process_tpu_torch.models.dictionary import make_dictionary
+    from slam_process_tpu_torch.models.nn_omp import nn_omp_scenes, run_nn_omp
+    from slam_process_tpu_torch.ops.interp import rbf_interpolate_grid
+    from slam_process_tpu_torch.pipeline import cli
+    from slam_process_tpu_torch.render.estimation import rbf_background
+
+    def ms(fn, n=EST_TIMED):
+        """Median ms of ``n`` calls after a warm-up, each between two CUDA
+        events; every call blocks on its results, so its host work is
+        inside the interval."""
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def syncs(fn):
+        nnls.HOST_SYNCS = 0
+        out = fn()
+        return out, nnls.HOST_SYNCS
+
+    def call(argv):
+        import contextlib
+        import io
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        if rc != 0:
+            fail(f"cli {' '.join(argv[:2])}: exit code {rc}: {buf.getvalue()[-500:]}")
+        return [ln.replace(str(tmp), "") for ln in buf.getvalue().splitlines()
+                if not ln.startswith(("INFO ", "WARNING ", "ERROR "))]
+
+    def steps(device):
+        """The estimate command's steps on ``device``: decode + correct,
+        each flavor's table, ``--per-sweep`` through cli.main, then
+        ``--tracks --changes`` through the command's own helpers (its
+        track PNG needs matplotlib)."""
+        out = tmp / f"estimate_{device}"
+        out.mkdir()
+        argv = ["estimate", "--input", str(log), "--mapping", str(angles), "--device", device]
+        s, overrides = cli.estimate_inputs(cli.build_parser().parse_args(argv))
+        tables = {name: registry.run_estimator(name, s, angles, **overrides)
+                  for name in registry.FLAVORS}
+        lines = call(argv + ["--per-sweep", "--output", str(out / "sweep_paths.xlsx")])
+        args = cli.build_parser().parse_args(argv + ["--tracks", "--changes", "--output",
+                                                     str(out / "tracks.xlsx")])
+        s_t, overrides = cli.estimate_inputs(args)
+        tracks, times, vel = s_t.path_tracks(args.mapping, gate_deg=args.gate_deg, **overrides)
+        table = cli.tracks_table(tracks, times, vel)
+        written = write_xlsx_table(args.output, cli.TRACK_COLUMNS, table)
+        lines.append(f"tracks={int(tracks.n_tracks)} fitted={int(vel[2][:tracks.n_tracks].sum())}"
+                     f" rows={len(table)}")
+        lines.append(cli.write_changes(written, tracks, times, args)[1].replace(str(tmp), ""))
+        return s, tables, lines, out
+
+    # The estimate command's path on the card, counted.
+    zero_counts()
+    t0 = time.perf_counter()
+    s, tables, lines, out_cuda = steps("cuda")
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    launches = read_counts()
+    for key in ("K1", "K2", "K3", "K4", "K6"):
+        if launches[key] == 0:
+            fail(f"estimate: {key} never launched: {launches}")
+    _, tables_cpu, lines_cpu, out_cpu = steps("cpu")
+    if [ln.replace("estimate_cuda", "") for ln in lines] != [
+            ln.replace("estimate_cpu", "") for ln in lines_cpu]:
+        fail(f"estimate: printed {lines} on cuda, {lines_cpu} on cpu")
+    for name, ints in (("sweep_paths.xlsx", {"Sweep", "CLK", "Path"}),
+                       ("tracks.xlsx", {"Track", "Sweep", "CLK"}),
+                       ("tracks_changes.xlsx", {"Sweep", "CLK", "Kind", "Track"})):
+        why = xlsx_close(np, out_cuda / name, out_cpu / name, ints)
+        if why:
+            fail(f"estimate: {name} differs between cuda and cpu in {why}")
+    import importlib.util
+
+    if importlib.util.find_spec("matplotlib") is None:
+        print("estimate: the estimation and track PNGs were not drawn: matplotlib is not "
+              "installed on this machine (the CPU tests draw them)", flush=True)
+
+    # Each flavor: the card against device="cpu" and the float64 host
+    # engine, lane for lane; a difference is excused only at a near tie.
+    flavors, scenes = {}, {}
+    for name in registry.FLAVORS:
+        dict_cfg, cfg, log_t, keep_rule, stop_np = registry.nn_omp_settings(name)
+        matrix, ue, bs = registry.build_scene(s, angles, log_t)
+        d = make_dictionary(ue, bs, dict_cfg)
+        scenes[name] = (matrix, ue, bs, d, cfg, keep_rule, stop_np)
+        runs = {"cuda": run_nn_omp(d, matrix, cfg, keep_rule, stop_np, device=dev),
+                "cpu": run_nn_omp(d, matrix, cfg, keep_rule, stop_np, device="cpu"),
+                "host": run_nn_omp(d, matrix, cfg, keep_rule, stop_np, engine="host")}
+        excused, margin = [], None
+        for other in ("cpu", "host"):
+            why = paths_agree(np, runs["cuda"], runs[other])
+            if why:
+                ref = runs["host"]
+                margin = selection_margin(np, d, matrix, int(ref.n_iters), ref.aoa_idx,
+                                          ref.aod_idx)
+                if margin >= NEAR_TIE:
+                    fail(f"estimate {name}: the card and {other} differ in {why} "
+                         f"(selection margin {margin:.3g})")
+                excused.append(other)
+        labels = {k: registry.classify_paths(name, r) for k, r in runs.items()}
+        if registry.paths_table(labels["cuda"]).to_string() != tables[name].to_string():
+            fail(f"estimate {name}: run_estimator's table is not its paths' table")
+        los_tie, near = near_threshold(np, runs["host"].power, runs["host"].valid,
+                                       THRESHOLDS_DB[name])
+        for other in ("cpu", "host"):
+            if other in excused or los_tie:
+                continue
+            if not np.array_equal(labels["cuda"].label[~near], labels[other].label[~near]):
+                fail(f"estimate {name}: labels differ between the card and {other}")
+        if len(tables[name]) == 0 or not np.isfinite(tables[name]["Power"]).all():
+            fail(f"estimate {name}: no path, or a non-finite power")
+        # The command's own tables, card against cpu: the same rows, angles
+        # exact, power within RTOL, labels outside the thresholds' margin.
+        g, w = tables[name], tables_cpu[name]
+        far = ~near[runs["cuda"].valid]
+        if "cpu" not in excused and not (
+                len(g) == len(w) and np.array_equal(g["AoA"], w["AoA"])
+                and np.array_equal(g["AoD"], w["AoD"])
+                and np.allclose(g["Power"], w["Power"], rtol=RTOL)
+                and (los_tie or [t for t, f in zip(g["PathType"], far) if f]
+                     == [t for t, f in zip(w["PathType"], far) if f])):
+            fail(f"estimate {name}: run_estimator's table differs between cuda and cpu")
+        flavors[name] = {
+            "grid": [len(d.aoa_grid), len(d.aod_grid)], "scene": list(matrix.shape),
+            "max_paths": cfg.max_paths, "n_iters": int(runs["cuda"].n_iters),
+            "paths": len(tables[name]), "table_lines": len(tables[name].to_string().splitlines()),
+            "labels": sorted(set(tables[name]["PathType"])),
+            "near_threshold_paths": int(near.sum()), "los_near_tie": los_tie,
+            "excused_near_tie": excused, "selection_margin": margin,
+            "power_max_rel_err_cpu": float(np.max(np.abs(
+                runs["cuda"].power / np.where(runs["cpu"].power == 0, 1, runs["cpu"].power) - 1)
+                * runs["cuda"].valid))}
+
+    # Times and host syncs of the flagship.
+    matrix, ue, bs, d, cfg, keep_rule, stop_np = scenes["nn_omp"]
+    _, flagship_syncs = syncs(lambda: registry.run_estimator("nn_omp", s, angles))
+    timing = {"run_estimator_nn_omp_ms": ms(lambda: registry.run_estimator("nn_omp", s, angles)),
+              "run_estimator_nn_omp_host_engine_ms": ms(lambda: registry.run_estimator(
+                  "nn_omp", s, angles, engine="host"), n=3),
+              "run_nn_omp_ms": ms(lambda: run_nn_omp(d, matrix, cfg, keep_rule, stop_np)),
+              "run_estimator_nn_omp_v1_ms": ms(lambda: registry.run_estimator(
+                  "nn_omp_v1", s, angles))}
+    busy, acts, top = device_profile(torch, lambda: registry.run_estimator("nn_omp", s, angles))
+    profile = {"device_busy_ms": busy, "device_activities": acts,
+               "busy_share": busy / timing["run_estimator_nn_omp_ms"], "top_us": top[:6]}
+
+    # LU against Gauss-Jordan at K = 20: one session, then the 21.
+    one = [torch.from_numpy(np.asarray(x, np.float32)).to(dev)[None]
+           for x in (d.phi_rx, d.phi_tx, d.aoa_grid, d.aod_grid, matrix)]
+    dict_cfg17, cfg17, log17, keep17, stop17 = flavor_config("v1-7")
+    mats, dicts = [], []
+    for sess in sessions:
+        m, u, b = registry.build_scene(sess, angles, log17)
+        mats.append(m)
+        dicts.append(make_dictionary(u, b, dict_cfg17))
+    p = packed_to_device(pack_scenes(mats, dicts), dev)
+    batch = [p.phi_rx, p.phi_tx, p.aoa_grid, p.aod_grid, p.matrices]
+    solvers = {}
+    for key, args in (("single", one), ("batched_21", batch)):
+        outs = {sv: syncs(lambda: nn_omp_scenes(*args, cfg17, keep17, stop17, nnls_solver=sv))
+                for sv in ("lu", "auto")}
+        lu, gj = outs["lu"][0], outs["auto"][0]
+        same = all(torch.equal(getattr(lu, f), getattr(gj, f))
+                   for f in ("aoa_idx", "aod_idx", "n_iters", "valid"))
+        solvers[key] = {
+            "same_selections": same,
+            "power_max_rel_diff": float(((lu.power - gj.power).abs()
+                                         / gj.power.abs().clamp_min(1e-30)).max()),
+            "lu_ms": ms(lambda: nn_omp_scenes(*args, cfg17, keep17, stop17, nnls_solver="lu")),
+            "gauss_jordan_ms": ms(lambda: nn_omp_scenes(*args, cfg17, keep17, stop17,
+                                                        nnls_solver="auto")),
+            "lu_syncs": outs["lu"][1], "gauss_jordan_syncs": outs["auto"][1]}
+        if not same:
+            print(f"estimate: LU and Gauss-Jordan select differently ({key})", flush=True)
+
+    # estimate_sessions over the 21 sessions against per-session card runs.
+    batched = {}
+    for flavor in ("v1-7", "v1"):
+        got, n_syncs = syncs(lambda: estimate_sessions(sessions, angles, flavor))
+        dict_cfg, cfg, log_t, keep_rule, stop_np = flavor_config(flavor)
+        excused = 0
+        for i, (sess, g) in enumerate(zip(sessions, got)):
+            m, u, b = registry.build_scene(sess, angles, log_t)
+            dd = make_dictionary(u, b, dict_cfg)
+            want = run_nn_omp(dd, m, cfg, keep_rule, stop_np)
+            why = paths_agree(np, g, want, valid_only=not stop_np)
+            if why:
+                ref = run_nn_omp(dd, m, cfg, keep_rule, stop_np, engine="host")
+                if selection_margin(np, dd, m, int(ref.n_iters), ref.aoa_idx,
+                                    ref.aod_idx) >= NEAR_TIE:
+                    fail(f"estimate_sessions {flavor}: session {i} differs from its own "
+                         f"card run in {why}")
+                excused += 1
+        call_ms = ms(lambda: estimate_sessions(sessions, angles, flavor), n=3)
+        batched[flavor] = {"sessions": len(sessions), "ms": call_ms,
+                           "sessions_per_s": len(sessions) / (call_ms / 1e3),
+                           "host_syncs": n_syncs, "excused_near_tie": excused,
+                           "valid_paths": int(sum(int(g.valid.sum()) for g in got))}
+
+    # The figure's background: the full scene's 4,096-centre solve.
+    gx, gy, heat = rbf_background(matrix, ue, bs, smooth=0.1)
+    t0 = time.perf_counter()
+    want = rbf_interpolate_grid(bs, ue, matrix, gx, gy, smooth=0.1)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    rbf_err = float(np.abs(heat - want).max() / np.ptp(want))
+    if not (np.isfinite(heat).all() and rbf_err <= 1e-6):
+        fail(f"estimate: the card's RBF background is {rbf_err:.3g} of the range from numpy's")
+    rbf = {"centres": int(matrix.size), "queries": int(heat.size),
+           "max_err_share_of_range": rbf_err,
+           "card_ms": ms(lambda: rbf_background(matrix, ue, bs, smooth=0.1)),
+           "numpy_ms": numpy_ms}
+    return {"card": smi, "seconds_card_steps": steps_s, "launches": launches,
+            "printed": lines, "flavors": flavors, "flagship_host_syncs": flagship_syncs,
+            "timing_ms": timing, "profile_run_estimator": profile, "nnls_solvers": solvers,
+            "estimate_sessions": batched, "rbf": rbf}
 
 
 def device_profile(torch, fn, count=()):

@@ -2,10 +2,11 @@
 
 A copy of the stage configs of ``slam_process_tpu/config.py``
 (``DecodeConfig``, ``CorrectConfig``, ``SceneConfig``, ``DictionaryConfig``,
-``OmpConfig``, ``RenderConfig``) with the same fields and defaults, and a
-``PipelineConfig`` holding the ones ``Session`` reads;
-``convert.configs_from_reference`` and ``convert.render_config_from_reference``
-build these from any objects that carry the same field names.
+``OmpConfig``, ``ClassifierConfig``, ``RenderConfig``) with the same fields
+and defaults, and a ``PipelineConfig`` holding the ones ``Session`` reads;
+``convert.configs_from_reference``, ``convert.classifier_config_from_reference``
+and ``convert.render_config_from_reference`` build these from any objects
+that carry the same field names.
 """
 
 from __future__ import annotations
@@ -72,6 +73,18 @@ class OmpConfig:
     min_power_ratio: float = 3e-4
     # Bounded outer iterations of the NNLS active-set solve.
     nnls_max_iter: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassifierConfig:
+    """AdvancedPathClassifier thresholds (the v1-6 / v1-7 classifier of
+    ``models/classifiers.classify_advanced``)."""
+
+    sidelobe_width_aoa: float = 5.0
+    sidelobe_width_aod: float = 5.0
+    nlos_power_thresh_db: float = 0.01
+    nlos_angle_separation: float = 15.0
+    sidelobe_power_ratio_db: float = 0.15
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,7 +3,8 @@
 The system has no weights.  What its pipeline is handed is the stage
 configs, the colormap LUT (a numpy array, passed as it is), the
 corrector's static bounds (plain integers), for the estimators the beam
-dictionary, and for the device streaming session its online-paths spec.
+dictionary, the classifier thresholds and the packed dataset scenes, and
+for the device streaming session its online-paths spec.
 Configs are read field by field, and dictionaries array by array, from any
 objects that have the port's field names, so this module needs no import
 of the JAX package:
@@ -11,6 +12,10 @@ of the JAX package:
   * ``configs_from_reference``: the stage configs;
   * ``render_config_from_reference``: the heatmap's render config;
   * ``dictionary_from_reference``: a beam dictionary;
+  * ``classifier_config_from_reference``: the v1-6 / v1-7 classifier's
+    thresholds;
+  * ``packed_scenes_from_reference``: a ``PackedScenes`` of the padded
+    dataset scenes, as tensors on a device;
   * ``paths_spec_from_reference``: a streaming ``StreamPathsSpec`` and its
     dictionary arrays, so one spec drives both packages' streams.
 """
@@ -24,7 +29,8 @@ import numpy as np
 import torch
 
 from slam_process_tpu_torch.config import (
-    CorrectConfig, DecodeConfig, DictionaryConfig, OmpConfig, RenderConfig, SceneConfig)
+    ClassifierConfig, CorrectConfig, DecodeConfig, DictionaryConfig, OmpConfig, RenderConfig,
+    SceneConfig)
 from slam_process_tpu_torch.models.dictionary import BeamDictionary, dictionary_to_device
 from slam_process_tpu_torch.pipeline.device import resolve_device
 
@@ -52,6 +58,22 @@ def render_config_from_reference(render_cfg) -> RenderConfig:
     (raises AttributeError on a missing field)."""
     cfg = _copy(RenderConfig, render_cfg)
     return dataclasses.replace(cfg, grid_size=tuple(cfg.grid_size))
+
+
+def classifier_config_from_reference(cls_cfg) -> ClassifierConfig:
+    """The port's frozen ClassifierConfig from a reference object's five
+    thresholds (raises AttributeError on a missing field)."""
+    return _copy(ClassifierConfig, cls_cfg)
+
+
+def packed_scenes_from_reference(packed, device=None):
+    """The port's PackedScenes of tensors on ``device`` (None: CUDA) from a
+    reference ``PackedScenes``' nine arrays, read by field name: float32
+    scenes, dictionaries and grids, int32 extents."""
+    from slam_process_tpu_torch.models.batch_estimation import PackedScenes, packed_to_device
+
+    host = PackedScenes(*(np.asarray(getattr(packed, f)) for f in PackedScenes._fields))
+    return packed_to_device(host, resolve_device(device))
 
 
 def dictionary_from_reference(d, device=None) -> BeamDictionary:

@@ -1,7 +1,31 @@
-"""Non-negative orthogonal matching pursuit, Gram-domain batch form.
+"""Non-negative orthogonal matching pursuit: the float64 oracle, the
+session (chain) form and the per-sweep (Gram-domain) form.
 
-The port of ``slam_process_tpu/models/nn_omp.py::nn_omp_gram_batch_jax``,
-the form the per-sweep estimator calls.  With selected atoms a_k =
+The port of ``slam_process_tpu/models/nn_omp.py``:
+
+  * ``nn_omp_np``: a numpy + scipy copy of the float64 host oracle, with
+    the reference's control flow (stop on a non-positive maximum or a
+    duplicate atom, keep rule "ratio" or "positive").
+  * ``nn_omp_scenes``: ``nn_omp_jax`` batched over N scenes, each with its
+    own dictionary (what the JAX package's production ``"vmap"`` dataset
+    program computes).  Each iteration recomputes the correlation chain
+    Phi_rx^T R Phi_tx from the residual; both products are taken in
+    float64 from the float32 operands and the [Ga, Gd] surface is rounded
+    once to float32, and so are the refit's A^T A, A^T y and A c, so the
+    card and the CPU select the same atoms.  No float32 product or solve
+    is left (the NNLS LU runs in float64 too), so TF32
+    (``torch.backends.cuda.matmul.allow_tf32``, whoever sets it) cannot
+    reach the estimator; its float32 work is elementwise, one rounding an
+    operation (eager PyTorch fuses no multiply-add).  The atom is the
+    first flat maximum (``torch.argmax``, like ``jnp.argmax``).  Slots
+    never selected hold grid index 0, as in JAX's device path.
+  * ``run_nn_omp``: one entry point, ``engine="device"`` (the chain form
+    with N = 1 on ``device``, None meaning CUDA, returned as numpy) or
+    ``engine="host"`` (``nn_omp_np``).
+  * ``nn_omp_gram_batch``: the per-sweep form, below.
+
+``nn_omp_gram_batch`` is the port of ``nn_omp_gram_batch_jax``, the form
+the per-sweep estimator calls.  With selected atoms a_k =
 outer(phi_rx[:, r_k], phi_tx[:, t_k]) and residual R = Y - sum_k c_k a_k,
 the residual correlation surface is
 
@@ -30,26 +54,199 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from slam_process_tpu_torch.config import OmpConfig
+from slam_process_tpu_torch.models.dictionary import BeamDictionary, dictionary_to_device
 from slam_process_tpu_torch.ops.nnls import nnls_gram
+from slam_process_tpu_torch.pipeline.device import resolve_device
 
 
 class OmpPaths(NamedTuple):
-    """Estimated paths (max_paths slots + validity mask), [S, K] each."""
+    """Estimated paths: max_paths slots + validity mask.  Tensors or numpy
+    arrays of [K] per scene, [S, K] for a batch ([S] for n_iters)."""
 
-    aoa: torch.Tensor       # [S, K] f32 grid angle per path
-    aod: torch.Tensor       # [S, K] f32
-    power: torch.Tensor     # [S, K] f32 NNLS coefficient
-    valid: torch.Tensor     # [S, K] bool kept by the keep rule
-    n_iters: torch.Tensor   # [S] i32 atoms selected
-    aoa_idx: torch.Tensor   # [S, K] i32 grid indices, -1 for empty slots
-    aod_idx: torch.Tensor   # [S, K] i32
+    aoa: torch.Tensor       # [.., K] grid angle per path
+    aod: torch.Tensor       # [.., K]
+    power: torch.Tensor     # [.., K] NNLS coefficient
+    valid: torch.Tensor     # [.., K] bool kept by the keep rule
+    n_iters: torch.Tensor   # [..] atoms selected
+    aoa_idx: torch.Tensor   # [.., K] grid indices, -1 for empty slots
+    aod_idx: torch.Tensor   # [.., K]
 
 
 def _f64_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.double(), b.double()).to(torch.float32)
+
+
+def nn_omp_np(dictionary: BeamDictionary, rss_matrix: np.ndarray, cfg: OmpConfig = OmpConfig(),
+              keep_rule: str = "ratio", stop_nonpositive: bool = True,
+              logger=None) -> OmpPaths:
+    """Float64 host oracle with the reference's control flow.
+
+    ``keep_rule`` "ratio" (v1-7) keeps coefficients above max *
+    min_power_ratio, "positive" (v1) those above 0; ``stop_nonpositive``
+    (v1-7) stops when the maximum correlation is <= 0.  ``logger``
+    (optional) receives each iteration's atom angles, coefficient and
+    residual norm.  Returns numpy arrays of [K] and ``n_iters`` an int.
+    """
+    from scipy.optimize import nnls as scipy_nnls
+
+    phi_rx, phi_tx = dictionary.phi_rx, dictionary.phi_tx
+    y = rss_matrix.astype(np.float64).ravel()
+    shape = rss_matrix.shape
+    residual = y.copy()
+    selected: list[tuple[int, int]] = []
+    coeffs = np.zeros(0)
+    it = 0
+    for k in range(cfg.max_paths):
+        corr = phi_rx.T @ residual.reshape(shape) @ phi_tx
+        if stop_nonpositive and np.max(corr) <= 0:
+            break
+        i_r, i_t = np.unravel_index(np.argmax(corr), corr.shape)
+        if (i_r, i_t) in selected:
+            break
+        selected.append((int(i_r), int(i_t)))
+        A = np.column_stack(
+            [np.outer(phi_rx[:, r], phi_tx[:, t]).ravel() for r, t in selected])
+        coeffs, _ = scipy_nnls(A, y)
+        residual = y - A @ coeffs
+        it = k + 1
+        if logger is not None:
+            logger.debug("iter %d: AoA=%.1f AoD=%.1f coeff=%.4f residual=%.4f",
+                         k, dictionary.aoa_grid[i_r], dictionary.aod_grid[i_t],
+                         coeffs[-1], float(np.linalg.norm(residual)))
+
+    K = cfg.max_paths
+    aoa = np.zeros(K)
+    aod = np.zeros(K)
+    power = np.zeros(K)
+    valid = np.zeros(K, dtype=bool)
+    aoa_idx = np.full(K, -1, dtype=np.int64)
+    aod_idx = np.full(K, -1, dtype=np.int64)
+    if len(coeffs):
+        max_coeff = coeffs.max()
+        for j, (r, t) in enumerate(selected):
+            aoa[j] = dictionary.aoa_grid[r]
+            aod[j] = dictionary.aod_grid[t]
+            power[j] = coeffs[j]
+            aoa_idx[j] = r
+            aod_idx[j] = t
+            if keep_rule == "ratio":
+                valid[j] = coeffs[j] > max_coeff * cfg.min_power_ratio
+            else:
+                valid[j] = coeffs[j] > 0
+    return OmpPaths(aoa, aod, power, valid, it, aoa_idx, aod_idx)
+
+
+def _keep(coeffs: torch.Tensor, in_sel: torch.Tensor, cfg: OmpConfig, keep_rule: str):
+    max_coeff = torch.where(in_sel, coeffs, float("-inf")).amax(dim=1)
+    if keep_rule == "ratio":
+        return in_sel & (coeffs > max_coeff[:, None] * cfg.min_power_ratio)
+    return in_sel & (coeffs > 0)
+
+
+# The NNLS subproblem solve of the session forms at K > 3: LU.  On an
+# NVIDIA H100 the eager Gauss-Jordan loop (several kernels per pivot, K
+# pivots a solve) took 1.7x LU's time at K = 20, for one session and for 21
+# (chip_smoke.py's estimate phase), with the same selections.  The JAX
+# package uses LU for one session and Gauss-Jordan for its batch.
+NNLS_SOLVER = "lu"
+
+
+def nn_omp_scenes(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torch.Tensor,
+                  aod_grid: torch.Tensor, mats: torch.Tensor, cfg: OmpConfig = OmpConfig(),
+                  keep_rule: str = "ratio", stop_nonpositive: bool = True,
+                  nnls_solver: str = NNLS_SOLVER) -> OmpPaths:
+    """NN-OMP over N scenes, each with its own dictionary: phi_rx [N, U,
+    Ga], phi_tx [N, B, Gd], aoa_grid [N, Ga], aod_grid [N, Gd], mats [N, U,
+    B] (float32, one device).  Zero-padded scenes (``pack_scenes``) give
+    their padded atoms a correlation of exactly 0.  ``nnls_solver`` as
+    ``ops/nnls.nnls_gram``'s.  Returns OmpPaths of [N, K] tensors ([N]
+    n_iters) on the inputs' device."""
+    K = cfg.max_paths
+    N, U, B = mats.shape
+    Gd = phi_tx.shape[2]
+    dev = mats.device
+    y = mats.to(torch.float32).reshape(N, U * B)
+    slots = torch.arange(K, device=dev)
+    prx_t64 = phi_rx.transpose(1, 2).double()                   # [N, Ga, U]
+    ptx64 = phi_tx.double()                                     # [N, B, Gd]
+
+    residual = y
+    sel_r = torch.zeros((N, K), dtype=torch.long, device=dev)
+    sel_t = torch.zeros_like(sel_r)
+    coeffs = torch.zeros((N, K), dtype=torch.float32, device=dev)
+    passive = torch.zeros((N, K), dtype=torch.bool, device=dev)
+    nsel = torch.zeros(N, dtype=torch.long, device=dev)
+    done = torch.zeros(N, dtype=torch.bool, device=dev)
+    for _ in range(K):
+        corr = torch.matmul(torch.matmul(prx_t64, residual.reshape(N, U, B).double()),
+                            ptx64).to(torch.float32).reshape(N, -1)    # [N, Ga * Gd]
+        flat_idx = corr.argmax(dim=1)
+        max_corr = corr.gather(1, flat_idx[:, None])[:, 0]
+        del corr
+        i_r, i_t = flat_idx // Gd, flat_idx % Gd
+
+        dup = ((sel_r == i_r[:, None]) & (sel_t == i_t[:, None])
+               & (slots[None, :] < nsel[:, None])).any(dim=1)
+        stop = done | dup
+        if stop_nonpositive:
+            stop = stop | (max_corr <= 0)
+        upd = (slots[None, :] == nsel[:, None]) & ~stop[:, None]
+        sel_r = torch.where(upd, i_r[:, None], sel_r)
+        sel_t = torch.where(upd, i_t[:, None], sel_t)
+        nsel = torch.where(stop, nsel, nsel + 1)
+
+        # Atom matrix [N, U * B, K], zero columns for unselected slots.
+        active = (slots[None, :] < nsel[:, None]).to(torch.float32)
+        cols_rx = phi_rx.gather(2, sel_r[:, None, :].expand(N, U, K)) * active[:, None, :]
+        cols_tx = phi_tx.gather(2, sel_t[:, None, :].expand(N, B, K)) * active[:, None, :]
+        A = (cols_rx[:, :, None, :] * cols_tx[:, None, :, :]).reshape(N, U * B, K)
+        A_t = A.transpose(1, 2)
+        G = _f64_product(A_t, A)
+        b = _f64_product(A_t, y[:, :, None])[:, :, 0]
+        # Warm-started Lawson-Hanson: the previous (coeffs, passive) is a
+        # valid resume point when one atom joins.
+        coeffs2, passive2 = nnls_gram(G, b, max_outer=cfg.nnls_max_iter, solver=nnls_solver,
+                                      x0=coeffs, P0=passive)
+        residual2 = y - _f64_product(A, coeffs2[:, :, None])[:, :, 0]
+        coeffs = torch.where(stop[:, None], coeffs, coeffs2)
+        passive = torch.where(stop[:, None], passive, passive2)
+        residual = torch.where(stop[:, None], residual, residual2)
+        done = stop
+
+    in_sel = slots[None, :] < nsel[:, None]
+    return OmpPaths(
+        aoa=aoa_grid.gather(1, sel_r),
+        aod=aod_grid.gather(1, sel_t),
+        power=coeffs,
+        valid=_keep(coeffs, in_sel, cfg, keep_rule),
+        n_iters=nsel.to(torch.int32),
+        aoa_idx=torch.where(in_sel, sel_r, -1).to(torch.int32),
+        aod_idx=torch.where(in_sel, sel_t, -1).to(torch.int32),
+    )
+
+
+def run_nn_omp(dictionary: BeamDictionary, rss_matrix: np.ndarray, cfg: OmpConfig = OmpConfig(),
+               keep_rule: str = "ratio", stop_nonpositive: bool = True, engine: str = "device",
+               device=None, logger=None) -> OmpPaths:
+    """One entry point for every NN-OMP flavor: ``engine="device"`` runs
+    ``nn_omp_scenes`` on ``device`` (None: CUDA) with the dictionary and
+    the scene rounded once to float32, and returns numpy arrays of [K]
+    (``n_iters`` a numpy scalar); ``engine="host"`` is ``nn_omp_np``."""
+    if engine == "host":
+        return nn_omp_np(dictionary, rss_matrix, cfg, keep_rule=keep_rule,
+                         stop_nonpositive=stop_nonpositive, logger=logger)
+    if engine != "device":
+        raise ValueError(f"unknown engine {engine!r}; use 'device' or 'host'")
+    dev = resolve_device(device)
+    d = dictionary_to_device(dictionary, dev)
+    mat = torch.from_numpy(np.asarray(rss_matrix, dtype=np.float32)).to(dev)
+    out = nn_omp_scenes(d.phi_rx[None], d.phi_tx[None], d.aoa_grid[None], d.aod_grid[None],
+                        mat[None], cfg, keep_rule, stop_nonpositive)
+    return OmpPaths(*(x.cpu().numpy()[0] for x in out))
 
 
 def nn_omp_gram_batch(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torch.Tensor,
@@ -122,16 +319,11 @@ def nn_omp_gram_batch(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torc
         done = stop
 
     in_sel = slots[None, :] < nsel[:, None]
-    max_coeff = torch.where(in_sel, coeffs, float("-inf")).amax(dim=1)
-    if keep_rule == "ratio":
-        valid = in_sel & (coeffs > max_coeff[:, None] * cfg.min_power_ratio)
-    else:
-        valid = in_sel & (coeffs > 0)
     return OmpPaths(
         aoa=aoa_grid[sel_r],
         aod=aod_grid[sel_t],
         power=coeffs,
-        valid=valid,
+        valid=_keep(coeffs, in_sel, cfg, keep_rule),
         n_iters=nsel.to(torch.int32),
         aoa_idx=torch.where(in_sel, sel_r, -1).to(torch.int32),
         aod_idx=torch.where(in_sel, sel_t, -1).to(torch.int32),

@@ -1,0 +1,215 @@
+"""Estimator registry: one entry point for the NN-OMP flavors.
+
+The port of ``slam_process_tpu/models/registry.py`` for its five NN-OMP
+flavors.  ``run_estimator(name, session, angle_file, ...)`` builds the
+session's scene, runs NN-OMP, classifies the paths, draws the estimation
+figure where asked, and returns the paths table (AoA, AoD, Power,
+PathType), the reference's output format:
+
+  * ``nn_omp`` (v1-7, the flagship): pre-log scene, linspace grid, K = 20,
+    keep rule "ratio", ``classify_advanced``;
+  * ``nn_omp_v1``: linear scene, arange grid, K = 3, keep rule "positive",
+    ``classify_argmax`` (the golden renders);
+  * ``nn_omp_v14`` / ``v15`` / ``v16``: linear scene, linspace grid, K =
+    10, ratio 0.01, then ``classify_weak_far`` / ``classify_cross_region``
+    / ``classify_advanced``.
+
+The scene is built on the host in float64 (numpy), as in the JAX package.
+``engine="device"`` (the default here; the JAX package's default is
+"host") runs the chain-form NN-OMP on ``device`` (None: CUDA);
+``engine="host"`` runs the float64 oracle ``nn_omp_np``.  The table is a
+``PathsTable`` of numpy columns, not a pandas DataFrame: its
+``to_string(index=False)`` prints pandas' text and ``to_dict("records")``
+gives pandas' records.  The JAX registry's other names raise
+``NotImplementedError`` (not ported yet); an unknown name ``KeyError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from pathlib import Path
+from typing import Optional, Union
+
+import numpy as np
+
+from slam_process_tpu_torch.config import (
+    ClassifierConfig, DictionaryConfig, OmpConfig, SceneConfig)
+from slam_process_tpu_torch.io.angles import load_angle_lut
+from slam_process_tpu_torch.models.classifiers import (
+    LABEL_NAMES, ClassifiedPaths, classify_advanced, classify_argmax, classify_cross_region,
+    classify_weak_far)
+from slam_process_tpu_torch.models.batch_estimation import flavor_config
+from slam_process_tpu_torch.models.dictionary import make_dictionary
+from slam_process_tpu_torch.models.nn_omp import run_nn_omp
+from slam_process_tpu_torch.ops.scene import compact_grid, fill_grid, intensity_grid_np
+
+COLUMNS = ("AoA", "AoD", "Power", "PathType")
+PRECISION = 6   # pandas' display.precision
+
+
+def build_scene(session, angle_file, log_transform: bool, device=None):
+    """Filtered rows -> (matrix [U, B] float64, ue_angles, bs_angles), on
+    the host; a session not yet corrected is corrected on ``device``
+    (None: CUDA) first."""
+    if session.filtered is None:
+        session.correct(device=device)
+    ue, bs, rss = (session.filtered[:, i] for i in range(3))
+    cfg = SceneConfig(log_transform=log_transform)
+    grid = intensity_grid_np(ue, bs, rss, cfg=cfg)
+    filled = fill_grid(grid, cfg)
+    matrix, ue_ang, bs_ang, _, _ = compact_grid(grid, filled, load_angle_lut(angle_file))
+    return matrix, ue_ang, bs_ang
+
+
+def _trim_zeros(strings: list) -> list:
+    """pandas' trim of trailing zeros, equal across a column's plain
+    decimals, leaving one after the point."""
+    plain = re.compile(r"^\s*[\+-]?[0-9]+\.[0-9]*$")
+    numbers = [x for x in strings if plain.match(x)]
+    while numbers and all(x.endswith("0") for x in numbers):
+        strings = [x[:-1] if plain.match(x) else x for x in strings]
+        numbers = [x for x in strings if plain.match(x)]
+    return [x + "0" if plain.match(x) and x.endswith(".") else x for x in strings]
+
+
+def _float_column(values: np.ndarray) -> list:
+    """A float column's cells as pandas prints them: fixed point with
+    ``PRECISION`` digits and trimmed zeros, or exponent notation where a
+    value would print as 0 or the column grows too wide."""
+    def cells(fmt):
+        return _trim_zeros([fmt.format(value=v) if not np.isnan(v) else "NaN"
+                            for v in values])
+
+    out = cells("{value:.%df}" % PRECISION)
+    mag = np.abs(values)
+    too_long = max(len(x) for x in out) > PRECISION + 6
+    if ((mag < 10.0 ** -PRECISION) & (mag > 0)).any() or (too_long and (mag > 1e6).any()):
+        out = cells("{value:.%de}" % PRECISION)
+    return out
+
+
+class PathsTable:
+    """The estimated paths (AoA, AoD, Power, PathType), one numpy column
+    each, in place of the JAX package's pandas DataFrame."""
+
+    def __init__(self, aoa, aod, power, path_type) -> None:
+        self.columns = {"AoA": np.asarray(aoa), "AoD": np.asarray(aod),
+                        "Power": np.asarray(power), "PathType": list(path_type)}
+
+    def __len__(self) -> int:
+        return len(self.columns["PathType"])
+
+    def __getitem__(self, name: str):
+        return self.columns[name]
+
+    def to_dict(self, orient: str = "records") -> list:
+        """pandas' ``to_dict("records")``: one dict of Python values per
+        row."""
+        if orient != "records":
+            raise ValueError(f"only orient='records' is supported, got {orient!r}")
+        return [{c: (self.columns[c][i] if c == "PathType" else float(self.columns[c][i]))
+                 for c in COLUMNS} for i in range(len(self))]
+
+    def to_string(self, index: bool = False) -> str:
+        """pandas' ``DataFrame.to_string(index=False)`` text of the table,
+        byte for byte, with pandas' default display options."""
+        if index:
+            raise ValueError("only index=False is supported")
+        if len(self) == 0:
+            return "Empty DataFrame\nColumns: [" + ", ".join(COLUMNS) + "]\nIndex: []"
+        strcols = []
+        for c in COLUMNS:
+            numeric = c != "PathType"
+            cells = _float_column(self.columns[c]) if numeric else [str(x) for x in
+                                                                      self.columns[c]]
+            header = " " + c if numeric else c
+            width = max(len(header), *(len(x) for x in cells))
+            strcols.append([header.rjust(width)] + [x.rjust(width) for x in cells])
+        return "\n".join(" ".join(row) for row in zip(*strcols))
+
+
+def paths_table(c: ClassifiedPaths) -> PathsTable:
+    keep = np.asarray(c.valid)
+    return PathsTable(np.asarray(c.aoa)[keep], np.asarray(c.aod)[keep],
+                      np.asarray(c.power)[keep],
+                      [LABEL_NAMES[int(lab)] for lab in np.asarray(c.label)[keep]])
+
+
+# The ported flavors, and the JAX registry's other families, not ported
+# yet (ROADMAP.md queue 1 item 8).
+FLAVORS = ("nn_omp", "nn_omp_v1", "nn_omp_v14", "nn_omp_v15", "nn_omp_v16")
+NOT_PORTED = ("sm_sic", "svd", "lasso_refine", "peak_picking", "fusion", "omp_dense",
+              "geometric", "nn_omp_v13")
+
+
+def nn_omp_settings(name: str, **overrides):
+    """(dict_cfg, omp_cfg, log_transform, keep_rule, stop_nonpositive) of
+    an NN-OMP flavor: v1-7 and v1 as ``batch_estimation.flavor_config``;
+    v1-4 / v1-5 / v1-6 the linear scene, linspace grid, K = 10 and keep
+    ratio 0.01."""
+    if name == "nn_omp":
+        return flavor_config("v1-7", **overrides)
+    if name == "nn_omp_v1":
+        return flavor_config("v1", **overrides)
+    if name not in FLAVORS:
+        raise KeyError(f"unknown NN-OMP flavor {name!r}; have {FLAVORS}")
+    dict_cfg = DictionaryConfig(grid_res=overrides.get("grid_res", 0.1),
+                                beam_width=overrides.get("beam_width", 1.4),
+                                grid_kind="linspace")
+    omp_cfg = OmpConfig(max_paths=overrides.get("max_paths", 10),
+                        min_power_ratio=overrides.get("min_power_ratio", 0.01))
+    return dict_cfg, omp_cfg, False, "ratio", True
+
+
+def classify_paths(name: str, p, **overrides) -> ClassifiedPaths:
+    """Flavor ``name``'s classifier on OmpPaths ``p``: v1-7 the advanced
+    classifier with the threshold overrides, v1 the argmax rule, v1-4 weak
+    and far, v1-5 the cross region (its own overrides), v1-6 the advanced
+    classifier with the default thresholds."""
+    if name == "nn_omp":
+        cfg = ClassifierConfig(**{f.name: overrides[f.name]
+                                  for f in dataclasses.fields(ClassifierConfig)
+                                  if f.name in overrides})
+        return classify_advanced(p.aoa, p.aod, p.power, p.valid, cfg)
+    if name == "nn_omp_v1":
+        return classify_argmax(p.aoa, p.aod, p.power, p.valid)
+    if name == "nn_omp_v14":
+        return classify_weak_far(p.aoa, p.aod, p.power, p.valid)
+    if name == "nn_omp_v15":
+        return classify_cross_region(
+            p.aoa, p.aod, p.power, p.valid,
+            sidelobe_width_aoa=overrides.get("sidelobe_width_aoa", 45.0),
+            sidelobe_width_aod=overrides.get("sidelobe_width_aod", 45.0),
+            nlos_power_thresh_db=overrides.get("nlos_power_thresh_db", 10.0),
+            nlos_min_angle_sep=overrides.get("nlos_min_angle_sep", 20.0))
+    if name == "nn_omp_v16":
+        return classify_advanced(p.aoa, p.aod, p.power, p.valid, ClassifierConfig())
+    raise KeyError(f"unknown NN-OMP flavor {name!r}; have {FLAVORS}")
+
+
+def run_estimator(name: str, session, angle_file: Union[str, Path],
+                  output_path: Optional[Union[str, Path]] = None, **overrides) -> PathsTable:
+    """Run estimator ``name`` on ``session``: the paths table, and with
+    ``output_path`` the estimation figure (needs matplotlib).  Overrides:
+    ``engine`` ("device", the default, or "host"), ``device`` (None:
+    CUDA), ``max_paths``, ``grid_res``, ``beam_width``, the keep ratio and
+    the classifier thresholds."""
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"estimator {name!r} is not ported yet (ROADMAP.md queue 1 "
+                                  f"item 8); the port has {FLAVORS}")
+    if name not in FLAVORS:
+        raise KeyError(f"unknown estimator {name!r}; have {FLAVORS}")
+    device = overrides.get("device")
+    dict_cfg, omp_cfg, log_transform, keep_rule, stop_np = nn_omp_settings(name, **overrides)
+    matrix, ue_ang, bs_ang = build_scene(session, angle_file, log_transform, device=device)
+    paths = run_nn_omp(make_dictionary(ue_ang, bs_ang, dict_cfg), matrix, omp_cfg,
+                       keep_rule=keep_rule, stop_nonpositive=stop_np,
+                       engine=overrides.get("engine", "device"), device=device)
+    classified = classify_paths(name, paths, **overrides)
+    if output_path is not None:
+        from slam_process_tpu_torch.render.estimation import estimation_plot
+
+        estimation_plot(matrix, ue_ang, bs_ang, classified, output_path,
+                        style="v1" if name == "nn_omp_v1" else "v1-7", device=device)
+    return paths_table(classified)

@@ -47,8 +47,12 @@ def _solve_passive(G: torch.Tensor, b: torch.Tensor, P: torch.Tensor,
                    solver: str = "auto") -> torch.Tensor:
     """Solve the passive-set subproblems [S, K]: rows / columns outside P
     replaced by identity.  "auto": the closed-form adjugate at K = 3,
-    Gauss-Jordan without pivoting for K > 3, ``torch.linalg.solve``
-    otherwise; "lu": ``torch.linalg.solve`` except at K = 3 (as in JAX)."""
+    Gauss-Jordan without pivoting for K > 3, LU otherwise; "lu": LU except
+    at K = 3 (as in JAX).  The LU solve is ``torch.linalg.solve_ex`` in
+    float64, rounded once to float32: no library float32 routine (which
+    TF32 could reach) runs, and it neither checks for a singular system nor
+    waits for the device to say (a singular one gives inf / NaN, as
+    ``jnp.linalg.solve`` does)."""
     k = G.shape[2]
     Pf = P.to(G.dtype)
     Gp = G * (Pf[:, :, None] * Pf[:, None, :]) + torch.diag_embed(1.0 - Pf)
@@ -85,7 +89,7 @@ def _solve_passive(G: torch.Tensor, b: torch.Tensor, P: torch.Tensor,
         return torch.stack([(c11 * b0 + c12 * b1 + c13 * b2) * inv_det,
                             (c21 * b0 + c22 * b1 + c23 * b2) * inv_det,
                             (c31 * b0 + c32 * b1 + c33 * b2) * inv_det], dim=1)
-    return torch.linalg.solve(Gp, bp)
+    return torch.linalg.solve_ex(Gp.double(), bp.double())[0].to(Gp.dtype)
 
 
 def _inner(G, b, x, P, run, solver):

@@ -11,8 +11,10 @@ K4 (``ops/cuda_sweep_sums.py``) on CUDA tensors and its plain version
 ``sweep_sums_plain`` on CPU tensors; both are exact integer sums, equal to
 the JAX package's scan form and Pallas kernel while cell sums stay below
 2^24.  The numpy host pivot (``intensity_grid_np``) gives a session's
-observed-beam masks; ``compact_grid`` cuts a grid to its observed and
-mapped beams for the heatmap.
+observed-beam masks and, with ``fill_grid`` and ``compact_grid`` on its
+numpy arrays, the estimator's float64 scene (the pre-log scene too);
+``compact_grid`` cuts a grid to its observed and mapped beams for the
+heatmap.
 """
 
 from __future__ import annotations
@@ -78,12 +80,16 @@ def intensity_grid(ue: torch.Tensor, bs: torch.Tensor, rss: torch.Tensor,
                          observed.any(dim=0), fill)
 
 
-def fill_grid(grid: IntensityGrid, cfg: SceneConfig = _DEFAULT) -> torch.Tensor:
+def fill_grid(grid: IntensityGrid, cfg: SceneConfig = _DEFAULT):
     """Apply the fill policy: empty cells inside the observed rows x cols
-    take the global min; unobserved rows / cols stay NaN."""
+    take the global min; unobserved rows / cols stay NaN.  A grid of numpy
+    arrays (``intensity_grid_np``) is filled with numpy, as the JAX
+    package fills it."""
     if not cfg.fill_with_min or cfg.keep_nan:
         return grid.mean
     inside = grid.row_mask[:, None] & grid.col_mask[None, :]
+    if isinstance(grid.mean, np.ndarray):
+        return np.where(inside & np.isnan(grid.mean), grid.fill_value, grid.mean)
     return torch.where(inside & torch.isnan(grid.mean), grid.fill_value, grid.mean)
 
 
@@ -93,11 +99,16 @@ def compact_grid(grid: IntensityGrid, filled: torch.Tensor, angle_lut: np.ndarra
     angle, columns the sorted observed BS ids likewise.
 
     The masks come to the host; the submatrix is an index select on
-    ``filled``'s device.  Returns (matrix [U', B'] tensor, ue_angles,
-    bs_angles, ue_ids, bs_ids), the last four numpy
-    (``slam_process_tpu/ops/scene.py::compact_grid``).
+    ``filled``'s device, or a numpy one where ``filled`` is numpy.
+    Returns (matrix [U', B'], ue_angles, bs_angles, ue_ids, bs_ids), the
+    last four numpy (``slam_process_tpu/ops/scene.py::compact_grid``).
     """
     mapped = np.isfinite(angle_lut)
+    if isinstance(filled, np.ndarray):
+        ue_ids = np.nonzero(np.asarray(grid.row_mask) & mapped)[0]
+        bs_ids = np.nonzero(np.asarray(grid.col_mask) & mapped)[0]
+        return (filled[np.ix_(ue_ids, bs_ids)], angle_lut[ue_ids], angle_lut[bs_ids], ue_ids,
+                bs_ids)
     ue_ids = np.nonzero(grid.row_mask.cpu().numpy() & mapped)[0]
     bs_ids = np.nonzero(grid.col_mask.cpu().numpy() & mapped)[0]
     rows = torch.from_numpy(ue_ids).to(filled.device)

@@ -8,12 +8,19 @@ and ``session`` commands:
     python -m slam_process_tpu_torch.pipeline.cli heatmap --input IN --mapping beam_angle.xlsx
                                                             [--variant v1|v2|v3] ...
     python -m slam_process_tpu_torch.pipeline.cli session --log IN.txt --mapping ... --outdir DIR
+    python -m slam_process_tpu_torch.pipeline.cli estimate --input IN.txt|IN.xlsx --mapping ...
+                                                 [--model nn_omp|nn_omp_v1|nn_omp_v14|nn_omp_v15|
+                                                  nn_omp_v16] [--engine device|host]
+                                                 [--per-sweep | --tracks [--changes]]
 
 Every command runs its stages on the card (decode K1, corrector K2, raster
-K3); ``--device cpu`` runs the plain PyTorch versions instead, the one
-option the JAX CLI lacks.  The v1 / v2 wire formats decode with numpy in
-both packages.  The heatmap PNG needs matplotlib; a colormap other than
-viridis needs it too.
+K3, per-sweep sums K4, tracker K6, the estimators in PyTorch); ``--device
+cpu`` runs the plain PyTorch versions instead, the one option the JAX CLI
+lacks.  ``estimate --engine`` defaults to ``device`` (the JAX CLI's
+default is ``host``, the float64 numpy oracle).  The v1 / v2 wire formats
+decode with numpy in both packages.  The heatmap PNG, the estimation
+figure and the track figure need matplotlib; a colormap other than viridis
+needs it too.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import zipfile
 from pathlib import Path
 
 from slam_process_tpu_torch.config import RenderConfig, SceneConfig
+from slam_process_tpu_torch.models.registry import FLAVORS, NOT_PORTED, run_estimator
 from slam_process_tpu_torch.pipeline.session import Session
 from slam_process_tpu_torch.utils.logging import StageCounters, get_logger
 
@@ -194,11 +202,185 @@ def _run_session_inner(args):
                       "counters": {c.name: c.counts for c in s.counters}}))
 
 
+def _add_estimate(sub):
+    p = sub.add_parser("estimate", help="multipath estimation + classified plot (stage 3b)")
+    p.add_argument("--input", type=Path, required=True, help="filtered xlsx or raw .txt")
+    p.add_argument("--mapping", type=Path, required=True)
+    p.add_argument("--output", type=Path, default=None)
+    p.add_argument("--model", default="nn_omp", choices=FLAVORS + NOT_PORTED,
+                   help="the NN-OMP flavors are ported; the other names raise "
+                        "NotImplementedError")
+    p.add_argument("--max-paths", type=int, default=None)
+    p.add_argument("--grid-res", type=float, default=None)
+    p.add_argument("--beam-width", type=float, default=None)
+    p.add_argument("--engine", choices=["host", "device"], default="device",
+                   help="device = the estimator on --device; host = the float64 numpy "
+                        "oracle")
+    p.add_argument("--per-sweep", action="store_true",
+                   help="time-resolved estimation over every sweep of the session "
+                        "(nn_omp; writes a table of per-sweep paths instead of a figure)")
+    p.add_argument("--tracks", action="store_true",
+                   help="associate per-sweep paths into CLK-anchored tracks with "
+                        "angular-velocity fits (implies --per-sweep; writes a track table + "
+                        "trajectory figure)")
+    p.add_argument("--gate-deg", type=float, default=10.0,
+                   help="track association gate (Euclidean angle distance)")
+    _add_change_args(p, gate="--tracks")
+    _add_device(p)
+    p.set_defaults(fn=_run_estimate)
+
+
+def estimate_inputs(args):
+    """(Session, overrides) of ``estimate``'s input and options: a raw log
+    decoded and corrected on ``--device``, or a filtered xlsx."""
+    if args.input.suffix == ".txt":
+        s = Session.from_log(args.input, device=args.device)
+        s.correct(device=args.device)
+    else:
+        s = Session.from_filtered_xlsx(args.input)
+    overrides = {"device": args.device}
+    for key in ("max_paths", "grid_res", "beam_width"):
+        if getattr(args, key) is not None:
+            overrides[key] = getattr(args, key)
+    if args.engine != "device":
+        overrides["engine"] = args.engine
+    return s, overrides
+
+
+def _run_estimate(args):
+    s, overrides = estimate_inputs(args)
+    if args.tracks:
+        _run_estimate_tracks(args, s, overrides)
+        return
+    if args.changes:
+        print("warning: --changes requires --tracks; no change events will be written",
+              file=sys.stderr)
+    if args.per_sweep:
+        _run_estimate_per_sweep(args, s, overrides)
+        return
+    out = args.output or (args.input.parent / f"{s.name}_{args.model}.png")
+    paths = run_estimator(args.model, s, args.mapping, out, **overrides)
+    print(paths.to_string(index=False))
+    print(f"输出PNG: {out}")
+
+
+def _add_change_args(p, gate: str) -> None:
+    """Scene-change-detection flags (the JAX CLI shares them with replay /
+    watch)."""
+    p.add_argument("--changes", action="store_true",
+                   help=f"with {gate}: detect scene change events (path births/deaths, "
+                        "angular jumps, LoS handovers) and write a CLK-stamped event table")
+    p.add_argument("--min-persist", type=int, default=3,
+                   help="observations before a track counts as a path birth")
+    p.add_argument("--min-gone", type=int, default=3,
+                   help="consecutive missed sweeps before a confirmed track counts as a "
+                        "path death")
+    p.add_argument("--jump-deg", type=float, default=5.0,
+                   help="angular displacement between consecutive observations that "
+                        "counts as a jump event")
+
+
+def _coerce_sweep_estimator(args, overrides, what: str) -> str:
+    """The per-sweep estimator of --model, warning instead of silently
+    coercing (only nn_omp / sm_sic estimate per sweep, always on --device;
+    sm_sic raises as the per-sweep estimator's setup does)."""
+    if args.model in ("nn_omp", "sm_sic"):
+        estimator = args.model
+    else:
+        estimator = "nn_omp"
+        print(f"warning: --model {args.model} is not a sweep estimator (nn_omp/sm_sic); "
+              f"using nn_omp for {what}", file=sys.stderr)
+    if overrides.pop("engine", None) is not None:
+        print(f"warning: --engine is ignored with {what} (per-sweep estimation always runs "
+              "on --device)", file=sys.stderr)
+    return estimator
+
+
+def tracks_table(tracks, times, vel):
+    """[rows, 8] float64 of the track xlsx: (track, sweep, CLK, AoA, AoD,
+    power, the track's two angular velocities) per observation."""
+    import numpy as np
+
+    rows = []
+    for t in range(int(tracks.n_tracks)):
+        for sweep in np.nonzero(tracks.observed[t])[0]:
+            rows.append([t, sweep, times[sweep], tracks.pos_aoa[t][sweep],
+                         tracks.pos_aod[t][sweep], tracks.power[t][sweep], vel[0][t],
+                         vel[1][t]])
+    return np.asarray(rows, dtype=np.float64).reshape(-1, 8)
+
+
+TRACK_COLUMNS = ["Track", "Sweep", "CLK", "AoA", "AoD", "Power", "Vel_AoA_deg_per_tick",
+                 "Vel_AoD_deg_per_tick"]
+CHANGE_COLUMNS = ["Sweep", "CLK", "Kind", "Track", "AoA", "AoD", "Power"]
+
+
+def write_changes(out, tracks, times, args):
+    """Detect the scene changes of ``tracks``, write their xlsx beside
+    ``out`` and return (its path, the printed line)."""
+    import numpy as np
+
+    from slam_process_tpu_torch.io.xlsx import write_xlsx_table
+    from slam_process_tpu_torch.models.change_detection import (
+        EVENT_KINDS, detect_scene_changes_np, scene_change_events)
+
+    changes = detect_scene_changes_np(tracks, min_persist=args.min_persist,
+                                      min_gone=args.min_gone, jump_deg=args.jump_deg)
+    events = scene_change_events(changes, tracks, times)
+    ev_path = Path(out).with_name(Path(out).stem + "_changes.xlsx")
+    write_xlsx_table(ev_path, CHANGE_COLUMNS, events)
+    counts = {EVENT_KINDS[k]: int(np.sum(events[:, 2] == k)) for k in range(len(EVENT_KINDS))}
+    return ev_path, f"changes={len(events)} {counts} 输出={ev_path}"
+
+
+def _run_estimate_tracks(args, s, overrides):
+    """CLK-anchored track association over per-sweep paths (the ToA axis)."""
+    import numpy as np
+
+    from slam_process_tpu_torch.io.xlsx import write_xlsx_table
+    from slam_process_tpu_torch.render.tracks import save_track_figure
+
+    estimator = _coerce_sweep_estimator(args, overrides, "--tracks")
+    tracks, times, vel = s.path_tracks(args.mapping, estimator=estimator,
+                                       gate_deg=args.gate_deg, **overrides)
+    table = tracks_table(tracks, times, vel)
+    base = args.output or (args.input.parent / f"{s.name}_tracks.xlsx")
+    out = write_xlsx_table(base, TRACK_COLUMNS, table)
+    fig_path = Path(out).with_suffix(".png")
+    save_track_figure(tracks, times, fig_path, velocities=vel, title=f"Path tracks ({s.name})")
+    n_fit = int(np.sum(vel[2][: int(tracks.n_tracks)]))
+    print(f"tracks={int(tracks.n_tracks)} fitted={n_fit} rows={len(table)} 输出={out} "
+          f"图={fig_path}")
+    if args.changes:
+        print(write_changes(out, tracks, times, args)[1])
+
+
+def _run_estimate_per_sweep(args, s, overrides):
+    import numpy as np
+
+    from slam_process_tpu_torch.io.xlsx import write_xlsx_table
+
+    estimator = _coerce_sweep_estimator(args, overrides, "--per-sweep")
+    paths, sweep_valid = s.sweep_paths(args.mapping, estimator=estimator, **overrides)
+    times = s.sweep_times(len(sweep_valid), device=args.device)
+    rows = []
+    for sweep in np.nonzero(sweep_valid)[0]:
+        for k in np.nonzero(paths.valid[sweep])[0]:
+            rows.append([sweep, times[sweep], k, paths.aoa[sweep][k], paths.aod[sweep][k],
+                         paths.power[sweep][k]])
+    table = np.asarray(rows, dtype=np.float64).reshape(-1, 6)
+    out = args.output or (args.input.parent / f"{s.name}_sweep_paths.xlsx")
+    # write_xlsx_table may retry to <stem>_out.xlsx on PermissionError;
+    # report the path it actually wrote.
+    out = write_xlsx_table(out, ["Sweep", "CLK", "Path", "AoA", "AoD", "Power"], table)
+    print(f"sweeps={int(sweep_valid.sum())}/{len(sweep_valid)} paths={len(rows)} 输出={out}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="slam_process_tpu_torch",
                                      description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for add in (_add_decode, _add_correct, _add_heatmap, _add_session):
+    for add in (_add_decode, _add_correct, _add_heatmap, _add_session, _add_estimate):
         add(sub)
     return parser
 

@@ -20,7 +20,8 @@ single-session paths:
   * ``sweep_intensity`` / ``sweep_paths`` build the per-sweep [S, 64, 64]
     grids (kernel K4) and run the per-sweep NN-OMP estimator on a device;
     ``path_tracks`` associates the paths into CLK-anchored tracks (kernel
-    K6 by default; ``engine="host"`` is the numpy association).
+    K6 by default; ``engine="host"`` is the numpy association), and
+    ``scene_changes`` turns the tracks into change events.
 
 Every method that touches a device takes ``device=None``, meaning CUDA;
 ``device="cpu"`` runs the plain PyTorch versions.  ``counters`` holds each
@@ -415,6 +416,21 @@ class Session:
             tracks = track_paths_np(paths.aoa, paths.aod, paths.power, valid,
                                     max_tracks=max_tracks, gate_deg=gate_deg)
         return tracks, times, track_velocities(tracks, times)
+
+    def scene_changes(self, angle_file: Union[str, Path], min_persist: int = 3,
+                      min_gone: int = 3, jump_deg: float = 5.0, **track_kwargs):
+        """Scene change events from the CLK-anchored tracks
+        (``models/change_detection.py``): path births and deaths, angular
+        jumps and LoS handovers, each stamped with its sweep's CLK time.
+        ``track_kwargs`` go to ``path_tracks`` (``device`` among them,
+        None: CUDA).  Returns (events [N, 7] float64, tracks, times)."""
+        from slam_process_tpu_torch.models.change_detection import (
+            detect_scene_changes_np, scene_change_events)
+
+        tracks, times, _vel = self.path_tracks(angle_file, **track_kwargs)
+        changes = detect_scene_changes_np(tracks, min_persist=min_persist, min_gone=min_gone,
+                                          jump_deg=jump_deg)
+        return scene_change_events(changes, tracks, times), tracks, times
 
     # -- export --------------------------------------------------------------
 

@@ -207,3 +207,109 @@ def test_cli_errors_return_one(tmp_path, capsys):
     rc, _ = run(cli.main, ["correct", "--input", str(tmp_path / "missing.xlsx"),
                            "--device", "cpu"], capsys)
     assert rc == 1
+
+
+# ---------------------------------------------------------------------------
+# estimate
+# ---------------------------------------------------------------------------
+
+EST_LOG = dict(n_groups=8, frames_per_beam=1, baselines_per_group=4, seed=21, n_paths=3)
+
+
+@pytest.fixture(scope="module")
+def estimate_inputs(tmp_path_factory):
+    """A multipath log, its filtered xlsx (written by the JAX CLI) and the
+    angle table."""
+    d = tmp_path_factory.mktemp("estimate")
+    path = write_log(d, "mp", synthetic_session_bytes(**EST_LOG))
+    assert jax_cli.main(["correct", "--input", str(path), "--output",
+                         str(d / "mp_filtered.xlsx")]) == 0
+    return {"txt": path, "xlsx": d / "mp_filtered.xlsx",
+            "angles": write_angle_table(d / "angles.xlsx")}
+
+
+def own(lines):
+    """The command's own printed lines (log records cut)."""
+    return [ln for ln in lines if not ln.startswith(("INFO ", "WARNING ", "ERROR "))]
+
+
+def table_rows(lines):
+    """(AoA, AoD, Power, PathType) rows of the printed paths table."""
+    head = lines.index(next(ln for ln in lines if ln.split() == ["AoA", "AoD", "Power",
+                                                                  "PathType"]))
+    rows = [ln.split() for ln in lines[head + 1:] if not ln.startswith("输出PNG")]
+    return (np.array([[float(x) for x in r[:3]] for r in rows]).reshape(-1, 3),
+            [r[3] for r in rows])
+
+
+@pytest.mark.parametrize("engine", ["host", "device"])
+@pytest.mark.parametrize("source", ["txt", "xlsx"])
+def test_estimate_matches_jax(tmp_path, capsys, estimate_inputs, source, engine):
+    from test_torch_estimate import THRESHOLDS_DB, near_threshold
+
+    argv = ["estimate", "--input", str(estimate_inputs[source]), "--mapping",
+            str(estimate_inputs["angles"]), "--grid-res", "1.0", "--engine", engine]
+    rc, got = run(cli.main, argv + ["--output", str(tmp_path / "port.png"), "--device", "cpu"],
+                  capsys)
+    rc_j, want = run(jax_cli.main, argv + ["--output", str(tmp_path / "jax.png")], capsys)
+    assert rc == rc_j == 0
+    got, want = own(got), own(want)
+    assert got[-1] == f"输出PNG: {tmp_path / 'port.png'}"
+    assert (tmp_path / "port.png").stat().st_size > 10_000
+    if engine == "host":
+        assert got[:-1] == want[:-1]
+        return
+    (g, g_type), (w, w_type) = table_rows(got), table_rows(want)
+    assert len(g) == len(w) > 1
+    np.testing.assert_array_equal(g[:, :2], w[:, :2])
+    np.testing.assert_allclose(g[:, 2], w[:, 2], rtol=2e-4)
+    los_tie, near = near_threshold(w[:, 2], np.ones(len(w), bool), THRESHOLDS_DB["nn_omp"])
+    assert not los_tie
+    assert [t for t, n in zip(g_type, near) if not n] == [t for t, n in zip(w_type, near)
+                                                          if not n]
+
+
+def read_table(path):
+    from slam_process_tpu_torch.io.xlsx import read_xlsx_table
+
+    return read_xlsx_table(path)
+
+
+def assert_tables_close(a, b, int_cols):
+    (names_a, va), (names_b, vb) = read_table(a), read_table(b)
+    assert names_a == names_b and va.shape == vb.shape and len(va) > 0
+    for i, name in enumerate(names_a):
+        if name in int_cols:
+            np.testing.assert_array_equal(va[:, i], vb[:, i], err_msg=name)
+        else:
+            np.testing.assert_allclose(va[:, i], vb[:, i], rtol=2e-4, atol=1e-12, err_msg=name)
+
+
+@pytest.mark.parametrize("mode", ["per_sweep", "tracks", "tracks_changes"])
+def test_estimate_per_sweep_and_tracks_match_jax(tmp_path, capsys, estimate_inputs, mode):
+    extra = {"per_sweep": ["--per-sweep"], "tracks": ["--tracks"],
+             "tracks_changes": ["--tracks", "--changes", "--min-persist", "2", "--min-gone",
+                                "2", "--jump-deg", "3"]}[mode]
+    argv = ["estimate", "--input", str(estimate_inputs["txt"]), "--mapping",
+            str(estimate_inputs["angles"]), "--grid-res", "1.0", *extra]
+    outs = {who: tmp_path / f"{who}.xlsx" for who in ("port", "jax")}
+    rc, got = run(cli.main, argv + ["--output", str(outs["port"]), "--device", "cpu"], capsys)
+    rc_j, want = run(jax_cli.main, argv + ["--output", str(outs["jax"])], capsys)
+    assert rc == rc_j == 0
+    got, want = own(got), own(want)
+
+    def printed(lines, who):
+        return [ln.replace(str(outs[who].with_suffix("")), "OUT") for ln in lines]
+
+    assert printed(got, "port") == printed(want, "jax")
+    if mode == "per_sweep":
+        assert got[-1].startswith("sweeps=8/8 paths=")
+        assert_tables_close(outs["port"], outs["jax"], {"Sweep", "CLK", "Path"})
+        return
+    assert got[0].startswith("tracks=") and not got[0].startswith("tracks=0 ")
+    assert_tables_close(outs["port"], outs["jax"], {"Track", "Sweep", "CLK"})
+    assert outs["port"].with_suffix(".png").stat().st_size > 10_000
+    if mode == "tracks_changes":
+        assert got[1].startswith("changes=") and not got[1].startswith("changes=0 ")
+        assert_tables_close(tmp_path / "port_changes.xlsx", tmp_path / "jax_changes.xlsx",
+                            {"Sweep", "CLK", "Kind", "Track"})

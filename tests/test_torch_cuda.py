@@ -571,3 +571,93 @@ def test_render_heatmap_on_card_matches_cpu(tmp_path):
                  != np.clip((np.nan_to_num(want.norm_t) * 256).astype(int), 0, 255)).mean()
         assert flips < 1e-3
         np.testing.assert_allclose(got.blurred, want.blurred, rtol=1e-5, equal_nan=True)
+
+
+@pytest.fixture(scope="module")
+def estimator_session(tmp_path_factory):
+    from slam_process_tpu_torch.pipeline.session import Session
+    from slam_process_tpu_torch.utils.synthetic import to_hex_text, write_angle_table
+
+    d = tmp_path_factory.mktemp("estimate")
+    path = d / "mp.txt"
+    path.write_bytes(to_hex_text(synthetic_session_bytes(
+        n_groups=6, frames_per_beam=2, baselines_per_group=9, seed=1, n_paths=3)))
+    return Session.from_log(path), write_angle_table(d / "angles.xlsx")
+
+
+@pytest.mark.parametrize("name", ["nn_omp", "nn_omp_v1", "nn_omp_v14", "nn_omp_v15",
+                                  "nn_omp_v16"])
+def test_run_estimator_on_card_matches_cpu(estimator_session, name):
+    """Each flavor at the full 886 x 886 grid on the card against
+    ``device="cpu"``: the same paths (angles exact, power within rtol
+    2e-4) and the same labels, and the NN-OMP fields lane for lane."""
+    from slam_process_tpu_torch.models import registry
+    from slam_process_tpu_torch.models.batch_estimation import flavor_config
+    from slam_process_tpu_torch.models.dictionary import make_dictionary
+    from slam_process_tpu_torch.models.nn_omp import run_nn_omp
+
+    s, angles = estimator_session
+    got = registry.run_estimator(name, s, angles)
+    want = registry.run_estimator(name, s, angles, device="cpu")
+    assert len(got) == len(want) > 0
+    for c in ("AoA", "AoD"):
+        np.testing.assert_array_equal(got[c], want[c])
+    np.testing.assert_allclose(got["Power"], want["Power"], rtol=2e-4)
+    assert got["PathType"] == want["PathType"]
+    if name in ("nn_omp", "nn_omp_v1"):
+        dict_cfg, cfg, log_t, keep_rule, stop_np = flavor_config(
+            "v1-7" if name == "nn_omp" else "v1")
+        matrix, ue, bs = registry.build_scene(s, angles, log_t)
+        d = make_dictionary(ue, bs, dict_cfg)
+        a, b = (run_nn_omp(d, matrix, cfg, keep_rule, stop_np, device=dev)
+                for dev in ("cuda", "cpu"))
+        for field in ("aoa_idx", "aod_idx", "n_iters", "valid", "aoa", "aod"):
+            np.testing.assert_array_equal(getattr(a, field), getattr(b, field), err_msg=field)
+        np.testing.assert_allclose(a.power, b.power, rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("flavor", ["v1-7", "v1"])
+def test_estimate_sessions_on_card_matches_per_session_runs(estimator_session, tmp_path, flavor):
+    from slam_process_tpu_torch.models import registry
+    from slam_process_tpu_torch.models.batch_estimation import estimate_sessions, flavor_config
+    from slam_process_tpu_torch.models.dictionary import make_dictionary
+    from slam_process_tpu_torch.models.nn_omp import run_nn_omp
+    from slam_process_tpu_torch.pipeline.session import Session
+    from slam_process_tpu_torch.utils.synthetic import to_hex_text
+
+    s, angles = estimator_session
+    others = []
+    for i, kw in enumerate([dict(n_groups=3, seed=11), dict(n_groups=9, seed=12)]):
+        path = tmp_path / f"s{i}.txt"
+        path.write_bytes(to_hex_text(synthetic_session_bytes(
+            frames_per_beam=1, baselines_per_group=4, n_paths=3, **kw)))
+        o = Session.from_log(path)
+        f = o.filtered
+        o.filtered = f[f[:, 0] >= 8 * (i + 1)]   # scenes of different shapes
+        others.append(o)
+    sessions = [s] + others
+    got = estimate_sessions(sessions, angles, flavor)
+    dict_cfg, cfg, log_t, keep_rule, stop_np = flavor_config(flavor)
+    for g, sess in zip(got, sessions):
+        matrix, ue, bs = registry.build_scene(sess, angles, log_t)
+        want = run_nn_omp(make_dictionary(ue, bs, dict_cfg), matrix, cfg, keep_rule, stop_np)
+        keep = want.valid if flavor == "v1" else slice(None)
+        np.testing.assert_array_equal(g.valid, want.valid)
+        for field in ("aoa_idx", "aod_idx"):
+            np.testing.assert_array_equal(getattr(g, field)[keep], getattr(want, field)[keep])
+        np.testing.assert_allclose(g.power[want.valid], want.power[want.valid], rtol=2e-4)
+
+
+def test_rbf_background_on_card_matches_numpy(estimator_session):
+    """The full 64 x 64 scene's 4,096-centre float64 solve on the card
+    against numpy's, within 1e-6 of the heat's range."""
+    from slam_process_tpu_torch.models import registry
+    from slam_process_tpu_torch.ops.interp import rbf_interpolate_grid
+    from slam_process_tpu_torch.render.estimation import rbf_background
+
+    s, angles = estimator_session
+    matrix, ue, bs = registry.build_scene(s, angles, True)
+    assert matrix.shape == (64, 64)
+    gx, gy, heat = rbf_background(matrix, ue, bs, smooth=0.1)
+    want = rbf_interpolate_grid(bs, ue, matrix, gx, gy, smooth=0.1)
+    assert np.abs(heat - want).max() <= 1e-6 * np.ptp(want)

@@ -3,7 +3,8 @@
   * It imports torch and numpy, never jax, the JAX package
     (``slam_process_tpu`` as a whole module name) or pandas: checked by
     AST over every file and by importing every module in a fresh
-    interpreter.  matplotlib (which the card's machine lacks) is imported
+    interpreter.  pandas is imported nowhere, not even inside a function
+    (the estimator's table is ``models/registry.PathsTable``).  matplotlib (which the card's machine lacks) is imported
     only inside function bodies of ``render/*.py``, never at module level
     and never in ``chip_smoke.py``; so importing every module loads none.
   * Entry points take ``device=None`` meaning CUDA, and raise when there is
@@ -60,6 +61,13 @@ def test_no_forbidden_imports(path):
     assert not forbidden_imports(path)
 
 
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_pandas_is_imported_nowhere(path):
+    """No module of the port, and not ``chip_smoke.py``, imports pandas:
+    neither at module level nor inside a function or method."""
+    assert "pandas" not in {root for root, _ in imported_roots(path)}
+
+
 @pytest.mark.parametrize("where,source,bad", [
     ("render/figures.py", "def f():\n    import matplotlib.pyplot as plt\n", []),
     ("render/figures.py", "def f():\n    from matplotlib.colors import LogNorm\n", []),
@@ -67,6 +75,9 @@ def test_no_forbidden_imports(path):
     ("render/figures.py", "class A:\n    import matplotlib\n", ["matplotlib"]),
     ("ops/raster.py", "def f():\n    import matplotlib\n", ["matplotlib"]),
     ("render/heatmap.py", "def f():\n    import pandas, jax\n", ["jax", "pandas"]),
+    ("models/registry.py", "class T:\n    def to_pandas(self):\n        import pandas\n",
+     ["pandas"]),
+    ("render/estimation.py", "def f():\n    from pandas import DataFrame\n", ["pandas"]),
     ("../chip_smoke.py", "def f():\n    import matplotlib\n", ["matplotlib"]),
     ("render/sub/x.py", "def f():\n    import matplotlib\n", ["matplotlib"]),
 ])
@@ -140,16 +151,36 @@ def test_entry_points_need_cuda_without_falling_back(monkeypatch, tmp_path):
     parsed = Session.from_parsed_xlsx(tmp_path / "parsed.xlsx")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         parsed.correct()
+    s.export_filtered(tmp_path / "filtered.xlsx", device="cpu")
+    estimate = ["estimate", "--mapping", str(angles), "--grid-res", "2.0"]
     for argv in (["decode", str(path), str(tmp_path / "p.xlsx")],
                  ["correct", "--input", str(tmp_path / "parsed.xlsx")],
                  ["correct", "--run-tests"],
                  ["heatmap", "--input", str(tmp_path / "parsed.xlsx"), "--mapping", str(angles),
                   "--variant", "v1"],
                  ["session", "--log", str(path), "--mapping", str(angles), "--outdir",
-                  str(tmp_path / "out")]):
+                  str(tmp_path / "out")],
+                 estimate + ["--input", str(path)],
+                 estimate + ["--input", str(tmp_path / "filtered.xlsx")],
+                 estimate + ["--input", str(tmp_path / "filtered.xlsx"), "--per-sweep"],
+                 estimate + ["--input", str(tmp_path / "filtered.xlsx"), "--tracks"]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(argv)
     assert parsed.correct(device="cpu") is parsed.filtered
+
+    # The session estimator: the scene is built on the host, the estimate
+    # and the figure's background need the card.
+    from slam_process_tpu_torch.models import run_estimator
+    from slam_process_tpu_torch.models.batch_estimation import estimate_sessions
+    from slam_process_tpu_torch.render.estimation import rbf_background
+
+    for call in (lambda: run_estimator("nn_omp", s, angles, grid_res=2.0),
+                 lambda: run_estimator("nn_omp_v1", s, angles, device="cuda", grid_res=2.0),
+                 lambda: estimate_sessions([s], angles, grid_res=2.0),
+                 lambda: rbf_background(np.ones((4, 4)), np.arange(4.0), np.arange(4.0))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert len(run_estimator("nn_omp", s, angles, device="cpu", grid_res=2.0)) > 0
 
 
 def test_path_tracks_defaults_to_the_device_tracker(monkeypatch, tmp_path):
