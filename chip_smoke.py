@@ -148,7 +148,37 @@ Phases, each printing one JSON line:
                 sessions/s, the RBF on the card and in numpy, LU against
                 Gauss-Jordan NNLS at K = 20 for one session and for 21;
                 NNLS host syncs per call; one profiled ``run_estimator``.
-  9. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
+  9. replay     the ``replay --paths --changes`` command's steps
+                (``cli.replay_stream``, ``render()``, ``cli.replay_exports``;
+                the PNG needs matplotlib) on the card, counted (every kernel
+                must launch, K3 through ``render()``): the full multipath
+                log at 64 KiB and the 19 dataset-scale logs at 1 MiB, each
+                against the same steps with ``--device cpu`` and with
+                ``--engine host``: stats equal, the filtered xlsx sheet XML
+                byte for byte, track and change tables with integer columns
+                equal and the rest within rtol 2e-4, ``render()``'s raster
+                within the ``cli`` phase's tolerances.  Frames/s per engine
+                and chunk size, windows per log, ``render()`` host ms and
+                its device busy share.
+ 10. watch      ``watch --paths --changes --events --checkpoint
+                --checkpoint-every`` on the card over a file that a writer
+                thread grows with the full multipath log's text in seeded
+                random pieces (each after the watch read the one before), the
+                PNG left out; a second card watch resumed from a copy of a
+                mid-stream checkpoint and of the events file at that moment,
+                on the finished file, must give the same tables, events and
+                raster with no event written twice; the finished file
+                watched with ``--device cpu`` and with ``--engine host``
+                must agree with the card (events line for line, power within
+                rtol 2e-4).  Host ms per fed poll (synchronized), checkpoint
+                save and restore ms.
+ 11. run_config ``serial_hex_to_excel_v3``, ``batched_session`` and
+                ``streaming_replay`` on a directory of four dataset-scale
+                logs, on the card (counted) and with ``--device cpu``: the
+                results equal apart from their timings, the Parsed xlsx
+                byte for byte.  (The other two configs draw PNGs; the CPU
+                tests run them.)
+ 12. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
                 (K1, K4, K5, K6 through their wrappers, K1 also as the bare
                 launch; K2, K3 as the bare launch, K3 also with vmin /
                 vmax), its plain version on the
@@ -166,7 +196,7 @@ Phases, each printing one JSON line:
                 ``torch.profiler``: the device's busy time, its share, the top
                 ops, and the estimator's host syncs.
 
-Every kernel's launches are counted on each path (phases 4 to 8,
+Every kernel's launches are counted on each path (phases 4 to 11,
 the counters set to 0 just before and read just after), reported in the
 ``kernels`` line as ``launches_by_path``; ``launches`` is the count on the
 kernel's own path.  Then the ``bounds`` and ``kernels`` JSON lines, and as
@@ -648,7 +678,31 @@ def run(tmp: Path) -> None:
     emit({"phase": "estimate", "seconds": time.perf_counter() - t0,
           "launches": by_path["estimate"], **est_out})
 
-    # -- 9. timing ---------------------------------------------------------------
+    # -- 9. replay: the replay command's steps, card against cpu and host ------------
+    t0 = time.perf_counter()
+    rep_out = replay_phase(np, torch, tmp, paths[MP], paths[DS], angles, zero_counts,
+                           read_counts)
+    by_path["replay"] = rep_out.pop("launches")
+    print(smi, flush=True)
+    emit({"phase": "replay", "seconds": time.perf_counter() - t0, "launches": by_path["replay"],
+          **rep_out})
+
+    # -- 10. watch: a growing file, a checkpoint resume, card against cpu and host --
+    t0 = time.perf_counter()
+    watch_out = watch_phase(np, torch, sd, tmp, paths[MP], angles, zero_counts, read_counts, dev)
+    by_path["watch"] = watch_out.pop("launches")
+    print(smi, flush=True)
+    emit({"phase": "watch", "seconds": time.perf_counter() - t0, "launches": by_path["watch"],
+          **watch_out})
+
+    # -- 11. run_config: three named configs, card against cpu ---------------------
+    t0 = time.perf_counter()
+    cfg_out = run_config_phase(np, tmp, paths[DS], angles, zero_counts, read_counts)
+    by_path["run_config"] = cfg_out.pop("launches")
+    emit({"phase": "run_config", "seconds": time.perf_counter() - t0,
+          "launches": by_path["run_config"], **cfg_out})
+
+    # -- 12. timing --------------------------------------------------------------
     def cuda_ms(fn, inner=1, primed=True):
         """Median ms per call over N_TIMED event-timed runs of ``inner``
         calls.  ``primed``: a ~20 ms device sleep queued first lets the
@@ -1457,6 +1511,389 @@ def estimate_phase(np, torch, nnls, tmp, log, sessions, angles, zero_counts, rea
             "printed": lines, "flavors": flavors, "flagship_host_syncs": flagship_syncs,
             "timing_ms": timing, "profile_run_estimator": profile, "nnls_solvers": solvers,
             "estimate_sessions": batched, "rbf": rbf}
+
+
+STREAM_TIMED = 10                    # synchronized calls per median in the stream phases
+XLSX_MEMBERS = ("xl/worksheets/sheet1.xml", "xl/workbook.xml")
+
+
+def xlsx_same(a, b) -> bool:
+    """Two xlsx files with byte-equal sheet and workbook XML."""
+    import zipfile
+
+    with zipfile.ZipFile(a) as za, zipfile.ZipFile(b) as zb:
+        return all(za.read(m) == zb.read(m) for m in XLSX_MEMBERS)
+
+
+def rendered_differ(np, r, w):
+    """Why two ``RenderedHeatmap`` of one grid differ (None when they agree
+    within the ``cli`` phase's tolerances: blurred within 1e-5 relative,
+    norm_t within 1e-4, < 0.1 % LUT-bin flips, the same NaNs and angles),
+    and the norm_t error and flip share."""
+    if not (np.array_equal(r.aod_angles, w.aod_angles)
+            and np.array_equal(r.aoa_angles, w.aoa_angles)):
+        return "angle vectors", None, None
+    if not (np.array_equal(np.isnan(r.blurred), np.isnan(w.blurred))
+            and np.array_equal(np.isnan(r.norm_t), np.isnan(w.norm_t))):
+        return "NaN patterns", None, None
+    if not np.allclose(r.blurred, w.blurred, rtol=1e-5, atol=0.0, equal_nan=True):
+        return "blurred", None, None
+    fin = ~np.isnan(r.norm_t)
+    if not fin.any():
+        return "no finite cell", None, None
+    d_t = float(np.abs(r.norm_t[fin] - w.norm_t[fin]).max())
+    bins = [np.clip((np.nan_to_num(x.norm_t) * 256).astype(int), 0, 255) for x in (r, w)]
+    flips = float((bins[0] != bins[1]).mean())
+    if d_t > 1e-4 or flips >= 1e-3:
+        return f"norm_t by {d_t} with {flips:.4%} bin flips", d_t, flips
+    return None, d_t, flips
+
+
+def table_differ(np, a, b, n_int):
+    """Why two tables differ (None when they agree): the same shape, the
+    first ``n_int`` columns equal, the rest within RTOL."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return f"shapes {a.shape} / {b.shape}"
+    if not np.array_equal(a[:, :n_int], b[:, :n_int]):
+        return "integer columns"
+    if not np.allclose(a[:, n_int:], b[:, n_int:], rtol=RTOL, atol=1e-12):
+        return "float columns"
+    return None
+
+
+def replay_phase(np, torch, tmp, mp_log, ds_logs, angles, zero_counts, read_counts) -> dict:
+    """``replay --paths --changes``'s steps on the card (counted): the full
+    multipath log at 64 KiB and the 19 dataset-scale logs at 1 MiB; each log
+    against the same steps with ``--device cpu`` and with ``--engine host``
+    (the stream, ``render()`` and the tables the exports write; the card's
+    run writes the command's files)."""
+    from slam_process_tpu_torch.io.angles import load_angle_lut
+    from slam_process_tpu_torch.ops import cuda_decode
+    from slam_process_tpu_torch.pipeline import cli
+
+    lut = load_angle_lut(angles)
+    runs = {"multipath_64KiB": ([mp_log], LIVE_CHUNK),
+            "dataset_1MiB": (list(ds_logs), REPLAY_CHUNK)}
+
+    def steps(tag, extra, export):
+        """{run: [(name, stats, rendered, seconds, windows, tables, session)]}."""
+        out = {}
+        for run_name, (logs, chunk) in runs.items():
+            outdir = tmp / f"replay_{tag}" / run_name
+            args = cli.build_parser().parse_args(
+                ["replay", "--logs", *map(str, logs), "--mapping", str(angles), "--outdir",
+                 str(outdir), "--chunk-bytes", str(chunk), "--paths", "--changes", *extra])
+            outdir.mkdir(parents=True)
+            per_log = []
+            for log in logs:
+                k1 = cuda_decode.LAUNCHES
+                name, s, seconds = cli.replay_stream(args, log)
+                windows = cuda_decode.LAUNCHES - k1
+                rendered = s.render(lut)
+                stats = (cli.replay_exports(args, s, name, seconds) if export
+                         else cli.replay_stats(s, name, seconds))
+                tracks, times, vel = s.path_tracks()
+                tables = {"filtered": s.filtered,
+                          "stream_tracks": cli.tracks_table(tracks, times, vel),
+                          "stream_changes": cli.change_events(tracks, times, args)}
+                per_log.append((name, stats, rendered, seconds, windows, tables, s))
+            out[run_name] = per_log
+        return out
+
+    zero_counts()
+    got = steps("cuda", [], export=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if min(launches.values()) == 0:
+        fail(f"replay: a kernel never launched: {launches}")
+    others = {"cpu": steps("cpu", ["--device", "cpu"], export=False),
+              "host": steps("host", ["--engine", "host"], export=False)}
+
+    report, rasters = {}, {}
+    for run_name in runs:
+        per_log = got[run_name]
+        frames = sum(x[1]["frames"] for x in per_log)
+        entry = {"logs": len(per_log), "frames": frames,
+                 "kept": sum(x[1]["kept"] for x in per_log),
+                 "groups": sum(x[1]["sweeps"] for x in per_log),
+                 "windows_per_log": [x[4] for x in per_log],
+                 "seconds": {"cuda": sum(x[3] for x in per_log)}}
+        for tag, other in others.items():
+            o_logs = other[run_name]
+            entry["seconds"][tag] = sum(x[3] for x in o_logs)
+            for (name, stats, rendered, _, _, tables, _), (_, o_stats, o_rendered, _, _,
+                                                           o_tables, _) in zip(per_log, o_logs):
+                a, b = dict(stats), dict(o_stats)
+                a.pop("frames_per_sec")
+                b.pop("frames_per_sec")
+                if a != b:
+                    fail(f"replay {run_name} {name}: stats {a} on the card, {b} with {tag}")
+                if not np.array_equal(tables["filtered"], o_tables["filtered"]):
+                    fail(f"replay {run_name} {name}: the filtered rows differ from {tag}")
+                for table, n_int in (("stream_tracks", 3), ("stream_changes", 4)):
+                    why = table_differ(np, tables[table], o_tables[table], n_int)
+                    if why or not len(tables[table]):
+                        fail(f"replay {run_name} {name}: {table} differs from {tag} in {why}")
+                why, d_t, flips = rendered_differ(np, rendered, o_rendered)
+                if why:
+                    fail(f"replay {run_name} {name}: render() differs from {tag}: {why}")
+                rasters[f"{run_name}/{name}/{tag}"] = (d_t, flips)
+        entry["frames_per_s"] = {tag: frames / sec for tag, sec in entry["seconds"].items()}
+        report[run_name] = entry
+    worst = {tag: {"norm_t_max_abs_err": max(v[0] for k, v in rasters.items()
+                                             if k.endswith(tag)),
+                   "bin_flips_max": max(v[1] for k, v in rasters.items() if k.endswith(tag))}
+             for tag in others}
+
+    # render(): host ms (synchronized) and the device's busy share, on the
+    # multipath session's stream; five calls profiled together.
+    s = got["multipath_64KiB"][0][6]
+    s.render(lut)
+    times = []
+    for _ in range(STREAM_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.render(lut)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    render_ms = statistics.median(times)
+    busy, acts, top = device_profile(torch, lambda: [s.render(lut) for _ in range(5)])
+    # The profiler's own per-op table as a second reading of the device time.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            s.render(lut)
+        torch.cuda.synchronize()
+    table_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+    return {"launches": launches, "runs": report, "rasters_vs": worst,
+            "render_ms": render_ms, "render_ms_runs": times,
+            "render_device_busy_ms": busy / 5, "render_busy_share": busy / 5 / render_ms,
+            "render_device_activities": acts / 5, "render_top_us": top[:4],
+            "render_self_device_ms_key_averages": table_us / 5 / 1e3,
+            "render_profiler_events": len(prof.events())}
+
+
+def watch_phase(np, torch, sd, tmp, log, angles, zero_counts, read_counts, dev) -> dict:
+    """``watch --paths --changes --events --checkpoint --checkpoint-every``
+    on the card over a file that a writer thread grows with the full
+    multipath log's text in seeded random pieces; a second card watch
+    resumed from a copy of a mid-stream checkpoint and of the events file at
+    that moment, on the finished file; the same file watched with ``--device
+    cpu`` and with ``--engine host``."""
+    import json
+    import shutil
+    import threading
+
+    from slam_process_tpu_torch.io.angles import load_angle_lut
+    from slam_process_tpu_torch.pipeline import cli
+
+    lut = load_angle_lut(angles)
+    text = log.read_bytes()
+    work = tmp / "watch"
+
+    def open_watch(tag, path, *extra):
+        args = cli.build_parser().parse_args(
+            ["watch", "--log", str(path), "--mapping", str(angles), "--outdir",
+             str(work / tag), "--paths", "--changes", "--events", str(work / f"{tag}.jsonl"),
+             "--poll-interval", "0.02", "--idle-timeout", "0.5", *extra])
+        cli.check_watch_flags(args)
+        return cli.Watch(args)
+
+    def finish(w):
+        """run(), then render() (K3) and the exports: the command without
+        its PNG."""
+        w.run()
+        rendered = w.session.render(lut)
+        return rendered, w.export()
+
+    # The live run: a paced writer (each piece waits until the watch has
+    # read the one before), the polls and the checkpoint saves timed, a copy
+    # of the checkpoint and the events at every save mid-stream.
+    (work / "live").mkdir(parents=True)
+    capture = work / "live" / "capture.txt"
+    capture.write_bytes(b"")
+    zero_counts()
+    w = open_watch("live", capture, "--checkpoint", str(work / "live.ckpt"),
+                   "--checkpoint-every", "0.2")
+    consumed = threading.Event()
+    poll_ms, save_ms, snaps = [], [], []
+    read_growth, poll, save = w._read_growth, w.poll, w.save_checkpoint
+
+    def paced_read():
+        data = read_growth()
+        if data is not None:
+            consumed.set()
+        return data
+
+    def timed_poll():
+        t0 = time.perf_counter()
+        grew = poll()
+        torch.cuda.synchronize()
+        if grew:
+            poll_ms.append((time.perf_counter() - t0) * 1e3)
+        return grew
+
+    def copying_save():
+        t0 = time.perf_counter()
+        save()
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        if not w.session._finalized and 0 < w.pos < len(text):
+            snap = work / f"snap_{len(snaps)}"
+            snap.mkdir()
+            shutil.copy(work / "live.ckpt", snap / "ckpt.npz")
+            events = work / "live.jsonl"         # written once the first sweep closes
+            (snap / "events.jsonl").write_bytes(events.read_bytes() if events.exists() else b"")
+            snaps.append((snap, w.pos))
+
+    def grow():
+        rng = np.random.default_rng(300)
+        with open(capture, "ab") as f:
+            off = 0
+            while off < len(text):
+                n = int(rng.integers(1, len(text) // 12))   # ~24 pieces
+                f.write(text[off:off + n])
+                f.flush()
+                off += n
+                if not consumed.wait(timeout=120):
+                    return
+                consumed.clear()
+
+    w._read_growth, w.poll, w.save_checkpoint = paced_read, timed_poll, copying_save
+    writer = threading.Thread(target=grow)
+    writer.start()
+    try:
+        live_render, live_sum = finish(w)
+    finally:
+        consumed.set()
+        writer.join(timeout=120)
+    if writer.is_alive() or not snaps:
+        fail(f"watch: the writer did not finish, or no checkpoint was saved mid-stream "
+             f"({len(snaps)} snapshots)")
+
+    # The resume, on the finished file: the middle one of the snapshots whose
+    # events file holds an event, so the dedup set is put to work.
+    held = [(p, pos) for p, pos in snaps if (p / "events.jsonl").stat().st_size]
+    if not held:
+        fail(f"watch: no mid-stream snapshot of {len(snaps)} holds an event")
+    snap, snap_pos = held[len(held) // 2]
+    (work / "resumed").mkdir()
+    shutil.copy(capture, work / "resumed" / "capture.txt")
+    shutil.copy(snap / "ckpt.npz", work / "resumed.ckpt")
+    shutil.copy(snap / "events.jsonl", work / "resumed.jsonl")
+    restore_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sd.DeviceStreamingSession.restore(work / "resumed.ckpt", device=dev)
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+    events_before = len((work / "resumed.jsonl").read_text().splitlines())
+    r = open_watch("resumed", work / "resumed" / "capture.txt", "--checkpoint",
+                   str(work / "resumed.ckpt"))
+    if r.pos != snap_pos:
+        fail(f"watch: resumed at byte {r.pos}, the checkpoint was taken at {snap_pos}")
+    resumed_render, resumed_sum = finish(r)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if min(launches.values()) == 0:
+        fail(f"watch: a kernel never launched: {launches}")
+
+    others = {}
+    for tag, extra in (("cpu", ["--device", "cpu"]), ("host", ["--engine", "host"])):
+        (work / tag).mkdir()
+        shutil.copy(capture, work / tag / "capture.txt")
+        others[tag] = finish(open_watch(tag, work / tag / "capture.txt", *extra))
+
+    def events(tag):
+        return [json.loads(ln) for ln in (work / f"{tag}.jsonl").read_text().splitlines()]
+
+    live_events = events("live")
+    resumed_events = events("resumed")
+    keys = [(e["sweep"], e["kind"], e["track"]) for e in resumed_events]
+    if resumed_events != live_events or len(set(keys)) != len(keys) or not live_events:
+        fail(f"watch: the resumed events ({len(resumed_events)}) differ from the "
+             f"uninterrupted run's ({len(live_events)}) or repeat an event")
+    for table in ("filtered", "stream_tracks", "stream_changes"):
+        if not xlsx_same(work / "live" / f"capture_{table}.xlsx",
+                         work / "resumed" / f"capture_{table}.xlsx"):
+            fail(f"watch: the resumed {table} xlsx differs from the uninterrupted run's")
+    counts = ("frames", "kept", "sweeps", "bytes_seen")
+    if any(resumed_sum[k] != live_sum[k] for k in counts):
+        fail(f"watch: resumed summary {resumed_sum}, uninterrupted {live_sum}")
+    if resumed_sum["events"] != live_sum["events"] - events_before:
+        fail("watch: the resumed run wrote events that were already in the file")
+    if rendered_differ(np, resumed_render, live_render)[0]:
+        fail("watch: the resumed render differs from the uninterrupted run's")
+    for tag, (rendered, summary) in others.items():
+        want = events(tag)
+        strip = [{k: v for k, v in e.items() if k != "power"} for e in want]
+        if ([{k: v for k, v in e.items() if k != "power"} for e in live_events] != strip
+                or not np.allclose([e["power"] for e in live_events],
+                                   [e["power"] for e in want], rtol=RTOL)):
+            fail(f"watch: the card's events differ from {tag}'s")
+        if not xlsx_same(work / "live" / "capture_filtered.xlsx",
+                         work / tag / "capture_filtered.xlsx"):
+            fail(f"watch: the filtered xlsx differs from {tag}'s")
+        for table, ints in (("stream_tracks", {"Track", "Sweep", "CLK"}),
+                            ("stream_changes", {"Sweep", "CLK", "Kind", "Track"})):
+            why = xlsx_close(np, work / "live" / f"capture_{table}.xlsx",
+                             work / tag / f"capture_{table}.xlsx", ints)
+            if why:
+                fail(f"watch: {table} differs from {tag}'s in {why}")
+        if any(summary[k] != live_sum[k] for k in counts + ("tokens", "events")):
+            fail(f"watch: summary {live_sum} on the card, {summary} with {tag}")
+        why = rendered_differ(np, live_render, rendered)[0]
+        if why:
+            fail(f"watch: render() differs from {tag}'s: {why}")
+    return {"launches": launches, "bytes": len(text), "summary": live_sum,
+            "polls_fed": len(poll_ms), "host_ms_per_poll_median": statistics.median(poll_ms),
+            "host_ms_per_poll_mean": statistics.fmean(poll_ms),
+            "host_ms_per_poll_max": max(poll_ms), "checkpoint_saves": len(save_ms),
+            "checkpoint_save_ms_median": statistics.median(save_ms),
+            "checkpoint_restore_ms_median": statistics.median(restore_ms),
+            "checkpoint_bytes": (work / "live.ckpt").stat().st_size,
+            "resumed_from_byte": snap_pos, "events": len(live_events),
+            "events_before_resume": events_before, "compared_with": sorted(others)}
+
+
+RUN_CONFIGS = ("serial_hex_to_excel_v3", "batched_session", "streaming_replay")
+RUN_CONFIG_TIMING = {"timings_s", "elapsed_s", "frames_per_sec", "host_frames_per_sec"}
+
+
+def run_config_phase(np, tmp, ds_logs, angles, zero_counts, read_counts) -> dict:
+    """Three named configs on a data directory of four dataset-scale logs,
+    on the card (counted) and with ``--device cpu``; the other two draw
+    PNGs, so they run in the CPU tests only."""
+    import shutil
+
+    from slam_process_tpu_torch.pipeline.configs import run_named_config
+
+    data = tmp / "run_config_data"
+    data.mkdir()
+    for log in list(ds_logs)[:4]:
+        shutil.copy(log, data / log.name)
+    zero_counts()
+    got = {name: run_named_config(name, data, angles, tmp / "run_config_cuda")
+           for name in RUN_CONFIGS}
+    launches = read_counts()
+    for key in ("K1", "K2", "K3", "K5"):
+        if launches[key] == 0:
+            fail(f"run_config: {key} never launched: {launches}")
+    want = {name: run_named_config(name, data, angles, tmp / "run_config_cpu", device="cpu")
+            for name in RUN_CONFIGS}
+    for name in RUN_CONFIGS:
+        a = {k: v for k, v in got[name].items() if k not in RUN_CONFIG_TIMING}
+        b = {k: v for k, v in want[name].items() if k not in RUN_CONFIG_TIMING}
+        if a != b:
+            fail(f"run_config {name}: {a} on the card, {b} with --device cpu")
+    parsed = sorted(p.name for p in (tmp / "run_config_cuda").glob("*.xlsx"))
+    if not parsed or not all(xlsx_same(tmp / "run_config_cuda" / p, tmp / "run_config_cpu" / p)
+                             for p in parsed):
+        fail("run_config: the Parsed xlsx differs between the card and --device cpu")
+    return {"launches": launches, "results_cuda": got, "results_cpu": want,
+            "xlsx_equal_cpu": parsed}
 
 
 def device_profile(torch, fn, count=()):

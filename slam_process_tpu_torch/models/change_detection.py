@@ -1,8 +1,8 @@
 """Track-based scene change detection over CLK-anchored path tracks.
 
 A numpy copy of ``slam_process_tpu/models/change_detection.py``'s batch
-detector (``detect_scene_changes_np``, ``scene_change_events``), unchanged
-in behaviour.  It turns a tracked session (``Session.path_tracks``) into
+detector (``detect_scene_changes_np``, ``scene_change_events``) and its
+streamed form (``IncrementalChangeDetector``), unchanged in behaviour.  It turns a tracked session (``Session.path_tracks``) into
 scene change events on the testbed clock:
 
   * **birth**: a track reaches its ``min_persist``-th observation;
@@ -28,7 +28,8 @@ import numpy as np
 
 from slam_process_tpu_torch.models.tracking import Tracks
 
-__all__ = ["SceneChanges", "detect_scene_changes_np", "scene_change_events", "EVENT_KINDS"]
+__all__ = ["SceneChanges", "detect_scene_changes_np", "scene_change_events",
+           "IncrementalChangeDetector", "EVENT_KINDS"]
 
 EVENT_KINDS = ("birth", "death", "jump", "los_handover")
 
@@ -156,3 +157,80 @@ def scene_change_events(
     table = np.asarray(rows, np.float64)
     order = np.lexsort((table[:, 3], table[:, 2], table[:, 0]))
     return table[order]
+
+
+class IncrementalChangeDetector:
+    """The streamed ``detect_scene_changes_np`` + ``scene_change_events``,
+    behind the live ``watch --events`` feed.
+
+    ``step`` takes ONE sweep's track column (the coasting-hold [T] outputs
+    of ``track_sweep_step_np``, or one row of the device session's track
+    rings) and that sweep's unwrapped CLK anchor, and returns the event
+    rows the batch detector gives that sweep.  The four detectors are
+    cumulative per-sweep predicates, so this state (observation counts, the
+    last observed sweep, the previous column, the previous dominant track)
+    is enough: the ``step`` outputs over all sweeps, concatenated, equal the
+    batch table row for row, at O(T) per sweep however many have closed.
+    """
+
+    def __init__(self, n_tracks: int, min_persist: int = 3, min_gone: int = 3,
+                 jump_deg: float = 5.0) -> None:
+        t_n = int(n_tracks)
+        self._mp = int(min_persist)
+        self._mg = int(min_gone)
+        self._j2 = np.float32(jump_deg) ** 2   # the batch detector's literal
+        self._s = 0
+        self._cum = np.zeros(t_n, np.int64)        # observations so far
+        self._last = np.full(t_n, -1, np.int64)    # last observed sweep
+        self._prev_a = np.zeros(t_n, np.float32)   # previous column (positions)
+        self._prev_d = np.zeros(t_n, np.float32)
+        self._prev_dom = -1                        # dominant track at the last observing sweep
+
+    @property
+    def n_sweeps(self) -> int:
+        return self._s
+
+    def step(self, col_aoa, col_aod, col_pow, col_obs, time) -> np.ndarray:
+        """Feed sweep ``n_sweeps``'s column; returns [N, 7] float64 event
+        rows (sweep, clk, kind, track, aoa, aod, power) in the batch table's
+        order (kind, then track, within the sweep)."""
+        a = np.asarray(col_aoa, np.float32)
+        d = np.asarray(col_aod, np.float32)
+        p = np.asarray(col_pow, np.float32)
+        obs = np.asarray(col_obs, bool)
+        s = self._s
+        prev_last = self._last
+        prev_cum = self._cum
+        cum = prev_cum + obs
+        last = np.where(obs, np.int64(s), prev_last)
+
+        birth = obs & (cum == self._mp)
+        miss = np.where(last >= 0, s - last, np.int64(0))
+        death = (last >= 0) & (miss == self._mg) & (cum >= self._mp)
+        if s > 0:
+            da = a - self._prev_a
+            dd = d - self._prev_d
+            disp2 = da * da + dd * dd
+            jump = obs & (prev_last >= 0) & (disp2 > self._j2) & (prev_cum >= self._mp)
+        else:
+            jump = np.zeros_like(obs)
+
+        rows = []
+        tt = float(time)
+        for kind, mask in enumerate((birth, death, jump)):
+            for t in np.nonzero(mask)[0]:
+                rows.append([s, tt, kind, t, float(a[t]), float(d[t]), float(p[t])])
+        if obs.any():
+            dom = int(np.argmax(np.where(obs, p, -np.inf)))
+            if self._prev_dom >= 0 and dom != self._prev_dom:
+                rows.append([s, tt, 3, dom, float(a[dom]), float(d[dom]), float(p[dom])])
+            self._prev_dom = dom
+
+        self._cum = cum
+        self._last = last
+        self._prev_a = a
+        self._prev_d = d
+        self._s = s + 1
+        if not rows:
+            return np.zeros((0, 7), np.float64)
+        return np.asarray(rows, np.float64)

@@ -212,3 +212,15 @@ def grid_from_sums_np(sums: np.ndarray, counts: np.ndarray) -> IntensityGrid:
     observed = counts > 0
     fill = mean[observed].min() if observed.any() else np.nan
     return IntensityGrid(mean, counts.astype(np.int32), row_mask, col_mask, np.float64(fill))
+
+
+def grid_to_device(grid: IntensityGrid, device) -> IntensityGrid:
+    """A grid of numpy arrays (``grid_from_sums_np``) as tensors on
+    ``device``: float32 means and fill value (the raster's input dtype),
+    int32 counts, bool masks."""
+    mean, counts, row_mask, col_mask, fill = grid
+    return IntensityGrid(torch.as_tensor(np.asarray(mean, np.float32), device=device),
+                         torch.as_tensor(np.asarray(counts, np.int32), device=device),
+                         torch.as_tensor(np.asarray(row_mask, bool), device=device),
+                         torch.as_tensor(np.asarray(col_mask, bool), device=device),
+                         torch.tensor(float(fill), dtype=torch.float32, device=device))

@@ -37,7 +37,8 @@ only with ``collect_paths``: once to read the count of sweeps it closed,
 which sizes the estimator's batch (``HOST_SYNCS``), and, when it closed
 any, at each step of the NNLS solver's lockstep loops
 (``ops/nnls.HOST_SYNCS``).  Without ``collect_paths`` a window never waits.
-``render()`` is not ported.
+``render()`` reads the sums back, builds the grid on the host as
+``intensity()`` does and rasterizes it on the session's device (K3).
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from slam_process_tpu_torch.config import PipelineConfig
+from slam_process_tpu_torch.config import PipelineConfig, RenderConfig, SceneConfig
 from slam_process_tpu_torch.io.angles import load_angle_lut
 from slam_process_tpu_torch.models.nn_omp import OmpPaths
 from slam_process_tpu_torch.models.sweep_estimation import (
@@ -62,9 +63,10 @@ from slam_process_tpu_torch.ops.compact import compact_rows, compact_rows_multi
 from slam_process_tpu_torch.ops.correct import correct_rows
 from slam_process_tpu_torch.ops.decode import decode_rows
 from slam_process_tpu_torch.ops.scene import (
-    grid_from_sums_np, intensity_cell_sums, intensity_per_sweep_sums)
+    grid_from_sums_np, grid_to_device, intensity_cell_sums, intensity_per_sweep_sums)
 from slam_process_tpu_torch.ops.tracker import track_block
 from slam_process_tpu_torch.pipeline.device import resolve_device
+from slam_process_tpu_torch.render.heatmap import RenderedHeatmap, render_intensity
 from slam_process_tpu_torch.utils.timestamps import unwrap_clk_anchors
 
 _LOGGER = logging.getLogger("slam_process_tpu_torch.streaming_device")
@@ -620,6 +622,12 @@ class DeviceStreamingSession:
         return grid_from_sums_np(self._state.sums.cpu().numpy().astype(np.float64),
                                  self._state.counts.cpu().numpy().astype(np.int64))
 
+    def render(self, angle_lut: np.ndarray, render_cfg: Optional[RenderConfig] = None
+               ) -> RenderedHeatmap:
+        """The heatmap raster of ``intensity()``'s grid, rasterized on the
+        session's device (kernel K3 on CUDA)."""
+        return render_grid(self.intensity(), angle_lut, self.device, render_cfg)
+
     def block_until_ready(self) -> "DeviceStreamingSession":
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -674,6 +682,15 @@ class DeviceStreamingSession:
         _ckpt_fill_state(sess._state, leaves)
         sess.checkpoint_extra = meta.get("extra")
         return sess
+
+
+def render_grid(grid, angle_lut: np.ndarray, device, render_cfg: Optional[RenderConfig] = None
+                ) -> RenderedHeatmap:
+    """A stream's heatmap: its host-built grid on ``device``, rendered with
+    NaN kept in empty cells (the JAX streams' ``render``)."""
+    return render_intensity(grid_to_device(grid, device), angle_lut,
+                            SceneConfig(keep_nan=True, fill_with_min=False),
+                            render_cfg or RenderConfig())
 
 
 # -- checkpoint / resume -------------------------------------------------------

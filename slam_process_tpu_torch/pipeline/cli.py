@@ -1,6 +1,5 @@
-"""The main path's command-line interface, the port of
-``slam_process_tpu/pipeline/cli.py``'s ``decode``, ``correct``, ``heatmap``
-and ``session`` commands:
+"""The port's command-line interface, the counterpart of
+``slam_process_tpu/pipeline/cli.py``:
 
     python -m slam_process_tpu_torch.pipeline.cli decode  IN.txt [OUT.xlsx] [--format v1|v2|v3]
     python -m slam_process_tpu_torch.pipeline.cli correct --input IN.xlsx|IN.txt [--output OUT]
@@ -12,21 +11,36 @@ and ``session`` commands:
                                                  [--model nn_omp|nn_omp_v1|nn_omp_v14|nn_omp_v15|
                                                   nn_omp_v16] [--engine device|host]
                                                  [--per-sweep | --tracks [--changes]]
+    python -m slam_process_tpu_torch.pipeline.cli replay --logs A.txt [B.txt ...] --mapping ...
+                                                 --outdir DIR [--engine device|host]
+                                                 [--chunk-bytes N] [--paths [--changes]]
+    python -m slam_process_tpu_torch.pipeline.cli watch --log LIVE.txt --mapping ... --outdir DIR
+                                                 [--engine device|host] [--paths [--changes]]
+                                                 [--events E.jsonl] [--checkpoint C.npz
+                                                 [--checkpoint-every S]] [--idle-timeout S]
+    python -m slam_process_tpu_torch.pipeline.cli run-config NAME --data-dir DIR --mapping ...
+                                                 [--outdir DIR]
 
 Every command runs its stages on the card (decode K1, corrector K2, raster
-K3, per-sweep sums K4, tracker K6, the estimators in PyTorch); ``--device
-cpu`` runs the plain PyTorch versions instead, the one option the JAX CLI
-lacks.  ``estimate --engine`` defaults to ``device`` (the JAX CLI's
-default is ``host``, the float64 numpy oracle).  The v1 / v2 wire formats
-decode with numpy in both packages.  The heatmap PNG, the estimation
-figure and the track figure need matplotlib; a colormap other than viridis
-needs it too.
+K3, per-sweep sums K4, compaction K5, tracker K6, the estimators in
+PyTorch); ``--device cpu`` runs the plain PyTorch versions instead, the one
+option the JAX CLI lacks.  ``estimate``, ``replay`` and ``watch`` take
+``--engine device`` by default, where the JAX CLI's default is ``host``
+(for ``estimate`` the float64 numpy oracle, for the streams the numpy
+session on the CPU); ``--engine host`` streams on the CPU and never touches
+the card.  ``replay --decoder`` is accepted, and either value runs K1.
+``watch --logs`` with one file is ``--log``; several files and the
+multi-host flags exit (not ported yet).  ``run-config`` needs its
+``--data-dir`` and ``--mapping``.  The v1 / v2 wire formats decode with
+numpy in both packages.  The PNGs (heatmap, estimation, tracks, a stream's
+heatmap) need matplotlib; a colormap other than viridis needs it too.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import zipfile
 from pathlib import Path
@@ -35,6 +49,7 @@ from slam_process_tpu_torch.config import RenderConfig, SceneConfig
 from slam_process_tpu_torch.models.registry import FLAVORS, NOT_PORTED, run_estimator
 from slam_process_tpu_torch.pipeline.session import Session
 from slam_process_tpu_torch.utils.logging import StageCounters, get_logger
+from slam_process_tpu_torch.utils.timestamps import extract_timestamp
 
 
 def _add_device(p):
@@ -315,20 +330,28 @@ TRACK_COLUMNS = ["Track", "Sweep", "CLK", "AoA", "AoD", "Power", "Vel_AoA_deg_pe
 CHANGE_COLUMNS = ["Sweep", "CLK", "Kind", "Track", "AoA", "AoD", "Power"]
 
 
+def change_events(tracks, times, args):
+    """[N, 7] float64 scene-change events of ``tracks`` under the change
+    flags (``detect_scene_changes_np`` + ``scene_change_events``)."""
+    from slam_process_tpu_torch.models.change_detection import (
+        detect_scene_changes_np, scene_change_events)
+
+    changes = detect_scene_changes_np(tracks, min_persist=args.min_persist,
+                                      min_gone=args.min_gone, jump_deg=args.jump_deg)
+    return scene_change_events(changes, tracks, times)
+
+
 def write_changes(out, tracks, times, args):
     """Detect the scene changes of ``tracks``, write their xlsx beside
     ``out`` and return (its path, the printed line)."""
     import numpy as np
 
     from slam_process_tpu_torch.io.xlsx import write_xlsx_table
-    from slam_process_tpu_torch.models.change_detection import (
-        EVENT_KINDS, detect_scene_changes_np, scene_change_events)
+    from slam_process_tpu_torch.models.change_detection import EVENT_KINDS
 
-    changes = detect_scene_changes_np(tracks, min_persist=args.min_persist,
-                                      min_gone=args.min_gone, jump_deg=args.jump_deg)
-    events = scene_change_events(changes, tracks, times)
-    ev_path = Path(out).with_name(Path(out).stem + "_changes.xlsx")
-    write_xlsx_table(ev_path, CHANGE_COLUMNS, events)
+    events = change_events(tracks, times, args)
+    ev_path = write_xlsx_table(Path(out).with_name(Path(out).stem + "_changes.xlsx"),
+                               CHANGE_COLUMNS, events)
     counts = {EVENT_KINDS[k]: int(np.sum(events[:, 2] == k)) for k in range(len(EVENT_KINDS))}
     return ev_path, f"changes={len(events)} {counts} 输出={ev_path}"
 
@@ -376,11 +399,529 @@ def _run_estimate_per_sweep(args, s, overrides):
     print(f"sweeps={int(sweep_valid.sum())}/{len(sweep_valid)} paths={len(rows)} 输出={out}")
 
 
+# -- streaming: replay and watch -----------------------------------------------
+
+
+def _add_replay(sub):
+    p = sub.add_parser("replay", help="streaming replay: chunked decode -> correct -> render")
+    p.add_argument("--logs", type=Path, nargs="+", required=True)
+    p.add_argument("--mapping", type=Path, required=True)
+    p.add_argument("--outdir", type=Path, required=True)
+    p.add_argument("--chunk-bytes", type=int, default=1 << 16)
+    p.add_argument("--render-every", type=int, default=0,
+                   help="re-render the live heatmap every N chunks (host engine)")
+    p.add_argument("--engine", choices=["host", "device"], default="device",
+                   help="device = the streaming state machine on --device; host = the numpy "
+                        "decode and corrector on the CPU")
+    p.add_argument("--decoder", choices=["xla", "pallas"], default="xla",
+                   help="accepted for the JAX CLI's sake: both run kernel K1, the port's "
+                        "only decoder")
+    p.add_argument("--emit-capacity", type=int, default=None,
+                   help="device emit-ring rows for --engine device (default: sized to the "
+                        "log, so a file replay cannot overflow the ring)")
+    p.add_argument("--paths", action="store_true",
+                   help="online per-sweep estimation + CLK tracks as sweeps close; writes "
+                        "<name>_stream_tracks.xlsx per log")
+    _add_change_args(p, gate="--paths")
+    _add_device(p)
+    p.set_defaults(fn=_run_replay)
+
+
+def replay_stream(args, log):
+    """(name, session, seconds) of one log streamed by ``--engine``: the
+    device session on ``--device`` (finished on the device), or the host
+    session on the CPU."""
+    import time
+
+    from slam_process_tpu_torch.io import read_hex_log
+    from slam_process_tpu_torch.parallel.streaming_device import make_paths_spec
+
+    name = extract_timestamp(str(log)) or log.stem
+    raw = read_hex_log(log)
+    cp = make_paths_spec(args.mapping) if args.paths else None
+    t0 = time.perf_counter()
+    if args.engine == "device":
+        from slam_process_tpu_torch.parallel.streaming_device import replay_log_device
+
+        # Kept rows cannot exceed one frame per 11 bytes, so a ring sized to
+        # the log never overflows.
+        s = replay_log_device(raw, chunk_bytes=args.chunk_bytes, collect_filtered=True,
+                              emit_capacity=args.emit_capacity or (len(raw) // 11 + 1),
+                              collect_paths=cp, device=args.device)
+        s.block_until_ready()
+    else:
+        from slam_process_tpu_torch.io.angles import load_angle_lut
+        from slam_process_tpu_torch.parallel.streaming import replay_log
+
+        s = replay_log(raw, chunk_bytes=args.chunk_bytes, render_every=args.render_every,
+                       angle_lut=load_angle_lut(args.mapping), collect_paths=cp)
+    return name, s, time.perf_counter() - t0
+
+
+def replay_exports(args, s, name: str, seconds: float) -> dict:
+    """Write a replayed log's filtered table (and with --paths its tracks
+    and changes); returns its stats line."""
+    from slam_process_tpu_torch.io.schemas import write_filtered_table
+
+    write_filtered_table(args.outdir / f"{name}_filtered.xlsx", s.filtered)
+    if args.paths:
+        _export_stream_tracks(s, name, args)
+    return replay_stats(s, name, seconds)
+
+
+def replay_stats(s, name: str, seconds: float) -> dict:
+    """A replayed log's stats line."""
+    return {"session": name, "frames": s.n_frames, "kept": s.n_kept, "sweeps": s.n_groups,
+            "frames_per_sec": round(s.n_frames / seconds, 1)}
+
+
+def _save_stream_png(rendered, out, title: str):
+    from slam_process_tpu_torch.render.figures import save_heatmap_figure
+
+    return save_heatmap_figure(rendered.blurred, rendered.aod_angles, rendered.aoa_angles, out,
+                               title=title)
+
+
+def _run_replay(args):
+    from slam_process_tpu_torch.io.angles import load_angle_lut
+
+    lut = load_angle_lut(args.mapping)
+    args.outdir.mkdir(parents=True, exist_ok=True)
+    if args.changes and not args.paths:
+        print("warning: --changes requires --paths; no change events will be written",
+              file=sys.stderr)
+    stats = []
+    for log in args.logs:
+        name, s, seconds = replay_stream(args, log)
+        _save_stream_png(s.render(lut), args.outdir / f"{name}_replay.png",
+                         f"streaming replay ({name})")
+        stats.append(replay_exports(args, s, name, seconds))
+        print(json.dumps(stats[-1]))
+    print(json.dumps({"sessions": len(stats), "total_frames": sum(x["frames"] for x in stats)}))
+
+
+def _seed_event_keys(events_path) -> set:
+    """Dedup keys (sweep, kind, track) of an existing JSONL feed, for a
+    checkpoint resume.  Malformed lines (the torn tail of a crash mid-write
+    among them) are skipped; a torn tail, with no newline at its end, is
+    closed with one, so the first append after the resume starts a line of
+    its own."""
+    from slam_process_tpu_torch.models.change_detection import EVENT_KINDS
+
+    seen: set = set()
+    try:
+        with open(events_path, "rb+") as f:
+            data = f.read()
+            if data and not data.endswith(b"\n"):
+                f.write(b"\n")
+    except OSError:
+        return seen
+    for line in data.decode("utf-8", "replace").splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            e = json.loads(line)
+            seen.add((int(e["sweep"]), EVENT_KINDS.index(e["kind"]), int(e["track"])))
+        except (ValueError, KeyError, TypeError):
+            continue
+    return seen
+
+
+def _event_json_line(row) -> str:
+    """One event row (the detector's [7] float64 row) as a JSONL line."""
+    from slam_process_tpu_torch.models.change_detection import EVENT_KINDS
+
+    return json.dumps({"sweep": int(row[0]), "clk": int(row[1]),
+                       "kind": EVENT_KINDS[int(row[2])], "track": int(row[3]),
+                       "aoa": round(float(row[4]), 4), "aod": round(float(row[5]), 4),
+                       "power": float(row[6])})
+
+
+def _make_event_emitter(args, session, seeded: bool = False):
+    """The live scene-change feed of ``watch --events``: returns ``poll()``,
+    which runs the incremental change detector over the track columns of
+    the sweeps closed since the last poll and appends their events to the
+    JSONL file; it returns the count written.
+
+    The incremental detector fed one column at a time gives the batch
+    table row for row, at O(sweeps closed since the last poll) per poll.
+    ``seeded`` (checkpoint resume): the first poll replays the restored
+    history through the detector, and the dedup set, seeded from the file,
+    keeps the rows written before the crash from being appended twice."""
+    from slam_process_tpu_torch.models.change_detection import IncrementalChangeDetector
+    from slam_process_tpu_torch.utils.timestamps import ClkUnwrapper
+
+    det = IncrementalChangeDetector(session._paths_spec.max_tracks,
+                                    min_persist=args.min_persist, min_gone=args.min_gone,
+                                    jump_deg=args.jump_deg)
+    unwrap = ClkUnwrapper()
+    seen = _seed_event_keys(args.events) if seeded else set()
+    state = {"n": 0}
+
+    def poll() -> int:
+        n = session.n_sweeps_closed
+        lo = state["n"]
+        if n <= lo:
+            return 0
+        aoa, aod, power, obs, raw_times = session.track_columns(lo, n)
+        state["n"] = n
+        wrote = 0
+        with open(args.events, "a") as f:
+            for i in range(n - lo):
+                t_u = unwrap.push(raw_times[i])
+                for row in det.step(aoa[i], aod[i], power[i], obs[i], float(t_u)):
+                    key = (int(row[0]), int(row[2]), int(row[3]))
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    f.write(_event_json_line(row) + "\n")
+                    wrote += 1
+        return wrote
+
+    return poll
+
+
+def _dedup_export_names(paths) -> list:
+    """Export names from the captures' timestamps or stems, made unique (two
+    captures named live.txt in different directories must not overwrite
+    each other's outputs): the naming of a multi-log watch."""
+    names = [extract_timestamp(str(p)) or Path(p).stem for p in paths]
+    seen: dict = {}
+    for i, nm in enumerate(names):
+        if nm in seen:
+            seen[nm] += 1
+            names[i] = f"{nm}_{seen[nm]}"
+        else:
+            seen[nm] = 0
+    return names
+
+
+def _split_text_carry(buf: bytes):
+    """Split a growing capture's buffer at its last whitespace:
+    (tokenizable prefix or None, carry).  The capture may have written half
+    a token ("1A 2" of "1A 2B "), which waits for more bytes."""
+    cut = max(buf.rfind(b" "), buf.rfind(b"\n"), buf.rfind(b"\r"), buf.rfind(b"\t"))
+    if cut < 0:
+        return None, buf
+    return bytes(buf[:cut + 1]), buf[cut + 1:]
+
+
+def _reconcile_paths_flag(args, s) -> bool:
+    """--paths as a restored checkpoint has it: the state decides (online
+    estimation cannot be switched mid-stream), the flag only selects
+    exports; a warning or a note says when they differ."""
+    has = getattr(s, "_paths_spec", None) is not None
+    if args.paths and not has:
+        print("warning: --paths ignored — the restored checkpoint was created without "
+              "online estimation", file=sys.stderr)
+    elif has and not args.paths:
+        print("note: the restored checkpoint carries online-estimation state; its tracks "
+              "will be exported (pass --paths to silence this note)", file=sys.stderr)
+    return has
+
+
+def _export_stream_tracks(s, name: str, args) -> None:
+    """Track and (with --changes) change exports of a streaming session with
+    online paths, shared by replay and watch; its tracks equal the offline
+    ones, so the offline detector applies unchanged."""
+    _export_tracks(*s.path_tracks(), name, args)
+
+
+def _export_tracks(tracks, times, vel, name: str, args) -> None:
+    from slam_process_tpu_torch.io.xlsx import write_xlsx_table
+
+    write_xlsx_table(args.outdir / f"{name}_stream_tracks.xlsx", TRACK_COLUMNS,
+                     tracks_table(tracks, times, vel))
+    if args.changes:
+        events = change_events(tracks, times, args)
+        out = write_xlsx_table(args.outdir / f"{name}_stream_changes.xlsx", CHANGE_COLUMNS,
+                               events)
+        print(f"changes={len(events)} 输出={out}")
+
+
+MULTI_STREAM_LATER = ("is not ported yet: the multi-stream and multi-host watch are ROADMAP.md "
+                      "queue 1 item 9 (MultiStreamingSession)")
+
+
+def _add_watch(sub):
+    p = sub.add_parser(
+        "watch", help="live-tail a growing serial log: new bytes are tokenized and fed to "
+                      "the streaming session as the capture writes them")
+    p.add_argument("--log", type=Path, default=None, help="one growing capture file")
+    p.add_argument("--logs", type=Path, nargs="+", default=None,
+                   help="one file is --log; several (one multi-stream session) are not "
+                        "ported yet")
+    p.add_argument("--mapping", type=Path, required=True)
+    p.add_argument("--outdir", type=Path, required=True)
+    p.add_argument("--engine", choices=["host", "device"], default="device",
+                   help="device = the streaming state machine on --device; host = the numpy "
+                        "decode and corrector on the CPU")
+    p.add_argument("--emit-capacity", type=int, default=None,
+                   help="filtered-row ring capacity (default: grows as bytes arrive)")
+    p.add_argument("--poll-interval", type=float, default=0.5,
+                   help="seconds between file-growth polls")
+    p.add_argument("--idle-timeout", type=float, default=10.0,
+                   help="stop after this many seconds without growth (0 = watch until "
+                        "interrupted)")
+    p.add_argument("--render-every", type=float, default=0.0,
+                   help="re-render the live heatmap every N seconds (0 = only at exit)")
+    p.add_argument("--paths", action="store_true",
+                   help="online per-sweep estimation + CLK tracks as sweeps close")
+    p.add_argument("--checkpoint", type=Path, default=None,
+                   help="crash-recovery state file: restored at startup when it exists; "
+                        "rewritten atomically every --checkpoint-every seconds and at exit")
+    p.add_argument("--checkpoint-every", type=float, default=0.0,
+                   help="seconds between periodic checkpoints (0 = only at exit; requires "
+                        "--checkpoint)")
+    p.add_argument("--events", type=Path, default=None,
+                   help="with --paths: append scene-change events (birth / death / jump / "
+                        "LoS handover) to this JSONL file as the capture's sweeps close")
+    mh = p.add_argument_group("multi-host", "parsed, not ported yet")
+    mh.add_argument("--coordinator", type=str, default=None)
+    mh.add_argument("--num-processes", type=int, default=None)
+    mh.add_argument("--process-id", type=int, default=None)
+    mh.add_argument("--local-devices", type=int, default=None)
+    _add_change_args(p, gate="--paths")
+    _add_device(p)
+    p.set_defaults(fn=_run_watch)
+
+
+def check_watch_flags(args) -> None:
+    """The JAX CLI's flag checks, in its order; a multi-stream or
+    multi-host watch exits naming the ROADMAP item."""
+    if (args.log is None) == (args.logs is None):
+        raise SystemExit("watch needs exactly one of --log / --logs")
+    if args.checkpoint_every and not args.checkpoint:
+        raise SystemExit("--checkpoint-every requires --checkpoint (no state file to write to)")
+    if args.emit_capacity is not None and args.emit_capacity <= 0:
+        raise SystemExit("--emit-capacity must be a positive row count")
+    if args.coordinator is not None or args.local_devices is not None:
+        raise SystemExit(f"multi-host watch (--coordinator / --local-devices) "
+                         f"{MULTI_STREAM_LATER}")
+    if args.num_processes is not None or args.process_id is not None:
+        raise SystemExit("--num-processes/--process-id require --coordinator (multi-host "
+                         "watch mode)")
+    if args.logs is not None:
+        if len(args.logs) != 1:
+            raise SystemExit(f"watch --logs with {len(args.logs)} files {MULTI_STREAM_LATER}")
+        args.log = args.logs[0]
+    if args.events is not None and not args.paths and not (
+            args.checkpoint and args.checkpoint.exists()):
+        # With a checkpoint to restore, its state decides whether there are
+        # online paths (_reconcile_paths_flag).
+        raise SystemExit("--events requires --paths (the events derive from the online "
+                         "tracks)")
+
+
+class Watch:
+    """``watch --log``'s state and steps: open (or restore) the session,
+    ``run`` the poll loop to its end (finalized, checkpointed, the last
+    events written), ``session.render``, then ``export``; ``_run_watch``
+    adds the PNG and the summary line."""
+
+    def __init__(self, args):
+        from slam_process_tpu_torch.parallel.streaming_device import make_paths_spec
+
+        self.args = args
+        args.outdir.mkdir(parents=True, exist_ok=True)
+        self.name = extract_timestamp(str(args.log)) or args.log.stem
+        if args.changes and not args.paths:
+            print("warning: --changes requires --paths; no change events will be written",
+                  file=sys.stderr)
+        self.pos, self.text_carry = 0, b""
+        self.fed_tokens = self.events_written = 0
+        self.completed = restored = False
+        if args.engine == "device":
+            from slam_process_tpu_torch.parallel.streaming_device import (
+                DeviceStreamingSession as Sess)
+        else:
+            from slam_process_tpu_torch.parallel.streaming import StreamingSession as Sess
+        if args.checkpoint and args.checkpoint.exists():
+            # The checkpoint holds the session and this loop's cursor (file
+            # offset and the tokenizer's text carry).  A checkpoint of the
+            # other engine raises the restore's kind-mismatch error.
+            s = (Sess.restore(args.checkpoint, device=args.device) if args.engine == "device"
+                 else Sess.restore(args.checkpoint))
+            restored = True
+            self.completed = s._finalized
+            if self.completed:
+                # A crash after the finalize (while exporting) must not
+                # strand the capture's state: re-export from the checkpoint.
+                print(f"{args.checkpoint} is from a COMPLETED watch; re-exporting its "
+                      "results", file=sys.stderr)
+            args.paths = _reconcile_paths_flag(args, s)
+            if args.engine == "device" and not s.collect_filtered:
+                raise SystemExit(f"{args.checkpoint} was created without collect_filtered; "
+                                 "watch needs the emit ring to export the filtered table")
+            if (args.emit_capacity is not None and args.engine == "device"
+                    and s._ecap != args.emit_capacity):
+                print(f"warning: --emit-capacity {args.emit_capacity} ignored — the "
+                      f"checkpoint's ring capacity ({s._ecap}) wins on resume", file=sys.stderr)
+            cursor = s.checkpoint_extra or {}
+            self.pos = int(cursor.get("pos", 0))
+            self.text_carry = bytes(cursor.get("text_carry", b""))
+            print(f"resumed from {args.checkpoint} at byte {self.pos}", file=sys.stderr)
+        else:
+            cp = make_paths_spec(args.mapping) if args.paths else None
+            # Unknown final size: the device ring grows as bytes arrive
+            # unless --emit-capacity pins it.
+            s = (Sess(collect_filtered=True, collect_paths=cp,
+                      emit_capacity=args.emit_capacity, device=args.device)
+                 if args.engine == "device" else Sess(collect_paths=cp))
+        self.session = s
+        self.emitter = None
+        if args.events is not None and args.paths:
+            args.events.parent.mkdir(parents=True, exist_ok=True)
+            self.emitter = _make_event_emitter(args, s, seeded=restored)
+        elif args.events is not None:
+            # Only when a restored checkpoint had no online paths.
+            print("warning: --events ignored — the restored checkpoint was created without "
+                  "online estimation", file=sys.stderr)
+
+    def save_checkpoint(self) -> None:
+        if self.args.checkpoint:
+            self.session.save_checkpoint(self.args.checkpoint, extra={
+                "pos": self.pos, "text_carry": self.text_carry})
+
+    def _feed(self, tokens) -> None:
+        if len(tokens):
+            self.session.feed(tokens)
+            self.fed_tokens += len(tokens)
+            if self.emitter:
+                self.events_written += self.emitter()
+
+    def _read_growth(self):
+        """The bytes the capture wrote since the last poll; None when it did
+        not grow (or was rotated away between the size poll and the read)."""
+        try:
+            size = os.path.getsize(self.args.log)
+        except OSError:
+            return None
+        if size <= self.pos:
+            return None
+        try:
+            with open(self.args.log, "rb") as f:
+                f.seek(self.pos)
+                data = f.read(size - self.pos)
+        except OSError:
+            return None
+        self.pos = size
+        return data
+
+    def poll(self) -> bool:
+        """One poll: tokenize what the capture wrote since the last one (a
+        token cut at the end waits in the text carry) and feed it, with the
+        events of the sweeps it closed; False when the file did not grow."""
+        from slam_process_tpu_torch.io.hexlog import tokenize_hex
+
+        data = self._read_growth()
+        if data is None:
+            return False
+        prefix, self.text_carry = _split_text_carry(self.text_carry + data)
+        if prefix is not None:
+            self._feed(tokenize_hex(prefix))
+        return True
+
+    def run(self) -> None:
+        """Poll until the idle timeout (or an interrupt), then feed the
+        tokenizer's tail, finalize, checkpoint and write the last events."""
+        import time
+
+        from slam_process_tpu_torch.io.hexlog import tokenize_hex
+
+        args = self.args
+        last_growth = last_render = last_ckpt = time.monotonic()
+        try:
+            while not self.completed:
+                now = time.monotonic()
+                if self.poll():
+                    last_growth = now
+                elif args.idle_timeout and now - last_growth > args.idle_timeout:
+                    break
+                if args.render_every and now - last_render >= args.render_every:
+                    self.write_png()
+                    last_render = now
+                if args.checkpoint_every and now - last_ckpt >= args.checkpoint_every:
+                    self.save_checkpoint()
+                    last_ckpt = now
+                time.sleep(args.poll_interval)
+        except KeyboardInterrupt:
+            pass
+        if not self.completed:
+            tokens = tokenize_hex(bytes(self.text_carry))
+            if len(tokens):
+                self._feed(tokens)
+                self.text_carry = b""
+            self.session.finalize()
+            self.save_checkpoint()
+        if self.emitter:
+            self.events_written += self.emitter()   # the sweep the flush closed
+
+    def png_path(self) -> Path:
+        return self.args.outdir / f"{self.name}_watch.png"
+
+    def write_png(self, rendered=None) -> Path:
+        from slam_process_tpu_torch.io.angles import load_angle_lut
+
+        if rendered is None:
+            rendered = self.session.render(load_angle_lut(self.args.mapping))
+        return _save_stream_png(rendered, self.png_path(), f"live watch ({self.name})")
+
+    def export(self) -> dict:
+        """Write the filtered table (and with --paths the tracks and
+        changes); returns the summary line."""
+        from slam_process_tpu_torch.io.schemas import write_filtered_table
+
+        s = self.session
+        write_filtered_table(self.args.outdir / f"{self.name}_filtered.xlsx", s.filtered)
+        if self.args.paths:
+            _export_stream_tracks(s, self.name, self.args)
+        summary = {"session": self.name, "bytes_seen": self.pos, "tokens": self.fed_tokens,
+                   "frames": int(s.n_frames), "kept": int(s.n_kept),
+                   "sweeps": int(s.n_groups), "png": str(self.png_path())}
+        if self.emitter:
+            summary["events"] = self.events_written
+        return summary
+
+
+def _run_watch(args):
+    check_watch_flags(args)
+    w = Watch(args)
+    w.run()
+    w.write_png()
+    print(json.dumps(w.export()))
+
+
+# -- run-config ---------------------------------------------------------------
+
+
+def _add_run_config(sub):
+    from slam_process_tpu_torch.pipeline.configs import NAMED_CONFIGS
+
+    p = sub.add_parser("run-config", help="run one of the five named benchmark configs")
+    p.add_argument("name", choices=list(NAMED_CONFIGS))
+    p.add_argument("--data-dir", type=Path, default=None)
+    p.add_argument("--mapping", type=Path, default=None)
+    p.add_argument("--outdir", type=Path, default=None)
+    _add_device(p)
+    p.set_defaults(fn=_run_named_config)
+
+
+def _run_named_config(args):
+    from slam_process_tpu_torch.pipeline.configs import run_named_config
+
+    result = run_named_config(args.name, args.data_dir, args.mapping, args.outdir,
+                              device=args.device)
+    print(json.dumps(result, default=str))
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="slam_process_tpu_torch",
                                      description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for add in (_add_decode, _add_correct, _add_heatmap, _add_session, _add_estimate):
+    for add in (_add_decode, _add_correct, _add_heatmap, _add_session, _add_estimate,
+                _add_replay, _add_watch, _add_run_config):
         add(sub)
     return parser
 

@@ -1,7 +1,7 @@
 """Session timestamps from file names, and CLK sweep-anchor unwrapping.
 
-A copy of ``slam_process_tpu/utils/timestamps.py``'s ``extract_timestamp``
-and ``unwrap_clk_anchors``.  File names look like
+A copy of ``slam_process_tpu/utils/timestamps.py``'s ``extract_timestamp``,
+``unwrap_clk_anchors`` and ``ClkUnwrapper``.  File names look like
 ``Serial Debug 2026-01-26 164520_filtered.xlsx`` -> ``2026-01-26 164520``.
 """
 
@@ -51,3 +51,33 @@ def unwrap_clk_anchors(times, logger=None) -> np.ndarray:
         wraps = np.cumsum(np.concatenate([[0], wrap]))
         times[obs] = t + (wraps.astype(np.int64) << 30)
     return times
+
+
+class ClkUnwrapper:
+    """``unwrap_clk_anchors`` one anchor at a time: ``push`` returns the
+    unwrapped value at once.
+
+    The batch helper is prefix-stable (each output depends only on earlier
+    anchors), so the pushed sequence equals ``unwrap_clk_anchors`` of all
+    the anchors element for element; the live ``watch --events`` feed
+    stamps its events with it.  ``odd`` counts the non-wrap decreases (the
+    batch helper's warning condition).
+    """
+
+    def __init__(self) -> None:
+        self._last_raw = -1
+        self._wraps = 0
+        self.odd = 0
+
+    def push(self, raw) -> int:
+        raw = int(raw)
+        if raw < 0:
+            return -1
+        if self._last_raw >= 0:
+            d = raw - self._last_raw
+            if d < 0 and -d > (1 << 29):
+                self._wraps += 1
+            elif d < 0:
+                self.odd += 1
+        self._last_raw = raw
+        return raw + (self._wraps << 30)

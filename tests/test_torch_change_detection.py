@@ -6,17 +6,23 @@ with births, deaths, jumps past ``jump_deg`` and LoS handovers go through
 ``detect_scene_changes_np`` and ``scene_change_events`` of both packages:
 every mask and the event table equal exactly, at several (min_persist,
 min_gone, jump_deg).  Zero sweeps give no events.  ``Session.scene_changes``
-on a synthetic multipath session (the CPU) equals the JAX package's.
+on a synthetic multipath session (the CPU) equals the JAX package's.  The
+live feed's pieces: ``IncrementalChangeDetector`` fed one column at a time
+equals the JAX package's row for row and the batch table, and
+``ClkUnwrapper`` pushed one anchor at a time equals ``unwrap_clk_anchors``
+and the JAX package's, with the same count of non-wrap decreases.
 """
 
 import numpy as np
 import pytest
 
 from slam_process_tpu.models import change_detection as jax_cd
+from slam_process_tpu.utils import timestamps as jax_ts
 from slam_process_tpu.pipeline.session import Session as JaxSession
 from slam_process_tpu_torch.models import change_detection
 from slam_process_tpu_torch.models.tracking import Tracks
 from slam_process_tpu_torch.pipeline.session import Session
+from slam_process_tpu_torch.utils.timestamps import ClkUnwrapper, unwrap_clk_anchors
 from slam_process_tpu_torch.utils.synthetic import (
     synthetic_session_bytes, to_hex_text, write_angle_table)
 
@@ -107,3 +113,62 @@ def test_session_scene_changes_match_jax(tmp_path):
     # column within rtol 2e-4, every other column exactly.
     np.testing.assert_array_equal(ev[:, :6], j_ev[:, :6])
     np.testing.assert_allclose(ev[:, 6], j_ev[:, 6], rtol=2e-4)
+
+
+@pytest.mark.parametrize("params", [(3, 3, 5.0), (2, 2, 4.0), (1, 5, 2.5), (4, 1, 8.0)],
+                         ids=lambda p: "persist{}_gone{}_jump{}".format(*p))
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_incremental_detector_matches_jax_and_batch(seed, params):
+    tracks = seeded_tracks(seed)
+    mp, mg, jd = params
+    times = np.cumsum(np.random.default_rng(seed).integers(50_000, 70_000,
+                                                           tracks.observed.shape[1]))
+    kw = dict(min_persist=mp, min_gone=mg, jump_deg=jd)
+    ours = change_detection.IncrementalChangeDetector(tracks.observed.shape[0], **kw)
+    ref = jax_cd.IncrementalChangeDetector(tracks.observed.shape[0], **kw)
+    rows = []
+    for s in range(tracks.observed.shape[1]):
+        col = (tracks.pos_aoa[:, s], tracks.pos_aod[:, s], tracks.power[:, s],
+               tracks.observed[:, s] & tracks.created, times[s])
+        got, want = ours.step(*col), ref.step(*col)
+        assert got.dtype == want.dtype == np.float64
+        np.testing.assert_array_equal(got, want)
+        rows.append(got)
+    assert ours.n_sweeps == tracks.observed.shape[1]
+    batch = change_detection.scene_change_events(
+        change_detection.detect_scene_changes_np(tracks, **kw), tracks, times)
+    np.testing.assert_array_equal(np.concatenate(rows), batch)
+    assert len(batch) > 0
+
+
+def test_incremental_detector_keeps_the_jump_literal():
+    """The jump threshold is float32(jump_deg) ** 2, as the batch detector
+    squares it: a displacement at that value is not a jump."""
+    det = change_detection.IncrementalChangeDetector(1, min_persist=1, min_gone=9,
+                                                     jump_deg=0.3)
+    on = np.ones(1, bool)
+    det.step([0.0], [0.0], [1.0], on, 0)
+    j2 = np.float32(0.3) ** 2
+    step = np.sqrt(j2, dtype=np.float32)
+    ev = det.step([step], [0.0], [1.0], on, 1)
+    assert np.float32(step) * np.float32(step) <= j2 and len(ev) == 0
+    ev = det.step([2 * step + np.float32(0.01)], [0.0], [1.0], on, 2)
+    assert ev[:, 2].tolist() == [2.0]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_clk_unwrapper_matches_batch_and_jax(seed):
+    """Anchors with wraps (drops past 2^29), small decreases (resets) and
+    empty sweeps (-1)."""
+    rng = np.random.default_rng(seed)
+    steps = rng.integers(40_000, 80_000, 60)
+    steps[rng.random(60) < 0.1] = -int(rng.integers(1, 1 << 16))        # a reset
+    raw = (np.cumsum(steps) + (1 << 30) - int(rng.integers(1, 500_000))) % (1 << 30)
+    raw[rng.random(60) < 0.15] = -1
+    ours, ref = ClkUnwrapper(), jax_ts.ClkUnwrapper()
+    got = [ours.push(t) for t in raw]
+    assert got == [ref.push(t) for t in raw]
+    np.testing.assert_array_equal(got, unwrap_clk_anchors(raw))
+    np.testing.assert_array_equal(got, jax_ts.unwrap_clk_anchors(raw))
+    assert ours.odd == ref.odd > 0
+    assert max(got) >= 1 << 30                    # the counter wrapped

@@ -661,3 +661,142 @@ def test_rbf_background_on_card_matches_numpy(estimator_session):
     gx, gy, heat = rbf_background(matrix, ue, bs, smooth=0.1)
     want = rbf_interpolate_grid(bs, ue, matrix, gx, gy, smooth=0.1)
     assert np.abs(heat - want).max() <= 1e-6 * np.ptp(want)
+
+
+def assert_rendered_close(got, want):
+    """Two ``RenderedHeatmap`` of one grid, card against CPU: blurred
+    bit-equal, norm_t within 1e-4, LUT-bin flips under 0.1 %."""
+    assert got.norm_t.shape == want.norm_t.shape
+    assert (np.isnan(got.blurred) == np.isnan(want.blurred)).all()
+    np.testing.assert_array_equal(np.nan_to_num(got.blurred), np.nan_to_num(want.blurred))
+    assert (np.isnan(got.norm_t) == np.isnan(want.norm_t)).all()
+    fin = ~np.isnan(want.norm_t)
+    assert fin.any() and np.abs(got.norm_t[fin] - want.norm_t[fin]).max() <= 1e-4
+    flips = (np.clip((np.nan_to_num(got.norm_t) * 256).astype(int), 0, 255)
+             != np.clip((np.nan_to_num(want.norm_t) * 256).astype(int), 0, 255)).mean()
+    assert flips < 1e-3
+    np.testing.assert_array_equal(got.aod_angles, want.aod_angles)
+
+
+def stream_files(tmp_path):
+    from slam_process_tpu_torch.utils.synthetic import to_hex_text, write_angle_table
+
+    log = tmp_path / "live.txt"
+    log.write_bytes(to_hex_text(synthetic_session_bytes(
+        n_groups=5, frames_per_beam=8, baselines_per_group=9, junk_frac=0.05, seed=3,
+        n_paths=3)))
+    return log, write_angle_table(tmp_path / "angles.xlsx")
+
+
+def test_stream_render_on_card_matches_cpu(tmp_path):
+    """``DeviceStreamingSession.render()`` launches K3 once on the card and
+    equals the CPU stream's render; the host engine's render equals the
+    CPU's."""
+    from slam_process_tpu_torch.io import read_hex_log
+    from slam_process_tpu_torch.io.angles import load_angle_lut
+    from slam_process_tpu_torch.parallel.streaming import replay_log
+    from slam_process_tpu_torch.parallel.streaming_device import replay_log_device
+
+    log, angles = stream_files(tmp_path)
+    raw, lut = read_hex_log(log), load_angle_lut(angles)
+    s = replay_log_device(raw, chunk_bytes=1 << 13, collect_filtered=True)
+    cuda_raster.LAUNCHES = 0
+    got = s.render(lut)
+    assert cuda_raster.LAUNCHES == 1
+    want = replay_log_device(raw, chunk_bytes=1 << 13, device="cpu").render(lut)
+    assert_rendered_close(got, want)
+    host = replay_log(raw, chunk_bytes=1 << 13).render(lut)
+    np.testing.assert_array_equal(host.norm_t, want.norm_t)
+
+
+def test_replay_steps_on_card_match_cpu(tmp_path):
+    """``replay``'s steps (the stream, ``render()``, the exports) on the card
+    against ``--device cpu`` and the host engine: the xlsx sheet XML byte for
+    byte, the stats equal; K1, K2, K3, K4, K5 and K6 launch."""
+    import zipfile
+
+    from slam_process_tpu_torch.io.angles import load_angle_lut
+    from slam_process_tpu_torch.pipeline import cli
+
+    log, angles = stream_files(tmp_path)
+    kernels = (cuda_decode, cuda_correct, cuda_raster, cuda_sweep_sums, cuda_compact,
+               cuda_tracker)
+    out = {}
+    for tag, extra in (("cuda", []), ("cpu", ["--device", "cpu"]),
+                       ("host", ["--engine", "host"])):
+        args = cli.build_parser().parse_args(
+            ["replay", "--logs", str(log), "--mapping", str(angles), "--outdir",
+             str(tmp_path / tag), "--paths", "--changes", "--chunk-bytes", "4096", *extra])
+        args.outdir.mkdir()
+        for m in kernels:
+            m.LAUNCHES = 0
+        name, s, seconds = cli.replay_stream(args, log)
+        rendered = s.render(load_angle_lut(angles))
+        stats = cli.replay_exports(args, s, name, seconds)
+        stats.pop("frames_per_sec")
+        if tag == "cuda":
+            assert min(m.LAUNCHES for m in kernels) > 0, [m.LAUNCHES for m in kernels]
+        out[tag] = (stats, rendered)
+    for tag in ("cpu", "host"):
+        assert out[tag][0] == out["cuda"][0]
+        assert_rendered_close(out["cuda"][1], out[tag][1])
+        with zipfile.ZipFile(tmp_path / "cuda" / "live_filtered.xlsx") as a, \
+                zipfile.ZipFile(tmp_path / tag / "live_filtered.xlsx") as b:
+            assert a.read("xl/worksheets/sheet1.xml") == b.read("xl/worksheets/sheet1.xml")
+
+
+def test_watch_with_checkpoint_resume_on_card(tmp_path):
+    """A ``watch`` on the card over a file that stops halfway, then a second
+    watch resumed from its checkpoint after the file is finished (the
+    first run's checkpoint is finalized, so the resume runs from a copy
+    saved mid-stream): tables and events equal an uninterrupted watch of
+    the finished file on the card and with ``--device cpu``."""
+    import json
+    import shutil
+
+    from slam_process_tpu_torch.pipeline import cli
+
+    log, angles = stream_files(tmp_path)
+    text = log.read_bytes()
+
+    def watch(tag, path, *extra):
+        args = cli.build_parser().parse_args(
+            ["watch", "--log", str(path), "--mapping", str(angles), "--outdir",
+             str(tmp_path / tag), "--paths", "--changes", "--min-persist", "1", "--min-gone",
+             "1", "--events", str(tmp_path / f"{tag}.jsonl"), "--poll-interval", "0.01",
+             "--idle-timeout", "0.2", *extra])
+        cli.check_watch_flags(args)
+        w = cli.Watch(args)
+        return w, args
+
+    # Half the file, then a checkpoint taken before the finalize.
+    (tmp_path / "half").mkdir()
+    half = tmp_path / "half" / "live.txt"
+    half.write_bytes(text[:len(text) // 2])
+    w, args = watch("first", half, "--checkpoint", str(tmp_path / "first.ckpt"))
+    finalize = w.session.finalize
+    w.session.finalize = lambda: (w.save_checkpoint(), shutil.copy(
+        tmp_path / "first.ckpt", tmp_path / "mid.ckpt"), shutil.copy(
+        tmp_path / "first.jsonl", tmp_path / "resumed.jsonl"), finalize())
+    w.run()
+    shutil.copy(log, half)
+    r, _ = watch("resumed", half, "--checkpoint", str(tmp_path / "mid.ckpt"))
+    r.run()
+    r.export()
+    u, _ = watch("whole", log)
+    u.run()
+    u.export()
+    c, _ = watch("cpu", log, "--device", "cpu")
+    c.run()
+    c.export()
+    ev = {tag: [json.loads(ln) for ln in (tmp_path / f"{tag}.jsonl").read_text().splitlines()]
+          for tag in ("resumed", "whole", "cpu")}
+    assert ev["resumed"] == ev["whole"] and len(ev["whole"]) > 0
+    assert [{k: v for k, v in e.items() if k != "power"} for e in ev["cpu"]] == [
+        {k: v for k, v in e.items() if k != "power"} for e in ev["whole"]]
+    np.testing.assert_allclose([e["power"] for e in ev["cpu"]],
+                               [e["power"] for e in ev["whole"]], rtol=2e-4)
+    for tag in ("resumed", "cpu"):
+        assert r.session.n_frames == u.session.n_frames == c.session.n_frames
+        np.testing.assert_array_equal(getattr(r if tag == "resumed" else c, "session").filtered,
+                                      u.session.filtered)

@@ -8,7 +8,10 @@
     only inside function bodies of ``render/*.py``, never at module level
     and never in ``chip_smoke.py``; so importing every module loads none.
   * Entry points take ``device=None`` meaning CUDA, and raise when there is
-    no CUDA device instead of moving to the CPU.
+    no CUDA device instead of moving to the CPU; the streaming commands
+    (``replay``, ``watch``, ``run-config``) too, at their default
+    ``--device``.  The host streaming engine (``--engine host``) makes no
+    ``torch.cuda`` call at all.
   * The kernel wrappers launch or raise: a CPU tensor handed to one raises.
 """
 
@@ -181,6 +184,77 @@ def test_entry_points_need_cuda_without_falling_back(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert len(run_estimator("nn_omp", s, angles, device="cpu", grid_res=2.0)) > 0
+
+
+def stream_inputs(tmp_path):
+    """A multipath log, a data directory holding it, and the angle table."""
+    from slam_process_tpu_torch.utils.synthetic import (
+        synthetic_session_bytes, to_hex_text, write_angle_table)
+
+    (tmp_path / "data").mkdir()
+    log = tmp_path / "data" / "live.txt"
+    log.write_bytes(to_hex_text(synthetic_session_bytes(
+        n_groups=3, frames_per_beam=2, baselines_per_group=3, seed=2, n_paths=3)))
+    return log, write_angle_table(tmp_path / "angles.xlsx")
+
+
+def test_stream_commands_need_cuda_without_falling_back(monkeypatch, tmp_path):
+    from slam_process_tpu_torch.io import read_hex_log
+    from slam_process_tpu_torch.parallel.streaming_device import DeviceStreamingSession
+    from slam_process_tpu_torch.pipeline import cli
+
+    log, angles = stream_inputs(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    common = ["--mapping", str(angles), "--outdir", str(tmp_path / "out")]
+    s = DeviceStreamingSession(device="cpu", collect_filtered=True)
+    s.feed(read_hex_log(log)[:3000])
+    s.save_checkpoint(tmp_path / "device.ckpt")
+    for argv in (["replay", "--logs", str(log), *common],
+                 ["replay", "--logs", str(log), "--paths", *common],
+                 ["watch", "--log", str(log), "--idle-timeout", "0.1", *common],
+                 ["watch", "--log", str(log), "--checkpoint", str(tmp_path / "device.ckpt"),
+                  *common],
+                 *(["run-config", name, "--data-dir", str(tmp_path / "data"), "--mapping",
+                    str(angles), "--outdir", str(tmp_path / "cfg")]
+                   for name in ("serial_hex_to_excel_v3", "bs_beam_correction",
+                                "batched_session", "streaming_replay"))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(argv)
+    assert not (tmp_path / "out" / "live_filtered.xlsx").exists()
+
+
+def test_host_engine_makes_no_cuda_call(monkeypatch, tmp_path):
+    """``replay`` / ``watch --engine host`` (at the default ``--device
+    cuda``) and the host session's readers, checkpoint and ``render()``
+    with every ``torch.cuda`` entry point raising."""
+    from slam_process_tpu_torch.io import read_hex_log
+    from slam_process_tpu_torch.io.angles import load_angle_lut
+    from slam_process_tpu_torch.parallel.streaming import StreamingSession, replay_log
+    from slam_process_tpu_torch.parallel.streaming_device import make_paths_spec
+    from slam_process_tpu_torch.pipeline import cli
+
+    log, angles = stream_inputs(tmp_path)
+    spec = make_paths_spec(angles, grid_res=2.0)
+
+    def forbidden(*a, **k):
+        raise AssertionError("the host engine called torch.cuda")
+
+    for name in ("is_available", "device_count", "synchronize", "current_stream", "device",
+                 "init", "_lazy_init", "get_device_name", "set_device", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, forbidden)
+    common = ["--mapping", str(angles), "--engine", "host", "--paths", "--changes"]
+    assert cli.main(["replay", "--logs", str(log), "--outdir", str(tmp_path / "r"),
+                     *common]) == 0
+    assert cli.main(["watch", "--log", str(log), "--outdir", str(tmp_path / "w"),
+                     "--idle-timeout", "0.1", "--poll-interval", "0.02", "--events",
+                     str(tmp_path / "e.jsonl"), "--checkpoint", str(tmp_path / "h.ckpt"),
+                     *common]) == 0
+    assert (tmp_path / "w" / "live_stream_tracks.xlsx").exists()
+    s = replay_log(read_hex_log(log), collect_paths=spec)
+    s.save_checkpoint(tmp_path / "s.ckpt")
+    r = StreamingSession.restore(tmp_path / "s.ckpt")
+    assert r.path_tracks()[0].n_tracks >= 0 and len(r.sweep_times()) == r.n_sweeps_closed
+    assert r.render(load_angle_lut(angles)).rgba.shape[2] == 4
 
 
 def test_path_tracks_defaults_to_the_device_tracker(monkeypatch, tmp_path):
