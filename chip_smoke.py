@@ -178,7 +178,38 @@ Phases, each printing one JSON line:
                 results equal apart from their timings, the Parsed xlsx
                 byte for byte.  (The other two configs draw PNGs; the CPU
                 tests run them.)
- 12. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
+ 12. ingest     the text path: the full session and the 19 dataset-scale
+                sessions written in the shipped stride-3 layout (one "XX "
+                stream behind the guillemet marker) give the written bytes
+                from ``read_hex_log(engine="native")``, from numpy and from
+                the card's ``ops/tokenize.tokenize_stride3`` (proof flag
+                True), the reference tokenizer on the full session once;
+                ``run_session_from_text`` on the card equals
+                ``run_session_on_device(read_hex_log(...))`` on the card in
+                every field, the raster bit-equal; three logs in the CRLF
+                layout take the host fallback with equal outputs; K1-K3
+                counted.  Host ms of each tokenizer per layout (median of
+                7), the card's tokenize ms (CUDA events, median of 20) and
+                device activities, the text path against ``Session.from_log``
+                (host ms, median of 7), the host CPU's model and flags.
+ 13. prelog     the pre-log scene: ``run_session_on_device(
+                log_transform_scene=True)`` on the card against
+                ``device="cpu"`` (integer fields exactly, means within one
+                float32 ulp) and the float64 oracle ``intensity_grid_np``
+                (counts equal, means within rtol 1e-6); a pre-log live feed
+                of the multipath log in 64 KiB chunks (``collect_filtered``)
+                against the offline filtered rows and the oracle, and the
+                same stream resumed from a checkpoint.
+ 14. sm_sic     ``run_estimator("sm_sic")`` on the card against
+                ``engine="host"`` and ``device="cpu"`` (peaks equal, metric
+                within rtol 1e-6); ``sweep_paths(estimator="sm_sic")`` and
+                its ``path_tracks`` against ``device="cpu"`` on three
+                sessions; ``sweep_paths_dataset`` (NN-OMP) over phase 5's 21
+                sessions against their phase-5 results exactly; an SM-SIC
+                stream of the multipath log in 64 KiB chunks against the
+                offline ``sweep_paths`` / ``path_tracks(beam_ids=...)`` on the
+                card exactly.
+ 15. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
                 (K1, K4, K5, K6 through their wrappers, K1 also as the bare
                 launch; K2, K3 as the bare launch, K3 also with vmin /
                 vmax), its plain version on the
@@ -196,7 +227,7 @@ Phases, each printing one JSON line:
                 ``torch.profiler``: the device's busy time, its share, the top
                 ops, and the estimator's host syncs.
 
-Every kernel's launches are counted on each path (phases 4 to 11,
+Every kernel's launches are counted on each path (phases 4 to 14,
 the counters set to 0 just before and read just after), reported in the
 ``kernels`` line as ``launches_by_path``; ``launches`` is the count on the
 kernel's own path.  Then the ``bounds`` and ``kernels`` JSON lines, and as
@@ -208,6 +239,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -589,14 +621,10 @@ def run(tmp: Path) -> None:
             fail(f"{name}: no frame was corrected")
 
     out_cpu = run_session_on_device(raw_full, device="cpu", count_discards=True)
-    for field in out_full._fields:
-        a, b = getattr(out_full, field).cpu(), getattr(out_cpu, field)
-        if field in ("rgba", "blurred", "norm_t"):
-            continue
-        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
-                torch.nan_to_num(a, nan=-1.0) if a.is_floating_point() else a,
-                torch.nan_to_num(b, nan=-1.0) if b.is_floating_point() else b):
-            fail(f"full session: {field} differs between cuda and cpu")
+    bad = outputs_differ(torch, out_full, out_cpu, [f for f in out_full._fields
+                                                    if f not in ("rgba", "blurred", "norm_t")])
+    if bad:
+        fail(f"full session: {bad} differ between cuda and cpu")
     raster_close("pipeline", "full_cuda_vs_cpu",
                  tuple(getattr(out_full, f).cpu()[None] for f in ("rgba", "norm_t", "blurred")),
                  tuple(getattr(out_cpu, f)[None] for f in ("rgba", "norm_t", "blurred")),
@@ -702,7 +730,32 @@ def run(tmp: Path) -> None:
     emit({"phase": "run_config", "seconds": time.perf_counter() - t0,
           "launches": by_path["run_config"], **cfg_out})
 
-    # -- 12. timing --------------------------------------------------------------
+    # -- 12. ingest: the text path and the host tokenizers ---------------------------
+    t0 = time.perf_counter()
+    ing_out = ingest_phase(np, torch, tmp, [raws[0]] + raws[DS], [paths[0]] + paths[DS],
+                           zero_counts, read_counts, dev)
+    by_path["ingest"] = ing_out.pop("launches")
+    print(smi, flush=True)
+    emit({"phase": "ingest", "seconds": time.perf_counter() - t0, "launches": by_path["ingest"],
+          **ing_out})
+
+    # -- 13. prelog: the pre-log scene on the session and the live feed ------------
+    t0 = time.perf_counter()
+    pre_out = prelog_phase(np, torch, sd, tmp, raw_full, sessions[0].filtered, raws[MP],
+                           sessions[MP].filtered, zero_counts, read_counts, dev)
+    by_path["prelog"] = pre_out.pop("launches")
+    emit({"phase": "prelog", "seconds": time.perf_counter() - t0, "launches": by_path["prelog"],
+          **pre_out})
+
+    # -- 14. sm_sic: SM-SIC, the dataset's per-sweep paths, an SM-SIC stream ------
+    t0 = time.perf_counter()
+    sm_out = sm_sic_phase(np, torch, sd, sessions, results, angles, raws[MP], zero_counts,
+                          read_counts, dev)
+    by_path["sm_sic"] = sm_out.pop("launches")
+    emit({"phase": "sm_sic", "seconds": time.perf_counter() - t0, "launches": by_path["sm_sic"],
+          **sm_out})
+
+    # -- 15. timing --------------------------------------------------------------
     def cuda_ms(fn, inner=1, primed=True):
         """Median ms per call over N_TIMED event-timed runs of ``inner``
         calls.  ``primed``: a ~20 ms device sleep queued first lets the
@@ -1894,6 +1947,376 @@ def run_config_phase(np, tmp, ds_logs, angles, zero_counts, read_counts) -> dict
         fail("run_config: the Parsed xlsx differs between the card and --device cpu")
     return {"launches": launches, "results_cuda": got, "results_cpu": want,
             "xlsx_equal_cpu": parsed}
+
+
+def outputs_differ(torch, a, b, fields=None):
+    """Names of the pipeline output fields (``DeviceSessionOut``) that
+    differ between ``a`` and ``b``: dtype, shape, NaN pattern and every
+    value, floats bit for bit."""
+    bad = []
+    for name in fields or b._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if x is None or y is None:
+            if x is not y:
+                bad.append(name)
+            continue
+        x, y = x.cpu(), y.cpu()
+        if x.dtype != y.dtype or x.shape != y.shape:
+            bad.append(name)
+        elif x.is_floating_point():
+            if not (torch.equal(torch.isnan(x), torch.isnan(y))
+                    and torch.equal(x.nan_to_num(0.0), y.nan_to_num(0.0))):
+                bad.append(name)
+        elif not torch.equal(x, y):
+            bad.append(name)
+    return bad
+
+
+def host_cpu() -> dict:
+    """The host CPU as ``/proc/cpuinfo`` names it (the model name, or
+    vendor, family and model where the file has no name) and
+    whether it has AVX-512 BW and VBMI, which the native scanner's block
+    path needs."""
+    from slam_process_tpu_torch.runtime import hexscan
+
+    info = hexscan.cpu_info()
+    flags = info.get("flags", "").split()
+    model = info.get("model name") or " ".join(
+        f"{k}={info[k]}" for k in ("vendor_id", "cpu family", "model") if k in info)
+    return {"model": model or "unknown", "avx512vbmi": "avx512vbmi" in flags,
+            "avx512bw": "avx512bw" in flags, "cores": len(os.sched_getaffinity(0))}
+
+
+INGEST_HOST_RUNS = 7                 # host-timed runs per median in the ingest phase
+
+
+def ingest_phase(np, torch, tmp, raws, crlf_logs, zero_counts, read_counts, dev) -> dict:
+    """The text ingest on the card: each log of ``raws`` (the full session
+    and the 19 dataset sessions) written in the shipped stride-3 layout must
+    give the same bytes from the native scanner, numpy and the card's
+    ``tokenize_stride3`` (its proof flag True), the reference tokenizer on
+    the full session once; ``run_session_from_text`` on the card must equal
+    ``run_session_on_device(read_hex_log(...))`` on the card in every field,
+    the raster bit-equal; the CRLF layout (``crlf_logs``) takes the host
+    fallback with equal outputs.  Then the tokenizers' host ms per engine
+    and layout, the card's tokenize ms and device activities, and the text
+    path against ``Session.from_log``."""
+    from slam_process_tpu_torch.io import hexlog
+    from slam_process_tpu_torch.ops.tokenize import (
+        prepare_text, stride3_offset, text_bucket, tokenize_stride3)
+    from slam_process_tpu_torch.pipeline.device import (
+        run_session_from_text, run_session_on_device)
+    from slam_process_tpu_torch.pipeline.session import Session
+    from slam_process_tpu_torch.runtime import hexscan
+    from slam_process_tpu_torch.utils.synthetic import to_hex_text
+
+    t_build = time.perf_counter()
+    if not hexscan.available():
+        fail("ingest: the native hex scanner does not build on this host")
+    build_s = time.perf_counter() - t_build
+    logs = []
+    for i, raw in enumerate(raws):
+        path = tmp / f"shipped_{i:02d}.txt"
+        path.write_bytes(to_hex_text(raw, "shipped"))
+        logs.append(path)
+
+    def card_tokens(text):
+        p = stride3_offset(text)
+        body, n_text = prepare_text(text, p, text_bucket(len(text) - p))
+        return torch.from_numpy(body).to(dev), n_text
+
+    zero_counts()
+    for path, raw in zip(logs, raws):
+        text = path.read_bytes()
+        body, n_text = card_tokens(text)
+        b, n_tok, regular = tokenize_stride3(body, n_text)
+        got = {"native": hexlog.tokenize(text, "native"), "numpy": hexlog.tokenize(text, "numpy"),
+               "card": b[:int(n_tok)].cpu().numpy()}
+        if not bool(regular):
+            fail(f"ingest {path.name}: the shipped layout failed the stride-3 proof flag")
+        for engine, tokens in got.items():
+            if not np.array_equal(tokens, raw):
+                fail(f"ingest {path.name}: {engine} tokens differ from the written bytes")
+        res = run_session_from_text(text)
+        if not bool(res.tokenize_regular) or int(res.n_tokens) != len(raw):
+            fail(f"ingest {path.name}: the text path fell back or miscounted tokens")
+        bad = outputs_differ(torch, res.out, run_session_on_device(
+            hexlog.read_hex_log(path, engine="native")))
+        if bad:
+            fail(f"ingest {path.name}: run_session_from_text differs from the byte path in {bad}")
+    t0 = time.perf_counter()
+    if not np.array_equal(hexlog.tokenize(logs[0].read_bytes(), "reference"), raws[0]):
+        fail("ingest: the reference tokenizer differs on the full session")
+    reference_ms = (time.perf_counter() - t0) * 1e3
+    fallbacks = []
+    for path in crlf_logs[:3]:
+        data = path.read_bytes()
+        if not np.array_equal(hexlog.tokenize(data, "native"), hexlog.tokenize(data, "numpy")):
+            fail(f"ingest {path.name}: native and numpy tokens differ on the CRLF layout")
+        res = run_session_from_text(data)
+        if bool(res.tokenize_regular):
+            fail(f"ingest {path.name}: the CRLF layout passed the stride-3 proof flag")
+        bad = outputs_differ(torch, res.out, run_session_on_device(hexlog.read_hex_log(path)))
+        if bad:
+            fail(f"ingest {path.name}: the fallback differs from the byte path in {bad}")
+        fallbacks.append(path.name)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for key in ("K1", "K2", "K3"):
+        if launches[key] == 0:
+            fail(f"ingest: {key} never launched: {launches}")
+
+    # Timings on the full session (host clock for the host tokenizers and
+    # the whole calls, CUDA events for the card's tokenize).
+    def host_ms(fn, runs=INGEST_HOST_RUNS):
+        fn()
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    full_texts = {"shipped": logs[0].read_bytes(), "crlf": crlf_logs[0].read_bytes()}
+    tokenize_ms = {f"{engine}_{layout}": host_ms(lambda: hexlog.tokenize(text, engine))
+                   for layout, text in full_texts.items() for engine in ("native", "numpy")}
+    tokenize_ms["reference_shipped_single_run"] = reference_ms
+    body, n_text = card_tokens(full_texts["shipped"])
+    for _ in range(3):
+        tokenize_stride3(body, n_text)
+    torch.cuda.synchronize()
+    card = []
+    for _ in range(N_TIMED):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(40_000_000)
+        start.record()
+        tokenize_stride3(body, n_text)
+        end.record()
+        end.synchronize()
+        card.append(start.elapsed_time(end))
+    busy, acts, top = device_profile(torch, lambda: tokenize_stride3(body, n_text))
+
+    def synced(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
+    path_ms = {
+        "run_session_from_text": host_ms(synced(lambda: run_session_from_text(
+            logs[0].read_bytes()))),
+        "run_session_on_device_native_tokens": host_ms(synced(lambda: run_session_on_device(
+            hexlog.read_hex_log(logs[0], engine="native")))),
+        "Session.from_log_shipped": host_ms(synced(lambda: Session.from_log(logs[0]))),
+        "Session.from_log_crlf": host_ms(synced(lambda: Session.from_log(crlf_logs[0]))),
+    }
+    return {"launches": launches, "logs_equal": len(logs), "crlf_fallbacks_equal": fallbacks,
+            "full_session_text_bytes": len(full_texts["shipped"]),
+            "full_session_tokens": len(raws[0]), "host_cpu": host_cpu(),
+            "hexscan_library": str(hexscan.library_path().relative_to(REPO)),
+            "hexscan_build_s": build_s,
+            "host_tokenize_ms_median_of_7": tokenize_ms,
+            "card_tokenize_ms_median_of_20": statistics.median(card),
+            "card_tokenize_device_busy_ms": busy, "card_tokenize_device_activities": acts,
+            "card_tokenize_top_us": top[:5],
+            "full_session_host_ms_median_of_7": path_ms}
+
+
+PRELOG_RTOL = 1e-6                   # pre-log means against the float64 oracle
+
+
+def ulps_apart(np, a, b):
+    """The largest distance, in float32 ulps of ``b``, between two float32
+    grids with the same NaN pattern (-1 where the patterns differ)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    if not np.array_equal(np.isnan(a), np.isnan(b)):
+        return -1
+    fin = ~np.isnan(b)
+    if not fin.any():
+        return 0
+    return float(np.max(np.abs(a[fin].astype(np.float64) - b[fin])
+                        / np.spacing(np.abs(b[fin]))))
+
+
+def prelog_phase(np, torch, sd, tmp, raw_full, filtered_full, raw_mp, filtered_mp, zero_counts,
+                 read_counts, dev) -> dict:
+    """The pre-log scene on the card: ``run_session_on_device(log_transform_
+    scene=True)`` against ``device="cpu"`` (integer fields exactly, means
+    within one float32 ulp: float64 atomics add in no fixed order) and
+    against the float64 oracle ``intensity_grid_np`` (counts equal, means
+    within ``PRELOG_RTOL``); a pre-log live feed of the multipath log in 64
+    KiB chunks with ``collect_filtered`` against the offline oracle, and
+    the same stream resumed from a checkpoint."""
+    from slam_process_tpu_torch.config import PipelineConfig, SceneConfig
+    from slam_process_tpu_torch.ops.scene import intensity_grid_np
+    from slam_process_tpu_torch.pipeline.device import run_session_on_device
+
+    log_cfg = SceneConfig(log_transform=True)
+    prelog = PipelineConfig(scene=log_cfg)
+
+    def oracle(f):
+        return intensity_grid_np(f[:, 0], f[:, 1], f[:, 2], cfg=log_cfg)
+
+    def near_oracle(mean, counts, ref):
+        return (np.array_equal(np.asarray(counts), ref.counts)
+                and np.array_equal(np.isnan(mean), np.isnan(ref.mean))
+                and np.allclose(mean, ref.mean, rtol=PRELOG_RTOL, atol=0, equal_nan=True))
+
+    zero_counts()
+    t0 = time.perf_counter()
+    out = run_session_on_device(raw_full, log_transform_scene=True)
+    torch.cuda.synchronize()
+    session_s = time.perf_counter() - t0
+    out_cpu = run_session_on_device(raw_full, device="cpu", log_transform_scene=True)
+    bad = outputs_differ(torch, out, out_cpu, ("frames", "frame_valid", "n_frames",
+                                               "corrected_bs", "keep", "correct_overflow",
+                                               "n_kept", "counts"))
+    if bad:
+        fail(f"prelog: the pre-log session differs between cuda and cpu in {bad}")
+    ulps = ulps_apart(np, out.mean_grid.cpu().numpy(), out_cpu.mean_grid.numpy())
+    if not 0 <= ulps <= 1:
+        fail(f"prelog: pre-log means {ulps} float32 ulps apart between cuda and cpu")
+    ref = oracle(filtered_full)
+    if not near_oracle(out.mean_grid.cpu().numpy(), out.counts.cpu().numpy(), ref):
+        fail("prelog: the pre-log session's grid is not the float64 oracle's")
+    t_cuda, t_cpu = out.norm_t.cpu(), out_cpu.norm_t
+    if not torch.equal(torch.isnan(t_cuda), torch.isnan(t_cpu)) or float(
+            (t_cuda - t_cpu).nan_to_num(0.0).abs().max()) > 1e-4:
+        fail("prelog: the pre-log raster's norm_t differs by more than 1e-4 from cpu")
+
+    def live(stop=None, session=None):
+        s = session or sd.DeviceStreamingSession(prelog, chunk_bytes=LIVE_CHUNK,
+                                                 collect_filtered=True, device=dev)
+        start = 0 if session is None else stop
+        end = len(raw_mp) if session is not None or stop is None else stop
+        for off in range(start, end, LIVE_CHUNK):
+            s.feed(raw_mp[off:off + LIVE_CHUNK])
+        return s
+
+    t0 = time.perf_counter()
+    s = live()
+    s.finalize()
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    ref_mp = oracle(filtered_mp)
+    grid = s.intensity()
+    if not np.array_equal(s.filtered, filtered_mp):
+        fail("prelog: the pre-log live feed's filtered rows differ from the offline session's")
+    if not near_oracle(grid.mean, grid.counts, ref_mp):
+        fail("prelog: the pre-log live feed's grid is not the float64 oracle's")
+    half = (len(raw_mp) // LIVE_CHUNK // 2) * LIVE_CHUNK
+    part = live(stop=half)
+    part.save_checkpoint(tmp / "prelog.ckpt", extra={"offset": half})
+    resumed = sd.DeviceStreamingSession.restore(tmp / "prelog.ckpt", device=dev)
+    live(stop=half, session=resumed).finalize()
+    grid_r = resumed.intensity()
+    if not (np.array_equal(resumed.filtered, filtered_mp)
+            and near_oracle(grid_r.mean, grid_r.counts, ref_mp)
+            and np.allclose(grid_r.mean, grid.mean, rtol=1e-12, atol=0, equal_nan=True)):
+        fail("prelog: the resumed pre-log stream differs from the uninterrupted one")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for key in ("K1", "K2", "K3", "K5"):
+        if launches[key] == 0:
+            fail(f"prelog: {key} never launched: {launches}")
+    rel = lambda m, r: float(np.nanmax(np.abs(m - r.mean) / np.abs(r.mean)))  # noqa: E731
+    return {"launches": launches, "session_ms": session_s * 1e3,
+            "session_mean_ulps_cuda_vs_cpu": ulps,
+            "session_max_rel_vs_oracle": rel(out.mean_grid.cpu().numpy(), ref),
+            "live_feed_chunks": -(-len(raw_mp) // LIVE_CHUNK), "live_feed_s": stream_s,
+            "live_feed_max_rel_vs_oracle": rel(grid.mean, ref_mp),
+            "resumed_max_rel_vs_uninterrupted": float(np.nanmax(
+                np.abs(grid_r.mean - grid.mean) / np.abs(grid.mean))),
+            "resumed_from_byte": half, "sums_dtype": str(resumed._state.sums.dtype)}
+
+
+SM_SIC_RTOL = 1e-6                   # SM-SIC metric between the card and the CPU / host
+
+
+def sm_sic_phase(np, torch, sd, sessions, results, angles, raw_mp, zero_counts, read_counts,
+                 dev) -> dict:
+    """SM-SIC and the dataset's per-sweep paths on the card:
+    ``run_estimator("sm_sic")`` against ``engine="host"`` and
+    ``device="cpu"``; ``sweep_paths(estimator="sm_sic")`` and its
+    ``path_tracks`` against ``device="cpu"`` on three sessions;
+    ``sweep_paths_dataset`` (NN-OMP) over the 21 sessions against their
+    per-session results of the sweep_paths phase, exactly; an SM-SIC stream
+    of the multipath log in 64 KiB chunks against the offline
+    ``sweep_paths`` / ``path_tracks(beam_ids=...)`` on the card, exactly."""
+    from slam_process_tpu_torch.models.registry import run_estimator
+    from slam_process_tpu_torch.models.sm_sic import SmSicPaths
+    from slam_process_tpu_torch.pipeline.session import sweep_paths_dataset
+
+    mp = sessions[MP]
+    zero_counts()
+    t0 = time.perf_counter()
+    card = run_estimator("sm_sic", mp, angles)
+    estimator_ms = (time.perf_counter() - t0) * 1e3
+    for other, engine in ((run_estimator("sm_sic", mp, angles, engine="host"), "host"),
+                          (run_estimator("sm_sic", mp, angles, device="cpu"), "cpu")):
+        if not (list(card["type"]) == list(other["type"]) and len(card) > 0
+                and np.array_equal(card["id"], other["id"])
+                and np.array_equal(card["aoa"], other["aoa"])
+                and np.array_equal(card["aod"], other["aod"])
+                and np.allclose(card["metric"], other["metric"], rtol=SM_SIC_RTOL, atol=0)):
+            fail(f"sm_sic: run_estimator on the card differs from {engine}:\n"
+                 f"{card.to_string()}\n{other.to_string()}")
+
+    compared = []
+    for i in (0, 1, MP):
+        s = sessions[i]
+        (paths, valid), (want, want_valid) = (s.sweep_paths(angles, estimator="sm_sic"),
+                                              s.sweep_paths(angles, estimator="sm_sic",
+                                                            device="cpu"))
+        if not isinstance(paths, SmSicPaths) or not np.array_equal(valid, want_valid):
+            fail(f"sm_sic: session {i}'s sweep_valid differs between cuda and cpu")
+        for field in ("aoa", "aod", "valid", "is_los"):
+            if not np.array_equal(getattr(paths, field), getattr(want, field)):
+                fail(f"sm_sic: session {i}'s per-sweep {field} differs between cuda and cpu")
+        if not np.allclose(paths.metric, want.metric, rtol=SM_SIC_RTOL, atol=0):
+            fail(f"sm_sic: session {i}'s per-sweep metric beyond rtol {SM_SIC_RTOL}")
+        tr, tr_cpu = (s.path_tracks(angles, estimator="sm_sic", device=d) for d in (dev, "cpu"))
+        if not (int(tr[0].n_tracks) == int(tr_cpu[0].n_tracks) > 0
+                and all(np.array_equal(getattr(tr[0], f), getattr(tr_cpu[0], f))
+                        for f in ("pos_aoa", "pos_aod", "observed", "created"))
+                and np.allclose(tr[0].power, tr_cpu[0].power, rtol=SM_SIC_RTOL)):
+            fail(f"sm_sic: session {i}'s SM-SIC tracks differ between cuda and cpu")
+        compared.append(i)
+
+    t0 = time.perf_counter()
+    dataset = sweep_paths_dataset(sessions, angles)
+    dataset_ms = (time.perf_counter() - t0) * 1e3
+    shapes = {tuple(len(x) for x in s._sweep_host_prep(angles)[2:4]) for s in sessions}
+    for i, ((paths, valid), (want, want_valid)) in enumerate(zip(dataset, results)):
+        if not np.array_equal(valid, want_valid) or any(
+                not np.array_equal(getattr(paths, f), getattr(want, f)) for f in want._fields):
+            fail(f"sm_sic: sweep_paths_dataset differs from session {i}'s sweep_paths")
+
+    spec = sd.make_paths_spec(angles, estimator="sm_sic", s_step=8)
+    ids = (spec[0].ue_ids, spec[0].bs_ids)
+    t0 = time.perf_counter()
+    stream = sd.DeviceStreamingSession(chunk_bytes=LIVE_CHUNK, collect_paths=spec, device=dev)
+    for off in range(0, len(raw_mp), LIVE_CHUNK):
+        stream.feed(raw_mp[off:off + LIVE_CHUNK])
+    stream.finalize()
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    offline = (mp.sweep_paths(angles, estimator="sm_sic", beam_ids=ids),
+               mp.sweep_times(), mp.path_tracks(angles, estimator="sm_sic", beam_ids=ids))
+    bad = paths_differ(np, stream_readers(stream), offline, exact=True)
+    if bad:
+        fail(f"sm_sic: the SM-SIC stream differs from the offline paths in {bad}")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for key in ("K1", "K2", "K4", "K5", "K6"):
+        if launches[key] == 0:
+            fail(f"sm_sic: {key} never launched: {launches}")
+    return {"launches": launches, "run_estimator_ms": estimator_ms,
+            "table_rows": len(card), "table": card.to_string(index=False).splitlines(),
+            "per_sweep_compared_with_cpu": compared,
+            "dataset_sessions": len(dataset), "dataset_beam_shapes": sorted(shapes),
+            "dataset_ms": dataset_ms, "stream_sweeps": stream.n_sweeps_closed,
+            "stream_tracks": int(stream.path_tracks()[0].n_tracks), "stream_s": stream_s}
 
 
 def device_profile(torch, fn, count=()):

@@ -2,7 +2,7 @@
 
 A copy of the stage configs of ``slam_process_tpu/config.py``
 (``DecodeConfig``, ``CorrectConfig``, ``SceneConfig``, ``DictionaryConfig``,
-``OmpConfig``, ``ClassifierConfig``, ``RenderConfig``) with the same fields
+``OmpConfig``, ``SmSicConfig``, ``ClassifierConfig``, ``RenderConfig``) with the same fields
 and defaults, and a ``PipelineConfig`` holding the ones ``Session`` reads;
 ``convert.configs_from_reference``, ``convert.classifier_config_from_reference``
 and ``convert.render_config_from_reference`` build these from any objects
@@ -73,6 +73,19 @@ class OmpConfig:
     min_power_ratio: float = 3e-4
     # Bounded outer iterations of the NNLS active-set solve.
     nnls_max_iter: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class SmSicConfig:
+    """SM-SIC masked successive cancellation (``models/sm_sic.py``)."""
+
+    max_paths: int = 3
+    proximity_mask_radius: float = 2.0
+    cross_mask_width: float = 5.0
+    nlos_mask_radius: float = 1.0
+    stop_ratio: float = 0.1
+    beam_width: float = 10.0
+    grid_res: float = 0.5
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,15 +1,25 @@
-"""Hex-token serial-log ingestion (host, numpy).
+"""Hex-token serial-log ingestion on the host.
 
 The raw artifact is a text file of whitespace-separated hex byte tokens
 ("33 00 FF 74 ..."), possibly with junk tokens.  Accepted tokens are
 exactly two hex digits, or ``0x``/``0X`` followed by exactly two hex
-digits; everything else is skipped.  Tokenization is one vectorized numpy
-pass over the raw bytes (boundary detection + nibble LUT), a copy of
-``slam_process_tpu/io/hexlog.py::tokenize_hex``.
+digits (the reference regex ``^(?:0x)?[0-9a-fA-F]{2}$``); everything else
+is skipped.  Three tokenizers give the same bytes:
+
+  * ``tokenize_hex``: one vectorized numpy pass over the raw bytes
+    (boundary detection + nibble LUT);
+  * the native C scanner (``runtime/hexscan``), the default of
+    ``read_hex_log``;
+  * ``tokenize_hex_reference``: the reference's per-token regex loop, the
+    oracle of the tests.
+
+Copies of ``slam_process_tpu/io/hexlog.py``.  The card's stride-3
+tokenizer is ``ops/tokenize.py``.
 """
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Union
 
@@ -27,6 +37,9 @@ for _c in b"ABCDEF":
 _WS_LUT = np.zeros(256, dtype=bool)
 for _c in b" \t\r\n\x0b\x0c\x1c\x1d\x1e\x1f":
     _WS_LUT[_c] = True
+
+_TOKEN_RE = re.compile(r"^(?:0x)?[0-9a-fA-F]{2}$")
+ENGINES = ("auto", "native", "numpy", "reference")
 
 
 def tokenize_hex(data: bytes) -> np.ndarray:
@@ -70,6 +83,38 @@ def tokenize_hex(data: bytes) -> np.ndarray:
     return val[np.argsort(pos, kind="stable")].astype(np.uint8)
 
 
-def read_hex_log(path: Union[str, Path]) -> np.ndarray:
-    """Read a serial hex log file into a uint8 byte array."""
-    return tokenize_hex(Path(path).read_bytes())
+def tokenize_hex_reference(data: bytes) -> np.ndarray:
+    """The reference's tokenizer (slow; the tests' oracle): decode UTF-8
+    ignoring errors, ``str.split()``, the token regex per token, ``int(s,
+    16) & 0xFF``."""
+    out = []
+    for tok in data.decode("utf-8", errors="ignore").split():
+        s = tok.strip()
+        if not s or not _TOKEN_RE.fullmatch(s):
+            continue
+        if s.lower().startswith("0x"):
+            s = s[2:]
+        out.append(int(s, 16) & 0xFF)
+    return np.asarray(out, dtype=np.uint8)
+
+
+def tokenize(data: bytes, engine: str = "auto") -> np.ndarray:
+    """Raw log bytes -> uint8 byte values with ``engine``: "auto" the
+    native scanner, or numpy where it does not build; "native" the native
+    scanner (a failed build raises); "numpy"; "reference"."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown tokenizer engine {engine!r}; use one of {ENGINES}")
+    if engine == "reference":
+        return tokenize_hex_reference(data)
+    if engine in ("auto", "native"):
+        from slam_process_tpu_torch.runtime import hexscan
+
+        if engine == "native" or hexscan.available():
+            return hexscan.tokenize(data)
+    return tokenize_hex(data)
+
+
+def read_hex_log(path: Union[str, Path], engine: str = "auto") -> np.ndarray:
+    """Read a serial hex log file into a uint8 byte array (``tokenize``'s
+    engines)."""
+    return tokenize(Path(path).read_bytes(), engine)

@@ -1,10 +1,10 @@
-"""Estimator registry: one entry point for the NN-OMP flavors.
+"""Estimator registry: one entry point for the NN-OMP flavors and SM-SIC.
 
 The port of ``slam_process_tpu/models/registry.py`` for its five NN-OMP
-flavors.  ``run_estimator(name, session, angle_file, ...)`` builds the
-session's scene, runs NN-OMP, classifies the paths, draws the estimation
-figure where asked, and returns the paths table (AoA, AoD, Power,
-PathType), the reference's output format:
+flavors and ``sm_sic``.  ``run_estimator(name, session, angle_file, ...)``
+builds the session's scene, runs the estimator, classifies the paths,
+draws the estimation figure where asked, and returns the paths table, the
+reference's output format (AoA, AoD, Power, PathType for NN-OMP):
 
   * ``nn_omp`` (v1-7, the flagship): pre-log scene, linspace grid, K = 20,
     keep rule "ratio", ``classify_advanced``;
@@ -12,16 +12,20 @@ PathType), the reference's output format:
     ``classify_argmax`` (the golden renders);
   * ``nn_omp_v14`` / ``v15`` / ``v16``: linear scene, linspace grid, K =
     10, ratio 0.01, then ``classify_weak_far`` / ``classify_cross_region``
-    / ``classify_advanced``.
+    / ``classify_advanced``;
+  * ``sm_sic``: linear scene, inclusive-arange grid at 0.5 deg, 10 deg
+    beams, K = 3; its table has the columns id, type (LoS / NLoS), aoa,
+    aod, metric (``models/sm_sic.py``).
 
 The scene is built on the host in float64 (numpy), as in the JAX package.
 ``engine="device"`` (the default here; the JAX package's default is
-"host") runs the chain-form NN-OMP on ``device`` (None: CUDA);
-``engine="host"`` runs the float64 oracle ``nn_omp_np``.  The table is a
-``PathsTable`` of numpy columns, not a pandas DataFrame: its
-``to_string(index=False)`` prints pandas' text and ``to_dict("records")``
-gives pandas' records.  The JAX registry's other names raise
-``NotImplementedError`` (not ported yet); an unknown name ``KeyError``.
+"host") runs the chain-form NN-OMP or the tensor SM-SIC on ``device``
+(None: CUDA); ``engine="host"`` runs the float64 oracle ``nn_omp_np`` /
+``sm_sic_np``.  The table is a ``Table`` of numpy columns, not a pandas
+DataFrame: its ``to_string(index=False)`` prints pandas' text and
+``to_dict("records")`` gives pandas' records.  The JAX registry's other
+names raise ``NotImplementedError`` (not ported yet); an unknown name
+``KeyError``.
 """
 
 from __future__ import annotations
@@ -34,14 +38,15 @@ from typing import Optional, Union
 import numpy as np
 
 from slam_process_tpu_torch.config import (
-    ClassifierConfig, DictionaryConfig, OmpConfig, SceneConfig)
+    ClassifierConfig, DictionaryConfig, OmpConfig, SceneConfig, SmSicConfig)
 from slam_process_tpu_torch.io.angles import load_angle_lut
 from slam_process_tpu_torch.models.classifiers import (
-    LABEL_NAMES, ClassifiedPaths, classify_advanced, classify_argmax, classify_cross_region,
-    classify_weak_far)
+    LABEL_NAMES, LOS, NLOS, NOISE, ClassifiedPaths, classify_advanced, classify_argmax,
+    classify_cross_region, classify_weak_far)
 from slam_process_tpu_torch.models.batch_estimation import flavor_config
 from slam_process_tpu_torch.models.dictionary import make_dictionary
 from slam_process_tpu_torch.models.nn_omp import run_nn_omp
+from slam_process_tpu_torch.models.sm_sic import run_sm_sic
 from slam_process_tpu_torch.ops.scene import compact_grid, fill_grid, intensity_grid_np
 
 COLUMNS = ("AoA", "AoD", "Power", "PathType")
@@ -89,16 +94,16 @@ def _float_column(values: np.ndarray) -> list:
     return out
 
 
-class PathsTable:
-    """The estimated paths (AoA, AoD, Power, PathType), one numpy column
-    each, in place of the JAX package's pandas DataFrame."""
+class Table:
+    """A table of named columns (numpy numbers, or lists of str), in place
+    of the JAX package's pandas DataFrame."""
 
-    def __init__(self, aoa, aod, power, path_type) -> None:
-        self.columns = {"AoA": np.asarray(aoa), "AoD": np.asarray(aod),
-                        "Power": np.asarray(power), "PathType": list(path_type)}
+    def __init__(self, columns: dict) -> None:
+        self.columns = {c: (list(v) if isinstance(v, list) else np.asarray(v))
+                        for c, v in columns.items()}
 
     def __len__(self) -> int:
-        return len(self.columns["PathType"])
+        return len(next(iter(self.columns.values())))
 
     def __getitem__(self, name: str):
         return self.columns[name]
@@ -108,8 +113,8 @@ class PathsTable:
         row."""
         if orient != "records":
             raise ValueError(f"only orient='records' is supported, got {orient!r}")
-        return [{c: (self.columns[c][i] if c == "PathType" else float(self.columns[c][i]))
-                 for c in COLUMNS} for i in range(len(self))]
+        return [{c: (v[i] if isinstance(v, list) else v[i].item())
+                 for c, v in self.columns.items()} for i in range(len(self))]
 
     def to_string(self, index: bool = False) -> str:
         """pandas' ``DataFrame.to_string(index=False)`` text of the table,
@@ -117,16 +122,28 @@ class PathsTable:
         if index:
             raise ValueError("only index=False is supported")
         if len(self) == 0:
-            return "Empty DataFrame\nColumns: [" + ", ".join(COLUMNS) + "]\nIndex: []"
+            return "Empty DataFrame\nColumns: [" + ", ".join(self.columns) + "]\nIndex: []"
         strcols = []
-        for c in COLUMNS:
-            numeric = c != "PathType"
-            cells = _float_column(self.columns[c]) if numeric else [str(x) for x in
-                                                                      self.columns[c]]
+        for c, v in self.columns.items():
+            numeric = not isinstance(v, list)
+            if not numeric:
+                cells = [str(x) for x in v]
+            elif np.issubdtype(v.dtype, np.integer):
+                cells = [str(int(x)) for x in v]
+            else:
+                cells = _float_column(v)
             header = " " + c if numeric else c
             width = max(len(header), *(len(x) for x in cells))
             strcols.append([header.rjust(width)] + [x.rjust(width) for x in cells])
         return "\n".join(" ".join(row) for row in zip(*strcols))
+
+
+class PathsTable(Table):
+    """The estimated paths (AoA, AoD, Power, PathType), one numpy column
+    each."""
+
+    def __init__(self, aoa, aod, power, path_type) -> None:
+        super().__init__({"AoA": aoa, "AoD": aod, "Power": power, "PathType": list(path_type)})
 
 
 def paths_table(c: ClassifiedPaths) -> PathsTable:
@@ -136,11 +153,12 @@ def paths_table(c: ClassifiedPaths) -> PathsTable:
                       [LABEL_NAMES[int(lab)] for lab in np.asarray(c.label)[keep]])
 
 
-# The ported flavors, and the JAX registry's other families, not ported
-# yet (ROADMAP.md queue 1 item 8).
+# The ported NN-OMP flavors and estimators, and the JAX registry's other
+# families, not ported yet (ROADMAP.md queue 1 item 8).
 FLAVORS = ("nn_omp", "nn_omp_v1", "nn_omp_v14", "nn_omp_v15", "nn_omp_v16")
-NOT_PORTED = ("sm_sic", "svd", "lasso_refine", "peak_picking", "fusion", "omp_dense",
-              "geometric", "nn_omp_v13")
+PORTED = FLAVORS + ("sm_sic",)
+NOT_PORTED = ("svd", "lasso_refine", "peak_picking", "fusion", "omp_dense", "geometric",
+              "nn_omp_v13")
 
 
 def nn_omp_settings(name: str, **overrides):
@@ -188,18 +206,50 @@ def classify_paths(name: str, p, **overrides) -> ClassifiedPaths:
     raise KeyError(f"unknown NN-OMP flavor {name!r}; have {FLAVORS}")
 
 
+def run_sm_sic_estimator(session, angle_file, output_path=None, **overrides) -> Table:
+    """The ``sm_sic`` entry: the linear scene, SM-SIC, the LoS / NLoS
+    labels, the v1-style figure where asked; the table (id, type, aoa, aod,
+    metric) of the valid peaks, as the JAX entry builds it."""
+    device = overrides.get("device")
+    cfg = SmSicConfig(max_paths=overrides.get("max_paths", 3),
+                      beam_width=overrides.get("beam_width", 10.0),
+                      grid_res=overrides.get("grid_res", 0.5),
+                      proximity_mask_radius=overrides.get("proximity_mask_radius", 2.0),
+                      cross_mask_width=overrides.get("cross_mask_width", 5.0))
+    matrix, ue_ang, bs_ang = build_scene(session, angle_file, False, device=device)
+    d = make_dictionary(ue_ang, bs_ang, DictionaryConfig(
+        grid_res=cfg.grid_res, beam_width=cfg.beam_width, grid_kind="arange_inclusive"))
+    paths = run_sm_sic(d, matrix, cfg, engine=overrides.get("engine", "device"), device=device)
+    if output_path is not None:
+        from slam_process_tpu_torch.render.estimation import estimation_plot
+
+        label = np.where(paths.is_los, LOS, np.where(paths.valid, NLOS, NOISE))
+        classified = ClassifiedPaths(paths.aoa, paths.aod, paths.metric,
+                                     label.astype(np.int32), paths.valid)
+        estimation_plot(matrix, ue_ang, bs_ang, classified, output_path, style="v1",
+                        title="mmWave Beamspace Heatmap & SM-SIC Path Identification",
+                        device=device)
+    keep = np.asarray(paths.valid)
+    return Table({"id": np.arange(1, cfg.max_paths + 1)[keep],
+                  "type": list(np.where(paths.is_los[keep], "LoS", "NLoS")),
+                  "aoa": paths.aoa[keep], "aod": paths.aod[keep],
+                  "metric": paths.metric[keep]})
+
+
 def run_estimator(name: str, session, angle_file: Union[str, Path],
-                  output_path: Optional[Union[str, Path]] = None, **overrides) -> PathsTable:
+                  output_path: Optional[Union[str, Path]] = None, **overrides) -> Table:
     """Run estimator ``name`` on ``session``: the paths table, and with
     ``output_path`` the estimation figure (needs matplotlib).  Overrides:
     ``engine`` ("device", the default, or "host"), ``device`` (None:
     CUDA), ``max_paths``, ``grid_res``, ``beam_width``, the keep ratio and
-    the classifier thresholds."""
+    the classifier thresholds (NN-OMP), the mask radii (SM-SIC)."""
     if name in NOT_PORTED:
         raise NotImplementedError(f"estimator {name!r} is not ported yet (ROADMAP.md queue 1 "
-                                  f"item 8); the port has {FLAVORS}")
+                                  f"item 8); the port has {PORTED}")
+    if name == "sm_sic":
+        return run_sm_sic_estimator(session, angle_file, output_path, **overrides)
     if name not in FLAVORS:
-        raise KeyError(f"unknown estimator {name!r}; have {FLAVORS}")
+        raise KeyError(f"unknown estimator {name!r}; have {PORTED}")
     device = overrides.get("device")
     dict_cfg, omp_cfg, log_transform, keep_rule, stop_np = nn_omp_settings(name, **overrides)
     matrix, ue_ang, bs_ang = build_scene(session, angle_file, log_transform, device=device)

@@ -6,15 +6,29 @@ card, so the result does not depend on the order of the adds) and turned
 into float32 at the end.  The JAX package's float32 one-hot einsum is exact
 while cell sums stay below 2^24, so there the two agree bit for bit.
 
+The pre-log scene (``SceneConfig.log_transform``: rows with RSS <= 0
+dropped, ln(RSS) summed) cannot be summed in integers.  ln is taken in
+float64 and summed in float64, and each mean is rounded to float32 once;
+the counts stay integer.  On the card the float64 ``index_add_`` is an
+atomic add in no fixed order, and the card's and the CPU's float64 ln may
+differ in the last bit, so a cell's float64 sum may differ between them by
+a few float64 ulps of the cell's sum (relative 2^-53 times the rows in the
+cell, at most ~1e-10 here).  The float32 mean then differs between the card
+and the CPU by at most one float32 ulp, and only where the two float64
+means straddle a float32 rounding boundary.  The JAX package sums float32
+logs (``intensity_sums_jax``): within rtol 3e-5 of the float64 oracle.
+
 Per-sweep grids [S, U, B] (``intensity_per_sweep_sums``) go through kernel
 K4 (``ops/cuda_sweep_sums.py``) on CUDA tensors and its plain version
 ``sweep_sums_plain`` on CPU tensors; both are exact integer sums, equal to
 the JAX package's scan form and Pallas kernel while cell sums stay below
-2^24.  The numpy host pivot (``intensity_grid_np``) gives a session's
-observed-beam masks and, with ``fill_grid`` and ``compact_grid`` on its
-numpy arrays, the estimator's float64 scene (the pre-log scene too);
-``compact_grid`` cuts a grid to its observed and mapped beams for the
-heatmap.
+2^24.  K4 takes integer RSS only (as ``pallas_sweep_sums`` does); the
+pre-log per-sweep sums are the float64 ``index_add_`` above (the JAX
+package's scan engine).  The numpy host pivot (``intensity_grid_np``)
+gives a session's observed-beam masks and, with ``fill_grid`` and
+``compact_grid`` on its numpy arrays, the estimator's float64 scene (the
+pre-log scene too); ``compact_grid`` cuts a grid to its observed and
+mapped beams for the heatmap.
 """
 
 from __future__ import annotations
@@ -41,40 +55,61 @@ class IntensityGrid(NamedTuple):
     fill_value: torch.Tensor  # scalar f32: min of observed cell means
 
 
-def intensity_cell_sums(ue: torch.Tensor, bs: torch.Tensor, rss: torch.Tensor,
-                        valid: torch.Tensor, flag: Optional[torch.Tensor] = None,
-                        cfg: SceneConfig = _DEFAULT):
-    """(sums [U, B] int64, counts [U, B] int64) over the kept rows: exact
-    at any size, so running totals over a stream stay exact too.
-
-    ``rss`` holds integer RSS values.  The pre-log transform
-    (``cfg.log_transform``) needs float sums and is not ported yet.
-    """
-    if cfg.log_transform:
-        raise NotImplementedError("log_transform scenes need float sums; only the "
-                                  "integer-exact form is ported")
-    if rss.is_floating_point():
-        raise ValueError(f"intensity sums take integer RSS, got {rss.dtype}")
+def _kept_values(ue, bs, rss, valid, flag, cfg: SceneConfig):
+    """(keep [F] bool, values [F]): the rows that count and what each adds:
+    integer RSS as int64, or under ``cfg.log_transform`` ln(RSS) in
+    float64 with rows of RSS <= 0 dropped."""
     nb = cfg.n_beams
     keep = valid.to(torch.bool) & (ue >= 0) & (ue < nb) & (bs >= 0) & (bs < nb)
     if cfg.flag_filter is not None and flag is not None:
         keep &= flag == cfg.flag_filter
+    if cfg.log_transform:
+        keep &= rss > 0
+        return keep, torch.where(keep, rss.double().clamp(min=1e-300).log(), 0.0)
+    if rss.is_floating_point():
+        raise ValueError(f"intensity sums take integer RSS, got {rss.dtype}")
+    return keep, torch.where(keep, rss, 0).long()
+
+
+def intensity_cell_sums(ue: torch.Tensor, bs: torch.Tensor, rss: torch.Tensor,
+                        valid: torch.Tensor, flag: Optional[torch.Tensor] = None,
+                        cfg: SceneConfig = _DEFAULT):
+    """(sums [U, B], counts [U, B] int64) over the kept rows.
+
+    ``rss`` holds integer RSS values.  The sums are int64, exact at any
+    size, so running totals over a stream stay exact too; under
+    ``cfg.log_transform`` they are float64 sums of ln(RSS) over the rows
+    with RSS > 0 (the module docstring bounds them between the card and
+    the CPU).
+    """
+    nb = cfg.n_beams
+    keep, val = _kept_values(ue, bs, rss, valid, flag, cfg)
     cell = torch.where(keep, ue * nb + bs, nb * nb).long()       # bin nb^2: dropped
-    sums = torch.zeros(nb * nb + 1, dtype=torch.int64, device=ue.device)
-    counts = torch.zeros_like(sums)
-    sums.index_add_(0, cell, torch.where(keep, rss, 0).long())
+    sums = torch.zeros(nb * nb + 1, dtype=val.dtype, device=ue.device)
+    counts = torch.zeros(nb * nb + 1, dtype=torch.int64, device=ue.device)
+    sums.index_add_(0, cell, val)
     counts.index_add_(0, cell, keep.long())
     return sums[:-1].view(nb, nb), counts[:-1].view(nb, nb)
+
+
+def cell_means(sums: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """float32 means, NaN where the count is 0: integer sums as float32
+    sums over float32 counts (the JAX package's arithmetic); float64 sums
+    divided in float64 and rounded once."""
+    observed = counts > 0
+    if sums.dtype == torch.float64:
+        return torch.where(observed, sums / counts.clamp(min=1), float("nan")).float()
+    mean = sums.to(torch.float32) / counts.to(torch.float32).clamp(min=1.0)
+    return torch.where(observed, mean, float("nan"))
 
 
 def intensity_grid(ue: torch.Tensor, bs: torch.Tensor, rss: torch.Tensor,
                    valid: torch.Tensor, flag: Optional[torch.Tensor] = None,
                    cfg: SceneConfig = _DEFAULT) -> IntensityGrid:
     """IntensityGrid with NaN in empty cells (``intensity_grid_jax``)."""
-    sums, counts = (x.to(torch.float32)
-                    for x in intensity_cell_sums(ue, bs, rss, valid, flag, cfg))
+    sums, counts = intensity_cell_sums(ue, bs, rss, valid, flag, cfg)
     observed = counts > 0
-    mean = torch.where(observed, sums / counts.clamp(min=1.0), float("nan"))
+    mean = cell_means(sums, counts)
     fill = torch.where(observed, mean, float("inf")).min()
     return IntensityGrid(mean, counts.to(torch.int32), observed.any(dim=1),
                          observed.any(dim=0), fill)
@@ -138,22 +173,30 @@ def sweep_sums_plain(p: torch.Tensor, bs: torch.Tensor, val: torch.Tensor, max_s
 def intensity_per_sweep_sums(ue: torch.Tensor, bs: torch.Tensor, rss: torch.Tensor,
                              gid: torch.Tensor, valid: torch.Tensor, max_sweeps: int,
                              cfg: SceneConfig = _DEFAULT):
-    """Per-sweep (sums [S, U, B] f32, counts [S, U, B] f32) over the kept
-    rows (``intensity_per_sweep_sums_jax``).
+    """Per-sweep (sums [S, U, B], counts [S, U, B]) over the kept rows
+    (``intensity_per_sweep_sums_jax``).
 
     A row counts when it is valid, its UE and BS ids lie in [0, n_beams)
-    and its sweep id in [0, max_sweeps).  Kernel K4 on CUDA tensors, the
-    plain version on CPU tensors.  ``rss`` holds integer RSS; the sums
-    are exact in float32 while a cell's sum stays below 2^24.
+    and its sweep id in [0, max_sweeps).  ``rss`` holds integer RSS:
+    kernel K4 on CUDA tensors, the plain version on CPU tensors, both
+    float32 and exact while a cell's sum stays below 2^24.  Under
+    ``cfg.log_transform`` both are float64 (ln(RSS) summed by
+    ``index_add_``, rows of RSS <= 0 dropped) and K4 is not used.
     """
+    nb = cfg.n_beams
+    in_sweep = valid.to(torch.bool) & (gid >= 0) & (gid < max_sweeps)
     if cfg.log_transform:
-        raise NotImplementedError("log_transform scenes need float sums; only the "
-                                  "integer-exact form is ported")
+        keep, val = _kept_values(ue, bs, rss, in_sweep, None, cfg)
+        cell = torch.where(keep, (gid.long() * nb + ue) * nb + bs, max_sweeps * nb * nb).long()
+        sums = torch.zeros(max_sweeps * nb * nb + 1, dtype=torch.float64, device=ue.device)
+        counts = torch.zeros_like(sums)
+        sums.index_add_(0, cell, val)
+        counts.index_add_(0, cell, keep.double())
+        shape = (max_sweeps, nb, nb)
+        return sums[:-1].view(shape), counts[:-1].view(shape)
     if rss.is_floating_point():
         raise ValueError(f"per-sweep sums take integer RSS, got {rss.dtype}")
-    nb = cfg.n_beams
-    keep = (valid.to(torch.bool) & (ue >= 0) & (ue < nb) & (bs >= 0) & (bs < nb)
-            & (gid >= 0) & (gid < max_sweeps))
+    keep = in_sweep & (ue >= 0) & (ue < nb) & (bs >= 0) & (bs < nb)
     p = torch.where(keep, gid * nb + ue, -1).to(torch.int32)
     if p.is_cuda:
         return cuda_sweep_sums.sweep_sums_cuda(p.contiguous(), bs.to(torch.int32).contiguous(),
@@ -170,8 +213,7 @@ def intensity_per_sweep(ue: torch.Tensor, bs: torch.Tensor, rss: torch.Tensor,
     """(mean [S, U, B] f32 with NaN empties, counts [S, U, B] i32)
     (``intensity_per_sweep_jax``)."""
     sums, counts = intensity_per_sweep_sums(ue, bs, rss, gid, valid, max_sweeps, cfg)
-    mean = torch.where(counts > 0, sums / counts.clamp(min=1.0), float("nan"))
-    return mean, counts.to(torch.int32)
+    return cell_means(sums, counts), counts.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -35,8 +35,7 @@ import numpy as np
 import torch
 
 from slam_process_tpu_torch.config import PipelineConfig, RenderConfig
-from slam_process_tpu_torch.models.nn_omp import OmpPaths
-from slam_process_tpu_torch.models.sweep_estimation import sweep_estimator_body
+from slam_process_tpu_torch.models.sweep_estimation import path_power, sweep_estimator_body
 from slam_process_tpu_torch.models.tracking import (
     track_paths_np, track_sweep_step_np, track_velocities)
 from slam_process_tpu_torch.ops.correct import correct_frames_np
@@ -80,12 +79,12 @@ class StreamingSession:
         if collect_paths is not None:
             spec, dict_args = collect_paths
             self._paths_spec = spec
-            self._dict_args = tuple(np.asarray(a, np.float32) for a in dict_args)
+            self._dict_args = tuple(np.asarray(a) for a in dict_args)
             self._p_open_sums = np.zeros((nb, nb), np.float32)
             self._p_open_counts = np.zeros((nb, nb), np.float32)
             self._p_open_time = -1
             self._p_last_ue = -1
-            self._p_est: list = []     # OmpPaths of [1, K] numpy arrays per closed sweep
+            self._p_est: list = []     # the body's paths, [1, K] numpy arrays, per closed sweep
             self._p_valid: list = []
             self._p_times: list = []
             # The tracker behind track_columns, advanced lazily over _p_est,
@@ -190,11 +189,11 @@ class StreamingSession:
         np.add.at(self._p_open_counts, (rows[:, 0], rows[:, 1]), np.float32(1))
 
     def _estimate(self, mats: np.ndarray):
-        """(OmpPaths, sweep_valid) of numpy arrays for [S, U, B] float32
-        mats, the per-sweep estimator on the CPU."""
+        """(OmpPaths or SmSicPaths, sweep_valid) of numpy arrays for [S, U, B]
+        float32 mats, the per-sweep estimator on the CPU."""
         est, valid = sweep_estimator_body(self._paths_spec.est_key)(
             torch.from_numpy(mats), *(torch.from_numpy(a) for a in self._dict_args))
-        return OmpPaths(*(x.numpy() for x in est)), valid.numpy()
+        return type(est)(*(x.numpy() for x in est)), valid.numpy()
 
     def _p_close_sweep(self) -> None:
         """Estimate the closed sweep from its float32 sums and counts (exact
@@ -217,8 +216,8 @@ class StreamingSession:
         return self._paths_spec
 
     def sweep_paths(self):
-        """Online per-sweep estimates: (OmpPaths of [n_closed, K] numpy
-        arrays, sweep_valid [n_closed]); equal to the offline
+        """Online per-sweep estimates: (OmpPaths or SmSicPaths of [n_closed,
+        K] numpy arrays, sweep_valid [n_closed]); equal to the offline
         ``Session.sweep_paths`` on the same stream."""
         spec = self._spec()
         if not self._p_est:
@@ -226,8 +225,8 @@ class StreamingSession:
             # call on an all-NaN sweep.
             nan = np.full((1, len(spec.ue_ids), len(spec.bs_ids)), np.nan, np.float32)
             est, valid = self._estimate(nan)
-            return OmpPaths(*(x[:0] for x in est)), valid[:0]
-        paths = OmpPaths(*(np.concatenate(parts) for parts in zip(*self._p_est)))
+            return type(est)(*(x[:0] for x in est)), valid[:0]
+        paths = type(self._p_est[0])(*(np.concatenate(parts) for parts in zip(*self._p_est)))
         return paths, np.concatenate(self._p_valid)
 
     def sweep_times(self) -> np.ndarray:
@@ -243,7 +242,7 @@ class StreamingSession:
         paths, sweep_valid = self.sweep_paths()
         times = self.sweep_times()
         valid = np.asarray(paths.valid, bool) & sweep_valid[:, None] & (times >= 0)[:, None]
-        tracks = track_paths_np(paths.aoa, paths.aod, paths.power, valid,
+        tracks = track_paths_np(paths.aoa, paths.aod, path_power(paths), valid,
                                 max_tracks=spec.max_tracks, gate_deg=spec.gate_deg)
         return tracks, times, track_velocities(tracks, times)
 
@@ -268,7 +267,7 @@ class StreamingSession:
             self._trk_count, *col = track_sweep_step_np(
                 self._trk_pos, self._trk_created, self._trk_count,
                 np.asarray(est.aoa, np.float32)[0], np.asarray(est.aod, np.float32)[0],
-                np.asarray(est.power, np.float32)[0], valid_s, gate2)
+                np.asarray(path_power(est), np.float32)[0], valid_s, gate2)
             self._trk_cols.append(col)
         cols = self._trk_cols[lo:hi]
         t_n = spec.max_tracks

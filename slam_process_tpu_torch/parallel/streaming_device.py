@@ -8,8 +8,9 @@ decode (kernel K1), the corrector on the closed groups' rows (K2), the
 intensity sums, the open group's carry compaction (K5), one compaction of
 the kept rows (K5) into the emit ring and, with ``collect_paths``, into a
 fresh buffer for the online paths, then the per-sweep sums of those rows
-(K4), NN-OMP on the sweeps the window closed and the tracker block (K6).
-On CPU tensors every kernel's plain version runs instead.
+(K4), the per-sweep estimator (NN-OMP or SM-SIC) on the sweeps the window
+closed and the tracker block (K6).  On CPU tensors every kernel's plain
+version runs instead.
 
 Semantics kept from the JAX package:
 
@@ -30,9 +31,15 @@ Semantics kept from the JAX package:
     are ``detect_groups_np(filtered[:, 0])``; the open sweep's sums carry
     over; the estimator and the tracker run on the closed sweeps only.
 
+``SceneConfig.log_transform`` is honoured: the running sums are then float64
+sums of ln(RSS) over the rows with RSS > 0 (``ops/scene.py`` bounds them
+between the card and the CPU), while the online paths' per-sweep sums stay
+integer (the JAX package passes ``SceneConfig()`` there), so K4 runs.
+
 Where the port differs: the running intensity sums are int64 (exact at any
 stream length; the JAX package's float32 sums are exact below 2^24 per
-cell), and the state is updated in place.  A window waits on the device
+cell), or float64 for the pre-log scene, and the state is updated in
+place.  A window waits on the device
 only with ``collect_paths``: once to read the count of sweeps it closed,
 which sizes the estimator's batch (``HOST_SYNCS``), and, when it closed
 any, at each step of the NNLS solver's lockstep loops
@@ -55,9 +62,8 @@ import torch
 
 from slam_process_tpu_torch.config import PipelineConfig, RenderConfig, SceneConfig
 from slam_process_tpu_torch.io.angles import load_angle_lut
-from slam_process_tpu_torch.models.nn_omp import OmpPaths
 from slam_process_tpu_torch.models.sweep_estimation import (
-    sweep_estimator_body, sweep_estimator_setup)
+    estimator_dictionary, path_power, sweep_estimator_body, sweep_estimator_setup, zero_paths)
 from slam_process_tpu_torch.models.tracking import Tracks, track_velocities
 from slam_process_tpu_torch.ops.compact import compact_rows, compact_rows_multi
 from slam_process_tpu_torch.ops.correct import correct_rows
@@ -85,7 +91,7 @@ class StreamPathsSpec(NamedTuple):
     all; past either the paths readers raise.
     """
 
-    estimator: str          # "nn_omp"
+    estimator: str          # "nn_omp" | "sm_sic"
     est_key: tuple          # from sweep_estimator_setup
     ue_ids: tuple           # participating UE beam ids (ints)
     bs_ids: tuple           # participating BS beam ids
@@ -104,7 +110,9 @@ def make_paths_spec(angle_file, estimator: str = "nn_omp", beam_ids=None, s_step
     finite angle in the table.  ``overrides`` are ``Session.sweep_paths``'s
     estimator overrides (max_paths, grid_res, beam_width, keep_rule,
     stop_nonpositive).  ``dict_args`` is (phi_rx, phi_tx, aoa_grid,
-    aod_grid) as float32 numpy arrays.
+    aod_grid) as numpy arrays in the estimator body's dtypes
+    (``sweep_estimation.estimator_dictionary``: float32, the SM-SIC grids
+    float64).
     """
     lut = load_angle_lut(angle_file)
     if beam_ids is None:
@@ -118,9 +126,8 @@ def make_paths_spec(angle_file, estimator: str = "nn_omp", beam_ids=None, s_step
                            bs_ids=tuple(int(i) for i in bs_ids), s_step=int(s_step),
                            capacity=int(capacity), max_tracks=int(max_tracks),
                            gate_deg=float(gate_deg))
-    dict_args = tuple(np.asarray(x, np.float32) for x in (d.phi_rx, d.phi_tx, d.aoa_grid,
-                                                          d.aod_grid))
-    return spec, dict_args
+    d = estimator_dictionary(est_key, d)
+    return spec, (d.phi_rx, d.phi_tx, d.aoa_grid, d.aod_grid)
 
 
 @dataclasses.dataclass
@@ -135,7 +142,7 @@ class PathsState:
     last_kept_ue: torch.Tensor  # i32: the last kept row's UE (-1: none)
     n_closed: torch.Tensor      # i32: sweeps closed and estimated
     overflow: torch.Tensor      # bool: s_step or capacity exceeded
-    est_rings: OmpPaths         # [P, K] per field, n_iters [P]
+    est_rings: tuple            # OmpPaths ([P, K] per field, n_iters [P]) or SmSicPaths
     valid_ring: torch.Tensor    # [P] bool: the sweep had an observed cell
     time_ring: torch.Tensor     # [P] i32 raw CLK anchors
     trk_pos: torch.Tensor       # [T, 2] f32 tracker carry
@@ -154,7 +161,7 @@ class DeviceStreamState:
 
     carry_frames: torch.Tensor   # [Gcap, 5] i32: the open group's rows
     carry_count: torch.Tensor    # i32
-    sums: torch.Tensor           # [64, 64] int64 running intensity sums
+    sums: torch.Tensor           # [64, 64] int64 running intensity sums (float64 pre-log)
     counts: torch.Tensor         # [64, 64] int64 running cell counts
     n_frames: torch.Tensor       # i32
     n_kept: torch.Tensor         # i32
@@ -255,7 +262,7 @@ def _paths_substep(p: PathsState, kr: torch.Tensor, n_keep: torch.Tensor,
             ring.index_copy_(0, ring_idx, block)
         p.valid_ring.index_copy_(0, ring_idx, sv)
         p.time_ring.index_copy_(0, ring_idx, times[:live])
-        for lane, x in zip(lanes, (est.aoa, est.aod, est.power)):
+        for lane, x in zip(lanes, (est.aoa, est.aod, path_power(est))):
             lane[:live] = x
         val_l[:live] = est.valid & sv[:, None]
 
@@ -307,9 +314,6 @@ class DeviceStreamingSession:
                  n_beams: int = 64, emit_capacity: Optional[int] = None, collect_paths=None,
                  device=None):
         self.config = config or PipelineConfig()
-        if self.config.scene.log_transform:
-            raise NotImplementedError("log_transform scenes need float sums, which the port "
-                                      "does not have yet (ROADMAP queue 1 item 2.1)")
         if n_beams != self.config.scene.n_beams:
             raise ValueError(f"n_beams={n_beams} differs from the scene config's "
                              f"{self.config.scene.n_beams}")
@@ -333,8 +337,7 @@ class DeviceStreamingSession:
         if collect_paths is not None:
             spec, dict_args = collect_paths
             self._paths_spec: Optional[StreamPathsSpec] = spec
-            self._dict_args = tuple(torch.as_tensor(a, dtype=torch.float32, device=self.device)
-                                    for a in dict_args)
+            self._dict_args = tuple(torch.as_tensor(a, device=self.device) for a in dict_args)
             self._beam_ids = tuple(torch.tensor(ids, dtype=torch.long, device=self.device)
                                    for ids in (spec.ue_ids, spec.bs_ids))
         else:
@@ -362,12 +365,9 @@ class DeviceStreamingSession:
         spec = self._paths_spec
         if spec is not None:
             p_n = spec.capacity + spec.s_step + 1
-            k_n = spec.est_key[1].max_paths
             t_n = spec.max_tracks
             f32 = torch.float32
-            rings = OmpPaths(zeros(p_n, k_n, dtype=f32), zeros(p_n, k_n, dtype=f32),
-                             zeros(p_n, k_n, dtype=f32), zeros(p_n, k_n, dtype=torch.bool),
-                             zeros(p_n), zeros(p_n, k_n), zeros(p_n, k_n))
+            rings = zero_paths(spec.est_key, p_n, dev)
             paths = PathsState(
                 open_sums=zeros(nb, nb, dtype=f32), open_counts=zeros(nb, nb, dtype=f32),
                 open_time=scalar(-1), last_kept_ue=scalar(-1), n_closed=scalar(0),
@@ -379,7 +379,9 @@ class DeviceStreamingSession:
                 trk_obs=zeros(p_n, t_n, dtype=torch.bool))
         return DeviceStreamState(
             carry_frames=zeros(self._gcap, 5), carry_count=scalar(0),
-            sums=zeros(nb, nb, dtype=torch.int64), counts=zeros(nb, nb, dtype=torch.int64),
+            sums=zeros(nb, nb, dtype=torch.float64 if self.config.scene.log_transform
+                       else torch.int64),
+            counts=zeros(nb, nb, dtype=torch.int64),
             n_frames=scalar(0), n_kept=scalar(0), n_groups=scalar(0),
             overflow=scalar(False, torch.bool), emit_buf=zeros(self._ecap, 4),
             emit_count=scalar(0), emit_overflow=scalar(False, torch.bool), paths=paths)
@@ -580,11 +582,12 @@ class DeviceStreamingSession:
         return int(p.n_closed), p
 
     def sweep_paths(self):
-        """Online per-sweep estimates: (OmpPaths of [n_closed, K] numpy
-        arrays, sweep_valid [n_closed]).  Equal to ``Session.sweep_paths(...,
-        beam_ids=(spec.ue_ids, spec.bs_ids))`` on the same stream."""
+        """Online per-sweep estimates: (OmpPaths or SmSicPaths of [n_closed,
+        K] numpy arrays, sweep_valid [n_closed]).  Equal to
+        ``Session.sweep_paths(..., beam_ids=(spec.ue_ids, spec.bs_ids))`` on
+        the same stream."""
         n, p = self._paths_read()
-        paths = OmpPaths(*(x[:n].cpu().numpy() for x in p.est_rings))
+        paths = type(p.est_rings)(*(x[:n].cpu().numpy() for x in p.est_rings))
         return paths, p.valid_ring[:n].cpu().numpy()
 
     def sweep_times(self) -> np.ndarray:
@@ -702,7 +705,8 @@ def render_grid(grid, angle_lut: np.ndarray, device, render_cfg: Optional[Render
 
 CKPT_VERSION = 1
 _NP_DTYPE = {torch.bool: np.dtype(bool), torch.int32: np.dtype(np.int32),
-             torch.int64: np.dtype(np.int64), torch.float32: np.dtype(np.float32)}
+             torch.int64: np.dtype(np.int64), torch.float32: np.dtype(np.float32),
+             torch.float64: np.dtype(np.float64)}
 
 
 def _ckpt_write(path, leaves, meta: dict) -> None:

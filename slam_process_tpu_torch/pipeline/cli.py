@@ -9,7 +9,7 @@
     python -m slam_process_tpu_torch.pipeline.cli session --log IN.txt --mapping ... --outdir DIR
     python -m slam_process_tpu_torch.pipeline.cli estimate --input IN.txt|IN.xlsx --mapping ...
                                                  [--model nn_omp|nn_omp_v1|nn_omp_v14|nn_omp_v15|
-                                                  nn_omp_v16] [--engine device|host]
+                                                  nn_omp_v16|sm_sic] [--engine device|host]
                                                  [--per-sweep | --tracks [--changes]]
     python -m slam_process_tpu_torch.pipeline.cli replay --logs A.txt [B.txt ...] --mapping ...
                                                  --outdir DIR [--engine device|host]
@@ -46,7 +46,8 @@ import zipfile
 from pathlib import Path
 
 from slam_process_tpu_torch.config import RenderConfig, SceneConfig
-from slam_process_tpu_torch.models.registry import FLAVORS, NOT_PORTED, run_estimator
+from slam_process_tpu_torch.models.registry import NOT_PORTED, PORTED, run_estimator
+from slam_process_tpu_torch.models.sweep_estimation import path_power
 from slam_process_tpu_torch.pipeline.session import Session
 from slam_process_tpu_torch.utils.logging import StageCounters, get_logger
 from slam_process_tpu_torch.utils.timestamps import extract_timestamp
@@ -222,7 +223,7 @@ def _add_estimate(sub):
     p.add_argument("--input", type=Path, required=True, help="filtered xlsx or raw .txt")
     p.add_argument("--mapping", type=Path, required=True)
     p.add_argument("--output", type=Path, default=None)
-    p.add_argument("--model", default="nn_omp", choices=FLAVORS + NOT_PORTED,
+    p.add_argument("--model", default="nn_omp", choices=PORTED + NOT_PORTED,
                    help="the NN-OMP flavors are ported; the other names raise "
                         "NotImplementedError")
     p.add_argument("--max-paths", type=int, default=None)
@@ -297,8 +298,8 @@ def _add_change_args(p, gate: str) -> None:
 
 def _coerce_sweep_estimator(args, overrides, what: str) -> str:
     """The per-sweep estimator of --model, warning instead of silently
-    coercing (only nn_omp / sm_sic estimate per sweep, always on --device;
-    sm_sic raises as the per-sweep estimator's setup does)."""
+    coercing (only nn_omp / sm_sic estimate per sweep, always on
+    --device)."""
     if args.model in ("nn_omp", "sm_sic"):
         estimator = args.model
     else:
@@ -386,11 +387,12 @@ def _run_estimate_per_sweep(args, s, overrides):
     estimator = _coerce_sweep_estimator(args, overrides, "--per-sweep")
     paths, sweep_valid = s.sweep_paths(args.mapping, estimator=estimator, **overrides)
     times = s.sweep_times(len(sweep_valid), device=args.device)
+    power = path_power(paths)
     rows = []
     for sweep in np.nonzero(sweep_valid)[0]:
         for k in np.nonzero(paths.valid[sweep])[0]:
             rows.append([sweep, times[sweep], k, paths.aoa[sweep][k], paths.aod[sweep][k],
-                         paths.power[sweep][k]])
+                         power[sweep][k]])
     table = np.asarray(rows, dtype=np.float64).reshape(-1, 6)
     out = args.output or (args.input.parent / f"{s.name}_sweep_paths.xlsx")
     # write_xlsx_table may retry to <stem>_out.xlsx on PermissionError;

@@ -4,7 +4,11 @@ intensity -> raster, on one device.
 The host work is file I/O and hex tokenization; everything from the byte
 tensor onward runs on the device: kernel K1 decodes, kernel K2 gives the
 corrector's verdicts, kernel K3 rasterizes, and plain PyTorch integer code
-joins them.  The counterpart of ``slam_process_tpu/pipeline/device.py``.
+joins them.  The text path (``run_session_from_text``) also tokenizes on
+the device: the raw log text is the only host-to-device copy
+(``ops/tokenize.tokenize_stride3``), with the host tokenizer where the
+text is not stride-3 regular.  The counterpart of
+``slam_process_tpu/pipeline/device.py``.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from slam_process_tpu_torch.ops.correct import correct_rows
 from slam_process_tpu_torch.ops.decode import decode_rows, discard_count
 from slam_process_tpu_torch.ops.raster import colormap_lut, rasterize_tiles
 from slam_process_tpu_torch.ops.scene import fill_grid, intensity_grid
+from slam_process_tpu_torch.ops.tokenize import (
+    prepare_text, stride3_offset, text_bucket, tokenize_stride3)
 
 
 class DeviceSessionOut(NamedTuple):
@@ -49,6 +55,7 @@ def session_pipeline(
     *,
     blur_sigma: float = 1.0,
     use_log: bool = True,
+    log_transform_scene: bool = False,
     max_groups: int = 256,
     max_baselines_per_group: int = 256,
     decode_cfg: DecodeConfig = DecodeConfig(),
@@ -58,10 +65,12 @@ def session_pipeline(
     """Full per-session pipeline on ``byte_tensor``'s device.
 
     Pad the byte tensor with 0x00 (never a flag byte), so padded regions
-    decode to nothing.  With ``discards_in`` (the length before the
-    padding, which the truncated-tail rule reads) the decoder's discard
-    counter is counted too; it costs ~30 small device operations, which
-    only ``cli decode`` asks for.
+    decode to nothing.  ``log_transform_scene`` makes the grid the pre-log
+    scene (ln(RSS) means over the rows with RSS > 0, ``ops/scene.py``).
+    With ``discards_in`` (the length before the padding, which the
+    truncated-tail rule reads) the decoder's discard counter is counted
+    too; it costs ~30 small device operations, which only ``cli decode``
+    asks for.
     """
     frames, valid, count = decode_rows(byte_tensor, cfg=decode_cfg)
     discarded = (None if discards_in is None
@@ -70,7 +79,8 @@ def session_pipeline(
         frames, valid, max_groups=max_groups,
         max_baselines_per_group=max_baselines_per_group, cfg=correct_cfg)
 
-    scene_cfg = SceneConfig(keep_nan=True, fill_with_min=False)
+    scene_cfg = SceneConfig(keep_nan=True, fill_with_min=False,
+                            log_transform=log_transform_scene)
     grid = intensity_grid(frames[:, 1], corrected_bs, frames[:, 3], keep, cfg=scene_cfg)
     # Raster in AoD x AoA orientation (BS rows).
     matrix = fill_grid(grid, scene_cfg).T.contiguous()
@@ -124,15 +134,79 @@ def device_lut(device: torch.device, name: str = "viridis") -> torch.Tensor:
 def run_session_on_device(raw_bytes: np.ndarray, blur_sigma: float = 1.0,
                           use_log: bool = True, max_groups: int = 256,
                           max_baselines_per_group: int = 256, *, device=None,
+                          log_transform_scene: bool = False,
                           decode_cfg: DecodeConfig = DecodeConfig(),
                           correct_cfg: CorrectConfig = CorrectConfig(),
                           count_discards: bool = False) -> DeviceSessionOut:
     """Tokenized bytes -> pipeline outputs on ``device`` (None: CUDA);
-    ``count_discards`` also counts the decoder's discards."""
+    ``log_transform_scene`` builds the pre-log grid, ``count_discards``
+    also counts the decoder's discards."""
     dev = resolve_device(device)
     padded = torch.from_numpy(pad_bytes(raw_bytes, bucket_size(len(raw_bytes)))).to(dev)
     return session_pipeline(padded, device_lut(dev), blur_sigma=blur_sigma, use_log=use_log,
-                            max_groups=max_groups,
+                            log_transform_scene=log_transform_scene, max_groups=max_groups,
                             max_baselines_per_group=max_baselines_per_group,
                             decode_cfg=decode_cfg, correct_cfg=correct_cfg,
                             discards_in=len(raw_bytes) if count_discards else None)
+
+
+class TextSessionOut(NamedTuple):
+    out: DeviceSessionOut
+    tokenize_regular: torch.Tensor   # scalar bool: the stride-3 proof flag held
+    n_tokens: torch.Tensor           # scalar i32
+
+
+def session_pipeline_from_text(text_tensor: torch.Tensor, n_text, lut: torch.Tensor,
+                               **kw) -> TextSessionOut:
+    """Text -> raster on ``text_tensor``'s device: the stride-3 tokenizer,
+    then ``session_pipeline`` (``kw``: its keyword arguments).
+
+    ``text_tensor`` is [M] uint8, M % 3 == 0, whitespace-padded, and
+    ``n_text`` the body's length; the caller has established
+    ``stride3_offset``'s precondition.  The outputs hold only where
+    ``tokenize_regular`` is True; ``run_session_from_text`` reruns through
+    the host tokenizer where it is not.  The padding tokens are 0, inert
+    bytes, as the byte path's padding is.
+    """
+    b, n_tok, regular = tokenize_stride3(text_tensor, n_text)
+    return TextSessionOut(session_pipeline(b, lut, **kw), regular, n_tok)
+
+
+def run_session_from_text(data: bytes, blur_sigma: float = 1.0, use_log: bool = True,
+                          max_groups: int = 256, max_baselines_per_group: int = 256, *,
+                          device=None, check: bool = True, log_transform_scene: bool = False,
+                          decode_cfg: DecodeConfig = DecodeConfig(),
+                          correct_cfg: CorrectConfig = CorrectConfig()) -> TextSessionOut:
+    """Raw log file contents -> pipeline outputs on ``device`` (None:
+    CUDA), tokenized on the device.
+
+    The host scans the head for the body's start (``stride3_offset``) and
+    pads one buffer; the text is copied to the device and tokenized there.
+    With ``check=True`` (the default) the proof flag is read once (one host
+    sync) and an irregular stream reruns through the host tokenizer and
+    ``run_session_on_device``: the fallback follows the data, and
+    ``tokenize_regular`` is then a False tensor.  ``check=False`` leaves
+    the flag on the device for the caller to audit.
+    """
+    from slam_process_tpu_torch.io.hexlog import tokenize_hex
+
+    dev = resolve_device(device)
+    kw = dict(blur_sigma=blur_sigma, use_log=use_log, log_transform_scene=log_transform_scene,
+              max_groups=max_groups, max_baselines_per_group=max_baselines_per_group,
+              decode_cfg=decode_cfg, correct_cfg=correct_cfg)
+
+    def fallback() -> TextSessionOut:
+        raw = tokenize_hex(data)
+        out = run_session_on_device(raw, device=dev, **kw)
+        return TextSessionOut(out, torch.tensor(False, device=dev),
+                              torch.tensor(len(raw), dtype=torch.int32, device=dev))
+
+    p = stride3_offset(data)
+    if p is None:
+        return fallback()
+    text, n_text = prepare_text(data, p, text_bucket(len(data) - p))
+    res = session_pipeline_from_text(torch.from_numpy(text).to(dev), n_text, device_lut(dev),
+                                     **kw)
+    if check and not bool(res.tokenize_regular):
+        return fallback()
+    return res

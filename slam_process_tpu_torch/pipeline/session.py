@@ -18,16 +18,19 @@ single-session paths:
   * ``intensity`` builds the mean-RSS grid and ``render_heatmap`` its
     raster (kernel K3) and PNG.
   * ``sweep_intensity`` / ``sweep_paths`` build the per-sweep [S, 64, 64]
-    grids (kernel K4) and run the per-sweep NN-OMP estimator on a device;
-    ``path_tracks`` associates the paths into CLK-anchored tracks (kernel
-    K6 by default; ``engine="host"`` is the numpy association), and
-    ``scene_changes`` turns the tracks into change events.
+    grids (kernel K4) and run the per-sweep estimator (NN-OMP or SM-SIC)
+    on a device; ``path_tracks`` associates the paths into CLK-anchored
+    tracks (kernel K6 by default; ``engine="host"`` is the numpy
+    association), and ``scene_changes`` turns the tracks into change
+    events.
+  * ``sweep_paths_dataset`` runs the per-sweep estimator over many
+    sessions padded to common shapes and reads all results back once.
 
 Every method that touches a device takes ``device=None``, meaning CUDA;
 ``device="cpu"`` runs the plain PyTorch versions.  ``counters`` holds each
 stage's health counters (the JAX package's keys per engine) and
-``timings`` its host seconds.  Not ported yet: the ``pad_to`` /
-``sweep_paths_dataset`` batched form and the ``mesh`` form.
+``timings`` its host seconds.  Not ported yet: the ``mesh`` form (ROADMAP.md
+queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -47,10 +50,9 @@ from slam_process_tpu_torch.io.schemas import (
     PARSED_COLUMNS, read_filtered_table, read_parsed_table, write_filtered_table,
     write_parsed_table)
 from slam_process_tpu_torch.io.xlsx import write_xlsx_table
-from slam_process_tpu_torch.models.dictionary import dictionary_to_device
-from slam_process_tpu_torch.models.nn_omp import OmpPaths
+from slam_process_tpu_torch.models.dictionary import BeamDictionary
 from slam_process_tpu_torch.models.sweep_estimation import (
-    sweep_estimator_body, sweep_estimator_setup)
+    estimator_dictionary, path_power, sweep_estimator_body, sweep_estimator_setup)
 from slam_process_tpu_torch.models.tracking import (
     Tracks, track_paths, track_paths_np, track_velocities)
 from slam_process_tpu_torch.ops.correct import (
@@ -351,40 +353,81 @@ class Session:
 
     def _sweep_estimation_inputs(self, angle_file: Union[str, Path], estimator: str,
                                  max_sweeps: Optional[int], dev: torch.device, beam_ids=None,
-                                 **overrides):
+                                 pad_to=None, **overrides):
         """(sub [S, U, B] f32 on ``dev``, NaN where unobserved; the session
-        dictionary as float32 tensors on ``dev``; est_key; n_sweeps),
-        memoized beside the host prep."""
+        dictionary as tensors on ``dev`` (``estimator_dictionary``'s
+        dtypes); est_key; n_sweeps), memoized beside the host prep.
+
+        With ``pad_to = (S, U, B, Ga, Gd)`` every axis is padded to that
+        common shape: NaN measurement cells (sweeps past the session's and
+        beams past its own), zero phi rows (beams) and columns (atoms), and
+        the grids' last angle repeated.  Padded beams add exact zeros to
+        every correlation, Gram entry and right-hand side, and padded atoms
+        have a correlation of exactly 0 (``models/batch_estimation``'s
+        argument), so the real sweeps' paths are those of the unpadded
+        inputs.  One corner: with ``stop_nonpositive=False`` (the per-sweep
+        default) a padded atom could win NN-OMP's argmax where every real
+        correlation is negative; its coefficient refits to 0, so it is
+        never a valid path, but ``n_iters`` counts it.
+        """
         gid, n_sweeps, ue_ids, bs_ids, d, est_key = self._sweep_host_prep(
             angle_file, estimator, max_sweeps, beam_ids, dev, **overrides)
         memo_key = ("inputs", str(dev), str(angle_file), estimator, max_sweeps,
-                    tuple(ue_ids.tolist()), tuple(bs_ids.tolist()),
+                    tuple(ue_ids.tolist()), tuple(bs_ids.tolist()), pad_to,
                     tuple(sorted(overrides.items())), self._filtered_gen)
         if memo_key in self._sweep_prep_memo:
             return self._sweep_prep_memo[memo_key]
-        mean, _ = self._sweep_grids(gid, n_sweeps, dev)
-        sub = mean[:, torch.from_numpy(ue_ids).to(dev)][:, :, torch.from_numpy(bs_ids).to(dev)]
-        result = (sub, dictionary_to_device(d, dev), est_key, n_sweeps)
+        d = estimator_dictionary(est_key, d)
+        ue_idx, bs_idx = ue_ids, bs_ids
+        s_alloc = n_sweeps
+        if pad_to is not None:
+            s_alloc, u_max, b_max, ga_max, gd_max = pad_to
+            nb = self.config.scene.n_beams
+            # Index nb is a NaN row / column appended below.
+            ue_idx = np.pad(ue_ids, (0, u_max - len(ue_ids)), constant_values=nb)
+            bs_idx = np.pad(bs_ids, (0, b_max - len(bs_ids)), constant_values=nb)
+            ga, gd = len(d.aoa_grid), len(d.aod_grid)
+            d = BeamDictionary(
+                aoa_grid=np.pad(d.aoa_grid, (0, ga_max - ga), mode="edge"),
+                aod_grid=np.pad(d.aod_grid, (0, gd_max - gd), mode="edge"),
+                phi_rx=np.pad(d.phi_rx, ((0, u_max - len(ue_ids)), (0, ga_max - ga))),
+                phi_tx=np.pad(d.phi_tx, ((0, b_max - len(bs_ids)), (0, gd_max - gd))))
+        mean, _ = self._sweep_grids(gid, s_alloc, dev)
+        if pad_to is not None:
+            mean = torch.nn.functional.pad(mean, (0, 1, 0, 1), value=float("nan"))
+        sub = (mean.index_select(1, torch.from_numpy(ue_idx).to(dev))
+               .index_select(2, torch.from_numpy(bs_idx).to(dev)))
+        result = (sub, BeamDictionary(*(torch.from_numpy(x).to(dev) for x in d)), est_key,
+                  n_sweeps)
         self._sweep_prep_memo[memo_key] = result
         return result
+
+    def _sweep_estimate(self, angle_file, estimator, max_sweeps, dev, beam_ids=None, pad_to=None,
+                        **overrides):
+        """(paths of [S, K] tensors, sweep_valid [S], n_sweeps) on ``dev``."""
+        sub, d, est_key, n_sweeps = self._sweep_estimation_inputs(
+            angle_file, estimator, max_sweeps, dev, beam_ids, pad_to, **overrides)
+        out, valid = sweep_estimator_body(est_key)(sub, d.phi_rx, d.phi_tx, d.aoa_grid,
+                                                   d.aod_grid)
+        return out, valid, n_sweeps
 
     def sweep_paths(self, angle_file: Union[str, Path], estimator: str = "nn_omp",
                     max_sweeps: Optional[int] = None, device=None, beam_ids=None,
                     **overrides):
-        """Per-sweep multipath estimation on ``device`` (None: CUDA).
+        """Per-sweep multipath estimation on ``device`` (None: CUDA), with
+        ``estimator`` "nn_omp" or "sm_sic".
 
         Returns (paths, sweep_valid) as numpy: ``paths`` an OmpPaths of [S,
         K] arrays (f32 angles and power, bool valid, i32 indices; n_iters
-        [S] i32), ``sweep_valid[s]`` False for sweeps with no observed cell
+        [S] i32) or an SmSicPaths (f32 angles and metric, bool valid and
+        is_los), ``sweep_valid[s]`` False for sweeps with no observed cell
         in the compact submatrix.  ``beam_ids = (ue_ids, bs_ids)`` fixes the
         beam set (see ``_sweep_host_prep``).
         """
-        dev = resolve_device(device)
-        sub, d, est_key, n_sweeps = self._sweep_estimation_inputs(
-            angle_file, estimator, max_sweeps, dev, beam_ids, **overrides)
-        out, valid = sweep_estimator_body(est_key)(sub, d.phi_rx, d.phi_tx, d.aoa_grid,
-                                                   d.aod_grid)
-        paths = OmpPaths(*(x.cpu().numpy()[:n_sweeps] for x in out))
+        out, valid, n_sweeps = self._sweep_estimate(angle_file, estimator, max_sweeps,
+                                                    resolve_device(device), beam_ids,
+                                                    **overrides)
+        paths = type(out)(*(x.cpu().numpy()[:n_sweeps] for x in out))
         return paths, valid.cpu().numpy()[:n_sweeps]
 
     def path_tracks(self, angle_file: Union[str, Path], estimator: str = "nn_omp",
@@ -393,7 +436,8 @@ class Session:
         """CLK-anchored multipath tracks: ``sweep_paths`` on ``device``
         (None: CUDA), each sweep anchored on its first kept frame's CLK
         (``sweep_times``), paths associated across sweeps into tracks with
-        per-track angular-velocity fits (deg per CLK tick).
+        per-track angular-velocity fits (deg per CLK tick).  A path's power
+        is NN-OMP's coefficient or SM-SIC's metric.
 
         ``engine`` picks the association: "device" (the default:
         ``models/tracking.track_paths`` on ``device``, kernel K6 on CUDA) or
@@ -406,14 +450,15 @@ class Session:
                                               **overrides)
         times = self.sweep_times(len(sweep_valid), device)
         valid = np.asarray(paths.valid, bool) & sweep_valid[:, None] & (times >= 0)[:, None]
+        power = path_power(paths)
         if engine == "device":
             dev = resolve_device(device)
             t = track_paths(*(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-                              for x in (paths.aoa, paths.aod, paths.power, valid)),
+                              for x in (paths.aoa, paths.aod, power, valid)),
                             max_tracks=max_tracks, gate_deg=gate_deg)
             tracks = Tracks(*(x.cpu().numpy() for x in t[:5]), int(t.n_tracks))
         else:
-            tracks = track_paths_np(paths.aoa, paths.aod, paths.power, valid,
+            tracks = track_paths_np(paths.aoa, paths.aod, power, valid,
                                     max_tracks=max_tracks, gate_deg=gate_deg)
         return tracks, times, track_velocities(tracks, times)
 
@@ -476,3 +521,59 @@ class Session:
             if "filtered" in z:
                 s.filtered = z["filtered"]
         return s
+
+
+def _read_once(results: list) -> list:
+    """Host copies of a list of tensor NamedTuples in one device-to-host
+    read: every field is widened to float64 (exact for the float32, int32
+    and bool fields) and concatenated."""
+    flat = [x for r in results for x in r]
+    packed = torch.cat([x.reshape(-1).to(torch.float64) for x in flat]).cpu().numpy()
+    out, off = [], 0
+    for r in results:
+        fields = []
+        for x in r:
+            n = x.numel()
+            dtype = np.dtype(str(x.dtype).replace("torch.", ""))
+            fields.append(packed[off:off + n].reshape(tuple(x.shape)).astype(dtype))
+            off += n
+        out.append(type(r)(*fields) if hasattr(r, "_fields") else tuple(fields))
+    return out
+
+
+def sweep_paths_dataset(sessions, angle_file: Union[str, Path], estimator: str = "nn_omp",
+                        mesh=None, device=None, **overrides):
+    """Per-sweep estimation for many sessions on ``device`` (None: CUDA).
+
+    Every session's per-sweep tensor and dictionary is padded to the
+    dataset-common (U, B, Ga, Gd) (``Session._sweep_estimation_inputs``'s
+    ``pad_to``, whose argument keeps each real sweep's paths those of the
+    session alone); the sweep axis keeps each session's own count.  The
+    estimators are queued session after session and the results of all of
+    them cross to the host in one read.  Returns a list of (paths,
+    sweep_valid) per session, equal to each session's ``sweep_paths``.
+    ``mesh`` (sharding over several devices) is not ported yet.
+    """
+    if mesh is not None:
+        raise NotImplementedError("sweep_paths_dataset(mesh=...) is not ported yet (ROADMAP.md "
+                                  "queue 1 item 9); call it without a mesh")
+    dev = resolve_device(device)
+    preps = [s._sweep_host_prep(angle_file, estimator, device=dev, **overrides)
+             for s in sessions]
+    if not preps:
+        return []
+    u_max = max(len(p[2]) for p in preps)
+    b_max = max(len(p[3]) for p in preps)
+    ga_max = max(len(p[4].aoa_grid) for p in preps)
+    gd_max = max(len(p[4].aod_grid) for p in preps)
+    est_key = preps[0][5]
+    outs = []
+    for s, prep in zip(sessions, preps):
+        if prep[5] != est_key:
+            raise ValueError("the sessions' estimator settings differ")
+        pad_to = (prep[1], u_max, b_max, ga_max, gd_max)
+        out, valid, n_sweeps = s._sweep_estimate(angle_file, estimator, None, dev,
+                                                 pad_to=pad_to, **overrides)
+        outs += [type(out)(*(x[:n_sweeps] for x in out)), (valid[:n_sweeps],)]
+    host = _read_once(outs)
+    return [(host[i], host[i + 1][0]) for i in range(0, len(host), 2)]

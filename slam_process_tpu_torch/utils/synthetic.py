@@ -13,7 +13,8 @@ row's RSS and carry the true BS beam.  Beyond that generator it adds:
   * optionally (``n_paths`` > 0), RSS from a seeded multipath scene
     instead of uniform noise: a few Gaussian-beam paths over the 64-beam
     angle table, drifting slowly across sweeps, plus noise;
-  * ``to_hex_text``, the serial-log text form that ``read_hex_log`` reads,
+  * ``to_hex_text``, the serial-log text form that ``read_hex_log`` reads
+    (the shipped logs' stride-3 layout, or lines of 16 tokens),
     and ``write_angle_table``, the beam -> angle xlsx table (optionally
     with unmapped beams);
   * ``with_flag_junk``: bursts of bytes dense in flag bytes spliced into a
@@ -171,19 +172,30 @@ def legacy_stream_bytes(fmt: str, n_frames: int = 300, junk_frac: float = 0.3,
     return np.concatenate(parts)
 
 
-def to_hex_text(b: np.ndarray) -> bytes:
-    """Serial-log text: upper-case hex pairs, space separated, CRLF after
-    every 16 tokens, behind a leading non-token marker (as shipped logs)."""
+def to_hex_text(b: np.ndarray, layout: str = "crlf") -> bytes:
+    """Serial-log text of the bytes ``b``: upper-case hex pairs behind a
+    leading non-token marker ("\u00ab ").
+
+    ``layout="shipped"`` writes one ``"XX "`` stream with no line break,
+    the stride-3 layout of the shipped logs (the one the card's tokenizer
+    and the native scanner's block path take).  ``layout="crlf"`` (the
+    default) adds CRLF after every 16 tokens; every line break breaks the
+    stride, so this layout always takes the host tokenizer's scalar path.
+    """
+    if layout not in ("crlf", "shipped"):
+        raise ValueError(f"unknown layout {layout!r}; use 'crlf' or 'shipped'")
     b = np.asarray(b, dtype=np.uint8)
     digits = np.frombuffer(b"0123456789ABCDEF", dtype=np.uint8)
     tok = np.empty((b.size, 3), dtype=np.uint8)
     tok[:, 0] = digits[b >> 4]
     tok[:, 1] = digits[b & 0xF]
     tok[:, 2] = ord(" ")
+    if layout == "shipped":
+        return "\u00ab ".encode() + tok.tobytes()
     lines = []
     for i in range(0, b.size, 16):
         lines.append(tok[i:i + 16].tobytes() + b"\r\n")
-    return "« ".encode() + b"".join(lines)
+    return "\u00ab ".encode() + b"".join(lines)
 
 
 def pack_verdict_table(r: np.ndarray, e: np.ndarray, n: np.ndarray, bmax: int) -> np.ndarray:

@@ -29,7 +29,13 @@ byte past it, N at the row blocks' edges) and ``sweep_sums_edge_cases`` (one
 cell over many tiles, sorted p with -1 runs and a -1 tail, S = 1, a cell at
 2^24 - 1, n_beams 32, 100 and 1,500), on byte views at every 16-byte
 misalignment, on calls repeated on one stream (the count scratch resets) and
-on interleaved K4 calls of different S.
+on interleaved K4 calls of different S.  The tenth slice's paths on the
+card: the stride-3 tokenizer equal to its CPU run, the text path equal to
+the byte path field for field (shipped and CRLF layouts), the pre-log
+session within one float32 ulp of the CPU and rtol 1e-6 of the float64
+oracle (a stream and its checkpoint resume too), SM-SIC on the card equal
+to the host engine and the CPU, ``sweep_paths_dataset`` equal to each
+session's ``sweep_paths``, and an SM-SIC stream equal to the offline paths.
 """
 
 import numpy as np
@@ -800,3 +806,139 @@ def test_watch_with_checkpoint_resume_on_card(tmp_path):
         assert r.session.n_frames == u.session.n_frames == c.session.n_frames
         np.testing.assert_array_equal(getattr(r if tag == "resumed" else c, "session").filtered,
                                       u.session.filtered)
+
+
+# -- text ingest, pre-log scenes, SM-SIC and the dataset's per-sweep paths ------------
+
+
+def fields_equal(a, b, fields=None):
+    """Pipeline outputs equal field for field (floats bit for bit, NaN
+    patterns equal)."""
+    for name in fields or b._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if y is None:
+            assert x is None, name
+            continue
+        x, y = x.cpu(), y.cpu()
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        if x.is_floating_point():
+            assert torch.equal(torch.isnan(x), torch.isnan(y)), name
+            x, y = x.nan_to_num(0.0), y.nan_to_num(0.0)
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("layout", ["shipped", "crlf"])
+def test_text_path_on_card_equals_byte_path_and_cpu(layout):
+    from slam_process_tpu_torch.ops.tokenize import (
+        prepare_text, stride3_offset, text_bucket, tokenize_stride3)
+    from slam_process_tpu_torch.pipeline.device import run_session_from_text
+    from slam_process_tpu_torch.utils.synthetic import to_hex_text
+
+    raw = session(seed=8)
+    text = to_hex_text(raw, layout)
+    p = stride3_offset(text)
+    body, n_text = prepare_text(text, p, text_bucket(len(text) - p))
+    got = tokenize_stride3(torch.from_numpy(body).cuda(), n_text)
+    want = tokenize_stride3(torch.from_numpy(body), n_text)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool(got[2]) == (layout == "shipped")
+    res = run_session_from_text(text)
+    assert bool(res.tokenize_regular) == (layout == "shipped")
+    assert int(res.n_tokens) == len(raw)
+    fields_equal(res.out, run_session_on_device(raw))
+    cpu = run_session_from_text(text, device="cpu")
+    fields_equal(res.out, cpu.out, ("frames", "frame_valid", "n_frames", "corrected_bs", "keep",
+                                    "n_kept", "counts", "mean_grid"))
+
+
+def test_prelog_session_and_stream_on_card(tmp_path):
+    from slam_process_tpu_torch.config import PipelineConfig, SceneConfig
+    from slam_process_tpu_torch.ops.correct import correct_frames_np
+    from slam_process_tpu_torch.ops.decode import decode_frames_np
+    from slam_process_tpu_torch.ops.scene import intensity_grid_np
+    from slam_process_tpu_torch.parallel.streaming_device import (
+        DeviceStreamingSession, replay_log_device)
+
+    log = SceneConfig(log_transform=True)
+    raw = session(seed=9)
+    f = correct_frames_np(decode_frames_np(raw).frames).filtered
+    ref = intensity_grid_np(f[:, 0], f[:, 1], f[:, 2], cfg=log)
+    out = run_session_on_device(raw, log_transform_scene=True)
+    cpu = run_session_on_device(raw, device="cpu", log_transform_scene=True)
+    fields_equal(out, cpu, ("frames", "frame_valid", "corrected_bs", "keep", "counts"))
+    np.testing.assert_array_equal(out.counts.cpu().numpy(), ref.counts)
+    mean = out.mean_grid.cpu().numpy()
+    np.testing.assert_allclose(mean, ref.mean, rtol=1e-6, atol=0, equal_nan=True)
+    fin = ~np.isnan(mean)           # one float32 ulp at most between the card and the CPU
+    assert (np.abs(mean[fin] - cpu.mean_grid.numpy()[fin]) <= np.spacing(mean[fin])).all()
+    cfg = PipelineConfig(scene=log)
+    s = replay_log_device(raw, chunk_bytes=1 << 14, config=cfg, collect_filtered=True)
+    np.testing.assert_array_equal(s.filtered, f)
+    grid = s.intensity()
+    np.testing.assert_array_equal(grid.counts, ref.counts)
+    np.testing.assert_allclose(grid.mean, ref.mean, rtol=1e-6, atol=0, equal_nan=True)
+    part = DeviceStreamingSession(cfg, chunk_bytes=1 << 14, collect_filtered=True)
+    half = (len(raw) // (1 << 14) // 2) * (1 << 14)
+    for off in range(0, half, 1 << 14):
+        part.feed(raw[off:off + (1 << 14)])
+    part.save_checkpoint(tmp_path / "prelog.ckpt")
+    r = DeviceStreamingSession.restore(tmp_path / "prelog.ckpt")
+    for off in range(half, len(raw), 1 << 14):
+        r.feed(raw[off:off + (1 << 14)])
+    r.finalize()
+    np.testing.assert_array_equal(r.filtered, f)
+    np.testing.assert_allclose(r.intensity().mean, grid.mean, rtol=1e-12, atol=0,
+                               equal_nan=True)
+
+
+def test_sm_sic_and_dataset_paths_on_card(tmp_path):
+    from slam_process_tpu_torch.models.registry import run_estimator
+    from slam_process_tpu_torch.models.sm_sic import SmSicPaths
+    from slam_process_tpu_torch.parallel.streaming_device import (
+        make_paths_spec, replay_log_device)
+    from slam_process_tpu_torch.pipeline.session import Session, sweep_paths_dataset
+    from slam_process_tpu_torch.utils.synthetic import to_hex_text, write_angle_table
+
+    angles = write_angle_table(tmp_path / "angles.xlsx")
+    sessions, raws = [], []
+    for i in range(3):
+        raw = synthetic_session_bytes(n_groups=4, frames_per_beam=3, baselines_per_group=9,
+                                      junk_frac=0.02, seed=40 + i, n_paths=3)
+        path = tmp_path / f"s{i}.txt"
+        path.write_bytes(to_hex_text(raw, "shipped"))
+        sessions.append(Session.from_log(path))
+        raws.append(raw)
+    s = sessions[0]
+    card = run_estimator("sm_sic", s, angles)
+    for other in (run_estimator("sm_sic", s, angles, engine="host"),
+                  run_estimator("sm_sic", s, angles, device="cpu")):
+        assert list(card["type"]) == list(other["type"]) and len(card) > 0
+        np.testing.assert_array_equal(card["aoa"], other["aoa"])
+        np.testing.assert_array_equal(card["aod"], other["aod"])
+        np.testing.assert_allclose(card["metric"], other["metric"], rtol=1e-6)
+    paths, valid = s.sweep_paths(angles, estimator="sm_sic")
+    want, want_valid = s.sweep_paths(angles, estimator="sm_sic", device="cpu")
+    assert isinstance(paths, SmSicPaths)
+    np.testing.assert_array_equal(valid, want_valid)
+    for field in ("aoa", "aod", "valid", "is_los"):
+        np.testing.assert_array_equal(getattr(paths, field), getattr(want, field))
+    np.testing.assert_allclose(paths.metric, want.metric, rtol=1e-6)
+    for est in ("nn_omp", "sm_sic"):
+        for sess, (p, v) in zip(sessions, sweep_paths_dataset(sessions, angles, estimator=est)):
+            q, w = sess.sweep_paths(angles, estimator=est)
+            np.testing.assert_array_equal(v, w)
+            for a, b in zip(p, q):
+                np.testing.assert_array_equal(a, b)
+    spec = make_paths_spec(angles, estimator="sm_sic", s_step=8)
+    ids = (spec[0].ue_ids, spec[0].bs_ids)
+    stream = replay_log_device(raws[0], chunk_bytes=1 << 14, collect_paths=spec)
+    (sp, sv), (tr, times, _) = stream.sweep_paths(), stream.path_tracks()
+    op, ov = s.sweep_paths(angles, estimator="sm_sic", beam_ids=ids)
+    ot = s.path_tracks(angles, estimator="sm_sic", beam_ids=ids)
+    np.testing.assert_array_equal(sv, ov)
+    for a, b in zip(sp, op):
+        np.testing.assert_array_equal(a, b)
+    for f in ("pos_aoa", "pos_aod", "power", "observed", "created"):
+        np.testing.assert_array_equal(getattr(tr, f), getattr(ot[0], f))
+    np.testing.assert_array_equal(times, ot[1])

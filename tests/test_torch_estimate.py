@@ -25,7 +25,7 @@
   (the test prints how many lie inside).
 * ``PathsTable`` prints pandas' text: the estimator's tables, an empty
   table, one row, a Power column in exponent notation.
-* The JAX registry's eight other names raise ``NotImplementedError``, an
+* The JAX registry's seven other names raise ``NotImplementedError``, an
   unknown name ``KeyError``.
 """
 
@@ -358,8 +358,9 @@ def test_paths_table_prints_pandas_text(case):
 
 def test_unported_and_unknown_estimators_raise(estimator_sessions, angles):
     s, _ = estimator_sessions
-    assert len(registry.NOT_PORTED) == 8
-    assert set(registry.NOT_PORTED) | set(FLAVORS) == set(jax_registry._REGISTRY)
+    assert len(registry.NOT_PORTED) == 7
+    assert set(registry.NOT_PORTED) | set(registry.PORTED) == set(jax_registry._REGISTRY)
+    assert set(registry.PORTED) == set(FLAVORS) | {"sm_sic"}
     for name in registry.NOT_PORTED:
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             registry.run_estimator(name, s, angles, device="cpu")

@@ -13,9 +13,12 @@
     ``--device``.  The host streaming engine (``--engine host``) makes no
     ``torch.cuda`` call at all.
   * The kernel wrappers launch or raise: a CPU tensor handed to one raises.
+  * Every "ROADMAP ... queue N item M" that the port or ``chip_smoke.py``
+    cites names an item that exists in ``ROADMAP.md``.
 """
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -184,6 +187,95 @@ def test_entry_points_need_cuda_without_falling_back(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert len(run_estimator("nn_omp", s, angles, device="cpu", grid_res=2.0)) > 0
+
+    # This slice's entry points: the text path, the device tokenizer, the
+    # dataset's per-sweep paths, SM-SIC and the pre-log session.
+    from slam_process_tpu_torch.ops.tokenize import tokenize_device
+    from slam_process_tpu_torch.pipeline.device import run_session_from_text
+    from slam_process_tpu_torch.pipeline.session import sweep_paths_dataset
+
+    text = to_hex_text(raw, "shipped")
+    for call in (lambda: run_session_from_text(text),
+                 lambda: run_session_from_text(to_hex_text(raw)),
+                 lambda: tokenize_device(text),
+                 lambda: run_session_on_device(raw, log_transform_scene=True),
+                 lambda: sweep_paths_dataset([s], angles),
+                 lambda: s.sweep_paths(angles, estimator="sm_sic"),
+                 lambda: run_estimator("sm_sic", s, angles),
+                 lambda: cli.main(estimate + ["--input", str(path), "--model", "sm_sic"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert bool(run_session_from_text(text, device="cpu").tokenize_regular)
+    assert len(run_estimator("sm_sic", s, angles, device="cpu")) > 0
+
+
+ROADMAP_REF = re.compile(r"ROADMAP(?:\.md)?[\s\"'#f+]*queue[\s\"'#f+]*(\d+)[\s\"'#f+]*item"
+                         r"[\s\"'#f+]*(\d+(?:\.\d+)*)")
+
+
+def roadmap_items(text: str) -> set:
+    """("queue", "item") pairs of ROADMAP.md: the numbered items under each
+    "### Queue N" heading, and their numbered sub-items as "M.K"."""
+    items, queue, top = set(), None, None
+    for line in text.splitlines():
+        head = re.match(r"### Queue (\d+)\b", line)
+        if head:
+            queue, top = head.group(1), None
+            continue
+        if line.startswith("#"):
+            queue = None
+            continue
+        if queue is None:
+            continue
+        m = re.match(r"(\d+)\. ", line)
+        if m:
+            top = m.group(1)
+            items.add((queue, top))
+            continue
+        m = re.match(r" {2,}(\d+)\. ", line)
+        if m and top is not None:
+            items.add((queue, f"{top}.{m.group(1)}"))
+    return items
+
+
+def roadmap_refs(source: str) -> set:
+    return {m.groups() for m in ROADMAP_REF.finditer(source)}
+
+
+@pytest.mark.parametrize("source,items,stale", [
+    ('raise X("not ported (ROADMAP.md queue 1 "\n f"item 8); use nn_omp")', {("1", "8")}, []),
+    ("# see ROADMAP queue 1 item 2.1\n", {("1", "2")}, [("1", "2.1")]),
+    ('"(ROADMAP queue 1 item 9)"', {("1", "8")}, [("1", "9")]),
+    ('"ROADMAP.md queue 3 item 1"', {("1", "1")}, [("3", "1")]),
+])
+def test_roadmap_reference_rule(source, items, stale):
+    """The rule itself: references split across string pieces and comment
+    lines are found; one naming no item is stale."""
+    assert sorted(roadmap_refs(source) - items) == stale
+
+
+def test_roadmap_items_are_parsed():
+    items = roadmap_items("### Queue 1 — x\n\n1. **a**\n   1. b\n   2. c\n8. **d**\n"
+                          "### Queue 2 — y\n1. e\n## Other\n5. f\n")
+    assert items == {("1", "1"), ("1", "1.1"), ("1", "1.2"), ("1", "8"), ("2", "1")}
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_roadmap_references_name_existing_items(path):
+    """Every "ROADMAP ... queue N item M" in the port and ``chip_smoke.py``
+    names a numbered item (or sub-item) of ROADMAP.md's queue N."""
+    items = roadmap_items((REPO / "ROADMAP.md").read_text())
+    assert not sorted(roadmap_refs(path.read_text()) - items)
+
+
+def test_roadmap_references_are_pinned():
+    """The port's current references, each to an item that exists."""
+    refs = {str(p.relative_to(PORT)): roadmap_refs(p.read_text()) for p in PORT.rglob("*.py")}
+    cited = {k: v for k, v in refs.items() if v}
+    assert cited == {"models/registry.py": {("1", "8")}, "pipeline/cli.py": {("1", "9")},
+                     "pipeline/session.py": {("1", "9")}}
+    items = roadmap_items((REPO / "ROADMAP.md").read_text())
+    assert {("1", "8"), ("1", "9")} <= items
 
 
 def stream_inputs(tmp_path):

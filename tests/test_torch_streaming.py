@@ -295,9 +295,10 @@ def test_argument_and_state_errors(spec):
         s.filtered
     with pytest.raises(ValueError, match="10-byte carry"):
         DeviceStreamingSession(chunk_bytes=10, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2.1"):
-        DeviceStreamingSession(PipelineConfig(scene=SceneConfig(log_transform=True)),
-                               device="cpu")
+    # The pre-log scene is ported: its running sums are float64.
+    prelog = DeviceStreamingSession(PipelineConfig(scene=SceneConfig(log_transform=True)),
+                                    device="cpu")
+    assert prelog._state.sums.dtype == torch.float64
     s.feed(b"\x00" * 100)
     s.finalize()
     s.finalize()                          # idempotent

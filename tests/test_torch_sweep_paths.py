@@ -171,8 +171,13 @@ def test_sweep_estimator_body_fill_matches_jax(overrides):
         np.testing.assert_array_equal(getattr(got, field).numpy(),
                                       np.asarray(getattr(want, field)), err_msg=field)
     np.testing.assert_allclose(got.power.numpy(), np.asarray(want.power), rtol=2e-4, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        sweep_estimation.sweep_estimator_setup("sm_sic", ue_ang, bs_ang)
+    # sm_sic is ported: its setup gives JAX's key and dictionary.
+    d_s, key_s = sweep_estimation.sweep_estimator_setup("sm_sic", ue_ang, bs_ang, **overrides)
+    d_sj, key_sj = jax_est.sweep_estimator_setup("sm_sic", ue_ang, bs_ang, **overrides)
+    assert key_s[0] == "sm_sic" and key_s[2:] == key_sj[2:] == (None, None)
+    assert vars(key_s[1]) == vars(key_sj[1])
+    for a, b in zip(d_s, d_sj):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_xlsx_angles_and_timestamps_match_jax(tmp_path, caplog):

@@ -172,8 +172,10 @@ def test_sweep_sums_edges_exact():
 def test_per_sweep_sums_guards():
     i32 = torch.zeros(4, dtype=torch.int32)
     ones = torch.ones(4, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="log_transform"):
-        intensity_per_sweep_sums(i32, i32, i32, i32, ones, 2, SceneConfig(log_transform=True))
+    # The pre-log sums are float64 (ln(RSS), rows of RSS <= 0 dropped), not K4's.
+    sums, counts = intensity_per_sweep_sums(i32, i32, i32, i32, ones, 2,
+                                            SceneConfig(log_transform=True))
+    assert sums.dtype == counts.dtype == torch.float64 and not counts.any()
     with pytest.raises(ValueError, match="integer RSS"):
         intensity_per_sweep_sums(i32, i32, i32.float(), i32, ones, 2)
     with pytest.raises(ValueError, match="CUDA or CPU"):
