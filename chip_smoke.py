@@ -209,7 +209,21 @@ Phases, each printing one JSON line:
                 stream of the multipath log in 64 KiB chunks against the
                 offline ``sweep_paths`` / ``path_tracks(beam_ids=...)`` on the
                 card exactly.
- 15. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
+ 15. estimators the registry's other seven families (svd, omp_dense,
+                lasso_refine, peak_picking, fusion, nn_omp_v13, geometric)
+                through ``run_estimator`` at full width (the shipped grids)
+                on the full multipath and the full noise session, decoded and
+                corrected on the card (K1 and K2 counted): each table on the
+                card against ``device="cpu"`` and ``engine="host"``
+                (``estimator_tables_differ``: rows, labels and cells equal,
+                values within the family's bound); the table's head; host ms
+                of the first card call and of the host engine (one run each);
+                on the multipath session the card call's host ms (median of 5
+                after a warm-up, synchronized), its device busy ms and
+                activities under ``torch.profiler``, the LASSO loop's own ms
+                and activities; the omp_dense oracle's smallest selected
+                column norm (JAX's device rule skips <= 1e-15).
+ 16. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
                 (K1, K4, K5, K6 through their wrappers, K1 also as the bare
                 launch; K2, K3 as the bare launch, K3 also with vmin /
                 vmax), its plain version on the
@@ -227,7 +241,7 @@ Phases, each printing one JSON line:
                 ``torch.profiler``: the device's busy time, its share, the top
                 ops, and the estimator's host syncs.
 
-Every kernel's launches are counted on each path (phases 4 to 14,
+Every kernel's launches are counted on each path (phases 4 to 15,
 the counters set to 0 just before and read just after), reported in the
 ``kernels`` line as ``launches_by_path``; ``launches`` is the count on the
 kernel's own path.  Then the ``bounds`` and ``kernels`` JSON lines, and as
@@ -755,7 +769,16 @@ def run(tmp: Path) -> None:
     emit({"phase": "sm_sic", "seconds": time.perf_counter() - t0, "launches": by_path["sm_sic"],
           **sm_out})
 
-    # -- 15. timing --------------------------------------------------------------
+    # -- 15. estimators: the registry's other seven families on the card ----------
+    t0 = time.perf_counter()
+    est7 = estimators_phase(np, torch, {"multipath": paths[MP], "noise": paths[0]}, angles,
+                            zero_counts, read_counts, dev)
+    by_path["estimators"] = est7.pop("launches")
+    print(smi, flush=True)
+    emit({"phase": "estimators", "seconds": time.perf_counter() - t0,
+          "launches": by_path["estimators"], **est7})
+
+    # -- 16. timing --------------------------------------------------------------
     def cuda_ms(fn, inner=1, primed=True):
         """Median ms per call over N_TIMED event-timed runs of ``inner``
         calls.  ``primed``: a ~20 ms device sleep queued first lets the
@@ -2319,17 +2342,170 @@ def sm_sic_phase(np, torch, sd, sessions, results, angles, raw_mp, zero_counts, 
             "stream_tracks": int(stream.path_tracks()[0].n_tracks), "stream_s": stream_s}
 
 
-def device_profile(torch, fn, count=()):
+ESTIMATORS = ("svd", "omp_dense", "lasso_refine", "peak_picking", "fusion", "nn_omp_v13",
+              "geometric")
+
+
+def estimator_tables_differ(np, name, got, want, vs):
+    """Where the eleventh slice's table ``got`` (the card's) departs from
+    ``want`` (``vs``: "cpu" or "host"), or None.  Every family: the same
+    rows, labels and cells (angles equal; the NN-OMP device grid's float32
+    against the float32 of the host's).  Values: svd Power and
+    SingularValue within rtol 1e-9; omp_dense Power 1e-6 (normal equations
+    against lstsq); fusion the NLoS metric 1e-9 and the LoS row's (the v1
+    NN-OMP's float32 power) 2e-4; nn_omp_v13 Power 2e-4; lasso_refine
+    against the CPU Power 1e-9 and against the tol-stopped float32-design
+    host JAX's own bounds (angles 0.11 deg, Power 2e-3); peak_picking and
+    geometric equal text."""
+    if name in ("peak_picking", "geometric"):
+        return None if got.to_string(index=False) == want.to_string(index=False) else "text"
+    type_col = {"fusion": "type", "nn_omp_v13": "PathType"}.get(name, "Type")
+    if len(got) != len(want) or len(got) == 0:
+        return f"rows {len(got)} against {len(want)}"
+    if list(got[type_col]) != list(want[type_col]):
+        return f"labels {list(got[type_col])} against {list(want[type_col])}"
+    angles = ("aoa", "aod") if name == "fusion" else ("AoA", "AoD")
+    for c in angles:
+        g, w = np.asarray(got[c]), np.asarray(want[c])
+        if name == "nn_omp_v13":
+            g, w = g.astype(np.float32), w.astype(np.float32)
+        if name == "lasso_refine" and vs == "host":
+            if not np.allclose(g, w, rtol=0, atol=0.11):
+                return c
+        elif not np.array_equal(g, w):
+            return c
+    rtol = {"svd": 1e-9, "omp_dense": 1e-6, "nn_omp_v13": 2e-4,
+            "lasso_refine": 1e-9 if vs == "cpu" else 2e-3}
+    if name == "fusion":
+        los = np.asarray(want["type"]) == "LoS"
+        ok = (np.allclose(got["metric"][~los], want["metric"][~los], rtol=1e-9, atol=0)
+              and np.allclose(got["metric"][los], want["metric"][los], rtol=2e-4, atol=0))
+        return None if ok else "metric"
+    for c in (("Power", "SingularValue") if name == "svd" else ("Power",)):
+        if not np.allclose(got[c], want[c], rtol=rtol[name], atol=0):
+            return c
+    return None
+
+
+def estimators_phase(np, torch, logs, angles, zero_counts, read_counts, dev) -> dict:
+    """The eleventh slice's estimator families on the card: each of
+    ``ESTIMATORS`` through ``run_estimator`` at full width (the shipped
+    grids) on the full multipath and noise sessions decoded and corrected
+    on the card (counted: K1 and K2 must launch), against ``device="cpu"``
+    and ``engine="host"``; the table text; host ms of the first card call
+    and of the host engine (one run each); on the multipath session the
+    card call's host ms (median of 5 after a warm-up, synchronized), its
+    device busy ms and activities under ``torch.profiler``, and the LASSO
+    loop's own ms and activities."""
+    import importlib.util
+    import warnings
+
+    from slam_process_tpu_torch.models import lasso_refine, registry
+    from slam_process_tpu_torch.models.peak_picking import mapped_pair_means
+    from slam_process_tpu_torch.pipeline.session import Session
+
+    def call(name, s, **kw):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)   # geometric's device warning
+            return registry.run_estimator(name, s, angles, **kw)
+
+    def host_ms(fn, n=5, warm=True):
+        if warm:
+            fn()
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    zero_counts()
+    sessions = {key: Session.from_log(path) for key, path in logs.items()}
+    for s in sessions.values():
+        s.correct()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for key in ("K1", "K2"):
+        if launches[key] == 0:
+            fail(f"estimators: {key} never launched: {launches}")
+
+    out, hosts = {}, {}
+    for key, s in sessions.items():
+        for name in ESTIMATORS:
+            t0 = time.perf_counter()
+            card = call(name, s)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            host = call(name, s, engine="host")
+            host_engine_ms = (time.perf_counter() - t0) * 1e3
+            cpu = call(name, s, device="cpu")
+            for other, vs in ((cpu, "cpu"), (host, "host")):
+                why = estimator_tables_differ(np, name, card, other, vs)
+                if why:
+                    fail(f"estimators {name} ({key}): the card differs from {vs} in {why}:\n"
+                         f"{card.to_string(index=False)[:1500]}\n"
+                         f"{other.to_string(index=False)[:1500]}")
+            hosts[f"{name}/{key}"] = host
+            out[f"{name}/{key}"] = {"rows": len(card),
+                                    "table_head": card.to_string(index=False).splitlines()[:8],
+                                    "first_card_ms": first_ms, "host_engine_ms": host_engine_ms}
+    # Times and device work on the multipath session (the traffic the
+    # estimators are for): the card call's host ms (median of 5 after the
+    # warm-up above), one profiled call; the LASSO loop alone (its patches
+    # at this session's shapes), the profiler on the device side only
+    # (~10^5 activities).
+    s = sessions["multipath"]
+    for name in ESTIMATORS:
+        busy, acts, top = device_profile(torch, lambda: call(name, s),
+                                         cpu=name != "lasso_refine")
+        out[f"{name}/multipath"].update({
+            "card_ms": host_ms(lambda: call(name, s), warm=False),
+            "device_busy_ms": busy, "device_activities": acts, "top_us": top[:4]})
+    aoa, aod, rss = lasso_refine.mapped_row_means(s, angles)
+    grids = lasso_refine.make_heatmap_interpolated(aoa, aod, rss)
+    peaks = lasso_refine.peak_regions_np(grids[2], 65.0)
+
+    def loop():
+        return lasso_refine.refine_patches_device(aoa, aod, rss, grids[0], grids[1],
+                                                  grids[2].shape, peaks)
+
+    busy, acts, _ = device_profile(torch, loop, cpu=False)
+    out["lasso_loop/multipath"] = {"patches": min(len(peaks), 20), "samples": len(aoa),
+                                   "ms": host_ms(loop, n=1, warm=False), "device_busy_ms": busy,
+                                   "device_activities": acts}
+    # The column norms of the atoms in the omp_dense host table (JAX's
+    # device rule never selects one of norm <= 1e-15).
+    sig2 = 2 * (1.4 / 2.355) ** 2
+    for key, sess in sessions.items():
+        a, d, _ = mapped_pair_means(sess, angles)
+        host = hosts[f"omp_dense/{key}"]
+        out[f"omp_dense/{key}"]["host_selected_min_norm"] = min(
+            float(np.sqrt(np.sum(np.exp(-(a - x) ** 2 / sig2) ** 2
+                                 * np.exp(-(d - z) ** 2 / sig2) ** 2)))
+            for x, z in zip(host["AoA"], host["AoD"]))
+    if importlib.util.find_spec("matplotlib") is None:
+        print("estimators: the estimators' PNGs were not drawn: matplotlib is not installed "
+              "on this machine (the CPU tests draw them)", flush=True)
+    return {"launches": launches, "sessions": {k: len(s.filtered) for k, s in sessions.items()},
+            "families": out}
+
+
+def device_profile(torch, fn, count=(), cpu=True):
     """Run ``fn`` once under ``torch.profiler``: (device busy ms, device
     activities, top 10 names by device us), and with ``count`` a fourth
     item, {name part: device activities whose name holds it}.  Busy time is
     the union of the device activities' intervals (kernels, copies,
     memsets; not the CPU-side aten rows, which would count each kernel
-    twice, nor the profiler's own buffer requests)."""
+    twice, nor the profiler's own buffer requests).  ``cpu=False`` traces
+    the device only (cheaper for ~10^5 activities)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    kinds = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=kinds) as prof:
         fn()
         torch.cuda.synchronize()
     acts = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA

@@ -1,36 +1,41 @@
-"""Estimator registry: one entry point for the NN-OMP flavors and SM-SIC.
+"""Estimator registry: one entry point for the JAX registry's 13 names.
 
-The port of ``slam_process_tpu/models/registry.py`` for its five NN-OMP
-flavors and ``sm_sic``.  ``run_estimator(name, session, angle_file, ...)``
-builds the session's scene, runs the estimator, classifies the paths,
-draws the estimation figure where asked, and returns the paths table, the
-reference's output format (AoA, AoD, Power, PathType for NN-OMP):
+The port of ``slam_process_tpu/models/registry.py``.  ``run_estimator(name,
+session, angle_file, ...)`` builds the session's scene, runs the
+estimator, classifies the paths, draws the figure where asked, and returns
+the paths table in the reference's output format:
 
   * ``nn_omp`` (v1-7, the flagship): pre-log scene, linspace grid, K = 20,
     keep rule "ratio", ``classify_advanced``;
   * ``nn_omp_v1``: linear scene, arange grid, K = 3, keep rule "positive",
-    ``classify_argmax`` (the golden renders);
+    ``classify_argmax`` (the golden renders); ``nn_omp_v13`` the same with
+    the preprocessed-matrix figure (``models/nn_omp_v13.py``);
   * ``nn_omp_v14`` / ``v15`` / ``v16``: linear scene, linspace grid, K =
     10, ratio 0.01, then ``classify_weak_far`` / ``classify_cross_region``
     / ``classify_advanced``;
   * ``sm_sic``: linear scene, inclusive-arange grid at 0.5 deg, 10 deg
     beams, K = 3; its table has the columns id, type (LoS / NLoS), aoa,
-    aod, metric (``models/sm_sic.py``).
+    aod, metric (``models/sm_sic.py``);
+  * ``svd``, ``lasso_refine``, ``peak_picking``, ``fusion``, ``omp_dense``
+    and ``geometric``, each in its module of that name (``svd_est`` for
+    svd), with its own table.
 
 The scene is built on the host in float64 (numpy), as in the JAX package.
 ``engine="device"`` (the default here; the JAX package's default is
-"host") runs the chain-form NN-OMP or the tensor SM-SIC on ``device``
-(None: CUDA); ``engine="host"`` runs the float64 oracle ``nn_omp_np`` /
-``sm_sic_np``.  The table is a ``Table`` of numpy columns, not a pandas
-DataFrame: its ``to_string(index=False)`` prints pandas' text and
-``to_dict("records")`` gives pandas' records.  The JAX registry's other
-names raise ``NotImplementedError`` (not ported yet); an unknown name
-``KeyError``.
+"host") runs each family's device engine on ``device`` (None: CUDA):
+the NN-OMP chain form, the SM-SIC tensors, and for the other families
+float64 torch (where the JAX package's device engines are float32);
+``engine="host"`` runs the float64 numpy oracles.  ``geometric`` has no
+device engine in either package and warns, as the JAX package does.  The
+table is a ``Table`` of numpy columns, not a pandas DataFrame: its
+``to_string(index=False)`` prints pandas' text and ``to_dict("records")``
+gives pandas' records.  An unknown name raises ``KeyError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import re
 from pathlib import Path
 from typing import Optional, Union
@@ -67,6 +72,29 @@ def build_scene(session, angle_file, log_transform: bool, device=None):
     return matrix, ue_ang, bs_ang
 
 
+def session_rows(session, device=None):
+    """The (UE, BS, RSS) columns of ``session``'s filtered rows, correcting
+    it on ``device`` (None: CUDA) first where it is not corrected yet."""
+    if session.filtered is None:
+        session.correct(device=device)
+    return tuple(session.filtered[:, i] for i in range(3))
+
+
+def pair_means(ue: np.ndarray, bs: np.ndarray, rss: np.ndarray):
+    """pandas' ``groupby(["UE", "BS"])["RSS"].mean()`` without pandas: the
+    observed (UE, BS) pairs sorted by UE then BS, and each pair's float64
+    mean RSS (bincount sums, one division; integer RSS sums exactly, so
+    the means equal pandas' bit for bit)."""
+    ue = np.asarray(ue, dtype=np.int64)
+    bs = np.asarray(bs, dtype=np.int64)
+    lo = int(bs.min())
+    span = int(bs.max()) - lo + 1
+    keys, inv = np.unique(ue * span + (bs - lo), return_inverse=True)
+    sums = np.bincount(inv, weights=np.asarray(rss, dtype=np.float64), minlength=len(keys))
+    counts = np.bincount(inv, minlength=len(keys))
+    return keys // span, keys % span + lo, sums / counts
+
+
 def _trim_zeros(strings: list) -> list:
     """pandas' trim of trailing zeros, equal across a column's plain
     decimals, leaving one after the point."""
@@ -96,14 +124,25 @@ def _float_column(values: np.ndarray) -> list:
 
 class Table:
     """A table of named columns (numpy numbers, or lists of str), in place
-    of the JAX package's pandas DataFrame."""
+    of the JAX package's pandas DataFrame; with no columns, pandas' empty
+    ``DataFrame([])``."""
 
     def __init__(self, columns: dict) -> None:
         self.columns = {c: (list(v) if isinstance(v, list) else np.asarray(v))
                         for c, v in columns.items()}
 
     def __len__(self) -> int:
-        return len(next(iter(self.columns.values())))
+        return len(next(iter(self.columns.values()))) if self.columns else 0
+
+    def concat(self, other: "Table") -> "Table":
+        """pandas' ``concat([self, other], ignore_index=True)`` of two tables
+        with the same columns, or of one with an empty table."""
+        if not other.columns:
+            return self
+        if not self.columns:
+            return other
+        return Table({c: (v + other[c] if isinstance(v, list) else np.concatenate([v, other[c]]))
+                      for c, v in self.columns.items()})
 
     def __getitem__(self, name: str):
         return self.columns[name]
@@ -153,12 +192,11 @@ def paths_table(c: ClassifiedPaths) -> PathsTable:
                       [LABEL_NAMES[int(lab)] for lab in np.asarray(c.label)[keep]])
 
 
-# The ported NN-OMP flavors and estimators, and the JAX registry's other
-# families, not ported yet (ROADMAP.md queue 1 item 8).
+# The NN-OMP flavors this module runs, and every name, in the JAX CLI's
+# order.  The other families' entries live in their modules.
 FLAVORS = ("nn_omp", "nn_omp_v1", "nn_omp_v14", "nn_omp_v15", "nn_omp_v16")
-PORTED = FLAVORS + ("sm_sic",)
-NOT_PORTED = ("svd", "lasso_refine", "peak_picking", "fusion", "omp_dense", "geometric",
-              "nn_omp_v13")
+PORTED = ("nn_omp", "nn_omp_v1", "nn_omp_v13", "nn_omp_v14", "nn_omp_v15", "nn_omp_v16",
+          "sm_sic", "svd", "lasso_refine", "peak_picking", "fusion", "omp_dense", "geometric")
 
 
 def nn_omp_settings(name: str, **overrides):
@@ -236,18 +274,31 @@ def run_sm_sic_estimator(session, angle_file, output_path=None, **overrides) -> 
                   "metric": paths.metric[keep]})
 
 
+# The families kept in modules of their own: name -> (module, entry).
+# Those modules import this one, so each is imported when it is asked for.
+FAMILIES = {"nn_omp_v13": ("nn_omp_v13", "run_v13"), "svd": ("svd_est", "run_svd"),
+            "lasso_refine": ("lasso_refine", "run_lasso_refine"),
+            "peak_picking": ("peak_picking", "run_peak_picking"),
+            "fusion": ("fusion", "run_fusion"),
+            "omp_dense": ("omp_dense", "run_omp_dense_estimator"),
+            "geometric": ("geometric", "run_geometric")}
+
+
 def run_estimator(name: str, session, angle_file: Union[str, Path],
                   output_path: Optional[Union[str, Path]] = None, **overrides) -> Table:
     """Run estimator ``name`` on ``session``: the paths table, and with
-    ``output_path`` the estimation figure (needs matplotlib).  Overrides:
+    ``output_path`` the estimator's figure (needs matplotlib).  Overrides:
     ``engine`` ("device", the default, or "host"), ``device`` (None:
     CUDA), ``max_paths``, ``grid_res``, ``beam_width``, the keep ratio and
-    the classifier thresholds (NN-OMP), the mask radii (SM-SIC)."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"estimator {name!r} is not ported yet (ROADMAP.md queue 1 "
-                                  f"item 8); the port has {PORTED}")
+    the classifier thresholds (NN-OMP), the mask radii (SM-SIC, fusion),
+    and each family's own (``energy_thresh``, ``percentile``, ``alpha``,
+    ``preprocess``, ``bs_xy`` / ``ue_xy``, ...)."""
     if name == "sm_sic":
         return run_sm_sic_estimator(session, angle_file, output_path, **overrides)
+    if name in FAMILIES:
+        module, entry = FAMILIES[name]
+        module = importlib.import_module(f"slam_process_tpu_torch.models.{module}")
+        return getattr(module, entry)(session, angle_file, output_path, **overrides)
     if name not in FLAVORS:
         raise KeyError(f"unknown estimator {name!r}; have {PORTED}")
     device = overrides.get("device")

@@ -18,8 +18,12 @@ switch chooses:
     (``torch.linalg.solve``; a singular system raises
     ``torch.linalg.LinAlgError``).
 
-The separable spline resamplers of the JAX module serve estimators not
-ported yet and are not here.
+The separable resamplers (``RectBivariateSpline`` upsampling, the svd,
+peak-picking and geometric estimators' grids): ``cubic_spline_interp_matrix``
+builds a not-a-knot cubic spline's [Q, N] weight matrix on the host in
+float64, so a 2-D resample is ``Wy @ values @ Wx^T``
+(``bicubic_spline_resample``: numpy for a numpy ``values``, else float64 on
+the tensor's device); ``bilinear_resample`` is the plain bilinear one.
 """
 
 from __future__ import annotations
@@ -113,3 +117,102 @@ def rbf_interpolate_grid(x_centers, y_centers, values_2d, grid_x, grid_y,
     gx, gy = torch.meshgrid(gx.to(dtype), gy.to(dtype), indexing="xy")
     q = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=1)
     return rbf_linear_eval(pts, nodes, q, kernel).reshape(len(grid_y), len(grid_x))
+
+
+# ---------------------------------------------------------------------------
+# Separable not-a-knot cubic spline (RectBivariateSpline s=0 equivalent)
+# ---------------------------------------------------------------------------
+
+
+def _spline_coth_matrix(x: np.ndarray):
+    """The not-a-knot cubic spline's second-derivative system (host):
+    A m = rhs_w @ y."""
+    n = len(x)
+    h = np.diff(x)
+    A = np.zeros((n, n))
+    rhs_w = np.zeros((n, n))
+    for i in range(1, n - 1):
+        A[i, i - 1] = h[i - 1]
+        A[i, i] = 2 * (h[i - 1] + h[i])
+        A[i, i + 1] = h[i]
+        rhs_w[i, i - 1] = 6 / h[i - 1]
+        rhs_w[i, i] = -6 / h[i - 1] - 6 / h[i]
+        rhs_w[i, i + 1] = 6 / h[i]
+    # not-a-knot: third derivative continuous at x1 and x_{n-2}
+    A[0, 0] = h[1]
+    A[0, 1] = -(h[0] + h[1])
+    A[0, 2] = h[0]
+    A[-1, -3] = h[-1]
+    A[-1, -2] = -(h[-2] + h[-1])
+    A[-1, -1] = h[-2]
+    return A, rhs_w
+
+
+def cubic_spline_interp_matrix(x: np.ndarray, xq: np.ndarray) -> np.ndarray:
+    """Dense [Q, N] float64 matrix mapping samples y at ``x`` to the
+    spline's values at ``xq`` (host)."""
+    x = np.asarray(x, dtype=np.float64)
+    xq = np.asarray(xq, dtype=np.float64)
+    n = len(x)
+    if n < 4:
+        raise ValueError("need >= 4 points for not-a-knot cubic spline")
+    A, rhs_w = _spline_coth_matrix(x)
+    M = np.linalg.solve(A, rhs_w)  # second derivatives = M @ y
+    h = np.diff(x)
+    idx = np.clip(np.searchsorted(x, xq, side="right") - 1, 0, n - 2)
+    W = np.zeros((len(xq), n))
+    for q, (j, xv) in enumerate(zip(idx, xq)):
+        hj = h[j]
+        a = (x[j + 1] - xv) / hj
+        b = (xv - x[j]) / hj
+        # s(x) = a*y_j + b*y_{j+1} + ((a^3-a) m_j + (b^3-b) m_{j+1}) h^2/6
+        W[q, j] += a
+        W[q, j + 1] += b
+        W[q] += ((a**3 - a) * M[j] + (b**3 - b) * M[j + 1]) * hj * hj / 6.0
+    return W
+
+
+def bicubic_spline_resample(values_2d, x, y, xq, yq):
+    """Separable cubic-spline resample of values[y, x] onto (yq, xq):
+    numpy in ``values_2d``'s dtype for a numpy array, else float64 on the
+    tensor's device."""
+    Wy = cubic_spline_interp_matrix(np.asarray(y), np.asarray(yq))
+    Wx = cubic_spline_interp_matrix(np.asarray(x), np.asarray(xq))
+    if isinstance(values_2d, np.ndarray):
+        Wy = Wy.astype(values_2d.dtype)
+        Wx = Wx.astype(values_2d.dtype)
+        return Wy @ values_2d @ Wx.T
+    v = values_2d.to(torch.float64)
+    Wy, Wx = (torch.from_numpy(w).to(v.device) for w in (Wy, Wx))
+    return Wy @ v @ Wx.T
+
+
+def bilinear_resample(values_2d, x, y, xq, yq):
+    """Bilinear resample of values[y, x] onto (yq, xq), clamped at the
+    edges: numpy for a numpy ``values_2d``, else on the tensor's device in
+    its dtype."""
+    if isinstance(values_2d, np.ndarray):
+        x, y, xq, yq = (np.asarray(a) for a in (x, y, xq, yq))
+        jx = np.clip(np.searchsorted(x, xq, side="right") - 1, 0, len(x) - 2)
+        jy = np.clip(np.searchsorted(y, yq, side="right") - 1, 0, len(y) - 2)
+        clip = np.clip
+    else:
+        x, y, xq, yq = (_on(a, values_2d).contiguous() for a in (x, y, xq, yq))
+
+        def cell(a, q):   # numpy's searchsorted compares in the promoted dtype
+            t = torch.promote_types(a.dtype, q.dtype)
+            return torch.clamp(torch.searchsorted(a.to(t), q.to(t), right=True) - 1, 0,
+                               len(a) - 2)
+
+        jx, jy = cell(x, xq), cell(y, yq)
+        clip = torch.clamp
+    tx = clip((xq - x[jx]) / (x[jx + 1] - x[jx]), 0.0, 1.0)
+    ty = clip((yq - y[jy]) / (y[jy + 1] - y[jy]), 0.0, 1.0)
+    v00 = values_2d[jy[:, None], jx[None, :]]
+    v01 = values_2d[jy[:, None], jx[None, :] + 1]
+    v10 = values_2d[jy[:, None] + 1, jx[None, :]]
+    v11 = values_2d[jy[:, None] + 1, jx[None, :] + 1]
+    return (v00 * (1 - ty[:, None]) * (1 - tx[None, :])
+            + v01 * (1 - ty[:, None]) * tx[None, :]
+            + v10 * ty[:, None] * (1 - tx[None, :])
+            + v11 * ty[:, None] * tx[None, :])

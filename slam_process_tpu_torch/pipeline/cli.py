@@ -8,8 +8,8 @@
                                                             [--variant v1|v2|v3] ...
     python -m slam_process_tpu_torch.pipeline.cli session --log IN.txt --mapping ... --outdir DIR
     python -m slam_process_tpu_torch.pipeline.cli estimate --input IN.txt|IN.xlsx --mapping ...
-                                                 [--model nn_omp|nn_omp_v1|nn_omp_v14|nn_omp_v15|
-                                                  nn_omp_v16|sm_sic] [--engine device|host]
+                                                 [--model nn_omp|nn_omp_v1|nn_omp_v13|...|geometric]
+                                                 [--engine device|host]
                                                  [--per-sweep | --tracks [--changes]]
     python -m slam_process_tpu_torch.pipeline.cli replay --logs A.txt [B.txt ...] --mapping ...
                                                  --outdir DIR [--engine device|host]
@@ -46,7 +46,7 @@ import zipfile
 from pathlib import Path
 
 from slam_process_tpu_torch.config import RenderConfig, SceneConfig
-from slam_process_tpu_torch.models.registry import NOT_PORTED, PORTED, run_estimator
+from slam_process_tpu_torch.models.registry import PORTED, run_estimator
 from slam_process_tpu_torch.models.sweep_estimation import path_power
 from slam_process_tpu_torch.pipeline.session import Session
 from slam_process_tpu_torch.utils.logging import StageCounters, get_logger
@@ -223,9 +223,7 @@ def _add_estimate(sub):
     p.add_argument("--input", type=Path, required=True, help="filtered xlsx or raw .txt")
     p.add_argument("--mapping", type=Path, required=True)
     p.add_argument("--output", type=Path, default=None)
-    p.add_argument("--model", default="nn_omp", choices=PORTED + NOT_PORTED,
-                   help="the NN-OMP flavors are ported; the other names raise "
-                        "NotImplementedError")
+    p.add_argument("--model", default="nn_omp", choices=PORTED)
     p.add_argument("--max-paths", type=int, default=None)
     p.add_argument("--grid-res", type=float, default=None)
     p.add_argument("--beam-width", type=float, default=None)

@@ -1,8 +1,8 @@
-"""Estimation-result figure: an RBF-interpolated background and the
-classified paths' markers.
+"""Estimation-result figures: an RBF-interpolated background and the
+paths' markers.
 
-The port of ``slam_process_tpu/render/estimation.py``'s ``rbf_background``
-and ``estimation_plot``.  The 100 x 100 background (``ops/interp``'s
+The port of ``slam_process_tpu/render/estimation.py``: ``rbf_background``,
+``estimation_plot`` and the fusion estimator's ``fusion_plot``.  The 100 x 100 background (``ops/interp``'s
 linear RBF, scipy ``Rbf`` equivalent) is computed on a device, None
 meaning CUDA, in the JAX package's numpy types: the kernel matrix from the
 float32 beam angles in float32, the 4,096-centre solve (at the full 64 x
@@ -140,6 +140,56 @@ def estimation_plot(
     output_path.parent.mkdir(parents=True, exist_ok=True)
     if style == "v1-7":
         fig.tight_layout()
+    fig.savefig(output_path, dpi=dpi, bbox_inches="tight")
+    plt.close(fig)
+    return output_path
+
+
+def fusion_plot(rss_matrix: np.ndarray, ue_angles: np.ndarray, bs_angles: np.ndarray,
+                los_paths, nlos_paths, output_path: Union[str, Path], grid_n: int = 100,
+                dpi: int = 300, device=None) -> Path:
+    """The fusion estimator's figure: a 100-level viridis contour over the
+    linear-RBF background (on ``device``, None meaning CUDA); the LoS
+    paths ((aod, aoa) pairs) as red circles with dashed cross lines, the
+    NLoS paths as white crosses, one legend entry each; needs
+    matplotlib."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    from slam_process_tpu_torch.render.fonts import setup_cjk_font
+
+    setup_cjk_font()
+    import matplotlib.pyplot as plt
+
+    grid_x, grid_y, heat = rbf_background(rss_matrix, ue_angles, bs_angles, grid_n,
+                                          smooth=0.0, device=device)
+    gx, gy = np.meshgrid(grid_x, grid_y)
+    fig, ax = plt.subplots(figsize=(12, 10))
+    contour = ax.contourf(gx, gy, heat, levels=100, cmap="viridis")
+    fig.colorbar(contour, ax=ax, label="Received Signal Strength (RSS)")
+    for aod, aoa in los_paths:
+        ax.scatter(aod, aoa, s=200, c="red", marker="o", edgecolors="white", linewidth=2,
+                   label="LoS Path (v1)", zorder=10)
+        ax.text(aod + 1, aoa + 1, f"LoS\n({aod:.1f}, {aoa:.1f})", color="white",
+                fontweight="bold")
+        ax.axvline(x=aod, color="red", linestyle="--", alpha=0.4)
+        ax.axhline(y=aoa, color="red", linestyle="--", alpha=0.4)
+    for aod, aoa in nlos_paths:
+        ax.scatter(aod, aoa, s=150, c="white", marker="x", linewidth=3,
+                   label="NLoS Path (v3)", zorder=10)
+        ax.text(aod + 1, aoa + 1, f"NLoS\n({aod:.1f}, {aoa:.1f})", color="white", fontsize=9,
+                fontweight="bold")
+    ax.set_xlabel("Angle of Departure (AoD) [deg]", fontsize=12)
+    ax.set_ylabel("Angle of Arrival (AoA) [deg]", fontsize=12)
+    ax.set_title("mmWave Multipath Heatmap - Fusion: LoS (v1) + NLoS (v3)", fontsize=14)
+    handles, labels = ax.get_legend_handles_labels()
+    by_label = dict(zip(labels, handles))       # one entry per label
+    if by_label:
+        ax.legend(by_label.values(), by_label.keys(), loc="upper right", frameon=True,
+                  facecolor="black", framealpha=0.6, labelcolor="white")
+    ax.grid(True, alpha=0.3)
+    output_path = Path(output_path)
+    output_path.parent.mkdir(parents=True, exist_ok=True)
     fig.savefig(output_path, dpi=dpi, bbox_inches="tight")
     plt.close(fig)
     return output_path

@@ -36,6 +36,13 @@ session within one float32 ulp of the CPU and rtol 1e-6 of the float64
 oracle (a stream and its checkpoint resume too), SM-SIC on the card equal
 to the host engine and the CPU, ``sweep_paths_dataset`` equal to each
 session's ``sweep_paths``, and an SM-SIC stream equal to the offline paths.
+The eleventh slice's estimator families (svd, omp_dense, lasso_refine,
+peak_picking, fusion, nn_omp_v13, geometric) on a session decoded and
+corrected on the card: each table equal in rows, labels and cells to its
+``device="cpu"`` and host-engine runs, values within the family's bound
+(svd 1e-9, omp_dense 1e-6, fusion's NLoS metric 1e-9 and its NN-OMP LoS
+2e-4, nn_omp_v13 2e-4, lasso_refine 1e-9 against the CPU and JAX's bounds
+against the tol-stopped host), geometric's warning.
 """
 
 import numpy as np
@@ -942,3 +949,74 @@ def test_sm_sic_and_dataset_paths_on_card(tmp_path):
     for f in ("pos_aoa", "pos_aod", "power", "observed", "created"):
         np.testing.assert_array_equal(getattr(tr, f), getattr(ot[0], f))
     np.testing.assert_array_equal(times, ot[1])
+
+
+SLICE_ESTIMATORS = ("svd", "omp_dense", "lasso_refine", "peak_picking", "fusion",
+                    "nn_omp_v13", "geometric")
+
+
+@pytest.fixture(scope="module")
+def slice_scene(tmp_path_factory):
+    """A dense multipath session decoded and corrected on the card (K1, K2)
+    and the angle table."""
+    from slam_process_tpu_torch.pipeline.session import Session
+    from slam_process_tpu_torch.utils.synthetic import to_hex_text, write_angle_table
+
+    d = tmp_path_factory.mktemp("slice")
+    path = d / "mp.txt"
+    path.write_bytes(to_hex_text(synthetic_session_bytes(
+        n_groups=2, frames_per_beam=40, baselines_per_group=5, junk_frac=0.02, seed=3,
+        n_paths=3)))
+    k1, k2 = cuda_decode.LAUNCHES, cuda_correct.LAUNCHES
+    s = Session.from_log(path)
+    assert cuda_decode.LAUNCHES > k1 and cuda_correct.LAUNCHES > k2
+    return s, write_angle_table(d / "angles.xlsx", unmapped=(40,))
+
+
+@pytest.mark.parametrize("name", SLICE_ESTIMATORS)
+def test_estimator_families_on_card_match_cpu_and_host(slice_scene, name):
+    """Each family of the eleventh slice on the card against ``device="cpu"``
+    and the host engine: the same rows, labels and cells, values within
+    the family's bound (``chip_smoke.estimator_tables_differ``'s); geometric
+    warns as the JAX package does and runs its host body."""
+    import warnings
+
+    from slam_process_tpu_torch.models.registry import run_estimator
+
+    s, angles = slice_scene
+    kw = {"grid_res": 2.0} if name == "lasso_refine" else {}
+    if name == "geometric":
+        with pytest.warns(RuntimeWarning, match="no device engine"):
+            card = run_estimator(name, s, angles, **kw)
+    else:
+        card = run_estimator(name, s, angles, **kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        cpu = run_estimator(name, s, angles, device="cpu", **kw)
+    host = run_estimator(name, s, angles, engine="host", **kw)
+    assert len(card) > 0
+    if name in ("peak_picking", "geometric"):
+        for other in (cpu, host):
+            assert card.to_string(index=False) == other.to_string(index=False)
+        return
+    type_col = {"fusion": "type", "nn_omp_v13": "PathType"}.get(name, "Type")
+    cells = ("aoa", "aod") if name == "fusion" else ("AoA", "AoD")
+    for other, vs in ((cpu, "cpu"), (host, "host")):
+        assert len(card) == len(other) and list(card[type_col]) == list(other[type_col])
+        for c in cells:
+            g, w = np.asarray(card[c]), np.asarray(other[c])
+            if name == "nn_omp_v13":
+                np.testing.assert_array_equal(g.astype(np.float32), w.astype(np.float32))
+            elif name == "lasso_refine" and vs == "host":
+                np.testing.assert_allclose(g, w, rtol=0, atol=0.11)
+            else:
+                np.testing.assert_array_equal(g, w)
+        if name == "fusion":
+            los = np.asarray(other["type"]) == "LoS"
+            np.testing.assert_allclose(card["metric"][~los], other["metric"][~los], rtol=1e-9)
+            np.testing.assert_allclose(card["metric"][los], other["metric"][los], rtol=2e-4)
+            continue
+        rtol = {"svd": 1e-9, "omp_dense": 1e-6, "nn_omp_v13": 2e-4,
+                "lasso_refine": 1e-9 if vs == "cpu" else 2e-3}[name]
+        for c in (("Power", "SingularValue") if name == "svd" else ("Power",)):
+            np.testing.assert_allclose(card[c], other[c], rtol=rtol, atol=0)

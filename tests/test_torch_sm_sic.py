@@ -259,7 +259,7 @@ def test_run_estimator_engines_and_jax_table(files):
     np.testing.assert_array_equal(dev["aoa"], host["aoa"])
     np.testing.assert_array_equal(dev["aod"], host["aod"])
     np.testing.assert_allclose(dev["metric"], host["metric"], rtol=1e-6)
-    assert "sm_sic" in registry.PORTED and "sm_sic" not in registry.NOT_PORTED
+    assert "sm_sic" in registry.PORTED and not hasattr(registry, "NOT_PORTED")
 
 
 def test_table_prints_like_pandas():
