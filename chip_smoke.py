@@ -47,7 +47,18 @@ Phases, each printing one JSON line:
                 test).  K6's: 65 lanes (33 live) from a carry, 9 lanes,
                 planted ties at the gate, m_eff = 0, T * K = 40, T = 16 and K
                 = 20 (uniform and on a grid of exact ties), 600 lanes at K = 3
-                and at K = 20, m_eff = s1 - 1, m_eff > s1.  Then one device
+                and at K = 20, m_eff = s1 - 1, m_eff > s1.  The stream
+                axis, at the first round of a ``MultiStreamingSession`` over
+                the 19 dataset-scale sessions (recorded from its wrappers):
+                K1 over [19, 1 MiB] (twice on one stream, ragged limits; S
+                and N at the row blocks' edges), K5's carry and kept-row
+                calls (19 streams, offsets at capacity, rings that fill, no
+                rows, 4 streams of 1 M rows at 50 % 100 times: the
+                look-back's race test at S > 1), K6 over 19 trackers and
+                over stacks of the cases above; the flattened K2 call (19
+                streams; 12 tiny sessions whose 256-row blocks span
+                sessions) and K4 call (19 x 65 sweep lanes) against 19
+                separate kernel calls.  Then one device
                 activity per ``decode_rows``, K4, K5 and K6 wrapper call,
                 under ``torch.profiler`` (no fill, no second kernel), and one
                 K4 kernel per ``intensity_per_sweep_sums`` call (whose row
@@ -223,14 +234,35 @@ Phases, each printing one JSON line:
                 activities under ``torch.profiler``, the LASSO loop's own ms
                 and activities; the omp_dense oracle's smallest selected
                 column norm (JAX's device rule skips <= 1e-15).
- 16. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
+ 16. batch      ``parallel/batch.run_dataset`` over the 21 sessions of phase 4
+                in both forms: field for field equal to each session's
+                ``run_session_on_device`` on the card (rasters bit-equal),
+                the vmap form against ``device="cpu"`` under phase 3's raster
+                bounds; K1, K2 and K3 launch once per bucket group (vmap) and
+                once per session (scan); sessions/s of vmap, scan and the
+                per-session loop (CUDA events, median of 20 after a warm-up,
+                host work included).
+ 17. multi_stream the 19 dataset-scale sessions as 19 streams of one
+                ``MultiStreamingSession`` at 1 MiB windows with
+                ``collect_paths`` (s_step 64, K = 3, T = 8) and a fixed emit
+                ring: each stream against its own ``DeviceStreamingSession``
+                on the card exactly, one launch per stage per round (K5
+                twice), a ragged finalize with a reset and a checkpoint
+                resume at 256 KiB windows, ``watch --logs`` on three growing
+                captures (capture 0 finalized alone) against ``--device
+                cpu``; ms per round and flush and bytes/s (median of 5 after
+                a warm-up), host syncs by source line in sync debug mode
+                equal to the counters, the device's busy share.
+ 18. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
                 (K1, K4, K5, K6 through their wrappers, K1 also as the bare
                 launch; K2, K3 as the bare launch, K3 also with vmin /
                 vmax), its plain version on the
                 card, K1 and K2 at three stream windows (the second full
                 window of the straddle's 16 KiB, the live feed's 64 KiB and
                 the replay's 1 MiB) and K4 at the live feed's (S = 9) and
-                the replay's (S = 65), the library yardsticks
+                the replay's (S = 65), the stream-axis K1, K5 and K6 at the 19
+                streams' round and the flattened K2 / K4 calls against 19
+                separate calls, the library yardsticks
                 (K4: two ``torch.bincount`` calls; K5: ``rows[mask]``), K5's
                 fused kept-row call against the two calls it replaced, the
                 whole ``run_session_on_device`` in frames/s at both sizes, and
@@ -241,10 +273,12 @@ Phases, each printing one JSON line:
                 ``torch.profiler``: the device's busy time, its share, the top
                 ops, and the estimator's host syncs.
 
-Every kernel's launches are counted on each path (phases 4 to 15,
+Every kernel's launches are counted on each path (phases 4 to 17,
 the counters set to 0 just before and read just after), reported in the
 ``kernels`` line as ``launches_by_path``; ``launches`` is the count on the
-kernel's own path.  Then the ``bounds`` and ``kernels`` JSON lines, and as
+kernel's own path.  The stream-axis entries add to their kernel's counter
+and have rows of their own (K1s, K5s, K6s: launches on the batch and
+multi_stream paths, times at the 19 streams' round).  Then the ``bounds`` and ``kernels`` JSON lines, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  Data
 is synthetic, made from fixed seeds; temporary logs go under ``build/``.
 """
@@ -398,7 +432,8 @@ def run(tmp: Path) -> None:
     torch.cuda.synchronize()
 
     # -- 3. kernels against their plain versions --------------------------------
-    err = {key: 0.0 for key in ("K1", "K2", "K3", "K4", "K5", "K6")}   # exact ones stay 0
+    err = {key: 0.0 for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K1s", "K5s",
+                                "K6s")}                               # exact ones stay 0
     cases = []
 
     def exact(key, case, got, want):
@@ -557,6 +592,16 @@ def run(tmp: Path) -> None:
     for case, (args, gate) in k6.items():
         exact("K6", case, cuda_tracker.track_block_cuda(*args, gate),
               tracker.track_block_plain(*args, gate))
+    # The stream axis: K1, K5 and K6 over the 19 dataset streams' first
+    # round (recorded from a MultiStreamingSession), K2 and K4 flattened.
+    angles = write_angle_table(tmp / "beam_angle.xlsx")
+    raws_ds = [synthetic_session_bytes(**c) for c in DATASET]
+    multi_ecap = -(-(max(len(r) for r in raws_ds) // 11 + 1) // (1 << 16)) * (1 << 16)
+    multi = multi_round_inputs(sd, raws_ds, dev, sd.make_paths_spec(angles, s_step=64),
+                               multi_ecap)
+    stream_axis_cases(np, torch, dev, exact, decode, compact, correct, scene, tracker,
+                      cuda_decode, cuda_compact, cuda_correct, cuda_sweep_sums, cuda_tracker,
+                      multi, k6)
     torch.cuda.synchronize()
     # One device kernel per wrapper call, whatever the form: ten calls each
     # under torch.profiler (before any other profiling in this process).
@@ -653,7 +698,6 @@ def run(tmp: Path) -> None:
           "full_session_bytes": len(raw_full)})
 
     # -- 5. sweep_paths: per-sweep NN-OMP on the phase-4 sessions ----------------
-    angles = write_angle_table(tmp / "beam_angle.xlsx")
     zero_counts()
     t0 = time.perf_counter()
     results = [s.sweep_paths(angles) for s in sessions]
@@ -778,7 +822,6 @@ def run(tmp: Path) -> None:
     emit({"phase": "estimators", "seconds": time.perf_counter() - t0,
           "launches": by_path["estimators"], **est7})
 
-    # -- 16. timing --------------------------------------------------------------
     def cuda_ms(fn, inner=1, primed=True):
         """Median ms per call over N_TIMED event-timed runs of ``inner``
         calls.  ``primed``: a ~20 ms device sleep queued first lets the
@@ -801,6 +844,25 @@ def run(tmp: Path) -> None:
             times.append(start.elapsed_time(end) / inner)
         return statistics.median(times)
 
+    # -- 16. batch: run_dataset over the 21 sessions, both forms -----------------
+    t0 = time.perf_counter()
+    batch_out = batch_phase(np, torch, raws, zero_counts, read_counts, raster_close, cuda_ms, dev)
+    by_path["batch"] = batch_out.pop("launches")
+    print(smi, flush=True)
+    emit({"phase": "batch", "seconds": time.perf_counter() - t0, "launches": by_path["batch"],
+          **batch_out})
+
+    # -- 17. multi_stream: 19 streams in one session, and watch --logs ------------
+    t0 = time.perf_counter()
+    multi_out = multi_stream_phase(np, torch, sd, nnls, tmp, angles, raws[DS], zero_counts,
+                                   read_counts, dev)
+    by_path["multi_stream"] = multi_out.pop("launches")
+    print(smi, flush=True)
+    emit({"phase": "multi_stream", "seconds": time.perf_counter() - t0,
+          "launches": by_path["multi_stream"], **multi_out})
+
+
+    # -- 18. timing --------------------------------------------------------------
     n_bytes, rows = padded.numel(), frames.shape[0]
     k2 = cuda_correct._fn()
     k2_out = (torch.empty(rows, dtype=torch.bool, device=dev),
@@ -890,6 +952,44 @@ def run(tmp: Path) -> None:
                 "K4_ms": cuda_ms(lambda: cuda_sweep_sums.sweep_sums_cuda(*a4, **k4w), inner=20),
                 "K4_bound_ms_bytes": (a4[0].numel() * 4 + kept4 * 8 + cells4 * 8)
                 / PEAK_BYTES_PER_S * 1e3})
+    # The stream axis at the 19 streams' round: K1, K5 (the carry) and K6
+    # through their wrappers, their plain versions, and K5's yardstick
+    # rows[mask]; the flattened K2 and K4 calls against 19 separate calls.
+    (k1s_b, k1s_lim, _, _), _ = multi["K1s"][0]
+    (k5s_rows, k5s_mask, k5s_dests), _ = multi["K5s"][0]
+    k6s_args, _ = multi["K6s"][0]
+    ms["K1s"] = cuda_ms(lambda: cuda_decode.decode_rows_streams_cuda(*multi["K1s"][0][0]),
+                        inner=20)
+    ms["K5s"] = cuda_ms(lambda: cuda_compact.compact_rows_streams_cuda(*multi["K5s"][0][0]),
+                        inner=20)
+    ms["K6s"] = cuda_ms(lambda: cuda_tracker.track_block_streams_cuda(*k6s_args), inner=20)
+    plain_ms["K1s"] = cuda_ms(lambda: decode.decode_rows_streams_plain(k1s_b, n_valid=k1s_lim))
+    plain_ms["K5s"] = cuda_ms(lambda: compact.compact_rows_streams_plain(k5s_rows, k5s_mask,
+                                                                         k5s_dests))
+    plain_ms["K6s"] = cuda_ms(lambda: tracker.track_block_streams_plain(*k6s_args))
+    library_ms["K5s"] = cuda_ms(lambda: k5s_rows[k5s_mask], inner=20)
+    (k2f_gid, k2f_clk, k2f_packed), k2f_kw = multi["K2"][0]
+    k2f_g, k2f_per = k2f_packed.shape[0] // 19, k2f_gid.numel() // 19
+    k2f_sep = [((k2f_gid[i * k2f_per:(i + 1) * k2f_per] - i * k2f_g).contiguous(),
+                k2f_clk[i * k2f_per:(i + 1) * k2f_per].contiguous(),
+                k2f_packed[i * k2f_g:(i + 1) * k2f_g].contiguous()) for i in range(19)]
+    (k4f_p, k4f_bs, k4f_val, k4f_s, k4f_nb), _ = multi["K4"][0]
+    k4f_per, k4f_s1 = k4f_p.numel() // 19, k4f_s // 19
+    k4f_sep = [(torch.where(k4f_p[i * k4f_per:(i + 1) * k4f_per] >= 0,
+                            k4f_p[i * k4f_per:(i + 1) * k4f_per] - i * k4f_s1 * k4f_nb,
+                            -1).contiguous(),
+                k4f_bs[i * k4f_per:(i + 1) * k4f_per].contiguous(),
+                k4f_val[i * k4f_per:(i + 1) * k4f_per].contiguous()) for i in range(19)]
+    flattened_ms = {
+        "K2_one_call_19_streams": cuda_ms(lambda: cuda_correct.correct_verdicts_cuda(
+            *multi["K2"][0][0], **k2f_kw), inner=20),
+        "K2_19_calls": cuda_ms(lambda: [cuda_correct.correct_verdicts_cuda(*a, **k2f_kw)
+                                        for a in k2f_sep], inner=5),
+        "K4_one_call_19_streams": cuda_ms(lambda: cuda_sweep_sums.sweep_sums_cuda(
+            *multi["K4"][0][0]), inner=20),
+        "K4_19_calls": cuda_ms(lambda: [cuda_sweep_sums.sweep_sums_cuda(*a, k4f_s1, k4f_nb)
+                                        for a in k4f_sep], inner=5),
+        "rows_per_stream": {"K2": k2f_per, "K4": k4f_per}, "sweep_lanes": k4f_s}
     session_ms = cuda_ms(lambda: run_session_on_device(raw_full, device=dev), primed=False)
     # The decoder's discard count inside the session (plain torch on K1's
     # rows): its device time (primed) and what a caller pays (unprimed).
@@ -945,6 +1045,7 @@ def run(tmp: Path) -> None:
     emit({"phase": "timing", "kernel_ms": ms, "kernel_bare_ms": bare_ms, "plain_ms": plain_ms,
           "library_ms": library_ms,
           "k5_kept_rows_1MiB_window_ms": k5_kept_ms, "stream_windows": stream_windows,
+          "flattened_ms": flattened_ms,
           "discard_count_ms": discard_ms,
           "full_session": {"frames": n_full, "ms": session_ms,
                            "frames_per_s": n_full / (session_ms / 1e3)},
@@ -999,6 +1100,28 @@ def run(tmp: Path) -> None:
         "K6": (k6_bytes(k6_args), 6 * k6_live(k6_args) * k6_args[0].shape[1] ** 2
                * k6_args[5].shape[0], PEAK_F32_PER_S),
     }
+    # The stream axis at the 19 streams' round, counted as above per stream
+    # and summed: K1 with each stream's limit, K5's carry, K6's live lanes.
+    # K1 needs only the bytes below each stream's limit: none past it can
+    # start or hold a counted frame.
+    s_n, n_s = k1s_b.shape
+    rows_s = -(-n_s // 11)
+    k1s_in = (torch.arange(n_s, device=k1s_b.device)[None]
+              < (n_s if k1s_lim is None else k1s_lim.clamp(max=n_s)[:, None]))
+    k1s_read = int(k1s_in.sum())
+    k1s_flags = int((((k1s_b == 0xCC) | (k1s_b == 0x33)) & k1s_in).sum())
+    k1s_starts = int(decode.decode_rows_streams_plain(k1s_b, n_valid=k1s_lim)[2].sum())
+    k5s_masked = int(k5s_mask.sum())
+    k6s_per = [tuple(x[i] for x in k6s_args[:8]) for i in range(k6s_args[0].shape[0])]
+    bounds["K1s"] = (k1s_read + s_n * (rows_s * 21 + 4),
+                     k1s_read * 3 + k1s_flags * 30 + k1s_starts * 28, PEAK_INT32_PER_S)
+    bounds["K5s"] = (k5s_mask.numel() + k5s_masked * 20 + s_n * GCAP * 20,
+                     2 * k5s_mask.numel(), PEAK_INT32_PER_S)
+    bounds["K6s"] = (sum(k6_bytes(a) for a in k6s_per),
+                     sum(6 * k6_live(a) * a[0].shape[1] ** 2 * a[5].shape[0] for a in k6s_per),
+                     PEAK_F32_PER_S)
+    for key, base in (("K1s", "K1"), ("K5s", "K5"), ("K6s", "K6")):
+        launches[key] = by_path["batch"][base] * (key == "K1s") + by_path["multi_stream"][base]
     meta = {
         "K1": ("decode_rows", "decode.cu", "slam_process_tpu/ops/pallas_decode.py:130"),
         "K2": ("correct_verdicts", "correct.cu", "slam_process_tpu/ops/pallas_correct.py:109"),
@@ -1006,8 +1129,15 @@ def run(tmp: Path) -> None:
         "K4": ("sweep_sums", "sweep_sums.cu", "slam_process_tpu/ops/pallas_sweep_sums.py:158"),
         "K5": ("compact_rows", "compact.cu", "slam_process_tpu/ops/pallas_compact.py:117"),
         "K6": ("track_block", "tracker.cu", "slam_process_tpu/ops/pallas_tracker.py:183"),
+        "K1s": ("decode_rows_streams (stream axis)", "decode.cu",
+                "slam_process_tpu/ops/pallas_decode.py:130"),
+        "K5s": ("compact_rows_streams (stream axis)", "compact.cu",
+                "slam_process_tpu/ops/pallas_compact.py:117"),
+        "K6s": ("track_block_streams (stream axis)", "tracker.cu",
+                "slam_process_tpu/ops/pallas_tracker.py:183"),
     }
     rows_out = []
+    meta_single = ("K1", "K2", "K3", "K4", "K5", "K6")
     for key, (name, src, replaces) in meta.items():
         n_b, n_ops, peak = bounds[key]
         t_bytes, t_ops = n_b / PEAK_BYTES_PER_S * 1e3, n_ops / peak * 1e3
@@ -1015,7 +1145,8 @@ def run(tmp: Path) -> None:
             "name": f"{key} {name}", "route": "cuda",
             "source": f"slam_process_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": launches[key],
-            "launches_by_path": {path: n[key] for path, n in by_path.items()},
+            "launches_by_path": {path: n[key.rstrip("s")] for path, n in by_path.items()
+                                 if key in meta_single or path in ("batch", "multi_stream")},
             "max_abs_err": err[key], "ms": ms[key],
             "ms_of": "kernel launch" if key in ("K2", "K3") else "wrapper call",
             "bare_ms": bare_ms.get(key),
@@ -1031,9 +1162,15 @@ def run(tmp: Path) -> None:
           "K5_rows": k5["rows"].shape[0], "K5_masked": k5_masked,
           "K5_bytes_ops": bounds["K5"][:2], "K5_fused_kept_bytes": k5_fused_bytes,
           "K5_fused_kept_bound_ms": k5_fused_bytes / PEAK_BYTES_PER_S * 1e3,
-          "K6_lanes_live": [k6_args[0].shape[0],
-                                                              k6_live(k6_args)],
-          "K6_bytes_ops": bounds["K6"][:2]})
+          "K6_lanes_live": [k6_args[0].shape[0], k6_live(k6_args)],
+          "K6_bytes_ops": bounds["K6"][:2], "K1s_streams_bytes": [s_n, n_s],
+          "K1s_bytes_below_limits": k1s_read,
+          "K1s_flag_positions": k1s_flags, "K1s_starts": k1s_starts,
+          "K1s_bytes_ops": bounds["K1s"][:2], "K5s_rows": list(k5s_mask.shape),
+          "K5s_masked": k5s_masked, "K5s_bytes_ops": bounds["K5s"][:2],
+          "K6s_streams_lanes_live": [len(k6s_per), k6s_args[0].shape[1],
+                                     sum(k6_live(a) for a in k6s_per)],
+          "K6s_bytes_ops": bounds["K6s"][:2]})
     print(smi, flush=True)
     emit({"kernels": rows_out})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2597,6 +2734,7 @@ def k2_ops(candidates, steps, rows):
 
 
 WINDOW_WRAPPERS = {"K1": ("cuda_decode", "decode_rows_cuda"),
+                   "K1s": ("cuda_decode", "decode_rows_streams_cuda"),
                    "K2": ("cuda_correct", "correct_verdicts_cuda"),
                    "K4": ("cuda_sweep_sums", "sweep_sums_cuda")}
 
@@ -2607,19 +2745,27 @@ def stream_window_inputs(sd, raw, chunk, dev, paths_spec=None):
     second full window of ``chunk`` bytes, recorded from the wrappers of the
     ``slam_process_tpu_torch`` that ``sd`` belongs to while the stream runs (a
     first feed of ``chunk`` bytes runs one full window and keeps 10 bytes;
-    the second feed runs a full window, then a 20-byte one)."""
+    the second feed runs a full window, then a 20-byte one).  A stream that
+    decodes through the stream-axis entry at S = 1 has its K1 call given as
+    the single entry's arguments (the bytes [N] and the limit)."""
     import importlib
 
-    keys = ("K1", "K2", "K4") if paths_spec is not None else ("K1", "K2")
+    keys = ("K1", "K1s", "K2", "K4") if paths_spec is not None else ("K1", "K1s", "K2")
     pkg = sd.__name__.split(".")[0]
     mods = {k: (importlib.import_module(f"{pkg}.ops.{WINDOW_WRAPPERS[k][0]}"),
                 WINDOW_WRAPPERS[k][1]) for k in keys}
-    calls = {k: [] for k in keys}
+    mods = {k: (mod, attr) for k, (mod, attr) in mods.items() if hasattr(mod, attr)}
+    calls = {k: [] for k in mods}
     originals = {k: getattr(mod, attr) for k, (mod, attr) in mods.items()}
 
     def recorder(key):
         def call(*args, **kw):
-            calls[key].append((args, kw))
+            if key == "K1s":
+                b, lim, *rest = args
+                calls["K1"].append(((b[0], b.shape[1] if lim is None else int(lim[0]), *rest),
+                                    kw))
+            else:
+                calls[key].append((args, kw))
             return originals[key](*args, **kw)
         return call
 
@@ -2633,6 +2779,7 @@ def stream_window_inputs(sd, raw, chunk, dev, paths_spec=None):
     finally:
         for key, (mod, attr) in mods.items():
             setattr(mod, attr, originals[key])
+    calls.pop("K1s", None)
     if min(len(c) for c in calls.values()) < 2 or calls["K1"][1][0][1] != chunk:
         fail(f"stream window of {chunk} bytes: the second window is not a full one "
              f"({ {k: len(c) for k, c in calls.items()} } calls)")
@@ -3072,6 +3219,607 @@ def planted_table(torch):
     packed[:, 2 * bmax:3 * bmax] = (tbl_bs - tbl_clk // cycle) % 64
     packed[:, 3 * bmax] = n_cap
     return torch.from_numpy(gid), torch.from_numpy(clk), torch.from_numpy(packed)
+
+
+# -- the stream axis: a multi-stream round's kernel calls, the batch, the streams --
+
+MULTI_CHUNK = REPLAY_CHUNK           # the 19 streams' window: the replay cell's
+MULTI_WRAPPERS = {"K1s": ("cuda_decode", "decode_rows_streams_cuda"),
+                  "K2": ("cuda_correct", "correct_verdicts_cuda"),
+                  "K4": ("cuda_sweep_sums", "sweep_sums_cuda"),
+                  "K5s": ("cuda_compact", "compact_rows_streams_cuda"),
+                  "K6s": ("cuda_tracker", "track_block_streams_cuda")}
+
+
+def multi_round_inputs(sd, raws, dev, spec, ecap):
+    """{key: [(args, kwargs), ...]} of the wrapper calls in the first round
+    of a ``MultiStreamingSession`` over ``raws`` (one stream each, each
+    shorter than a window) at 1 MiB windows with ``collect_paths``: K1, K2,
+    K4, K5 (the carry, then the kept rows), K6."""
+    import importlib
+
+    pkg = sd.__name__.split(".")[0]
+    mods = {k: (importlib.import_module(f"{pkg}.ops.{m}"), a) for k, (m, a) in
+            MULTI_WRAPPERS.items()}
+    calls = {k: [] for k in mods}
+    originals = {k: getattr(mod, attr) for k, (mod, attr) in mods.items()}
+
+    def recorder(key):
+        def call(*args, **kw):
+            calls[key].append((args, kw))
+            return originals[key](*args, **kw)
+        return call
+
+    for key, (mod, attr) in mods.items():
+        setattr(mod, attr, recorder(key))
+    try:
+        ms = sd.MultiStreamingSession(len(raws), chunk_bytes=MULTI_CHUNK, collect_paths=spec,
+                                      emit_capacity=ecap, device=dev)
+        ms.feed(raws)
+    finally:
+        for key, (mod, attr) in mods.items():
+            setattr(mod, attr, originals[key])
+    got = {k: len(c) for k, c in calls.items()}
+    if got != {"K1s": 1, "K2": 1, "K4": 1, "K5s": 2, "K6s": 1}:
+        fail(f"multi-stream round: wrapper calls {got}, not one per stage (K5 twice)")
+    return calls
+
+
+def stream_axis_cases(np, torch, dev, exact, decode, compact, correct, scene, tracker,
+                      cuda_decode, cuda_compact, cuda_correct, cuda_sweep_sums, cuda_tracker,
+                      multi, k6):
+    """The stream-axis kernels (K1, K5, K6) against their plain versions,
+    and the flattened K2 and K4 calls against S separate kernel calls, at
+    the multi-stream round's shapes (``multi``: ``multi_round_inputs``) and
+    on edge cases."""
+    # K1: the 19 streams' window, twice on one stream (the S ticket words
+    # reset); ragged limits; widths at the row blocks' edges; S = 1.
+    (b, lim, ft, ff), _ = multi["K1s"][0]
+    for rep in range(2):
+        exact("K1s", f"19_streams_1MiB_call_{rep}", cuda_decode.decode_rows_streams_cuda(
+            b, lim, ft, ff), decode.decode_rows_streams_plain(b, n_valid=lim))
+    ragged = (lim - torch.arange(lim.numel(), device=dev) * 4099).clamp(min=0)
+    exact("K1s", "19_streams_ragged_limits", cuda_decode.decode_rows_streams_cuda(
+        b, ragged, ft, ff), decode.decode_rows_streams_plain(b, n_valid=ragged))
+    gen = torch.Generator().manual_seed(8)
+    for s_n, n in ((3, 0), (5, 11), (4, 2816), (4, 2827), (2, 11 * 1024 + 3), (1, 5121)):
+        bb = torch.randint(0, 256, (s_n, n), generator=gen, dtype=torch.uint8).to(dev)
+        bb[:, ::13] = 0xCC
+        exact("K1s", f"S{s_n}_N{n}", cuda_decode.decode_rows_streams_cuda(bb, None, ft, ff),
+              decode.decode_rows_streams_plain(bb))
+
+    # K5: the round's two calls (the carry; the emit rings + the paths'
+    # buffers at the rings' counts), then rings that fill and the race test
+    # at S > 1.
+    for i, ((rows, mask, dests), _) in enumerate(multi["K5s"]):
+        def fresh(ds):
+            return [(c, None if o is None else o.clone(), off) for c, o, off in ds]
+        got_o, got_n = cuda_compact.compact_rows_streams_cuda(rows, mask, fresh(dests))
+        want_o, want_n = compact.compact_rows_streams_plain(rows, mask, fresh(dests))
+        exact("K5s", ["carry_19_streams", "emit_and_paths_19_streams"][i], (*got_o, got_n),
+              (*want_o, want_n))
+    (rows, mask, dests), _ = multi["K5s"][1]
+    cap, ring, off = dests[0]
+    for case, o2 in (("offsets_at_capacity", torch.full_like(off, cap)),
+                     ("rings_fill", (off + cap - int(mask.sum(dim=1).max()) // 2).clamp(max=cap))):
+        ds = [(cap, ring.clone(), o2), (rows.shape[1], None, None)]
+        got_o, got_n = cuda_compact.compact_rows_streams_cuda(rows, mask, ds)
+        want_o, want_n = compact.compact_rows_streams_plain(
+            rows, mask, [(cap, ring.clone(), o2), (rows.shape[1], None, None)])
+        exact("K5s", case, (*got_o, got_n), (*want_o, want_n))
+    empty = torch.zeros((3, 0, 5), dtype=torch.int32, device=dev)
+    got_o, got_n = cuda_compact.compact_rows_streams_cuda(
+        empty, torch.zeros((3, 0), dtype=torch.bool, device=dev), [(GCAP, None, None)])
+    want_o, want_n = compact.compact_rows_streams_plain(
+        empty.cpu(), torch.zeros((3, 0), dtype=torch.bool), [(GCAP, None, None)])
+    exact("K5s", "no_rows", (*got_o, got_n), (*want_o, want_n))
+    f = 1 << 20
+    gen_d = torch.Generator(device=dev).manual_seed(9)
+    rows = torch.randint(-(1 << 30), 1 << 30, (4, f, 5), generator=gen_d, dtype=torch.int32,
+                         device=dev)
+    mask = torch.rand((4, f), generator=gen_d, device=dev) < 0.5
+    ring = torch.zeros((4, f, 5), dtype=torch.int32, device=dev)
+    offs = torch.tensor([0, 7, 12_345, f // 3], dtype=torch.int32, device=dev)
+    dests = [((1 << 19) + 777, None, None), (f, ring, offs)]
+    (first, first_ring), n = cuda_compact.compact_rows_streams_cuda(rows, mask, dests)
+    first, first_ring = first.clone(), first_ring.clone()
+    (want, want_ring), n_want = compact.compact_rows_streams_plain(
+        rows, mask, [((1 << 19) + 777, None, None), (f, torch.zeros_like(ring), offs)])
+    exact("K5s", "4_streams_1M_rows_50pct", (first, first_ring, n), (want, want_ring, n_want))
+    for rep in range(100):
+        (got, got_ring), n_got = cuda_compact.compact_rows_streams_cuda(rows, mask, dests)
+        if not (torch.equal(got, first) and torch.equal(got_ring, first_ring)
+                and torch.equal(n_got, n)):
+            fail(f"K5s 4_streams_1M_rows_50pct: repetition {rep} differs from the first")
+
+    # K6: the round's 19 trackers; K6's single-stream cases of one shape as
+    # the streams of one call (65 lanes: 33 live, m_eff 0, s1 - 1, past s1).
+    args6, kw6 = multi["K6s"][0]
+    exact("K6s", "19_streams_65_lanes", cuda_tracker.track_block_streams_cuda(*args6, **kw6),
+          tracker.track_block_streams_plain(*args6, **kw6))
+    names = ("main_65_lanes", "m_eff_0", "m_eff_s1_minus_1", "m_eff_past_s1")
+    stacked = tuple(torch.stack([k6[n][0][j] for n in names]) for j in range(8))
+    exact("K6s", "4_streams_of_the_K6_cases", cuda_tracker.track_block_streams_cuda(
+        *stacked, 10.0), tracker.track_block_streams_plain(*stacked, 10.0))
+    big = tuple(torch.stack([k6[n][0][j] for n in ("T16_K20_all_live", "T16_K20_all_live")])
+                for j in range(8))
+    exact("K6s", "2_streams_T16_K20", cuda_tracker.track_block_streams_cuda(*big, 15.0),
+          tracker.track_block_streams_plain(*big, 15.0))
+
+    # K2 flattened: the round's one call (19 streams' rows, ids offset by
+    # s * max_groups) against 19 calls of the single-stream kernel; and tiny
+    # sessions, whose 256-row blocks span up to five sessions' groups.
+    (gid, clk, packed), kw2 = multi["K2"][0]
+    g_n = packed.shape[0] // 19
+    flat = cuda_correct.correct_verdicts_cuda(gid, clk, packed, **kw2)
+    per = gid.numel() // 19
+    sep = [cuda_correct.correct_verdicts_cuda(
+        (gid[i * per:(i + 1) * per] - i * g_n).contiguous(), clk[i * per:(i + 1) * per].contiguous(),
+        packed[i * g_n:(i + 1) * g_n].contiguous(), **kw2) for i in range(19)]
+    exact("K2", "flattened_19_streams_vs_19_calls", flat,
+          tuple(torch.cat([s[j] for s in sep]) for j in range(3)))
+    from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes
+    tiny = [synthetic_session_bytes(n_groups=1 + i % 3, frames_per_beam=1, baselines_per_group=2,
+                                    junk_frac=0.1, seed=500 + i) for i in range(12)]
+    width = max(len(r) for r in tiny)
+    tb = torch.zeros((12, width), dtype=torch.uint8)
+    for i, r in enumerate(tiny):
+        tb[i, :len(r)] = torch.from_numpy(r)
+    frames, valid, _ = decode.decode_rows_streams(tb.to(dev))
+    gid_t, packed_t, _ = correct.baseline_table(frames, valid, 8, 16)
+    args_t = dict(bmax=16, cycle=61_000, tol=500)
+    flat = cuda_correct.correct_verdicts_cuda(gid_t.reshape(-1).contiguous(),
+                                              frames[..., 4].reshape(-1).contiguous(), packed_t,
+                                              **args_t)
+    sep = [cuda_correct.correct_verdicts_cuda(
+        (gid_t[i] - i * 8).contiguous(), frames[i, :, 4].contiguous(),
+        packed_t[i * 8:(i + 1) * 8].contiguous(), **args_t) for i in range(12)]
+    exact("K2", "flattened_12_tiny_sessions_blocks_span_sessions", flat,
+          tuple(torch.cat([s[j] for s in sep]) for j in range(3)))
+
+    # K4 flattened: the round's one call over 19 s1 sweep lanes (ids offset
+    # by s * s1) against 19 calls of s1 lanes.
+    (p, bs4, val, s_all, nb4), _ = multi["K4"][0]
+    s1 = s_all // 19
+    flat = cuda_sweep_sums.sweep_sums_cuda(p, bs4, val, s_all, nb4)
+    per = p.numel() // 19
+    sep = []
+    for i in range(19):
+        pi = p[i * per:(i + 1) * per]
+        pi = torch.where(pi >= 0, pi - i * s1 * nb4, -1).contiguous()
+        sep.append(cuda_sweep_sums.sweep_sums_cuda(pi, bs4[i * per:(i + 1) * per].contiguous(),
+                                                   val[i * per:(i + 1) * per].contiguous(), s1,
+                                                   nb4))
+    exact("K4", "flattened_19_streams_vs_19_calls", flat,
+          tuple(torch.cat([s[j] for s in sep]) for j in range(2)))
+
+
+def batch_phase(np, torch, raws, zero_counts, read_counts, raster_close, cuda_ms, dev) -> dict:
+    """Phase 17: ``parallel/batch.run_dataset`` over the 21 sessions of phase
+    4 in both forms, on the card: field for field equal to the per-session
+    ``run_session_on_device`` on the card (rasters bit-equal), the vmap form
+    against ``device="cpu"`` under the raster bounds, K1, K2 and K3 once per
+    bucket group in the vmap form; sessions/s of vmap, scan and the
+    per-session loop."""
+    from slam_process_tpu_torch.parallel import batch
+    from slam_process_tpu_torch.pipeline.device import bucket_size, run_session_on_device
+
+    groups = len({bucket_size(len(r)) for r in raws})
+    out, launches = {}, {}
+    for axis in ("vmap", "scan"):
+        zero_counts()
+        out[axis] = batch.run_dataset(None, raws, session_axis=axis)
+        torch.cuda.synchronize()
+        launches[axis] = read_counts()
+    if not all(launches["vmap"][k] == groups for k in ("K1", "K2", "K3")):
+        fail(f"batch: the vmap form launched {launches['vmap']} for {groups} bucket groups, "
+             "not K1, K2 and K3 once per group")
+    if not all(launches["scan"][k] == len(raws) for k in ("K1", "K2", "K3")):
+        fail(f"batch: the scan form launched {launches['scan']}, not once per session")
+    singles = [run_session_on_device(r, device=dev) for r in raws]
+    fields = batch.SessionSummaryOut._fields
+    for i, one in enumerate(singles):
+        for axis in ("vmap", "scan"):
+            got = out[axis][i]
+            for f in fields:
+                want = getattr(one, f).cpu().numpy()
+                g = getattr(got, f)
+                if g.dtype != want.dtype or g.shape != want.shape or g.tobytes() != want.tobytes():
+                    fail(f"batch {axis}: session {i} {f} differs from run_session_on_device")
+        if out["vmap"][i].correct_overflow or int(out["vmap"][i].n_kept) == 0:
+            fail(f"batch: session {i} overflowed or kept nothing")
+    t0 = time.perf_counter()
+    cpu = batch.run_dataset(None, raws, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for i, (g, c) in enumerate(zip(out["vmap"], cpu)):
+        for f in ("n_frames", "correct_overflow", "n_kept", "counts", "mean_grid"):
+            if not np.array_equal(getattr(g, f), getattr(c, f), equal_nan=True):
+                fail(f"batch: session {i} {f} differs between cuda and cpu")
+        raster_close("batch", f"session_{i}_cuda_vs_cpu",
+                     tuple(torch.from_numpy(getattr(g, f))[None] for f in (
+                         "rgba", "norm_t", "blurred")),
+                     tuple(torch.from_numpy(getattr(c, f))[None] for f in (
+                         "rgba", "norm_t", "blurred")), bit_equal=False)
+
+    def loop():
+        outs = [run_session_on_device(r, device=dev) for r in raws]
+        torch.cuda.synchronize()
+        return outs
+
+    ms = {"vmap": cuda_ms(lambda: batch.run_dataset(None, raws), primed=False),
+          "scan": cuda_ms(lambda: batch.run_dataset(None, raws, session_axis="scan"),
+                          primed=False),
+          "per_session_loop": cuda_ms(loop, primed=False)}
+    return {"sessions": len(raws), "bucket_groups": groups, "launches": launches["vmap"],
+            "launches_scan": launches["scan"], "compared_with": ["run_session_on_device", "cpu"],
+            "cpu_seconds": cpu_s, "ms": ms,
+            "sessions_per_s": {k: len(raws) / (v / 1e3) for k, v in ms.items()},
+            "frames": int(sum(int(o.n_frames) for o in out["vmap"]))}
+
+
+def multi_stream_phase(np, torch, sd, nnls, tmp, angles, raws, zero_counts, read_counts,
+                       dev) -> dict:
+    """Phase 18: the 19 dataset-scale sessions as 19 streams of one
+    ``MultiStreamingSession`` at 1 MiB windows with ``collect_paths`` (s_step
+    64, K = 3, T = 8) and a fixed emit ring, on the card: each stream against
+    its own ``DeviceStreamingSession`` on the card, exactly; a ragged
+    finalize with a reset and a checkpoint resume at 256 KiB windows; then
+    ``watch --logs`` on three growing captures against ``--device cpu``.
+    Ms per round, bytes/s, the device's busy share and the host syncs per
+    round under ``torch.cuda.set_sync_debug_mode``; ms per steady round at
+    64 KiB windows (``steady_rounds``)."""
+    import traceback
+    import warnings
+
+    spec = sd.make_paths_spec(angles, s_step=64)
+    ecap = -(-(max(len(r) for r in raws) // 11 + 1) // (1 << 16)) * (1 << 16)
+
+    def run_multi():
+        ms = sd.MultiStreamingSession(len(raws), chunk_bytes=MULTI_CHUNK, collect_paths=spec,
+                                      emit_capacity=ecap, device=dev)
+        ms.feed(raws)
+        ms.finalize()
+        return ms
+
+    rounds = []
+    step = sd.MultiStreamingSession._round
+    sd.MultiStreamingSession._round = lambda self, *a: rounds.append(1) or step(self, *a)
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        ms = run_multi().block_until_ready()
+        run_s = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        sd.MultiStreamingSession._round = step
+    if min(launches[k] for k in ("K1", "K2", "K4", "K5", "K6")) == 0:
+        fail(f"multi_stream: a kernel never launched: {launches}")
+    if launches["K1"] != len(rounds) or launches["K6"] != len(rounds) + 1 or \
+            launches["K5"] != 2 * len(rounds) + 1:
+        fail(f"multi_stream: {launches} in {len(rounds)} rounds and one flush, not one launch "
+             "per stage (K5 twice) for all 19 streams")
+
+    def single(raw, chunk=MULTI_CHUNK, **kw):
+        s = sd.DeviceStreamingSession(chunk_bytes=chunk, collect_filtered=True,
+                                      emit_capacity=ecap, device=dev, **kw)
+        for off in range(0, len(raw), chunk):
+            s.feed(raw[off:off + chunk])
+        s.finalize()
+        return s
+
+    def check(m, i, s, what):
+        nf, nk, ng, sums, counts, ovf = m.results()
+        if ovf[i] or (nf[i], nk[i], ng[i]) != (s.n_frames, s.n_kept, s.n_groups):
+            fail(f"multi_stream {what}: stream {i}'s counts differ from its single stream")
+        if not (np.array_equal(sums[i], s._state.sums.cpu().numpy())
+                and np.array_equal(counts[i], s._state.counts.cpu().numpy())
+                and np.array_equal(m.stream_filtered(i), s.filtered)):
+            fail(f"multi_stream {what}: stream {i}'s sums or filtered rows differ")
+        if m._paths_spec is not None:
+            got = (m.stream_paths(i), m.stream_tracks(i)[1], m.stream_tracks(i))
+            bad = paths_differ(np, got, stream_readers(s), exact=True)
+            if bad:
+                fail(f"multi_stream {what}: stream {i}'s {bad} differ from its single stream")
+
+    sweeps = 0
+    for i, raw in enumerate(raws):
+        s = single(raw, collect_paths=spec)
+        check(ms, i, s, "19 streams")
+        sweeps += s.n_sweeps_closed
+
+    # Ragged: stream 0 ends after 256 KiB and is finalized alone, its slot
+    # reset for stream 3's bytes; a checkpoint resume; 256 KiB windows.
+    small, chunk = raws[:3], 1 << 18
+    m = sd.MultiStreamingSession(3, chunk_bytes=chunk, collect_paths=spec, emit_capacity=ecap,
+                                 device=dev)
+    m.feed([small[0][:chunk], small[1][:chunk], small[2][:chunk]])
+    m.finalize_streams([0])
+    check(m, 0, single(small[0][:chunk], chunk, collect_paths=spec), "ragged first tenant")
+    m.reset_streams([0])
+    m.save_checkpoint(tmp / "multi.npz", extra={"at": chunk})
+    r = sd.MultiStreamingSession.restore(tmp / "multi.npz", device=dev)
+    if r.checkpoint_extra != {"at": chunk}:
+        fail("multi_stream: the checkpoint's extra did not round-trip")
+    rest = [raws[3], small[1][chunk:], small[2][chunk:]]
+    for x in (m, r):
+        for off in range(0, max(len(y) for y in rest), chunk):
+            x.feed([y[off:off + chunk] for y in rest])
+        x.finalize()
+    for i, raw in enumerate((raws[3], small[1], small[2])):
+        s = single(raw, chunk, collect_paths=spec)
+        check(m, i, s, "ragged + reset")
+        check(r, i, s, "checkpoint resume")
+
+    # Throughput: CUDA events around the whole feed + finalize, median of 5
+    # after a warm-up; then the host syncs by source line in sync debug mode
+    # against the counters, and the device busy share under the profiler.
+    times = []
+    run_multi().block_until_ready()
+    for _ in range(N_STREAM_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run_multi().block_until_ready()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    run_ms = statistics.median(times)
+    n_bytes = sum(len(x) for x in raws)
+
+    sites = {}
+
+    def record(message, *_):
+        if "synchroniz" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if not f.filename.endswith("warnings.py")]
+        if stack[-1].name == "set_sync_debug_mode":
+            return
+        pkg = REPO / "slam_process_tpu_torch"
+        ours = [f for f in stack if Path(f.filename).is_relative_to(pkg)]
+        key = (f"{Path(ours[-1].filename).relative_to(REPO)}:{ours[-1].lineno}" if ours
+               else "outside the package")
+        sites[key] = sites.get(key, 0) + 1
+
+    ms_sync = sd.MultiStreamingSession(len(raws), chunk_bytes=MULTI_CHUNK, collect_paths=spec,
+                                       emit_capacity=ecap, device=dev)
+    torch.cuda.synchronize()
+    sd.HOST_SYNCS = nnls.HOST_SYNCS = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ms_sync.feed(raws)
+            ms_sync.finalize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    counted = {"m_eff_reads": sd.HOST_SYNCS, "nnls": nnls.HOST_SYNCS}
+    if sum(sites.values()) != sum(counted.values()):
+        fail(f"multi_stream: {sum(sites.values())} host syncs in sync debug mode, the counters "
+             f"say {counted}: {sites}")
+    busy, acts, top = device_profile(torch, lambda: run_multi().block_until_ready())
+
+    steady = steady_rounds(np, torch, sd, raws, spec, ecap, check, dev)
+    watch = multi_watch_check(np, torch, tmp, angles, dev)
+    n_rounds = len(rounds)
+    return {"first_run_s": run_s, "launches": launches, "streams": len(raws), "rounds": n_rounds,
+            "flushes": 1, "bytes": n_bytes, "sweeps": sweeps, "emit_ring_rows": ecap,
+            "compared_with": ["19 DeviceStreamingSession on the card", "ragged + reset",
+                              "checkpoint resume", "watch --logs vs --device cpu"],
+            "ms": run_ms, "runs_ms": times, "ms_per_round_and_flush": run_ms / (n_rounds + 1),
+            "bytes_per_s": n_bytes / (run_ms / 1e3),
+            "single_stream_equivalent_windows": n_rounds * len(raws),
+            "host_syncs": sum(sites.values()), "host_sync_sites": sites,
+            "host_syncs_per_round_and_flush": {k: v / (n_rounds + 1) for k, v in counted.items()},
+            "device_busy_ms": busy, "device_busy_share": busy / run_ms,
+            "device_activities": acts, "top_us": top[:6], "steady_64KiB": steady,
+            "watch": watch}
+
+
+def one_round_feeds(raw, chunk, carry):
+    """``raw`` as feeds of one window each: ``chunk`` bytes first, then
+    ``chunk - carry`` (the carried bytes complete the window)."""
+    out = [raw[:chunk]]
+    for off in range(chunk, len(raw), chunk - carry):
+        out.append(raw[off:off + chunk - carry])
+    return out
+
+
+def steady_rounds(np, torch, sd, raws, spec, ecap, check, dev) -> dict:
+    """The 19 streams at 64 KiB windows (the live feed's chunk), one round
+    a feed, so that every round after the first carries open groups, open
+    sweeps and ring offsets from the round before: ms per round from CUDA
+    events around each feed, the median over the rounds in which every
+    stream fed a full window, over ``N_STREAM_RUNS`` runs after a warm-up;
+    one single stream fed the same windows, timed the same way, in the
+    same call.  Each stream of the last run equals its own
+    ``DeviceStreamingSession`` fed the same windows, exactly."""
+    chunk = LIVE_CHUNK
+    feeds = [one_round_feeds(r, chunk, sd.CARRY_BYTES) for r in raws]
+    n_feeds = max(len(f) for f in feeds)
+    full = [k for k in range(1, n_feeds)
+            if all(k < len(f) and len(f[k]) == chunk - sd.CARRY_BYTES for f in feeds)]
+
+    def timed(session, rounds):
+        events = []
+        for pieces in rounds:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            session.feed(pieces)
+            end.record()
+            events.append((start, end))
+        session.finalize()
+        session.block_until_ready()
+        return [a.elapsed_time(b) for a, b in events]
+
+    def multi_run():
+        m = sd.MultiStreamingSession(len(raws), chunk_bytes=chunk, collect_paths=spec,
+                                     emit_capacity=ecap, device=dev)
+        t = timed(m, [[f[k] if k < len(f) else b"" for f in feeds] for k in range(n_feeds)])
+        return m, [t[k] for k in full]
+
+    def single_run(i):
+        s = sd.DeviceStreamingSession(chunk_bytes=chunk, collect_filtered=True,
+                                      emit_capacity=ecap, collect_paths=spec, device=dev)
+        t = timed(s, feeds[i])
+        return s, [t[k] for k in full if k < len(t)]
+
+    multi_run()
+    single_run(0)
+    multi_ms, single_ms = [], []
+    for _ in range(N_STREAM_RUNS):
+        m, t = multi_run()
+        multi_ms += t
+        single_ms += single_run(0)[1]
+    for i in range(len(raws)):
+        check(m, i, single_run(i)[0], "64 KiB rounds")
+    round_ms = statistics.median(multi_ms)
+    window_ms = statistics.median(single_ms)
+    return {"window_bytes": chunk, "streams": len(raws), "rounds": n_feeds,
+            "steady_rounds_per_run": len(full), "runs": N_STREAM_RUNS,
+            "ms_per_round": round_ms, "ms_per_round_min_max": [min(multi_ms), max(multi_ms)],
+            "bytes_per_s": len(raws) * (chunk - sd.CARRY_BYTES) / (round_ms / 1e3),
+            "single_stream_ms_per_window": window_ms,
+            "single_stream_bytes_per_s": (chunk - sd.CARRY_BYTES) / (window_ms / 1e3),
+            "single_windows_per_round_time": round_ms / window_ms}
+
+
+def multi_watch_check(np, torch, tmp, angles, dev) -> dict:
+    """``watch --logs A B C --paths --changes --events`` on the card over
+    three captures that a writer thread grows in turn (each piece after the
+    watch read the one before), the PNGs left out, against the same command
+    with ``--device cpu`` on the finished files: the filtered xlsx byte for
+    byte, the track and change tables, the events of each session."""
+    import json
+    import threading
+
+    from slam_process_tpu_torch.pipeline import cli
+    from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes, to_hex_text
+
+    work = tmp / "multi_watch"
+    texts = [to_hex_text(synthetic_session_bytes(n_groups=(2, 5, 6)[i], frames_per_beam=12,
+                                                 baselines_per_group=40, junk_frac=0.02,
+                                                 seed=400 + i, n_paths=3)) for i in range(3)]
+
+    def open_watch(tag, logs, *extra):
+        args = cli.build_parser().parse_args(
+            ["watch", "--logs", *map(str, logs), "--mapping", str(angles), "--outdir",
+             str(work / tag), "--paths", "--changes", "--events", str(work / f"{tag}.jsonl"),
+             "--poll-interval", "0.02", "--idle-timeout", "0.5", *extra])
+        if not cli.check_watch_flags(args):
+            fail("watch --logs: three files did not make a multi-stream watch")
+        return cli.MultiWatch(args)
+
+    def finish(w):
+        w.run()
+        return [w.render(i) for i in range(3)], w.export()
+
+    logs = []
+    for i in range(3):
+        (work / "card" / f"c{i}").mkdir(parents=True)
+        logs.append(work / "card" / f"c{i}" / "capture.txt")
+        logs[-1].write_bytes(b"")
+    w = open_watch("card_out", logs)
+    consumed = threading.Event()
+    read_growth = w._read_growth
+    fed = []
+
+    def paced_read(i):
+        data = read_growth(i)
+        if data is not None:
+            fed.append(i)
+            consumed.set()
+        return data
+
+    def grow():
+        """A piece for each live capture, then wait until the watch has read
+        them.  Capture 0 ends first; the others then grow by small pieces
+        until it has idled out and been finalized alone, then to their
+        ends."""
+        rng = np.random.default_rng(301)
+        offs = [0] * len(texts)
+        while any(o < len(t) for o, t in zip(offs, texts)):
+            for i, (log, text) in enumerate(zip(logs, texts)):
+                if offs[i] >= len(text):
+                    continue
+                top = 200 if offs[0] >= len(texts[0]) and not zero_done.is_set() else 12_000
+                n = int(rng.integers(1, top))
+                with open(log, "ab") as f:
+                    f.write(text[offs[i]:offs[i] + n])
+                offs[i] += n
+            if not consumed.wait(timeout=120):
+                return
+            consumed.clear()
+
+    early, zero_done = [None], threading.Event()
+    finalize_streams = w.session.finalize_streams
+
+    def watched_finalize(indices):
+        if early[0] is None and list(indices) == [0] and not w.session._stream_finalized[1:].any():
+            early[0] = [int(i) for i in indices]
+        out = finalize_streams(indices)
+        zero_done.set()
+        return out
+
+    w._read_growth = paced_read
+    w.session.finalize_streams = watched_finalize
+    writer = threading.Thread(target=grow)
+    writer.start()
+    try:
+        card_render, card_sum = finish(w)
+    finally:
+        consumed.set()
+        writer.join(timeout=120)
+    if writer.is_alive():
+        fail("watch --logs: the writer did not finish")
+    cpu_logs = []
+    for i, text in enumerate(texts):
+        (work / "cpu" / f"c{i}").mkdir(parents=True)
+        cpu_logs.append(work / "cpu" / f"c{i}" / "capture.txt")
+        cpu_logs[-1].write_bytes(text)
+    cpu_render, cpu_sum = finish(open_watch("cpu_out", cpu_logs, "--device", "cpu"))
+
+    def events(tag):
+        by = {}
+        for ln in (work / f"{tag}.jsonl").read_text().splitlines():
+            e = json.loads(ln)
+            by.setdefault(e["session"], []).append(e)
+        return by
+
+    ev_card, ev_cpu = events("card_out"), events("cpu_out")
+    if sorted(ev_card) != sorted(ev_cpu) or not ev_card:
+        fail(f"watch --logs: sessions with events differ: {sorted(ev_card)} / {sorted(ev_cpu)}")
+    for name in ev_card:
+        a, b = ev_card[name], ev_cpu[name]
+        strip = [[{k: v for k, v in e.items() if k != "power"} for e in x] for x in (a, b)]
+        if strip[0] != strip[1] or not np.allclose([e["power"] for e in a],
+                                                   [e["power"] for e in b], rtol=RTOL):
+            fail(f"watch --logs: {name}'s events differ between cuda and cpu")
+    names = [x["session"] for x in card_sum[:3]]
+    for name in names:
+        if not xlsx_same(work / "card_out" / f"{name}_filtered.xlsx",
+                         work / "cpu_out" / f"{name}_filtered.xlsx"):
+            fail(f"watch --logs: {name}'s filtered xlsx differs between cuda and cpu")
+        for table, ints in (("stream_tracks", {"Track", "Sweep", "CLK"}),
+                            ("stream_changes", {"Sweep", "CLK", "Kind", "Track"})):
+            why = xlsx_close(np, work / "card_out" / f"{name}_{table}.xlsx",
+                             work / "cpu_out" / f"{name}_{table}.xlsx", ints)
+            if why:
+                fail(f"watch --logs: {name}'s {table} differs between cuda and cpu in {why}")
+    strip = [[{k: v for k, v in x.items() if k != "png"} for x in s] for s in (card_sum, cpu_sum)]
+    if strip[0] != strip[1]:
+        fail(f"watch --logs: summaries differ: {strip}")
+    for i, (a, b) in enumerate(zip(card_render, cpu_render)):
+        why = rendered_differ(np, a, b)[0]
+        if why:
+            fail(f"watch --logs: stream {i}'s render differs between cuda and cpu: {why}")
+    if early[0] is None:
+        fail("watch --logs: capture 0 was not finalized while the others were live")
+    return {"captures": len(texts), "bytes": [len(t) for t in texts], "polls_fed": len(fed),
+            "finalized_alone": early[0],
+            "summary": card_sum, "events": sum(len(v) for v in ev_card.values())}
 
 
 if __name__ == "__main__":

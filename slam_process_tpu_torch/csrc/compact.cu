@@ -45,6 +45,19 @@
 // word carries all it publishes in one 64-bit store, and the rows are read
 // by later launches only.  Ranks are exact unsigned integers; no float is
 // involved.
+//
+// The stream axis (slam_compact_rows_streams): S independent compactions of
+// one shape in one launch, rows [S, f, width] and mask [S, f]; stream s
+// writes at out_k + s stride_k from offset_k[s] up to the same capacity,
+// and its total to total[s].  Each stream has its own decoupled look-back
+// chain: the grid is S segments of (tiles + tail blocks), handed out in
+// ticket order, and block g works on tile g mod (tiles + tail) of stream g
+// div (tiles + tail), publishing into the stream's own segment of status
+// words.  A block waits only on tiles of its own stream with lower tickets,
+// so the progress argument above holds per stream; the epoch tag is the
+// call's, so every segment is ready for the next launch with no reset.  The
+// single-stream entry is the case S = 1 (strides unused, offsets read while
+// the ticket is taken, as before).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -62,8 +75,9 @@ constexpr unsigned long long kInclusive = 0x80000000ull;
 
 struct Dest {
   int* out;
-  const int* offset;   // int32 device scalar, or null for 0
+  const int* offset;   // int32 device scalar per stream, or null for 0
   long long capacity;
+  long long stride;    // int32 elements from one stream's out to the next's
   int zero_tail;
 };
 
@@ -130,9 +144,10 @@ __device__ unsigned look_back(const unsigned long long* status, int tile, int la
 
 __global__ void __launch_bounds__(kBlock) compact_kernel(
     const int* __restrict__ rows, const uint8_t* __restrict__ mask, long long f, int width,
-    int n_tiles, int n_grid, Dests dests, unsigned long long* __restrict__ ticket,
-    unsigned long long* __restrict__ status, int* __restrict__ total_out) {
-  __shared__ int s_tile;
+    int n_streams, int n_tiles, int per_stream, int n_grid, Dests dests,
+    unsigned long long* __restrict__ ticket, unsigned long long* __restrict__ status,
+    int* __restrict__ total_out) {
+  __shared__ int s_tile, s_stream;
   __shared__ unsigned s_tag, s_excl, s_total;
   __shared__ long long s_off[kMaxDests];
   __shared__ int warp_cnt[kWarps], warp_off[kWarps];
@@ -148,14 +163,32 @@ __global__ void __launch_bounds__(kBlock) compact_kernel(
     if (static_cast<unsigned>(old) == static_cast<unsigned>(n_grid - 1)) {
       atomicExch(ticket, static_cast<unsigned long long>(epoch + 1u) << 32);
     }
-    s_tile = static_cast<int>(static_cast<unsigned>(old));
+    const unsigned g = static_cast<unsigned>(old);
+    s_stream = static_cast<int>(g / static_cast<unsigned>(per_stream));
+    s_tile = static_cast<int>(g % static_cast<unsigned>(per_stream));
     s_tag = 2u * epoch + 1u;
   }
-  if (threadIdx.x == 32) s_off[0] = dests.d[0].offset ? *dests.d[0].offset : 0;
-  if (threadIdx.x == 64) s_off[1] = dests.d[1].offset ? *dests.d[1].offset : 0;
+  if (n_streams == 1) {
+    if (threadIdx.x == 32) s_off[0] = dests.d[0].offset ? *dests.d[0].offset : 0;
+    if (threadIdx.x == 64) s_off[1] = dests.d[1].offset ? *dests.d[1].offset : 0;
+  }
   __syncthreads();
   const int tile = s_tile;
   const unsigned tag = s_tag;
+  const long long st = s_stream;
+  if (n_streams > 1) {
+    if (threadIdx.x == 32) s_off[0] = dests.d[0].offset ? dests.d[0].offset[st] : 0;
+    if (threadIdx.x == 64) s_off[1] = dests.d[1].offset ? dests.d[1].offset[st] : 0;
+    __syncthreads();
+  }
+  // This block's stream: its rows, mask, status segment, total and outputs.
+  rows += st * f * width;
+  mask += st * f;
+  status += st * n_tiles;
+  total_out += st;
+  int* outs[kMaxDests];
+#pragma unroll
+  for (int k = 0; k < kMaxDests; ++k) outs[k] = dests.d[k].out + st * dests.d[k].stride;
 
   if (tile < n_tiles) {
     const long long i = static_cast<long long>(tile) * kBlock + threadIdx.x;
@@ -196,7 +229,7 @@ __global__ void __launch_bounds__(kBlock) compact_kernel(
       for (int k = 0; k < kMaxDests; ++k) {
         const long long dst = s_off[k] + rank;
         if (k < dests.n && dst < dests.d[k].capacity) {
-          int* o = dests.d[k].out + dst * width;
+          int* o = outs[k] + dst * width;
 #pragma unroll
           for (int c = 0; c < kPrefetch; ++c) {
             if (c < width) o[c] = payload[c];
@@ -218,7 +251,7 @@ __global__ void __launch_bounds__(kBlock) compact_kernel(
     }
     __syncthreads();
     const long long b = tile - n_tiles;
-    const long long n_tail = n_grid - n_tiles;
+    const long long n_tail = per_stream - n_tiles;
 #pragma unroll
     for (int k = 0; k < kMaxDests; ++k) {
       if (k >= dests.n || !dests.d[k].zero_tail) continue;
@@ -226,10 +259,38 @@ __global__ void __launch_bounds__(kBlock) compact_kernel(
       const long long lo = min(hi, (s_off[k] + s_total) * width);
       const long long chunk = (hi - lo + n_tail - 1) / n_tail;
       const long long e1 = min(hi, lo + (b + 1) * chunk);
-      int* o = dests.d[k].out;
+      int* o = outs[k];
       for (long long e = lo + b * chunk + threadIdx.x; e < e1; e += kBlock) o[e] = 0;
     }
   }
+}
+
+int launch(const void* rows, const void* mask, long long n_streams, long long f, int width,
+           void* scratch, int n_dest, void* out0, const void* offset0, long long capacity0,
+           long long stride0, int zero_tail0, void* out1, const void* offset1,
+           long long capacity1, long long stride1, int zero_tail1, int n_tail, void* total,
+           void* stream) {
+  if (f < 0 || f > 0x7fffffffLL || width < 1 || n_dest < 1 || n_dest > kMaxDests ||
+      capacity0 < 0 || capacity1 < 0 || n_tail < 0 || n_streams < 1 ||
+      (n_tail == 0 && (zero_tail0 || (n_dest > 1 && zero_tail1)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Dests dests;
+  dests.n = n_dest;
+  dests.d[0] = Dest{static_cast<int*>(out0), static_cast<const int*>(offset0), capacity0,
+                    stride0, zero_tail0};
+  dests.d[1] = Dest{static_cast<int*>(out1), static_cast<const int*>(offset1), capacity1,
+                    stride1, n_dest > 1 ? zero_tail1 : 0};
+  const int n_tiles = f > 0 ? static_cast<int>((f + kBlock - 1) / kBlock) : 1;
+  const long long per_stream = n_tiles + n_tail;
+  if (per_stream * n_streams > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_grid = static_cast<int>(per_stream * n_streams);
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  compact_kernel<<<n_grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(rows), static_cast<const uint8_t*>(mask), f, width,
+      static_cast<int>(n_streams), n_tiles, static_cast<int>(per_stream), n_grid, dests, words,
+      words + 1, static_cast<int*>(total));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -246,22 +307,24 @@ extern "C" int slam_compact_rows(const void* rows, const void* mask, long long f
                                  long long capacity0, int zero_tail0, void* out1,
                                  const void* offset1, long long capacity1, int zero_tail1,
                                  int n_tail, void* total, void* stream) {
-  if (f < 0 || f > 0x7fffffffLL || width < 1 || n_dest < 1 || n_dest > kMaxDests ||
-      capacity0 < 0 || capacity1 < 0 || n_tail < 0 ||
-      (n_tail == 0 && (zero_tail0 || (n_dest > 1 && zero_tail1)))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Dests dests;
-  dests.n = n_dest;
-  dests.d[0] = Dest{static_cast<int*>(out0), static_cast<const int*>(offset0), capacity0,
-                    zero_tail0};
-  dests.d[1] = Dest{static_cast<int*>(out1), static_cast<const int*>(offset1), capacity1,
-                    n_dest > 1 ? zero_tail1 : 0};
-  const int n_tiles = f > 0 ? static_cast<int>((f + kBlock - 1) / kBlock) : 1;
-  const int n_grid = n_tiles + n_tail;
-  unsigned long long* words = static_cast<unsigned long long*>(scratch);
-  compact_kernel<<<n_grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(rows), static_cast<const uint8_t*>(mask), f, width, n_tiles,
-      n_grid, dests, words, words + 1, static_cast<int*>(total));
-  return static_cast<int>(cudaGetLastError());
+  return launch(rows, mask, 1, f, width, scratch, n_dest, out0, offset0, capacity0, 0,
+                zero_tail0, out1, offset1, capacity1, 0, zero_tail1, n_tail, total, stream);
+}
+
+// The stream axis: rows int32 [S, f, width], mask bool [S, f]; destination k
+// is S outs of stride_k int32 elements (each [>= capacity_k, width]), offsets
+// int32 [S] on the device or null, one capacity and zero_tail flag; n_tail
+// tail blocks per stream; total int32 [S]; scratch 8 + 8 S n_tiles bytes
+// under the single-stream contract.  S (tiles + tail) < 2^31.  One launch.
+// Returns cudaGetLastError() after it.
+extern "C" int slam_compact_rows_streams(const void* rows, const void* mask, long long n_streams,
+                                         long long f, int width, void* scratch, int n_dest,
+                                         void* out0, const void* offset0, long long capacity0,
+                                         long long stride0, int zero_tail0, void* out1,
+                                         const void* offset1, long long capacity1,
+                                         long long stride1, int zero_tail1, int n_tail,
+                                         void* total, void* stream) {
+  return launch(rows, mask, n_streams, f, width, scratch, n_dest, out0, offset0, capacity0,
+                stride0, zero_tail0, out1, offset1, capacity1, stride1, zero_tail1, n_tail,
+                total, stream);
 }

@@ -44,6 +44,14 @@
 // (tools/diag_torch_k1_phases.py).
 // The TPU form's [R, 128] lane layout and block-diagonal MXU row reduction
 // were TPU workarounds and are not carried over.
+//
+// The stream axis (slam_decode_rows_streams): S byte streams of one width n
+// side by side, [S, n], each with its own limit, decode in one launch whose
+// grid's y dimension is the stream.  Stream s reads bytes [s n, s n + n),
+// writes rows [s R, s R + R), its valid bytes and count[s], and keeps its
+// own ticket word, so its blocks meet only each other.  The single-stream
+// entry is the case S = 1.  A batch of sessions and a round of S live
+// streams decode in one launch instead of S.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -63,13 +71,22 @@ __device__ __forceinline__ unsigned flags4(unsigned x, unsigned ft4, unsigned ff
 }
 
 __global__ void __launch_bounds__(kRows) decode_rows_kernel(
-    const uint8_t* __restrict__ b, long long n, long long limit, int flag_true, int flag_false,
-    long long n_rows, int* __restrict__ rows, uint8_t* __restrict__ valid,
-    int* __restrict__ count, unsigned long long* __restrict__ ticket) {
+    const uint8_t* __restrict__ b, long long n, long long limit,
+    const long long* __restrict__ limits, int flag_true, int flag_false, long long n_rows,
+    int* __restrict__ rows, uint8_t* __restrict__ valid, int* __restrict__ count,
+    unsigned long long* __restrict__ ticket) {
   __shared__ uint4 s_vec[kVecs];
   __shared__ __align__(16) int s_rows[kRows * 5];
   __shared__ int s_warp[kRows / 32];
   const int tid = threadIdx.x;
+  // This block's stream: its bytes, rows, count and ticket word.
+  const long long st = blockIdx.y;
+  b += st * n;
+  rows += st * n_rows * 5;
+  valid += st * n_rows;
+  count += st;
+  ticket += st;
+  if (limits != nullptr) limit = limits[st] < n ? limits[st] : n;
   const long long r0 = static_cast<long long>(blockIdx.x) * kRows;
   const long long base = r0 * kFrame;
 
@@ -157,7 +174,7 @@ __global__ void __launch_bounds__(kRows) decode_rows_kernel(
 
   // The block's rows, 16 bytes a store where the block is whole.
   const long long nr = n_rows - r0 < kRows ? n_rows - r0 : kRows;
-  if (nr == kRows) {
+  if (nr == kRows && (reinterpret_cast<uintptr_t>(rows) & 15) == 0) {
     uint4* dst = reinterpret_cast<uint4*>(rows + r0 * 5);
     const uint4* src = reinterpret_cast<const uint4*>(s_rows);
     for (int i = tid; i < kRows * 5 / 4; i += kRows) dst[i] = src[i];
@@ -170,6 +187,23 @@ __global__ void __launch_bounds__(kRows) decode_rows_kernel(
   }
 }
 
+void launch(const void* b, long long n_streams, long long n, long long limit,
+            const void* limits, int flag_true, int flag_false, void* rows, void* valid,
+            void* count, void* ticket, void* stream) {
+  const long long n_rows = (n + kFrame - 1) / kFrame;
+  const long long blocks = n_rows > 0 ? (n_rows + kRows - 1) / kRows : 1;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n_streams));
+  decode_rows_kernel<<<grid, kRows, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(b), n, limit < n ? limit : n,
+      static_cast<const long long*>(limits), flag_true, flag_false, n_rows,
+      static_cast<int*>(rows), static_cast<uint8_t*>(valid), static_cast<int*>(count),
+      static_cast<unsigned long long*>(ticket));
+}
+
+bool bad_flags(int flag_true, int flag_false) {
+  return flag_true < 0 || flag_true > 0xFF || flag_false < 0 || flag_false > 0xFF;
+}
+
 }  // namespace
 
 // b: uint8 [n]; flags: byte values; rows int32 [R, 5] (16-byte aligned), valid uint8 [R] and
@@ -180,16 +214,24 @@ __global__ void __launch_bounds__(kRows) decode_rows_kernel(
 extern "C" int slam_decode_rows(const void* b, long long n, long long limit, int flag_true,
                                 int flag_false, void* rows, void* valid, void* count,
                                 void* ticket, void* stream) {
-  if (n < 0 || (reinterpret_cast<uintptr_t>(rows) & 15) != 0 || flag_true < 0 ||
-      flag_true > 0xFF || flag_false < 0 || flag_false > 0xFF) {
+  if (n < 0 || (reinterpret_cast<uintptr_t>(rows) & 15) != 0 || bad_flags(flag_true, flag_false)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long n_rows = (n + kFrame - 1) / kFrame;
-  const long long blocks = n_rows > 0 ? (n_rows + kRows - 1) / kRows : 1;
-  decode_rows_kernel<<<static_cast<unsigned>(blocks), kRows, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(b), n, limit < n ? limit : n, flag_true, flag_false, n_rows,
-      static_cast<int*>(rows), static_cast<uint8_t*>(valid), static_cast<int*>(count),
-      static_cast<unsigned long long*>(ticket));
+  launch(b, 1, n, limit, nullptr, flag_true, flag_false, rows, valid, count, ticket, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The stream axis: b uint8 [S, n]; limits int64 [S] on the device, or null for
+// n each; rows int32 [S, R, 5], valid uint8 [S, R], count int32 [S]; tickets:
+// S 8-byte scratch words under the single-stream contract.  1 <= S <= 65,535.
+// One launch.  Returns cudaGetLastError() after it.
+extern "C" int slam_decode_rows_streams(const void* b, long long n_streams, long long n,
+                                        const void* limits, int flag_true, int flag_false,
+                                        void* rows, void* valid, void* count, void* tickets,
+                                        void* stream) {
+  if (n < 0 || n_streams < 1 || n_streams > 65535 || bad_flags(flag_true, flag_false)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  launch(b, n_streams, n, n, limits, flag_true, flag_false, rows, valid, count, tickets, stream);
   return static_cast<int>(cudaGetLastError());
 }

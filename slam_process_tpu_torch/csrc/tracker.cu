@@ -45,6 +45,13 @@
 // global load, and s1 may be any length.  The chain stops at the last live
 // lane; once the carry is final, the whole block writes the dead lanes
 // [live, s1) in one parallel pass.
+//
+// The stream axis (slam_track_block_streams): S independent blocks of s1
+// lanes, [S, s1, K] inputs, m_eff [S], carries [S, T, 2] / [S, T] / [S], and
+// [S, s1, T] columns, in one launch of S blocks: block s runs stream s's
+// chain on its own warp with its own staging, as above.  The streams share
+// nothing, so their chains run side by side on S SMs.  The single-stream
+// entry is the case S = 1.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -88,6 +95,26 @@ __global__ void __launch_bounds__(kThreads) track_block_kernel(
     int* __restrict__ count_out) {
   __shared__ Staged st;
   __shared__ float fin_a[kMaxT], fin_d[kMaxT];
+
+  // This block's stream: its lanes, carry and columns.
+  const long long sn = blockIdx.x;
+  const long long lane_elems = static_cast<long long>(s1) * k_n;
+  const long long col_elems = static_cast<long long>(s1) * t_n;
+  aoa += sn * lane_elems;
+  aod += sn * lane_elems;
+  pw += sn * lane_elems;
+  val += sn * lane_elems;
+  m_eff += sn;
+  pos_in += sn * 2 * t_n;
+  created_in += sn * t_n;
+  count_in += sn;
+  c_aoa += sn * col_elems;
+  c_aod += sn * col_elems;
+  c_pow += sn * col_elems;
+  c_obs += sn * col_elems;
+  pos_out += sn * 2 * t_n;
+  created_out += sn * t_n;
+  count_out += sn;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -229,14 +256,40 @@ __global__ void __launch_bounds__(kThreads) track_block_kernel(
 }
 
 template <int P>
-void launch(cudaStream_t s, const float* aoa, const float* aod, const float* pw,
+void launch(cudaStream_t s, int n_streams, const float* aoa, const float* aod, const float* pw,
             const uint8_t* val, const int* m_eff, const float* pos_in,
             const uint8_t* created_in, const int* count_in, int s1, int k_n, int t_n,
             float gate2, float* c_aoa, float* c_aod, float* c_pow, uint8_t* c_obs,
             float* pos_out, uint8_t* created_out, int* count_out) {
-  track_block_kernel<P><<<1, kThreads, 0, s>>>(aoa, aod, pw, val, m_eff, pos_in, created_in,
+  track_block_kernel<P><<<n_streams, kThreads, 0, s>>>(aoa, aod, pw, val, m_eff, pos_in, created_in,
                                                count_in, s1, k_n, t_n, gate2, c_aoa, c_aod,
                                                c_pow, c_obs, pos_out, created_out, count_out);
+}
+
+using Launch = void (*)(cudaStream_t, int, const float*, const float*, const float*,
+                       const uint8_t*, const int*, const float*, const uint8_t*, const int*, int,
+                       int, int, float, float*, float*, float*, uint8_t*, float*, uint8_t*,
+                       int*);
+
+int run(int n_streams, const void* aoa, const void* aod, const void* pw, const void* val,
+        const void* m_eff, const void* pos_in, const void* created_in, const void* count_in,
+        int s1, int k_n, int t_n, float gate2, void* c_aoa, void* c_aod, void* c_pow,
+        void* c_obs, void* pos_out, void* created_out, void* count_out, void* stream) {
+  if (t_n < 1 || t_n > kMaxT || k_n < 1 || k_n > kMaxK || s1 < 0 || n_streams < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const Launch by_pairs[] = {launch<1>, launch<2>, launch<3>, launch<4>, launch<5>,
+                                    launch<6>, launch<7>, launch<8>, launch<9>, launch<10>};
+  by_pairs[(t_n * k_n + 31) / 32 - 1](
+      static_cast<cudaStream_t>(stream), n_streams, static_cast<const float*>(aoa),
+      static_cast<const float*>(aod), static_cast<const float*>(pw),
+      static_cast<const uint8_t*>(val), static_cast<const int*>(m_eff),
+      static_cast<const float*>(pos_in), static_cast<const uint8_t*>(created_in),
+      static_cast<const int*>(count_in), s1, k_n, t_n, gate2, static_cast<float*>(c_aoa),
+      static_cast<float*>(c_aod), static_cast<float*>(c_pow), static_cast<uint8_t*>(c_obs),
+      static_cast<float*>(pos_out), static_cast<uint8_t*>(created_out),
+      static_cast<int*>(count_out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -252,23 +305,19 @@ extern "C" int slam_track_block(const void* aoa, const void* aod, const void* pw
                                 int t_n, float gate2, void* c_aoa, void* c_aod, void* c_pow,
                                 void* c_obs, void* pos_out, void* created_out, void* count_out,
                                 void* stream) {
-  if (t_n < 1 || t_n > kMaxT || k_n < 1 || k_n > kMaxK || s1 < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  using Launch = void (*)(cudaStream_t, const float*, const float*, const float*,
-                          const uint8_t*, const int*, const float*, const uint8_t*, const int*,
-                          int, int, int, float, float*, float*, float*, uint8_t*, float*,
-                          uint8_t*, int*);
-  static const Launch by_pairs[] = {launch<1>, launch<2>, launch<3>, launch<4>, launch<5>,
-                                    launch<6>, launch<7>, launch<8>, launch<9>, launch<10>};
-  by_pairs[(t_n * k_n + 31) / 32 - 1](
-      static_cast<cudaStream_t>(stream), static_cast<const float*>(aoa),
-      static_cast<const float*>(aod), static_cast<const float*>(pw),
-      static_cast<const uint8_t*>(val), static_cast<const int*>(m_eff),
-      static_cast<const float*>(pos_in), static_cast<const uint8_t*>(created_in),
-      static_cast<const int*>(count_in), s1, k_n, t_n, gate2, static_cast<float*>(c_aoa),
-      static_cast<float*>(c_aod), static_cast<float*>(c_pow), static_cast<uint8_t*>(c_obs),
-      static_cast<float*>(pos_out), static_cast<uint8_t*>(created_out),
-      static_cast<int*>(count_out));
-  return static_cast<int>(cudaGetLastError());
+  return run(1, aoa, aod, pw, val, m_eff, pos_in, created_in, count_in, s1, k_n, t_n, gate2,
+             c_aoa, c_aod, c_pow, c_obs, pos_out, created_out, count_out, stream);
+}
+
+// The stream axis: every input and output above with a leading S axis
+// (m_eff, count_in and count_out int32 [S]).  One launch of S blocks.
+extern "C" int slam_track_block_streams(int n_streams, const void* aoa, const void* aod,
+                                        const void* pw, const void* val, const void* m_eff,
+                                        const void* pos_in, const void* created_in,
+                                        const void* count_in, int s1, int k_n, int t_n,
+                                        float gate2, void* c_aoa, void* c_aod, void* c_pow,
+                                        void* c_obs, void* pos_out, void* created_out,
+                                        void* count_out, void* stream) {
+  return run(n_streams, aoa, aod, pw, val, m_eff, pos_in, created_in, count_in, s1, k_n, t_n,
+             gate2, c_aoa, c_aod, c_pow, c_obs, pos_out, created_out, count_out, stream);
 }

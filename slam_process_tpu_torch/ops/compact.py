@@ -20,6 +20,13 @@ launch kernel K5 (``ops/cuda_compact.py``) on CUDA tensors and run the
 plain version on CPU tensors; the plain version is what
 ``slam_process_tpu/ops/pallas_compact.py::compact_rows_pallas`` computes,
 ``rows[mask][:capacity]`` zero-padded, once per destination.
+
+``compact_rows_streams(rows, mask, dests)`` is the stream axis: rows [S, F,
+W] and masks [S, F], each destination ``(capacity, out [S, >= capacity, W]
+or None, offsets int32 [S] or None)``; stream s compacts into ``out[s]`` at
+``offsets[s]``.  One launch of K5 for all S on CUDA tensors; on CPU tensors
+``compact_rows_multi_plain`` per stream.  The multi-stream session uses
+it.
 """
 
 from __future__ import annotations
@@ -76,3 +83,30 @@ def compact_rows_multi(rows: torch.Tensor, mask: torch.Tensor, dests: Sequence[D
     if rows.device.type != "cpu":
         raise ValueError(f"compaction runs on CUDA or CPU tensors, got {rows.device}")
     return compact_rows_multi_plain(rows, mask, dests)
+
+
+def compact_rows_streams_plain(rows: torch.Tensor, mask: torch.Tensor, dests: Sequence[Dest]):
+    """Plain PyTorch stream axis: ``compact_rows_multi_plain`` on each
+    stream.  Returns ([out [S, capacity, W] per destination], count [S])."""
+    s_n, _, width = rows.shape
+    outs = [rows.new_zeros((s_n, cap, width)) if out is None else out for cap, out, _ in dests]
+    counts = []
+    for i in range(s_n):
+        per = [(cap, out[i], None if off is None else off[i])
+               for (cap, _, off), out in zip(dests, outs)]
+        counts.append(compact_rows_multi_plain(rows[i], mask[i], per)[1])
+    return outs, torch.stack(counts) if counts else rows.new_zeros(0, dtype=torch.int32)
+
+
+def compact_rows_streams(rows: torch.Tensor, mask: torch.Tensor, dests: Sequence[Dest]):
+    """Masked rows of S streams, each in stream order, into one or two
+    per-stream destinations (see the module docstring): one launch of
+    kernel K5 on CUDA tensors, the plain version on CPU tensors.  Returns
+    ([out per destination], count [S])."""
+    if not 1 <= len(dests) <= 2:
+        raise ValueError(f"compaction takes one or two destinations, got {len(dests)}")
+    if rows.is_cuda:
+        return cuda_compact.compact_rows_streams_cuda(rows, mask, dests)
+    if rows.device.type != "cpu":
+        raise ValueError(f"compaction runs on CUDA or CPU tensors, got {rows.device}")
+    return compact_rows_streams_plain(rows, mask, dests)

@@ -20,6 +20,15 @@ a ``cummax`` over ``where(valid, arange, -1)``, group ids a clipped
 ``cumsum``, group baseline counts an ``index_add_``, and the table is built
 by writing each baseline's integer payload to its unique (gid, rank) cell.
 
+A batch of S sessions (or the rows of S streams) corrects as one: frames
+[S, F, 5] and valid [S, F] give group ids offset by ``s * max_groups`` into
+one stacked [S * max_groups, 3 B + 1] table, so one ``correct_verdicts``
+call (one K2 launch) serves all S, and each session's overflow is its own
+against ``max_groups`` and B.  The segments run along dim 1; the ids stay
+sorted across sessions, and a session's invalid rows reach only its own
+groups, where ``keep`` drops them, so each session's outputs equal its own
+call's.
+
 ``self_test`` replays the reference's embedded corrector specs through
 ``correct_rows`` on a device (``cli correct --run-tests``).
 
@@ -103,19 +112,21 @@ def correct_verdicts(gid: torch.Tensor, clk: torch.Tensor, packed: torch.Tensor,
 
 
 def _segments(frames: torch.Tensor, valid: torch.Tensor):
-    """(boundary [F] bool: a sweep group starts here, is_bl [F] bool: a
-    baseline row, prev_clk [F]: the previous valid row's CLK)."""
-    flag, ue, _, rss, clk = frames.unbind(dim=1)
-    # Previous valid row of every row (-1: none).
-    pos = torch.arange(frames.shape[0], device=frames.device)
-    last = torch.cummax(torch.where(valid, pos, -1), dim=0).values
-    prev = torch.cat([last.new_full((1,), -1), last[:-1]])
+    """(boundary [..., F] bool: a sweep group starts here, is_bl [..., F]
+    bool: a baseline row, prev_clk [..., F]: the previous valid row's CLK)
+    of frames [..., F, 5], along the row axis."""
+    flag, ue, _, rss, clk = frames.unbind(dim=-1)
+    # Previous valid row of every row (-1: none), as an index into the
+    # flattened rows: positions run on across sessions, so a session's
+    # running max never reaches into the session before it.
+    pos = torch.arange(valid.numel(), device=frames.device).view(valid.shape)
+    last = torch.cummax(torch.where(valid, pos, -1), dim=-1).values
+    prev = torch.cat([last.new_full(last.shape[:-1] + (1,), -1), last], dim=-1)[..., :-1]
     has_prev = prev >= 0
-    prev = prev.clamp(min=0)
-    boundary = valid & (~has_prev | (ue[prev] > ue))
-    is_bl = (valid & has_prev & (flag == 1) & (flag[prev] == 0) & (rss == rss[prev])
-             & ~boundary)
-    return boundary, is_bl, clk[prev]
+    p_flag, p_ue, _, p_rss, p_clk = frames.flatten(0, -2)[prev.clamp(min=0)].unbind(dim=-1)
+    boundary = valid & (~has_prev | (p_ue > ue))
+    is_bl = valid & has_prev & (flag == 1) & (p_flag == 0) & (rss == p_rss) & ~boundary
+    return boundary, is_bl, p_clk
 
 
 def correct_bounds(frames: torch.Tensor, valid: torch.Tensor) -> Tuple[int, int]:
@@ -143,27 +154,36 @@ def baseline_table(frames: torch.Tensor, valid: torch.Tensor, max_groups: int = 
     scalar tensor), the inputs of ``correct_verdicts``.  ``overflow`` is
     True when more than ``max_groups`` groups or more than B =
     ``max_baselines_per_group`` baselines in a group occur; the table is
-    then unusable (``correct_bounds`` gives the bounds that fit).
+    then unusable (``correct_bounds`` gives the bounds that fit).  For S
+    sessions, frames [S, F, 5] and valid [S, F]: gid [S, F] offset by ``s *
+    max_groups``, packed [S * max_groups, 3 B + 1] and overflow [S].
     """
     bmax = max_baselines_per_group
     _check_bounds(bmax, cfg.tol, cfg.mod_base)
+    batched = frames.dim() == 3
+    if not batched:
+        frames, valid = frames[None], valid[None]
     dev = frames.device
-    bs = frames[:, 2]
+    s_n = frames.shape[0]
+    n_cells = s_n * max_groups                      # groups of all sessions
+    bs = frames[..., 2]
     boundary, is_bl, prev_clk = _segments(frames, valid.to(torch.bool))
-    gid = (torch.cumsum(boundary, dim=0, dtype=torch.int32) - 1).clamp(0, max_groups - 1)
+    gid = (torch.cumsum(boundary, dim=1, dtype=torch.int32) - 1).clamp(0, max_groups - 1)
+    if s_n > 1:
+        gid = gid + torch.arange(0, n_cells, max_groups, dtype=torch.int32, device=dev)[:, None]
 
-    # Baseline count per group; rows that are not baselines land in bin G.
+    # Baseline count per group; rows that are not baselines land in bin S G.
     # index_add_, not bincount: bincount on CUDA reads the input's min and
     # max back to the host.
-    group_counts = torch.zeros(max_groups + 1, dtype=torch.int64, device=dev).index_add_(
-        0, torch.where(is_bl, gid, max_groups).long(), is_bl.long())[:max_groups]
+    group_counts = torch.zeros(n_cells + 1, dtype=torch.int64, device=dev).index_add_(
+        0, torch.where(is_bl, gid, n_cells).long().flatten(), is_bl.long().flatten())[:n_cells]
 
     # Rank of each baseline inside its group: baselines before it minus the
     # baselines before the group (the cumsum at the group's boundary row,
     # which is never itself a baseline; cumsum is nondecreasing, so the
     # running max of the boundary anchors is the latest one).
-    csum = torch.cumsum(is_bl, dim=0, dtype=torch.int32)
-    last_anchor = torch.cummax(torch.where(boundary, csum, -1), dim=0).values
+    csum = torch.cumsum(is_bl, dim=1, dtype=torch.int32)
+    last_anchor = torch.cummax(torch.where(boundary, csum, -1), dim=1).values
     rank = csum - 1 - last_anchor
 
     # Residue-form payload, written to its unique (gid, rank) cell; rows
@@ -172,16 +192,19 @@ def baseline_table(frames: torch.Tensor, valid: torch.Tensor, max_groups: int = 
     bl_r = prev_clk - q_b * cfg.cycle
     bl_e = torch.remainder(bs - q_b, cfg.mod_base)
     live = is_bl & (rank < bmax)
-    cell = torch.where(live, gid * bmax + rank, max_groups * bmax).long()
-    tbl_r = torch.zeros(max_groups * bmax + 1, dtype=torch.int32, device=dev)
+    cell = torch.where(live, gid * bmax + rank, n_cells * bmax).long().flatten()
+    tbl_r = torch.zeros(n_cells * bmax + 1, dtype=torch.int32, device=dev)
     tbl_e = torch.zeros_like(tbl_r)
-    tbl_r.index_put_((cell,), bl_r)
-    tbl_e.index_put_((cell,), bl_e)
-    tbl_r = tbl_r[:-1].view(max_groups, bmax)
-    packed = torch.cat([tbl_r >> 8, tbl_r & 0xFF, tbl_e[:-1].view(max_groups, bmax),
+    tbl_r.index_put_((cell,), bl_r.flatten())
+    tbl_e.index_put_((cell,), bl_e.flatten())
+    tbl_r = tbl_r[:-1].view(n_cells, bmax)
+    packed = torch.cat([tbl_r >> 8, tbl_r & 0xFF, tbl_e[:-1].view(n_cells, bmax),
                         group_counts.clamp(max=bmax).to(torch.int32)[:, None]],
                        dim=1).to(torch.float32)
-    overflow = (group_counts.max() > bmax) | (boundary.sum() > max_groups)
+    overflow = ((group_counts.view(s_n, max_groups).amax(dim=1) > bmax)
+                | (boundary.sum(dim=1) > max_groups))
+    if not batched:
+        return gid[0], packed, overflow[0]
     return gid, packed, overflow
 
 
@@ -193,12 +216,17 @@ def correct_rows(frames: torch.Tensor, valid: torch.Tensor, max_groups: int = 12
     ``valid``.  Returns (corrected_bs [F] i32, keep [F] bool, overflow
     bool scalar tensor); the JAX counterpart is ``correct_rows_jax``.
     On overflow (see ``baseline_table``) the other outputs are unusable.
+    S sessions, frames [S, F, 5]: outputs [S, F] and overflow [S], from one
+    ``correct_verdicts`` call on the flattened rows.
     """
     gid, packed, overflow = baseline_table(frames, valid, max_groups,
                                            max_baselines_per_group, cfg)
-    flag, bs, clk = frames[:, 0], frames[:, 2], frames[:, 4].contiguous()
-    has, k_best, bs_best = correct_verdicts(gid, clk, packed, bmax=max_baselines_per_group,
-                                            cycle=cfg.cycle, tol=cfg.tol)
+    flag, bs = frames[..., 0], frames[..., 2]
+    clk = frames[..., 4].reshape(-1).contiguous()
+    has, k_best, bs_best = correct_verdicts(gid.reshape(-1).contiguous(), clk, packed,
+                                            bmax=max_baselines_per_group, cycle=cfg.cycle,
+                                            tol=cfg.tol)
+    has, k_best, bs_best = (x.view(flag.shape) for x in (has, k_best, bs_best))
     cand = torch.remainder(bs_best + k_best, cfg.mod_base)
     keep = (flag == 0) & valid.to(torch.bool) & has
     corrected_bs = torch.where(keep, cand, bs)

@@ -6,6 +6,11 @@ the plain PyTorch version it is held against; ``ops/decode.decode_rows``
 dispatches here for CUDA tensors.  One launch per call: the kernel writes
 every row and the count, so the outputs come from ``torch.empty``.  Bound:
 bytes (N read, 21 R + 4 written); see the source note in ``csrc/decode.cu``.
+
+``decode_rows_streams_cuda`` is the stream axis: S byte streams [S, N], each
+with its own limit, in one launch (``ops/decode.decode_rows_streams``; its
+plain version is ``decode_rows_plain`` per stream).  Both entries add to
+``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from slam_process_tpu_torch.ops import _build
 
 LAUNCHES = 0   # kernel launches since the caller last set it to 0
 _tickets = {}  # (device index, stream) -> the count's 8-byte scratch word
+_stream_tickets = {}  # (device index, stream) -> one such word per byte stream
 
 
 @functools.lru_cache(maxsize=None)
@@ -27,6 +33,16 @@ def _fn():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _fn_streams():
+    fn = _build.library().slam_decode_rows_streams
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -63,5 +79,49 @@ def decode_rows_cuda(b: torch.Tensor, limit: int, flag_true: int, flag_false: in
                     rows.data_ptr(), valid.data_ptr(), count.data_ptr(),
                     ticket_for(b.device, stream).data_ptr(), stream)
     _build.check(err, "decode kernel")
+    LAUNCHES += 1
+    return rows, valid, count
+
+
+def tickets_for(dev: torch.device, stream: int, n_streams: int) -> torch.Tensor:
+    """At least ``n_streams`` such words on ``dev`` for ``stream`` (grown,
+    zeroed, when too few); every launch leaves them zero."""
+    key = (dev.index, stream)
+    t = _stream_tickets.get(key)
+    if t is None or t.numel() < n_streams:
+        t = _stream_tickets[key] = torch.zeros(max(n_streams, 64), dtype=torch.int64, device=dev)
+    return t
+
+
+def decode_rows_streams_cuda(b: torch.Tensor, limits, flag_true: int, flag_false: int):
+    """(rows [S, R, 5] i32, valid [S, R] bool, count [S] i32) for a CUDA
+    uint8 [S, N] byte tensor; stream s's frame windows end at or below
+    ``limits[s]`` (an int64 [S] tensor on the same device), or N where
+    ``limits`` is None."""
+    global LAUNCHES
+    if not b.is_cuda:
+        raise ValueError(f"decode kernel needs a CUDA tensor, got {b.device}")
+    if b.dtype != torch.uint8 or b.dim() != 2 or not b.is_contiguous():
+        raise ValueError(f"decode kernel needs contiguous uint8 [S, N], got "
+                         f"{b.dtype} {tuple(b.shape)}")
+    s_n, n = b.shape
+    if not 1 <= s_n <= 65535:
+        raise ValueError(f"decode kernel takes 1..65535 streams, got {s_n}")
+    if limits is not None and (limits.device != b.device or limits.dtype != torch.int64
+                               or tuple(limits.shape) != (s_n,) or not limits.is_contiguous()):
+        raise ValueError(f"decode kernel needs int64 [{s_n}] limits on {b.device}")
+    if not (0 <= flag_true <= 0xFF and 0 <= flag_false <= 0xFF):
+        raise ValueError(f"flags must be byte values, got {flag_true} and {flag_false}")
+    r = -(-n // 11)
+    rows = torch.empty((s_n, r, 5), dtype=torch.int32, device=b.device)
+    valid = torch.empty((s_n, r), dtype=torch.bool, device=b.device)
+    count = torch.empty(s_n, dtype=torch.int32, device=b.device)
+    stream = _build.stream_of(b)
+    with torch.cuda.device(b.device):
+        err = _fn_streams()(b.data_ptr(), s_n, n, None if limits is None else limits.data_ptr(),
+                            int(flag_true), int(flag_false), rows.data_ptr(), valid.data_ptr(),
+                            count.data_ptr(), tickets_for(b.device, stream, s_n).data_ptr(),
+                            stream)
+    _build.check(err, "decode kernel (stream axis)")
     LAUNCHES += 1
     return rows, valid, count

@@ -9,6 +9,11 @@ is ``ops/tracker.py::track_block_plain``; ``ops/tracker.track_block``
 dispatches here for CUDA tensors.  One launch of one block: one warp runs
 the live lanes in order while the others stage their inputs, then the
 block writes the dead lanes; see the source note in ``csrc/tracker.cu``.
+
+``track_block_streams_cuda`` is the stream axis: S independent blocks of
+lanes ([S, s1, K] inputs, [S] m_eff and counts, [S, T, 2] / [S, T]
+carries), one launch of S thread blocks, one per stream
+(``ops/tracker.track_block_streams``).  Both entries add to ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,16 @@ def _fn():
     fn = _build.library().slam_track_block
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                             ctypes.c_float] + [ctypes.c_void_p] * 8)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _fn_streams():
+    fn = _build.library().slam_track_block_streams
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+                   + [ctypes.c_void_p] * 8)
     fn.restype = ctypes.c_int
     return fn
 
@@ -79,5 +94,45 @@ def track_block_cuda(aoa_l: torch.Tensor, aod_l: torch.Tensor, pow_l: torch.Tens
                     new_pos.data_ptr(), new_created.data_ptr(), new_count.data_ptr(),
                     _build.stream_of(aoa_l))
     _build.check(err, "tracker kernel")
+    LAUNCHES += 1
+    return (*cols, col_obs, new_pos, new_created, new_count)
+
+
+def track_block_streams_cuda(aoa_l: torch.Tensor, aod_l: torch.Tensor, pow_l: torch.Tensor,
+                             val_l: torch.Tensor, m_eff: torch.Tensor, pos: torch.Tensor,
+                             created: torch.Tensor, count: torch.Tensor, gate_deg: float):
+    """``track_block_cuda`` with a leading S axis on every input and output
+    (m_eff and count int32 [S]); one launch for all S streams."""
+    global LAUNCHES
+    dev = aoa_l.device
+    if not aoa_l.is_cuda or aoa_l.dim() != 3:
+        raise ValueError(f"tracker kernel needs CUDA [S, s1, K] lanes, got {aoa_l.device} "
+                         f"{list(aoa_l.shape)}")
+    s_n, s1, k_n = aoa_l.shape
+    t_n = pos.shape[1] if pos.dim() == 3 else -1
+    if not (1 <= t_n <= MAX_TRACKS and 1 <= k_n <= MAX_PATHS and s_n >= 1):
+        raise ValueError(f"tracker kernel takes 1..{MAX_TRACKS} tracks, 1..{MAX_PATHS} "
+                         f"paths and S >= 1, got T={t_n}, K={k_n}, S={s_n}")
+    for name, t in (("aoa", aoa_l), ("aod", aod_l), ("power", pow_l)):
+        _need(t, name, torch.float32, (s_n, s1, k_n), dev)
+    _need(val_l, "valid", torch.bool, (s_n, s1, k_n), dev)
+    _need(m_eff, "m_eff", torch.int32, (s_n,), dev)
+    _need(pos, "pos", torch.float32, (s_n, t_n, 2), dev)
+    _need(created, "created", torch.bool, (s_n, t_n), dev)
+    _need(count, "count", torch.int32, (s_n,), dev)
+    cols = [torch.empty((s_n, s1, t_n), dtype=torch.float32, device=dev) for _ in range(3)]
+    col_obs = torch.empty((s_n, s1, t_n), dtype=torch.bool, device=dev)
+    new_pos = torch.empty_like(pos)
+    new_created = torch.empty_like(created)
+    new_count = torch.empty_like(count)
+    gate2 = float(np.float32(gate_deg) * np.float32(gate_deg))
+    with torch.cuda.device(dev):
+        err = _fn_streams()(s_n, aoa_l.data_ptr(), aod_l.data_ptr(), pow_l.data_ptr(),
+                            val_l.data_ptr(), m_eff.data_ptr(), pos.data_ptr(),
+                            created.data_ptr(), count.data_ptr(), s1, k_n, t_n, gate2,
+                            *(c.data_ptr() for c in cols), col_obs.data_ptr(),
+                            new_pos.data_ptr(), new_created.data_ptr(), new_count.data_ptr(),
+                            _build.stream_of(aoa_l))
+    _build.check(err, "tracker kernel (stream axis)")
     LAUNCHES += 1
     return (*cols, col_obs, new_pos, new_created, new_count)

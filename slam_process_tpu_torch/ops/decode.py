@@ -159,6 +159,40 @@ def decode_rows(b: torch.Tensor, cfg: DecodeConfig = _DEFAULT,
     return decode_rows_plain(b, cfg, n_valid)
 
 
+def decode_rows_streams_plain(b: torch.Tensor, cfg: DecodeConfig = _DEFAULT,
+                              n_valid: Optional[torch.Tensor] = None):
+    """Plain PyTorch stream axis: ``decode_rows_plain`` on each row of the
+    uint8 [S, N] tensor (with ``n_valid[s]``), stacked to (rows [S, R, 5],
+    valid [S, R], count [S])."""
+    outs = [decode_rows_plain(b[i], cfg, None if n_valid is None else int(n_valid[i]))
+            for i in range(b.shape[0])]
+    r = -(-b.shape[1] // 11)
+    if not outs:
+        return (b.new_zeros((0, r, 5), dtype=torch.int32), b.new_zeros((0, r), dtype=torch.bool),
+                b.new_zeros(0, dtype=torch.int32))
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def decode_rows_streams(b: torch.Tensor, cfg: DecodeConfig = _DEFAULT,
+                        n_valid: Optional[torch.Tensor] = None):
+    """Decode S byte streams of one width, uint8 [S, N], each to the
+    masked-row layout: (rows [S, R, 5] i32, valid [S, R] bool, count [S]
+    i32).  ``n_valid`` is None (every byte counts) or an int64 [S] tensor on
+    ``b``'s device: only frames inside ``b[s, :n_valid[s]]`` count.  One
+    launch of kernel K1 for all S on a CUDA tensor, the plain version per
+    stream on a CPU tensor."""
+    if cfg.frame_len != 11:
+        raise ValueError(f"the v3 wire format has 11-byte frames, got {cfg.frame_len}")
+    if b.dtype != torch.uint8 or b.dim() != 2:
+        raise ValueError(f"decode needs a uint8 [S, N] tensor, got {b.dtype} {tuple(b.shape)}")
+    if b.is_cuda:
+        return cuda_decode.decode_rows_streams_cuda(b.contiguous(), n_valid, cfg.flag_true,
+                                                    cfg.flag_false)
+    if b.device.type != "cpu":
+        raise ValueError(f"decode runs on CUDA or CPU tensors, got {b.device}")
+    return decode_rows_streams_plain(b, cfg, n_valid)
+
+
 def decode_frames(b: torch.Tensor, capacity: int, cfg: DecodeConfig = _DEFAULT,
                   n_valid: Optional[int] = None):
     """Densely packed decode: (frames [capacity, 5] i32, count i32).

@@ -74,7 +74,9 @@ def _kept_values(ue, bs, rss, valid, flag, cfg: SceneConfig):
 def intensity_cell_sums(ue: torch.Tensor, bs: torch.Tensor, rss: torch.Tensor,
                         valid: torch.Tensor, flag: Optional[torch.Tensor] = None,
                         cfg: SceneConfig = _DEFAULT):
-    """(sums [U, B], counts [U, B] int64) over the kept rows.
+    """(sums [U, B], counts [U, B] int64) over the kept rows; rows [S, F]
+    give [S, U, B], each session's or stream's own grid, from one
+    ``index_add_``.
 
     ``rss`` holds integer RSS values.  The sums are int64, exact at any
     size, so running totals over a stream stay exact too; under
@@ -84,12 +86,19 @@ def intensity_cell_sums(ue: torch.Tensor, bs: torch.Tensor, rss: torch.Tensor,
     """
     nb = cfg.n_beams
     keep, val = _kept_values(ue, bs, rss, valid, flag, cfg)
-    cell = torch.where(keep, ue * nb + bs, nb * nb).long()       # bin nb^2: dropped
-    sums = torch.zeros(nb * nb + 1, dtype=val.dtype, device=ue.device)
-    counts = torch.zeros(nb * nb + 1, dtype=torch.int64, device=ue.device)
-    sums.index_add_(0, cell, val)
-    counts.index_add_(0, cell, keep.long())
-    return sums[:-1].view(nb, nb), counts[:-1].view(nb, nb)
+    lead = tuple(ue.shape[:-1])        # S sessions or streams: rows [S, F]
+    n_grids = int(np.prod(lead))
+    cell = ue * nb + bs
+    if n_grids > 1:
+        cell = cell + torch.arange(0, n_grids * nb * nb, nb * nb,
+                                   device=ue.device).view(lead + (1,))
+    dump = n_grids * nb * nb                                     # the dropped rows' bin
+    cell = torch.where(keep, cell, dump).long().flatten()
+    sums = torch.zeros(dump + 1, dtype=val.dtype, device=ue.device)
+    counts = torch.zeros(dump + 1, dtype=torch.int64, device=ue.device)
+    sums.index_add_(0, cell, val.flatten())
+    counts.index_add_(0, cell, keep.long().flatten())
+    return sums[:-1].view(lead + (nb, nb)), counts[:-1].view(lead + (nb, nb))
 
 
 def cell_means(sums: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,11 @@ track_block_pallas`` and equals ``track_sweep_step_np`` applied lane by
 lane: f32 cost ``(pa - a)^2 + (pd - d)^2`` with each operation rounded on
 its own, ``torch.argmin``'s first flat index on ties, acceptance iff
 ``cost <= gate2`` with ``gate2 = f32(gate_deg) * f32(gate_deg)``.
+
+``track_block_streams`` is the stream axis: S independent trackers, every
+input and output with a leading S axis (m_eff and count [S]); one launch of
+K6 for all S on CUDA tensors, ``track_block_plain`` per stream on CPU
+tensors.  The multi-stream session uses it.
 """
 
 from __future__ import annotations
@@ -93,3 +98,27 @@ def track_block(aoa_l: torch.Tensor, aod_l: torch.Tensor, pow_l: torch.Tensor,
     if aoa_l.device.type != "cpu":
         raise ValueError(f"the tracker runs on CUDA or CPU tensors, got {aoa_l.device}")
     return track_block_plain(aoa_l, aod_l, pow_l, val_l, m_eff, pos, created, count, gate_deg)
+
+
+def track_block_streams_plain(aoa_l, aod_l, pow_l, val_l, m_eff, pos, created, count,
+                              gate_deg: float):
+    """Plain PyTorch stream axis: ``track_block_plain`` on each stream,
+    stacked."""
+    outs = [track_block_plain(aoa_l[i], aod_l[i], pow_l[i], val_l[i], m_eff[i], pos[i],
+                              created[i], count[i], gate_deg) for i in range(aoa_l.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def track_block_streams(aoa_l: torch.Tensor, aod_l: torch.Tensor, pow_l: torch.Tensor,
+                        val_l: torch.Tensor, m_eff: torch.Tensor, pos: torch.Tensor,
+                        created: torch.Tensor, count: torch.Tensor, gate_deg: float):
+    """Advance S trackers over their blocks of sweep lanes: kernel K6 once
+    for all S on CUDA tensors, the plain version per stream on CPU
+    tensors."""
+    if aoa_l.is_cuda:
+        return cuda_tracker.track_block_streams_cuda(aoa_l, aod_l, pow_l, val_l, m_eff, pos,
+                                                     created, count, gate_deg)
+    if aoa_l.device.type != "cpu":
+        raise ValueError(f"the tracker runs on CUDA or CPU tensors, got {aoa_l.device}")
+    return track_block_streams_plain(aoa_l, aod_l, pow_l, val_l, m_eff, pos, created, count,
+                                     gate_deg)

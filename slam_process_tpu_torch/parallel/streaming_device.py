@@ -1,16 +1,19 @@
 """Device streaming session: an unbounded byte stream, window by window,
 with all state on one device.
 
-The port of ``slam_process_tpu/parallel/streaming_device.py``'s single
-stream (``DeviceStreamingSession``, ``replay_log_device``, the checkpoint
-helpers).  Each ``chunk_bytes`` window runs, on the session's device:
-decode (kernel K1), the corrector on the closed groups' rows (K2), the
-intensity sums, the open group's carry compaction (K5), one compaction of
-the kept rows (K5) into the emit ring and, with ``collect_paths``, into a
-fresh buffer for the online paths, then the per-sweep sums of those rows
-(K4), the per-sweep estimator (NN-OMP or SM-SIC) on the sweeps the window
-closed and the tracker block (K6).  On CPU tensors every kernel's plain
-version runs instead.
+The port of ``slam_process_tpu/parallel/streaming_device.py``: the single
+stream (``DeviceStreamingSession``, ``replay_log_device``), S streams in
+one session (``MultiStreamingSession``) and the checkpoint helpers.  Both
+sessions run one window round (``_WindowRound``) on a state with a leading
+stream axis, the single stream at S = 1.  A round runs, on the session's
+device, each stage once for all S streams: decode (kernel K1), the
+corrector on the closed groups' rows (K2), the intensity sums, the open
+groups' carry compaction (K5), one compaction of the kept rows (K5) into
+the emit rings and, with ``collect_paths``, into fresh buffers for the
+online paths, then the per-sweep sums of those rows (K4), the per-sweep
+estimator (NN-OMP or SM-SIC) on the sweeps the round closed and the
+tracker block (K6).  On CPU tensors every kernel's plain version runs
+instead.
 
 Semantics kept from the JAX package:
 
@@ -39,18 +42,19 @@ integer (the JAX package passes ``SceneConfig()`` there), so K4 runs.
 Where the port differs: the running intensity sums are int64 (exact at any
 stream length; the JAX package's float32 sums are exact below 2^24 per
 cell), or float64 for the pre-log scene, and the state is updated in
-place.  A window waits on the device
-only with ``collect_paths``: once to read the count of sweeps it closed,
-which sizes the estimator's batch (``HOST_SYNCS``), and, when it closed
-any, at each step of the NNLS solver's lockstep loops
-(``ops/nnls.HOST_SYNCS``).  Without ``collect_paths`` a window never waits.
-``render()`` reads the sums back, builds the grid on the host as
-``intensity()`` does and rasterizes it on the session's device (K3).
+place.  A window waits on the device only with ``collect_paths``: once
+to read the count of sweeps it closed, which sizes the estimator's batch
+(``HOST_SYNCS``), and, when it closed any, at each step of the NNLS
+solver's lockstep loops (``ops/nnls.HOST_SYNCS``).  Without
+``collect_paths`` a window never waits.  ``render()`` reads the sums
+back, builds the grid on the host as ``intensity()`` does and rasterizes
+it on the session's device (K3).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import os
 import pickle
@@ -65,13 +69,13 @@ from slam_process_tpu_torch.io.angles import load_angle_lut
 from slam_process_tpu_torch.models.sweep_estimation import (
     estimator_dictionary, path_power, sweep_estimator_body, sweep_estimator_setup, zero_paths)
 from slam_process_tpu_torch.models.tracking import Tracks, track_velocities
-from slam_process_tpu_torch.ops.compact import compact_rows, compact_rows_multi
+from slam_process_tpu_torch.ops.compact import compact_rows_streams
 from slam_process_tpu_torch.ops.correct import correct_rows
-from slam_process_tpu_torch.ops.decode import decode_rows
+from slam_process_tpu_torch.ops.decode import decode_rows_streams
 from slam_process_tpu_torch.ops.scene import (
     grid_from_sums_np, grid_to_device, intensity_cell_sums, intensity_per_sweep_sums)
-from slam_process_tpu_torch.ops.tracker import track_block
-from slam_process_tpu_torch.pipeline.device import resolve_device
+from slam_process_tpu_torch.ops.tracker import track_block_streams
+from slam_process_tpu_torch.pipeline.device import require_no_mesh, resolve_device
 from slam_process_tpu_torch.render.heatmap import RenderedHeatmap, render_intensity
 from slam_process_tpu_torch.utils.timestamps import unwrap_clk_anchors
 
@@ -173,6 +177,43 @@ class DeviceStreamState:
     paths: Optional[PathsState]
 
 
+def _zero_stream_state(lead: tuple, gcap: int, nb: int, ecap: int, log_transform: bool,
+                       spec: Optional[StreamPathsSpec], dev) -> DeviceStreamState:
+    """The zero state, every tensor with the leading shape ``lead`` (``()``
+    for one stream, ``(S,)`` for S streams).  Not all zeros: the paths
+    state's open time and last kept UE start at -1."""
+
+    def scalar(value, dtype=torch.int32):
+        return torch.full(lead, value, dtype=dtype, device=dev)
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros(lead + shape, dtype=dtype, device=dev)
+
+    paths = None
+    if spec is not None:
+        p_n = spec.capacity + spec.s_step + 1
+        t_n = spec.max_tracks
+        f32 = torch.float32
+        rings = zero_paths(spec.est_key, p_n, dev)
+        rings = type(rings)(*(zeros(*x.shape, dtype=x.dtype) for x in rings))
+        paths = PathsState(
+            open_sums=zeros(nb, nb, dtype=f32), open_counts=zeros(nb, nb, dtype=f32),
+            open_time=scalar(-1), last_kept_ue=scalar(-1), n_closed=scalar(0),
+            overflow=scalar(False, torch.bool), est_rings=rings,
+            valid_ring=zeros(p_n, dtype=torch.bool), time_ring=zeros(p_n),
+            trk_pos=zeros(t_n, 2, dtype=f32), trk_created=zeros(t_n, dtype=torch.bool),
+            trk_count=scalar(0), trk_aoa=zeros(p_n, t_n, dtype=f32),
+            trk_aod=zeros(p_n, t_n, dtype=f32), trk_pow=zeros(p_n, t_n, dtype=f32),
+            trk_obs=zeros(p_n, t_n, dtype=torch.bool))
+    return DeviceStreamState(
+        carry_frames=zeros(gcap, 5), carry_count=scalar(0),
+        sums=zeros(nb, nb, dtype=torch.float64 if log_transform else torch.int64),
+        counts=zeros(nb, nb, dtype=torch.int64),
+        n_frames=scalar(0), n_kept=scalar(0), n_groups=scalar(0),
+        overflow=scalar(False, torch.bool), emit_buf=zeros(ecap, 4),
+        emit_count=scalar(0), emit_overflow=scalar(False, torch.bool), paths=paths)
+
+
 def _leaves(obj) -> list:
     """The state's tensors in a fixed order (the checkpoint's leaf table)."""
     if isinstance(obj, torch.Tensor):
@@ -185,92 +226,134 @@ def _leaves(obj) -> list:
 
 
 def _group_starts(ue: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """[F] bool: a valid row whose UE is below the previous valid row's.
-    The first valid row continues the carried open group."""
-    pos = torch.arange(ue.shape[0], device=ue.device)
-    last = torch.cummax(torch.where(valid, pos, -1), dim=0).values
-    prev = torch.cat([last.new_full((1,), -1), last[:-1]])
-    return valid & (prev >= 0) & (ue[prev.clamp(min=0)] > ue)
-
-
-def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """``x[i]`` for a device scalar ``i`` >= 0, without a host read."""
-    return x.index_select(0, i.reshape(1).clamp(min=0).long())[0]
+    """[S, F] bool: a valid row whose UE is below the previous valid row's
+    in its stream.  The first valid row continues the carried open group.
+    The previous row is an index into the flattened rows (positions run on
+    across streams, so a stream's running max stays in that stream)."""
+    pos = torch.arange(ue.numel(), device=ue.device).view(ue.shape)
+    last = torch.cummax(torch.where(valid, pos, -1), dim=-1).values
+    prev = torch.cat([last.new_full(last.shape[:-1] + (1,), -1), last], dim=-1)[..., :-1]
+    return valid & (prev >= 0) & (ue.flatten()[prev.clamp(min=0)] > ue)
 
 
 def _kept_rows(frames: torch.Tensor, corrected: torch.Tensor) -> torch.Tensor:
-    """[F, 4] i32 (ue, corrected_bs, rss, clk): the emitted row layout."""
-    return torch.stack([frames[:, 1], corrected, frames[:, 3], frames[:, 4]], dim=1)
+    """[..., F, 4] i32 (ue, corrected_bs, rss, clk): the emitted row layout."""
+    return torch.stack([frames[..., 1], corrected, frames[..., 3], frames[..., 4]], dim=-1)
+
+
+def _host_to(dev: torch.device, array: np.ndarray) -> torch.Tensor:
+    """A host array on ``dev``: through pinned memory and a copy that does
+    not wait, on CUDA (a pageable copy would wait for the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def _map_state(st: DeviceStreamState, fn) -> DeviceStreamState:
+    """A new state object with ``fn`` applied to every tensor of ``st``:
+    ``x[None]`` lifts a single stream's state to S = 1 (views, so in-place
+    updates reach the original), ``x[0]`` lowers it again,
+    ``x.index_select(0, idx)`` picks streams."""
+    def pick(x):
+        if isinstance(x, torch.Tensor):
+            return fn(x)
+        if x is None:
+            return None
+        if dataclasses.is_dataclass(x):
+            return type(x)(**{f.name: pick(getattr(x, f.name)) for f in dataclasses.fields(x)})
+        return type(x)(*(pick(item) for item in x))
+    return pick(st)
 
 
 def _paths_substep(p: PathsState, kr: torch.Tensor, n_keep: torch.Tensor,
                    spec: StreamPathsSpec, dict_args, beam_ids, close_all: bool) -> None:
-    """Advance the online-estimation state by one window's kept rows.
+    """Advance S streams' online-estimation state by one window round's
+    kept rows: ``kr`` [S, T, 4], compacted in stream order (K5), the first
+    ``n_keep[s]`` of stream s.
 
-    ``kr`` holds the window's kept rows compacted in stream order (K5), the
-    first ``n_keep`` of them; they are exactly the offline filtered table's
-    rows, so segmenting them by UE decrease, seeded with ``last_kept_ue``,
-    reproduces ``detect_groups_np(filtered[:, 0])``.  The sweeps the window
+    They are exactly the offline filtered table's rows, so segmenting them
+    by UE decrease, seeded with ``last_kept_ue``, reproduces
+    ``detect_groups_np(filtered[:, 0])``.  The sweeps a stream's window
     closes (and at the flush, ``close_all``, the open one if it has cells)
-    go through the per-sweep estimator and the tracker block (K6); the open
-    sweep's sums carry to the next window.
+    go through the per-sweep estimator and the tracker block; the open
+    sweep's sums carry to the next window.  One K4 launch over the S s1
+    sweep lanes (sweep ids offset by ``s * s1``), one host read of the S
+    closed-sweep counts, the estimator once on every stream's closed sweeps
+    and one K6 launch for the S trackers.
     """
     global HOST_SYNCS
     dev = kr.device
-    t = kr.shape[0]
+    s_n, t = kr.shape[:2]
     s1 = spec.s_step + 1
-    ue, bs, rss, clk = kr.unbind(dim=1)
-    idx = torch.arange(t, dtype=torch.int32, device=dev)
-    inside = idx < n_keep
-    # UE ids are 6-bit, so a -1 seed (no kept row yet) never starts a sweep.
-    prev_ue = torch.cat([p.last_kept_ue.view(1), ue[:-1]])
+    nb = p.open_sums.shape[-1]
+    ue, bs, rss, clk = kr.unbind(dim=-1)
+    idx = _steps(t, 1, dev)
+    inside = idx[None] < n_keep[:, None]
+    prev_ue = torch.cat([p.last_kept_ue[:, None], ue[:, :-1]], dim=1)
     bnd = inside & (prev_ue > ue)
-    ls = torch.cumsum(bnd, dim=0, dtype=torch.int32)        # local sweep id per row
-    m = bnd.sum(dtype=torch.int32)                          # sweeps closed by a boundary
-    last_ue = torch.where(n_keep > 0, _at(ue, n_keep - 1), p.last_kept_ue)
+    ls = torch.cumsum(bnd, dim=1, dtype=torch.int32)         # local sweep id per row
+    m = bnd.sum(dim=1, dtype=torch.int32)                    # sweeps closed by a boundary
+    last_at = (n_keep - 1).clamp(min=0).long()[:, None]
+    last_ue = torch.where(n_keep > 0, torch.gather(ue, 1, last_at)[:, 0], p.last_kept_ue)
 
     use = inside & (ls < s1)
-    sums, counts = intensity_per_sweep_sums(ue, bs, rss, ls, use, s1)   # K4 on CUDA
-    sums[0] += p.open_sums
-    counts[0] += p.open_counts
-    # CLK of each local sweep's first kept row; sweep 0 inherits the open
-    # sweep's anchor.  Bin s1 collects the rows that start no sweep.
-    first = use & (bnd | (idx == 0))
-    times = torch.full((s1 + 1,), -1, dtype=torch.int32, device=dev)
-    times.index_put_((torch.where(first, ls, s1).long(),), clk)
-    times = times[:s1]
-    times[0] = torch.where(p.open_time >= 0, p.open_time, times[0])
+    lane_of = ls + _steps(s_n, s1, dev)[:, None]             # flattened sweep lane
+    sums, counts = intensity_per_sweep_sums(ue.flatten(), bs.flatten(), rss.flatten(),  # K4
+                                            lane_of.flatten(), use.flatten(), s_n * s1)
+    sums, counts = sums.view(s_n * s1, nb, nb), counts.view(s_n * s1, nb, nb)
+    sums.view(s_n, s1, nb, nb)[:, 0] += p.open_sums
+    counts.view(s_n, s1, nb, nb)[:, 0] += p.open_counts
+    # CLK of each lane's first kept row; lane 0 of a stream inherits the
+    # open sweep's anchor.  The last bin collects the rows that start none.
+    first = use & (bnd | (idx == 0)[None])
+    times = torch.full((s_n * s1 + 1,), -1, dtype=torch.int32, device=dev)
+    times.index_put_((torch.where(first, lane_of, s_n * s1).flatten().long(),), clk.flatten())
+    times = times[:-1]
+    times[::s1] = torch.where(p.open_time >= 0, p.open_time, times[::s1])
 
     m_eff_t = m
     if close_all:
-        has_open = _at(counts, m.clamp(max=s1 - 1)).sum() > 0
+        in_lane = counts.view(s_n, s1, nb, nb).sum(dim=(2, 3))
+        has_open = torch.gather(in_lane, 1, m.clamp(max=s1 - 1).long()[:, None])[:, 0] > 0
         m_eff_t = m + has_open.to(torch.int32)
     HOST_SYNCS += 1
-    m_eff = int(m_eff_t)          # sizes the estimator's batch
-    live = min(m_eff, s1)
+    live = np.minimum(m_eff_t.cpu().numpy(), s1).astype(np.int64)   # the estimator's batch
+    lane_s = np.repeat(np.arange(s_n), live)
+    lane_j = np.arange(len(lane_s)) - np.repeat(np.cumsum(live) - live, live)
+    flat = lane_s * s1 + lane_j                              # each live lane's flat lane
+    flat_mc = np.arange(s_n) * s1 + np.minimum(live, s1 - 1)  # each stream's open lane
+    k_n = p.est_rings.aoa.shape[-1]
+    p_n = p.valid_ring.shape[1]
+    # One copy: the live lanes' streams, flat lanes and ring rows less each
+    # stream's n_closed, and the open lanes.
+    lane_s_t, flat_t, ring_idx, flat_mc_t = _host_to(dev, np.concatenate(
+        [lane_s, flat, lane_s * p_n + lane_j, flat_mc])).split([len(flat)] * 3 + [s_n])
+    ring_idx = ring_idx + p.n_closed.long().index_select(0, lane_s_t)
+    at = _rows(flat, flat_t)
 
-    k_n = p.est_rings.aoa.shape[1]
-    lanes = [torch.zeros((s1, k_n), dtype=torch.float32, device=dev) for _ in range(3)]
-    val_l = torch.zeros((s1, k_n), dtype=torch.bool, device=dev)
-    ring_idx = (p.n_closed + torch.arange(live, dtype=torch.int32, device=dev)).long()
-    if live:
-        mean = torch.where(counts[:live] > 0, sums[:live] / counts[:live].clamp(min=1.0),
+    lanes = [torch.zeros((s_n * s1, k_n), dtype=torch.float32, device=dev) for _ in range(3)]
+    val_l = torch.zeros((s_n * s1, k_n), dtype=torch.bool, device=dev)
+    if len(flat):
+        counts_l = _take(counts, at)
+        mean = torch.where(counts_l > 0, _take(sums, at) / counts_l.clamp(min=1.0),
                            float("nan"))
         sub = mean[:, beam_ids[0]][:, :, beam_ids[1]]
         est, sv = sweep_estimator_body(spec.est_key)(sub, *dict_args)
         for ring, block in zip(p.est_rings, est):
-            ring.index_copy_(0, ring_idx, block)
-        p.valid_ring.index_copy_(0, ring_idx, sv)
-        p.time_ring.index_copy_(0, ring_idx, times[:live])
-        for lane, x in zip(lanes, (est.aoa, est.aod, path_power(est))):
-            lane[:live] = x
-        val_l[:live] = est.valid & sv[:, None]
+            ring.flatten(0, 1).index_copy_(0, ring_idx, block)
+        p.valid_ring.flatten(0, 1).index_copy_(0, ring_idx, sv)
+        p.time_ring.flatten(0, 1).index_copy_(0, ring_idx, _take(times, at))
+        for lane, x in zip((*lanes, val_l), (est.aoa, est.aod, path_power(est),
+                                             est.valid & sv[:, None])):
+            _put(lane, at, x)
 
-    c_aoa, c_aod, c_pow, c_obs, pos, created, count = track_block(
-        *lanes, val_l, m_eff_t, p.trk_pos, p.trk_created, p.trk_count, spec.gate_deg)
+    c_aoa, c_aod, c_pow, c_obs, pos, created, count = track_block_streams(        # K6
+        *(x.view(s_n, s1, k_n) for x in (*lanes, val_l)), m_eff_t, p.trk_pos, p.trk_created,
+        p.trk_count, spec.gate_deg)
     for ring, col in ((p.trk_aoa, c_aoa), (p.trk_aod, c_aod), (p.trk_pow, c_pow),
                       (p.trk_obs, c_obs)):
-        ring.index_copy_(0, ring_idx, col[:live])
+        ring.flatten(0, 1).index_copy_(0, ring_idx, _take(col.flatten(0, 1), at))
     p.trk_pos, p.trk_created, p.trk_count = pos, created, count
 
     p.overflow |= (m_eff_t > spec.s_step) | (p.n_closed + m_eff_t > spec.capacity)
@@ -281,38 +364,62 @@ def _paths_substep(p: PathsState, kr: torch.Tensor, n_keep: torch.Tensor,
         p.open_counts.zero_()
         p.open_time.fill_(-1)
     else:
-        mc = min(m_eff, s1 - 1)
-        p.open_sums.copy_(sums[mc])
-        p.open_counts.copy_(counts[mc])
-        p.open_time = torch.where(counts[mc].sum() > 0, times[mc], -1)
+        at_mc = _rows(flat_mc, flat_mc_t)
+        open_counts = _take(counts, at_mc)
+        p.open_sums.copy_(_take(sums, at_mc))
+        p.open_counts.copy_(open_counts)
+        p.open_time = torch.where(open_counts.sum(dim=(1, 2)) > 0, _take(times, at_mc), -1)
+
+
+@functools.lru_cache(maxsize=None)
+def _steps(n: int, step: int, dev: torch.device) -> torch.Tensor:
+    """int32 [n]: 0, step, 2 step, ... on ``dev``, made once per (n, step,
+    device); callers must not write to it."""
+    return torch.arange(0, n * step, step, dtype=torch.int32, device=dev)
+
+
+def _rows(host: np.ndarray, dev_idx: torch.Tensor):
+    """Increasing row indices: a slice where they are contiguous (one
+    stream's lanes; a view, no device operation), else ``dev_idx``, their
+    copy on the device."""
+    if len(host) and host[-1] - host[0] == len(host) - 1:
+        return slice(int(host[0]), int(host[-1]) + 1)
+    return dev_idx
+
+
+def _take(x: torch.Tensor, rows) -> torch.Tensor:
+    """``x``'s rows ``rows`` (from ``_rows``) along dim 0."""
+    return x[rows] if isinstance(rows, slice) else x.index_select(0, rows)
+
+
+def _put(x: torch.Tensor, rows, value: torch.Tensor) -> None:
+    """Write ``value`` to ``x``'s rows ``rows`` (from ``_rows``)."""
+    if isinstance(rows, slice):
+        x[rows] = value
+    else:
+        x.index_copy_(0, rows, value)
 
 
 class _Window(NamedTuple):
-    """One window's rows after decode and correction."""
+    """One window round's rows after decode and correction, per stream."""
 
-    combined: torch.Tensor    # [Gcap + R, 5] i32: the carried group, then the window's rows
-    open_mask: torch.Tensor   # [Gcap + R] bool: valid rows of the still-open group
-    boundary: torch.Tensor    # [Gcap + R] bool: rows that start a group
-    corrected: torch.Tensor   # [Gcap + R] i32 corrected BS
-    keep: torch.Tensor        # [Gcap + R] bool: kept (filtered) rows
-    c_overflow: torch.Tensor  # bool: the corrector's bounds were exceeded
-    n_new: torch.Tensor       # i32 frames decoded in the window
+    combined: torch.Tensor    # [S, Gcap + R, 5] i32: the carried group, then the window's rows
+    open_mask: torch.Tensor   # [S, Gcap + R] bool: valid rows of the still-open group
+    boundary: torch.Tensor    # [S, Gcap + R] bool: rows that start a group
+    corrected: torch.Tensor   # [S, Gcap + R] i32 corrected BS
+    keep: torch.Tensor        # [S, Gcap + R] bool: kept (filtered) rows
+    c_overflow: torch.Tensor  # [S] bool: the corrector's bounds were exceeded
+    n_new: torch.Tensor       # [S] i32 frames decoded in the window
 
 
-class DeviceStreamingSession:
-    """Unbounded-stream session with all state on one device.
+class _WindowRound:
+    """What both sessions share: the bounds, the online-paths configuration
+    and the window round on an [S, ...] state, one launch per stage for
+    all S streams.  ``DeviceStreamingSession`` runs it at S = 1 on a view
+    of its state."""
 
-    ``feed`` runs one window per ``chunk_bytes`` (host syncs only with
-    ``collect_paths``, as the module docstring counts them); results are
-    read back when a property or reader is called.  ``device=None`` means
-    CUDA.
-    """
-
-    def __init__(self, config: Optional[PipelineConfig] = None, chunk_bytes: int = 1 << 20,
-                 group_capacity: int = 8192, max_groups: int = 128,
-                 max_baselines_per_group: int = 192, collect_filtered: bool = False,
-                 n_beams: int = 64, emit_capacity: Optional[int] = None, collect_paths=None,
-                 device=None):
+    def _setup(self, config, chunk_bytes, group_capacity, max_groups,
+               max_baselines_per_group, n_beams, collect_paths, device) -> None:
         self.config = config or PipelineConfig()
         if n_beams != self.config.scene.n_beams:
             raise ValueError(f"n_beams={n_beams} differs from the scene config's "
@@ -321,19 +428,10 @@ class DeviceStreamingSession:
         if self.chunk_bytes <= CARRY_BYTES:
             raise ValueError("chunk_bytes must exceed the 10-byte carry")
         self.device = resolve_device(device)
-        self.collect_filtered = bool(collect_filtered)
         self._gcap = int(group_capacity)
         self._mg = int(max_groups)
         self._mbpg = int(max_baselines_per_group)
         self._n_beams = int(n_beams)
-        # An explicit emit_capacity is fixed; None grows the ring in place.
-        self._emit_auto = self.collect_filtered and emit_capacity is None
-        if self.collect_filtered:
-            self._ecap = int(emit_capacity) if emit_capacity is not None else 1 << 18
-        else:
-            self._ecap = 0
-        self._emit_bound = 0     # kept rows <= one frame per 11 bytes fed
-
         if collect_paths is not None:
             spec, dict_args = collect_paths
             self._paths_spec: Optional[StreamPathsSpec] = spec
@@ -345,6 +443,117 @@ class DeviceStreamingSession:
             self._dict_args = ()
             self._beam_ids = ()
 
+    def _close_streams(self, st: DeviceStreamState, pieces: torch.Tensor,
+                       lens: Optional[torch.Tensor]) -> _Window:
+        """Decode the S windows ``pieces`` [S, chunk_bytes] (stream s's first
+        ``lens[s]`` bytes; None: all) after each stream's carried open
+        group, and correct the groups each stream's last UE-decrease
+        boundary closes.  Reads ``st`` only."""
+        cfg = self.config
+        rows_new, valid_new, n_new = decode_rows_streams(pieces, cfg.decode, n_valid=lens)  # K1
+        combined = torch.cat([st.carry_frames, rows_new], dim=1)
+        rows = _steps(combined.shape[1], 1, self.device)
+        valid = torch.cat([rows[None, :self._gcap] < st.carry_count[:, None], valid_new], dim=1)
+        boundary = _group_starts(combined[..., 1], valid)
+        closed = torch.where(boundary, rows, 0).amax(dim=1, keepdim=True)  # 0: no boundary
+        corrected, keep, c_overflow = correct_rows(                                        # K2
+            combined, valid & (rows < closed), self._mg, self._mbpg, cfg.correct)
+        return _Window(combined, valid & (rows >= closed), boundary, corrected, keep,
+                       c_overflow, n_new)
+
+    def _round(self, st: DeviceStreamState, pieces: torch.Tensor,
+               lens: Optional[torch.Tensor]) -> None:
+        """One window round for the S streams of ``st``, in place: the JAX
+        package's ``_step_body`` with a leading S axis."""
+        w = self._close_streams(st, pieces, lens)
+        d_sums, d_counts = intensity_cell_sums(w.combined[..., 1], w.corrected,
+                                               w.combined[..., 3], w.keep, w.combined[..., 0],
+                                               self.config.scene)
+        st.sums += d_sums
+        st.counts += d_counts
+        (new_carry,), n_carry = compact_rows_streams(                                      # K5
+            w.combined, w.open_mask, [(self._gcap, None, None)])
+        self._emit_and_paths(st, _kept_rows(w.combined, w.corrected), w.keep, close_all=False)
+        st.carry_frames = new_carry
+        st.carry_count = n_carry.clamp(max=self._gcap)
+        st.n_frames += w.n_new
+        st.n_kept += w.keep.sum(dim=1, dtype=torch.int32)
+        st.n_groups += w.boundary.sum(dim=1, dtype=torch.int32)
+        st.overflow |= w.c_overflow | (n_carry > self._gcap)
+
+    def _emit_and_paths(self, st: DeviceStreamState, kept: torch.Tensor, keep: torch.Tensor,
+                        close_all: bool) -> None:
+        """One compaction of the kept rows (K5) for both their consumers:
+        each stream's emit ring at its count (offsets read on the device;
+        rows past the capacity are dropped and flagged) and the online
+        paths' fresh buffers."""
+        dests = []
+        if self._ecap:
+            dests.append((self._ecap, st.emit_buf, st.emit_count))
+        if st.paths is not None:
+            dests.append((kept.shape[1], None, None))
+        if not dests:
+            return
+        outs, n = compact_rows_streams(kept, keep, dests)                                 # K5
+        if self._ecap:
+            st.emit_overflow |= st.emit_count + n > self._ecap
+            st.emit_count = (st.emit_count + n).clamp(max=self._ecap)
+        if st.paths is not None:
+            _paths_substep(st.paths, outs[-1], n, self._paths_spec, self._dict_args,
+                           self._beam_ids, close_all)
+
+    def _flush(self, st: DeviceStreamState) -> None:
+        """Close the open group of every stream of ``st``, in place."""
+        cfg = self.config
+        valid = _steps(self._gcap, 1, self.device)[None] < st.carry_count[:, None]
+        corrected, keep, c_overflow = correct_rows(st.carry_frames, valid, self._mg,
+                                                   self._mbpg, cfg.correct)
+        cf = st.carry_frames
+        d_sums, d_counts = intensity_cell_sums(cf[..., 1], corrected, cf[..., 3], keep,
+                                               cf[..., 0], cfg.scene)
+        st.sums += d_sums
+        st.counts += d_counts
+        self._emit_and_paths(st, _kept_rows(cf, corrected), keep, close_all=True)
+        st.n_kept += keep.sum(dim=1, dtype=torch.int32)
+        st.n_groups += (st.carry_count > 0).to(torch.int32)
+        st.overflow |= c_overflow
+        st.carry_frames.zero_()
+        st.carry_count.zero_()
+
+
+def _lift(x: torch.Tensor) -> torch.Tensor:
+    return x[None]
+
+
+def _lower(x: torch.Tensor) -> torch.Tensor:
+    return x[0]
+
+
+class DeviceStreamingSession(_WindowRound):
+    """Unbounded-stream session with all state on one device.
+
+    ``feed`` runs one window per ``chunk_bytes`` (host syncs only with
+    ``collect_paths``, as the module docstring counts them): the window
+    round of ``MultiStreamingSession`` at S = 1, on a view of the state
+    with a leading axis of 1.  Results are read back when a property or
+    reader is called.  ``device=None`` means CUDA.
+    """
+
+    def __init__(self, config: Optional[PipelineConfig] = None, chunk_bytes: int = 1 << 20,
+                 group_capacity: int = 8192, max_groups: int = 128,
+                 max_baselines_per_group: int = 192, collect_filtered: bool = False,
+                 n_beams: int = 64, emit_capacity: Optional[int] = None, collect_paths=None,
+                 device=None):
+        self._setup(config, chunk_bytes, group_capacity, max_groups, max_baselines_per_group,
+                    n_beams, collect_paths, device)
+        self.collect_filtered = bool(collect_filtered)
+        # An explicit emit_capacity is fixed; None grows the ring in place.
+        self._emit_auto = self.collect_filtered and emit_capacity is None
+        if self.collect_filtered:
+            self._ecap = int(emit_capacity) if emit_capacity is not None else 1 << 18
+        else:
+            self._ecap = 0
+        self._emit_bound = 0     # kept rows <= one frame per 11 bytes fed
         self._state = self._zero_state()
         self._byte_carry = np.zeros(0, dtype=np.uint8)
         self._finalized = False
@@ -352,39 +561,9 @@ class DeviceStreamingSession:
         self.checkpoint_extra = None
 
     def _zero_state(self) -> DeviceStreamState:
-        dev = self.device
-
-        def scalar(value, dtype=torch.int32):
-            return torch.tensor(value, dtype=dtype, device=dev)
-
-        def zeros(*shape, dtype=torch.int32):
-            return torch.zeros(shape, dtype=dtype, device=dev)
-
-        nb = self._n_beams
-        paths = None
-        spec = self._paths_spec
-        if spec is not None:
-            p_n = spec.capacity + spec.s_step + 1
-            t_n = spec.max_tracks
-            f32 = torch.float32
-            rings = zero_paths(spec.est_key, p_n, dev)
-            paths = PathsState(
-                open_sums=zeros(nb, nb, dtype=f32), open_counts=zeros(nb, nb, dtype=f32),
-                open_time=scalar(-1), last_kept_ue=scalar(-1), n_closed=scalar(0),
-                overflow=scalar(False, torch.bool), est_rings=rings,
-                valid_ring=zeros(p_n, dtype=torch.bool), time_ring=zeros(p_n),
-                trk_pos=zeros(t_n, 2, dtype=f32), trk_created=zeros(t_n, dtype=torch.bool),
-                trk_count=scalar(0), trk_aoa=zeros(p_n, t_n, dtype=f32),
-                trk_aod=zeros(p_n, t_n, dtype=f32), trk_pow=zeros(p_n, t_n, dtype=f32),
-                trk_obs=zeros(p_n, t_n, dtype=torch.bool))
-        return DeviceStreamState(
-            carry_frames=zeros(self._gcap, 5), carry_count=scalar(0),
-            sums=zeros(nb, nb, dtype=torch.float64 if self.config.scene.log_transform
-                       else torch.int64),
-            counts=zeros(nb, nb, dtype=torch.int64),
-            n_frames=scalar(0), n_kept=scalar(0), n_groups=scalar(0),
-            overflow=scalar(False, torch.bool), emit_buf=zeros(self._ecap, 4),
-            emit_count=scalar(0), emit_overflow=scalar(False, torch.bool), paths=paths)
+        return _zero_stream_state((), self._gcap, self._n_beams, self._ecap,
+                                  self.config.scene.log_transform, self._paths_spec,
+                                  self.device)
 
     def _maybe_grow_emit(self, rows_next: int) -> None:
         """Grow the emit ring before a window that could overflow it: a new
@@ -425,92 +604,38 @@ class DeviceStreamingSession:
                 piece = np.pad(piece, (0, c - m))
             rows_next = m // 11 + 1
             self._maybe_grow_emit(rows_next)
-            self._step(self._to_device(piece), m)
+            self._step(_host_to(self.device, piece), m)
             self._emit_bound += rows_next
             off = min(off + c, n) - CARRY_BYTES
         self._byte_carry = buf[off:].copy()
 
-    def _to_device(self, piece: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(piece))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
-    def _close_groups(self, chunk: torch.Tensor, n_bytes: int) -> "_Window":
-        """Decode one window after the carried open group and correct the
-        groups its last UE-decrease boundary closes."""
-        st, cfg = self._state, self.config
-        rows_new, valid_new, n_new = decode_rows(chunk, cfg.decode, n_valid=n_bytes)   # K1
-        combined = torch.cat([st.carry_frames, rows_new])
-        rows = torch.arange(combined.shape[0], dtype=torch.int32, device=self.device)
-        valid = torch.cat([rows[:self._gcap] < st.carry_count, valid_new])
-        boundary = _group_starts(combined[:, 1], valid)
-        closed = torch.where(boundary, rows, 0).max()       # 0 when no boundary
-        corrected, keep, c_overflow = correct_rows(                                    # K2
-            combined, valid & (rows < closed), self._mg, self._mbpg, cfg.correct)
-        return _Window(combined, valid & (rows >= closed), boundary, corrected, keep,
-                       c_overflow, n_new)
-
-    def _emit_and_paths(self, kept: torch.Tensor, keep: torch.Tensor, close_all: bool) -> None:
-        """One compaction of the kept rows (K5) for both their consumers:
-        the emit-ring append at ``emit_count`` (offset read on the device;
-        rows past the logical capacity are dropped and flagged) and the
-        online paths' fresh buffer."""
-        st = self._state
-        dests = []
-        if self._ecap:
-            dests.append((self._ecap, st.emit_buf, st.emit_count))
-        if st.paths is not None:
-            dests.append((kept.shape[0], None, None))
-        if not dests:
-            return
-        outs, n = compact_rows_multi(kept, keep, dests)
-        if self._ecap:
-            st.emit_overflow |= st.emit_count + n > self._ecap
-            st.emit_count = (st.emit_count + n).clamp(max=self._ecap)
-        if st.paths is not None:
-            _paths_substep(st.paths, outs[-1], n, self._paths_spec, self._dict_args,
-                           self._beam_ids, close_all)
+    def _limits(self, n_bytes: int) -> Optional[torch.Tensor]:
+        """K1's limit for a window of ``n_bytes`` (None: a full window)."""
+        if n_bytes == self.chunk_bytes:
+            return None
+        return _host_to(self.device, np.array([n_bytes], np.int64))
 
     def _step(self, chunk: torch.Tensor, n_bytes: int) -> None:
-        """One window: the JAX package's ``_step_body``, in place."""
-        st = self._state
-        w = self._close_groups(chunk, n_bytes)
-        d_sums, d_counts = intensity_cell_sums(w.combined[:, 1], w.corrected, w.combined[:, 3],
-                                               w.keep, w.combined[:, 0], self.config.scene)
-        st.sums += d_sums
-        st.counts += d_counts
+        """One window: the S = 1 round on the lifted state."""
+        st = _map_state(self._state, _lift)
+        self._round(st, chunk[None], self._limits(n_bytes))
+        self._state = _map_state(st, _lower)
 
-        new_carry, n_carry = compact_rows(w.combined, w.open_mask, self._gcap)          # K5
-        self._emit_and_paths(_kept_rows(w.combined, w.corrected), w.keep, close_all=False)
-
-        st.carry_frames = new_carry
-        st.carry_count = n_carry.clamp(max=self._gcap)
-        st.n_frames += w.n_new
-        st.n_kept += w.keep.sum(dtype=torch.int32)
-        st.n_groups += w.boundary.sum(dtype=torch.int32)
-        st.overflow |= w.c_overflow | (n_carry > self._gcap)
+    def _close_groups(self, chunk: torch.Tensor, n_bytes: int) -> _Window:
+        """The next window's decode and correction without the stream axis,
+        the state untouched: the kernel timers' K5 inputs."""
+        w = self._close_streams(_map_state(self._state, _lift), chunk[None],
+                                self._limits(n_bytes))
+        return _Window(*(_lower(x) for x in w))
 
     def finalize(self) -> None:
         """Flush the final open sweep group (end of stream); a second call
         does nothing."""
         if self._finalized:
             return
-        st, cfg = self._state, self.config
-        valid = torch.arange(self._gcap, device=self.device) < st.carry_count
-        corrected, keep, c_overflow = correct_rows(st.carry_frames, valid, self._mg,
-                                                   self._mbpg, cfg.correct)
-        d_sums, d_counts = intensity_cell_sums(st.carry_frames[:, 1], corrected,
-                                               st.carry_frames[:, 3], keep,
-                                               st.carry_frames[:, 0], cfg.scene)
-        st.sums += d_sums
-        st.counts += d_counts
-        self._emit_and_paths(_kept_rows(st.carry_frames, corrected), keep, close_all=True)
-        st.n_kept += keep.sum(dtype=torch.int32)
-        st.n_groups += (st.carry_count > 0).to(torch.int32)
-        st.overflow |= c_overflow
-        st.carry_frames.zero_()
-        st.carry_count.zero_()
+        st = _map_state(self._state, _lift)
+        self._flush(st)
+        self._state = _map_state(st, _lower)
         self._byte_carry = np.zeros(0, dtype=np.uint8)
         self._finalized = True
 
@@ -743,6 +868,321 @@ def _ckpt_fill_state(zero_state: DeviceStreamState, leaves) -> None:
                              f"restored configuration expects {z.dtype}{list(z.shape)}")
     for z, arr in zip(zero_leaves, leaves):
         z.copy_(torch.from_numpy(np.array(arr)))
+
+
+class MultiStreamingSession(_WindowRound):
+    """S live streams on one device, advanced together one window round at
+    a time.
+
+    The port of the JAX package's ``MultiStreamingSession`` on one device:
+    the state is ``DeviceStreamState`` with a leading S axis, and a round
+    runs each stage once for all S streams: K1 over the [S, chunk_bytes]
+    windows with per-stream lengths, the corrector with one K2 launch (group
+    ids offset per stream), the S intensity grids in one ``index_add_``, K5
+    with the stream axis for the carries and again for the kept rows (the
+    per-stream emit rings and, with ``collect_paths``, the paths' buffers),
+    then K4 over the S s1 sweep lanes, the estimator once on every stream's
+    closed sweeps and K6 with the stream axis.  Per-stream results equal S
+    independent ``DeviceStreamingSession`` replays of the same bytes
+    exactly.  With ``collect_paths`` a round reads the S closed-sweep counts
+    once (``HOST_SYNCS``) and the NNLS solver keeps its lockstep syncs
+    (``ops/nnls.HOST_SYNCS``); without it a round never waits.
+
+    ``feed`` takes one chunk per stream (b"" for a stream with nothing new);
+    every stream's buffer drains in lockstep rounds of 10-byte-overlap
+    windows, and a stream with no window left in a round gets an empty
+    piece, a no-op for its state.  The emit ring is fixed at
+    ``emit_capacity`` rows per stream (0: none), with an overflow flag per
+    stream and no growth.  ``mesh`` must be None (``device``: None means
+    CUDA).
+    """
+
+    def __init__(self, n_streams: int, config: Optional[PipelineConfig] = None,
+                 chunk_bytes: int = 1 << 20, group_capacity: int = 8192, max_groups: int = 128,
+                 max_baselines_per_group: int = 192, n_beams: int = 64, mesh=None,
+                 collect_paths=None, emit_capacity: int = 0, *, device=None):
+        require_no_mesh(mesh)
+        self.n_streams = int(n_streams)
+        if self.n_streams < 1:
+            raise ValueError(f"n_streams must be >= 1, got {n_streams}")
+        self._setup(config, chunk_bytes, group_capacity, max_groups, max_baselines_per_group,
+                    n_beams, collect_paths, device)
+        self._ecap = int(emit_capacity)
+        self._state = self._zero_state(self.n_streams)
+        self._byte_carry = [np.zeros(0, np.uint8) for _ in range(self.n_streams)]
+        self._finalized = False
+        self._stream_finalized = np.zeros(self.n_streams, bool)
+        self._paths_host = None   # host memo of the online-paths state
+        self._emit_host = None    # host memo of the emit rings
+        self.checkpoint_extra = None
+
+    def _zero_state(self, n: int) -> DeviceStreamState:
+        return _zero_stream_state((n,), self._gcap, self._n_beams, self._ecap,
+                                  self.config.scene.log_transform, self._paths_spec,
+                                  self.device)
+
+    def _forget_host(self) -> None:
+        self._paths_host = None
+        self._emit_host = None
+
+    # -- ingest --------------------------------------------------------------
+
+    def feed(self, chunks) -> None:
+        """Advance every stream by one chunk (``chunks``: S byte buffers;
+        b"" for streams with no new data this round)."""
+        if self._finalized:
+            raise RuntimeError(
+                "session already finalized: the flush closed every stream's open sweep "
+                "group; start (or restore) a non-finalized session")
+        if len(chunks) != self.n_streams:
+            raise ValueError(f"expected {self.n_streams} chunks")
+        self._forget_host()
+        bufs, offs = [], [0] * self.n_streams
+        for i, chunk in enumerate(chunks):
+            if isinstance(chunk, (bytes, bytearray)):
+                chunk = np.frombuffer(chunk, dtype=np.uint8)
+            chunk = np.asarray(chunk, np.uint8)
+            if len(chunk) and self._stream_finalized[i]:
+                raise RuntimeError(
+                    f"stream {i} already finalized: its flush closed the open sweep group, "
+                    "so feeding more bytes would mis-segment sweeps (pass b'' for ended "
+                    "streams)")
+            bufs.append(np.concatenate([self._byte_carry[i], chunk]))
+        c = self.chunk_bytes
+        while any(len(b) - o > CARRY_BYTES for b, o in zip(bufs, offs)):
+            pieces = np.zeros((self.n_streams, c), np.uint8)
+            lens = np.zeros(self.n_streams, np.int64)
+            for i, (b, off) in enumerate(zip(bufs, offs)):
+                if len(b) - off > CARRY_BYTES:
+                    piece = b[off:off + c]
+                    pieces[i, :len(piece)] = piece
+                    lens[i] = len(piece)
+                    offs[i] = min(off + c, len(b)) - CARRY_BYTES
+            self._round(self._state, _host_to(self.device, pieces),
+                        _host_to(self.device, lens))
+        self._byte_carry = [b[o:].copy() for b, o in zip(bufs, offs)]
+
+    def _masked_flush(self, mask: np.ndarray) -> None:
+        """Flush the streams of ``mask`` and leave the others as they are:
+        the selected streams' state is gathered, flushed and written back."""
+        idx = np.nonzero(mask)[0]
+        if len(idx) == self.n_streams:
+            self._flush(self._state)
+        else:
+            idx_t = _host_to(self.device, idx.astype(np.int64))
+            sub = _map_state(self._state, lambda x: x.index_select(0, idx_t))
+            self._flush(sub)
+            for whole, part in zip(_leaves(self._state), _leaves(sub)):
+                whole.index_copy_(0, idx_t, part)
+        for i in idx:
+            self._byte_carry[i] = np.zeros(0, np.uint8)
+        self._forget_host()
+
+    def _checked(self, indices) -> np.ndarray:
+        idx = np.atleast_1d(np.asarray(indices, dtype=np.int64))
+        if np.any((idx < 0) | (idx >= self.n_streams)):
+            raise ValueError(f"stream indices {idx} out of range")
+        return idx
+
+    def finalize_streams(self, indices) -> None:
+        """Flush the open sweep group of the given streams only: a capture
+        that stops closes its last sweep (and runs its last online-estimation
+        step) while the others go on.  Finalized streams take b"" in
+        ``feed``; real bytes raise."""
+        idx = self._checked(indices)
+        if idx.size == 0:
+            return
+        already = idx[self._stream_finalized[idx]]
+        if already.size:
+            raise RuntimeError(f"streams {already.tolist()} already finalized")
+        mask = np.zeros(self.n_streams, bool)
+        mask[idx] = True
+        self._masked_flush(mask)
+        self._stream_finalized |= mask
+        if bool(self._stream_finalized.all()):
+            self._finalized = True
+
+    def finalize(self) -> None:
+        """Flush every stream still open (end of all streams)."""
+        if self._finalized:
+            return
+        remaining = ~self._stream_finalized
+        if remaining.any():
+            self._masked_flush(remaining)
+        self._stream_finalized[:] = True
+        self._finalized = True
+
+    def reset_streams(self, indices) -> None:
+        """Return finalized streams to the zero state so new live feeds can
+        attach.  Only finalized streams may reset (read their results
+        first: their rings are zeroed)."""
+        idx = self._checked(indices)
+        if idx.size == 0:
+            return
+        live = idx[~self._stream_finalized[idx]]
+        if live.size:
+            raise RuntimeError(
+                f"streams {live.tolist()} are still live; finalize_streams them (and read "
+                "their results) before resetting")
+        idx_t = _host_to(self.device, idx.astype(np.int64))
+        for whole, zero in zip(_leaves(self._state), _leaves(self._zero_state(len(idx)))):
+            whole.index_copy_(0, idx_t, zero)
+        for i in idx:
+            self._byte_carry[i] = np.zeros(0, np.uint8)
+        self._stream_finalized[idx] = False
+        self._finalized = False
+        self._forget_host()
+
+    # -- results -------------------------------------------------------------
+
+    def _warn_overflow(self, overflow: np.ndarray, what: str) -> None:
+        if overflow.any():
+            bad = np.nonzero(overflow)[0].tolist()
+            msg = f"MultiStreamingSession capacity exceeded on streams {bad}{what}"
+            warnings.warn(msg, RuntimeWarning, stacklevel=3)
+            _LOGGER.warning(msg)
+
+    def _paths_read_all(self):
+        """One copy of the whole [S, ...] online-paths state, kept on the
+        host until the next feed, finalize or reset."""
+        if self._paths_spec is None:
+            raise ValueError("built without collect_paths")
+        if self._paths_host is not None:
+            return self._paths_host
+        p = self._state.paths
+        host = [x.cpu().numpy() for x in (
+            p.n_closed, p.overflow, *p.est_rings, p.valid_ring, p.time_ring, p.trk_aoa,
+            p.trk_aod, p.trk_pow, p.trk_obs, p.trk_created, p.trk_count, self._state.overflow)]
+        n_est = len(p.est_rings)
+        if host[1].any():
+            bad = np.nonzero(host[1])[0].tolist()
+            raise RuntimeError(
+                f"online estimation overflow on streams {bad}: more than "
+                f"{self._paths_spec.s_step} sweeps closed in one step or more than "
+                f"{self._paths_spec.capacity} sweeps total; rebuild with larger "
+                "s_step/capacity")
+        self._warn_overflow(host[-1], "; online paths/tracks for those streams are computed "
+                                      "from incomplete corrections")
+        est = type(p.est_rings)(*host[2:2 + n_est])
+        self._paths_host = (host[0], est, *host[2 + n_est:-1])
+        return self._paths_host
+
+    def stream_filtered(self, i: int) -> np.ndarray:
+        """Stream ``i``'s corrected rows [N, 4] int64 in stream order (the
+        single stream's ``filtered``; needs ``emit_capacity``)."""
+        if not self._ecap:
+            raise ValueError("built with emit_capacity=0")
+        if self._emit_host is None:
+            st = self._state
+            self._emit_host = tuple(x.cpu().numpy() for x in (st.emit_buf, st.emit_count,
+                                                              st.emit_overflow))
+        buf, count, ovf = self._emit_host
+        if bool(ovf[i]):
+            raise RuntimeError(
+                f"emit ring overflowed on stream {i} (emit_capacity={self._ecap}); the "
+                "exported table would be silently truncated - rebuild with a larger "
+                "emit_capacity (counts/grids remain exact)")
+        return buf[i][:int(count[i])].astype(np.int64)
+
+    def stream_paths(self, i: int):
+        """Stream ``i``'s online per-sweep estimates: (paths [n, K], sweep_valid
+        [n]), the single stream's ``sweep_paths``."""
+        n_closed, est, valid = self._paths_read_all()[:3]
+        n = int(n_closed[i])
+        return type(est)(*(x[i][:n] for x in est)), valid[i][:n]
+
+    def n_sweeps_closed_all(self) -> np.ndarray:
+        """Closed-sweep counts per stream ([S] int64): one small read."""
+        if self._paths_spec is None:
+            raise ValueError("built without collect_paths")
+        return self._state.paths.n_closed.cpu().numpy().astype(np.int64)
+
+    def stream_track_columns(self, i: int, lo: int, hi: int):
+        """Stream ``i``'s track-ring columns of closed sweeps ``[lo, hi)``:
+        (aoa [m, T], aod, power, observed, raw CLK anchors [m]); reads only
+        those rows of that stream."""
+        if self._paths_spec is None:
+            raise ValueError("built without collect_paths")
+        p = self._state.paths
+        if bool(p.overflow[i]):
+            raise RuntimeError(
+                f"online estimation overflow on stream {i}: more than "
+                f"{self._paths_spec.s_step} sweeps closed in one step or more than "
+                f"{self._paths_spec.capacity} sweeps total; rebuild with larger "
+                "s_step/capacity")
+        return (p.trk_aoa[i, lo:hi].cpu().numpy(), p.trk_aod[i, lo:hi].cpu().numpy(),
+                p.trk_pow[i, lo:hi].cpu().numpy(), p.trk_obs[i, lo:hi].cpu().numpy(),
+                p.time_ring[i, lo:hi].cpu().numpy().astype(np.int64))
+
+    def stream_tracks(self, i: int):
+        """Stream ``i``'s online tracks: (tracks, times, velocities), the
+        single stream's ``path_tracks``."""
+        n_closed, _, _, time_ring, taoa, taod, tpow, tobs, created, count = \
+            self._paths_read_all()
+        n = int(n_closed[i])
+        tracks = Tracks(taoa[i][:n].T.copy(), taod[i][:n].T.copy(), tpow[i][:n].T.copy(),
+                        tobs[i][:n].T.copy(), created[i], int(count[i]))
+        t = unwrap_clk_anchors(time_ring[i][:n].astype(np.int64), _LOGGER)
+        return tracks, t, track_velocities(tracks, t)
+
+    def results(self):
+        """One copy: per-stream (n_frames, n_kept, n_groups, sums, counts,
+        overflow) numpy arrays with a leading S axis (sums int64, float64
+        for the pre-log scene).  Warns when a stream exceeded a bound."""
+        s = self._state
+        out = tuple(x.cpu().numpy() for x in (s.n_frames, s.n_kept, s.n_groups, s.sums,
+                                              s.counts, s.overflow))
+        self._warn_overflow(out[5], " (group_capacity/max_groups/max_baselines_per_group): "
+                                    "those streams' results are incomplete; rebuild with "
+                                    "larger bounds")
+        return out
+
+    def block_until_ready(self) -> "MultiStreamingSession":
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    # -- checkpoint / resume -------------------------------------------------
+
+    def save_checkpoint(self, path, extra: Optional[dict] = None) -> None:
+        """Write all S streams' state to ``path`` (one npz file, the single
+        stream's layout, ``kind="multi_stream"``); ``restore`` continues
+        every stream exactly."""
+        meta = {
+            "extra": extra, "version": CKPT_VERSION, "kind": "multi_stream",
+            "config": self.config, "n_streams": self.n_streams,
+            "chunk_bytes": self.chunk_bytes, "group_capacity": self._gcap,
+            "max_groups": self._mg, "max_baselines_per_group": self._mbpg,
+            "n_beams": self._n_beams, "ecap": self._ecap, "finalized": self._finalized,
+            "stream_finalized": np.asarray(self._stream_finalized, bool),
+            "paths_spec": self._paths_spec,
+            "dict_args": tuple(a.cpu().numpy() for a in self._dict_args),
+            "byte_carry": [np.asarray(b, np.uint8) for b in self._byte_carry],
+        }
+        _ckpt_write(path, [x.cpu().numpy() for x in _leaves(self._state)], meta)
+
+    @classmethod
+    def restore(cls, path, mesh=None, device=None) -> "MultiStreamingSession":
+        """Rebuild from ``save_checkpoint`` on ``device`` (None: CUDA);
+        per-stream results after the rest of the feed equal an uninterrupted
+        run exactly.  Unpickles the meta: open only checkpoints you wrote."""
+        meta, leaves = _ckpt_read(path)
+        if meta.get("kind") != "multi_stream":
+            raise ValueError(f"not a MultiStreamingSession checkpoint: kind="
+                             f"{meta.get('kind')!r}")
+        spec = meta["paths_spec"]
+        sess = cls(meta["n_streams"], config=meta["config"], chunk_bytes=meta["chunk_bytes"],
+                   group_capacity=meta["group_capacity"], max_groups=meta["max_groups"],
+                   max_baselines_per_group=meta["max_baselines_per_group"],
+                   n_beams=meta["n_beams"], mesh=mesh,
+                   collect_paths=(spec, meta["dict_args"]) if spec is not None else None,
+                   emit_capacity=meta["ecap"], device=device)
+        sess._finalized = bool(meta["finalized"])
+        sess._stream_finalized = np.asarray(meta["stream_finalized"], bool).copy()
+        sess._byte_carry = [np.asarray(b, np.uint8) for b in meta["byte_carry"]]
+        _ckpt_fill_state(sess._state, leaves)
+        sess.checkpoint_extra = meta.get("extra")
+        return sess
 
 
 def replay_log_device(raw: np.ndarray, chunk_bytes: int = 1 << 20,

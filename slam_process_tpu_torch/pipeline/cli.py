@@ -14,7 +14,8 @@
     python -m slam_process_tpu_torch.pipeline.cli replay --logs A.txt [B.txt ...] --mapping ...
                                                  --outdir DIR [--engine device|host]
                                                  [--chunk-bytes N] [--paths [--changes]]
-    python -m slam_process_tpu_torch.pipeline.cli watch --log LIVE.txt --mapping ... --outdir DIR
+    python -m slam_process_tpu_torch.pipeline.cli watch --log LIVE.txt | --logs A.txt B.txt ...
+                                                 --mapping ... --outdir DIR
                                                  [--engine device|host] [--paths [--changes]]
                                                  [--events E.jsonl] [--checkpoint C.npz
                                                  [--checkpoint-every S]] [--idle-timeout S]
@@ -29,8 +30,9 @@ option the JAX CLI lacks.  ``estimate``, ``replay`` and ``watch`` take
 (for ``estimate`` the float64 numpy oracle, for the streams the numpy
 session on the CPU); ``--engine host`` streams on the CPU and never touches
 the card.  ``replay --decoder`` is accepted, and either value runs K1.
-``watch --logs`` with one file is ``--log``; several files and the
-multi-host flags exit (not ported yet).  ``run-config`` needs its
+``watch --logs`` with one file is ``--log``; several files run one
+multi-stream session (``MultiWatch``); the multi-host flags exit (not
+ported yet).  ``run-config`` needs its
 ``--data-dir`` and ``--mapping``.  The v1 / v2 wire formats decode with
 numpy in both packages.  The PNGs (heatmap, estimation, tracks, a stream's
 heatmap) need matplotlib; a colormap other than viridis needs it too.
@@ -44,6 +46,8 @@ import os
 import sys
 import zipfile
 from pathlib import Path
+
+import numpy as np
 
 from slam_process_tpu_torch.config import RenderConfig, SceneConfig
 from slam_process_tpu_torch.models.registry import PORTED, run_estimator
@@ -500,12 +504,13 @@ def _run_replay(args):
     print(json.dumps({"sessions": len(stats), "total_frames": sum(x["frames"] for x in stats)}))
 
 
-def _seed_event_keys(events_path) -> set:
+def _seed_event_keys(events_path, with_session: bool = False) -> set:
     """Dedup keys (sweep, kind, track) of an existing JSONL feed, for a
-    checkpoint resume.  Malformed lines (the torn tail of a crash mid-write
-    among them) are skipped; a torn tail, with no newline at its end, is
-    closed with one, so the first append after the resume starts a line of
-    its own."""
+    checkpoint resume; with ``with_session`` (the multi-log feed) each key
+    starts with the row's session.  Malformed lines (the torn tail of a
+    crash mid-write among them) are skipped; a torn tail, with no newline at
+    its end, is closed with one, so the first append after the resume starts
+    a line of its own."""
     from slam_process_tpu_torch.models.change_detection import EVENT_KINDS
 
     seen: set = set()
@@ -522,20 +527,23 @@ def _seed_event_keys(events_path) -> set:
             continue
         try:
             e = json.loads(line)
-            seen.add((int(e["sweep"]), EVENT_KINDS.index(e["kind"]), int(e["track"])))
+            key = (int(e["sweep"]), EVENT_KINDS.index(e["kind"]), int(e["track"]))
+            seen.add(((e.get("session"),) + key) if with_session else key)
         except (ValueError, KeyError, TypeError):
             continue
     return seen
 
 
-def _event_json_line(row) -> str:
-    """One event row (the detector's [7] float64 row) as a JSONL line."""
+def _event_json_line(row, session=None) -> str:
+    """One event row (the detector's [7] float64 row) as a JSONL line; the
+    multi-log feed's rows start with their ``session``."""
     from slam_process_tpu_torch.models.change_detection import EVENT_KINDS
 
-    return json.dumps({"sweep": int(row[0]), "clk": int(row[1]),
-                       "kind": EVENT_KINDS[int(row[2])], "track": int(row[3]),
-                       "aoa": round(float(row[4]), 4), "aod": round(float(row[5]), 4),
-                       "power": float(row[6])})
+    d = {} if session is None else {"session": session}
+    d.update({"sweep": int(row[0]), "clk": int(row[1]), "kind": EVENT_KINDS[int(row[2])],
+              "track": int(row[3]), "aoa": round(float(row[4]), 4),
+              "aod": round(float(row[5]), 4), "power": float(row[6])})
+    return json.dumps(d)
 
 
 def _make_event_emitter(args, session, seeded: bool = False):
@@ -577,6 +585,51 @@ def _make_event_emitter(args, session, seeded: bool = False):
                     seen.add(key)
                     f.write(_event_json_line(row) + "\n")
                     wrote += 1
+        return wrote
+
+    return poll
+
+
+def _make_multi_event_emitter(args, session, names, seeded: bool = False):
+    """The multi-log watch's one live feed: ``poll()`` reads the streams'
+    closed-sweep counts (one small read), runs each advanced stream's own
+    incremental detector over the track columns of its new sweeps only
+    (``stream_track_columns``) and appends their events, each with a
+    ``session`` field naming the stream, to the one JSONL file; it returns
+    the count written.  ``seeded`` (checkpoint resume): the dedup set comes
+    from the existing file, so replayed history is not appended again."""
+    from slam_process_tpu_torch.models.change_detection import IncrementalChangeDetector
+    from slam_process_tpu_torch.utils.timestamps import ClkUnwrapper
+
+    spec = session._paths_spec
+    s_n = session.n_streams
+    dets = [IncrementalChangeDetector(spec.max_tracks, min_persist=args.min_persist,
+                                      min_gone=args.min_gone, jump_deg=args.jump_deg)
+            for _ in range(s_n)]
+    unwraps = [ClkUnwrapper() for _ in range(s_n)]
+    seen = _seed_event_keys(args.events, with_session=True) if seeded else set()
+    lows = [0] * s_n
+
+    def poll() -> int:
+        ns = session.n_sweeps_closed_all()
+        todo = [i for i in range(s_n) if int(ns[i]) > lows[i]]
+        if not todo:
+            return 0
+        wrote = 0
+        with open(args.events, "a") as f:
+            for i in todo:
+                hi = int(ns[i])
+                aoa, aod, power, obs, raw = session.stream_track_columns(i, lows[i], hi)
+                for j in range(hi - lows[i]):
+                    t_u = unwraps[i].push(raw[j])
+                    for row in dets[i].step(aoa[j], aod[j], power[j], obs[j], float(t_u)):
+                        key = (names[i], int(row[0]), int(row[2]), int(row[3]))
+                        if key in seen:
+                            continue
+                        seen.add(key)
+                        f.write(_event_json_line(row, session=names[i]) + "\n")
+                        wrote += 1
+                lows[i] = hi
         return wrote
 
     return poll
@@ -640,8 +693,8 @@ def _export_tracks(tracks, times, vel, name: str, args) -> None:
         print(f"changes={len(events)} 输出={out}")
 
 
-MULTI_STREAM_LATER = ("is not ported yet: the multi-stream and multi-host watch are ROADMAP.md "
-                      "queue 1 item 9 (MultiStreamingSession)")
+MULTI_STREAM_LATER = ("is not ported yet: the multi-host watch (processes across devices) is "
+                      "ROADMAP.md queue 1 item 9")
 
 
 def _add_watch(sub):
@@ -650,15 +703,17 @@ def _add_watch(sub):
                       "the streaming session as the capture writes them")
     p.add_argument("--log", type=Path, default=None, help="one growing capture file")
     p.add_argument("--logs", type=Path, nargs="+", default=None,
-                   help="one file is --log; several (one multi-stream session) are not "
-                        "ported yet")
+                   help="several growing capture files, tailed as one multi-stream session "
+                        "on --device (each file is finalized alone on its own idle timeout; "
+                        "--engine device only); one file is --log")
     p.add_argument("--mapping", type=Path, required=True)
     p.add_argument("--outdir", type=Path, required=True)
     p.add_argument("--engine", choices=["host", "device"], default="device",
                    help="device = the streaming state machine on --device; host = the numpy "
                         "decode and corrector on the CPU")
     p.add_argument("--emit-capacity", type=int, default=None,
-                   help="filtered-row ring capacity (default: grows as bytes arrive)")
+                   help="filtered-row ring capacity per stream (default: grows as bytes "
+                        "arrive for --log; 262144 rows for several --logs, which cannot grow)")
     p.add_argument("--poll-interval", type=float, default=0.5,
                    help="seconds between file-growth polls")
     p.add_argument("--idle-timeout", type=float, default=10.0,
@@ -687,9 +742,10 @@ def _add_watch(sub):
     p.set_defaults(fn=_run_watch)
 
 
-def check_watch_flags(args) -> None:
-    """The JAX CLI's flag checks, in its order; a multi-stream or
-    multi-host watch exits naming the ROADMAP item."""
+def check_watch_flags(args) -> bool:
+    """The JAX CLI's flag checks, in its order; a multi-host watch exits
+    naming the ROADMAP item.  True for a multi-stream watch (several
+    --logs), False for one capture (``args.log`` set)."""
     if (args.log is None) == (args.logs is None):
         raise SystemExit("watch needs exactly one of --log / --logs")
     if args.checkpoint_every and not args.checkpoint:
@@ -702,9 +758,11 @@ def check_watch_flags(args) -> None:
     if args.num_processes is not None or args.process_id is not None:
         raise SystemExit("--num-processes/--process-id require --coordinator (multi-host "
                          "watch mode)")
-    if args.logs is not None:
-        if len(args.logs) != 1:
-            raise SystemExit(f"watch --logs with {len(args.logs)} files {MULTI_STREAM_LATER}")
+    multi = args.logs is not None and len(args.logs) > 1
+    if multi and args.engine != "device":
+        raise SystemExit("watch with multiple --logs requires --engine device (one vmapped "
+                         "session)")
+    if args.logs is not None and not multi:
         args.log = args.logs[0]
     if args.events is not None and not args.paths and not (
             args.checkpoint and args.checkpoint.exists()):
@@ -712,6 +770,7 @@ def check_watch_flags(args) -> None:
         # online paths (_reconcile_paths_flag).
         raise SystemExit("--events requires --paths (the events derive from the online "
                          "tracks)")
+    return multi
 
 
 class Watch:
@@ -885,8 +944,195 @@ class Watch:
         return summary
 
 
+class MultiWatch:
+    """``watch --logs A B ...``'s state and steps: S growing captures tailed
+    as one ``MultiStreamingSession``.  Each capture keeps its own cursor,
+    text carry and idle timeout; one that stops growing is fed its
+    tokenizer's tail and finalized alone while the others go on.  ``run``
+    polls to the end (every stream finalized, the checkpoint written, the
+    last events appended), then ``write_pngs`` and ``export`` (per-stream
+    filtered tables, and with --paths tracks and changes);
+    ``--checkpoint`` covers every stream and cursor."""
+
+    def __init__(self, args):
+        from slam_process_tpu_torch.parallel.streaming_device import (
+            MultiStreamingSession, make_paths_spec)
+
+        self.args = args
+        if args.changes and not args.paths:
+            print("warning: --changes requires --paths; no change events will be written",
+                  file=sys.stderr)
+        self.logs = list(args.logs)
+        n = len(self.logs)
+        self.names = _dedup_export_names(self.logs)
+        args.outdir.mkdir(parents=True, exist_ok=True)
+        self.pos, self.carry = [0] * n, [b""] * n
+        restored = False
+        if args.checkpoint and args.checkpoint.exists():
+            s = MultiStreamingSession.restore(args.checkpoint, device=args.device)
+            restored = True
+            if s.n_streams != n:
+                raise SystemExit(f"{args.checkpoint} holds {s.n_streams} streams, --logs "
+                                 f"names {n}")
+            args.paths = _reconcile_paths_flag(args, s)
+            if args.emit_capacity is not None and s._ecap != args.emit_capacity:
+                print(f"warning: --emit-capacity {args.emit_capacity} ignored — the "
+                      f"checkpoint's ring capacity ({s._ecap}) wins on resume", file=sys.stderr)
+            cursor = s.checkpoint_extra or {}
+            self.pos = [int(x) for x in cursor.get("pos", self.pos)]
+            self.carry = [bytes(x) for x in cursor.get("text_carry", self.carry)]
+            print(f"resumed from {args.checkpoint}: cursors {self.pos}, "
+                  f"{int(np.sum(s._stream_finalized))} stream(s) already finalized",
+                  file=sys.stderr)
+        else:
+            cp = make_paths_spec(args.mapping) if args.paths else None
+            s = MultiStreamingSession(n, collect_paths=cp, emit_capacity=args.emit_capacity
+                                      or (1 << 18), device=args.device)
+        self.session = s
+        self.emitter = None
+        self.events_written = 0
+        if args.events is not None and args.paths:
+            args.events.parent.mkdir(parents=True, exist_ok=True)
+            self.emitter = _make_multi_event_emitter(args, s, self.names, seeded=restored)
+        elif args.events is not None:
+            print("warning: --events ignored — the restored checkpoint was created without "
+                  "online estimation", file=sys.stderr)
+
+    def save_checkpoint(self) -> None:
+        if self.args.checkpoint:
+            self.session.save_checkpoint(self.args.checkpoint, extra={
+                "pos": list(self.pos), "text_carry": list(self.carry)})
+
+    def _read_growth(self, i: int):
+        """What capture ``i`` wrote since the last poll; None when it did
+        not grow, or could not be read."""
+        log = self.logs[i]
+        try:
+            size = os.path.getsize(log)
+        except OSError:
+            return None
+        if size <= self.pos[i]:
+            return None
+        try:
+            with open(log, "rb") as f:
+                f.seek(self.pos[i])
+                data = f.read(size - self.pos[i])
+        except OSError:
+            return None
+        self.pos[i] = size
+        return data
+
+    def run(self) -> None:
+        """Poll every live capture until each has been idle for the idle
+        timeout (or an interrupt), then finalize what is still open,
+        checkpoint and write the last events."""
+        import time
+
+        from slam_process_tpu_torch.io.hexlog import tokenize_hex
+
+        args, s = self.args, self.session
+        n = len(self.logs)
+        done = np.asarray(s._stream_finalized).copy()
+        now0 = time.monotonic()
+        last_growth, last_render, last_ckpt = [now0] * n, now0, now0
+        try:
+            while not done.all():
+                now = time.monotonic()
+                chunks, to_finalize = [b""] * n, []
+                for i in np.nonzero(~done)[0]:
+                    data = self._read_growth(i)
+                    if data is not None:
+                        prefix, self.carry[i] = _split_text_carry(self.carry[i] + data)
+                        if prefix is not None:
+                            chunks[i] = tokenize_hex(prefix)
+                        last_growth[i] = now
+                    elif args.idle_timeout and now - last_growth[i] > args.idle_timeout:
+                        # This capture stopped: its tokenizer tail goes in this
+                        # round, then it is closed alone.
+                        chunks[i] = tokenize_hex(bytes(self.carry[i]))
+                        self.carry[i] = b""
+                        to_finalize.append(int(i))
+                fed = False
+                if any(len(c) for c in chunks):
+                    s.feed(chunks)
+                    fed = True
+                if to_finalize:
+                    s.finalize_streams(to_finalize)
+                    done[to_finalize] = True
+                    fed = True
+                    print(f"stream(s) {to_finalize} finalized ({(~done).sum()} still live)",
+                          file=sys.stderr)
+                if self.emitter and fed:
+                    self.events_written += self.emitter()
+                if args.render_every and now - last_render >= args.render_every:
+                    self.write_pngs()
+                    last_render = now
+                if args.checkpoint_every and now - last_ckpt >= args.checkpoint_every:
+                    self.save_checkpoint()
+                    last_ckpt = now
+                time.sleep(args.poll_interval)
+        except KeyboardInterrupt:
+            pass
+        if not done.all():
+            tails = [b"" if done[i] else tokenize_hex(bytes(self.carry[i])) for i in range(n)]
+            self.carry = [b""] * n
+            if any(len(t) for t in tails):
+                s.feed(tails)
+            s.finalize()
+        self.save_checkpoint()
+        if self.emitter:
+            self.events_written += self.emitter()   # the sweeps the flushes closed
+
+    def render(self, i: int):
+        """Stream ``i``'s heatmap from its running sums, rasterized on the
+        session's device (K3 on CUDA)."""
+        from slam_process_tpu_torch.io.angles import load_angle_lut
+        from slam_process_tpu_torch.ops.scene import grid_from_sums_np
+        from slam_process_tpu_torch.parallel.streaming_device import render_grid
+
+        _, _, _, sums, counts, _ = self.session.results()
+        grid = grid_from_sums_np(sums[i].astype(np.float64), counts[i].astype(np.int64))
+        return render_grid(grid, load_angle_lut(self.args.mapping), self.session.device)
+
+    def png_path(self, i: int) -> Path:
+        return self.args.outdir / f"{self.names[i]}_watch.png"
+
+    def write_pngs(self) -> list:
+        return [_save_stream_png(self.render(i), self.png_path(i),
+                                 f"live watch ({self.names[i]})")
+                for i in range(len(self.logs))]
+
+    def export(self) -> list:
+        """Write each stream's filtered table (and with --paths its tracks
+        and changes); returns the per-stream summary lines and the totals
+        line."""
+        from slam_process_tpu_torch.io.schemas import write_filtered_table
+
+        s = self.session
+        nf, nk, ng, _, _, _ = s.results()
+        stats = []
+        for i, name in enumerate(self.names):
+            write_filtered_table(self.args.outdir / f"{name}_filtered.xlsx",
+                                 s.stream_filtered(i))
+            if self.args.paths:
+                _export_tracks(*s.stream_tracks(i), name, self.args)
+            stats.append({"session": name, "bytes_seen": self.pos[i], "frames": int(nf[i]),
+                          "kept": int(nk[i]), "sweeps": int(ng[i]),
+                          "png": str(self.png_path(i))})
+        totals = {"streams": len(stats), "total_frames": sum(x["frames"] for x in stats)}
+        if self.emitter:
+            totals["events"] = self.events_written
+        return stats + [totals]
+
+
 def _run_watch(args):
-    check_watch_flags(args)
+    if check_watch_flags(args):
+        w = MultiWatch(args)
+        w.run()
+        w.write_pngs()
+        for line in w.export():
+            print(json.dumps(line))
+        return
     w = Watch(args)
     w.run()
     w.write_png()

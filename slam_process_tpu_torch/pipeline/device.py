@@ -21,9 +21,9 @@ import torch
 
 from slam_process_tpu_torch.config import CorrectConfig, DecodeConfig, SceneConfig
 from slam_process_tpu_torch.ops.correct import correct_rows
-from slam_process_tpu_torch.ops.decode import decode_rows, discard_count
+from slam_process_tpu_torch.ops.decode import decode_rows_streams, discard_count
 from slam_process_tpu_torch.ops.raster import colormap_lut, rasterize_tiles
-from slam_process_tpu_torch.ops.scene import fill_grid, intensity_grid
+from slam_process_tpu_torch.ops.scene import cell_means, intensity_cell_sums
 from slam_process_tpu_torch.ops.tokenize import (
     prepare_text, stride3_offset, text_bucket, tokenize_stride3)
 
@@ -49,8 +49,8 @@ class DeviceSessionOut(NamedTuple):
     # order with gaps.  Hosts compact with frames[frame_valid].
 
 
-def session_pipeline(
-    byte_tensor: torch.Tensor,   # [N] uint8, padded with non-flag bytes
+def session_pipeline_batch(
+    byte_batch: torch.Tensor,    # [S, N] uint8, each row padded with non-flag bytes
     lut: torch.Tensor,           # [256, 4] f32 colormap LUT, same device
     *,
     blur_sigma: float = 1.0,
@@ -60,9 +60,40 @@ def session_pipeline(
     max_baselines_per_group: int = 256,
     decode_cfg: DecodeConfig = DecodeConfig(),
     correct_cfg: CorrectConfig = CorrectConfig(),
-    discards_in: Optional[int] = None,
 ) -> DeviceSessionOut:
-    """Full per-session pipeline on ``byte_tensor``'s device.
+    """``session_pipeline`` for S sessions of one padded width at once:
+    every field with a leading S axis (``n_discarded`` None), one launch of
+    K1, K2 and K3 for all S (``ops/correct.py`` offsets the group ids per
+    session; the S grids come from one ``index_add_``)."""
+    frames, valid, count = decode_rows_streams(byte_batch, decode_cfg)                 # K1
+    corrected_bs, keep, overflow = correct_rows(                                        # K2
+        frames, valid, max_groups=max_groups,
+        max_baselines_per_group=max_baselines_per_group, cfg=correct_cfg)
+    scene_cfg = SceneConfig(keep_nan=True, fill_with_min=False,
+                            log_transform=log_transform_scene)
+    sums, counts = intensity_cell_sums(frames[..., 1], corrected_bs, frames[..., 3], keep,
+                                       cfg=scene_cfg)
+    mean = cell_means(sums, counts)
+    # Rasters in AoD x AoA orientation (BS rows); keep_nan leaves the grid
+    # as it is (``fill_grid``).
+    rgba, norm_t, blurred = rasterize_tiles(mean.transpose(1, 2).contiguous(), lut,    # K3
+                                            blur_sigma, use_log)
+    return DeviceSessionOut(
+        frames=frames, frame_valid=valid, n_frames=count, n_discarded=None,
+        corrected_bs=corrected_bs, keep=keep, correct_overflow=overflow,
+        n_kept=keep.sum(dim=1, dtype=torch.int32), mean_grid=mean,
+        counts=counts.to(torch.int32), rgba=rgba, blurred=blurred, norm_t=norm_t)
+
+
+def session_pipeline(
+    byte_tensor: torch.Tensor,   # [N] uint8, padded with non-flag bytes
+    lut: torch.Tensor,           # [256, 4] f32 colormap LUT, same device
+    *,
+    discards_in: Optional[int] = None,
+    **kw,
+) -> DeviceSessionOut:
+    """Full per-session pipeline on ``byte_tensor``'s device:
+    ``session_pipeline_batch`` at S = 1 (``kw``: its keyword arguments).
 
     Pad the byte tensor with 0x00 (never a flag byte), so padded regions
     decode to nothing.  ``log_transform_scene`` makes the grid the pre-log
@@ -72,34 +103,13 @@ def session_pipeline(
     too; it costs ~30 small device operations, which only ``cli decode``
     asks for.
     """
-    frames, valid, count = decode_rows(byte_tensor, cfg=decode_cfg)
-    discarded = (None if discards_in is None
-                 else discard_count(byte_tensor, frames, valid, decode_cfg, discards_in))
-    corrected_bs, keep, overflow = correct_rows(
-        frames, valid, max_groups=max_groups,
-        max_baselines_per_group=max_baselines_per_group, cfg=correct_cfg)
-
-    scene_cfg = SceneConfig(keep_nan=True, fill_with_min=False,
-                            log_transform=log_transform_scene)
-    grid = intensity_grid(frames[:, 1], corrected_bs, frames[:, 3], keep, cfg=scene_cfg)
-    # Raster in AoD x AoA orientation (BS rows).
-    matrix = fill_grid(grid, scene_cfg).T.contiguous()
-    rgba, norm_t, blurred = rasterize_tiles(matrix[None], lut, blur_sigma, use_log)
-    return DeviceSessionOut(
-        frames=frames,
-        frame_valid=valid,
-        n_frames=count,
-        n_discarded=discarded,
-        corrected_bs=corrected_bs,
-        keep=keep,
-        correct_overflow=overflow,
-        n_kept=keep.sum(dtype=torch.int32),
-        mean_grid=grid.mean,
-        counts=grid.counts,
-        rgba=rgba[0],
-        blurred=blurred[0],
-        norm_t=norm_t[0],
-    )
+    out = DeviceSessionOut(*(None if x is None else x[0]
+                             for x in session_pipeline_batch(byte_tensor[None], lut, **kw)))
+    if discards_in is None:
+        return out
+    return out._replace(n_discarded=discard_count(
+        byte_tensor, out.frames, out.frame_valid, kw.get("decode_cfg", DecodeConfig()),
+        discards_in))
 
 
 def pad_bytes(raw: np.ndarray, target: int) -> np.ndarray:
@@ -122,6 +132,14 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
                            "the plain PyTorch versions on the host")
     return dev
+
+
+def require_no_mesh(mesh) -> None:
+    """The port runs sessions and streams on one device: a mesh raises."""
+    if mesh is not None:
+        raise NotImplementedError("a mesh (sessions or streams sharded over devices) is not "
+                                  "ported yet: ROADMAP.md queue 1 item 9; pass mesh=None and "
+                                  "device=")
 
 
 @functools.lru_cache(maxsize=None)

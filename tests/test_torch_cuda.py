@@ -42,7 +42,13 @@ corrected on the card: each table equal in rows, labels and cells to its
 ``device="cpu"`` and host-engine runs, values within the family's bound
 (svd 1e-9, omp_dense 1e-6, fusion's NLoS metric 1e-9 and its NN-OMP LoS
 2e-4, nn_omp_v13 2e-4, lasso_refine 1e-9 against the CPU and JAX's bounds
-against the tol-stopped host), geometric's warning.
+against the tol-stopped host), geometric's warning.  The twelfth slice:
+K1, K5 and K6 with the stream axis against their plain versions (S streams
+in one launch), the flattened K2 and K4 calls against S separate kernel
+calls, ``run_dataset`` in both forms against each session's
+``run_session_on_device`` (exact, rasters bit-equal) and the CPU, and a
+``MultiStreamingSession`` of three streams against three single streams on
+the card (exact) and against its CPU run (power within rtol 2e-4).
 """
 
 import numpy as np
@@ -1020,3 +1026,140 @@ def test_estimator_families_on_card_match_cpu_and_host(slice_scene, name):
                 "lasso_refine": 1e-9 if vs == "cpu" else 2e-3}[name]
         for c in (("Power", "SingularValue") if name == "svd" else ("Power",)):
             np.testing.assert_allclose(card[c], other[c], rtol=rtol, atol=0)
+
+
+def test_stream_axis_kernels_match_plain():
+    gen = torch.Generator().manual_seed(12)
+    dev = torch.device("cuda")
+    raws = [synthetic_session_bytes(n_groups=2 + i, frames_per_beam=2, baselines_per_group=5,
+                                    junk_frac=0.2, seed=60 + i) for i in range(4)]
+    width = max(len(r) for r in raws) + 7
+    b = torch.zeros((4, width), dtype=torch.uint8)
+    for i, r in enumerate(raws):
+        b[i, :len(r)] = torch.from_numpy(r)
+    lim = torch.tensor([width, len(raws[1]) - 30, 11, 0], dtype=torch.int64)
+    for rep in range(2):
+        got = cuda_decode.decode_rows_streams_cuda(b.to(dev), lim.to(dev), 0xCC, 0x33)
+        for g, w in zip(got, decode.decode_rows_streams_plain(b, n_valid=lim)):
+            assert torch.equal(g.cpu(), w)
+
+    rows = torch.randint(0, 1000, (5, 30_000, 4), generator=gen, dtype=torch.int32)
+    mask = torch.rand((5, 30_000), generator=gen) < 0.3
+    ring = torch.randint(0, 9, (5, 12_000, 4), generator=gen, dtype=torch.int32)
+    offs = torch.tensor([0, 5, 11_000, 12_000, 3_000], dtype=torch.int32)
+
+    def dests(d):
+        return [(12_000, ring.clone().to(d), offs.to(d)), (30_000, None, None)]
+
+    got_o, got_n = cuda_compact.compact_rows_streams_cuda(rows.to(dev), mask.to(dev), dests(dev))
+    want_o, want_n = compact.compact_rows_streams_plain(rows, mask, dests("cpu"))
+    for g, w in zip((*got_o, got_n), (*want_o, want_n)):
+        assert torch.equal(g.cpu(), w)
+
+    s1, k_n, t_n = 65, 3, 8
+    lanes = [torch.rand((6, s1, k_n), generator=gen) * 90 - 45 for _ in range(3)]
+    val = torch.rand((6, s1, k_n), generator=gen) < 0.7
+    m_eff = torch.tensor([0, 1, 33, 64, 65, 80], dtype=torch.int32)
+    count = torch.tensor([0, 3, 8, 1, 0, 5], dtype=torch.int32)
+    created = torch.arange(t_n)[None] < count[:, None]
+    pos = torch.rand((6, t_n, 2), generator=gen) * 90 - 45
+    args = (*lanes, val, m_eff, pos, created, count)
+    got = cuda_tracker.track_block_streams_cuda(*(x.to(dev) for x in args), 10.0)
+    for g, w in zip(got, tracker.track_block_streams_plain(*args, 10.0)):
+        assert torch.equal(g.cpu(), w)
+
+    # K2 and K4 flattened: one call for the four sessions against four.
+    frames, valid, _ = decode.decode_rows_streams(b.to(dev))
+    gid, packed, _ = correct.baseline_table(frames, valid, 8, 16)
+    kw = dict(bmax=16, cycle=61_000, tol=500)
+    flat = cuda_correct.correct_verdicts_cuda(gid.reshape(-1).contiguous(),
+                                              frames[..., 4].reshape(-1).contiguous(), packed,
+                                              **kw)
+    for i in range(4):
+        one = cuda_correct.correct_verdicts_cuda((gid[i] - 8 * i).contiguous(),
+                                                 frames[i, :, 4].contiguous(),
+                                                 packed[8 * i:8 * i + 8].contiguous(), **kw)
+        for g, w in zip(flat, one):
+            assert torch.equal(g.view(4, -1)[i], w)
+    p = torch.randint(-1, 9 * 64, (4, 5_000), generator=gen, dtype=torch.int32).sort(dim=1)[0]
+    bs = torch.randint(0, 64, (4, 5_000), generator=gen, dtype=torch.int32)
+    rss = torch.randint(0, 1 << 18, (4, 5_000), generator=gen, dtype=torch.int32)
+    flat_p = torch.where(p >= 0, p + (torch.arange(4, dtype=torch.int32) * 9 * 64)[:, None], -1)
+    sums, counts = cuda_sweep_sums.sweep_sums_cuda(*(x.reshape(-1).contiguous().to(dev) for x in (
+        flat_p, bs, rss)), 36)
+    for i in range(4):
+        s_i, c_i = cuda_sweep_sums.sweep_sums_cuda(p[i].to(dev), bs[i].to(dev), rss[i].to(dev), 9)
+        assert torch.equal(sums[9 * i:9 * i + 9], s_i) and torch.equal(counts[9 * i:9 * i + 9], c_i)
+
+
+def test_batch_on_card_matches_per_session_and_cpu():
+    from slam_process_tpu_torch.parallel import batch
+
+    raws = [synthetic_session_bytes(n_groups=3 + i, frames_per_beam=3, baselines_per_group=6,
+                                    junk_frac=0.05, seed=70 + i) for i in range(4)]
+    from slam_process_tpu_torch.pipeline.device import bucket_size
+
+    groups = len({bucket_size(len(r), 1 << 13) for r in raws})
+    assert groups >= 2
+    for k in (cuda_decode, cuda_correct, cuda_raster):
+        k.LAUNCHES = 0
+    vmap = batch.run_dataset(None, raws, quantum=1 << 13)
+    assert [k.LAUNCHES for k in (cuda_decode, cuda_correct, cuda_raster)] == [groups] * 3
+    scan = batch.run_dataset(None, raws, quantum=1 << 13, session_axis="scan")
+    cpu = batch.run_dataset(None, raws, quantum=1 << 13, device="cpu")
+    for i, r in enumerate(raws):
+        one = run_session_on_device(r)
+        for f in batch.SessionSummaryOut._fields:
+            want = getattr(one, f).cpu().numpy()
+            for got in (vmap[i], scan[i]):
+                assert getattr(got, f).tobytes() == want.tobytes(), f
+        for f in ("n_frames", "n_kept", "counts", "mean_grid"):
+            np.testing.assert_array_equal(getattr(vmap[i], f), getattr(cpu[i], f))
+        fin = np.isfinite(cpu[i].norm_t)
+        np.testing.assert_allclose(vmap[i].norm_t[fin], cpu[i].norm_t[fin], atol=1e-4)
+
+
+def test_multi_stream_on_card_matches_single_streams_and_cpu(tmp_path):
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+    from slam_process_tpu_torch.utils.synthetic import write_angle_table
+
+    spec = sd.make_paths_spec(write_angle_table(tmp_path / "angles.xlsx"), s_step=8,
+                              grid_res=1.0)
+    raws = [synthetic_session_bytes(n_groups=3 + i, frames_per_beam=4, baselines_per_group=6,
+                                    junk_frac=0.05, seed=80 + i, n_paths=3) for i in range(3)]
+    chunk, step, ecap = 1 << 13, 20_000, 1 << 14
+
+    def multi(device):
+        ms = sd.MultiStreamingSession(3, chunk_bytes=chunk, collect_paths=spec,
+                                      emit_capacity=ecap, device=device)
+        for off in range(0, max(len(r) for r in raws), step):
+            ms.feed([r[off:off + step] for r in raws])
+        ms.finalize_streams([1])
+        ms.finalize()
+        return ms
+
+    card, cpu = multi("cuda"), multi("cpu")
+    for i, r in enumerate(raws):
+        s = sd.DeviceStreamingSession(chunk_bytes=chunk, collect_paths=spec,
+                                      collect_filtered=True, emit_capacity=ecap)
+        for off in range(0, len(r), step):
+            s.feed(r[off:off + step])
+        s.finalize()
+        nf, nk, ng, sums, counts, _ = card.results()
+        assert (nf[i], nk[i], ng[i]) == (s.n_frames, s.n_kept, s.n_groups)
+        np.testing.assert_array_equal(sums[i], s._state.sums.cpu().numpy())
+        np.testing.assert_array_equal(counts[i], s._state.counts.cpu().numpy())
+        np.testing.assert_array_equal(card.stream_filtered(i), s.filtered)
+        np.testing.assert_array_equal(card.stream_filtered(i), cpu.stream_filtered(i))
+        (pa, va), (pb, vb), (pc, vc) = card.stream_paths(i), s.sweep_paths(), cpu.stream_paths(i)
+        np.testing.assert_array_equal(va, vb)
+        np.testing.assert_array_equal(va, vc)
+        for f in pa._fields:
+            np.testing.assert_array_equal(getattr(pa, f), getattr(pb, f))
+            if f == "power":
+                np.testing.assert_allclose(getattr(pa, f), getattr(pc, f), rtol=2e-4, atol=1e-6)
+            else:
+                np.testing.assert_array_equal(getattr(pa, f), getattr(pc, f))
+        ta, tb = card.stream_tracks(i)[0], s.path_tracks()[0]
+        for f in ("pos_aoa", "pos_aod", "power", "observed", "created"):
+            np.testing.assert_array_equal(getattr(ta, f), getattr(tb, f))

@@ -280,7 +280,8 @@ def test_roadmap_references_are_pinned():
     """The port's current references, each to an item that exists."""
     refs = {str(p.relative_to(PORT)): roadmap_refs(p.read_text()) for p in PORT.rglob("*.py")}
     cited = {k: v for k, v in refs.items() if v}
-    assert cited == {"pipeline/cli.py": {("1", "9")}, "pipeline/session.py": {("1", "9")}}
+    assert cited == {"pipeline/cli.py": {("1", "9")}, "pipeline/device.py": {("1", "9")},
+                     "pipeline/session.py": {("1", "9")}}
     items = roadmap_items((REPO / "ROADMAP.md").read_text())
     assert ("1", "9") in items
 
@@ -428,3 +429,49 @@ def test_synthetic_session_is_seeded_and_exact():
     assert res.valid == 64 * (5 + 2 + 2)
     corr = correct_frames_np(res.frames)
     assert corr.n_groups == 3 and corr.n_baselines == 3 * 7
+
+
+def test_batch_and_multi_stream_need_cuda_without_falling_back(monkeypatch, tmp_path):
+    """The batch, the multi-stream session and ``watch --logs`` at their
+    default device raise without a card, and run with ``device="cpu"``."""
+    from slam_process_tpu_torch.parallel import batch
+    from slam_process_tpu_torch.parallel.streaming_device import MultiStreamingSession
+    from slam_process_tpu_torch.pipeline import cli
+
+    log, angles = stream_inputs(tmp_path)
+    other = tmp_path / "other" / "live.txt"
+    other.parent.mkdir()
+    other.write_bytes(log.read_bytes())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    raw = np.zeros(100, np.uint8)
+    for call in (lambda: batch.run_dataset(None, [raw]),
+                 lambda: batch.batched_session_pipeline(None, 256),
+                 lambda: MultiStreamingSession(2),
+                 lambda: cli.main(["watch", "--logs", str(log), str(other), "--mapping",
+                                   str(angles), "--outdir", str(tmp_path / "out"),
+                                   "--idle-timeout", "0.1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert int(batch.run_dataset(None, [raw], device="cpu")[0].n_frames) == 0
+    assert MultiStreamingSession(2, device="cpu").results()[0].tolist() == [0, 0]
+
+
+def test_stream_axis_wrappers_refuse_cpu_tensors():
+    from slam_process_tpu_torch.ops import cuda_compact, cuda_decode, cuda_tracker
+
+    for m in (cuda_decode, cuda_compact, cuda_tracker):
+        m.LAUNCHES = 0
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_decode.decode_rows_streams_cuda(torch.zeros((2, 22), dtype=torch.uint8), None,
+                                             0xCC, 0x33)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_compact.compact_rows_streams_cuda(torch.zeros((2, 4, 5), dtype=torch.int32),
+                                               torch.ones((2, 4), dtype=torch.bool),
+                                               [(4, None, None)])
+    f32 = torch.zeros(2, 3, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_tracker.track_block_streams_cuda(
+            f32, f32, f32, f32 > 0, torch.tensor([3, 3], dtype=torch.int32),
+            torch.zeros(2, 4, 2), torch.zeros((2, 4), dtype=torch.bool),
+            torch.zeros(2, dtype=torch.int32), 10.0)
+    assert [m.LAUNCHES for m in (cuda_decode, cuda_compact, cuda_tracker)] == [0] * 3

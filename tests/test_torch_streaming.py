@@ -133,16 +133,15 @@ def test_stream_equals_offline(raw, spec, offline, chunk):
 @pytest.mark.parametrize("kind", ["filtered_and_paths", "filtered", "paths"])
 def test_window_compacts_kept_rows_once(raw, spec, offline, monkeypatch, kind):
     """A window makes two compactions: the open-group carry and one
-    ``compact_rows_multi`` of the kept rows for every consumer (the emit
+    ``compact_rows_streams`` of the kept rows for every consumer (the emit
     ring and the online paths); the flush makes the second only.  The
     stream still equals the offline port."""
     from slam_process_tpu_torch.parallel import streaming_device as sd
 
     calls, windows = [], []
-    for name in ("compact_rows", "compact_rows_multi"):
-        real = getattr(sd, name)
-        monkeypatch.setattr(sd, name, lambda *a, _n=name, _f=real: (
-            calls.append((_n, len(a[2]) if _n == "compact_rows_multi" else 1)) or _f(*a)))
+    real = sd.compact_rows_streams
+    monkeypatch.setattr(sd, "compact_rows_streams",
+                        lambda *a: calls.append(len(a[2])) or real(*a))
     step = sd.DeviceStreamingSession._step
     monkeypatch.setattr(sd.DeviceStreamingSession, "_step",
                         lambda self, *a: windows.append(1) or step(self, *a))
@@ -151,8 +150,7 @@ def test_window_compacts_kept_rows_once(raw, spec, offline, monkeypatch, kind):
     s = replay(raw, 1 << 12, **kw)
     n_dest = 2 if kind == "filtered_and_paths" else 1
     assert len(windows) > 5
-    assert calls == [("compact_rows", 1), ("compact_rows_multi", n_dest)] * len(windows) + [
-        ("compact_rows_multi", n_dest)]
+    assert calls == [1, n_dest] * len(windows) + [n_dest]
     _, res, paths, valid, times, tracks = offline
     if "collect_filtered" in kw:
         np.testing.assert_array_equal(s.filtered, res.filtered)

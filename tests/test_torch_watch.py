@@ -15,9 +15,16 @@ the middle of a hex token) while the port's watch polls it every 0.05 s
     moment, its last line torn in half, resumed by a second watch on the
     finished file, gives the same tables and events, no event twice;
   * a completed checkpoint re-exports; the other engine's checkpoint is
-    refused; the flag checks exit with the JAX CLI's messages, a
-    multi-stream or multi-host watch with a message naming the ROADMAP
-    item.
+    refused; the flag checks exit with the JAX CLI's messages, a multi-host
+    watch with a message naming the ROADMAP item;
+  * ``watch --logs A B`` (one multi-stream session): the port's watch of a
+    complete capture A and a capture B that a writer thread grows, so A
+    idles out and is finalized alone while B goes on, against the JAX CLI's
+    ``watch --logs A B --engine device`` on the finished files: each
+    stream's filtered, track and change tables as above, the one events
+    JSONL line for line within each session (the streams' lines interleave
+    as the polls found them), the summary lines; and a resume from a
+    mid-stream checkpoint of the multi watch.
 """
 
 import json
@@ -49,15 +56,15 @@ def capture(tmp_path_factory):
     return text, d / "live.txt", write_angle_table(d / "beam_angle.xlsx")
 
 
-def grow(path, text, seed, consumed):
-    """Write ``text`` to ``path`` in seeded pieces of 1 to 12,000 bytes,
-    each after the watch has read the one before (``consumed``), so every
-    piece meets a poll of its own whatever the machine's speed."""
+def grow(path, text, seed, consumed, max_piece=12_000):
+    """Write ``text`` to ``path`` in seeded pieces of 1 to ``max_piece``
+    bytes, each after the watch has read the one before (``consumed``), so
+    every piece meets a poll of its own whatever the machine's speed."""
     rng = np.random.default_rng(seed)
     with open(path, "ab") as f:
         off = 0
         while off < len(text):
-            n = int(rng.integers(1, 12_000))
+            n = int(rng.integers(1, max_piece))
             f.write(text[off:off + n])
             f.flush()
             off += n
@@ -269,6 +276,9 @@ FLAG_CASES = {
     "emit_capacity_zero": ["--log", "a.txt", "--emit-capacity", "0"],
     "processes_without_coordinator": ["--log", "a.txt", "--num-processes", "2"],
     "events_without_paths": ["--log", "a.txt", "--events", "e.jsonl"],
+    "logs_with_host_engine": ["--logs", "a.txt", "b.txt", "--engine", "host"],
+    "logs_events_without_paths": ["--logs", "a.txt", "b.txt", "--engine", "device", "--events",
+                                  "e.jsonl"],
 }
 
 
@@ -282,10 +292,9 @@ def test_flag_checks_exit_as_jax(case, tmp_path):
     assert str(ours.value.code) == str(ref.value.code) and ours.value.code
 
 
-@pytest.mark.parametrize("extra", [["--logs", "a.txt", "b.txt"],
-                                   ["--log", "a.txt", "--coordinator", "localhost:1"],
+@pytest.mark.parametrize("extra", [["--log", "a.txt", "--coordinator", "localhost:1"],
                                    ["--log", "a.txt", "--local-devices", "2"]],
-                         ids=["two_logs", "coordinator", "local_devices"])
+                         ids=["coordinator", "local_devices"])
 def test_multi_stream_and_multi_host_are_not_ported(extra, tmp_path):
     with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 9"):
         cli.main(["watch", "--mapping", "m.xlsx", "--outdir", str(tmp_path), *extra])
@@ -315,3 +324,193 @@ def test_seed_event_keys_quarantines_a_torn_tail(tmp_path):
     assert keys == {(1, 0, 0), (2, 2, 3)}
     assert path.read_bytes().endswith(b'"ki\n')
     assert cli._seed_event_keys(tmp_path / "missing.jsonl") == set()
+
+
+# -- watch --logs: several captures, one multi-stream session ------------------
+
+SECOND = dict(SESSION, n_groups=3, seed=4)
+
+
+def multi_argv(logs, angles, outdir, *extra):
+    return ["watch", "--logs", *map(str, logs), "--mapping", str(angles), "--outdir",
+            str(outdir), *POLL, *extra]
+
+
+@pytest.fixture(scope="module")
+def multi_captures(capture, tmp_path_factory):
+    """Capture A (the single watch's) and a shorter capture B, in two
+    directories under one name, so the exports are ``live`` and ``live_1``."""
+    text_a, _, angles = capture
+    d = tmp_path_factory.mktemp("multi_inputs")
+    text_b = to_hex_text(synthetic_session_bytes(**SECOND))
+    logs = [d / "a" / "live.txt", d / "b" / "live.txt"]
+    for log, text in zip(logs, (text_a, text_b)):
+        log.parent.mkdir()
+        log.write_bytes(text)
+    return (text_a, text_b), logs, angles
+
+
+@pytest.fixture(scope="module")
+def jax_multi_watch(multi_captures, tmp_path_factory):
+    """The JAX CLI's multi-stream watch of the finished captures."""
+    import contextlib
+    import io
+
+    _, logs, angles = multi_captures
+    d = tmp_path_factory.mktemp("jax_multi_watch")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert jax_cli.main(multi_argv(logs, angles, d / "out", "--engine", "device",
+                                       "--paths", *CHANGES, "--events",
+                                       str(d / "events.jsonl"))) == 0
+    return d, buf.getvalue().splitlines()
+
+
+@pytest.fixture(scope="module")
+def live_multi(multi_captures, tmp_path_factory):
+    """The port's multi watch: capture A whole from the start, capture B
+    grown by a writer thread in pieces of up to 4,000 bytes, so A idles out
+    first; a copy of the checkpoint and the events at every periodic save
+    while B is still growing."""
+    import contextlib
+    import io
+
+    (text_a, text_b), _, angles = multi_captures
+    d = tmp_path_factory.mktemp("multi_watch")
+    logs = [d / "a" / "live.txt", d / "b" / "live.txt"]
+    for log in logs:
+        log.parent.mkdir()
+    logs[0].write_bytes(text_a)
+    logs[1].write_bytes(b"")
+    saves = []
+    save, read_growth = cli.MultiWatch.save_checkpoint, cli.MultiWatch._read_growth
+    consumed = threading.Event()
+
+    def signalling_read(self, i):
+        data = read_growth(self, i)
+        if data is not None and i == 1:
+            consumed.set()
+        return data
+
+    def copying_save(self):
+        save(self)
+        if not self.session._finalized and 0 < self.pos[1] < len(text_b):
+            snap = d / f"snap_{len(saves)}"
+            snap.mkdir()
+            shutil.copy(self.args.checkpoint, snap / "ckpt.npz")
+            if self.args.events.exists():
+                shutil.copy(self.args.events, snap / "events.jsonl")
+            saves.append((snap, list(self.pos), self.session._stream_finalized.tolist()))
+
+    cli.MultiWatch.save_checkpoint = copying_save
+    cli.MultiWatch._read_growth = signalling_read
+    writer = threading.Thread(target=grow, args=(logs[1], text_b, 11, consumed, 4_000))
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        writer.start()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(multi_argv(logs, angles, d / "out", "--paths", *CHANGES, "--events",
+                                     str(d / "events.jsonl"), "--checkpoint",
+                                     str(d / "ckpt.npz"), "--checkpoint-every", "0.1",
+                                     "--device", "cpu"))
+    finally:
+        writer.join(timeout=60)
+        cli.MultiWatch.save_checkpoint, cli.MultiWatch._read_growth = save, read_growth
+    assert rc == 0 and not writer.is_alive()
+    return d, out.getvalue().splitlines(), err.getvalue(), saves
+
+
+def by_session(rows):
+    got: dict = {}
+    for e in rows:
+        got.setdefault(e["session"], []).append(e)
+    return got
+
+
+def assert_multi_events_close(got, want):
+    got, want = by_session(got), by_session(want)
+    assert sorted(got) == sorted(want) == ["live", "live_1"]
+    for name in got:
+        assert_events_close(got[name], want[name])
+
+
+def assert_multi_tables_equal(a, b):
+    for name in ("live", "live_1"):
+        assert_xlsx_equal(a / f"{name}_filtered.xlsx", b / f"{name}_filtered.xlsx")
+        assert_tables_close(a / f"{name}_stream_tracks.xlsx", b / f"{name}_stream_tracks.xlsx",
+                            {"Track", "Sweep", "CLK"})
+        assert_tables_close(a / f"{name}_stream_changes.xlsx",
+                            b / f"{name}_stream_changes.xlsx", {"Sweep", "CLK", "Kind", "Track"})
+
+
+def summaries(lines, outdir):
+    return [json.loads(ln.replace(str(outdir), "OUT")) for ln in own(lines)
+            if ln.startswith("{")]
+
+
+def test_multi_watch_matches_jax_on_the_finished_files(live_multi, jax_multi_watch,
+                                                       multi_captures):
+    d, lines, err, saves = live_multi
+    jd, jlines = jax_multi_watch
+    assert "stream(s) [0] finalized (1 still live)" in err
+    assert_multi_events_close(events(d / "events.jsonl"), events(jd / "events.jsonl"))
+    assert_multi_tables_equal(d / "out", jd / "out")
+    got, want = summaries(lines, d / "out"), summaries(jlines, jd / "out")
+    assert got == want and len(got) == 3 and got[2]["events"] > 3
+    assert [x["bytes_seen"] for x in got[:2]] == [len(t) for t in multi_captures[0]]
+    for name in ("live", "live_1"):
+        assert (d / "out" / f"{name}_watch.png").stat().st_size > 10_000
+    assert saves, "no periodic checkpoint was taken while capture B grew"
+
+
+def test_multi_watch_resumes_from_a_mid_stream_checkpoint(live_multi, multi_captures, tmp_path,
+                                                          capsys):
+    """The last checkpoint taken while B grew, and the events file at that
+    moment, resumed on the finished captures: the same tables and events,
+    no event twice."""
+    d, lines, _, saves = live_multi
+    _, finished, angles = multi_captures
+    snap, pos, fin = saves[-1]
+    shutil.copy(snap / "ckpt.npz", tmp_path / "ckpt.npz")
+    if (snap / "events.jsonl").exists():
+        shutil.copy(snap / "events.jsonl", tmp_path / "events.jsonl")
+    logs = [tmp_path / "a" / "live.txt", tmp_path / "b" / "live.txt"]
+    for log, src in zip(logs, finished):
+        log.parent.mkdir()
+        shutil.copy(src, log)
+    rc, got, err = run(multi_argv(logs, angles, tmp_path / "out", "--paths", *CHANGES,
+                                  "--events", str(tmp_path / "events.jsonl"), "--checkpoint",
+                                  str(tmp_path / "ckpt.npz"), "--device", "cpu"), capsys)
+    assert rc == 0
+    assert f"resumed from {tmp_path / 'ckpt.npz'}: cursors {pos}, {sum(fin)} stream(s)" in err
+    rows = events(tmp_path / "events.jsonl")
+    assert len({(e["session"], e["sweep"], e["kind"], e["track"]) for e in rows}) == len(rows)
+    assert by_session(rows) == by_session(events(d / "events.jsonl"))
+    assert_multi_tables_equal(tmp_path / "out", d / "out")
+    assert [{k: x[k] for k in ("session", "bytes_seen", "frames", "kept", "sweeps")}
+            for x in summaries(got, tmp_path / "out")[:2]] == [
+        {k: x[k] for k in ("session", "bytes_seen", "frames", "kept", "sweeps")}
+        for x in summaries(lines, d / "out")[:2]]
+
+
+def test_multi_watch_steps_without_the_png(multi_captures, tmp_path):
+    """``MultiWatch``'s steps as ``chip_smoke.py`` drives them (no PNG), and
+    a checkpoint of another stream count refused."""
+    _, logs, angles = multi_captures
+    args = cli.build_parser().parse_args(multi_argv(logs, angles, tmp_path, "--idle-timeout",
+                                                    "0.2", "--checkpoint",
+                                                    str(tmp_path / "c.npz"), "--device", "cpu"))
+    assert cli.check_watch_flags(args) is True
+    w = cli.MultiWatch(args)
+    w.run()
+    rendered = [w.render(i) for i in range(2)]
+    out = w.export()
+    assert all(r.rgba.shape[2] == 4 for r in rendered) and out[-1] == {
+        "streams": 2, "total_frames": out[0]["frames"] + out[1]["frames"]}
+    assert not (tmp_path / "live_watch.png").exists()
+    args = cli.build_parser().parse_args(multi_argv(logs + logs[:1], angles, tmp_path,
+                                                    "--checkpoint", str(tmp_path / "c.npz"),
+                                                    "--device", "cpu"))
+    assert cli.check_watch_flags(args)
+    with pytest.raises(SystemExit, match="holds 2 streams, --logs names 3"):
+        cli.MultiWatch(args)

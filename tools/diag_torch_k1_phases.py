@@ -127,14 +127,23 @@ extern "C" int k1_phase(int phase, const void* b, long long n, long long limit, 
   limit = limit < n ? limit : n;
   switch (phase) {
     case 0: empty_kernel<<<blocks, kRows, 0, s>>>(); break;
-    case 1: decode_rows_kernel<1><<<blocks, kRows, 0, s>>>(bb, n, limit, ft, ff, n_rows, r, v, c, t); break;
-    case 2: decode_rows_kernel<2><<<blocks, kRows, 0, s>>>(bb, n, limit, ft, ff, n_rows, r, v, c, t); break;
-    case 3: decode_rows_kernel<3><<<blocks, kRows, 0, s>>>(bb, n, limit, ft, ff, n_rows, r, v, c, t); break;
-    default: decode_rows_kernel<4><<<blocks, kRows, 0, s>>>(bb, n, limit, ft, ff, n_rows, r, v, c, t);
+    case 1: decode_rows_kernel<1><<<blocks, kRows, 0, s>>>(bb, n, limit, LIMITSft, ff, n_rows, r, v, c, t); break;
+    case 2: decode_rows_kernel<2><<<blocks, kRows, 0, s>>>(bb, n, limit, LIMITSft, ff, n_rows, r, v, c, t); break;
+    case 3: decode_rows_kernel<3><<<blocks, kRows, 0, s>>>(bb, n, limit, LIMITSft, ff, n_rows, r, v, c, t); break;
+    default: decode_rows_kernel<4><<<blocks, kRows, 0, s>>>(bb, n, limit, LIMITSft, ff, n_rows, r, v, c, t);
   }
   return static_cast<int>(cudaGetLastError());
 }
 ''')
+
+
+STREAMS_ENTRY = 'extern "C" int slam_decode_rows_streams('
+
+
+def own_entries(src: str, tag: str) -> str:
+    """``src`` with its stream-axis C entry (where the kernel has one, with
+    its per-stream ``limits``) renamed, so units link side by side."""
+    return src.replace(STREAMS_ENTRY, f'extern "C" int {tag}_streams_unused(')
 
 
 def edited(src: str, recipe, tag: str) -> str:
@@ -145,7 +154,9 @@ def edited(src: str, recipe, tag: str) -> str:
         if src.count(old) != 1:
             raise SystemExit(f"diag_torch_k1_phases: the kernel source changed near {old!r}")
         src = src.replace(old, new.replace("TAG", tag))
-    return "#include <climits>\n" + src + tail.replace("k1_phase(", f"{tag}_phase(")
+    tail = tail.replace("LIMITS", "nullptr, " if STREAMS_ENTRY in src else "")
+    return "#include <climits>\n" + own_entries(src, tag) + tail.replace("k1_phase(",
+                                                                          f"{tag}_phase(")
 
 
 def recipe_of(src: str):
@@ -182,7 +193,8 @@ def main() -> None:
         for rows in (128, 256, 512, 1024):
             if rows != int(own.group(1)):
                 src = mine.replace(own.group(0), f"constexpr int kRows = {rows};")
-                units[f"rows{rows}"] = src.replace(ENTRY, f'extern "C" int k1_rows{rows}(')
+                units[f"rows{rows}"] = own_entries(src.replace(
+                    ENTRY, f'extern "C" int k1_rows{rows}('), f"k1_rows{rows}")
                 sizes[f"rows{rows}"] = f"k1_rows{rows}"
     if argv:
         base = (Path(argv[0]) / "slam_process_tpu_torch" / "csrc" / "decode.cu").read_text()

@@ -60,7 +60,18 @@ def variant_source(src: str) -> str:
         if src.count(old) != 1:
             raise SystemExit(f"diag_torch_k5_phases: the kernel source changed near {old!r}")
         src = src.replace(old, new)
-    return src + r'''
+    # A kernel with the stream axis takes the stream count and each
+    # stream's grid share, and each destination a stride: one stream here.
+    axis = "int n_streams, int n_tiles, int per_stream" in src
+    fill = {"STRIDE": "0, " if axis else "", "STREAMS": "1, " if axis else "",
+            "GRID": "n_grid, " if axis else ""}
+    tail = TAIL
+    for key, value in fill.items():
+        tail = tail.replace(key, value)
+    return src + tail
+
+
+TAIL = r'''
 namespace {
 __global__ void empty_kernel() {}
 }  // namespace
@@ -70,8 +81,8 @@ extern "C" int k5_phase(int phase, const void* rows, const void* mask, long long
                         void* stream) {
   Dests dests;
   dests.n = 1;
-  dests.d[0] = Dest{static_cast<int*>(out), nullptr, capacity, n_tail > 0};
-  dests.d[1] = Dest{nullptr, nullptr, 0, 0};
+  dests.d[0] = Dest{static_cast<int*>(out), nullptr, capacity, STRIDEn_tail > 0};
+  dests.d[1] = Dest{nullptr, nullptr, 0, STRIDE0};
   const int n_tiles = static_cast<int>((f + kBlock - 1) / kBlock);
   const int n_grid = n_tiles + n_tail;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -81,10 +92,10 @@ extern "C" int k5_phase(int phase, const void* rows, const void* mask, long long
   int* t = static_cast<int*>(total);
   switch (phase) {
     case 0: empty_kernel<<<n_grid, kBlock, 0, s>>>(); break;
-    case 1: compact_kernel<1><<<n_grid, kBlock, 0, s>>>(r, m, f, width, n_tiles, n_grid, dests, words, words + 1, t); break;
-    case 2: compact_kernel<2><<<n_grid, kBlock, 0, s>>>(r, m, f, width, n_tiles, n_grid, dests, words, words + 1, t); break;
-    case 3: compact_kernel<3><<<n_grid, kBlock, 0, s>>>(r, m, f, width, n_tiles, n_grid, dests, words, words + 1, t); break;
-    default: compact_kernel<4><<<n_grid, kBlock, 0, s>>>(r, m, f, width, n_tiles, n_grid, dests, words, words + 1, t);
+    case 1: compact_kernel<1><<<n_grid, kBlock, 0, s>>>(r, m, f, width, STREAMSn_tiles, GRIDn_grid, dests, words, words + 1, t); break;
+    case 2: compact_kernel<2><<<n_grid, kBlock, 0, s>>>(r, m, f, width, STREAMSn_tiles, GRIDn_grid, dests, words, words + 1, t); break;
+    case 3: compact_kernel<3><<<n_grid, kBlock, 0, s>>>(r, m, f, width, STREAMSn_tiles, GRIDn_grid, dests, words, words + 1, t); break;
+    default: compact_kernel<4><<<n_grid, kBlock, 0, s>>>(r, m, f, width, STREAMSn_tiles, GRIDn_grid, dests, words, words + 1, t);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,14 +43,19 @@ with CUDA events, the median of 20 runs of 20 back-to-back calls after a
     behind a stream's host): what a window pays the wrappers on the host;
     a launch that waited for the device would show ~400 µs more a call.
 
-Then the streams of ``chip_smoke.py``'s streaming phase that run the
+Then the whole session, ``run_session_on_device`` on the full session's
+bytes (CUDA events around each call with its host work, no device sleep
+first, median of 20 after 3 warm-up calls: ``chip_smoke.py``'s
+``full_session`` time; one call's device busy time and device activities,
+counted by name, under ``torch.profiler``), and the streams of ``chip_smoke.py``'s streaming
+phase that run the
 estimator: the live feed (the full multipath session in 64 KiB chunks,
 ``s_step`` 8) and the dataset replay (1 MiB windows, ``s_step`` 64), each
 with ``collect_filtered`` and ``collect_paths``: ms per window (CUDA
 events around feed, finalize and ``block_until_ready``, median of 3 after a
 warm-up), and one live feed under ``torch.profiler``: the device busy time
-(the union of the device activities) and the K5 and K6 kernels' count and
-device microseconds.
+(the union of the device activities), the activities counted in all and
+by name, and the K5 and K6 kernels' count and device microseconds.
 
 Prints one JSON line per turn, then a summary line of the medians per
 checkout and each key's spread (the smallest and largest turn).  Needs a GPU; the data is synthetic, made from fixed seeds.
@@ -58,6 +63,7 @@ checkout and each key's spread (the smallest and largest turn).  Needs a GPU; th
 
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -159,8 +165,39 @@ def turn(root: str) -> dict:
     out["K6_main_65_lanes_ms"] = cuda_ms(lambda: cuda_tracker.track_block_cuda(*args, 10.0))
     out.update(k2_k3(dev))
     out.update(k1_k4(dev, Path(root)))
+    out.update(session_ms(dev))
     out.update(streams(dev, Path(root)))
     return out
+
+
+def session_ms(dev) -> dict:
+    """Median ms of ``run_session_on_device`` on the full session, host work
+    included (CUDA events, no device sleep first), after 3 warm-up calls;
+    then one call's device busy time and activities."""
+    import torch
+
+    from slam_process_tpu_torch.pipeline.device import run_session_on_device
+    from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes
+
+    full = dict(MULTIPATH, seed=0)
+    del full["n_paths"]
+    raw = synthetic_session_bytes(**full)
+    for _ in range(3):
+        run_session_on_device(raw, device=dev)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(N_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run_session_on_device(raw, device=dev)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    busy_ms, acts = device_activities(lambda: run_session_on_device(raw, device=dev))
+    return {"session_full_ms": statistics.median(times), "session_device_busy_ms": busy_ms,
+            "session_device_activities": len(acts),
+            "session_activity_names": dict(collections.Counter(e.name[:80] for e in acts))}
 
 
 def k2_full_session(dev):
@@ -362,8 +399,6 @@ def streams(dev, root: Path) -> dict:
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from slam_process_tpu_torch.ops import cuda_decode
     from slam_process_tpu_torch.parallel import streaming_device as sd
@@ -405,8 +440,27 @@ def streams(dev, root: Path) -> dict:
         out[f"stream_{name}_ms_per_window"] = statistics.median(times) / (
             cuda_decode.LAUNCHES / 3)
 
+    busy_ms, acts = device_activities(live_feed)
+    out["live_feed_device_busy_ms"] = busy_ms
+    out["live_feed_device_activities"] = len(acts)
+    out["live_feed_activity_names"] = dict(collections.Counter(e.name[:80] for e in acts))
+    for key, part in (("K5", "compact"), ("K6", "track_block")):
+        mine = [e for e in acts if part in e.name]
+        out[f"live_feed_{key}_kernels"] = len(mine)
+        out[f"live_feed_{key}_device_ms"] = sum(e.time_range.elapsed_us() for e in mine) / 1e3
+    return out
+
+
+def device_activities(fn):
+    """(device busy ms, the device activities in start order) of one call
+    of ``fn`` under ``torch.profiler``: busy is the union of the
+    activities' time ranges."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        live_feed()
+        fn()
         torch.cuda.synchronize()
     acts = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                    and not e.name.startswith("Activity Buffer")),
@@ -415,12 +469,7 @@ def streams(dev, root: Path) -> dict:
     for e in acts:
         busy_us += max(e.time_range.end - max(e.time_range.start, reach), 0.0)
         reach = max(reach, e.time_range.end)
-    out["live_feed_device_busy_ms"] = busy_us / 1e3
-    for key, part in (("K5", "compact"), ("K6", "track_block")):
-        mine = [e for e in acts if part in e.name]
-        out[f"live_feed_{key}_kernels"] = len(mine)
-        out[f"live_feed_{key}_device_ms"] = sum(e.time_range.elapsed_us() for e in mine) / 1e3
-    return out
+    return busy_us / 1e3, acts
 
 
 def main() -> None:
@@ -449,7 +498,7 @@ def main() -> None:
         print(json.dumps(line), flush=True)
         runs[root].append(line)
     keys = sorted({k for lines in runs.values() for ln in lines for k in ln
-                   if k.endswith(("_ms", "_kernels", "_window", "_us"))})
+                   if k.endswith(("_ms", "_kernels", "_window", "_us", "_activities"))})
     print(json.dumps({"nvidia_smi": smi, "median_ms": {
         root: {k: statistics.median(ln[k] for ln in lines) for k in keys if k in lines[0]}
         for root, lines in runs.items()}, "spread_ms": {
