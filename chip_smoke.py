@@ -1065,6 +1065,22 @@ def run(tmp: Path) -> None:
                                   "sweeps_per_s_warm": sweeps_dataset
                                   / (sweep_ms["dataset_warm"] / 1e3)}})
 
+    # -- 19. mesh: the mesh forms on positions of cuda:0 ----------------------------
+    t0 = time.perf_counter()
+    mesh_out = mesh_phase(np, torch, sd, angles, raws, sessions, zero_counts, read_counts, dev)
+    by_path["mesh"] = mesh_out.pop("launches")
+    print(smi, flush=True)
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t0, "launches": by_path["mesh"],
+          **mesh_out})
+
+    # -- 20. multihost: two-process gloo clusters on cuda:0 --------------------------
+    t0 = time.perf_counter()
+    host_out = multihost_phase(np, torch, sd, tmp, angles, raws, sessions, dev)
+    by_path["multihost"] = host_out.pop("launches")
+    print(smi, flush=True)
+    emit({"phase": "multihost", "seconds": time.perf_counter() - t0,
+          "launches": by_path["multihost"], **host_out})
+
     # Bounds: the larger of bytes moved (each input read once, each output
     # written once) over HBM bandwidth and the operations this run's data
     # needs over the peak rate.  K5: each mask byte read once, the 20 B
@@ -1146,7 +1162,8 @@ def run(tmp: Path) -> None:
             "source": f"slam_process_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": launches[key],
             "launches_by_path": {path: n[key.rstrip("s")] for path, n in by_path.items()
-                                 if key in meta_single or path in ("batch", "multi_stream")},
+                                 if key in meta_single
+                                 or path in ("batch", "multi_stream", "mesh", "multihost")},
             "max_abs_err": err[key], "ms": ms[key],
             "ms_of": "kernel launch" if key in ("K2", "K3") else "wrapper call",
             "bare_ms": bare_ms.get(key),
@@ -3482,8 +3499,8 @@ def multi_stream_phase(np, torch, sd, nnls, tmp, angles, raws, zero_counts, read
         return ms
 
     rounds = []
-    step = sd.MultiStreamingSession._round
-    sd.MultiStreamingSession._round = lambda self, *a: rounds.append(1) or step(self, *a)
+    step = sd.MultiStreamingSession._window
+    sd.MultiStreamingSession._window = lambda self, *a: rounds.append(1) or step(self, *a)
     try:
         zero_counts()
         t0 = time.perf_counter()
@@ -3491,7 +3508,7 @@ def multi_stream_phase(np, torch, sd, nnls, tmp, angles, raws, zero_counts, read
         run_s = time.perf_counter() - t0
         launches = read_counts()
     finally:
-        sd.MultiStreamingSession._round = step
+        sd.MultiStreamingSession._window = step
     if min(launches[k] for k in ("K1", "K2", "K4", "K5", "K6")) == 0:
         fail(f"multi_stream: a kernel never launched: {launches}")
     if launches["K1"] != len(rounds) or launches["K6"] != len(rounds) + 1 or \
@@ -3821,6 +3838,403 @@ def multi_watch_check(np, torch, tmp, angles, dev) -> dict:
             "finalized_alone": early[0],
             "summary": card_sum, "events": sum(len(v) for v in ev_card.values())}
 
+
+
+# -- mesh and multihost -----------------------------------------------------------------
+
+def same_results(a, b) -> bool:
+    """Equal nested results: numpy arrays by dtype, shape and bytes (floats
+    bitwise), tuples and lists item by item, other values by ==."""
+    import numpy as np
+
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+    if isinstance(a, (tuple, list)):
+        return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                and all(same_results(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def stream_results(ms, n) -> tuple:
+    """A multi-stream session's per-stream readers: results, closed-sweep
+    counts, filtered rows, paths and tracks of streams 0..n-1."""
+    return (ms.results(), ms.n_sweeps_closed_all(),
+            [(ms.stream_filtered(i), ms.stream_paths(i), ms.stream_tracks(i)) for i in range(n)])
+
+
+def event_ms(torch, fn, runs: int = 5) -> float:
+    """Median ms of ``fn`` over ``runs`` CUDA-event-timed calls after one
+    warm-up, the host work included (each call ends in a host read)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def mesh_forms(np, torch, sd, angles, raws, sessions, dev) -> dict:
+    """{form: (call(mesh), meshes)}: the mesh forms of phase 19, each with
+    the meshes it runs on (positions repeating cuda:0; distinct cards too
+    where the machine has more than one)."""
+    from slam_process_tpu_torch.models.batch_estimation import estimate_sessions
+    from slam_process_tpu_torch.parallel import batch
+    from slam_process_tpu_torch.parallel.mesh import make_mesh
+    from slam_process_tpu_torch.pipeline.session import sweep_paths_dataset
+
+    c0 = [torch.device(dev.type, 0)]
+    meshes = {"(1, 1)": make_mesh((1, 1), devices=c0), "(4, 1)": make_mesh((4, 1), devices=c0 * 4),
+              "(2, 2)": make_mesh((2, 2), devices=c0 * 4)}
+    n_dev = torch.cuda.device_count()
+    if n_dev > 1:
+        meshes[f"({n_dev}, 1) distinct"] = make_mesh((n_dev, 1))
+        meshes[f"({n_dev // 2}, 2) distinct"] = make_mesh((n_dev // 2, 2),
+                                                          devices=make_mesh((n_dev, 1)).devices.flat)
+    distinct = [k for k in meshes if "distinct" in k]
+    ds = raws[DS]
+    spec = sd.make_paths_spec(angles, s_step=64)
+    ecap = -(-(max(len(r) for r in ds) // 11 + 1) // (1 << 16)) * (1 << 16)
+
+    def streams(mesh):
+        ms = sd.MultiStreamingSession(len(ds), chunk_bytes=MULTI_CHUNK, collect_paths=spec,
+                                      emit_capacity=ecap, mesh=mesh,
+                                      device=None if mesh is not None else dev)
+        ms.feed(ds)
+        ms.finalize()
+        return stream_results(ms, len(ds))
+
+    def on(mesh, **kw):
+        return dict(mesh=mesh) if mesh is not None else dict(device=dev, **kw)
+
+    forms = {
+        "run_dataset": (lambda m: batch.run_dataset(m, raws, **({} if m is not None else
+                                                                 dict(device=dev))),
+                        ["(1, 1)", "(4, 1)", "(2, 2)"] + distinct),
+        "sweep_paths_multipath": (lambda m: sessions[MP].sweep_paths(angles, **on(m)),
+                                  ["(2, 2)"] + distinct),
+        "sweep_paths_dataset": (lambda m: sweep_paths_dataset(sessions, angles, **on(m)),
+                                ["(2, 2)"] + distinct),
+        "estimate_sessions_multipath": (lambda m: estimate_sessions([sessions[MP]], angles,
+                                                                    **on(m)),
+                                        ["(2, 2)"] + distinct),
+        "estimate_sessions": (lambda m: estimate_sessions(sessions, angles, **on(m)),
+                              ["(2, 2)"] + distinct),
+        "multi_stream_19": (streams, ["(4, 1)"] + distinct),
+    }
+    return {name: (fn, {k: meshes[k] for k in keys}) for name, (fn, keys) in forms.items()}
+
+
+def mesh_phase(np, torch, sd, angles, raws, sessions, zero_counts, read_counts, dev) -> dict:
+    """Phase 19: the mesh forms on the card (``mesh_forms``): ``run_dataset``
+    over the 21 sessions at (1, 1), (4, 1) and (2, 2);
+    ``Session.sweep_paths`` of the multipath session, ``sweep_paths_dataset``
+    and ``estimate_sessions`` of the multipath session and of the 21 at
+    (2, 2); the 19 dataset streams of ``MultiStreamingSession`` at (4, 1),
+    padded to 20 (1 MiB windows, ``collect_paths``): each equal to
+    ``mesh=None`` on the card, every field, floats bitwise.  The mesh runs
+    alone are counted (``launches``); then ms of each form beside
+    ``mesh=None`` (CUDA events, median of 5 after a warm-up)."""
+    forms = mesh_forms(np, torch, sd, angles, raws, sessions, dev)
+    want = {name: fn(None) for name, (fn, _) in forms.items()}
+    torch.cuda.synchronize()
+    zero_counts()
+    got = {(name, key): fn(m) for name, (fn, meshes) in forms.items()
+           for key, m in meshes.items()}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if min(launches.values()) == 0:
+        fail(f"mesh: a kernel never launched on the mesh forms: {launches}")
+    for (name, key), out in got.items():
+        if not same_results(out, want[name]):
+            fail(f"mesh: {name} on the {key} mesh differs from mesh=None")
+    n_streams = len(want["multi_stream_19"][2])
+    if forms["multi_stream_19"][1]["(4, 1)"].shape["data"] != 4 or n_streams != len(DATASET):
+        fail("mesh: the 19 streams were not run on four data shards")
+    ms = {name: {"mesh=None": event_ms(torch, lambda: fn(None)),
+                 **{key: event_ms(torch, lambda m=m: fn(m)) for key, m in meshes.items()}}
+          for name, (fn, meshes) in forms.items()}
+    return {"cuda_device_count": torch.cuda.device_count(),
+            "compared": sorted(f"{n} {k}" for n, k in got), "launches": launches, "ms": ms,
+            "ms_over_mesh_none": {n: {k: v / t["mesh=None"] for k, v in t.items()
+                                      if k != "mesh=None"} for n, t in ms.items()}}
+
+
+MULTIHOST_WORKER = r'''"""One process of chip_smoke.py's multihost phase (two processes, gloo on
+127.0.0.1, two mesh positions each, on the process's CUDA device).
+
+Usage: python <this file> <repo> <mode> <pid> <nproc> <host:port> <out.npz> <angles.xlsx>
+       <json>
+
+mode "sessions" (json: the synthetic configs and stream parameters):
+run_batched_multihost over four dataset sessions (model = 2),
+estimate_sessions_multihost of the same four (grid 0.5, model = 2) and a
+MultihostMultiStream over the 19 dataset sessions split 10 / 9; writes this
+process's results to out.npz.  mode "watch" (json: the watch's argv): one
+process of ``cli watch --coordinator``, its steps without the PNGs.
+Prints one JSON line: the process id, its kernel launches and, for the
+watch, its summary lines.
+"""
+import json
+import sys
+from pathlib import Path
+
+
+def main():
+    repo, mode, pid, nproc, coord = sys.argv[1], sys.argv[2], int(sys.argv[3]), \
+        int(sys.argv[4]), sys.argv[5]
+    out, angles, arg = Path(sys.argv[6]), sys.argv[7], json.loads(sys.argv[8])
+    sys.path.insert(0, repo)
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from slam_process_tpu_torch.parallel import multihost as mh
+    from slam_process_tpu_torch.parallel._dryrun_worker import launch_counts
+
+    if mode == "watch":
+        from slam_process_tpu_torch.pipeline import cli
+
+        args = cli.build_parser().parse_args(arg)
+        cli.check_watch_flags(args)
+        w = cli.MultihostWatch(args)
+        try:
+            w.run()
+            lines = w.export()
+        finally:
+            w.close()
+        print(json.dumps({"pid": pid, "lines": lines, "launches": launch_counts()}), flush=True)
+        return
+
+    from slam_process_tpu_torch.parallel.streaming_device import make_paths_spec
+    from slam_process_tpu_torch.pipeline.session import Session
+    from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes, to_hex_text
+
+    mh.initialize_multihost(coord, nproc, pid, 2, device=arg["device"])
+    res = {}
+    mine = slice(2 * pid, 2 * pid + 2)
+    raws = [synthetic_session_bytes(**c) for c in arg["batch"]][mine]
+    got = mh.run_batched_multihost(mh.global_data_mesh(model=2), raws)
+    for f in got._fields:
+        res["batch_" + f] = mh.local_shard(getattr(got, f))
+    sessions = []
+    for k, raw in enumerate(raws):
+        path = out.parent / f"p{pid}_{k}.txt"
+        path.write_bytes(to_hex_text(raw))
+        sessions.append(Session.from_log(path, device=arg["device"]))
+    got = mh.estimate_sessions_multihost(sessions, angles, mh.global_data_mesh(model=2),
+                                         grid_res=0.5)
+    for f in got._fields:
+        res["est_" + f] = mh.local_shard(getattr(got, f))
+    streams = [synthetic_session_bytes(**c) for c in arg["streams"]]
+    local = list(range(10)) if pid == 0 else list(range(10, len(streams)))
+    s = mh.MultihostMultiStream(mh.global_data_mesh(model=1), len(local),
+                                chunk_bytes=arg["chunk"],
+                                collect_paths=make_paths_spec(angles, s_step=64),
+                                emit_capacity=arg["ecap"])
+    s.feed([streams[i] for i in local])
+    s.finalize()
+    for k, x in enumerate(s.local_results()):
+        res[f"stream_results_{k}"] = x
+    res["stream_closed"] = s.n_sweeps_closed_all()
+    for k in range(len(local)):
+        res[f"stream_filtered_{k}"] = s.local_stream_filtered(k)
+        paths, valid = s.local_stream_paths(k)
+        for f in paths._fields:
+            res[f"stream_paths_{k}_{f}"] = np.asarray(getattr(paths, f))
+        res[f"stream_valid_{k}"] = valid
+        tracks, times, _ = s.local_stream_tracks(k)
+        res[f"stream_times_{k}"] = times
+        for f in ("pos_aoa", "pos_aod", "power", "observed", "created"):
+            res[f"stream_tracks_{k}_{f}"] = np.asarray(getattr(tracks, f))
+    launches = launch_counts()
+    mh.shutdown_multihost()
+    np.savez(out, **res)
+    print(json.dumps({"pid": pid, "local_streams": local, "launches": launches}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
+'''
+
+MULTIHOST_TIMEOUT_S = 300            # each process of the multihost phase
+MULTIHOST_WATCH = [dict(n_groups=n, frames_per_beam=12, baselines_per_group=40, junk_frac=0.02,
+                        seed=500 + i, n_paths=3) for i, n in enumerate((2, 5, 6))]
+
+
+def multihost_phase(np, torch, sd, tmp, angles, raws, sessions, dev) -> dict:
+    """Phase 20: three two-process gloo clusters on 127.0.0.1, every process
+    on cuda:0 with two mesh positions, each process under its own timeout:
+    the dry-run worker; ``MULTIHOST_WORKER`` with ``run_batched_multihost``
+    over four dataset sessions (model = 2), ``estimate_sessions_multihost``
+    (grid 0.5) and ``MultihostMultiStream`` over the 19 dataset sessions
+    split 10 / 9; ``cli watch --coordinator`` on three captures split 2 / 1,
+    ended by SIGINT.  Each process's results equal the single-process run
+    of the same bytes on the card, every field, floats bitwise."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from slam_process_tpu_torch.io.hexlog import tokenize_hex
+    from slam_process_tpu_torch.io.schemas import write_filtered_table
+    from slam_process_tpu_torch.models.batch_estimation import estimate_sessions
+    from slam_process_tpu_torch.parallel import _dryrun_worker as dry
+    from slam_process_tpu_torch.parallel import batch
+    from slam_process_tpu_torch.parallel.multihost import free_port, run_local_cluster
+    from slam_process_tpu_torch.pipeline import cli
+    from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes, to_hex_text
+
+    work = tmp / "multihost"
+    work.mkdir()
+    worker = work / "chip_smoke_multihost_worker.py"
+    worker.write_text(MULTIHOST_WORKER)
+    ds = raws[DS]
+    ecap = -(-(max(len(r) for r in ds) // 11 + 1) // (1 << 16)) * (1 << 16)
+    on_cpu = ["cpu"] if dev.type == "cpu" else []     # a rehearsal without a card
+    sess_arg = json.dumps({"batch": DATASET[:4], "streams": DATASET, "chunk": MULTI_CHUNK,
+                           "ecap": ecap, "device": (on_cpu or [None])[0]})
+    logs = []
+    for i, cfg in enumerate(MULTIHOST_WATCH):
+        logs.append(work / f"cap{i}" / "capture.txt")
+        logs[-1].parent.mkdir()
+        logs[-1].write_bytes(to_hex_text(synthetic_session_bytes(**cfg)))
+    split = (logs[:2], logs[2:])
+    ports = [free_port() for _ in range(3)]
+
+    def watch_argv(k):
+        return ["watch", "--logs", *map(str, split[k]), "--mapping", str(angles), "--outdir",
+                str(work / "watch_out"), "--coordinator", f"127.0.0.1:{ports[2]}",
+                "--num-processes", "2", "--process-id", str(k), "--local-devices", "2",
+                "--idle-timeout", "0", "--poll-interval", "0.05", "--paths", "--changes",
+                "--events", str(work / f"events_{k}.jsonl"), "--device", dev.type]
+
+    py = sys.executable
+    clusters = {
+        "dryrun": ([[py, "-m", "slam_process_tpu_torch.parallel._dryrun_worker", str(k), "2",
+                     f"127.0.0.1:{ports[0]}", *on_cpu] for k in range(2)], None),
+        "sessions": ([[py, str(worker), str(REPO), "sessions", str(k), "2",
+                       f"127.0.0.1:{ports[1]}", str(work / f"out_{k}.npz"), str(angles),
+                       sess_arg] for k in range(2)], None),
+        "watch": ([[py, str(worker), str(REPO), "watch", str(k), "2", f"127.0.0.1:{ports[2]}",
+                    str(work / "unused.npz"), str(angles), json.dumps(watch_argv(k))]
+                   for k in range(2)], "multi-host watch: process"),
+    }
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(clusters)) as pool:
+        futures = {name: pool.submit(run_local_cluster, argvs, MULTIHOST_TIMEOUT_S, cwd=str(REPO),
+                                     interrupt_when=marker)
+                   for name, (argvs, marker) in clusters.items()}
+        try:
+            res = {name: f.result() for name, f in futures.items()}
+        except TimeoutError as e:
+            fail(f"multihost: a process outlived its {MULTIHOST_TIMEOUT_S} s: {e}")
+    wall_s = time.perf_counter() - t0
+    lines = {}
+    for name, procs in res.items():
+        for k, (rc, out, err) in enumerate(procs):
+            if rc != 0:
+                fail(f"multihost: {name} process {k} exited {rc}: {err[-2000:]}")
+        lines[name] = [json.loads(out.strip().splitlines()[-1]) for _, out, _ in procs]
+    launches = {k: sum(ln["launches"][k] for v in lines.values() for ln in v)
+                for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+    if min(launches.values()) == 0:
+        fail(f"multihost: a kernel never launched in the worker processes: {launches}")
+
+    # The dry run against one process's four streams.
+    streams = [dry.synthetic_stream_bytes(180, seed=10 * pid + i) for pid in range(2)
+               for i in range(2)]
+    m = sd.MultiStreamingSession(4, chunk_bytes=4096, group_capacity=1024, max_groups=8,
+                                 max_baselines_per_group=16, device=dev)
+    half = len(streams[0]) // 2
+    m.feed([x[:half] for x in streams])
+    m.feed([x[half:] for x in streams])
+    m.finalize()
+    nf, _, ng, _, _, _ = m.results()
+    for pid, ln in enumerate(lines["dryrun"]):
+        if not ln["ok"] or ln["n_frames"] != nf[2 * pid:2 * pid + 2].tolist() or \
+                ln["n_groups"] != ng[2 * pid:2 * pid + 2].tolist():
+            fail(f"multihost: the dry run's process {pid} differs: {ln}")
+
+    # Sessions: the batch, the estimator and the 19 streams.
+    four = [raws[1 + i] for i in range(4)]
+    n = max(len(r) for r in four)
+    want_b = batch.batched_session_pipeline(None, n, outputs="summary", device=dev)(
+        *batch.stack_sessions(four, n), batch.device_lut(dev))
+    want_e = estimate_sessions(sessions[1:5], angles, device=dev, grid_res=0.5)
+    spec = sd.make_paths_spec(angles, s_step=64)
+    ms = sd.MultiStreamingSession(len(ds), chunk_bytes=MULTI_CHUNK, collect_paths=spec,
+                                  emit_capacity=ecap, device=dev)
+    ms.feed(ds)
+    ms.finalize()
+    ref_results, ref_closed = ms.results(), ms.n_sweeps_closed_all()
+    for pid in range(2):
+        got = dict(np.load(work / f"out_{pid}.npz"))
+        rows = slice(2 * pid, 2 * pid + 2)
+        for f in batch.SessionSummaryOut._fields:
+            if not same_results(got["batch_" + f], getattr(want_b, f)[rows].cpu().numpy()):
+                fail(f"multihost: run_batched_multihost process {pid} {f} differs")
+        for k in range(2):
+            for f in want_e[0]._fields:
+                if not same_results(got["est_" + f][k], np.asarray(getattr(want_e[2 * pid + k], f))):
+                    fail(f"multihost: estimate_sessions_multihost session {2 * pid + k} {f} "
+                         "differs")
+        local = lines["sessions"][pid]["local_streams"]
+        for k, i in enumerate(local):
+            for j in range(6):
+                if not same_results(got[f"stream_results_{j}"][k], ref_results[j][i]):
+                    fail(f"multihost: stream {i} result {j} differs")
+            paths, valid = ms.stream_paths(i)
+            tracks, times, _ = ms.stream_tracks(i)
+            checks = [(got["stream_closed"][k], ref_closed[i]),
+                      (got[f"stream_filtered_{k}"], ms.stream_filtered(i)),
+                      (got[f"stream_valid_{k}"], valid), (got[f"stream_times_{k}"], times)]
+            checks += [(got[f"stream_paths_{k}_{f}"], np.asarray(getattr(paths, f)))
+                       for f in paths._fields]
+            checks += [(got[f"stream_tracks_{k}_{f}"], np.asarray(getattr(tracks, f)))
+                       for f in ("pos_aoa", "pos_aod", "power", "observed", "created")]
+            if not all(same_results(a, b) for a, b in checks):
+                fail(f"multihost: MultihostMultiStream stream {i} differs from one process")
+
+    # The watch against one process's replay of the three captures.
+    ref = sd.MultiStreamingSession(3, collect_paths=sd.make_paths_spec(angles),
+                                   emit_capacity=1 << 18, device=dev)
+    ref.feed([tokenize_hex(p.read_bytes()) for p in logs])
+    ref.finalize()
+    names = ["p0_capture", "p0_capture_1", "p1_capture"]
+    ref_dir = work / "watch_ref"
+    ref_dir.mkdir()
+    args = cli.build_parser().parse_args(watch_argv(0))
+    args.outdir = ref_dir
+    args.events = work / "events_ref.jsonl"
+    for i, name in enumerate(names):
+        write_filtered_table(ref_dir / f"{name}_filtered.xlsx", ref.stream_filtered(i))
+        cli._export_tracks(*ref.stream_tracks(i), name, args)
+        for table in ("filtered", "stream_tracks", "stream_changes"):
+            if not xlsx_same(work / "watch_out" / f"{name}_{table}.xlsx",
+                             ref_dir / f"{name}_{table}.xlsx"):
+                fail(f"multihost: watch {name}'s {table} differs from one process")
+    cli._make_multi_event_emitter(args, ref, names)()
+    want_ev = [json.loads(x) for x in args.events.read_text().splitlines()]
+    got_ev = [json.loads(x) for k in range(2)
+              for x in (work / f"events_{k}.jsonl").read_text().splitlines()]
+    for name in names:
+        if [e for e in got_ev if e["session"] == name] != [e for e in want_ev
+                                                             if e["session"] == name]:
+            fail(f"multihost: watch {name}'s events differ from one process")
+    summaries = [x for ln in lines["watch"] for x in ln["lines"]]
+    frames = ref.results()[0]
+    for x in summaries[:2] + summaries[3:4]:
+        if x["frames"] != int(frames[names.index(x["session"])]):
+            fail(f"multihost: watch summary {x} differs from one process")
+    return {"processes": 6, "clusters": list(clusters), "wall_s": wall_s,
+            "launches": launches, "events": len(got_ev),
+            "watch_summaries": summaries,
+            "launches_by_process": {name: [ln["launches"] for ln in v]
+                                    for name, v in lines.items()}}
 
 if __name__ == "__main__":
     main()

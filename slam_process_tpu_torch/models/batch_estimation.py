@@ -1,13 +1,14 @@
 """Whole-dataset estimation: N sessions through one batched NN-OMP.
 
 The port of ``slam_process_tpu/models/batch_estimation.py``'s
-``PackedScenes``, ``flavor_config``, ``pack_scenes`` and
-``estimate_sessions``.  Per session the host builds the float64 scene
-(``registry.build_scene``) and its dictionary; ``pack_scenes`` pads them to
-the dataset's largest (U, B, Ga, Gd) with zeros; ``nn_omp_scenes`` runs all
-N scenes in lockstep on a device (the JAX package's production ``"vmap"``
-program), so each iteration's correlation chain is one batched product per
-side.
+``PackedScenes``, ``flavor_config``, ``pack_scenes``,
+``nn_omp_sessions_sharded`` (a mesh: sessions over ``data``, the AoA grid
+over ``model``) and ``estimate_sessions``.  Per session the host builds
+the float64 scene (``registry.build_scene``) and its dictionary;
+``pack_scenes`` pads them to the dataset's largest (U, B, Ga, Gd) with
+zeros; ``nn_omp_scenes`` runs all N scenes in lockstep on a device (the
+JAX package's production ``"vmap"`` program), so each iteration's
+correlation chain is one batched product per side.
 
 Zero padding is exact: padded measurement rows multiply zero ``phi`` rows,
 and padded grid atoms have zero ``phi`` columns, so their correlation is
@@ -28,7 +29,6 @@ import torch
 from slam_process_tpu_torch.config import DictionaryConfig, OmpConfig
 from slam_process_tpu_torch.models.dictionary import BeamDictionary, make_dictionary
 from slam_process_tpu_torch.models.nn_omp import OmpPaths, nn_omp_scenes
-from slam_process_tpu_torch.pipeline.device import resolve_device
 
 
 class PackedScenes(NamedTuple):
@@ -110,10 +110,38 @@ def packed_to_device(packed: PackedScenes, device) -> PackedScenes:
         for i, x in enumerate(packed)))
 
 
-def estimate_sessions(sessions, angle_file, flavor: str = "v1-7", device=None,
+def nn_omp_sessions_sharded(packed: PackedScenes, cfg: OmpConfig, mesh,
+                            keep_rule: str = "ratio", stop_nonpositive: bool = True) -> OmpPaths:
+    """Whole-dataset estimation over a mesh: the sessions over ``data``
+    (padded with zero scenes to a multiple of it: every correlation 0, so
+    they select nothing that is kept, and are dropped), each data shard on
+    its row's devices with the AoA grid over ``model`` (``nn_omp_scenes``'s
+    ``model_devices``: Ga pads to a multiple of ``model`` with zero phi_rx
+    columns and edge-repeated angles, as the JAX package pads it).
+
+    ``packed`` is ``pack_scenes``' numpy.  Returns an OmpPaths of [N, ...]
+    numpy arrays, each shard read back once; equal to the unsharded run's.
+    """
+    from slam_process_tpu_torch.parallel.mesh import placement, read_once, shard_rows
+
+    rows = placement(mesh)
+    n = packed.matrices.shape[0]
+    n_pad, per = shard_rows(n, len(rows))
+    padded = PackedScenes(*(np.pad(x, ((0, n_pad - n),) + ((0, 0),) * (x.ndim - 1))
+                            for x in packed))
+    outs = []
+    for r, devs in enumerate(rows):
+        p = packed_to_device(PackedScenes(*(x[r * per:(r + 1) * per] for x in padded)), devs[0])
+        outs.append(nn_omp_scenes(p.phi_rx, p.phi_tx, p.aoa_grid, p.aod_grid, p.matrices, cfg,
+                                  keep_rule, stop_nonpositive, model_devices=devs))
+    host = [read_once([o])[0] for o in outs]
+    return OmpPaths(*(np.concatenate(fs)[:n] for fs in zip(*host)))
+
+
+def estimate_sessions(sessions, angle_file, flavor: str = "v1-7", device=None, mesh=None,
                       **overrides) -> list:
     """v1-7 (or v1) NN-OMP over N sessions in one batched run on ``device``
-    (None: CUDA).
+    (None: CUDA), or over ``mesh`` (``nn_omp_sessions_sharded``).
 
     Per session the host builds the scene and the dictionary; the N padded
     scenes then run through ``nn_omp_scenes`` in lockstep (with its LU
@@ -121,19 +149,23 @@ def estimate_sessions(sessions, angle_file, flavor: str = "v1-7", device=None,
     the two select alike).  Returns a list of per-session OmpPaths of
     numpy arrays of [K] (``n_iters`` a numpy scalar), equal to
     ``run_nn_omp(engine="device")`` on each session under the padding
-    caveat (module docstring).
+    caveat (module docstring); the mesh form equals ``mesh=None``.
     """
     from slam_process_tpu_torch.models.registry import build_scene
+    from slam_process_tpu_torch.parallel.mesh import placement
 
-    dev = resolve_device(device)
+    dev = placement(mesh, device)[0][0]
     dict_cfg, cfg, log_transform, keep_rule, stop_np = flavor_config(flavor, **overrides)
     mats, dicts = [], []
     for s in sessions:
         matrix, ue_ang, bs_ang = build_scene(s, angle_file, log_transform, device=dev)
         mats.append(matrix)
         dicts.append(make_dictionary(ue_ang, bs_ang, dict_cfg))
-    p = packed_to_device(pack_scenes(mats, dicts), dev)
-    out = nn_omp_scenes(p.phi_rx, p.phi_tx, p.aoa_grid, p.aod_grid, p.matrices, cfg, keep_rule,
-                        stop_np)
-    host = [x.cpu().numpy() for x in out]
+    if mesh is not None:
+        host = nn_omp_sessions_sharded(pack_scenes(mats, dicts), cfg, mesh, keep_rule, stop_np)
+    else:
+        p = packed_to_device(pack_scenes(mats, dicts), dev)
+        out = nn_omp_scenes(p.phi_rx, p.phi_tx, p.aoa_grid, p.aod_grid, p.matrices, cfg,
+                            keep_rule, stop_np)
+        host = [x.cpu().numpy() for x in out]
     return [OmpPaths(*(x[i] for x in host)) for i in range(len(sessions))]

@@ -155,38 +155,106 @@ def _keep(coeffs: torch.Tensor, in_sel: torch.Tensor, cfg: OmpConfig, keep_rule:
 NNLS_SOLVER = "lu"
 
 
+def pad_grid_axis(phi_rx: torch.Tensor, aoa_grid: torch.Tensor, tp: int):
+    """phi_rx [..., U, Ga] and aoa_grid [..., Ga] with Ga padded to a
+    multiple of ``tp``: zero phi columns and the last grid angle repeated,
+    as the JAX package pads the ``model``-sharded axis; and the padded
+    count.  The sharded argmax never selects a padded atom
+    (``_mask_padded``)."""
+    pad = (-phi_rx.shape[-1]) % tp
+    if not pad:
+        return phi_rx, aoa_grid, 0
+    phi_rx = torch.nn.functional.pad(phi_rx, (0, pad))
+    aoa_grid = torch.cat([aoa_grid, aoa_grid[..., -1:].expand(aoa_grid.shape[:-1] + (pad,))],
+                         dim=-1)
+    return phi_rx, aoa_grid, pad
+
+
+def _slices(ga: int, devices) -> list:
+    """(device, lo, hi) of each model position's contiguous Ga slice."""
+    per = ga // len(devices)
+    return [(d, m * per, (m + 1) * per) for m, d in enumerate(devices)]
+
+
+def _mask_padded(corr: torch.Tensor, hi: int, ga_real: int) -> torch.Tensor:
+    """corr [.., Ga_m, Gd] of the slice ending at ``hi`` with the rows of
+    padded atoms (global index >= ga_real) set to -inf: a padded atom then
+    never wins, under either stopping rule."""
+    n_pad = hi - max(ga_real, hi - corr.shape[-2])
+    if n_pad > 0:
+        corr = corr.clone()
+        corr[..., corr.shape[-2] - n_pad:, :] = float("-inf")
+    return corr
+
+
+def _combine(picks: list, dev: torch.device):
+    """The model positions' (value [N], *payload) picks, each the best of
+    its slice with global indices, combined on ``dev``: the largest value,
+    on a tie the lowest model rank, which holds the lowest global flat
+    index (``torch.argmax`` returns the first maximum, as ``jnp.argmax``)."""
+    if len(picks) == 1:
+        return picks[0]
+    stacked = [torch.stack([x.to(dev) for x in xs]) for xs in zip(*picks)]
+    best = stacked[0].argmax(dim=0)
+    lanes = torch.arange(best.shape[0], device=dev)
+    return tuple(x[best, lanes] for x in stacked)
+
+
 def nn_omp_scenes(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torch.Tensor,
                   aod_grid: torch.Tensor, mats: torch.Tensor, cfg: OmpConfig = OmpConfig(),
                   keep_rule: str = "ratio", stop_nonpositive: bool = True,
-                  nnls_solver: str = NNLS_SOLVER) -> OmpPaths:
+                  nnls_solver: str = NNLS_SOLVER, model_devices=None) -> OmpPaths:
     """NN-OMP over N scenes, each with its own dictionary: phi_rx [N, U,
     Ga], phi_tx [N, B, Gd], aoa_grid [N, Ga], aod_grid [N, Gd], mats [N, U,
     B] (float32, one device).  Zero-padded scenes (``pack_scenes``) give
     their padded atoms a correlation of exactly 0.  ``nnls_solver`` as
     ``ops/nnls.nnls_gram``'s.  Returns OmpPaths of [N, K] tensors ([N]
-    n_iters) on the inputs' device."""
+    n_iters) on the inputs' device.
+
+    ``model_devices`` (a mesh row's devices; None: the inputs' device alone)
+    shards the AoA grid over ``model``: Ga pads to a multiple of their count
+    (``pad_grid_axis``) and each position computes the correlation chain
+    over its contiguous Ga slice and returns its best value, global index
+    and that atom's phi_rx column; ``_combine`` keeps the best, and the
+    refit (a [N, U] column copy per iteration to the inputs' device, the
+    NNLS and the residual) runs on the inputs' device.  Selections and
+    coefficients equal the unsharded run's."""
     K = cfg.max_paths
     N, U, B = mats.shape
     Gd = phi_tx.shape[2]
     dev = mats.device
+    devices = tuple(model_devices) if model_devices else (dev,)
+    ga_real = phi_rx.shape[2]
+    phi_rx, aoa_grid, _ = pad_grid_axis(phi_rx, aoa_grid, len(devices))
     y = mats.to(torch.float32).reshape(N, U * B)
     slots = torch.arange(K, device=dev)
-    prx_t64 = phi_rx.transpose(1, 2).double()                   # [N, Ga, U]
-    ptx64 = phi_tx.double()                                     # [N, B, Gd]
+    shards = []
+    for d, lo, hi in _slices(phi_rx.shape[2], devices):
+        rx = phi_rx[:, :, lo:hi].to(d)
+        shards.append((d, lo, hi, rx, rx.transpose(1, 2).double(),     # [N, Ga_m, U]
+                       phi_tx.to(d).double()))                         # [N, B, Gd]
+
+    def select(residual):
+        picks = []
+        for d, lo, hi, rx, prx_t64, ptx64 in shards:
+            r = residual.to(d).reshape(N, U, B).double()
+            corr = torch.matmul(torch.matmul(prx_t64, r), ptx64).to(torch.float32)
+            corr = _mask_padded(corr, hi, ga_real).reshape(N, -1)     # [N, Ga_m * Gd]
+            idx = corr.argmax(dim=1)
+            col = rx.gather(2, (idx // Gd)[:, None, None].expand(N, U, 1))[:, :, 0]
+            picks.append((corr.gather(1, idx[:, None])[:, 0], idx + lo * Gd, col))
+        return _combine(picks, dev)
 
     residual = y
     sel_r = torch.zeros((N, K), dtype=torch.long, device=dev)
     sel_t = torch.zeros_like(sel_r)
+    cols_sel = torch.zeros((N, U, K), dtype=torch.float32, device=dev)
     coeffs = torch.zeros((N, K), dtype=torch.float32, device=dev)
     passive = torch.zeros((N, K), dtype=torch.bool, device=dev)
     nsel = torch.zeros(N, dtype=torch.long, device=dev)
     done = torch.zeros(N, dtype=torch.bool, device=dev)
     for _ in range(K):
-        corr = torch.matmul(torch.matmul(prx_t64, residual.reshape(N, U, B).double()),
-                            ptx64).to(torch.float32).reshape(N, -1)    # [N, Ga * Gd]
-        flat_idx = corr.argmax(dim=1)
-        max_corr = corr.gather(1, flat_idx[:, None])[:, 0]
-        del corr
+        max_corr, flat_idx, col = select(residual)
         i_r, i_t = flat_idx // Gd, flat_idx % Gd
 
         dup = ((sel_r == i_r[:, None]) & (sel_t == i_t[:, None])
@@ -197,11 +265,12 @@ def nn_omp_scenes(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torch.Te
         upd = (slots[None, :] == nsel[:, None]) & ~stop[:, None]
         sel_r = torch.where(upd, i_r[:, None], sel_r)
         sel_t = torch.where(upd, i_t[:, None], sel_t)
+        cols_sel = torch.where(upd[:, None, :], col[:, :, None], cols_sel)
         nsel = torch.where(stop, nsel, nsel + 1)
 
         # Atom matrix [N, U * B, K], zero columns for unselected slots.
         active = (slots[None, :] < nsel[:, None]).to(torch.float32)
-        cols_rx = phi_rx.gather(2, sel_r[:, None, :].expand(N, U, K)) * active[:, None, :]
+        cols_rx = cols_sel * active[:, None, :]
         cols_tx = phi_tx.gather(2, sel_t[:, None, :].expand(N, B, K)) * active[:, None, :]
         A = (cols_rx[:, :, None, :] * cols_tx[:, None, :, :]).reshape(N, U * B, K)
         A_t = A.transpose(1, 2)
@@ -251,47 +320,71 @@ def run_nn_omp(dictionary: BeamDictionary, rss_matrix: np.ndarray, cfg: OmpConfi
 
 def nn_omp_gram_batch(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torch.Tensor,
                       aod_grid: torch.Tensor, mats: torch.Tensor, cfg: OmpConfig = OmpConfig(),
-                      keep_rule: str = "ratio", stop_nonpositive: bool = True) -> OmpPaths:
+                      keep_rule: str = "ratio", stop_nonpositive: bool = True,
+                      model_devices=None) -> OmpPaths:
     """NN-OMP over S scenes mats [S, U, B] sharing the dictionary phi_rx
-    [U, Ga], phi_tx [B, Gd] (all float32 on one device)."""
+    [U, Ga], phi_tx [B, Gd] (all float32 on one device).
+
+    ``model_devices`` (a mesh row's devices; None: the inputs' device alone)
+    shards the AoA grid over ``model``: Ga pads to a multiple of their count
+    (``pad_grid_axis``); each position holds corr_Y and Grx's columns of its
+    contiguous Ga slice, updates its part of the surface, and returns its
+    two-stage best (value, global g, d, and corr_Y there, the new atom's
+    right-hand side); ``_combine`` keeps the best.  The NNLS runs on the
+    inputs' device with the whole Grams.  Selections and coefficients equal
+    the unsharded run's."""
     K = cfg.max_paths
     S = mats.shape[0]
     dev = mats.device
-    Y = mats.to(torch.float32)
+    devices = tuple(model_devices) if model_devices else (dev,)
+    ga_real = phi_rx.shape[1]
+    phi_rx, aoa_grid, _ = pad_grid_axis(phi_rx, aoa_grid, len(devices))
+    Y64 = mats.to(torch.float32).double()
     slots = torch.arange(K, device=dev)
-    lanes = torch.arange(S, device=dev)
 
     grx = _f64_product(phi_rx.T, phi_rx)                        # [Ga, Ga]
     gtx = _f64_product(phi_tx.T, phi_tx)                        # [Gd, Gd]
-    t1 = torch.matmul(phi_rx.T.double(), Y.double())            # [S, Ga, B]
-    corr_y = torch.matmul(t1, phi_tx.double()).to(torch.float32)  # [S, Ga, Gd]
-    del t1
-    grx_t, gtx_t = grx.T, gtx.T
+    shards = []
+    for d, lo, hi in _slices(phi_rx.shape[1], devices):
+        t1 = torch.matmul(phi_rx[:, lo:hi].T.to(d).double(), Y64.to(d))       # [S, Ga_m, B]
+        corr_y = torch.matmul(t1, phi_tx.to(d).double()).to(torch.float32)     # [S, Ga_m, Gd]
+        del t1
+        shards.append((d, lo, _mask_padded(corr_y, hi, ga_real), grx.T[:, lo:hi].to(d),
+                       gtx.T.to(d), torch.arange(S, device=d)))
+
+    def select(it, active_c, sel_r, sel_t):
+        picks = []
+        for d, lo, corr_y, grx_t, gtx_t, lanes_d in shards:
+            a_c, s_r, s_t = active_c.to(d), sel_r.to(d), sel_t.to(d)
+            # Rank-K residual: slots >= it hold no atom yet (coefficient 0),
+            # so their terms are exact zeros and are skipped.
+            grs = grx_t[s_r]                                    # [S, K, Ga_m]
+            gts = gtx_t[s_t]                                    # [S, K, Gd]
+            resid = corr_y
+            for k in range(it):
+                resid = resid - (a_c[:, k, None] * grs[:, k, :])[:, :, None] * gts[:, k, None, :]
+            m1 = resid.amax(dim=2)                              # [S, Ga_m]
+            del resid
+            i_r = m1.argmax(dim=1)
+            g_at = grs.gather(2, i_r[:, None, None].expand(S, K, 1))[:, :, 0]   # [S, K]
+            row = corr_y[lanes_d, i_r]                          # [S, Gd]
+            for k in range(it):
+                row = row - (a_c[:, k, None] * g_at[:, k, None]) * gts[:, k, :]
+            i_t = row.argmax(dim=1)
+            picks.append((m1.gather(1, i_r[:, None])[:, 0], i_r + lo, i_t,
+                          corr_y[lanes_d, i_r, i_t]))
+        return _combine(picks, dev)
 
     sel_r = torch.zeros((S, K), dtype=torch.long, device=dev)
     sel_t = torch.zeros_like(sel_r)
+    b_sel = torch.zeros((S, K), dtype=torch.float32, device=dev)
     coeffs = torch.zeros((S, K), dtype=torch.float32, device=dev)
     passive = torch.zeros((S, K), dtype=torch.bool, device=dev)
     nsel = torch.zeros(S, dtype=torch.long, device=dev)
     done = torch.zeros(S, dtype=torch.bool, device=dev)
     for it in range(K):
-        # Rank-K residual: slots >= it hold no atom yet (coefficient 0), so
-        # their terms are exact zeros and are skipped.
         active_c = coeffs * (slots[None, :] < nsel[:, None])
-        grs = grx_t[sel_r]                                      # [S, K, Ga]
-        gts = gtx_t[sel_t]                                      # [S, K, Gd]
-        resid = corr_y
-        for k in range(it):
-            resid = resid - (active_c[:, k, None] * grs[:, k, :])[:, :, None] * gts[:, k, None, :]
-        m1 = resid.amax(dim=2)                                  # [S, Ga]
-        del resid
-        i_r = m1.argmax(dim=1)
-        max_corr = m1.gather(1, i_r[:, None])[:, 0]
-        g_at = grs.gather(2, i_r[:, None, None].expand(S, K, 1))[:, :, 0]   # [S, K]
-        row = corr_y[lanes, i_r]                                # [S, Gd]
-        for k in range(it):
-            row = row - (active_c[:, k, None] * g_at[:, k, None]) * gts[:, k, :]
-        i_t = row.argmax(dim=1)
+        max_corr, i_r, i_t, b_new = select(it, active_c, sel_r, sel_t)
 
         dup = ((sel_r == i_r[:, None]) & (sel_t == i_t[:, None])
                & (slots[None, :] < nsel[:, None])).any(dim=1)
@@ -302,6 +395,7 @@ def nn_omp_gram_batch(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torc
         upd = (slots[None, :] == nsel[:, None]) & ~stop[:, None]
         sel_r = torch.where(upd, i_r[:, None], sel_r)
         sel_t = torch.where(upd, i_t[:, None], sel_t)
+        b_sel = torch.where(upd, b_new[:, None], b_sel)
         nsel = torch.where(stop, nsel, nsel + 1)
 
         # NNLS on the separable Gram system, warm-started from the previous
@@ -311,7 +405,7 @@ def nn_omp_gram_batch(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torc
         Gk = (grx[sel_r[:, :, None], sel_r[:, None, :]]
               * gtx[sel_t[:, :, None], sel_t[:, None, :]])
         Gk = Gk * active[:, :, None] * active[:, None, :]
-        bk = corr_y[lanes[:, None], sel_r, sel_t] * active
+        bk = b_sel * active
         coeffs2, passive2 = nnls_gram(Gk, bk, max_outer=cfg.nnls_max_iter, x0=coeffs,
                                       P0=passive)
         coeffs = torch.where(stop[:, None], coeffs, coeffs2)

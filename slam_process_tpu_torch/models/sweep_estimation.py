@@ -66,19 +66,24 @@ def _fill_per_sweep(mats: torch.Tensor):
 
 
 def sweep_estimator_body(est_key):
-    """(mats [S, U, B], phi_rx, phi_tx, aoa_g, aod_g) -> (paths of [S, K]
-    tensors, sweep_valid [S] bool: the sweep has a finite cell).  The
-    paths are OmpPaths (NN-OMP) or SmSicPaths with float32 angles
-    (SM-SIC)."""
+    """(mats [S, U, B], phi_rx, phi_tx, aoa_g, aod_g, model_devices=None) ->
+    (paths of [S, K] tensors, sweep_valid [S] bool: the sweep has a finite
+    cell).  The paths are OmpPaths (NN-OMP) or SmSicPaths with float32
+    angles (SM-SIC).  ``model_devices`` (a mesh row's devices) shards
+    NN-OMP's AoA grid over them (``nn_omp_gram_batch``); SM-SIC runs with
+    the whole dictionary on the inputs' device, so its results cannot
+    differ from the unsharded run's."""
     name, cfg, keep_rule, stop_np = est_key
     if name == "nn_omp":
-        def run_all(mats, phi_rx, phi_tx, aoa_g, aod_g):
+        def run_all(mats, phi_rx, phi_tx, aoa_g, aod_g, model_devices=None):
             filled, finite = _fill_per_sweep(mats)
             out = nn_omp_gram_batch(phi_rx, phi_tx, aoa_g, aod_g, filled, cfg=cfg,
-                                    keep_rule=keep_rule, stop_nonpositive=stop_np)
+                                    keep_rule=keep_rule, stop_nonpositive=stop_np,
+                                    model_devices=model_devices)
             return out, finite.any(dim=2).any(dim=1)
     elif name == "sm_sic":
-        def run_all(mats, phi_rx, phi_tx, aoa_g, aod_g):
+        def run_all(mats, phi_rx, phi_tx, aoa_g, aod_g, model_devices=None):
+            del model_devices
             filled, finite = _fill_per_sweep(mats)
             out = sm_sic(phi_rx, phi_tx, aoa_g, aod_g, filled, cfg)
             out = out._replace(aoa=out.aoa.to(torch.float32), aod=out.aod.to(torch.float32))

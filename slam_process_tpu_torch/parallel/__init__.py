@@ -1,3 +1,4 @@
+from slam_process_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
 from slam_process_tpu_torch.parallel.batch import (  # noqa: F401
     batched_session_pipeline,
     run_dataset,

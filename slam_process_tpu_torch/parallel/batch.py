@@ -1,20 +1,24 @@
-"""Batched multi-session pipeline on one device.
+"""Batched multi-session pipeline, on one device or over a mesh.
 
-The port of ``slam_process_tpu/parallel/batch.py``'s one-device half: S
-sessions, padded to one byte width and stacked to [S, N], run the session
-pipeline as one batch (``session_axis="vmap"``,
-``pipeline/device.session_pipeline_batch``): one launch of kernel K1 over
-the [S, N] bytes, one of K2 for all S sessions' rows (group ids offset per
-session, ``ops/correct.py``), the intensity sums of all S grids in one
-``index_add_`` and one launch of K3 over the [S, 64, 64] tiles.
-``session_axis="scan"`` is JAX's ``lax.map`` form: a loop of the
-single-session pipeline, S launches per stage, with outputs equal bit for
-bit to the batch's.  On CPU tensors every kernel's plain version runs.
+The port of ``slam_process_tpu/parallel/batch.py``: S sessions, padded to
+one byte width and stacked to [S, N], run the session pipeline as one batch
+(``session_axis="vmap"``, ``pipeline/device.session_pipeline_batch``): one
+launch of kernel K1 over the [S, N] bytes, one of K2 for all S sessions'
+rows (group ids offset per session, ``ops/correct.py``), the intensity sums
+of all S grids in one ``index_add_`` and one launch of K3 over the [S, 64,
+64] tiles.  ``session_axis="scan"`` is JAX's ``lax.map`` form: a loop of
+the single-session pipeline, S launches per stage, with outputs equal bit
+for bit to the batch's.  On CPU tensors every kernel's plain version runs.
 
-Where the JAX package takes a mesh and shards S over its ``data`` axis, the
-port takes ``mesh=None`` and ``device=`` (``pipeline/device.require_no_mesh``).
-There is nothing to compile, so ``batched_session_pipeline`` returns a
-plain function and nothing is cached.
+With a mesh (``parallel/mesh.py``) the S sessions pad with empty sessions
+(zero bytes decode to zero frames) to a multiple of the ``data`` axis, as
+the JAX package pads them, and each data shard runs that batch body on its
+row's first device: K1 over its [S / dp, N] bytes, K2 once on its rows, the
+sums and K3 over its tiles, issued device after device.  The JAX package
+shards only ``data`` here (``P("data", None)``) and replicates the batch
+over ``model``, so each shard runs once.  Results equal ``mesh=None`` bit
+for bit.  There is nothing to compile, so ``batched_session_pipeline``
+returns a plain callable and nothing is cached.
 """
 
 from __future__ import annotations
@@ -25,9 +29,10 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from slam_process_tpu_torch.parallel.mesh import placement, shard_rows
 from slam_process_tpu_torch.pipeline.device import (
-    DeviceSessionOut, bucket_size, device_lut, pad_bytes, require_no_mesh, resolve_device,
-    session_pipeline, session_pipeline_batch)
+    DeviceSessionOut, bucket_size, device_lut, pad_bytes, session_pipeline,
+    session_pipeline_batch)
 
 
 class SessionSummaryOut(NamedTuple):
@@ -48,48 +53,81 @@ def _stack_outputs(outs: Sequence[DeviceSessionOut]) -> DeviceSessionOut:
         [getattr(o, f) for o in outs]) for f in DeviceSessionOut._fields))
 
 
+class _BatchedPipeline:
+    """What ``batched_session_pipeline`` returns: called, the outputs of
+    every row on the first row's device; ``shards`` gives each data shard's
+    outputs on its own device."""
+
+    def __init__(self, rows, n_bytes_padded: int, outputs: str, session_axis: str, kw: dict):
+        self.rows = rows
+        self.n_bytes_padded = n_bytes_padded
+        self.outputs = outputs
+        self.session_axis = session_axis
+        self.kw = kw
+
+    def _body(self, b: torch.Tensor, lut: torch.Tensor):
+        if self.session_axis == "scan":
+            out = _stack_outputs([session_pipeline(b[i], lut, **self.kw)
+                                  for i in range(b.shape[0])])
+        else:
+            out = session_pipeline_batch(b, lut, **self.kw)
+        if self.outputs == "summary":
+            return SessionSummaryOut(*(getattr(out, f) for f in SessionSummaryOut._fields))
+        return out
+
+    def shards(self, byte_batch, n_bytes, lut) -> list:
+        """One output per data shard (rows ``[r * per, (r + 1) * per)`` of
+        the batch padded with empty sessions to a multiple of the shard
+        count), each on its row's first device, issued shard after shard."""
+        del n_bytes
+        b = torch.as_tensor(byte_batch, dtype=torch.uint8)
+        if b.dim() != 2 or b.shape[1] != self.n_bytes_padded:
+            raise ValueError(f"byte_batch must be [S, {self.n_bytes_padded}], got "
+                             f"{tuple(b.shape)}")
+        s_pad, per = shard_rows(b.shape[0], len(self.rows))
+        if s_pad > b.shape[0]:
+            b = torch.cat([b, b.new_zeros((s_pad - b.shape[0], b.shape[1]))])
+        lut = torch.as_tensor(lut, dtype=torch.float32)
+        return [self._body(b[r * per:(r + 1) * per].to(devs[0]), lut.to(devs[0]))
+                for r, devs in enumerate(self.rows)]
+
+    def __call__(self, byte_batch, n_bytes, lut):
+        """The S sessions' outputs, every field with a leading S axis, on
+        the first row's device."""
+        s = len(byte_batch)
+        outs = self.shards(byte_batch, n_bytes, lut)
+        if len(outs) == 1:
+            return outs[0]
+        first = self.rows[0][0]
+        return type(outs[0])(*(None if fs[0] is None else torch.cat(
+            [x.to(first) for x in fs])[:s] for fs in zip(*outs)))
+
+
 def batched_session_pipeline(mesh, n_bytes_padded: int, blur_sigma: float = 1.0,
                              use_log: bool = True, max_groups: int = 128,
                              max_baselines_per_group: int = 192, outputs: str = "full",
                              session_axis: str = "vmap", *, device=None):
-    """An [S, N]-batched pipeline on one device.
+    """An [S, N]-batched pipeline on ``device`` (None: CUDA) or over
+    ``mesh``'s data shards (module docstring).
 
     Returns fn(byte_batch [S, N] u8, n_bytes [S] i32, lut [256, 4] f32) ->
     ``DeviceSessionOut`` with a leading S axis on every field
     (``n_discarded`` None), or with ``outputs="summary"`` a
-    ``SessionSummaryOut``.  The inputs may be numpy arrays or tensors; they
-    are moved to ``device`` (None: CUDA).  ``n_bytes`` is unused: the
+    ``SessionSummaryOut``, on the device (the mesh's first row's device);
+    ``fn.shards(...)`` gives each data shard's output on its own device.
+    The inputs may be numpy arrays or tensors.  ``n_bytes`` is unused: the
     padding is inert, as in the JAX package.  ``session_axis="vmap"`` runs
-    the batch (one launch per kernel), ``"scan"`` a loop of the
+    the batch (one launch per kernel and shard), ``"scan"`` a loop of the
     single-session pipeline (S launches per kernel), bit-equal to it.
-    ``mesh`` must be None.
     """
-    require_no_mesh(mesh)
     if outputs not in ("full", "summary"):
         raise ValueError(f"outputs must be 'full' or 'summary', got {outputs!r}")
     if session_axis not in ("vmap", "scan"):
         raise ValueError(f"session_axis must be 'vmap' or 'scan', got {session_axis!r}")
-    dev = resolve_device(device)
-    n_bytes_padded = int(n_bytes_padded)
     kw = dict(blur_sigma=blur_sigma, use_log=use_log, max_groups=max_groups,
               max_baselines_per_group=max_baselines_per_group)
-
-    def batched(byte_batch, n_bytes, lut) -> DeviceSessionOut:
-        del n_bytes
-        b = torch.as_tensor(byte_batch, dtype=torch.uint8).to(dev)
-        if b.dim() != 2 or b.shape[1] != n_bytes_padded:
-            raise ValueError(f"byte_batch must be [S, {n_bytes_padded}], got {tuple(b.shape)}")
-        lut_t = torch.as_tensor(lut, dtype=torch.float32).to(dev)
-        if session_axis == "scan":
-            out = _stack_outputs([session_pipeline(b[i], lut_t, **kw)
-                                  for i in range(b.shape[0])])
-        else:
-            out = session_pipeline_batch(b, lut_t, **kw)
-        if outputs == "summary":
-            return SessionSummaryOut(*(getattr(out, f) for f in SessionSummaryOut._fields))
-        return out
-
-    return batched
+    return _BatchedPipeline(placement(mesh, device), int(n_bytes_padded), outputs,
+                            session_axis, kw)
 
 
 def stack_sessions(raw_list: Sequence[np.ndarray], n_bytes_padded: Optional[int] = None):
@@ -101,6 +139,25 @@ def stack_sessions(raw_list: Sequence[np.ndarray], n_bytes_padded: Optional[int]
     return batch, lengths
 
 
+def _bucket_groups(mesh, raw_list, quantum: int, device, pipeline_kwargs) -> list:
+    """[(indices, pipeline, per-shard outputs)] per byte bucket, in bucket
+    order: each group padded with empty sessions to a multiple of the data
+    axis, every shard of every group issued before any is read."""
+    groups: dict = {}
+    for i, r in enumerate(raw_list):
+        groups.setdefault(bucket_size(len(r), quantum), []).append(i)
+    results = []
+    for bucket, idxs in sorted(groups.items()):
+        fn = batched_session_pipeline(mesh, bucket, outputs="summary", device=device,
+                                      **pipeline_kwargs)
+        sessions = [raw_list[i] for i in idxs]
+        sessions += [np.zeros(0, np.uint8)] * (shard_rows(len(idxs), len(fn.rows))[0]
+                                               - len(idxs))
+        batch, lengths = stack_sessions(sessions, bucket)
+        results.append((idxs, fn, fn.shards(batch, lengths, device_lut(fn.rows[0][0]))))
+    return results
+
+
 def run_dataset_batched_grouped(mesh, raw_list: Sequence[np.ndarray], quantum: int = 1 << 18,
                                 *, device=None, **pipeline_kwargs):
     """The batch without uniform-padding waste: sessions group by their
@@ -108,38 +165,38 @@ def run_dataset_batched_grouped(mesh, raw_list: Sequence[np.ndarray], quantum: i
     per bucket, so each session is padded only to its own bucket.
 
     Returns ``[(indices, SessionSummaryOut), ...]``, one entry per bucket
-    group in bucket order, each output's rows the sessions at those input
-    positions, on ``device`` (None: CUDA).  With one device a group needs no
-    padding sessions (JAX pads to a multiple of the mesh's ``data`` size,
-    which is 1 here).  ``mesh`` must be None.
+    group in bucket order, on ``device`` (None: CUDA) or the mesh's first
+    row's device.  Each output's first ``len(indices)`` rows are the
+    sessions at those input positions; with a mesh the group is padded with
+    empty sessions to a multiple of the data axis, and those trailing rows
+    are the padding (zero frames), as in the JAX package.
     """
-    require_no_mesh(mesh)
-    dev = resolve_device(device)
-    groups: dict = {}
-    for i, r in enumerate(raw_list):
-        groups.setdefault(bucket_size(len(r), quantum), []).append(i)
-    lut = device_lut(dev)
-    results = []
-    for bucket, idxs in sorted(groups.items()):
-        batch, lengths = stack_sessions([raw_list[i] for i in idxs], bucket)
-        fn = batched_session_pipeline(None, bucket, outputs="summary", device=dev,
-                                      **pipeline_kwargs)
-        results.append((idxs, fn(batch, lengths, lut)))
-    return results
+    out = []
+    for idxs, fn, shards in _bucket_groups(mesh, raw_list, quantum, device, pipeline_kwargs):
+        if len(shards) == 1:
+            out.append((idxs, shards[0]))
+            continue
+        first = fn.rows[0][0]
+        out.append((idxs, SessionSummaryOut(*(torch.cat([x.to(first) for x in fs])
+                                              for fs in zip(*shards)))))
+    return out
 
 
 def run_dataset(mesh, raw_list: Sequence[np.ndarray], *, device=None, **pipeline_kwargs):
     """Every session through the per-bucket batches, ONE device-to-host copy
-    per bucket, and per-session ``SessionSummaryOut`` of numpy arrays in
-    input order.  Warns (JAX's message) when a session overflowed the
-    corrector's bounds.  ``mesh`` must be None; ``device`` None means CUDA.
+    per bucket and data shard, and per-session ``SessionSummaryOut`` of
+    numpy arrays in input order.  Warns (JAX's message) when a session
+    overflowed the corrector's bounds.  ``device`` None means CUDA; with
+    ``mesh`` the shards run on its rows (module docstring).
     """
-    grouped = run_dataset_batched_grouped(mesh, raw_list, device=device, **pipeline_kwargs)
+    grouped = _bucket_groups(mesh, raw_list, pipeline_kwargs.pop("quantum", 1 << 18), device,
+                             pipeline_kwargs)
     results: list = [None] * len(raw_list)
-    for idxs, out in grouped:
-        host = _to_host(out)
+    for idxs, _, shards in grouped:
+        host = [_to_host(out) for out in shards]
+        fields = SessionSummaryOut(*(np.concatenate(fs) for fs in zip(*host)))
         for row, orig in enumerate(idxs):
-            results[orig] = SessionSummaryOut(*(x[row] for x in host))
+            results[orig] = SessionSummaryOut(*(x[row] for x in fields))
     bad = [i for i, r in enumerate(results) if bool(r.correct_overflow)]
     if bad:
         warnings.warn(

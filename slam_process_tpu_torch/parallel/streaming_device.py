@@ -1,12 +1,13 @@
 """Device streaming session: an unbounded byte stream, window by window,
-with all state on one device.
+with all state on the device.
 
 The port of ``slam_process_tpu/parallel/streaming_device.py``: the single
 stream (``DeviceStreamingSession``, ``replay_log_device``), S streams in
-one session (``MultiStreamingSession``) and the checkpoint helpers.  Both
-sessions run one window round (``_WindowRound``) on a state with a leading
-stream axis, the single stream at S = 1.  A round runs, on the session's
-device, each stage once for all S streams: decode (kernel K1), the
+one session (``MultiStreamingSession``, on one device or over a mesh's data
+shards) and the checkpoint helpers.  Both sessions run one window round
+(``_WindowRound``) on a state with a leading stream axis, the single
+stream at S = 1.  A round runs, on the state's device, each stage once for
+all S streams: decode (kernel K1), the
 corrector on the closed groups' rows (K2), the intensity sums, the open
 groups' carry compaction (K5), one compaction of the kept rows (K5) into
 the emit rings and, with ``collect_paths``, into fresh buffers for the
@@ -75,7 +76,8 @@ from slam_process_tpu_torch.ops.decode import decode_rows_streams
 from slam_process_tpu_torch.ops.scene import (
     grid_from_sums_np, grid_to_device, intensity_cell_sums, intensity_per_sweep_sums)
 from slam_process_tpu_torch.ops.tracker import track_block_streams
-from slam_process_tpu_torch.pipeline.device import require_no_mesh, resolve_device
+from slam_process_tpu_torch.parallel.mesh import placement, shard_rows
+from slam_process_tpu_torch.pipeline.device import resolve_device
 from slam_process_tpu_torch.render.heatmap import RenderedHeatmap, render_intensity
 from slam_process_tpu_torch.utils.timestamps import unwrap_clk_anchors
 
@@ -267,10 +269,12 @@ def _map_state(st: DeviceStreamState, fn) -> DeviceStreamState:
 
 
 def _paths_substep(p: PathsState, kr: torch.Tensor, n_keep: torch.Tensor,
-                   spec: StreamPathsSpec, dict_args, beam_ids, close_all: bool) -> None:
+                   spec: StreamPathsSpec, dict_args, beam_ids, close_all: bool):
     """Advance S streams' online-estimation state by one window round's
     kept rows: ``kr`` [S, T, 4], compacted in stream order (K5), the first
-    ``n_keep[s]`` of stream s.
+    ``n_keep[s]`` of stream s.  A generator: it yields once, just before
+    the host read of the closed-sweep counts, so that a mesh issues every
+    shard's work up to that read before it reads any (``_drain``).
 
     They are exactly the offline filtered table's rows, so segmenting them
     by UE decrease, seeded with ``last_kept_ue``, reproduces
@@ -317,6 +321,7 @@ def _paths_substep(p: PathsState, kr: torch.Tensor, n_keep: torch.Tensor,
         in_lane = counts.view(s_n, s1, nb, nb).sum(dim=(2, 3))
         has_open = torch.gather(in_lane, 1, m.clamp(max=s1 - 1).long()[:, None])[:, 0] > 0
         m_eff_t = m + has_open.to(torch.int32)
+    yield
     HOST_SYNCS += 1
     live = np.minimum(m_eff_t.cpu().numpy(), s1).astype(np.int64)   # the estimator's batch
     lane_s = np.repeat(np.arange(s_n), live)
@@ -465,6 +470,12 @@ class _WindowRound:
                lens: Optional[torch.Tensor]) -> None:
         """One window round for the S streams of ``st``, in place: the JAX
         package's ``_step_body`` with a leading S axis."""
+        _drain([self._round_steps(st, pieces, lens)])
+
+    def _round_steps(self, st: DeviceStreamState, pieces: torch.Tensor,
+                     lens: Optional[torch.Tensor]):
+        """``_round`` as a generator that stops once before the host read
+        of the closed-sweep counts (``_paths_substep``)."""
         w = self._close_streams(st, pieces, lens)
         d_sums, d_counts = intensity_cell_sums(w.combined[..., 1], w.corrected,
                                                w.combined[..., 3], w.keep, w.combined[..., 0],
@@ -473,37 +484,45 @@ class _WindowRound:
         st.counts += d_counts
         (new_carry,), n_carry = compact_rows_streams(                                      # K5
             w.combined, w.open_mask, [(self._gcap, None, None)])
-        self._emit_and_paths(st, _kept_rows(w.combined, w.corrected), w.keep, close_all=False)
+        paths = self._emit_and_paths(st, _kept_rows(w.combined, w.corrected), w.keep,
+                                     close_all=False)
         st.carry_frames = new_carry
         st.carry_count = n_carry.clamp(max=self._gcap)
         st.n_frames += w.n_new
         st.n_kept += w.keep.sum(dim=1, dtype=torch.int32)
         st.n_groups += w.boundary.sum(dim=1, dtype=torch.int32)
         st.overflow |= w.c_overflow | (n_carry > self._gcap)
+        yield from paths
 
     def _emit_and_paths(self, st: DeviceStreamState, kept: torch.Tensor, keep: torch.Tensor,
-                        close_all: bool) -> None:
+                        close_all: bool):
         """One compaction of the kept rows (K5) for both their consumers:
         each stream's emit ring at its count (offsets read on the device;
         rows past the capacity are dropped and flagged) and the online
-        paths' fresh buffers."""
+        paths' fresh buffers.  Returns the paths step (``_paths_substep``'s
+        generator; empty without ``collect_paths``) for the caller to run."""
         dests = []
         if self._ecap:
             dests.append((self._ecap, st.emit_buf, st.emit_count))
         if st.paths is not None:
             dests.append((kept.shape[1], None, None))
         if not dests:
-            return
+            return iter(())
         outs, n = compact_rows_streams(kept, keep, dests)                                 # K5
         if self._ecap:
             st.emit_overflow |= st.emit_count + n > self._ecap
             st.emit_count = (st.emit_count + n).clamp(max=self._ecap)
-        if st.paths is not None:
-            _paths_substep(st.paths, outs[-1], n, self._paths_spec, self._dict_args,
-                           self._beam_ids, close_all)
+        if st.paths is None:
+            return iter(())
+        return _paths_substep(st.paths, outs[-1], n, self._paths_spec, self._dict_args,
+                              self._beam_ids, close_all)
 
     def _flush(self, st: DeviceStreamState) -> None:
         """Close the open group of every stream of ``st``, in place."""
+        _drain([self._flush_steps(st)])
+
+    def _flush_steps(self, st: DeviceStreamState):
+        """``_flush`` as a generator, as ``_round_steps`` is."""
         cfg = self.config
         valid = _steps(self._gcap, 1, self.device)[None] < st.carry_count[:, None]
         corrected, keep, c_overflow = correct_rows(st.carry_frames, valid, self._mg,
@@ -513,12 +532,24 @@ class _WindowRound:
                                                cf[..., 0], cfg.scene)
         st.sums += d_sums
         st.counts += d_counts
-        self._emit_and_paths(st, _kept_rows(cf, corrected), keep, close_all=True)
+        paths = self._emit_and_paths(st, _kept_rows(cf, corrected), keep, close_all=True)
         st.n_kept += keep.sum(dim=1, dtype=torch.int32)
         st.n_groups += (st.carry_count > 0).to(torch.int32)
         st.overflow |= c_overflow
         st.carry_frames.zero_()
         st.carry_count.zero_()
+        yield from paths
+
+
+def _drain(steps: list) -> None:
+    """Run window steps (``_round_steps`` / ``_flush_steps``, one per mesh
+    shard) to their ends: each up to its host read first, so every shard's
+    work is queued on its device before the host waits on any."""
+    for g in steps:
+        next(g, None)
+    for g in steps:
+        for _ in g:
+            pass
 
 
 def _lift(x: torch.Tensor) -> torch.Tensor:
@@ -855,60 +886,102 @@ def _ckpt_read(path):
     return meta, leaves
 
 
-def _ckpt_fill_state(zero_state: DeviceStreamState, leaves) -> None:
-    """Copy the checkpointed leaves into ``zero_state``'s tensors after
-    checking each one's shape and dtype."""
-    zero_leaves = _leaves(zero_state)
+def _ckpt_check(zero_leaves, leaves, shape_of) -> None:
+    """Check the checkpointed leaves against a zero state's: their count,
+    and each one's dtype and shape (``shape_of(zero_leaf)``)."""
     if len(zero_leaves) != len(leaves):
         raise ValueError(f"checkpoint has {len(leaves)} state leaves, the restored "
                          f"configuration builds {len(zero_leaves)}")
     for i, (z, arr) in enumerate(zip(zero_leaves, leaves)):
-        if tuple(z.shape) != tuple(arr.shape) or _NP_DTYPE[z.dtype] != arr.dtype:
+        want = shape_of(z)
+        if want != tuple(arr.shape) or _NP_DTYPE[z.dtype] != arr.dtype:
             raise ValueError(f"checkpoint leaf {i} is {arr.dtype}{list(arr.shape)} but the "
-                             f"restored configuration expects {z.dtype}{list(z.shape)}")
+                             f"restored configuration expects {z.dtype}{list(want)}")
+
+
+def _ckpt_fill_state(zero_state: DeviceStreamState, leaves) -> None:
+    """Copy the checkpointed leaves into ``zero_state``'s tensors after
+    checking each one's shape and dtype."""
+    zero_leaves = _leaves(zero_state)
+    _ckpt_check(zero_leaves, leaves, lambda z: tuple(z.shape))
     for z, arr in zip(zero_leaves, leaves):
         z.copy_(torch.from_numpy(np.array(arr)))
 
 
-class MultiStreamingSession(_WindowRound):
-    """S live streams on one device, advanced together one window round at
-    a time.
+def _has_window(bufs, offs) -> bool:
+    """Whether any stream's buffer holds a window past its offset."""
+    return any(len(b) - o > CARRY_BYTES for b, o in zip(bufs, offs))
 
-    The port of the JAX package's ``MultiStreamingSession`` on one device:
-    the state is ``DeviceStreamState`` with a leading S axis, and a round
-    runs each stage once for all S streams: K1 over the [S, chunk_bytes]
-    windows with per-stream lengths, the corrector with one K2 launch (group
-    ids offset per stream), the S intensity grids in one ``index_add_``, K5
-    with the stream axis for the carries and again for the kept rows (the
-    per-stream emit rings and, with ``collect_paths``, the paths' buffers),
-    then K4 over the S s1 sweep lanes, the estimator once on every stream's
-    closed sweeps and K6 with the stream axis.  Per-stream results equal S
+
+def _next_windows(bufs, offs, n_rows: int, c: int):
+    """The next lockstep round: (pieces [n_rows, c] u8, lens [n_rows]) with
+    each stream's next 10-byte-overlap window (an empty piece where it has
+    none left), advancing ``offs`` in place."""
+    pieces = np.zeros((n_rows, c), np.uint8)
+    lens = np.zeros(n_rows, np.int64)
+    for i, (b, off) in enumerate(zip(bufs, offs)):
+        if len(b) - off > CARRY_BYTES:
+            piece = b[off:off + c]
+            pieces[i, :len(piece)] = piece
+            lens[i] = len(piece)
+            offs[i] = min(off + c, len(b)) - CARRY_BYTES
+    return pieces, lens
+
+
+class MultiStreamingSession(_WindowRound):
+    """S live streams on one device or over a mesh, advanced together one
+    window round at a time.
+
+    The port of the JAX package's ``MultiStreamingSession``: the state is
+    ``DeviceStreamState`` with a leading S axis, and a round runs each
+    stage once for all S streams: K1 over the [S, chunk_bytes] windows with
+    per-stream lengths, the corrector with one K2 launch (group ids offset
+    per stream), the S intensity grids in one ``index_add_``, K5 with the
+    stream axis for the carries and again for the kept rows (the per-stream
+    emit rings and, with ``collect_paths``, the paths' buffers), then K4
+    over the S s1 sweep lanes, the estimator once on every stream's closed
+    sweeps and K6 with the stream axis.  Per-stream results equal S
     independent ``DeviceStreamingSession`` replays of the same bytes
     exactly.  With ``collect_paths`` a round reads the S closed-sweep counts
     once (``HOST_SYNCS``) and the NNLS solver keeps its lockstep syncs
     (``ops/nnls.HOST_SYNCS``); without it a round never waits.
+
+    With ``mesh`` (``parallel/mesh.py``) the S streams pad with inert
+    streams (never fed, never flushed, never read) to a multiple of the
+    ``data`` axis, and each data shard's state lives on its row's first
+    device: a round issues every shard's stages, K1 to K4, before it reads
+    any shard's counts (once per shard), then each shard's estimator and
+    K6.  The estimator runs with the whole dictionary on the row's first
+    device (the JAX package's stream step does not shard it over
+    ``model``).  Results equal ``mesh=None`` exactly.
 
     ``feed`` takes one chunk per stream (b"" for a stream with nothing new);
     every stream's buffer drains in lockstep rounds of 10-byte-overlap
     windows, and a stream with no window left in a round gets an empty
     piece, a no-op for its state.  The emit ring is fixed at
     ``emit_capacity`` rows per stream (0: none), with an overflow flag per
-    stream and no growth.  ``mesh`` must be None (``device``: None means
-    CUDA).
+    stream and no growth.  ``device`` (without a mesh): None means CUDA.
     """
 
     def __init__(self, n_streams: int, config: Optional[PipelineConfig] = None,
                  chunk_bytes: int = 1 << 20, group_capacity: int = 8192, max_groups: int = 128,
                  max_baselines_per_group: int = 192, n_beams: int = 64, mesh=None,
                  collect_paths=None, emit_capacity: int = 0, *, device=None):
-        require_no_mesh(mesh)
         self.n_streams = int(n_streams)
         if self.n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
+        rows = placement(mesh, device)
+        self.mesh = mesh
         self._setup(config, chunk_bytes, group_capacity, max_groups, max_baselines_per_group,
-                    n_beams, collect_paths, device)
+                    n_beams, collect_paths, rows[0][0])
+        self._collect_paths = collect_paths
         self._ecap = int(emit_capacity)
-        self._state = self._zero_state(self.n_streams)
+        self._n_pad, self._per = shard_rows(self.n_streams, len(rows))
+        if mesh is None:
+            self._state = self._zero_state(self.n_streams, self.device)
+            self._shards = [self]
+        else:
+            self._shards = [self._new_shard(devs[0]) for devs in rows]
         self._byte_carry = [np.zeros(0, np.uint8) for _ in range(self.n_streams)]
         self._finalized = False
         self._stream_finalized = np.zeros(self.n_streams, bool)
@@ -916,10 +989,34 @@ class MultiStreamingSession(_WindowRound):
         self._emit_host = None    # host memo of the emit rings
         self.checkpoint_extra = None
 
-    def _zero_state(self, n: int) -> DeviceStreamState:
+    def _zero_state(self, n: int, device) -> DeviceStreamState:
         return _zero_stream_state((n,), self._gcap, self._n_beams, self._ecap,
-                                  self.config.scene.log_transform, self._paths_spec,
-                                  self.device)
+                                  self.config.scene.log_transform, self._paths_spec, device)
+
+    def _new_shard(self, device) -> _WindowRound:
+        """One data shard: the session's bounds and dictionary on ``device``
+        with the zero state of ``_per`` streams."""
+        sh = _WindowRound()
+        sh._setup(self.config, self.chunk_bytes, self._gcap, self._mg, self._mbpg,
+                  self._n_beams, self._collect_paths, device)
+        sh._ecap = self._ecap
+        sh._state = self._zero_state(self._per, sh.device)
+        return sh
+
+    def _parts(self) -> list:
+        """(shard, its first stream, its count of real streams) per shard."""
+        return [(sh, k * self._per, max(0, min(self._per, self.n_streams - k * self._per)))
+                for k, sh in enumerate(self._shards)]
+
+    def _locate(self, i: int):
+        """(shard state, row) of stream ``i``."""
+        return self._shards[i // self._per]._state, i % self._per
+
+    def _host_rows(self, get) -> list:
+        """``get(state)``'s tensors of every shard, read back and joined
+        along the stream axis, the padding streams dropped."""
+        per_shard = [[x.cpu().numpy() for x in get(sh._state)] for sh in self._shards]
+        return [np.concatenate(xs)[:self.n_streams] for xs in zip(*per_shard)]
 
     def _forget_host(self) -> None:
         self._paths_host = None
@@ -948,33 +1045,38 @@ class MultiStreamingSession(_WindowRound):
                     "so feeding more bytes would mis-segment sweeps (pass b'' for ended "
                     "streams)")
             bufs.append(np.concatenate([self._byte_carry[i], chunk]))
-        c = self.chunk_bytes
-        while any(len(b) - o > CARRY_BYTES for b, o in zip(bufs, offs)):
-            pieces = np.zeros((self.n_streams, c), np.uint8)
-            lens = np.zeros(self.n_streams, np.int64)
-            for i, (b, off) in enumerate(zip(bufs, offs)):
-                if len(b) - off > CARRY_BYTES:
-                    piece = b[off:off + c]
-                    pieces[i, :len(piece)] = piece
-                    lens[i] = len(piece)
-                    offs[i] = min(off + c, len(b)) - CARRY_BYTES
-            self._round(self._state, _host_to(self.device, pieces),
-                        _host_to(self.device, lens))
+        while _has_window(bufs, offs):
+            self._window(*_next_windows(bufs, offs, self._n_pad, self.chunk_bytes))
         self._byte_carry = [b[o:].copy() for b, o in zip(bufs, offs)]
 
+    def _window(self, pieces: np.ndarray, lens: np.ndarray) -> None:
+        """One window round of every shard: pieces [S_pad, chunk_bytes]."""
+        self._forget_host()
+        _drain([sh._round_steps(sh._state, _host_to(sh.device, pieces[lo:lo + self._per]),
+                                _host_to(sh.device, lens[lo:lo + self._per]))
+                for sh, lo, _ in self._parts()])
+
     def _masked_flush(self, mask: np.ndarray) -> None:
-        """Flush the streams of ``mask`` and leave the others as they are:
+        """Flush the streams of ``mask`` and leave the others as they are: a
+        shard flushes whole when every one of its streams is selected, else
         the selected streams' state is gathered, flushed and written back."""
-        idx = np.nonzero(mask)[0]
-        if len(idx) == self.n_streams:
-            self._flush(self._state)
-        else:
-            idx_t = _host_to(self.device, idx.astype(np.int64))
-            sub = _map_state(self._state, lambda x: x.index_select(0, idx_t))
-            self._flush(sub)
-            for whole, part in zip(_leaves(self._state), _leaves(sub)):
+        steps, writes = [], []
+        for sh, lo, _ in self._parts():
+            idx = np.nonzero(mask[lo:lo + self._per])[0]
+            if not len(idx):
+                continue
+            if len(idx) == self._per:
+                steps.append(sh._flush_steps(sh._state))
+                continue
+            idx_t = _host_to(sh.device, idx.astype(np.int64))
+            sub = _map_state(sh._state, lambda x: x.index_select(0, idx_t))
+            steps.append(sh._flush_steps(sub))
+            writes.append((sh._state, idx_t, sub))
+        _drain(steps)
+        for whole_st, idx_t, sub in writes:
+            for whole, part in zip(_leaves(whole_st), _leaves(sub)):
                 whole.index_copy_(0, idx_t, part)
-        for i in idx:
+        for i in np.nonzero(mask)[0]:
             self._byte_carry[i] = np.zeros(0, np.uint8)
         self._forget_host()
 
@@ -1024,9 +1126,14 @@ class MultiStreamingSession(_WindowRound):
             raise RuntimeError(
                 f"streams {live.tolist()} are still live; finalize_streams them (and read "
                 "their results) before resetting")
-        idx_t = _host_to(self.device, idx.astype(np.int64))
-        for whole, zero in zip(_leaves(self._state), _leaves(self._zero_state(len(idx)))):
-            whole.index_copy_(0, idx_t, zero)
+        for sh, lo, _ in self._parts():
+            local = idx[(idx >= lo) & (idx < lo + self._per)] - lo
+            if not len(local):
+                continue
+            idx_t = _host_to(sh.device, local.astype(np.int64))
+            for whole, zero in zip(_leaves(sh._state),
+                                   _leaves(self._zero_state(len(local), sh.device))):
+                whole.index_copy_(0, idx_t, zero)
         for i in idx:
             self._byte_carry[i] = np.zeros(0, np.uint8)
         self._stream_finalized[idx] = False
@@ -1043,17 +1150,20 @@ class MultiStreamingSession(_WindowRound):
             _LOGGER.warning(msg)
 
     def _paths_read_all(self):
-        """One copy of the whole [S, ...] online-paths state, kept on the
-        host until the next feed, finalize or reset."""
+        """One copy per shard of the whole [S, ...] online-paths state, kept
+        on the host until the next feed, finalize or reset."""
         if self._paths_spec is None:
             raise ValueError("built without collect_paths")
         if self._paths_host is not None:
             return self._paths_host
-        p = self._state.paths
-        host = [x.cpu().numpy() for x in (
-            p.n_closed, p.overflow, *p.est_rings, p.valid_ring, p.time_ring, p.trk_aoa,
-            p.trk_aod, p.trk_pow, p.trk_obs, p.trk_created, p.trk_count, self._state.overflow)]
-        n_est = len(p.est_rings)
+
+        def leaves(st):
+            p = st.paths
+            return (p.n_closed, p.overflow, *p.est_rings, p.valid_ring, p.time_ring, p.trk_aoa,
+                    p.trk_aod, p.trk_pow, p.trk_obs, p.trk_created, p.trk_count, st.overflow)
+
+        host = self._host_rows(leaves)
+        n_est = len(self._shards[0]._state.paths.est_rings)
         if host[1].any():
             bad = np.nonzero(host[1])[0].tolist()
             raise RuntimeError(
@@ -1063,7 +1173,7 @@ class MultiStreamingSession(_WindowRound):
                 "s_step/capacity")
         self._warn_overflow(host[-1], "; online paths/tracks for those streams are computed "
                                       "from incomplete corrections")
-        est = type(p.est_rings)(*host[2:2 + n_est])
+        est = type(self._shards[0]._state.paths.est_rings)(*host[2:2 + n_est])
         self._paths_host = (host[0], est, *host[2 + n_est:-1])
         return self._paths_host
 
@@ -1073,9 +1183,8 @@ class MultiStreamingSession(_WindowRound):
         if not self._ecap:
             raise ValueError("built with emit_capacity=0")
         if self._emit_host is None:
-            st = self._state
-            self._emit_host = tuple(x.cpu().numpy() for x in (st.emit_buf, st.emit_count,
-                                                              st.emit_overflow))
+            self._emit_host = self._host_rows(
+                lambda st: (st.emit_buf, st.emit_count, st.emit_overflow))
         buf, count, ovf = self._emit_host
         if bool(ovf[i]):
             raise RuntimeError(
@@ -1092,10 +1201,11 @@ class MultiStreamingSession(_WindowRound):
         return type(est)(*(x[i][:n] for x in est)), valid[i][:n]
 
     def n_sweeps_closed_all(self) -> np.ndarray:
-        """Closed-sweep counts per stream ([S] int64): one small read."""
+        """Closed-sweep counts per stream ([S] int64): one small read per
+        shard."""
         if self._paths_spec is None:
             raise ValueError("built without collect_paths")
-        return self._state.paths.n_closed.cpu().numpy().astype(np.int64)
+        return self._host_rows(lambda st: (st.paths.n_closed,))[0].astype(np.int64)
 
     def stream_track_columns(self, i: int, lo: int, hi: int):
         """Stream ``i``'s track-ring columns of closed sweeps ``[lo, hi)``:
@@ -1103,16 +1213,17 @@ class MultiStreamingSession(_WindowRound):
         those rows of that stream."""
         if self._paths_spec is None:
             raise ValueError("built without collect_paths")
-        p = self._state.paths
-        if bool(p.overflow[i]):
+        st, r = self._locate(i)
+        p = st.paths
+        if bool(p.overflow[r]):
             raise RuntimeError(
                 f"online estimation overflow on stream {i}: more than "
                 f"{self._paths_spec.s_step} sweeps closed in one step or more than "
                 f"{self._paths_spec.capacity} sweeps total; rebuild with larger "
                 "s_step/capacity")
-        return (p.trk_aoa[i, lo:hi].cpu().numpy(), p.trk_aod[i, lo:hi].cpu().numpy(),
-                p.trk_pow[i, lo:hi].cpu().numpy(), p.trk_obs[i, lo:hi].cpu().numpy(),
-                p.time_ring[i, lo:hi].cpu().numpy().astype(np.int64))
+        return (p.trk_aoa[r, lo:hi].cpu().numpy(), p.trk_aod[r, lo:hi].cpu().numpy(),
+                p.trk_pow[r, lo:hi].cpu().numpy(), p.trk_obs[r, lo:hi].cpu().numpy(),
+                p.time_ring[r, lo:hi].cpu().numpy().astype(np.int64))
 
     def stream_tracks(self, i: int):
         """Stream ``i``'s online tracks: (tracks, times, velocities), the
@@ -1126,20 +1237,21 @@ class MultiStreamingSession(_WindowRound):
         return tracks, t, track_velocities(tracks, t)
 
     def results(self):
-        """One copy: per-stream (n_frames, n_kept, n_groups, sums, counts,
-        overflow) numpy arrays with a leading S axis (sums int64, float64
-        for the pre-log scene).  Warns when a stream exceeded a bound."""
-        s = self._state
-        out = tuple(x.cpu().numpy() for x in (s.n_frames, s.n_kept, s.n_groups, s.sums,
-                                              s.counts, s.overflow))
+        """One copy per shard: per-stream (n_frames, n_kept, n_groups, sums,
+        counts, overflow) numpy arrays with a leading S axis (sums int64,
+        float64 for the pre-log scene).  Warns when a stream exceeded a
+        bound."""
+        out = tuple(self._host_rows(lambda s: (s.n_frames, s.n_kept, s.n_groups, s.sums,
+                                               s.counts, s.overflow)))
         self._warn_overflow(out[5], " (group_capacity/max_groups/max_baselines_per_group): "
                                     "those streams' results are incomplete; rebuild with "
                                     "larger bounds")
         return out
 
     def block_until_ready(self) -> "MultiStreamingSession":
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in {sh.device for sh in self._shards}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return self
 
     # -- checkpoint / resume -------------------------------------------------
@@ -1147,7 +1259,8 @@ class MultiStreamingSession(_WindowRound):
     def save_checkpoint(self, path, extra: Optional[dict] = None) -> None:
         """Write all S streams' state to ``path`` (one npz file, the single
         stream's layout, ``kind="multi_stream"``); ``restore`` continues
-        every stream exactly."""
+        every stream exactly.  The mesh is not saved (the restoring process
+        names its own): the leaves hold the S real streams, as without one."""
         meta = {
             "extra": extra, "version": CKPT_VERSION, "kind": "multi_stream",
             "config": self.config, "n_streams": self.n_streams,
@@ -1159,13 +1272,14 @@ class MultiStreamingSession(_WindowRound):
             "dict_args": tuple(a.cpu().numpy() for a in self._dict_args),
             "byte_carry": [np.asarray(b, np.uint8) for b in self._byte_carry],
         }
-        _ckpt_write(path, [x.cpu().numpy() for x in _leaves(self._state)], meta)
+        _ckpt_write(path, self._host_rows(_leaves), meta)
 
     @classmethod
     def restore(cls, path, mesh=None, device=None) -> "MultiStreamingSession":
-        """Rebuild from ``save_checkpoint`` on ``device`` (None: CUDA);
-        per-stream results after the rest of the feed equal an uninterrupted
-        run exactly.  Unpickles the meta: open only checkpoints you wrote."""
+        """Rebuild from ``save_checkpoint`` on ``device`` (None: CUDA) or
+        over ``mesh``; per-stream results after the rest of the feed equal an
+        uninterrupted run exactly.  Unpickles the meta: open only
+        checkpoints you wrote."""
         meta, leaves = _ckpt_read(path)
         if meta.get("kind") != "multi_stream":
             raise ValueError(f"not a MultiStreamingSession checkpoint: kind="
@@ -1180,7 +1294,11 @@ class MultiStreamingSession(_WindowRound):
         sess._finalized = bool(meta["finalized"])
         sess._stream_finalized = np.asarray(meta["stream_finalized"], bool).copy()
         sess._byte_carry = [np.asarray(b, np.uint8) for b in meta["byte_carry"]]
-        _ckpt_fill_state(sess._state, leaves)
+        zero_leaves = _leaves(sess._shards[0]._state)
+        _ckpt_check(zero_leaves, leaves, lambda z: (sess.n_streams,) + tuple(z.shape[1:]))
+        for sh, lo, m in sess._parts():
+            for z, arr in zip(_leaves(sh._state), leaves):
+                z[:m].copy_(torch.from_numpy(np.array(arr[lo:lo + m])))
         sess.checkpoint_extra = meta.get("extra")
         return sess
 

@@ -19,6 +19,8 @@
                                                  [--engine device|host] [--paths [--changes]]
                                                  [--events E.jsonl] [--checkpoint C.npz
                                                  [--checkpoint-every S]] [--idle-timeout S]
+                                                 [--coordinator HOST:PORT --num-processes N
+                                                 --process-id K [--local-devices L]]
     python -m slam_process_tpu_torch.pipeline.cli run-config NAME --data-dir DIR --mapping ...
                                                  [--outdir DIR]
 
@@ -31,8 +33,9 @@ option the JAX CLI lacks.  ``estimate``, ``replay`` and ``watch`` take
 session on the CPU); ``--engine host`` streams on the CPU and never touches
 the card.  ``replay --decoder`` is accepted, and either value runs K1.
 ``watch --logs`` with one file is ``--log``; several files run one
-multi-stream session (``MultiWatch``); the multi-host flags exit (not
-ported yet).  ``run-config`` needs its
+multi-stream session (``MultiWatch``); with ``--coordinator`` each
+process of a watch cluster tails its own ``--logs`` (``MultihostWatch``,
+ended by SIGINT or each capture's idle timeout).  ``run-config`` needs its
 ``--data-dir`` and ``--mapping``.  The v1 / v2 wire formats decode with
 numpy in both packages.  The PNGs (heatmap, estimation, tracks, a stream's
 heatmap) need matplotlib; a colormap other than viridis needs it too.
@@ -602,7 +605,7 @@ def _make_multi_event_emitter(args, session, names, seeded: bool = False):
     from slam_process_tpu_torch.utils.timestamps import ClkUnwrapper
 
     spec = session._paths_spec
-    s_n = session.n_streams
+    s_n = len(names)
     dets = [IncrementalChangeDetector(spec.max_tracks, min_persist=args.min_persist,
                                       min_gone=args.min_gone, jump_deg=args.jump_deg)
             for _ in range(s_n)]
@@ -635,11 +638,13 @@ def _make_multi_event_emitter(args, session, names, seeded: bool = False):
     return poll
 
 
-def _dedup_export_names(paths) -> list:
+def _dedup_export_names(paths, prefix: str = "") -> list:
     """Export names from the captures' timestamps or stems, made unique (two
     captures named live.txt in different directories must not overwrite
-    each other's outputs): the naming of a multi-log watch."""
-    names = [extract_timestamp(str(p)) or Path(p).stem for p in paths]
+    each other's outputs): the naming of a multi-log watch.  ``prefix``
+    (``p<id>_`` in a multi-host watch) keeps the processes' exports apart
+    in a shared --outdir."""
+    names = [prefix + (extract_timestamp(str(p)) or Path(p).stem) for p in paths]
     seen: dict = {}
     for i, nm in enumerate(names):
         if nm in seen:
@@ -693,10 +698,6 @@ def _export_tracks(tracks, times, vel, name: str, args) -> None:
         print(f"changes={len(events)} 输出={out}")
 
 
-MULTI_STREAM_LATER = ("is not ported yet: the multi-host watch (processes across devices) is "
-                      "ROADMAP.md queue 1 item 9")
-
-
 def _add_watch(sub):
     p = sub.add_parser(
         "watch", help="live-tail a growing serial log: new bytes are tokenized and fed to "
@@ -705,7 +706,8 @@ def _add_watch(sub):
     p.add_argument("--logs", type=Path, nargs="+", default=None,
                    help="several growing capture files, tailed as one multi-stream session "
                         "on --device (each file is finalized alone on its own idle timeout; "
-                        "--engine device only); one file is --log")
+                        "--engine device only); one file is --log; with --coordinator this "
+                        "process's captures")
     p.add_argument("--mapping", type=Path, required=True)
     p.add_argument("--outdir", type=Path, required=True)
     p.add_argument("--engine", choices=["host", "device"], default="device",
@@ -732,29 +734,46 @@ def _add_watch(sub):
     p.add_argument("--events", type=Path, default=None,
                    help="with --paths: append scene-change events (birth / death / jump / "
                         "LoS handover) to this JSONL file as the capture's sweeps close")
-    mh = p.add_argument_group("multi-host", "parsed, not ported yet")
-    mh.add_argument("--coordinator", type=str, default=None)
+    mh = p.add_argument_group(
+        "multi-host", "one process of a watch cluster: every process tails its own --logs and "
+        "all captures advance in lockstep rounds (gloo process group); SIGINT to every "
+        "process drains and finalizes its captures")
+    mh.add_argument("--coordinator", type=str, default=None,
+                    help="host:port of process 0's rendezvous")
     mh.add_argument("--num-processes", type=int, default=None)
     mh.add_argument("--process-id", type=int, default=None)
-    mh.add_argument("--local-devices", type=int, default=None)
+    mh.add_argument("--local-devices", type=int, default=None,
+                    help="mesh positions of this process (default 1)")
     _add_change_args(p, gate="--paths")
     _add_device(p)
     p.set_defaults(fn=_run_watch)
 
 
 def check_watch_flags(args) -> bool:
-    """The JAX CLI's flag checks, in its order; a multi-host watch exits
-    naming the ROADMAP item.  True for a multi-stream watch (several
-    --logs), False for one capture (``args.log`` set)."""
+    """The JAX CLI's flag checks, in its order.  True for a multi-stream
+    watch (several --logs, or a multi-host watch: --coordinator), False for
+    one capture (``args.log`` set)."""
     if (args.log is None) == (args.logs is None):
         raise SystemExit("watch needs exactly one of --log / --logs")
     if args.checkpoint_every and not args.checkpoint:
         raise SystemExit("--checkpoint-every requires --checkpoint (no state file to write to)")
     if args.emit_capacity is not None and args.emit_capacity <= 0:
         raise SystemExit("--emit-capacity must be a positive row count")
-    if args.coordinator is not None or args.local_devices is not None:
-        raise SystemExit(f"multi-host watch (--coordinator / --local-devices) "
-                         f"{MULTI_STREAM_LATER}")
+    if args.coordinator is not None:
+        if args.logs is None:
+            raise SystemExit("--coordinator requires --logs (each process tails its own "
+                             "capture set)")
+        if args.num_processes is None or args.process_id is None:
+            raise SystemExit("--coordinator requires --num-processes and --process-id")
+        if args.engine != "device":
+            raise SystemExit("multi-host watch requires --engine device")
+        if args.checkpoint:
+            raise SystemExit("--checkpoint is not supported in multi-host watch mode (run "
+                             "per-host watches without --coordinator for it)")
+        if args.events is not None and not args.paths:
+            raise SystemExit("--events requires --paths (the events derive from the online "
+                             "tracks)")
+        return True
     if args.num_processes is not None or args.process_id is not None:
         raise SystemExit("--num-processes/--process-id require --coordinator (multi-host "
                          "watch mode)")
@@ -1125,8 +1144,166 @@ class MultiWatch:
         return stats + [totals]
 
 
+class MultihostWatch(MultiWatch):
+    """``watch --coordinator``'s state and steps in one process of a watch
+    cluster: this process's --logs as its local streams of one
+    ``parallel/multihost.MultihostMultiStream``, exports named ``p<id>_...``.
+
+    ``run``'s tick is the same collective sequence in every process: read
+    and tokenize each live capture's growth; one all-gather of (wants a
+    finalize, all done); ``feed`` (its window rounds agreed inside); one
+    collective masked flush when any process wants one; stop when every
+    process is done.  A capture ends on its idle timeout, or on SIGINT:
+    the handler only sets a flag, and the next tick reads each capture to
+    its end, feeds it and finalizes it, while the process keeps taking part
+    until every process is done.  No checkpoints (the flag checks refuse
+    them)."""
+
+    def __init__(self, args):
+        import signal
+
+        from slam_process_tpu_torch.parallel.multihost import (
+            MultihostMultiStream, global_data_mesh, initialize_multihost)
+        from slam_process_tpu_torch.parallel.streaming_device import make_paths_spec
+
+        self.args = args
+        self.interrupted = False
+        self._old_sigint = signal.signal(signal.SIGINT, self._on_sigint)
+        if args.changes and not args.paths:
+            print("warning: --changes requires --paths; no change events will be written",
+                  file=sys.stderr)
+        initialize_multihost(args.coordinator, args.num_processes, args.process_id,
+                             args.local_devices, device=args.device)
+        self.logs = list(args.logs)
+        n = len(self.logs)
+        self.names = _dedup_export_names(self.logs, prefix=f"p{args.process_id}_")
+        args.outdir.mkdir(parents=True, exist_ok=True)
+        self.pos, self.carry = [0] * n, [b""] * n
+        mesh = global_data_mesh(model=1)
+        cp = make_paths_spec(args.mapping) if args.paths else None
+        self.session = s = MultihostMultiStream(mesh, n, collect_paths=cp,
+                                                emit_capacity=args.emit_capacity or (1 << 18))
+        self.emitter = None
+        self.events_written = 0
+        if args.events is not None and args.paths:
+            args.events.parent.mkdir(parents=True, exist_ok=True)
+            self.emitter = _make_multi_event_emitter(args, s, self.names)
+        print(f"multi-host watch: process {args.process_id}/{args.num_processes}, {n} local "
+              f"stream(s), {s.n_streams_real} global ({s.n_streams} padded) over a "
+              f"{tuple(mesh.shape.values())} mesh", file=sys.stderr, flush=True)
+
+    def _on_sigint(self, signum, frame) -> None:
+        self.interrupted = True
+
+    def close(self) -> None:
+        """Leave the process group after a last barrier (so no peer is left
+        in a collective) and restore the SIGINT handler."""
+        import signal
+
+        from slam_process_tpu_torch.parallel.multihost import shutdown_multihost
+
+        try:
+            shutdown_multihost()
+        finally:
+            signal.signal(signal.SIGINT, self._old_sigint)
+
+    def run(self) -> None:
+        import time
+
+        from slam_process_tpu_torch.io.hexlog import tokenize_hex
+        from slam_process_tpu_torch.parallel.multihost import allgather_host
+
+        args, s = self.args, self.session
+        n = len(self.logs)
+        done = np.zeros(n, bool)
+        now0 = time.monotonic()
+        last_growth, last_render = [now0] * n, now0
+        while True:
+            now = time.monotonic()
+            chunks, to_finalize = [b""] * n, []
+            force = self.interrupted
+            for i in np.nonzero(~done)[0]:
+                data = self._read_growth(i)
+                if data is not None:
+                    last_growth[i] = now
+                if force or (data is None and args.idle_timeout
+                             and now - last_growth[i] > args.idle_timeout):
+                    chunks[i] = tokenize_hex(bytes(self.carry[i]) + (data or b""))
+                    self.carry[i] = b""
+                    to_finalize.append(int(i))
+                elif data is not None:
+                    prefix, self.carry[i] = _split_text_carry(self.carry[i] + data)
+                    if prefix is not None:
+                        chunks[i] = tokenize_hex(prefix)
+            all_done = int(done.sum()) + len(to_finalize) == n
+            sync = allgather_host([int(bool(to_finalize)), int(all_done)])
+            s.feed(chunks)
+            if sync[:, 0].any():
+                s.finalize_streams(to_finalize)
+                if to_finalize:
+                    done[to_finalize] = True
+                    print(f"stream(s) {to_finalize} finalized ({(~done).sum()} still live)",
+                          file=sys.stderr)
+            if self.emitter:
+                self.events_written += self.emitter()
+            if sync[:, 1].all():
+                break
+            if args.render_every and now - last_render >= args.render_every:
+                self.write_pngs()
+                last_render = now
+            time.sleep(args.poll_interval)
+        s.finalize()   # a no-op flush: every stream is closed; keeps the processes aligned
+        if self.emitter:
+            self.events_written += self.emitter()
+
+    def render(self, i: int):
+        """Local stream ``i``'s heatmap, rasterized on this process's device."""
+        from slam_process_tpu_torch.io.angles import load_angle_lut
+        from slam_process_tpu_torch.ops.scene import grid_from_sums_np
+        from slam_process_tpu_torch.parallel.streaming_device import render_grid
+
+        _, _, _, sums, counts, _ = self.session.local_results()
+        grid = grid_from_sums_np(sums[i].astype(np.float64), counts[i].astype(np.int64))
+        return render_grid(grid, load_angle_lut(self.args.mapping), self.session._ms.device)
+
+    def export(self) -> list:
+        """Write each local stream's filtered table (and with --paths its
+        tracks and changes); returns the per-stream summary lines and the
+        process's totals line."""
+        from slam_process_tpu_torch.io.schemas import write_filtered_table
+
+        s, args = self.session, self.args
+        nf, nk, ng, _, _, _ = s.local_results()
+        stats = []
+        for i, name in enumerate(self.names):
+            write_filtered_table(args.outdir / f"{name}_filtered.xlsx",
+                                 s.local_stream_filtered(i))
+            if args.paths:
+                _export_tracks(*s.local_stream_tracks(i), name, args)
+            stats.append({"session": name, "process": args.process_id,
+                          "bytes_seen": self.pos[i], "frames": int(nf[i]), "kept": int(nk[i]),
+                          "sweeps": int(ng[i]), "png": str(self.png_path(i))})
+        totals = {"process": args.process_id, "local_streams": len(stats),
+                  "global_streams": s.n_streams_real,
+                  "total_frames": sum(x["frames"] for x in stats)}
+        if self.emitter:
+            totals["events"] = self.events_written
+        return stats + [totals]
+
+
 def _run_watch(args):
-    if check_watch_flags(args):
+    multi = check_watch_flags(args)
+    if args.coordinator is not None:
+        w = MultihostWatch(args)
+        try:
+            w.run()
+            w.write_pngs()
+            for line in w.export():
+                print(json.dumps(line))
+        finally:
+            w.close()
+        return
+    if multi:
         w = MultiWatch(args)
         w.run()
         w.write_pngs()

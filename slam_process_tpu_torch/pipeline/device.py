@@ -134,14 +134,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def require_no_mesh(mesh) -> None:
-    """The port runs sessions and streams on one device: a mesh raises."""
-    if mesh is not None:
-        raise NotImplementedError("a mesh (sessions or streams sharded over devices) is not "
-                                  "ported yet: ROADMAP.md queue 1 item 9; pass mesh=None and "
-                                  "device=")
-
-
 @functools.lru_cache(maxsize=None)
 def device_lut(device: torch.device, name: str = "viridis") -> torch.Tensor:
     """The colormap ``name``'s LUT on ``device``, made and copied once per

@@ -29,8 +29,9 @@ single-session paths:
 Every method that touches a device takes ``device=None``, meaning CUDA;
 ``device="cpu"`` runs the plain PyTorch versions.  ``counters`` holds each
 stage's health counters (the JAX package's keys per engine) and
-``timings`` its host seconds.  Not ported yet: the ``mesh`` form (ROADMAP.md
-queue 1 item 9).
+``timings`` its host seconds.  ``sweep_paths`` and ``sweep_paths_dataset``
+also take a ``mesh`` (``parallel/mesh.py``): sweeps over ``data``, NN-OMP's
+AoA grid over ``model``.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ from slam_process_tpu_torch.ops.correct import (
 from slam_process_tpu_torch.ops.decode import decode_frames_np
 from slam_process_tpu_torch.ops.scene import (
     IntensityGrid, intensity_grid, intensity_grid_np, intensity_per_sweep)
+from slam_process_tpu_torch.parallel.mesh import placement, read_per_device, shard_rows
 from slam_process_tpu_torch.pipeline.device import resolve_device, run_session_on_device
 from slam_process_tpu_torch.render.heatmap import RenderedHeatmap, render_intensity, save_heatmap
 from slam_process_tpu_torch.utils.logging import StageCounters
@@ -405,30 +407,60 @@ class Session:
     def _sweep_estimate(self, angle_file, estimator, max_sweeps, dev, beam_ids=None, pad_to=None,
                         **overrides):
         """(paths of [S, K] tensors, sweep_valid [S], n_sweeps) on ``dev``."""
+        shards, n_sweeps = self._sweep_estimate_shards(
+            angle_file, estimator, max_sweeps, [(dev,)], beam_ids, pad_to, **overrides)
+        return shards[0][0], shards[0][1], n_sweeps
+
+    def _sweep_estimate_shards(self, angle_file, estimator, max_sweeps, rows, beam_ids=None,
+                               pad_to=None, **overrides):
+        """([(paths, sweep_valid) per data shard], n_sweeps): the per-sweep
+        grids and the compact tensor on the first row's device, the sweeps
+        padded with all-NaN sweeps (valid False, dropped by the callers) to
+        a multiple of the row count, and each shard's estimator on its row's
+        first device, NN-OMP's AoA grid over the row's devices
+        (``sweep_estimator_body``'s ``model_devices``)."""
         sub, d, est_key, n_sweeps = self._sweep_estimation_inputs(
-            angle_file, estimator, max_sweeps, dev, beam_ids, pad_to, **overrides)
-        out, valid = sweep_estimator_body(est_key)(sub, d.phi_rx, d.phi_tx, d.aoa_grid,
-                                                   d.aod_grid)
-        return out, valid, n_sweeps
+            angle_file, estimator, max_sweeps, rows[0][0], beam_ids, pad_to, **overrides)
+        s_pad, per = shard_rows(sub.shape[0], len(rows))
+        if s_pad > sub.shape[0]:
+            sub = torch.cat([sub, sub.new_full((s_pad - sub.shape[0],) + sub.shape[1:],
+                                               float("nan"))])
+        body = sweep_estimator_body(est_key)
+        outs = []
+        for r, devs in enumerate(rows):
+            dd = BeamDictionary(*(x.to(devs[0]) for x in d))
+            out, valid = body(sub[r * per:(r + 1) * per].to(devs[0]), dd.phi_rx, dd.phi_tx,
+                              dd.aoa_grid, dd.aod_grid, model_devices=devs)
+            outs.append((out, valid))
+        return outs, n_sweeps
 
     def sweep_paths(self, angle_file: Union[str, Path], estimator: str = "nn_omp",
-                    max_sweeps: Optional[int] = None, device=None, beam_ids=None,
+                    max_sweeps: Optional[int] = None, device=None, beam_ids=None, mesh=None,
                     **overrides):
-        """Per-sweep multipath estimation on ``device`` (None: CUDA), with
-        ``estimator`` "nn_omp" or "sm_sic".
+        """Per-sweep multipath estimation on ``device`` (None: CUDA) or over
+        ``mesh``, with ``estimator`` "nn_omp" or "sm_sic".
 
         Returns (paths, sweep_valid) as numpy: ``paths`` an OmpPaths of [S,
         K] arrays (f32 angles and power, bool valid, i32 indices; n_iters
         [S] i32) or an SmSicPaths (f32 angles and metric, bool valid and
         is_los), ``sweep_valid[s]`` False for sweeps with no observed cell
         in the compact submatrix.  ``beam_ids = (ue_ids, bs_ids)`` fixes the
-        beam set (see ``_sweep_host_prep``).
+        beam set (see ``_sweep_host_prep``).  With ``mesh`` the sweeps shard
+        over ``data`` and NN-OMP's AoA grid over ``model``
+        (``_sweep_estimate_shards``); each shard is read back once, and the
+        results equal ``mesh=None``'s.
         """
-        out, valid, n_sweeps = self._sweep_estimate(angle_file, estimator, max_sweeps,
-                                                    resolve_device(device), beam_ids,
-                                                    **overrides)
-        paths = type(out)(*(x.cpu().numpy()[:n_sweeps] for x in out))
-        return paths, valid.cpu().numpy()[:n_sweeps]
+        rows = placement(mesh, device)
+        if len(rows) == 1 and len(rows[0]) == 1:
+            out, valid, n_sweeps = self._sweep_estimate(angle_file, estimator, max_sweeps,
+                                                        rows[0][0], beam_ids, **overrides)
+            paths = type(out)(*(x.cpu().numpy()[:n_sweeps] for x in out))
+            return paths, valid.cpu().numpy()[:n_sweeps]
+        shards, n_sweeps = self._sweep_estimate_shards(angle_file, estimator, max_sweeps, rows,
+                                                       beam_ids, **overrides)
+        host = read_per_device([(*out, valid) for out, valid in shards])
+        fields = [np.concatenate(fs)[:n_sweeps] for fs in zip(*host)]
+        return type(shards[0][0])(*fields[:-1]), fields[-1]
 
     def path_tracks(self, angle_file: Union[str, Path], estimator: str = "nn_omp",
                     max_tracks: int = 8, gate_deg: float = 10.0, engine: str = "device",
@@ -523,41 +555,24 @@ class Session:
         return s
 
 
-def _read_once(results: list) -> list:
-    """Host copies of a list of tensor NamedTuples in one device-to-host
-    read: every field is widened to float64 (exact for the float32, int32
-    and bool fields) and concatenated."""
-    flat = [x for r in results for x in r]
-    packed = torch.cat([x.reshape(-1).to(torch.float64) for x in flat]).cpu().numpy()
-    out, off = [], 0
-    for r in results:
-        fields = []
-        for x in r:
-            n = x.numel()
-            dtype = np.dtype(str(x.dtype).replace("torch.", ""))
-            fields.append(packed[off:off + n].reshape(tuple(x.shape)).astype(dtype))
-            off += n
-        out.append(type(r)(*fields) if hasattr(r, "_fields") else tuple(fields))
-    return out
-
-
 def sweep_paths_dataset(sessions, angle_file: Union[str, Path], estimator: str = "nn_omp",
                         mesh=None, device=None, **overrides):
-    """Per-sweep estimation for many sessions on ``device`` (None: CUDA).
+    """Per-sweep estimation for many sessions on ``device`` (None: CUDA) or
+    over ``mesh``.
 
     Every session's per-sweep tensor and dictionary is padded to the
     dataset-common (U, B, Ga, Gd) (``Session._sweep_estimation_inputs``'s
     ``pad_to``, whose argument keeps each real sweep's paths those of the
     session alone); the sweep axis keeps each session's own count.  The
     estimators are queued session after session and the results of all of
-    them cross to the host in one read.  Returns a list of (paths,
-    sweep_valid) per session, equal to each session's ``sweep_paths``.
-    ``mesh`` (sharding over several devices) is not ported yet.
+    them cross to the host in one read per device.  With ``mesh`` each
+    session's sweeps shard over ``data`` (padded to a multiple of it) and
+    NN-OMP's AoA grid over ``model``, as in ``Session.sweep_paths``.
+    Returns a list of (paths, sweep_valid) per session, equal to each
+    session's ``sweep_paths`` (and to ``mesh=None``).
     """
-    if mesh is not None:
-        raise NotImplementedError("sweep_paths_dataset(mesh=...) is not ported yet (ROADMAP.md "
-                                  "queue 1 item 9); call it without a mesh")
-    dev = resolve_device(device)
+    rows = placement(mesh, device)
+    dev = rows[0][0]
     preps = [s._sweep_host_prep(angle_file, estimator, device=dev, **overrides)
              for s in sessions]
     if not preps:
@@ -567,13 +582,22 @@ def sweep_paths_dataset(sessions, angle_file: Union[str, Path], estimator: str =
     ga_max = max(len(p[4].aoa_grid) for p in preps)
     gd_max = max(len(p[4].aod_grid) for p in preps)
     est_key = preps[0][5]
-    outs = []
+    outs, counts = [], []
     for s, prep in zip(sessions, preps):
         if prep[5] != est_key:
             raise ValueError("the sessions' estimator settings differ")
         pad_to = (prep[1], u_max, b_max, ga_max, gd_max)
-        out, valid, n_sweeps = s._sweep_estimate(angle_file, estimator, None, dev,
-                                                 pad_to=pad_to, **overrides)
-        outs += [type(out)(*(x[:n_sweeps] for x in out)), (valid[:n_sweeps],)]
-    host = _read_once(outs)
-    return [(host[i], host[i + 1][0]) for i in range(0, len(host), 2)]
+        shards, n_sweeps = s._sweep_estimate_shards(angle_file, estimator, None, rows,
+                                                    pad_to=pad_to, **overrides)
+        if len(shards) == 1:
+            out, valid = shards[0]
+            shards = [(type(out)(*(x[:n_sweeps] for x in out)), valid[:n_sweeps])]
+        outs += [(*out, valid) for out, valid in shards]
+        counts.append((len(shards), n_sweeps, type(shards[0][0])))
+    host = read_per_device(outs)
+    results, at = [], 0
+    for n_shards, n_sweeps, paths_t in counts:
+        fields = [np.concatenate(fs)[:n_sweeps] for fs in zip(*host[at:at + n_shards])]
+        results.append((paths_t(*fields[:-1]), fields[-1]))
+        at += n_shards
+    return results

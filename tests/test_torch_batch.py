@@ -19,6 +19,7 @@ import torch
 from slam_process_tpu_torch.ops import correct
 from slam_process_tpu_torch.ops.raster import colormap_lut
 from slam_process_tpu_torch.parallel import batch
+from slam_process_tpu_torch.parallel.mesh import make_mesh
 from slam_process_tpu_torch.pipeline.device import DeviceSessionOut, session_pipeline
 from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes
 from test_torch_pipeline import EXACT, assert_outputs_match
@@ -171,10 +172,11 @@ def test_run_dataset_grouped_layout():
 
 
 def test_mesh_and_options_are_refused(stacked, lut):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        batch.batched_session_pipeline(object(), N_PADDED, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        batch.run_dataset(object(), [np.zeros(10, np.uint8)], device="cpu")
+    cpu_mesh = make_mesh((1, 1), devices=["cpu"])
+    with pytest.raises(ValueError, match="pass mesh= or device=, not both"):
+        batch.batched_session_pipeline(cpu_mesh, N_PADDED, device="cpu")
+    with pytest.raises(ValueError, match="pass mesh= or device=, not both"):
+        batch.run_dataset(cpu_mesh, [np.zeros(10, np.uint8)], device="cpu")
     with pytest.raises(ValueError, match="outputs"):
         batch.batched_session_pipeline(None, N_PADDED, outputs="x", device="cpu")
     with pytest.raises(ValueError, match="session_axis"):

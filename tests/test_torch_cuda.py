@@ -48,7 +48,10 @@ in one launch), the flattened K2 and K4 calls against S separate kernel
 calls, ``run_dataset`` in both forms against each session's
 ``run_session_on_device`` (exact, rasters bit-equal) and the CPU, and a
 ``MultiStreamingSession`` of three streams against three single streams on
-the card (exact) and against its CPU run (power within rtol 2e-4).
+the card (exact) and against its CPU run (power within rtol 2e-4).  The
+thirteenth slice: a (2, 2) mesh whose positions repeat cuda:0 equal to
+``mesh=None`` for the batch, the multi-stream session and
+``sweep_paths_dataset``; a shard on cuda:1 where there are two cards.
 """
 
 import numpy as np
@@ -1163,3 +1166,75 @@ def test_multi_stream_on_card_matches_single_streams_and_cpu(tmp_path):
         ta, tb = card.stream_tracks(i)[0], s.path_tracks()[0]
         for f in ("pos_aoa", "pos_aod", "power", "observed", "created"):
             np.testing.assert_array_equal(getattr(ta, f), getattr(tb, f))
+
+
+def card_mesh(shape, devices=None):
+    from slam_process_tpu_torch.parallel.mesh import make_mesh
+
+    n = int(np.prod(shape))
+    return make_mesh(shape, devices=devices or [torch.device("cuda", 0)] * n)
+
+
+def same_nested(a, b) -> bool:
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_nested(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def test_mesh_forms_on_card_equal_mesh_none(tmp_path):
+    """A (2, 2) mesh whose positions repeat cuda:0: the batch, the
+    multi-stream session (three streams padded to four, a ragged finalize)
+    and ``sweep_paths_dataset`` equal ``mesh=None`` on the card, every
+    field, floats bitwise; every kernel of those paths launches."""
+    from slam_process_tpu_torch.parallel import batch
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+    from slam_process_tpu_torch.pipeline.session import Session, sweep_paths_dataset
+    from slam_process_tpu_torch.utils.synthetic import to_hex_text, write_angle_table
+
+    mesh = card_mesh((2, 2))
+    raws = [synthetic_session_bytes(n_groups=3 + i, frames_per_beam=3, baselines_per_group=6,
+                                    junk_frac=0.05, seed=90 + i, n_paths=3) for i in range(3)]
+    kernels = (cuda_decode, cuda_correct, cuda_raster, cuda_sweep_sums, cuda_compact,
+               cuda_tracker)
+    for k in kernels:
+        k.LAUNCHES = 0
+    got = batch.run_dataset(mesh, raws, quantum=1 << 13)
+    assert same_nested(got, batch.run_dataset(None, raws, quantum=1 << 13))
+
+    angles = write_angle_table(tmp_path / "angles.xlsx")
+    spec = sd.make_paths_spec(angles, s_step=8, grid_res=1.0)
+
+    def streams(m):
+        ms = sd.MultiStreamingSession(3, chunk_bytes=1 << 13, collect_paths=spec,
+                                      emit_capacity=1 << 14, mesh=m)
+        for off in range(0, max(len(r) for r in raws), 20_000):
+            ms.feed([r[off:off + 20_000] for r in raws])
+        ms.finalize_streams([1])
+        ms.finalize()
+        return (ms.results(), [(ms.stream_filtered(i), ms.stream_paths(i), ms.stream_tracks(i))
+                               for i in range(3)])
+
+    assert same_nested(streams(mesh), streams(None))
+    sessions = []
+    for i, r in enumerate(raws):
+        (tmp_path / f"s{i}.txt").write_bytes(to_hex_text(r))
+        sessions.append(Session.from_log(tmp_path / f"s{i}.txt"))
+    assert same_nested(sweep_paths_dataset(sessions, angles, mesh=mesh),
+                       sweep_paths_dataset(sessions, angles))
+    assert min(k.LAUNCHES for k in kernels) > 0
+
+
+def test_mesh_shard_on_a_second_card():
+    """A shard on cuda:1 finds its own scratch, LUT and shared-memory
+    opt-in: run_dataset over (2, 1) on cuda:0 and cuda:1 equals mesh=None."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (this machine has one)")
+    from slam_process_tpu_torch.parallel import batch
+
+    raws = [synthetic_session_bytes(n_groups=3, frames_per_beam=3, baselines_per_group=6,
+                                    seed=95 + i) for i in range(4)]
+    mesh = card_mesh((2, 1), [torch.device("cuda", 0), torch.device("cuda", 1)])
+    assert same_nested(batch.run_dataset(mesh, raws), batch.run_dataset(None, raws))

@@ -25,6 +25,7 @@ import torch
 
 from slam_process_tpu_torch.ops import compact, decode, scene, tracker
 from slam_process_tpu_torch.parallel import streaming_device as sd
+from slam_process_tpu_torch.parallel.mesh import make_mesh
 from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes, write_angle_table
 from test_torch_streaming import assert_same_paths
 
@@ -211,8 +212,8 @@ def test_errors(raws, specs):
         ms.feed([b"", b""])
     with pytest.raises(ValueError, match="built without collect_paths"):
         ms.stream_paths(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        sd.MultiStreamingSession(2, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="pass mesh= or device=, not both"):
+        sd.MultiStreamingSession(2, mesh=make_mesh((1, 1), devices=["cpu"]), device="cpu")
     with pytest.raises(ValueError, match="emit_capacity=0"):
         sd.MultiStreamingSession(2, device="cpu").stream_filtered(0)
     # A ring of 64 rows overflows on every stream; counts stay exact.
@@ -233,8 +234,8 @@ def test_one_host_read_per_round(raws, specs, monkeypatch):
     """With ``collect_paths`` a round reads the S closed-sweep counts once,
     and each flush once; the NNLS solver's own syncs are counted apart."""
     rounds = []
-    step = sd.MultiStreamingSession._round
-    monkeypatch.setattr(sd.MultiStreamingSession, "_round",
+    step = sd.MultiStreamingSession._window
+    monkeypatch.setattr(sd.MultiStreamingSession, "_window",
                         lambda self, *a: rounds.append(1) or step(self, *a))
     sd.HOST_SYNCS = 0
     ms = multi(specs[1])

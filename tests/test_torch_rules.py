@@ -2,7 +2,8 @@
 
   * It imports torch and numpy, never jax, the JAX package
     (``slam_process_tpu`` as a whole module name) or pandas: checked by
-    AST over every file and by importing every module in a fresh
+    AST over every file (and over the multi-process workers the tests and
+    ``chip_smoke.py`` start) and by importing every module in a fresh
     interpreter.  pandas is imported nowhere, not even inside a function
     (the estimator's table is ``models/registry.PathsTable``).  matplotlib (which the card's machine lacks) is imported
     only inside function bodies of ``render/*.py``, never at module level
@@ -93,6 +94,24 @@ def test_matplotlib_only_inside_render_functions(where, source, bad):
     assert forbidden_imports((PORT / where).resolve(), source) == bad
 
 
+def spawned_workers():
+    """The worker programs the port's multi-process checks start: the tests'
+    two-process worker and the one ``chip_smoke.py`` writes (its source is a
+    string there)."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    return [(REPO / "tests" / "_torch_multihost_worker.py", None),
+            (REPO / "build" / "chip_smoke_multihost_worker.py", chip_smoke.MULTIHOST_WORKER)]
+
+
+def test_spawned_workers_import_no_jax():
+    for path, source in spawned_workers():
+        roots = {root for root, _ in imported_roots(path, source)}
+        assert not roots & FORBIDDEN, (path, roots & FORBIDDEN)
+        assert "slam_process_tpu_torch" in roots or path.name.startswith("_torch")
+
+
 def test_importing_every_module_loads_no_jax():
     modules = sorted(".".join(p.relative_to(REPO).with_suffix("").parts).replace(
         ".__init__", "") for p in PORT.rglob("*.py"))
@@ -143,6 +162,18 @@ def test_entry_points_need_cuda_without_falling_back(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         replay_log_device(raw)
     assert replay_log_device(raw, device="cpu").n_frames == 64
+
+    # A mesh names CUDA devices unless the caller names others; a CUDA mesh
+    # raises without a card, and a mesh never moves to the CPU on its own.
+    from slam_process_tpu_torch.parallel.mesh import make_mesh
+    from slam_process_tpu_torch.parallel.multihost import initialize_multihost
+
+    with pytest.raises(RuntimeError, match="device="):
+        make_mesh((1, 1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh((2, 1), devices=["cuda:0", "cuda:0"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_multihost("127.0.0.1:1", 2, 0)
 
     from slam_process_tpu_torch.ops.correct import self_test
     from slam_process_tpu_torch.pipeline import cli
@@ -280,10 +311,9 @@ def test_roadmap_references_are_pinned():
     """The port's current references, each to an item that exists."""
     refs = {str(p.relative_to(PORT)): roadmap_refs(p.read_text()) for p in PORT.rglob("*.py")}
     cited = {k: v for k, v in refs.items() if v}
-    assert cited == {"pipeline/cli.py": {("1", "9")}, "pipeline/device.py": {("1", "9")},
-                     "pipeline/session.py": {("1", "9")}}
+    assert cited == {}
     items = roadmap_items((REPO / "ROADMAP.md").read_text())
-    assert ("1", "9") in items
+    assert ("1", "9") in items and ("1", "4") in items
 
 
 def stream_inputs(tmp_path):

@@ -8,14 +8,15 @@ SM-SIC; they match JAX's ``sweep_paths_dataset`` under
 ``tests/test_sweep_paths.py``'s contract (indices and valid equal, power
 within rtol 2e-4); inputs padded to a larger common shape (sweeps, beams
 and atoms) give the unpadded paths on the real sweeps, exactly; the
-results cross to the host in one read; ``mesh=`` is refused.
+results cross to the host in one read; a mesh and a device at once are
+refused (the mesh forms: ``tests/test_torch_mesh.py``).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from slam_process_tpu_torch.pipeline import session as session_mod
+from slam_process_tpu_torch.parallel.mesh import make_mesh, read_once
 from slam_process_tpu_torch.pipeline.session import Session, sweep_paths_dataset
 from slam_process_tpu_torch.utils.synthetic import (
     synthetic_session_bytes, to_hex_text, write_angle_table)
@@ -123,7 +124,7 @@ def test_results_cross_to_the_host_once(sessions, files, monkeypatch):
                         real(self, *a, **k))
     got = sweep_paths_dataset(sessions, angles, device="cpu")
     assert len(reads) == 1 and len(got) == 3
-    host = session_mod._read_once([type(got[0][0])(*(torch.from_numpy(x) for x in got[0][0]))])
+    host = read_once([type(got[0][0])(*(torch.from_numpy(x) for x in got[0][0]))])
     for a, b in zip(host[0], got[0][0]):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
@@ -131,6 +132,7 @@ def test_results_cross_to_the_host_once(sessions, files, monkeypatch):
 
 def test_mesh_refused_and_no_sessions(sessions, files):
     _, angles = files
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        sweep_paths_dataset(sessions, angles, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="pass mesh= or device=, not both"):
+        sweep_paths_dataset(sessions, angles, mesh=make_mesh((1, 1), devices=["cpu"]),
+                            device="cpu")
     assert sweep_paths_dataset([], angles, device="cpu") == []

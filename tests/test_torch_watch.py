@@ -15,8 +15,8 @@ the middle of a hex token) while the port's watch polls it every 0.05 s
     moment, its last line torn in half, resumed by a second watch on the
     finished file, gives the same tables and events, no event twice;
   * a completed checkpoint re-exports; the other engine's checkpoint is
-    refused; the flag checks exit with the JAX CLI's messages, a multi-host
-    watch with a message naming the ROADMAP item;
+    refused; the flag checks exit with the JAX CLI's messages, the
+    multi-host watch's among them;
   * ``watch --logs A B`` (one multi-stream session): the port's watch of a
     complete capture A and a capture B that a writer thread grows, so A
     idles out and is finalized alone while B goes on, against the JAX CLI's
@@ -279,6 +279,14 @@ FLAG_CASES = {
     "logs_with_host_engine": ["--logs", "a.txt", "b.txt", "--engine", "host"],
     "logs_events_without_paths": ["--logs", "a.txt", "b.txt", "--engine", "device", "--events",
                                   "e.jsonl"],
+    "coordinator_without_process_id": ["--logs", "a.txt", "--coordinator", "localhost:1",
+                                       "--num-processes", "2"],
+    "coordinator_with_checkpoint": ["--logs", "a.txt", "--coordinator", "localhost:1",
+                                    "--num-processes", "2", "--process-id", "0",
+                                    "--engine", "device", "--checkpoint", "c.npz"],
+    "coordinator_events_without_paths": ["--logs", "a.txt", "--coordinator", "localhost:1",
+                                         "--num-processes", "2", "--process-id", "0",
+                                         "--engine", "device", "--events", "e.jsonl"],
 }
 
 
@@ -293,11 +301,21 @@ def test_flag_checks_exit_as_jax(case, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--log", "a.txt", "--coordinator", "localhost:1"],
-                                   ["--log", "a.txt", "--local-devices", "2"]],
+                                   ["--logs", "a.txt", "--local-devices", "2", "--coordinator",
+                                    "localhost:1", "--num-processes", "2", "--process-id", "0",
+                                    "--engine", "host"]],
                          ids=["coordinator", "local_devices"])
 def test_multi_stream_and_multi_host_are_not_ported(extra, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 9"):
-        cli.main(["watch", "--mapping", "m.xlsx", "--outdir", str(tmp_path), *extra])
+    """The multi-host watch's own checks (it runs: tests/test_torch_multihost.py)
+    exit before any process group is joined, with the JAX CLI's messages."""
+    argv = ["watch", "--mapping", "m.xlsx", "--outdir", str(tmp_path), *extra]
+    with pytest.raises(SystemExit) as ours:
+        cli.main(argv)
+    with pytest.raises(SystemExit) as ref:
+        jax_cli.main(argv)
+    assert str(ours.value.code) == str(ref.value.code)
+    assert "--coordinator requires --logs" in str(ours.value.code) or "--engine device" in str(
+        ours.value.code)
 
 
 def test_helpers():
