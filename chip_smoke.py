@@ -4075,8 +4075,10 @@ def multihost_phase(np, torch, sd, tmp, angles, raws, sessions, dev) -> dict:
     over four dataset sessions (model = 2), ``estimate_sessions_multihost``
     (grid 0.5) and ``MultihostMultiStream`` over the 19 dataset sessions
     split 10 / 9; ``cli watch --coordinator`` on three captures split 2 / 1,
-    ended by SIGINT.  Each process's results equal the single-process run
-    of the same bytes on the card, every field, floats bitwise."""
+    ended by SIGINT once each process has read its captures to the end
+    (``cli.WATCH_CAUGHT_UP``).  Each process's results equal the
+    single-process run of the same bytes on the card, every field, floats
+    bitwise."""
     from concurrent.futures import ThreadPoolExecutor
 
     from slam_process_tpu_torch.io.hexlog import tokenize_hex
@@ -4084,7 +4086,7 @@ def multihost_phase(np, torch, sd, tmp, angles, raws, sessions, dev) -> dict:
     from slam_process_tpu_torch.models.batch_estimation import estimate_sessions
     from slam_process_tpu_torch.parallel import _dryrun_worker as dry
     from slam_process_tpu_torch.parallel import batch
-    from slam_process_tpu_torch.parallel.multihost import free_port, run_local_cluster
+    from slam_process_tpu_torch.parallel.multihost import run_local_cluster
     from slam_process_tpu_torch.pipeline import cli
     from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes, to_hex_text
 
@@ -4103,31 +4105,31 @@ def multihost_phase(np, torch, sd, tmp, angles, raws, sessions, dev) -> dict:
         logs[-1].parent.mkdir()
         logs[-1].write_bytes(to_hex_text(synthetic_session_bytes(**cfg)))
     split = (logs[:2], logs[2:])
-    ports = [free_port() for _ in range(3)]
 
-    def watch_argv(k):
+    def watch_argv(k, coord):
         return ["watch", "--logs", *map(str, split[k]), "--mapping", str(angles), "--outdir",
-                str(work / "watch_out"), "--coordinator", f"127.0.0.1:{ports[2]}",
+                str(work / "watch_out"), "--coordinator", coord,
                 "--num-processes", "2", "--process-id", str(k), "--local-devices", "2",
                 "--idle-timeout", "0", "--poll-interval", "0.05", "--paths", "--changes",
                 "--events", str(work / f"events_{k}.jsonl"), "--device", dev.type]
 
     py = sys.executable
     clusters = {
-        "dryrun": ([[py, "-m", "slam_process_tpu_torch.parallel._dryrun_worker", str(k), "2",
-                     f"127.0.0.1:{ports[0]}", *on_cpu] for k in range(2)], None),
-        "sessions": ([[py, str(worker), str(REPO), "sessions", str(k), "2",
-                       f"127.0.0.1:{ports[1]}", str(work / f"out_{k}.npz"), str(angles),
-                       sess_arg] for k in range(2)], None),
-        "watch": ([[py, str(worker), str(REPO), "watch", str(k), "2", f"127.0.0.1:{ports[2]}",
-                    str(work / "unused.npz"), str(angles), json.dumps(watch_argv(k))]
-                   for k in range(2)], "multi-host watch: process"),
+        "dryrun": (lambda coord: [[py, "-m", "slam_process_tpu_torch.parallel._dryrun_worker",
+                                   str(k), "2", coord, *on_cpu] for k in range(2)], None),
+        "sessions": (lambda coord: [[py, str(worker), str(REPO), "sessions", str(k), "2", coord,
+                                     str(work / f"out_{k}.npz"), str(angles), sess_arg]
+                                    for k in range(2)], None),
+        "watch": (lambda coord: [[py, str(worker), str(REPO), "watch", str(k), "2", coord,
+                                  str(work / "unused.npz"), str(angles),
+                                  json.dumps(watch_argv(k, coord))] for k in range(2)],
+                  cli.WATCH_CAUGHT_UP),
     }
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(clusters)) as pool:
-        futures = {name: pool.submit(run_local_cluster, argvs, MULTIHOST_TIMEOUT_S, cwd=str(REPO),
-                                     interrupt_when=marker)
-                   for name, (argvs, marker) in clusters.items()}
+        futures = {name: pool.submit(run_local_cluster, argvs_for, MULTIHOST_TIMEOUT_S,
+                                     cwd=str(REPO), interrupt_when=marker)
+                   for name, (argvs_for, marker) in clusters.items()}
         try:
             res = {name: f.result() for name, f in futures.items()}
         except TimeoutError as e:
@@ -4207,7 +4209,7 @@ def multihost_phase(np, torch, sd, tmp, angles, raws, sessions, dev) -> dict:
     names = ["p0_capture", "p0_capture_1", "p1_capture"]
     ref_dir = work / "watch_ref"
     ref_dir.mkdir()
-    args = cli.build_parser().parse_args(watch_argv(0))
+    args = cli.build_parser().parse_args(watch_argv(0, "127.0.0.1:1"))
     args.outdir = ref_dir
     args.events = work / "events_ref.jsonl"
     for i, name in enumerate(names):

@@ -111,8 +111,10 @@ def packed_to_device(packed: PackedScenes, device) -> PackedScenes:
 
 
 def nn_omp_sessions_sharded(packed: PackedScenes, cfg: OmpConfig, mesh,
-                            keep_rule: str = "ratio", stop_nonpositive: bool = True) -> OmpPaths:
-    """Whole-dataset estimation over a mesh: the sessions over ``data``
+                            keep_rule: str = "ratio", stop_nonpositive: bool = True,
+                            device=None) -> OmpPaths:
+    """Whole-dataset estimation over a mesh (None: one row of ``device``,
+    None: CUDA; ``parallel.mesh.placement``): the sessions over ``data``
     (padded with zero scenes to a multiple of it: every correlation 0, so
     they select nothing that is kept, and are dropped), each data shard on
     its row's devices with the AoA grid over ``model`` (``nn_omp_scenes``'s
@@ -124,7 +126,7 @@ def nn_omp_sessions_sharded(packed: PackedScenes, cfg: OmpConfig, mesh,
     """
     from slam_process_tpu_torch.parallel.mesh import placement, read_once, shard_rows
 
-    rows = placement(mesh)
+    rows = placement(mesh, device)
     n = packed.matrices.shape[0]
     n_pad, per = shard_rows(n, len(rows))
     padded = PackedScenes(*(np.pad(x, ((0, n_pad - n),) + ((0, 0),) * (x.ndim - 1))
@@ -141,7 +143,7 @@ def nn_omp_sessions_sharded(packed: PackedScenes, cfg: OmpConfig, mesh,
 def estimate_sessions(sessions, angle_file, flavor: str = "v1-7", device=None, mesh=None,
                       **overrides) -> list:
     """v1-7 (or v1) NN-OMP over N sessions in one batched run on ``device``
-    (None: CUDA), or over ``mesh`` (``nn_omp_sessions_sharded``).
+    (None: CUDA) or over ``mesh``, through ``nn_omp_sessions_sharded``.
 
     Per session the host builds the scene and the dictionary; the N padded
     scenes then run through ``nn_omp_scenes`` in lockstep (with its LU
@@ -161,11 +163,6 @@ def estimate_sessions(sessions, angle_file, flavor: str = "v1-7", device=None, m
         matrix, ue_ang, bs_ang = build_scene(s, angle_file, log_transform, device=dev)
         mats.append(matrix)
         dicts.append(make_dictionary(ue_ang, bs_ang, dict_cfg))
-    if mesh is not None:
-        host = nn_omp_sessions_sharded(pack_scenes(mats, dicts), cfg, mesh, keep_rule, stop_np)
-    else:
-        p = packed_to_device(pack_scenes(mats, dicts), dev)
-        out = nn_omp_scenes(p.phi_rx, p.phi_tx, p.aoa_grid, p.aod_grid, p.matrices, cfg,
-                            keep_rule, stop_np)
-        host = [x.cpu().numpy() for x in out]
+    host = nn_omp_sessions_sharded(pack_scenes(mats, dicts), cfg, mesh, keep_rule, stop_np,
+                                   device=device)
     return [OmpPaths(*(x[i] for x in host)) for i in range(len(sessions))]

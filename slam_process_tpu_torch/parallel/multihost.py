@@ -32,6 +32,7 @@ the group's timeout, and nothing goes on single-process.
 from __future__ import annotations
 
 import datetime
+import threading
 import warnings
 from typing import Optional, Sequence
 
@@ -56,29 +57,22 @@ DEFAULT_TIMEOUT_S = 120.0
 _LAYOUT: dict = {}
 
 
-def initialize_multihost(coordinator_address: Optional[str] = None,
-                         num_processes: Optional[int] = None,
-                         process_id: Optional[int] = None,
+def initialize_multihost(coordinator_address: str, num_processes: int, process_id: int,
                          local_device_count: Optional[int] = None, *, device=None,
                          timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
     """Join (or create) the process group: gloo over
     ``tcp://<coordinator_address>`` (``host:port``; process 0 listens) with
-    ``num_processes`` and ``process_id``, or with no coordinator the
-    ``env://`` variables a launcher sets (``MASTER_ADDR``, ``RANK``, ...).
-    ``local_device_count`` positions of the global mesh belong to this
-    process (default 1), all on ``device`` (None: this process's CUDA
-    device, ``cuda:(process_id % torch.cuda.device_count())``).  Every
-    collective waits at most ``timeout_s`` for its peers, then raises."""
+    ``num_processes`` and ``process_id``.  ``local_device_count`` positions
+    of the global mesh belong to this process (default 1), all on ``device``
+    (None: this process's CUDA device, ``cuda:(process_id %
+    torch.cuda.device_count())``).  Every collective waits at most
+    ``timeout_s`` for its peers, then raises."""
     import torch.distributed as dist
 
-    if coordinator_address is not None and (num_processes is None or process_id is None):
-        raise ValueError("a coordinator address needs num_processes and process_id")
     dev = resolve_device(device)   # no card and no device="cpu": raises before joining
-    init = "env://" if coordinator_address is None else f"tcp://{coordinator_address}"
-    kw = {} if coordinator_address is None else dict(world_size=int(num_processes),
-                                                     rank=int(process_id))
-    dist.init_process_group("gloo", init_method=init,
-                            timeout=datetime.timedelta(seconds=timeout_s), **kw)
+    dist.init_process_group("gloo", init_method=f"tcp://{coordinator_address}",
+                            world_size=int(num_processes), rank=int(process_id),
+                            timeout=datetime.timedelta(seconds=timeout_s))
     rank = dist.get_rank()
     if dev.type == "cuda" and (device is None or dev.index is None):
         dev = torch.device("cuda", rank % torch.cuda.device_count())
@@ -371,24 +365,53 @@ class MultihostMultiStream:
         return self._ms.stream_tracks(i)
 
 
+_PORTS_GIVEN: set = set()
+_PORTS_LOCK = threading.Lock()
+ADDRESS_IN_USE = "EADDRINUSE"   # in torch.distributed's error when a store cannot listen
+
+
 def free_port() -> int:
-    """A TCP port on 127.0.0.1 that was free a moment ago (for a local
-    coordinator)."""
+    """A TCP port on 127.0.0.1 that was free a moment ago and that this
+    process has not handed out before, so clusters started together never
+    share one."""
     import socket
 
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return int(s.getsockname()[1])
+    held = []
+    with _PORTS_LOCK:
+        try:
+            while True:
+                sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+                held.append(sock)   # held open, so the next bind gets another port
+                sock.bind(("127.0.0.1", 0))
+                port = int(sock.getsockname()[1])
+                if port not in _PORTS_GIVEN:
+                    _PORTS_GIVEN.add(port)
+                    return port
+        finally:
+            for sock in held:
+                sock.close()
 
 
-def run_local_cluster(argvs: Sequence[Sequence[str]], timeout_s: float, *, env=None, cwd=None,
+def run_local_cluster(argvs_for, timeout_s: float, *, cwd=None,
                       interrupt_when: Optional[str] = None) -> list:
-    """Run one process per argv (the processes of one local cluster) and
-    return [(returncode, stdout, stderr)] in order.  Each process has
-    ``timeout_s`` seconds: on expiry every process still running is killed
-    and ``TimeoutError`` names the outputs so far.  ``interrupt_when``: once
-    every process has written that text to its stderr, each is sent SIGINT
-    (a multi-host watch's end signal)."""
+    """Run one local cluster, one process per argv of
+    ``argvs_for(coordinator)`` (``coordinator`` is ``127.0.0.1:<port>`` on
+    a ``free_port``), and return [(returncode, stdout, stderr)] in order.
+    Each process has ``timeout_s`` seconds: on expiry every process still
+    running is killed and ``TimeoutError`` names the outputs so far.
+    ``interrupt_when``: once every process has written that text to its
+    stderr, each is sent SIGINT (a multi-host watch's end signal).  Where
+    a process could not listen on the port (another program took it
+    between the pick and the bind), its peers are killed and the cluster
+    runs once more on another port."""
+    res = _run_processes(argvs_for(f"127.0.0.1:{free_port()}"), timeout_s, cwd, interrupt_when)
+    if any(ADDRESS_IN_USE in err for _, _, err in res):
+        res = _run_processes(argvs_for(f"127.0.0.1:{free_port()}"), timeout_s, cwd,
+                             interrupt_when)
+    return res
+
+
+def _run_processes(argvs, timeout_s, cwd, interrupt_when) -> list:
     import os
     import signal
     import subprocess
@@ -402,22 +425,22 @@ def run_local_cluster(argvs: Sequence[Sequence[str]], timeout_s: float, *, env=N
                 out = open(os.path.join(tmp, f"{k}.out"), "w+")
                 err = open(os.path.join(tmp, f"{k}.err"), "w+")
                 files.append((out, err))
-                procs.append(subprocess.Popen(list(argv), stdout=out, stderr=err, env=env,
-                                              cwd=cwd))
+                procs.append(subprocess.Popen(list(argv), stdout=out, stderr=err, cwd=cwd))
             deadline = time.monotonic() + timeout_s
             sent = interrupt_when is None
             while any(p.poll() is None for p in procs):
-                if not sent and all(interrupt_when in open(e.name).read() for _, e in files):
+                errs = [open(e.name).read() for _, e in files]
+                if any(ADDRESS_IN_USE in e for e in errs):
+                    break   # the finally kills the peers
+                if not sent and all(interrupt_when in e for e in errs):
                     for p in procs:
                         if p.poll() is None:
                             p.send_signal(signal.SIGINT)
                     sent = True
                 if time.monotonic() > deadline:
                     raise TimeoutError(f"local cluster still running after {timeout_s} s; "
-                                       f"stderr: {[open(e.name).read()[-2000:] for _, e in files]}")
+                                       f"stderr: {[e[-2000:] for e in errs]}")
                 time.sleep(0.05)
-            return [(p.returncode, open(o.name).read(), open(e.name).read())
-                    for p, (o, e) in zip(procs, files)]
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -426,3 +449,5 @@ def run_local_cluster(argvs: Sequence[Sequence[str]], timeout_s: float, *, env=N
             for o, e in files:
                 o.close()
                 e.close()
+        return [(p.returncode, open(o.name).read(), open(e.name).read())
+                for p, (o, e) in zip(procs, files)]

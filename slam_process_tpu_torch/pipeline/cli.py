@@ -1144,6 +1144,11 @@ class MultiWatch:
         return stats + [totals]
 
 
+# What a multi-host watch writes to stderr once it has fed everything its
+# captures held, followed by the bytes read from each.
+WATCH_CAUGHT_UP = "multi-host watch: caught up, bytes read"
+
+
 class MultihostWatch(MultiWatch):
     """``watch --coordinator``'s state and steps in one process of a watch
     cluster: this process's --logs as its local streams of one
@@ -1154,10 +1159,12 @@ class MultihostWatch(MultiWatch):
     finalize, all done); ``feed`` (its window rounds agreed inside); one
     collective masked flush when any process wants one; stop when every
     process is done.  A capture ends on its idle timeout, or on SIGINT:
-    the handler only sets a flag, and the next tick reads each capture to
-    its end, feeds it and finalizes it, while the process keeps taking part
-    until every process is done.  No checkpoints (the flag checks refuse
-    them)."""
+    the handler only sets a flag, and the next tick reads nothing more and
+    finalizes every live capture with its text carry (as the JAX package
+    does), while the process keeps taking part until every process is done.
+    Each time a tick finds no live capture grown, after one that did, the
+    process writes ``WATCH_CAUGHT_UP`` to stderr: everything read so far
+    has been fed.  No checkpoints (the flag checks refuse them)."""
 
     def __init__(self, args):
         import signal
@@ -1218,23 +1225,26 @@ class MultihostWatch(MultiWatch):
         done = np.zeros(n, bool)
         now0 = time.monotonic()
         last_growth, last_render = [now0] * n, now0
+        grew = True
         while True:
             now = time.monotonic()
             chunks, to_finalize = [b""] * n, []
             force = self.interrupted
-            for i in np.nonzero(~done)[0]:
-                data = self._read_growth(i)
+            live = np.nonzero(~done)[0]
+            reads = {i: None if force else self._read_growth(i) for i in live}
+            for i, data in reads.items():
                 if data is not None:
                     last_growth[i] = now
-                if force or (data is None and args.idle_timeout
-                             and now - last_growth[i] > args.idle_timeout):
-                    chunks[i] = tokenize_hex(bytes(self.carry[i]) + (data or b""))
-                    self.carry[i] = b""
-                    to_finalize.append(int(i))
-                elif data is not None:
                     prefix, self.carry[i] = _split_text_carry(self.carry[i] + data)
                     if prefix is not None:
                         chunks[i] = tokenize_hex(prefix)
+                elif force or (args.idle_timeout and now - last_growth[i] > args.idle_timeout):
+                    chunks[i] = tokenize_hex(bytes(self.carry[i]))
+                    self.carry[i] = b""
+                    to_finalize.append(int(i))
+            if grew and not force and all(d is None for d in reads.values()):
+                print(f"{WATCH_CAUGHT_UP} {self.pos}", file=sys.stderr, flush=True)
+            grew = any(d is not None for d in reads.values())
             all_done = int(done.sum()) + len(to_finalize) == n
             sync = allgather_host([int(bool(to_finalize)), int(all_done)])
             s.feed(chunks)

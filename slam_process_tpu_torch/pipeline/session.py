@@ -404,13 +404,6 @@ class Session:
         self._sweep_prep_memo[memo_key] = result
         return result
 
-    def _sweep_estimate(self, angle_file, estimator, max_sweeps, dev, beam_ids=None, pad_to=None,
-                        **overrides):
-        """(paths of [S, K] tensors, sweep_valid [S], n_sweeps) on ``dev``."""
-        shards, n_sweeps = self._sweep_estimate_shards(
-            angle_file, estimator, max_sweeps, [(dev,)], beam_ids, pad_to, **overrides)
-        return shards[0][0], shards[0][1], n_sweeps
-
     def _sweep_estimate_shards(self, angle_file, estimator, max_sweeps, rows, beam_ids=None,
                                pad_to=None, **overrides):
         """([(paths, sweep_valid) per data shard], n_sweeps): the per-sweep
@@ -450,14 +443,9 @@ class Session:
         (``_sweep_estimate_shards``); each shard is read back once, and the
         results equal ``mesh=None``'s.
         """
-        rows = placement(mesh, device)
-        if len(rows) == 1 and len(rows[0]) == 1:
-            out, valid, n_sweeps = self._sweep_estimate(angle_file, estimator, max_sweeps,
-                                                        rows[0][0], beam_ids, **overrides)
-            paths = type(out)(*(x.cpu().numpy()[:n_sweeps] for x in out))
-            return paths, valid.cpu().numpy()[:n_sweeps]
-        shards, n_sweeps = self._sweep_estimate_shards(angle_file, estimator, max_sweeps, rows,
-                                                       beam_ids, **overrides)
+        shards, n_sweeps = self._sweep_estimate_shards(angle_file, estimator, max_sweeps,
+                                                       placement(mesh, device), beam_ids,
+                                                       **overrides)
         host = read_per_device([(*out, valid) for out, valid in shards])
         fields = [np.concatenate(fs)[:n_sweeps] for fs in zip(*host)]
         return type(shards[0][0])(*fields[:-1]), fields[-1]
@@ -589,9 +577,6 @@ def sweep_paths_dataset(sessions, angle_file: Union[str, Path], estimator: str =
         pad_to = (prep[1], u_max, b_max, ga_max, gd_max)
         shards, n_sweeps = s._sweep_estimate_shards(angle_file, estimator, None, rows,
                                                     pad_to=pad_to, **overrides)
-        if len(shards) == 1:
-            out, valid = shards[0]
-            shards = [(type(out)(*(x[:n_sweeps] for x in out)), valid[:n_sweeps])]
         outs += [(*out, valid) for out, valid in shards]
         counts.append((len(shards), n_sweeps, type(shards[0][0])))
     host = read_per_device(outs)

@@ -104,10 +104,12 @@ def main() -> None:
             for f in paths._fields:
                 res[f"paths_{i}_{f}"] = np.asarray(getattr(paths, f))
             res[f"valid_{i}"] = valid
-            tracks, times, _ = s.local_stream_tracks(i)
+            tracks, times, vel = s.local_stream_tracks(i)
             res[f"times_{i}"] = times
-            for f in ("pos_aoa", "pos_aod", "power", "observed", "created"):
+            for f in ("pos_aoa", "pos_aod", "power", "observed", "created", "n_tracks"):
                 res[f"tracks_{i}_{f}"] = np.asarray(getattr(tracks, f))
+            for j, v in enumerate(vel):
+                res[f"vel_{i}_{j}"] = np.asarray(v)
     else:
         raise SystemExit(f"unknown mode {mode!r}")
     mh.shutdown_multihost()

@@ -109,7 +109,8 @@ def test_padded_inputs_give_unpadded_paths(sessions, files, estimator):
     assert torch.isnan(sub[n:]).all() and torch.isnan(sub[:, len(ue_ids):]).all()
     assert not dp.phi_rx[len(ue_ids):].any() and not dp.phi_tx[:, len(d.aod_grid):].any()
     assert (dp.aoa_grid[len(d.aoa_grid):] == dp.aoa_grid[len(d.aoa_grid) - 1]).all()
-    padded, valid, _ = s._sweep_estimate(angles, estimator, None, CPU, pad_to=pad_to)
+    [(padded, valid)], _ = s._sweep_estimate_shards(angles, estimator, None, [(CPU,)],
+                                                    pad_to=pad_to)
     assert not valid[n:].any()
     got = (type(padded)(*(x[:n].numpy() for x in padded)), valid[:n].numpy())
     assert_same(got, s.sweep_paths(angles, estimator=estimator, device="cpu"))

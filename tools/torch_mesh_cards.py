@@ -38,7 +38,7 @@ def main() -> None:
         cuda_compact, cuda_correct, cuda_decode, cuda_raster, cuda_sweep_sums, cuda_tracker)
     from slam_process_tpu_torch.parallel import _dryrun_worker as dry
     from slam_process_tpu_torch.parallel import streaming_device as sd
-    from slam_process_tpu_torch.parallel.multihost import free_port, run_local_cluster
+    from slam_process_tpu_torch.parallel.multihost import run_local_cluster
     from slam_process_tpu_torch.pipeline.session import Session
     from slam_process_tpu_torch.utils.synthetic import (
         synthetic_session_bytes, to_hex_text, write_angle_table)
@@ -77,10 +77,9 @@ def main() -> None:
         cs.emit({"part": "mesh", "seconds": time.perf_counter() - t0, **out})
 
         t0 = time.perf_counter()
-        port = free_port()
         res = run_local_cluster(
-            [[sys.executable, "-m", "slam_process_tpu_torch.parallel._dryrun_worker", str(k),
-              str(n_dev), f"127.0.0.1:{port}"] for k in range(n_dev)], 300, cwd=str(REPO))
+            lambda coord: [[sys.executable, "-m", "slam_process_tpu_torch.parallel._dryrun_worker",
+                            str(k), str(n_dev), coord] for k in range(n_dev)], 300, cwd=str(REPO))
         streams = [dry.synthetic_stream_bytes(180, seed=10 * pid + i) for pid in range(n_dev)
                    for i in range(2)]
         ms = sd.MultiStreamingSession(len(streams), chunk_bytes=4096, group_capacity=1024,
