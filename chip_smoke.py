@@ -159,6 +159,24 @@ Phases, each printing one JSON line:
                 sessions/s, the RBF on the card and in numpy, LU against
                 Gauss-Jordan NNLS at K = 20 for one session and for 21;
                 NNLS host syncs per call; one profiled ``run_estimator``.
+ 8b. est_forms  the session estimator's comparator forms: the 21 logs
+                decoded anew (``Session.from_log``: K1-K3 counted), their
+                v1-7 scenes (0.1 deg grids, K = 20) packed once on the card
+                and run as ``_batched_nn_omp`` "vmap" (production) and
+                "gram" and as ``nn_omp_sessions_device`` (21 runs); each
+                form against "vmap" (indices, n_iters and valid equal, power
+                within rtol 2e-4; a difference excused only at a near tie
+                of the float64 oracle), sessions 0, 1 and the multipath
+                against ``nn_omp_np``; the multipath session's 58 sweeps at
+                the per-sweep config (886 x 886, K = 3): ``nn_omp_batch``
+                against ``nn_omp_gram_batch``; ``detect_scene_changes`` on
+                its tracks from K4 / K6 on the card, bit-equal to
+                ``detect_scene_changes_np`` on the tracks read back.  Per
+                form: wall ms (CUDA events, median of 5 after a warm-up),
+                device ms and activities from
+                ``utils/device_timing.measure_device_time`` (median of 3,
+                one run of the per-session form), the top activity names,
+                and ``device_profile``'s busy ms beside it.
   9. replay     the ``replay --paths --changes`` command's steps
                 (``cli.replay_stream``, ``render()``, ``cli.replay_exports``;
                 the PNG needs matplotlib) on the card, counted (every kernel
@@ -273,7 +291,7 @@ Phases, each printing one JSON line:
                 ``torch.profiler``: the device's busy time, its share, the top
                 ops, and the estimator's host syncs.
 
-Every kernel's launches are counted on each path (phases 4 to 17,
+Every kernel's launches are counted on each path (phases 4 to 17, 8b,
 the counters set to 0 just before and read just after), reported in the
 ``kernels`` line as ``launches_by_path``; ``launches`` is the count on the
 kernel's own path.  The stream-axis entries add to their kernel's counter
@@ -288,6 +306,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -763,6 +782,15 @@ def run(tmp: Path) -> None:
     print(smi, flush=True)
     emit({"phase": "estimate", "seconds": time.perf_counter() - t0,
           "launches": by_path["estimate"], **est_out})
+
+    # -- 8b. est_forms: the session estimator's comparator forms ---------------------
+    t0 = time.perf_counter()
+    forms_out = est_forms_phase(np, torch, tmp, paths, angles, zero_counts, read_counts, dev,
+                                smi)
+    by_path["est_forms"] = forms_out.pop("launches")
+    print(smi, flush=True)
+    emit({"phase": "est_forms", "seconds": time.perf_counter() - t0,
+          "launches": by_path["est_forms"], **forms_out})
 
     # -- 9. replay: the replay command's steps, card against cpu and host ------------
     t0 = time.perf_counter()
@@ -1743,6 +1771,194 @@ def estimate_phase(np, torch, nnls, tmp, log, sessions, angles, zero_counts, rea
             "estimate_sessions": batched, "rbf": rbf}
 
 
+EST_FORM_ORACLE = (0, 1, MP)         # sessions of the est_forms phase held against nn_omp_np
+EST_FORM_DEVICE_RUNS = 3             # measure_device_time runs per form
+
+
+def est_forms_phase(np, torch, tmp, logs, angles, zero_counts, read_counts, dev,
+                    smi) -> dict:
+    """The session estimator's comparator forms on the card: the 21
+    sessions (v1-7, 0.1 deg grids) packed once on the card through
+    ``_batched_nn_omp`` "vmap" and "gram" and ``nn_omp_sessions_device``,
+    each against "vmap" (and a few sessions against ``nn_omp_np``); the
+    multipath session's sweeps (the per-sweep config) through
+    ``nn_omp_batch`` against ``nn_omp_gram_batch``; ``detect_scene_changes``
+    on its K6 tracks against ``detect_scene_changes_np``.  A difference is
+    excused only at a near tie of the float64 oracle.  Per form: wall ms
+    (CUDA events around the call with its host work, median of 5 after a
+    warm-up), device ms (``measure_device_time``, median of 3; one run of
+    the per-session form) with its activities and top activity names, and
+    beside it one ``device_profile`` run (busy ms, activities)."""
+    from slam_process_tpu_torch.models import registry
+    from slam_process_tpu_torch.models.batch_estimation import (
+        _batched_nn_omp, flavor_config, nn_omp_sessions_device, pack_scenes, packed_to_device)
+    from slam_process_tpu_torch.models.change_detection import (
+        detect_scene_changes, detect_scene_changes_np)
+    from slam_process_tpu_torch.models.dictionary import make_dictionary
+    from slam_process_tpu_torch.models.nn_omp import (
+        OmpPaths, nn_omp_batch, nn_omp_gram_batch, nn_omp_np)
+    from slam_process_tpu_torch.models.sweep_estimation import _fill_per_sweep, path_power
+    from slam_process_tpu_torch.models.tracking import Tracks, track_paths
+    from slam_process_tpu_torch.pipeline.session import Session
+    from slam_process_tpu_torch.utils.device_timing import measure_device_time, op_device_counts
+
+    def timed(name, fn, runs=EST_FORM_DEVICE_RUNS, profile=True):
+        """Wall ms; device ms per call from measure_device_time, with the
+        device activities per call and the top activity names by device us
+        per call from its kept trace; with ``profile`` one device_profile run
+        beside it (busy ms, activities: the two measures side by side); and
+        the host seconds of each step."""
+        t0 = time.perf_counter()
+        out = {"wall_ms": event_ms(torch, fn, EST_TIMED)}
+        t1 = time.perf_counter()
+        trace_dir = tmp / f"est_forms_{name}"
+        t = measure_device_time(lambda i: fn(), n=runs, device=dev, trace_dir=trace_dir)
+        per_call = {k: sum(v) / len(v) * 1e6 for k, v in t.all_modules.items()}
+        counts = op_device_counts(trace_dir)
+        shutil.rmtree(trace_dir)
+        t2 = time.perf_counter()
+        out.update(device_ms=t.median * 1e3, device_ms_runs=[r * 1e3 for r in t.runs],
+                   device_activities=sum(counts.values()) / runs,
+                   activity_names=len(per_call),
+                   top_us=sorted(((k[:60], v) for k, v in per_call.items()),
+                                 key=lambda kv: -kv[1])[:6])
+        seconds = {"wall": t1 - t0, "measure_device_time": t2 - t1}
+        if profile:
+            busy, acts, _ = device_profile(torch, fn, cpu=False)
+            out.update(device_profile_busy_ms=busy, device_profile_activities=acts)
+            seconds["device_profile"] = time.perf_counter() - t2
+        out["busy_share"] = out["device_ms"] / out["wall_ms"]
+        out["seconds"] = seconds
+        return out
+
+    def host(out):
+        if isinstance(out, list):
+            out = OmpPaths(*(torch.stack(fs) for fs in zip(*out)))
+        return OmpPaths(*(x.cpu().numpy() for x in out))
+
+    def lane(paths, i):
+        return OmpPaths(*(x[i] for x in paths))
+
+    def compare(got, want, oracle, what):
+        """Lanes of ``got`` against ``want``; a differing lane must be a
+        near tie of the float64 oracle ``oracle(i)`` = (d, mat, ref)."""
+        excused = []
+        for i in range(want.power.shape[0]):
+            why = paths_agree(np, lane(got, i), lane(want, i))
+            if why:
+                d, mat, ref = oracle(i)
+                margin = selection_margin(np, d, mat, int(ref.n_iters), ref.aoa_idx,
+                                          ref.aod_idx)
+                if margin >= NEAR_TIE:
+                    fail(f"est_forms {what}: lane {i} differs in {why} "
+                         f"(selection margin {margin:.3g})")
+                excused.append(i)
+        return excused
+
+    zero_counts()
+    t_start = time.perf_counter()
+    sessions = [Session.from_log(p) for p in logs]
+    dict_cfg, cfg, log_t, keep, stop = flavor_config("v1-7")
+    mats, dicts = [], []
+    for sess in sessions:
+        m, u, b = registry.build_scene(sess, angles, log_t)
+        mats.append(m)
+        dicts.append(make_dictionary(u, b, dict_cfg))
+    packed = pack_scenes(mats, dicts)
+    p = packed_to_device(packed, dev)
+    forms = {"vmap": lambda: _batched_nn_omp(p, cfg, keep, stop),
+             "gram": lambda: _batched_nn_omp(p, cfg, keep, stop, form="gram"),
+             "sessions_device": lambda: nn_omp_sessions_device(p, cfg, keep, stop)}
+    outs = {name: host(fn()) for name, fn in forms.items()}
+
+    oracles = {}
+
+    def session_oracle(i):
+        if i not in oracles:
+            oracles[i] = (dicts[i], mats[i], nn_omp_np(dicts[i], mats[i], cfg, keep, stop))
+        return oracles[i]
+
+    vmap = outs["vmap"]
+    if vmap.power.shape != (len(sessions), cfg.max_paths) or not (
+            np.isfinite(vmap.power).all() and vmap.valid.any(axis=1).all()):
+        fail("est_forms: vmap gave non-finite power or a session with no valid path")
+    excused = {name: compare(outs[name], vmap, session_oracle, f"{name} vs vmap")
+               for name in ("gram", "sessions_device")}
+    excused["vmap_vs_nn_omp_np"] = [i for i in EST_FORM_ORACLE if paths_agree(
+        np, lane(vmap, i), session_oracle(i)[2])]
+    for i in excused["vmap_vs_nn_omp_np"]:
+        d, mat, ref = session_oracle(i)
+        if selection_margin(np, d, mat, int(ref.n_iters), ref.aoa_idx, ref.aod_idx) >= NEAR_TIE:
+            fail(f"est_forms: session {i} on the card differs from nn_omp_np")
+
+    # The multipath session's sweeps: the chain form against the Gram form.
+    mp = sessions[MP]
+    sub, d_sw, est_key, n_sw = mp._sweep_estimation_inputs(angles, "nn_omp", None, dev)
+    d_host = mp._sweep_host_prep(angles)[4]
+    _, cfg_sw, keep_sw, stop_sw = est_key
+    filled, _ = _fill_per_sweep(sub)
+    sweep_args = (d_sw.phi_rx, d_sw.phi_tx, d_sw.aoa_grid, d_sw.aod_grid, filled, cfg_sw,
+                  keep_sw, stop_sw)
+    sweep_forms = {"nn_omp_batch": lambda: nn_omp_batch(*sweep_args),
+                   "nn_omp_gram_batch": lambda: nn_omp_gram_batch(*sweep_args)}
+    sweep_out = {name: host(fn()) for name, fn in sweep_forms.items()}
+    filled_h = filled.double().cpu().numpy()
+
+    def sweep_oracle(i):
+        return d_host, filled_h[i], nn_omp_np(d_host, filled_h[i], cfg_sw, keep_sw, stop_sw)
+
+    excused["sweeps_batch_vs_gram"] = compare(sweep_out["nn_omp_batch"],
+                                              sweep_out["nn_omp_gram_batch"], sweep_oracle,
+                                              "nn_omp_batch vs nn_omp_gram_batch")
+
+    # Scene changes on the card's K6 tracks, bit-equal to the numpy oracle.
+    paths, sweep_valid = mp.sweep_paths(angles)
+    times = mp.sweep_times(len(sweep_valid), dev)
+    valid = np.asarray(paths.valid, bool) & sweep_valid[:, None] & (times >= 0)[:, None]
+    tracks = track_paths(*(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                           for x in (paths.aoa, paths.aod, path_power(paths), valid)))
+    tracks_h = Tracks(*(x.cpu().numpy() for x in tracks[:5]), int(tracks.n_tracks))
+    changes = {}
+    for key, kw in (("defaults", {}), ("persist1_gone1_jump0.5",
+                                       dict(min_persist=1, min_gone=1, jump_deg=0.5))):
+        got = detect_scene_changes(tracks, **kw)
+        want = detect_scene_changes_np(tracks_h, **kw)
+        for g, w, field in zip(got, want, want._fields):
+            if g.device.type != "cuda" or g.cpu().numpy().dtype != w.dtype or not np.array_equal(
+                    g.cpu().numpy(), w):
+                fail(f"est_forms: detect_scene_changes {field} ({key}) differs from numpy")
+        changes[key] = {f: int(np.asarray(w).sum()) for f, w in zip(want._fields, want)
+                        if f != "los_track"}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for key in ("K1", "K2", "K4", "K6"):
+        if launches[key] == 0:
+            fail(f"est_forms: {key} never launched: {launches}")
+
+    checks_s = time.perf_counter() - t_start
+    # One run of the per-session form holds ~10^5 device activities (its
+    # trace: a few hundred MB): one run is measured, with no device_profile.
+    timing = {name: timed(name, fn, **(dict(runs=1, profile=False)
+                                       if name == "sessions_device" else {}))
+              for name, fn in forms.items()}
+    sweep_timing = {name: timed(name, fn) for name, fn in sweep_forms.items()}
+    changes_ms = event_ms(torch, lambda: detect_scene_changes(tracks), EST_TIMED)
+    return {"card": smi, "launches": launches, "sessions": len(sessions),
+            "packed": list(p.phi_rx.shape[:1]) + [p.matrices.shape[1], p.matrices.shape[2],
+                                                  p.phi_rx.shape[2], p.phi_tx.shape[2]],
+            "max_paths": cfg.max_paths, "n_iters": vmap.n_iters.tolist(),
+            "valid_paths": int(vmap.valid.sum()), "excused_near_tie": excused,
+            "oracle_sessions": list(EST_FORM_ORACLE), "checks_seconds": checks_s,
+            "forms": timing,
+            "sweeps": {"session": "full_multipath", "sweeps": n_sw,
+                       "grid": [d_sw.phi_rx.shape[1], d_sw.phi_tx.shape[1]],
+                       "max_paths": cfg_sw.max_paths,
+                       "valid_paths": int(sweep_out["nn_omp_batch"].valid.sum()),
+                       "forms": sweep_timing},
+            "scene_changes": {"tracks": int(tracks.n_tracks), "sweeps": len(sweep_valid),
+                              "events": changes, "wall_ms": changes_ms}}
+
+
 STREAM_TIMED = 10                    # synchronized calls per median in the stream phases
 XLSX_MEMBERS = ("xl/worksheets/sheet1.xml", "xl/workbook.xml")
 
@@ -2651,9 +2867,10 @@ def device_profile(torch, fn, count=(), cpu=True):
     """Run ``fn`` once under ``torch.profiler``: (device busy ms, device
     activities, top 10 names by device us), and with ``count`` a fourth
     item, {name part: device activities whose name holds it}.  Busy time is
-    the union of the device activities' intervals (kernels, copies,
-    memsets; not the CPU-side aten rows, which would count each kernel
-    twice, nor the profiler's own buffer requests).  ``cpu=False`` traces
+    the union of the device activities' intervals
+    (``utils/device_timing.interval_union``: kernels, copies, memsets; not
+    the CPU-side aten rows, which would count each kernel twice, nor the
+    profiler's own buffer requests).  ``cpu=False`` traces
     the device only (cheaper for ~10^5 activities)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2662,14 +2879,11 @@ def device_profile(torch, fn, count=(), cpu=True):
     with profile(activities=kinds) as prof:
         fn()
         torch.cuda.synchronize()
-    acts = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                   and not e.name.startswith("Activity Buffer")),
-                  key=lambda e: e.time_range.start)
-    busy_us, reach = 0.0, float("-inf")
-    for e in acts:
-        lo, hi = max(e.time_range.start, reach), e.time_range.end
-        busy_us += max(hi - lo, 0.0)
-        reach = max(reach, hi)
+    from slam_process_tpu_torch.utils.device_timing import interval_union
+
+    acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith("Activity Buffer")]
+    busy_us = interval_union((e.time_range.start, e.time_range.end) for e in acts)
     by_name = {}
     for e in acts:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()

@@ -3,7 +3,10 @@
 The port of ``slam_process_tpu/models/batch_estimation.py``'s
 ``PackedScenes``, ``flavor_config``, ``pack_scenes``,
 ``nn_omp_sessions_sharded`` (a mesh: sessions over ``data``, the AoA grid
-over ``model``) and ``estimate_sessions``.  Per session the host builds
+over ``model``) and ``estimate_sessions``, and of the forms the JAX
+package keeps to judge the production one by: ``_batched_nn_omp``
+(``"vmap"``, the production form, or ``"gram"``) and
+``nn_omp_sessions_device`` (one run per session).  Per session the host builds
 the float64 scene (``registry.build_scene``) and its dictionary;
 ``pack_scenes`` pads them to the dataset's largest (U, B, Ga, Gd) with
 zeros; ``nn_omp_scenes`` runs all N scenes in lockstep on a device (the
@@ -28,7 +31,8 @@ import torch
 
 from slam_process_tpu_torch.config import DictionaryConfig, OmpConfig
 from slam_process_tpu_torch.models.dictionary import BeamDictionary, make_dictionary
-from slam_process_tpu_torch.models.nn_omp import OmpPaths, nn_omp_scenes
+from slam_process_tpu_torch.models.nn_omp import OmpPaths, nn_omp_gram_batch, nn_omp_scenes
+from slam_process_tpu_torch.pipeline.device import resolve_device
 
 
 class PackedScenes(NamedTuple):
@@ -108,6 +112,60 @@ def packed_to_device(packed: PackedScenes, device) -> PackedScenes:
     return PackedScenes(*(torch.from_numpy(np.ascontiguousarray(
         x, dtype=np.float32 if i < 5 else np.int32)).to(device)
         for i, x in enumerate(packed)))
+
+
+def _device_packed(packed: PackedScenes, device) -> PackedScenes:
+    """``packed`` as tensors: numpy moved to ``device`` (None: CUDA), tensors
+    kept where they are unless ``device`` names another device."""
+    if isinstance(packed.matrices, torch.Tensor):
+        return packed if device is None else PackedScenes(*(x.to(device) for x in packed))
+    return packed_to_device(packed, resolve_device(device))
+
+
+def _batched_nn_omp(packed: PackedScenes, cfg: OmpConfig, keep_rule: str = "ratio",
+                    stop_np: bool = True, form: str = "vmap", device=None) -> OmpPaths:
+    """The N packed sessions in one batched run (the JAX package's
+    ``_batched_nn_omp_fn``), in one of two forms:
+
+      * ``"vmap"``: ``nn_omp_scenes``, the chain recomputed from the
+        residual every iteration, one batched product per side (what
+        ``nn_omp_sessions_sharded`` runs on one device and
+        ``estimate_sessions`` returns);
+      * ``"gram"``: ``nn_omp_gram_batch`` with each session's own
+        dictionary (the JAX package's vmap of ``nn_omp_gram_batch_jax`` over
+        sessions): the correlation chain once, then per iteration a rank-K
+        update of the [N, Ga, Gd] surfaces.  The sessions' Grams are
+        batched ([N, Ga, Ga] and [N, Gd, Gd], one product each), not looped.
+
+    ``packed`` is numpy (moved to ``device``, None: CUDA) or tensors (kept
+    on their device).  Returns OmpPaths of [N, K] tensors ([N] n_iters) on
+    that device; both forms select alike (the JAX package's comparator
+    contract: indices, ``n_iters`` and ``valid`` equal, power within
+    float32 rounding)."""
+    p = _device_packed(packed, device)
+    args = (p.phi_rx, p.phi_tx, p.aoa_grid, p.aod_grid, p.matrices, cfg, keep_rule, stop_np)
+    if form == "vmap":
+        return nn_omp_scenes(*args)
+    if form == "gram":
+        return nn_omp_gram_batch(*args)
+    raise ValueError(f"unknown form {form!r}; use 'vmap' or 'gram'")
+
+
+def nn_omp_sessions_device(packed: PackedScenes, cfg: OmpConfig, keep_rule: str = "ratio",
+                           stop_nonpositive: bool = True, device=None) -> list:
+    """The N packed sessions as N runs of one program: ``nn_omp_scenes``
+    with N = 1 on each session's row of ``packed`` (padded as packed), the
+    JAX package's per-session dispatch, which it keeps as the yardstick of
+    the batched forms (``_batched_nn_omp``).  ``packed`` as
+    ``_batched_nn_omp``'s.  Returns a list of N OmpPaths of [K] tensors
+    (``n_iters`` 0-d) on the device, not read back."""
+    p = _device_packed(packed, device)
+    out = []
+    for i in range(p.matrices.shape[0]):
+        row = [x[i:i + 1] for x in (p.phi_rx, p.phi_tx, p.aoa_grid, p.aod_grid, p.matrices)]
+        one = nn_omp_scenes(*row, cfg, keep_rule, stop_nonpositive)
+        out.append(OmpPaths(*(x[0] for x in one)))
+    return out
 
 
 def nn_omp_sessions_sharded(packed: PackedScenes, cfg: OmpConfig, mesh,

@@ -1,9 +1,13 @@
 """Track-based scene change detection over CLK-anchored path tracks.
 
-A numpy copy of ``slam_process_tpu/models/change_detection.py``'s batch
-detector (``detect_scene_changes_np``, ``scene_change_events``) and its
-streamed form (``IncrementalChangeDetector``), unchanged in behaviour.  It turns a tracked session (``Session.path_tracks``) into
-scene change events on the testbed clock:
+The port of ``slam_process_tpu/models/change_detection.py``: the batch
+detector in numpy (``detect_scene_changes_np``, the oracle) and on torch
+tensors on the tracks' device (``detect_scene_changes``, the counterpart
+of ``detect_scene_changes_jax``), one formulation over both and
+bit-identical; ``scene_change_events``; and the streamed form
+(``IncrementalChangeDetector``), unchanged in behaviour.  It turns a
+tracked session (``Session.path_tracks``) into scene change events on the
+testbed clock:
 
   * **birth**: a track reaches its ``min_persist``-th observation;
   * **death**: a confirmed track has ``min_gone`` consecutive sweeps with
@@ -25,11 +29,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from slam_process_tpu_torch.models.tracking import Tracks
 
-__all__ = ["SceneChanges", "detect_scene_changes_np", "scene_change_events",
-           "IncrementalChangeDetector", "EVENT_KINDS"]
+__all__ = ["SceneChanges", "detect_scene_changes_np", "detect_scene_changes",
+           "scene_change_events", "IncrementalChangeDetector", "EVENT_KINDS"]
 
 EVENT_KINDS = ("birth", "death", "jump", "los_handover")
 
@@ -44,24 +49,123 @@ class SceneChanges(NamedTuple):
     los_change: np.ndarray   # [S] bool — dominant identity changed
 
 
-def _detect(tracks, min_persist: int, min_gone: int, jump_deg: float):
+class _NumpyOps:
+    """The array operations of ``_detect`` in numpy (the oracle)."""
+
+    bool, int32, float32 = bool, np.int32, np.float32
+
+    @staticmethod
+    def asarray(x, dtype):
+        return np.asarray(x, dtype)
+
+    @staticmethod
+    def zeros(shape, dtype):
+        return np.zeros(shape, dtype)
+
+    @staticmethod
+    def arange(n):
+        return np.arange(n, dtype=np.int32)
+
+    @staticmethod
+    def scalar(x):
+        return x
+
+    where = staticmethod(np.where)
+
+    @staticmethod
+    def cumsum(x, axis):
+        return np.cumsum(x.astype(np.int32), axis=axis)
+
+    @staticmethod
+    def cummax(x, axis):
+        return np.maximum.accumulate(x, axis=axis)
+
+    @staticmethod
+    def cat(xs, axis):
+        return np.concatenate(xs, axis=axis)
+
+    @staticmethod
+    def any(x, axis):
+        return np.any(x, axis=axis)
+
+    @staticmethod
+    def argmax(x, axis):
+        return np.argmax(x, axis=axis).astype(np.int32)
+
+    @staticmethod
+    def take(x, idx):
+        return x[np.maximum(idx, 0)]
+
+
+class _TorchOps:
+    """The same operations on torch tensors on ``device``: ``torch.cummax``
+    where the JAX package uses ``lax.cummax``, the first maximal index
+    from ``torch.argmax``, float32 arithmetic one rounding an operation."""
+
+    bool, int32, float32 = torch.bool, torch.int32, torch.float32
+
+    def __init__(self, device):
+        self.device = device
+
+    def asarray(self, x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def zeros(self, shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def arange(self, n):
+        return torch.arange(n, dtype=torch.int32, device=self.device)
+
+    @staticmethod
+    def scalar(x):
+        return x.item()
+
+    @staticmethod
+    def where(cond, a, b):
+        return torch.where(cond, a, b)
+
+    @staticmethod
+    def cumsum(x, axis):
+        return torch.cumsum(x.to(torch.int32), dim=axis)
+
+    @staticmethod
+    def cummax(x, axis):
+        return torch.cummax(x, dim=axis).values
+
+    @staticmethod
+    def cat(xs, axis):
+        return torch.cat(xs, dim=axis)
+
+    @staticmethod
+    def any(x, axis):
+        return x.any(dim=axis)
+
+    @staticmethod
+    def argmax(x, axis):
+        return x.argmax(dim=axis).to(torch.int32)
+
+    @staticmethod
+    def take(x, idx):
+        return x[idx.clamp(min=0).long()]
+
+
+def _detect(xp, tracks, min_persist: int, min_gone: int, jump_deg: float):
     """Cumulative operations only (cumsum / running max), no per-event
-    loop, as the JAX package's shared formulation."""
-    obs = np.asarray(tracks.observed, bool)
-    pos_a = np.asarray(tracks.pos_aoa, np.float32)
-    pos_d = np.asarray(tracks.pos_aod, np.float32)
-    power = np.asarray(tracks.power, np.float32)
-    created = np.asarray(tracks.created, bool)
+    loop: one formulation over ``xp`` = ``_NumpyOps`` or ``_TorchOps``, as
+    the JAX package's ``_detect(xp, ...)`` serves numpy and jax.numpy."""
+    obs = xp.asarray(tracks.observed, xp.bool)
+    pos_a = xp.asarray(tracks.pos_aoa, xp.float32)
+    pos_d = xp.asarray(tracks.pos_aod, xp.float32)
+    power = xp.asarray(tracks.power, xp.float32)
+    created = xp.asarray(tracks.created, xp.bool)
     t_n, s_n = obs.shape
     if s_n == 0:
         # Zero-sweep session (e.g. a junk-only stream): no events.
-        z = np.zeros((t_n, 0), bool)
-        return SceneChanges(z, z, z, np.zeros(0, np.int32),
-                            np.zeros(0, bool))
+        z = xp.zeros((t_n, 0), xp.bool)
+        return SceneChanges(z, z, z, xp.zeros(0, xp.int32), xp.zeros(0, xp.bool))
 
     obs = obs & created[:, None]
-    obs_i = obs.astype(np.int32)
-    cum = np.cumsum(obs_i, axis=1)                      # [T, S] obs count
+    cum = xp.cumsum(obs, axis=1)                        # [T, S] obs count
     confirmed = cum >= min_persist
 
     # birth: the sweep of the min_persist-th observation.
@@ -69,10 +173,10 @@ def _detect(tracks, min_persist: int, min_gone: int, jump_deg: float):
 
     # Last observed sweep index at-or-before s (running max of s*obs,
     # -1 before the first observation).
-    s_iota = np.arange(s_n, dtype=np.int32)[None, :]
-    marked = np.where(obs, s_iota, np.int32(-1))
-    last_obs = np.maximum.accumulate(marked, axis=1)
-    miss_run = np.where(last_obs >= 0, s_iota - last_obs, np.int32(0))
+    s_iota = xp.arange(s_n)[None, :]
+    marked = xp.where(obs, s_iota, xp.scalar(np.int32(-1)))
+    last_obs = xp.cummax(marked, axis=1)
+    miss_run = xp.where(last_obs >= 0, s_iota - last_obs, xp.scalar(np.int32(0)))
 
     # death: the miss run ending at s reaches exactly min_gone, and the
     # track was confirmed by its last observation (cum is constant while
@@ -85,30 +189,27 @@ def _detect(tracks, min_persist: int, min_gone: int, jump_deg: float):
     d_d = pos_d[:, 1:] - pos_d[:, :-1]
     disp2 = d_a * d_a + d_d * d_d
     had_prev = last_obs[:, :-1] >= 0
-    moved = np.concatenate(
-        [np.zeros((t_n, 1), bool),
-         obs[:, 1:] & had_prev & (disp2 > np.float32(jump_deg) ** 2)],
+    moved = xp.cat(
+        [xp.zeros((t_n, 1), xp.bool),
+         obs[:, 1:] & had_prev & (disp2 > xp.scalar(np.float32(jump_deg) ** 2))],
         axis=1)
     # Only tracks confirmed BEFORE the move report jumps (wobble up to
     # and including the confirming observation is the estimator
     # settling, not scene geometry).
-    confirmed_prev = np.concatenate(
-        [np.zeros((t_n, 1), bool), confirmed[:, :-1]], axis=1)
+    confirmed_prev = xp.cat([xp.zeros((t_n, 1), xp.bool), confirmed[:, :-1]], axis=1)
     jump = moved & confirmed_prev
 
     # LoS handover: dominant observed track per sweep, forward-filled
     # over empty sweeps, change fires when the identity differs from the
     # previous defined sweep.
-    p_masked = np.where(obs, power, -np.inf)
-    any_obs = np.any(obs, axis=0)                       # [S]
-    dom = np.where(any_obs, np.argmax(p_masked, axis=0).astype(np.int32),
-                   np.int32(-1))
-    s_vec = np.arange(s_n, dtype=np.int32)
-    def_mark = np.where(any_obs, s_vec, np.int32(-1))
-    last_def = np.maximum.accumulate(def_mark)
-    prev_def = np.concatenate([np.asarray([-1], np.int32), last_def[:-1]])
-    prev_dom = np.where(prev_def >= 0,
-                        dom[np.maximum(prev_def, 0)], np.int32(-1))
+    p_masked = xp.where(obs, power, -np.inf)
+    any_obs = xp.any(obs, axis=0)                       # [S]
+    dom = xp.where(any_obs, xp.argmax(p_masked, axis=0), xp.scalar(np.int32(-1)))
+    s_vec = xp.arange(s_n)
+    def_mark = xp.where(any_obs, s_vec, xp.scalar(np.int32(-1)))
+    last_def = xp.cummax(def_mark, axis=0)
+    prev_def = xp.cat([xp.asarray([-1], xp.int32), last_def[:-1]], axis=0)
+    prev_dom = xp.where(prev_def >= 0, xp.take(dom, prev_def), xp.scalar(np.int32(-1)))
     los_change = any_obs & (prev_dom >= 0) & (dom != prev_dom)
     return SceneChanges(birth, death, jump, dom, los_change)
 
@@ -120,9 +221,24 @@ def detect_scene_changes_np(
     jump_deg: float = 5.0,
 ) -> SceneChanges:
     """Numpy engine (float64-free f32 arithmetic — the oracle)."""
-    out = _detect(tracks, int(min_persist), int(min_gone),
+    out = _detect(_NumpyOps, tracks, int(min_persist), int(min_gone),
                   float(jump_deg))
     return SceneChanges(*(np.asarray(x) for x in out))
+
+
+def detect_scene_changes(tracks: Tracks, min_persist: int = 3, min_gone: int = 3,
+                         jump_deg: float = 5.0) -> SceneChanges:
+    """The detector on torch tensors on the tracks' device (the port of
+    ``detect_scene_changes_jax``): ``tracks``' fields are tensors of one
+    device (``models/tracking.track_paths``' output), and so are the
+    returned masks (bool [T, S], los_track int32 [S], los_change bool [S]),
+    bit-identical to ``detect_scene_changes_np`` on the same tracks read
+    back."""
+    if not isinstance(tracks.observed, torch.Tensor):
+        raise TypeError("detect_scene_changes takes tracks of tensors; "
+                        "detect_scene_changes_np takes numpy")
+    return _detect(_TorchOps(tracks.observed.device), tracks, int(min_persist),
+                   int(min_gone), float(jump_deg))
 
 
 def scene_change_events(

@@ -19,10 +19,16 @@ The port of ``slam_process_tpu/models/nn_omp.py``:
     operation (eager PyTorch fuses no multiply-add).  The atom is the
     first flat maximum (``torch.argmax``, like ``jnp.argmax``).  Slots
     never selected hold grid index 0, as in JAX's device path.
+  * ``nn_omp_batch``: ``nn_omp_batch_jax``, S scenes sharing one
+    dictionary in the chain form, each iteration's correlations as two
+    whole-batch products ([Ga, U] x [U, S B], then [S Ga, B] x [B, Gd])
+    with ``nn_omp_scenes``' arithmetic and refit.
   * ``run_nn_omp``: one entry point, ``engine="device"`` (the chain form
     with N = 1 on ``device``, None meaning CUDA, returned as numpy) or
     ``engine="host"`` (``nn_omp_np``).
-  * ``nn_omp_gram_batch``: the per-sweep form, below.
+  * ``nn_omp_gram_batch``: the per-sweep form, below; with one dictionary
+    per scene it is also the dataset's Gram-domain comparator
+    (``models/batch_estimation._batched_nn_omp(form="gram")``).
 
 ``nn_omp_gram_batch`` is the port of ``nn_omp_gram_batch_jax``, the form
 the per-sweep estimator calls.  With selected atoms a_k =
@@ -219,7 +225,6 @@ def nn_omp_scenes(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torch.Te
     refit (a [N, U] column copy per iteration to the inputs' device, the
     NNLS and the residual) runs on the inputs' device.  Selections and
     coefficients equal the unsharded run's."""
-    K = cfg.max_paths
     N, U, B = mats.shape
     Gd = phi_tx.shape[2]
     dev = mats.device
@@ -227,7 +232,6 @@ def nn_omp_scenes(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torch.Te
     ga_real = phi_rx.shape[2]
     phi_rx, aoa_grid, _ = pad_grid_axis(phi_rx, aoa_grid, len(devices))
     y = mats.to(torch.float32).reshape(N, U * B)
-    slots = torch.arange(K, device=dev)
     shards = []
     for d, lo, hi in _slices(phi_rx.shape[2], devices):
         rx = phi_rx[:, :, lo:hi].to(d)
@@ -245,6 +249,22 @@ def nn_omp_scenes(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torch.Te
             picks.append((corr.gather(1, idx[:, None])[:, 0], idx + lo * Gd, col))
         return _combine(picks, dev)
 
+    return _chain_omp(select, y, phi_tx, aoa_grid, aod_grid, U, cfg, keep_rule,
+                      stop_nonpositive, nnls_solver)
+
+
+def _chain_omp(select, y: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torch.Tensor,
+               aod_grid: torch.Tensor, U: int, cfg: OmpConfig, keep_rule: str,
+               stop_nonpositive: bool, nnls_solver: str) -> OmpPaths:
+    """The chain form's iterations, shared by ``nn_omp_scenes`` and
+    ``nn_omp_batch``: ``select(residual [N, U * B])`` gives each scene's
+    (largest correlation [N], its flat index g * Gd + d [N], that atom's
+    phi_rx column [N, U]); phi_tx [N, B, Gd], aoa_grid [N, Ga] and aod_grid
+    [N, Gd] may be expanded views of one dictionary."""
+    K = cfg.max_paths
+    N, B, Gd = phi_tx.shape
+    dev = y.device
+    slots = torch.arange(K, device=dev)
     residual = y
     sel_r = torch.zeros((N, K), dtype=torch.long, device=dev)
     sel_t = torch.zeros_like(sel_r)
@@ -298,6 +318,36 @@ def nn_omp_scenes(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torch.Te
     )
 
 
+def nn_omp_batch(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torch.Tensor,
+                 aod_grid: torch.Tensor, mats: torch.Tensor, cfg: OmpConfig = OmpConfig(),
+                 keep_rule: str = "ratio", stop_nonpositive: bool = True,
+                 nnls_solver: str = NNLS_SOLVER) -> OmpPaths:
+    """NN-OMP over S scenes mats [S, U, B] sharing the dictionary phi_rx
+    [U, Ga], phi_tx [B, Gd] (all float32 on one device), in the chain form:
+    the port of ``nn_omp_batch_jax``.  Each iteration takes every scene's
+    correlation surface in two whole-batch products, [Ga, U] x [U, S B]
+    then [S Ga, B] x [B, Gd], in float64 from the float32 operands and
+    rounded once to float32; the refit, the first flat argmax and the
+    float64 NNLS are ``nn_omp_scenes``'s, so each scene's selections equal
+    a run of ``nn_omp_scenes`` on it.  Returns OmpPaths of [S, K] tensors
+    ([S] n_iters) on the inputs' device."""
+    S, U, B = mats.shape
+    Ga, Gd = phi_rx.shape[1], phi_tx.shape[1]
+    prx_t64 = phi_rx.T.double()                                  # [Ga, U]
+    ptx64 = phi_tx.double()                                      # [B, Gd]
+
+    def select(residual):
+        r = residual.reshape(S, U, B).double().transpose(0, 1).reshape(U, S * B)
+        t1 = (prx_t64 @ r).reshape(Ga, S, B).transpose(0, 1).reshape(S * Ga, B)
+        corr = (t1 @ ptx64).to(torch.float32).reshape(S, Ga * Gd)
+        idx = corr.argmax(dim=1)
+        return corr.gather(1, idx[:, None])[:, 0], idx, phi_rx.T[idx // Gd]
+
+    y = mats.to(torch.float32).reshape(S, U * B)
+    return _chain_omp(select, y, phi_tx.expand(S, B, Gd), aoa_grid.expand(S, Ga),
+                      aod_grid.expand(S, Gd), U, cfg, keep_rule, stop_nonpositive, nnls_solver)
+
+
 def run_nn_omp(dictionary: BeamDictionary, rss_matrix: np.ndarray, cfg: OmpConfig = OmpConfig(),
                keep_rule: str = "ratio", stop_nonpositive: bool = True, engine: str = "device",
                device=None, logger=None) -> OmpPaths:
@@ -318,12 +368,25 @@ def run_nn_omp(dictionary: BeamDictionary, rss_matrix: np.ndarray, cfg: OmpConfi
     return OmpPaths(*(x.cpu().numpy()[0] for x in out))
 
 
+def _pick(x: torch.Tensor, lanes, *idx) -> torch.Tensor:
+    """x[idx] of a dictionary-wide x, or with ``lanes`` [S] each scene's
+    own x[lane, idx] (``idx`` of a leading S axis)."""
+    if lanes is None:
+        return x[idx]
+    return x[(lanes.view((-1,) + (1,) * (idx[0].dim() - 1)),) + idx]
+
+
 def nn_omp_gram_batch(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torch.Tensor,
                       aod_grid: torch.Tensor, mats: torch.Tensor, cfg: OmpConfig = OmpConfig(),
                       keep_rule: str = "ratio", stop_nonpositive: bool = True,
                       model_devices=None) -> OmpPaths:
     """NN-OMP over S scenes mats [S, U, B] sharing the dictionary phi_rx
-    [U, Ga], phi_tx [B, Gd] (all float32 on one device).
+    [U, Ga], phi_tx [B, Gd], aoa_grid [Ga], aod_grid [Gd] (all float32 on
+    one device), or each with its own: phi_rx [S, U, Ga], phi_tx [S, B,
+    Gd], aoa_grid [S, Ga], aod_grid [S, Gd] (the packed dataset's, as the
+    JAX package vmaps ``nn_omp_gram_batch_jax`` over sessions).  Per-scene
+    dictionaries give per-scene Grams [S, Ga, Ga] and [S, Gd, Gd], taken
+    in one batched product each, and every gather picks the scene's own.
 
     ``model_devices`` (a mesh row's devices; None: the inputs' device alone)
     shards the AoA grid over ``model``: Ga pads to a multiple of their count
@@ -337,29 +400,34 @@ def nn_omp_gram_batch(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torc
     S = mats.shape[0]
     dev = mats.device
     devices = tuple(model_devices) if model_devices else (dev,)
-    ga_real = phi_rx.shape[1]
+    per_scene = phi_rx.dim() == 3
+    ga_real = phi_rx.shape[-1]
     phi_rx, aoa_grid, _ = pad_grid_axis(phi_rx, aoa_grid, len(devices))
     Y64 = mats.to(torch.float32).double()
     slots = torch.arange(K, device=dev)
+    lanes = torch.arange(S, device=dev)
 
-    grx = _f64_product(phi_rx.T, phi_rx)                        # [Ga, Ga]
-    gtx = _f64_product(phi_tx.T, phi_tx)                        # [Gd, Gd]
+    grx = _f64_product(phi_rx.transpose(-1, -2), phi_rx)       # [(S,) Ga, Ga]
+    gtx = _f64_product(phi_tx.transpose(-1, -2), phi_tx)       # [(S,) Gd, Gd]
     shards = []
-    for d, lo, hi in _slices(phi_rx.shape[1], devices):
-        t1 = torch.matmul(phi_rx[:, lo:hi].T.to(d).double(), Y64.to(d))       # [S, Ga_m, B]
+    for d, lo, hi in _slices(phi_rx.shape[-1], devices):
+        t1 = torch.matmul(phi_rx[..., lo:hi].transpose(-1, -2).to(d).double(),
+                          Y64.to(d))                                          # [S, Ga_m, B]
         corr_y = torch.matmul(t1, phi_tx.to(d).double()).to(torch.float32)     # [S, Ga_m, Gd]
         del t1
-        shards.append((d, lo, _mask_padded(corr_y, hi, ga_real), grx.T[:, lo:hi].to(d),
-                       gtx.T.to(d), torch.arange(S, device=d)))
+        shards.append((d, lo, _mask_padded(corr_y, hi, ga_real),
+                       grx.transpose(-1, -2)[..., lo:hi].to(d), gtx.transpose(-1, -2).to(d),
+                       lanes.to(d)))
 
     def select(it, active_c, sel_r, sel_t):
         picks = []
         for d, lo, corr_y, grx_t, gtx_t, lanes_d in shards:
             a_c, s_r, s_t = active_c.to(d), sel_r.to(d), sel_t.to(d)
+            own = lanes_d if per_scene else None
             # Rank-K residual: slots >= it hold no atom yet (coefficient 0),
             # so their terms are exact zeros and are skipped.
-            grs = grx_t[s_r]                                    # [S, K, Ga_m]
-            gts = gtx_t[s_t]                                    # [S, K, Gd]
+            grs = _pick(grx_t, own, s_r)                        # [S, K, Ga_m]
+            gts = _pick(gtx_t, own, s_t)                        # [S, K, Gd]
             resid = corr_y
             for k in range(it):
                 resid = resid - (a_c[:, k, None] * grs[:, k, :])[:, :, None] * gts[:, k, None, :]
@@ -402,8 +470,9 @@ def nn_omp_gram_batch(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torc
         # (coeffs, passive): the old rows, columns and b entries are
         # unchanged when one atom joins.
         active = (slots[None, :] < nsel[:, None]).to(torch.float32)
-        Gk = (grx[sel_r[:, :, None], sel_r[:, None, :]]
-              * gtx[sel_t[:, :, None], sel_t[:, None, :]])
+        own = lanes if per_scene else None
+        Gk = (_pick(grx, own, sel_r[:, :, None], sel_r[:, None, :])
+              * _pick(gtx, own, sel_t[:, :, None], sel_t[:, None, :]))
         Gk = Gk * active[:, :, None] * active[:, None, :]
         bk = b_sel * active
         coeffs2, passive2 = nnls_gram(Gk, bk, max_outer=cfg.nnls_max_iter, x0=coeffs,
@@ -413,9 +482,10 @@ def nn_omp_gram_batch(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torc
         done = stop
 
     in_sel = slots[None, :] < nsel[:, None]
+    own = lanes if per_scene else None
     return OmpPaths(
-        aoa=aoa_grid[sel_r],
-        aod=aod_grid[sel_t],
+        aoa=_pick(aoa_grid, own, sel_r),
+        aod=_pick(aod_grid, own, sel_t),
         power=coeffs,
         valid=_keep(coeffs, in_sel, cfg, keep_rule),
         n_iters=nsel.to(torch.int32),

@@ -10,11 +10,16 @@ on a synthetic multipath session (the CPU) equals the JAX package's.  The
 live feed's pieces: ``IncrementalChangeDetector`` fed one column at a time
 equals the JAX package's row for row and the batch table, and
 ``ClkUnwrapper`` pushed one anchor at a time equals ``unwrap_clk_anchors``
-and the JAX package's, with the same count of non-wrap decreases.
+and the JAX package's, with the same count of non-wrap decreases.  The
+detector on torch tensors (``detect_scene_changes``, CPU tensors here; the
+card in ``tests/test_torch_cuda.py``) is bit-identical to both packages'
+numpy oracles and to ``detect_scene_changes_jax``: seeds 0-2 at four
+parameter sets, a track opened but never observed, zero sweeps.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from slam_process_tpu.models import change_detection as jax_cd
 from slam_process_tpu.utils import timestamps as jax_ts
@@ -90,6 +95,60 @@ def test_zero_sweeps_give_no_events():
         assert g.shape == w.shape and g.dtype == w.dtype
     assert change_detection.scene_change_events(got, tracks, np.zeros(0)).shape == (0, 7)
     assert change_detection.EVENT_KINDS == jax_cd.EVENT_KINDS
+
+
+def tensor_tracks(tracks):
+    return Tracks(*(torch.from_numpy(np.ascontiguousarray(x)) for x in tracks[:5]),
+                  tracks.n_tracks)
+
+
+def never_observed(tracks):
+    """``tracks`` with slot 1 opened but its observations cleared."""
+    obs, power, created = (np.array(x) for x in (tracks.observed, tracks.power, tracks.created))
+    obs[1] = False
+    power[1] = 0.0
+    created[1] = True
+    return tracks._replace(observed=obs, power=power, created=created)
+
+
+@pytest.mark.parametrize("params", [(3, 3, 5.0), (2, 2, 4.0), (1, 5, 2.5), (4, 1, 8.0)],
+                         ids=lambda p: "persist{}_gone{}_jump{}".format(*p))
+@pytest.mark.parametrize("case", ["seed0", "seed1", "seed2", "seed0_never_observed"])
+def test_torch_detector_bit_identical_to_np_and_jax(case, params):
+    """``detect_scene_changes`` on CPU tensors equals the port's and JAX's
+    numpy oracle and ``detect_scene_changes_jax`` mask for mask, bit for
+    bit, with tensors of the numpy dtypes on the tracks' device."""
+    tracks = seeded_tracks(int(case[4]))
+    if case.endswith("never_observed"):
+        tracks = never_observed(tracks)
+    mp, mg, jd = params
+    kw = dict(min_persist=mp, min_gone=mg, jump_deg=jd)
+    got = change_detection.detect_scene_changes(tensor_tracks(tracks), **kw)
+    want = change_detection.detect_scene_changes_np(tracks, **kw)
+    want_jax = jax_cd.detect_scene_changes_jax(tracks, **kw)
+    want_jax_np = jax_cd.detect_scene_changes_np(tracks, **kw)
+    assert got._fields == want._fields
+    for g, w, j, jn, name in zip(got, want, want_jax, want_jax_np, want._fields):
+        assert isinstance(g, torch.Tensor) and g.device.type == "cpu", name
+        assert g.numpy().dtype == w.dtype, name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(j), err_msg=name)
+        np.testing.assert_array_equal(w, jn, err_msg=name)
+    if case.endswith("never_observed"):
+        assert not (got.birth[1].any() or got.death[1].any() or got.jump[1].any())
+    assert int(got.birth.sum()) > 0 and int(got.los_change.sum()) > 0
+
+
+def test_torch_detector_zero_sweeps_and_numpy_input():
+    z = np.zeros((4, 0), np.float32)
+    tracks = Tracks(z, z, z, z.astype(bool), np.ones(4, bool), 0)
+    got = change_detection.detect_scene_changes(tensor_tracks(tracks))
+    want = jax_cd.detect_scene_changes_jax(tracks)
+    for g, w in zip(got, want):
+        assert isinstance(g, torch.Tensor) and g.shape == w.shape
+        assert g.numpy().dtype == np.asarray(w).dtype
+    with pytest.raises(TypeError, match="detect_scene_changes_np"):
+        change_detection.detect_scene_changes(tracks)
 
 
 def test_session_scene_changes_match_jax(tmp_path):

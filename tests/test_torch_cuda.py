@@ -52,6 +52,13 @@ the card (exact) and against its CPU run (power within rtol 2e-4).  The
 thirteenth slice: a (2, 2) mesh whose positions repeat cuda:0 equal to
 ``mesh=None`` for the batch, the multi-stream session and
 ``sweep_paths_dataset``; a shard on cuda:1 where there are two cards.
+The fourteenth slice: ``measure_device_time`` on a product (each index
+called once, every run's device seconds from its own activities, the kept
+trace read back by ``module_device_times``); ``_batched_nn_omp`` "vmap" and
+"gram" and ``nn_omp_sessions_device`` on one packed input equal to "vmap"
+and to their CPU runs; ``nn_omp_batch`` over a session's sweeps equal to
+``nn_omp_gram_batch`` and to the CPU; ``detect_scene_changes`` on the card's
+K6 tracks bit-equal to ``detect_scene_changes_np``.
 """
 
 import numpy as np
@@ -1238,3 +1245,139 @@ def test_mesh_shard_on_a_second_card():
                                     seed=95 + i) for i in range(4)]
     mesh = card_mesh((2, 1), [torch.device("cuda", 0), torch.device("cuda", 1)])
     assert same_nested(batch.run_dataset(mesh, raws), batch.run_dataset(None, raws))
+
+
+def test_measure_device_time_on_card(tmp_path):
+    """Each run's device seconds come from its own activities, by
+    correlation id: a product's kernels in every run, the runs' sum within
+    the trace's op total, the kept trace readable by
+    ``module_device_times``."""
+    from slam_process_tpu_torch.utils.device_timing import (
+        RUN_RANGE, measure_device_time, module_device_times, op_device_times)
+
+    a = torch.randn(2048, 2048, device="cuda")
+    seen = []
+
+    def call(i):
+        seen.append(i)
+        return (a @ a).sum()
+
+    call(-1)
+    torch.cuda.synchronize()
+    seen.clear()
+    t = measure_device_time(call, n=3, trace_dir=tmp_path)
+    assert seen == [0, 1, 2] and len(t.runs) == 3 and min(t.runs) > 0
+    assert t.module == "<all>" and len(t.all_modules) >= 2
+    assert module_device_times(tmp_path)[RUN_RANGE] == pytest.approx(t.runs)
+    assert sum(op_device_times(tmp_path).values()) >= t.total * (1 - 1e-9)
+    top = max(t.all_modules, key=lambda k: sum(t.all_modules[k]))
+    only = measure_device_time(call, n=2, module=top[:12])
+    assert len(only.runs) == 2 and min(only.runs) > 0
+    with pytest.raises(RuntimeError, match="no device activity"):
+        measure_device_time(lambda i: None, n=2)
+
+
+def small_packed(seed=31):
+    """N scenes of planted atoms, each with its own dictionary (the
+    port's ``make_dictionary``), packed with heavy padding."""
+    from slam_process_tpu_torch.config import DictionaryConfig
+    from slam_process_tpu_torch.models.batch_estimation import pack_scenes
+    from slam_process_tpu_torch.models.dictionary import make_dictionary
+
+    rng = np.random.default_rng(seed)
+    mats, dicts = [], []
+    for u, b, span in [(6, 9, 20.0), (16, 4, 55.0), (10, 10, 8.0), (12, 14, 30.0)]:
+        d = make_dictionary(np.sort(rng.uniform(-span, span, u)),
+                            np.sort(rng.uniform(-span, span, b)),
+                            DictionaryConfig(grid_res=0.5, beam_width=1.4, grid_kind="linspace"))
+        m = rng.random((u, b)) * 0.1
+        for _ in range(4):
+            m += rng.uniform(0.5, 2.0) * np.outer(d.phi_rx[:, rng.integers(len(d.aoa_grid))],
+                                                  d.phi_tx[:, rng.integers(len(d.aod_grid))])
+        mats.append(m)
+        dicts.append(d)
+    return pack_scenes(mats, dicts)
+
+
+def assert_paths_equal(got, want, rtol=2e-4):
+    for field in ("aoa_idx", "aod_idx", "n_iters", "valid", "aoa", "aod"):
+        np.testing.assert_array_equal(np.asarray(getattr(got, field)),
+                                      np.asarray(getattr(want, field)), err_msg=field)
+    np.testing.assert_allclose(np.asarray(got.power), np.asarray(want.power), rtol=rtol,
+                               atol=1e-6)
+
+
+def cpu_paths(paths):
+    return type(paths)(*(x.cpu() for x in paths))
+
+
+@pytest.mark.parametrize("flavor", ["v1-7", "v1"])
+def test_est_forms_on_card_match_vmap_and_cpu(flavor):
+    """``_batched_nn_omp`` "vmap" and "gram" and ``nn_omp_sessions_device``
+    on one packed input on the card: each equal to "vmap" (indices,
+    n_iters, valid; power within rtol 2e-4) and to its own CPU run."""
+    from slam_process_tpu_torch.config import OmpConfig
+    from slam_process_tpu_torch.models.batch_estimation import (
+        _batched_nn_omp, flavor_config, nn_omp_sessions_device, packed_to_device)
+
+    _, cfg, _, keep, stop = flavor_config(flavor)
+    cfg = OmpConfig(max_paths=6, min_power_ratio=cfg.min_power_ratio)
+    packed = small_packed()
+    p = packed_to_device(packed, torch.device("cuda"))
+    vmap = _batched_nn_omp(p, cfg, keep, stop)
+    gram = _batched_nn_omp(p, cfg, keep, stop, form="gram")
+    each = nn_omp_sessions_device(p, cfg, keep, stop)
+    assert vmap.power.is_cuda and gram.power.is_cuda and each[0].power.is_cuda
+    vmap, gram = cpu_paths(vmap), cpu_paths(gram)
+    assert_paths_equal(gram, vmap)
+    for i, e in enumerate(each):
+        assert_paths_equal(cpu_paths(e), type(vmap)(*(x[i] for x in vmap)))
+    for form, got in (("vmap", vmap), ("gram", gram)):
+        assert_paths_equal(got, _batched_nn_omp(packed, cfg, keep, stop, form=form,
+                                                device="cpu"))
+
+
+def test_nn_omp_batch_on_card_matches_gram_and_cpu(tmp_path):
+    """``nn_omp_batch`` over sweeps of one session's shared dictionary on
+    the card equals ``nn_omp_gram_batch`` on the same sweeps and its CPU
+    run (per-sweep config: K = 3, keep "positive", no nonpositive stop)."""
+    from slam_process_tpu_torch.models.nn_omp import nn_omp_batch, nn_omp_gram_batch
+    from slam_process_tpu_torch.models.sweep_estimation import _fill_per_sweep
+    from slam_process_tpu_torch.pipeline.session import Session
+    from slam_process_tpu_torch.utils.synthetic import to_hex_text, write_angle_table
+
+    (tmp_path / "mp.txt").write_bytes(to_hex_text(synthetic_session_bytes(
+        n_groups=6, frames_per_beam=2, baselines_per_group=9, seed=1, n_paths=3)))
+    angles = write_angle_table(tmp_path / "angles.xlsx")
+    s = Session.from_log(tmp_path / "mp.txt")
+    sub, d, est_key, _ = s._sweep_estimation_inputs(angles, "nn_omp", None, torch.device("cuda"))
+    _, cfg, keep, stop = est_key
+    filled, _ = _fill_per_sweep(sub)
+    args = (d.phi_rx, d.phi_tx, d.aoa_grid, d.aod_grid, filled, cfg, keep, stop)
+    chain = cpu_paths(nn_omp_batch(*args))
+    assert_paths_equal(chain, cpu_paths(nn_omp_gram_batch(*args)))
+    assert_paths_equal(chain, nn_omp_batch(*(x.cpu() if torch.is_tensor(x) else x
+                                             for x in args)))
+
+
+def test_detect_scene_changes_on_card_bit_equal_to_np(estimator_session):
+    """The scene change detector on the card's K6 tracks equals
+    ``detect_scene_changes_np`` on the same tracks read back, bit for bit."""
+    from slam_process_tpu_torch.models.change_detection import (
+        detect_scene_changes, detect_scene_changes_np)
+    from slam_process_tpu_torch.models.sweep_estimation import path_power
+    from slam_process_tpu_torch.models.tracking import Tracks, track_paths
+
+    s, angles = estimator_session
+    paths, sweep_valid = s.sweep_paths(angles, grid_res=1.0)
+    valid = np.asarray(paths.valid, bool) & sweep_valid[:, None]
+    t = track_paths(*(torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                      for x in (paths.aoa, paths.aod, path_power(paths), valid)))
+    for kw in (dict(), dict(min_persist=1, min_gone=1, jump_deg=0.5)):
+        got = detect_scene_changes(t, **kw)
+        assert all(x.is_cuda for x in got)
+        want = detect_scene_changes_np(Tracks(*(x.cpu().numpy() for x in t[:5]),
+                                              int(t.n_tracks)), **kw)
+        for g, w in zip(got, want):
+            assert g.cpu().numpy().dtype == w.dtype
+            np.testing.assert_array_equal(g.cpu().numpy(), w)
