@@ -291,7 +291,25 @@ Phases, each printing one JSON line:
                 ``torch.profiler``: the device's busy time, its share, the top
                 ops, and the estimator's host syncs.
 
-Every kernel's launches are counted on each path (phases 4 to 17, 8b,
+ 19. mesh       the mesh forms on positions of cuda:0 (``mesh_phase``).
+ 20. multihost  two-process gloo clusters on cuda:0 (``multihost_phase``).
+ 21. graphs     the compiled programs as CUDA graphs against their eager
+                bodies on the card, floats bit for bit (the pre-log scene
+                within one float32 ulp): ``compiled_session_pipeline`` and
+                ``compiled_text_session_pipeline`` on two sessions of one
+                bucket alternated, at full size and at dataset scale, and
+                the window graph of a stream without paths (the live feed at
+                64 KiB, the straddle at 16 KiB, the 19 dataset logs replayed
+                at 1 MiB) against the eager round, the whole state; then
+                eager against graph: wall ms, frames/s, device ms and
+                activities a session call, capture ms and pool bytes, ms per
+                window, and ``cli.replay_stream`` timed as phase 6 times
+                streams (``graphs_phase``).
+
+On CUDA the session entry points and a stream without paths run CUDA
+graphs (``utils/graphs.py``): a replay calls no wrapper, so it adds to each
+kernel's counter the launches its capture recorded.  Every kernel's
+launches are counted on each path (phases 4 to 17, 8b, 19 to 21,
 the counters set to 0 just before and read just after), reported in the
 ``kernels`` line as ``launches_by_path``; ``launches`` is the count on the
 kernel's own path.  The stream-axis entries add to their kernel's counter
@@ -1108,6 +1126,15 @@ def run(tmp: Path) -> None:
     print(smi, flush=True)
     emit({"phase": "multihost", "seconds": time.perf_counter() - t0,
           "launches": by_path["multihost"], **host_out})
+
+    # -- 21. graphs: the compiled programs as CUDA graphs, against eager ------------
+    t0 = time.perf_counter()
+    graph_out = graphs_phase(np, torch, sd, tmp, raws, paths, angles, zero_counts, read_counts,
+                             dev, smi)
+    by_path["graphs"] = graph_out.pop("launches")
+    print(smi, flush=True)
+    emit({"phase": "graphs", "seconds": time.perf_counter() - t0,
+          "launches": by_path["graphs"], **graph_out})
 
     # Bounds: the larger of bytes moved (each input read once, each output
     # written once) over HBM bandwidth and the operations this run's data
@@ -2970,10 +2997,28 @@ WINDOW_WRAPPERS = {"K1": ("cuda_decode", "decode_rows_cuda"),
                    "K4": ("cuda_sweep_sums", "sweep_sums_cuda")}
 
 
+def eager_windows(sd, s):
+    """``s`` (a ``DeviceStreamingSession``) with every window run by the
+    eager body, ``_WindowRound._round``, in place of its CUDA graph: the
+    graphs' comparator, and a stream whose kernel calls can be recorded (a
+    graph replay calls no wrapper).  A checkout from before the graphs is
+    eager already and is returned as it is."""
+    if not hasattr(s, "_load_window"):
+        return s
+
+    def step(piece, n_bytes):
+        s._load_window(piece, n_bytes)
+        s._round(sd._map_state(s._state, sd._lift), *s._window_inputs())
+
+    s._step = step
+    return s
+
+
 def stream_window_inputs(sd, raw, chunk, dev, paths_spec=None):
     """{key: (args, kwargs)} of K1's, K2's and, with ``paths_spec`` (the
     stream then estimates paths, K4 once a window), K4's call in a stream's
-    second full window of ``chunk`` bytes, recorded from the wrappers of the
+    second full window of ``chunk`` bytes (the stream run by its eager body),
+    recorded from the wrappers of the
     ``slam_process_tpu_torch`` that ``sd`` belongs to while the stream runs (a
     first feed of ``chunk`` bytes runs one full window and keeps 10 bytes;
     the second feed runs a full window, then a 20-byte one).  A stream that
@@ -3003,8 +3048,8 @@ def stream_window_inputs(sd, raw, chunk, dev, paths_spec=None):
     for key, (mod, attr) in mods.items():
         setattr(mod, attr, recorder(key))
     try:
-        s = sd.DeviceStreamingSession(chunk_bytes=chunk, collect_filtered=True,
-                                      collect_paths=paths_spec, device=dev)
+        s = eager_windows(sd, sd.DeviceStreamingSession(
+            chunk_bytes=chunk, collect_filtered=True, collect_paths=paths_spec, device=dev))
         s.feed(raw[:chunk])
         s.feed(raw[chunk:2 * chunk])
     finally:
@@ -3053,8 +3098,8 @@ def k5_inputs(torch, sd, raw, dev):
                                   emit_capacity=len(raw) // 11 + 1, device=dev)
     s.feed(raw[:REPLAY_CHUNK])
     lo = REPLAY_CHUNK - sd.CARRY_BYTES
-    piece = torch.from_numpy(raw[lo:lo + REPLAY_CHUNK].copy()).to(dev)
-    w = s._close_groups(piece, piece.numel())
+    piece = raw[lo:lo + REPLAY_CHUNK]
+    w = s._close_groups(piece, len(piece))
     return {"rows": w.combined, "open": w.open_mask, "kept": sd._kept_rows(w.combined, w.corrected),
             "keep": w.keep, "ring": s._state.emit_buf, "offset": s._state.emit_count,
             "ecap": s._ecap}
@@ -4276,6 +4321,246 @@ def main():
 if __name__ == "__main__":
     main()
 '''
+
+GRAPH_TIMED = 20                     # event-timed session calls per median in the graphs phase
+
+
+def graphs_phase(np, torch, sd, tmp, raws, paths, angles, zero_counts, read_counts, dev,
+                 smi) -> dict:
+    """Phase 21: the compiled programs as CUDA graphs against their eager
+    bodies on the card, then eager against graph in time.
+
+    Exactness, floats bit for bit: ``compiled_session_pipeline`` on two
+    sessions of one bucket alternated (the full and the multipath session;
+    two dataset-scale sessions), each call against ``session_pipeline``;
+    ``compiled_text_session_pipeline`` on their shipped-layout text against
+    ``session_pipeline_from_text``; the pre-log program against the eager
+    pre-log body (integer fields exactly, means within one float32 ulp:
+    float64 atomics); the window graph of a stream without paths against
+    the eager round (``eager_windows``), the whole state after the feed and
+    after the flush: the live feed (the multipath log in 64 KiB feeds), the
+    straddle (the full session at 16 KiB) and the 19 dataset logs replayed at
+    1 MiB (a short last window).  Each replay adds its capture's launches to
+    the counters (checked: one K1, K2 and K3 a session call).
+
+    Times (the card's name and power limit printed beside them): per session
+    program, eager and graph, wall ms (CUDA events around the call on device
+    inputs, host work included, median of ``GRAPH_TIMED`` after a warm-up),
+    frames/s, device ms (``utils/device_timing.measure_device_time``, median
+    of 3, one profiler window each) and device activities a call; each
+    graph's capture ms and pool bytes; the entry point
+    ``run_session_on_device`` on the full session; ms per window of the live
+    feed and the replay, eager and graph (CUDA events around feed, finalize
+    and ``block_until_ready``, median of 5 after a warm-up) and the windows
+    whose staging copy made the host wait; ``cli.replay_stream`` as the
+    command runs it (64 KiB windows, the multipath log; with and without
+    ``--paths``), timed the same way."""
+
+    from slam_process_tpu_torch.ops.tokenize import prepare_text, stride3_offset, text_bucket
+    from slam_process_tpu_torch.pipeline import cli
+    from slam_process_tpu_torch.pipeline.device import (
+        bucket_size, compiled_session_pipeline, compiled_text_session_pipeline, device_lut,
+        pad_bytes, run_session_on_device, session_pipeline, session_pipeline_from_text)
+    from slam_process_tpu_torch.utils.device_timing import measure_device_time, op_device_counts
+    from slam_process_tpu_torch.utils.synthetic import to_hex_text
+
+    lut = device_lut(dev)
+    counted = ("K1", "K2", "K3")
+
+    def wall_ms(fn, n=GRAPH_TIMED):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def device(fn, name):
+        trace = tmp / f"graphs_trace_{name}"
+        t = measure_device_time(lambda i: fn(), n=3, trace_dir=trace)
+        acts = sum(op_device_counts(trace).values()) / 3
+        shutil.rmtree(trace, ignore_errors=True)
+        return t.median * 1e3, acts
+
+    def replayed(fn, calls):
+        """Each call of a graph program against its eager body, and the
+        launches each replay adds."""
+        for call, want in calls:
+            before = read_counts()
+            got = call()
+            after = read_counts()
+            if any(after[k] - before[k] != 1 for k in counted):
+                fail(f"graphs: a replay added {[after[k] - before[k] for k in counted]} K1-K3 "
+                     "launches, not one each")
+            yield got, want()
+
+    zero_counts()
+    sessions = {}
+    # The full and the multipath session share the full bucket; two
+    # dataset-scale sessions of one bucket.
+    ds = [i for i in range(1, len(raws) - 1)]
+    ds_pair = next((i, j) for i in ds for j in ds if i < j
+                   and bucket_size(len(raws[i])) == bucket_size(len(raws[j])))
+    for scale, (a, b) in (("full", (0, len(raws) - 1)), ("dataset", ds_pair)):
+        n = bucket_size(len(raws[a]))
+        if bucket_size(len(raws[b])) != n:
+            fail(f"graphs: sessions {a} and {b} are not in one bucket")
+        frames = [int(np.count_nonzero(run_session_on_device(raws[i], device=dev).frame_valid
+                                       .cpu().numpy())) for i in (a, b)]
+        padded = [torch.from_numpy(pad_bytes(raws[i], n)).to(dev) for i in (a, b)]
+        fn = compiled_session_pipeline(n, device=dev)
+        fn(padded[0], lut)                                   # captured here, if not before
+        for got, want in replayed(fn, [(lambda k=k: fn(padded[k], lut),
+                                        lambda k=k: session_pipeline(padded[k], lut))
+                                       for k in (0, 1, 0, 1)]):
+            bad = outputs_differ(torch, got, want)
+            if bad:
+                fail(f"graphs {scale}: the session graph differs from the eager body in {bad}")
+        texts = [to_hex_text(raws[i], "shipped") for i in (a, b)]
+        m = max(text_bucket(len(t) - stride3_offset(t)) for t in texts)
+        bodies = []
+        for t in texts:
+            body, n_text = prepare_text(t, stride3_offset(t), m)
+            bodies.append((torch.from_numpy(body).to(dev), n_text))
+        fn_t = compiled_text_session_pipeline(m, device=dev)
+        fn_t(*bodies[0], lut)
+        for got, want in replayed(fn_t, [(lambda k=k: fn_t(*bodies[k], lut),
+                                          lambda k=k: session_pipeline_from_text(*bodies[k], lut))
+                                         for k in (0, 1, 0, 1)]):
+            bad = outputs_differ(torch, got.out, want.out)
+            if bad or not (bool(got.tokenize_regular) and int(got.n_tokens) == int(want.n_tokens)):
+                fail(f"graphs {scale}: the text graph differs from the eager body in {bad} or "
+                     "its token count")
+        timed = {}
+        for kind, g_call, e_call, prog in (
+                ("bytes", lambda: fn(padded[0], lut), lambda: session_pipeline(padded[0], lut),
+                 fn),
+                ("text", lambda: fn_t(*bodies[0], lut),
+                 lambda: session_pipeline_from_text(*bodies[0], lut), fn_t)):
+            row = {}
+            for form, call in (("eager", e_call), ("graph", g_call)):
+                ms = wall_ms(call)
+                dev_ms, acts = device(call, f"{scale}_{kind}_{form}")
+                row[form] = {"wall_ms": ms, "frames_per_s": frames[0] / (ms / 1e3),
+                             "device_ms": dev_ms, "device_activities": acts}
+            row.update(capture_ms=prog.runner.capture_ms, pool_bytes=prog.runner.pool_bytes,
+                       wall_ratio_graph_over_eager=row["graph"]["wall_ms"]
+                       / row["eager"]["wall_ms"])
+            timed[kind] = row
+        sessions[scale] = {"bytes": len(raws[a]), "bucket": n, "text_bucket": m,
+                           "frames": frames[0], **timed}
+    sessions["full"]["run_session_on_device_wall_ms"] = wall_ms(
+        lambda: run_session_on_device(raws[0], device=dev))
+
+    # The pre-log program: one float32 ulp (float64 atomics add in no order).
+    n = bucket_size(len(raws[0]))
+    padded = torch.from_numpy(pad_bytes(raws[0], n)).to(dev)
+    fn_log = compiled_session_pipeline(n, device=dev, log_transform_scene=True)
+    for _ in range(3):
+        got = fn_log(padded, lut)
+        want = session_pipeline(padded, lut, log_transform_scene=True)
+        bad = outputs_differ(torch, got, want, [f for f in want._fields
+                                                 if f not in ("mean_grid", "rgba", "blurred",
+                                                              "norm_t", "n_discarded")])
+        ulps = ulps_apart(np, got.mean_grid.cpu().numpy(), want.mean_grid.cpu().numpy())
+        if bad or not 0 <= ulps <= 1:
+            fail(f"graphs prelog: {bad} differ, or the means are {ulps} ulps apart")
+
+    # Streams without paths: graph against the eager round, state bit for bit.
+    raw_ds = np.concatenate([raws[i] for i in ds])
+    n_kept_max = len(raw_ds) // 11 + 1
+
+    def stream(raw, chunk, eager=False, replay=False):
+        kw = dict(chunk_bytes=chunk, collect_filtered=True, device=dev)
+        if replay:
+            if eager:
+                s = eager_windows(sd, sd.DeviceStreamingSession(
+                    emit_capacity=-(-n_kept_max // (1 << 16)) * (1 << 16), **kw))
+                for off in range(0, len(raw), chunk):
+                    s.feed(raw[off:off + chunk])
+                s.finalize()
+                return s
+            return sd.replay_log_device(raw, **kw)
+        s = sd.DeviceStreamingSession(**kw)
+        if eager:
+            eager_windows(sd, s)
+        for off in range(0, len(raw), chunk):
+            s.feed(raw[off:off + chunk])
+        s.finalize()
+        return s
+
+    def same_state(a, b):
+        la, lb = sd._leaves(a._state), sd._leaves(b._state)
+        return len(la) == len(lb) and all(
+            x.dtype == y.dtype and x.shape == y.shape
+            and torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+            for x, y in zip(la, lb))
+
+    def stream_ms(fn):
+        fn().block_until_ready()
+        times = []
+        for _ in range(N_STREAM_RUNS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn().block_until_ready()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    streams = {}
+    for name, raw, chunk, replay in (("live_64KiB", raws[-1], LIVE_CHUNK, False),
+                                     ("straddle_16KiB", raws[0], STRADDLE_CHUNK, False),
+                                     ("replay_1MiB", raw_ds, REPLAY_CHUNK, True)):
+        k1 = read_counts()["K1"]
+        got = stream(raw, chunk, replay=replay)
+        windows = read_counts()["K1"] - k1
+        want = stream(raw, chunk, eager=True, replay=replay)
+        if not same_state(got, want) or got._graph is None or got._graph.replays < 1:
+            fail(f"graphs {name}: the window graph's state differs from the eager round's "
+                 "(or no window replayed)")
+        streams[name] = {"bytes": len(raw), "windows": windows,
+                         "graph_replays": got._graph.replays,
+                         "capture_ms": got._graph.capture_ms,
+                         "pool_bytes": got._graph.pool_bytes}
+        if name == "straddle_16KiB":
+            continue
+        row = {}
+        for form, eager in (("eager", True), ("graph", False)):
+            waits = sd.STAGING_WAITS
+            ms = stream_ms(lambda: stream(raw, chunk, eager=eager, replay=replay))
+            row[form] = {"ms": ms, "ms_per_window": ms / windows,
+                         "bytes_per_s": len(raw) / (ms / 1e3),
+                         "staging_waits_per_window": (sd.STAGING_WAITS - waits)
+                         / (windows * (N_STREAM_RUNS + 1))}
+        streams[name].update(row, window_ratio_graph_over_eager=row["graph"]["ms"]
+                             / row["eager"]["ms"])
+
+    # cli.replay_stream as the command runs it: the multipath log at the
+    # command's 64 KiB windows, timed as the streaming phase times streams.
+    replay = {}
+    for tag, extra in (("default", []), ("paths", ["--paths"])):
+        args = cli.build_parser().parse_args(
+            ["replay", "--logs", str(paths[-1]), "--mapping", str(angles), "--outdir",
+             str(tmp / "graphs_replay"), *extra])
+        k1 = read_counts()["K1"]
+        name, s, _ = cli.replay_stream(args, paths[-1])
+        windows = read_counts()["K1"] - k1
+        ms = stream_ms(lambda: cli.replay_stream(args, paths[-1])[1])
+        replay[tag] = {"ms": ms, "windows": windows, "ms_per_window": ms / windows,
+                       "frames_per_s": s.n_frames / (ms / 1e3),
+                       "window_graph": s._graph is not None}
+    return {"card": smi, "sessions": sessions, "streams": streams,
+            "cli_replay_stream_64KiB": replay, "launches": read_counts()}
+
 
 MULTIHOST_TIMEOUT_S = 300            # each process of the multihost phase
 MULTIHOST_WATCH = [dict(n_groups=n, frames_per_beam=12, baselines_per_group=40, junk_frac=0.02,

@@ -110,3 +110,34 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_SCRATCH = {}   # (kernel, device index, stream) -> its int64 scratch words
+
+
+def scratch(kernel: str, dev, stream: int, words: int, least: int):
+    """A kernel's int64 scratch on ``dev`` for ``stream``: at least
+    ``words`` words, zeroed when made (with at least ``least`` words) or
+    grown.  Launches on one stream run in order, and each leaves the words
+    ready for the next, so one scratch serves every call on the stream.
+
+    Never made inside a CUDA graph capture: it would come from the graph's
+    private pool and be shared with eager calls.  A graph's warm-up, on the
+    capture stream, makes it first (``utils/graphs.py``), and a graph keeps
+    the scratch it was captured with alive (``scratch_tensors``) where a
+    later call grows it."""
+    import torch
+
+    key = (kernel, dev.index, stream)
+    t = _SCRATCH.get(key)
+    if t is None or t.numel() < words:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{kernel}: its scratch would be made inside a CUDA graph "
+                               "capture; run the program once on the capture stream first")
+        t = _SCRATCH[key] = torch.zeros(max(words, least), dtype=torch.int64, device=dev)
+    return t
+
+
+def scratch_tensors() -> list:
+    """Every kernel scratch made so far in this process."""
+    return list(_SCRATCH.values())

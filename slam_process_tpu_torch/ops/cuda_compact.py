@@ -30,7 +30,6 @@ LAUNCHES = 0   # kernel launches since the caller last set it to 0
 _BLOCK = 1024
 _TAIL_ELEMS = 1 << 12     # tail blocks: one per 4,096 int32 elements of capacity, at most 8
 _MAX_TAIL = 8
-_scratch = {}             # (device index, stream) -> the look-back scratch
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,12 +62,7 @@ def _scratch_for(dev: torch.device, stream: int, n_tiles: int) -> torch.Tensor:
     """The ticket word, then one status word per tile: int64 [1 + tiles],
     zeroed once when made (or grown); every launch leaves it ready for the
     next on the same stream."""
-    key = (dev.index, stream)
-    s = _scratch.get(key)
-    if s is None or s.numel() < 1 + n_tiles:
-        s = torch.zeros(1 + max(n_tiles, 4096), dtype=torch.int64, device=dev)
-        _scratch[key] = s
-    return s
+    return _build.scratch("compaction kernel", dev, stream, 1 + n_tiles, 1 + 4096)
 
 
 def compact_rows_multi_cuda(rows: torch.Tensor, mask: torch.Tensor,

@@ -23,8 +23,6 @@ import torch
 from slam_process_tpu_torch.ops import _build
 
 LAUNCHES = 0   # kernel launches since the caller last set it to 0
-_tickets = {}  # (device index, stream) -> the count's 8-byte scratch word
-_stream_tickets = {}  # (device index, stream) -> one such word per byte stream
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,11 +48,7 @@ def _fn_streams():
 def ticket_for(dev: torch.device, stream: int) -> torch.Tensor:
     """The count's scratch word on ``dev`` for ``stream``: zeroed once when
     made; every launch leaves it zero for the next on the same stream."""
-    key = (dev.index, stream)
-    t = _tickets.get(key)
-    if t is None:
-        t = _tickets[key] = torch.zeros(1, dtype=torch.int64, device=dev)
-    return t
+    return _build.scratch("decode kernel ticket", dev, stream, 1, 1)
 
 
 def decode_rows_cuda(b: torch.Tensor, limit: int, flag_true: int, flag_false: int):
@@ -86,11 +80,7 @@ def decode_rows_cuda(b: torch.Tensor, limit: int, flag_true: int, flag_false: in
 def tickets_for(dev: torch.device, stream: int, n_streams: int) -> torch.Tensor:
     """At least ``n_streams`` such words on ``dev`` for ``stream`` (grown,
     zeroed, when too few); every launch leaves them zero."""
-    key = (dev.index, stream)
-    t = _stream_tickets.get(key)
-    if t is None or t.numel() < n_streams:
-        t = _stream_tickets[key] = torch.zeros(max(n_streams, 64), dtype=torch.int64, device=dev)
-    return t
+    return _build.scratch("decode kernel tickets", dev, stream, n_streams, 64)
 
 
 def decode_rows_streams_cuda(b: torch.Tensor, limits, flag_true: int, flag_false: int):

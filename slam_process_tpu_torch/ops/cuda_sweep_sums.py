@@ -21,7 +21,6 @@ from slam_process_tpu_torch.ops import _build
 
 LAUNCHES = 0   # kernel launches since the caller last set it to 0
 _TILE = 1024   # rows per tile summary
-_scratch = {}  # (device index, stream) -> the epoch ticket and the tile summaries
 
 
 @functools.lru_cache(maxsize=None)
@@ -38,13 +37,7 @@ def scratch_for(dev: torch.device, stream: int, f: int) -> torch.Tensor:
     """The epoch ticket, then two tagged summary words (min and max p) per
     tile of 1,024 rows: int64 [1 + 2 tiles], zeroed once when made (or
     grown); every launch leaves it ready for the next on the same stream."""
-    key = (dev.index, stream)
-    s = _scratch.get(key)
-    tiles = -(-f // _TILE)
-    if s is None or s.numel() < 1 + 2 * tiles:
-        s = _scratch[key] = torch.zeros(1 + 2 * max(tiles, 1024), dtype=torch.int64,
-                                        device=dev)
-    return s
+    return _build.scratch("sweep-sums kernel", dev, stream, 1 + 2 * -(-f // _TILE), 1 + 2 * 1024)
 
 
 def sweep_sums_cuda(p: torch.Tensor, bs: torch.Tensor, val: torch.Tensor, max_sweeps: int,

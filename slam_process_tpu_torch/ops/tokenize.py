@@ -105,10 +105,12 @@ def tokenize_stride3(text: torch.Tensor, n_text) -> Tuple[torch.Tensor, torch.Te
     and the proof flag (``tokenize_stride3_jax``).
 
     ``text`` is [M] uint8 with M % 3 == 0, padded with whitespace
-    (``TEXT_PAD``); ``n_text`` is the real body length (an int or a device
-    scalar).  Returns ``(b [M // 3] uint8, n_tok int32, regular bool)``,
-    the last two 0-d tensors on the device; ``b[k]`` is token k's value,
-    0 (an inert, non-flag byte) from ``n_tok`` on.
+    (``TEXT_PAD``); ``n_text`` is the real body length: an int, or a 0-d
+    int32 tensor on ``text``'s device (what a CUDA graph of the text path
+    reads, so that one graph serves every length: JAX's program takes
+    ``jnp.int32(n_text)`` too).  Returns ``(b [M // 3] uint8, n_tok int32,
+    regular bool)``, the last two 0-d tensors on the device; ``b[k]`` is
+    token k's value, 0 (an inert, non-flag byte) from ``n_tok`` on.
 
     Equivalence with the reference tokenizer (tests/test_torch_tokenize.py),
     with rem = n_text % 3:
@@ -125,10 +127,15 @@ def tokenize_stride3(text: torch.Tensor, n_text) -> Tuple[torch.Tensor, torch.Te
     if text.dtype != torch.uint8 or text.dim() != 1 or text.shape[0] % 3:
         raise ValueError(f"text must be [M] uint8 with M % 3 == 0, got "
                          f"{text.dtype}{list(text.shape)}")
+    if isinstance(n_text, torch.Tensor):
+        if n_text.dim() != 0 or n_text.dtype != torch.int32 or n_text.device != text.device:
+            raise ValueError(f"n_text must be a 0-d int32 tensor on {text.device}, got "
+                             f"{n_text.dtype}{list(n_text.shape)} on {n_text.device}")
+    else:
+        n_text = torch.tensor(int(n_text), dtype=torch.int32, device=text.device)
     t = text.view(-1, 3)
     c0, c1, c2 = t[:, 0], t[:, 1], t[:, 2]
-    n_tok = torch.div(torch.as_tensor(n_text, dtype=torch.int32, device=text.device) + 1, 3,
-                      rounding_mode="floor")
+    n_tok = torch.div(n_text + 1, 3, rounding_mode="floor")
     real = torch.arange(t.shape[0], dtype=torch.int32, device=text.device) < n_tok
     tok_ok = _ishex(c0) & _ishex(c1) & _is_ws(c2)
     regular = (tok_ok | ~real).all()

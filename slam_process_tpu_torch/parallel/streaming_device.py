@@ -43,13 +43,16 @@ integer (the JAX package passes ``SceneConfig()`` there), so K4 runs.
 Where the port differs: the running intensity sums are int64 (exact at any
 stream length; the JAX package's float32 sums are exact below 2^24 per
 cell), or float64 for the pre-log scene, and the state is updated in
-place.  A window waits on the device only with ``collect_paths``: once
-to read the count of sweeps it closed, which sizes the estimator's batch
-(``HOST_SYNCS``), and, when it closed any, at each step of the NNLS
-solver's lockstep loops (``ops/nnls.HOST_SYNCS``).  Without
-``collect_paths`` a window never waits.  ``render()`` reads the sums
-back, builds the grid on the host as ``intensity()`` does and rasterizes
-it on the session's device (K3).
+place (the counterpart of JAX's donated state).  A window reads the
+device only with ``collect_paths``: once to read the count of sweeps it
+closed, which sizes the estimator's batch (``HOST_SYNCS``), and, when it
+closed any, at each step of the NNLS solver's lockstep loops
+(``ops/nnls.HOST_SYNCS``).  Without ``collect_paths`` a window reads
+nothing back, and on CUDA the single stream's window is one CUDA graph
+replay (``DeviceStreamingSession``); its host waits only for the copy out
+of its staging buffer before refilling it (``STAGING_WAITS``).
+``render()`` reads the sums back, builds the grid on the host as
+``intensity()`` does and rasterizes it on the session's device (K3).
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ import logging
 import os
 import pickle
 import warnings
+import weakref
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
@@ -79,12 +83,14 @@ from slam_process_tpu_torch.ops.tracker import track_block_streams
 from slam_process_tpu_torch.parallel.mesh import placement, shard_rows
 from slam_process_tpu_torch.pipeline.device import resolve_device
 from slam_process_tpu_torch.render.heatmap import RenderedHeatmap, render_intensity
+from slam_process_tpu_torch.utils.graphs import GraphRunner
 from slam_process_tpu_torch.utils.timestamps import unwrap_clk_anchors
 
 _LOGGER = logging.getLogger("slam_process_tpu_torch.streaming_device")
 
 CARRY_BYTES = 10   # frame_len - 1: the only positions without a verdict
 HOST_SYNCS = 0     # host reads of a window's closed-sweep count since the caller set it to 0
+STAGING_WAITS = 0  # windows whose staging buffer was still being copied (the host waited)
 
 
 class StreamPathsSpec(NamedTuple):
@@ -359,11 +365,12 @@ def _paths_substep(p: PathsState, kr: torch.Tensor, n_keep: torch.Tensor,
     for ring, col in ((p.trk_aoa, c_aoa), (p.trk_aod, c_aod), (p.trk_pow, c_pow),
                       (p.trk_obs, c_obs)):
         ring.flatten(0, 1).index_copy_(0, ring_idx, _take(col.flatten(0, 1), at))
-    p.trk_pos, p.trk_created, p.trk_count = pos, created, count
+    for x, new in ((p.trk_pos, pos), (p.trk_created, created), (p.trk_count, count)):
+        x.copy_(new)
 
     p.overflow |= (m_eff_t > spec.s_step) | (p.n_closed + m_eff_t > spec.capacity)
-    p.n_closed = (p.n_closed + m_eff_t).clamp(max=spec.capacity)
-    p.last_kept_ue = last_ue
+    p.n_closed.add_(m_eff_t).clamp_(max=spec.capacity)
+    p.last_kept_ue.copy_(last_ue)
     if close_all:
         p.open_sums.zero_()
         p.open_counts.zero_()
@@ -373,7 +380,7 @@ def _paths_substep(p: PathsState, kr: torch.Tensor, n_keep: torch.Tensor,
         open_counts = _take(counts, at_mc)
         p.open_sums.copy_(_take(sums, at_mc))
         p.open_counts.copy_(open_counts)
-        p.open_time = torch.where(open_counts.sum(dim=(1, 2)) > 0, _take(times, at_mc), -1)
+        p.open_time.copy_(torch.where(open_counts.sum(dim=(1, 2)) > 0, _take(times, at_mc), -1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -486,8 +493,8 @@ class _WindowRound:
             w.combined, w.open_mask, [(self._gcap, None, None)])
         paths = self._emit_and_paths(st, _kept_rows(w.combined, w.corrected), w.keep,
                                      close_all=False)
-        st.carry_frames = new_carry
-        st.carry_count = n_carry.clamp(max=self._gcap)
+        st.carry_frames.copy_(new_carry)
+        st.carry_count.copy_(n_carry.clamp(max=self._gcap))
         st.n_frames += w.n_new
         st.n_kept += w.keep.sum(dim=1, dtype=torch.int32)
         st.n_groups += w.boundary.sum(dim=1, dtype=torch.int32)
@@ -511,7 +518,7 @@ class _WindowRound:
         outs, n = compact_rows_streams(kept, keep, dests)                                 # K5
         if self._ecap:
             st.emit_overflow |= st.emit_count + n > self._ecap
-            st.emit_count = (st.emit_count + n).clamp(max=self._ecap)
+            st.emit_count.add_(n).clamp_(max=self._ecap)
         if st.paths is None:
             return iter(())
         return _paths_substep(st.paths, outs[-1], n, self._paths_spec, self._dict_args,
@@ -568,6 +575,18 @@ class DeviceStreamingSession(_WindowRound):
     round of ``MultiStreamingSession`` at S = 1, on a view of the state
     with a leading axis of 1.  Results are read back when a property or
     reader is called.  ``device=None`` means CUDA.
+
+    Every window, full or the short last piece of a feed, is one static
+    input: its bytes, zero-padded to ``chunk_bytes``, and K1's limit (their
+    count), in one device buffer that one pinned staging buffer fills.  So
+    on CUDA, without ``collect_paths``, the round is one CUDA graph (the
+    counterpart of the JAX package's jitted step with a donated state): the
+    first window runs it once and captures it, every later window, whatever
+    its length, replays it.  A grown emit ring drops the graph and the next
+    window captures anew.  With ``collect_paths`` the round stays eager: its
+    paths step reads the closed-sweep counts on the host.  ``finalize``
+    runs once a stream and stays eager too (the JAX package jits its flush;
+    a graph of a single call would save nothing).
     """
 
     def __init__(self, config: Optional[PipelineConfig] = None, chunk_bytes: int = 1 << 20,
@@ -586,6 +605,17 @@ class DeviceStreamingSession(_WindowRound):
             self._ecap = 0
         self._emit_bound = 0     # kept rows <= one frame per 11 bytes fed
         self._state = self._zero_state()
+        # The window: K1's limit as int64 in bytes [0, 8), the bytes from 16.
+        self._window = torch.zeros(16 + self.chunk_bytes, dtype=torch.uint8,
+                                   device=self.device)
+        if self.device.type == "cuda":
+            self._staging = torch.zeros(16 + self.chunk_bytes, dtype=torch.uint8,
+                                        pin_memory=True)
+            self._staged = torch.cuda.Event()
+        else:
+            self._staging, self._staged = self._window, None
+        self._staging_np = self._staging.numpy()
+        self._graph: Optional[GraphRunner] = None
         self._byte_carry = np.zeros(0, dtype=np.uint8)
         self._finalized = False
         self._overflow_warned = False
@@ -610,6 +640,7 @@ class DeviceStreamingSession(_WindowRound):
         grown[:self._ecap] = self._state.emit_buf
         self._state.emit_buf = grown
         self._ecap = new_ecap
+        self._graph = None       # it writes the old ring: the next window recaptures
 
     # -- ingest --------------------------------------------------------------
 
@@ -630,33 +661,56 @@ class DeviceStreamingSession(_WindowRound):
         # window edge is decoded once, in the window that holds all of it.
         while n - off > CARRY_BYTES:
             piece = buf[off:off + c]
-            m = len(piece)
-            if m < c:
-                piece = np.pad(piece, (0, c - m))
-            rows_next = m // 11 + 1
+            rows_next = len(piece) // 11 + 1
             self._maybe_grow_emit(rows_next)
-            self._step(_host_to(self.device, piece), m)
+            self._step(piece, len(piece))
             self._emit_bound += rows_next
             off = min(off + c, n) - CARRY_BYTES
         self._byte_carry = buf[off:].copy()
 
-    def _limits(self, n_bytes: int) -> Optional[torch.Tensor]:
-        """K1's limit for a window of ``n_bytes`` (None: a full window)."""
-        if n_bytes == self.chunk_bytes:
-            return None
-        return _host_to(self.device, np.array([n_bytes], np.int64))
+    def _load_window(self, piece: np.ndarray, m: int) -> None:
+        """Write a window, the ``m`` <= ``chunk_bytes`` bytes of ``piece``,
+        and its length into the window buffer: on CUDA through the staging
+        buffer and one copy that does not wait.  Before it refills the
+        staging buffer the host waits for the previous window's copy out of
+        it, so it runs at most about one window ahead of the device
+        (``STAGING_WAITS`` counts the windows that waited)."""
+        global STAGING_WAITS
+        if self._staged is not None and not self._staged.query():
+            STAGING_WAITS += 1
+            self._staged.synchronize()
+        buf = self._staging_np
+        buf[:8] = np.array([m], np.int64).view(np.uint8)
+        buf[16:16 + m] = piece[:m]
+        buf[16 + m:] = 0
+        if self._staged is not None:
+            self._window.copy_(self._staging, non_blocking=True)
+            self._staged.record()
 
-    def _step(self, chunk: torch.Tensor, n_bytes: int) -> None:
-        """One window: the S = 1 round on the lifted state."""
-        st = _map_state(self._state, _lift)
-        self._round(st, chunk[None], self._limits(n_bytes))
-        self._state = _map_state(st, _lower)
+    def _window_inputs(self):
+        """(pieces [1, chunk_bytes] u8, K1's limits [1] int64): views of the
+        window buffer."""
+        return self._window[16:].view(1, -1), self._window[:8].view(torch.int64)
 
-    def _close_groups(self, chunk: torch.Tensor, n_bytes: int) -> _Window:
-        """The next window's decode and correction without the stream axis,
-        the state untouched: the kernel timers' K5 inputs."""
-        w = self._close_streams(_map_state(self._state, _lift), chunk[None],
-                                self._limits(n_bytes))
+    def _step(self, piece: np.ndarray, n_bytes: int) -> None:
+        """One window (the ``n_bytes`` <= ``chunk_bytes`` bytes of
+        ``piece``): the S = 1 round on the lifted state, in place; a CUDA
+        graph on CUDA without ``collect_paths`` (the class docstring)."""
+        self._load_window(piece, n_bytes)
+        if self._paths_spec is not None or self.device.type != "cuda":
+            self._round(_map_state(self._state, _lift), *self._window_inputs())
+            return
+        if self._graph is None:
+            st, inputs = _map_state(self._state, _lift), self._window_inputs()
+            this = weakref.ref(self)      # the graph must not keep its session alive
+            self._graph = GraphRunner(lambda: this()._round(st, *inputs), device=self.device)
+        self._graph.run()
+
+    def _close_groups(self, piece: np.ndarray, n_bytes: int) -> _Window:
+        """A window's decode and correction without the stream axis, the
+        state untouched: the kernel timers' K5 inputs."""
+        self._load_window(piece, n_bytes)
+        w = self._close_streams(_map_state(self._state, _lift), *self._window_inputs())
         return _Window(*(_lower(x) for x in w))
 
     def finalize(self) -> None:
@@ -664,9 +718,7 @@ class DeviceStreamingSession(_WindowRound):
         does nothing."""
         if self._finalized:
             return
-        st = _map_state(self._state, _lift)
-        self._flush(st)
-        self._state = _map_state(st, _lower)
+        self._flush(_map_state(self._state, _lift))
         self._byte_carry = np.zeros(0, dtype=np.uint8)
         self._finalized = True
 

@@ -9,6 +9,13 @@ the device: the raw log text is the only host-to-device copy
 (``ops/tokenize.tokenize_stride3``), with the host tokenizer where the
 text is not stride-3 regular.  The counterpart of
 ``slam_process_tpu/pipeline/device.py``.
+
+As in the JAX package, the entry points run one compiled program per byte
+bucket (``compiled_session_pipeline``, ``compiled_text_session_pipeline``):
+on a CUDA device a CUDA graph of the whole body (``utils/graphs.py``), so
+no host work is issued between the stages; on the CPU the eager body.
+``session_pipeline`` and ``session_pipeline_from_text`` stay the eager
+bodies that the graphs are held against.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from slam_process_tpu_torch.ops.raster import colormap_lut, rasterize_tiles
 from slam_process_tpu_torch.ops.scene import cell_means, intensity_cell_sums
 from slam_process_tpu_torch.ops.tokenize import (
     prepare_text, stride3_offset, text_bucket, tokenize_stride3)
+from slam_process_tpu_torch.utils.graphs import FlatOutputs, GraphRunner
 
 
 class DeviceSessionOut(NamedTuple):
@@ -141,6 +149,63 @@ def device_lut(device: torch.device, name: str = "viridis") -> torch.Tensor:
     return torch.from_numpy(colormap_lut(name)).to(device)
 
 
+class _Program:
+    """What ``compiled_session_pipeline`` and
+    ``compiled_text_session_pipeline`` return: ``body`` for one static
+    shape, called as the JAX package's jitted function is.  On a CUDA
+    device the first call captures ``body`` as a CUDA graph (``GraphRunner``)
+    and every call replays it; on the CPU each call runs ``body``.  Every
+    call returns tensors of its own: on CUDA one clone of the graph's flat
+    output buffer (``FlatOutputs``), every field a view of it, which the
+    next replay does not overwrite."""
+
+    def __init__(self, body, device: torch.device, n_padded: int):
+        self._body = body
+        self.device = device
+        self.n_padded = n_padded
+        self.runner: Optional[GraphRunner] = None
+        self._flat = FlatOutputs()
+
+    def __call__(self, *args):
+        args = tuple(int(a) if isinstance(a, np.integer) else a for a in args)
+        if args[0].shape != (self.n_padded,):
+            raise ValueError(f"this program takes [{self.n_padded}] inputs, got "
+                             f"{list(args[0].shape)}")
+        if self.device.type != "cuda":
+            return self._body(*args)
+        if self.runner is None:
+            body, flat = self._body, self._flat
+            self.runner = GraphRunner(
+                lambda *xs: flat.pack(body(*xs)),
+                [torch.full((), a, dtype=torch.int32, device=args[0].device)
+                 if isinstance(a, int) else a for a in args])
+        return self._flat.unpack(self.runner(*args).clone())
+
+
+@functools.lru_cache(maxsize=32)
+def compiled_session_pipeline(n_bytes_padded: int, blur_sigma: float = 1.0,
+                              use_log: bool = True, max_groups: int = 256,
+                              max_baselines_per_group: int = 256, *, device=None,
+                              log_transform_scene: bool = False,
+                              decode_cfg: DecodeConfig = DecodeConfig(),
+                              correct_cfg: CorrectConfig = CorrectConfig()):
+    """The session pipeline for one byte bucket on ``device`` (None: CUDA),
+    called as ``fn(padded, lut)``: padded uint8 [n_bytes_padded] and the
+    [256, 4] LUT on the device, returning a ``DeviceSessionOut``
+    (``n_discarded`` None).  On CUDA a CUDA graph, captured at the first
+    call (a failed capture raises); on the CPU ``session_pipeline``.  The
+    JAX function's jitted program also takes the unpadded length, which it
+    does not use.  ``max_groups`` / ``max_baselines_per_group`` are the
+    corrector's static bounds (``session_pipeline_batch``).  Cached per
+    argument set, 32 at most as in the JAX package; an evicted program's
+    graph frees its memory pool."""
+    kw = dict(blur_sigma=blur_sigma, use_log=use_log, log_transform_scene=log_transform_scene,
+              max_groups=max_groups, max_baselines_per_group=max_baselines_per_group,
+              decode_cfg=decode_cfg, correct_cfg=correct_cfg)
+    return _Program(lambda padded, lut: session_pipeline(padded, lut, **kw),
+                    resolve_device(device), n_bytes_padded)
+
+
 def run_session_on_device(raw_bytes: np.ndarray, blur_sigma: float = 1.0,
                           use_log: bool = True, max_groups: int = 256,
                           max_baselines_per_group: int = 256, *, device=None,
@@ -148,16 +213,21 @@ def run_session_on_device(raw_bytes: np.ndarray, blur_sigma: float = 1.0,
                           decode_cfg: DecodeConfig = DecodeConfig(),
                           correct_cfg: CorrectConfig = CorrectConfig(),
                           count_discards: bool = False) -> DeviceSessionOut:
-    """Tokenized bytes -> pipeline outputs on ``device`` (None: CUDA);
+    """Tokenized bytes -> pipeline outputs on ``device`` (None: CUDA),
+    through ``compiled_session_pipeline`` of the bytes' bucket;
     ``log_transform_scene`` builds the pre-log grid, ``count_discards``
-    also counts the decoder's discards."""
+    also counts the decoder's discards (after the program, eagerly)."""
     dev = resolve_device(device)
-    padded = torch.from_numpy(pad_bytes(raw_bytes, bucket_size(len(raw_bytes)))).to(dev)
-    return session_pipeline(padded, device_lut(dev), blur_sigma=blur_sigma, use_log=use_log,
-                            log_transform_scene=log_transform_scene, max_groups=max_groups,
-                            max_baselines_per_group=max_baselines_per_group,
-                            decode_cfg=decode_cfg, correct_cfg=correct_cfg,
-                            discards_in=len(raw_bytes) if count_discards else None)
+    n = bucket_size(len(raw_bytes))
+    fn = compiled_session_pipeline(n, blur_sigma, use_log, max_groups, max_baselines_per_group,
+                                   device=dev, log_transform_scene=log_transform_scene,
+                                   decode_cfg=decode_cfg, correct_cfg=correct_cfg)
+    padded = torch.from_numpy(pad_bytes(raw_bytes, n)).to(dev)
+    out = fn(padded, device_lut(dev))
+    if not count_discards:
+        return out
+    return out._replace(n_discarded=discard_count(padded, out.frames, out.frame_valid,
+                                                  decode_cfg, len(raw_bytes)))
 
 
 class TextSessionOut(NamedTuple):
@@ -172,7 +242,8 @@ def session_pipeline_from_text(text_tensor: torch.Tensor, n_text, lut: torch.Ten
     then ``session_pipeline`` (``kw``: its keyword arguments).
 
     ``text_tensor`` is [M] uint8, M % 3 == 0, whitespace-padded, and
-    ``n_text`` the body's length; the caller has established
+    ``n_text`` the body's length (an int, or a 0-d int32 tensor on the
+    device, as the compiled program passes it); the caller has established
     ``stride3_offset``'s precondition.  The outputs hold only where
     ``tokenize_regular`` is True; ``run_session_from_text`` reruns through
     the host tokenizer where it is not.  The padding tokens are 0, inert
@@ -182,13 +253,33 @@ def session_pipeline_from_text(text_tensor: torch.Tensor, n_text, lut: torch.Ten
     return TextSessionOut(session_pipeline(b, lut, **kw), regular, n_tok)
 
 
+@functools.lru_cache(maxsize=32)
+def compiled_text_session_pipeline(n_text_padded: int, blur_sigma: float = 1.0,
+                                   use_log: bool = True, max_groups: int = 256,
+                                   max_baselines_per_group: int = 256, *, device=None,
+                                   log_transform_scene: bool = False,
+                                   decode_cfg: DecodeConfig = DecodeConfig(),
+                                   correct_cfg: CorrectConfig = CorrectConfig()):
+    """The text session pipeline for one text bucket, called as ``fn(text,
+    n_text, lut)`` (``n_text`` an int or a 0-d int32 device tensor) and
+    returning a ``TextSessionOut``: ``compiled_session_pipeline``'s
+    counterpart for ``session_pipeline_from_text``.  The graph reads
+    ``n_text`` from a device scalar that each call writes, so one graph
+    serves every body length of the bucket."""
+    kw = dict(blur_sigma=blur_sigma, use_log=use_log, log_transform_scene=log_transform_scene,
+              max_groups=max_groups, max_baselines_per_group=max_baselines_per_group,
+              decode_cfg=decode_cfg, correct_cfg=correct_cfg)
+    return _Program(lambda text, n_text, lut: session_pipeline_from_text(text, n_text, lut, **kw),
+                    resolve_device(device), n_text_padded)
+
+
 def run_session_from_text(data: bytes, blur_sigma: float = 1.0, use_log: bool = True,
                           max_groups: int = 256, max_baselines_per_group: int = 256, *,
                           device=None, check: bool = True, log_transform_scene: bool = False,
                           decode_cfg: DecodeConfig = DecodeConfig(),
                           correct_cfg: CorrectConfig = CorrectConfig()) -> TextSessionOut:
     """Raw log file contents -> pipeline outputs on ``device`` (None:
-    CUDA), tokenized on the device.
+    CUDA), tokenized on the device by ``compiled_text_session_pipeline``.
 
     The host scans the head for the body's start (``stride3_offset``) and
     pads one buffer; the text is copied to the device and tokenized there.
@@ -201,13 +292,13 @@ def run_session_from_text(data: bytes, blur_sigma: float = 1.0, use_log: bool = 
     from slam_process_tpu_torch.io.hexlog import tokenize_hex
 
     dev = resolve_device(device)
-    kw = dict(blur_sigma=blur_sigma, use_log=use_log, log_transform_scene=log_transform_scene,
-              max_groups=max_groups, max_baselines_per_group=max_baselines_per_group,
-              decode_cfg=decode_cfg, correct_cfg=correct_cfg)
+    kw = dict(log_transform_scene=log_transform_scene, decode_cfg=decode_cfg,
+              correct_cfg=correct_cfg)
+    bounds = (blur_sigma, use_log, max_groups, max_baselines_per_group)
 
     def fallback() -> TextSessionOut:
         raw = tokenize_hex(data)
-        out = run_session_on_device(raw, device=dev, **kw)
+        out = run_session_on_device(raw, *bounds, device=dev, **kw)
         return TextSessionOut(out, torch.tensor(False, device=dev),
                               torch.tensor(len(raw), dtype=torch.int32, device=dev))
 
@@ -215,8 +306,8 @@ def run_session_from_text(data: bytes, blur_sigma: float = 1.0, use_log: bool = 
     if p is None:
         return fallback()
     text, n_text = prepare_text(data, p, text_bucket(len(data) - p))
-    res = session_pipeline_from_text(torch.from_numpy(text).to(dev), n_text, device_lut(dev),
-                                     **kw)
+    fn = compiled_text_session_pipeline(len(text), *bounds, device=dev, **kw)
+    res = fn(torch.from_numpy(text).to(dev), n_text, device_lut(dev))
     if check and not bool(res.tokenize_regular):
         return fallback()
     return res

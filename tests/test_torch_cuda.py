@@ -1381,3 +1381,248 @@ def test_detect_scene_changes_on_card_bit_equal_to_np(estimator_session):
         for g, w in zip(got, want):
             assert g.cpu().numpy().dtype == w.dtype
             np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+# -- the fifteenth slice: the compiled programs as CUDA graphs -------------------------------
+
+
+def eager_windows(s):
+    """``s`` with every window run by the eager body, ``_WindowRound._round``:
+    the graphs' comparator."""
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+
+    def step(piece, n_bytes):
+        s._load_window(piece, n_bytes)
+        s._round(sd._map_state(s._state, sd._lift), *s._window_inputs())
+
+    s._step = step
+    return s
+
+
+def feed_stream(s, raw, chunk, stop=None):
+    for off in range(0, len(raw) if stop is None else stop, chunk):
+        s.feed(raw[off:off + chunk])
+    return s
+
+
+def states_equal(a, b):
+    """Two streams' whole state equal, tensor for tensor, bit for bit."""
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+
+    la, lb = sd._leaves(a._state), sd._leaves(b._state)
+    assert len(la) == len(lb)
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert x.dtype == y.dtype and x.shape == y.shape, i
+        assert torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)), i
+
+
+def test_session_graph_equals_eager_body_alternating():
+    """Two sessions of one bucket, alternated: every captured call equals the
+    eager body bit for bit (a stale static input would show), counts its
+    replays' launches, and returns outputs the next replay leaves alone."""
+    from slam_process_tpu_torch.pipeline.device import (
+        bucket_size, compiled_session_pipeline, device_lut, pad_bytes, session_pipeline)
+
+    raws = [session(seed=21), session(seed=22, n_groups=9)]
+    n = bucket_size(max(len(r) for r in raws))
+    assert all(bucket_size(len(r)) == n for r in raws)
+    lut = device_lut(torch.device("cuda"))
+    padded = [torch.from_numpy(pad_bytes(r, n)).cuda() for r in raws]
+    fn = compiled_session_pipeline(n, device="cuda")
+    fn(padded[0], lut)                                  # captured here, if not before
+    replays = fn.runner.replays
+    kernels = (cuda_decode, cuda_correct, cuda_raster)
+    outs = []
+    for i in (0, 1, 0, 1, 1, 0):
+        before = [m.LAUNCHES for m in kernels]
+        got = fn(padded[i], lut)
+        assert [m.LAUNCHES - b for m, b in zip(kernels, before)] == [1, 1, 1]
+        fields_equal(got, session_pipeline(padded[i], lut))
+        outs.append((i, got, [x.clone() for x in got if x is not None]))
+    assert fn.runner.replays == replays + 6
+    assert fn.runner.pool_bytes > 0 and fn.runner.capture_ms > 0
+    for i, got, kept in outs:
+        for x, y in zip([x for x in got if x is not None], kept):
+            assert torch.equal(x.nan_to_num(), y.nan_to_num())
+    assert not torch.equal(outs[0][1].frames, outs[1][1].frames)
+    fields_equal(run_session_on_device(raws[1]), session_pipeline(padded[1], lut))
+
+
+@pytest.mark.parametrize("log_transform_scene", [False, True])
+def test_text_graph_equals_eager_body(log_transform_scene):
+    """The text path's graph against ``session_pipeline_from_text`` for two
+    body lengths of one bucket (the length is a device scalar the graph
+    reads); the pre-log scene within one float32 ulp (float64 atomics)."""
+    from slam_process_tpu_torch.ops.tokenize import prepare_text, stride3_offset, text_bucket
+    from slam_process_tpu_torch.pipeline.device import (
+        compiled_text_session_pipeline, device_lut, session_pipeline_from_text)
+    from slam_process_tpu_torch.utils.synthetic import to_hex_text
+
+    lut = device_lut(torch.device("cuda"))
+    texts = [to_hex_text(session(seed=s, n_groups=g), "shipped") for s, g in ((23, 6), (24, 8))]
+    m = max(text_bucket(len(t) - stride3_offset(t)) for t in texts)
+    fn = compiled_text_session_pipeline(m, device="cuda", log_transform_scene=log_transform_scene)
+    replays = None
+    for t in texts * 2:
+        body, n_text = prepare_text(t, stride3_offset(t), m)
+        body = torch.from_numpy(body).cuda()
+        got = fn(body, n_text, lut)
+        want = session_pipeline_from_text(body, n_text, lut,
+                                          log_transform_scene=log_transform_scene)
+        assert bool(got.tokenize_regular) and int(got.n_tokens) == int(want.n_tokens)
+        exact = [f for f in got.out._fields if f not in ("mean_grid", "rgba", "blurred",
+                                                          "norm_t")]
+        fields_equal(got.out, want.out, exact if log_transform_scene else None)
+        if log_transform_scene:
+            a, b = got.out.mean_grid.cpu().numpy(), want.out.mean_grid.cpu().numpy()
+            assert np.array_equal(np.isnan(a), np.isnan(b))
+            fin = ~np.isnan(b)
+            assert (np.abs(a[fin].astype(np.float64) - b[fin])
+                    <= np.spacing(np.abs(b[fin]))).all()
+        replays = fn.runner.replays if replays is None else replays
+    assert fn.runner.replays == replays + 3
+
+
+@pytest.mark.parametrize("case", ["live_64KiB", "straddle_16KiB", "replay_1MiB_partial_last"])
+def test_stream_graph_equals_eager_body(case):
+    """The window graph against the eager round on the card: the whole state
+    bit for bit after the feed and after the flush."""
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+
+    if case == "replay_1MiB_partial_last":
+        raw = np.concatenate([session(seed=30 + i, n_groups=20, frames_per_beam=40)
+                              for i in range(3)])
+        chunk, kw = 1 << 20, dict(collect_filtered=True, emit_capacity=len(raw) // 11 + 1)
+        assert len(raw) % chunk
+    else:
+        raw = session(seed=25, n_groups=24, frames_per_beam=20)
+        chunk = 1 << 16 if case == "live_64KiB" else 1 << 14
+        kw = dict(collect_filtered=True)
+    got = feed_stream(sd.DeviceStreamingSession(chunk_bytes=chunk, device="cuda", **kw), raw,
+                      chunk)
+    want = feed_stream(eager_windows(sd.DeviceStreamingSession(chunk_bytes=chunk,
+                                                               device="cuda", **kw)), raw, chunk)
+    assert got._graph is not None and got._graph.replays > 0 and want._graph is None
+    states_equal(got, want)
+    got.finalize()
+    want.finalize()
+    states_equal(got, want)
+    np.testing.assert_array_equal(got.filtered, want.filtered)
+
+
+def test_stream_graph_recaptures_after_the_ring_grows():
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+
+    raw = np.concatenate([session(seed=40 + i) for i in range(3)])
+
+    def small_ring(s):
+        s._ecap = 1 << 10                 # a small ring, so that it must grow
+        s._state.emit_buf = torch.zeros((s._ecap, 4), dtype=torch.int32, device="cuda")
+        return s
+
+    got = small_ring(sd.DeviceStreamingSession(chunk_bytes=1 << 13, collect_filtered=True,
+                                               device="cuda"))
+    runners = []
+    for off in range(0, len(raw), 5_000):
+        got.feed(raw[off:off + 5_000])
+        if got._graph is not None and got._graph not in runners:
+            runners.append(got._graph)
+    want = feed_stream(eager_windows(small_ring(sd.DeviceStreamingSession(
+        chunk_bytes=1 << 13, collect_filtered=True, device="cuda"))), raw, 5_000)
+    assert got._ecap == 1 << 18 and len(runners) == 2
+    states_equal(got, want)
+    got.finalize()
+    want.finalize()
+    np.testing.assert_array_equal(got.filtered, want.filtered)
+
+
+def test_stream_graph_after_a_checkpoint_resume(tmp_path):
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+
+    raw = session(seed=45, n_groups=12, frames_per_beam=10)
+    chunk, half = 1 << 13, (len(raw) // 2 // (1 << 13)) * (1 << 13)
+    part = feed_stream(sd.DeviceStreamingSession(chunk_bytes=chunk, collect_filtered=True,
+                                                 device="cuda"), raw, chunk, stop=half)
+    part.save_checkpoint(tmp_path / "s.ckpt")
+    resumed = sd.DeviceStreamingSession.restore(tmp_path / "s.ckpt", device="cuda")
+    assert resumed._graph is None
+    for off in range(half, len(raw), chunk):
+        resumed.feed(raw[off:off + chunk])
+    assert resumed._graph is not None and resumed._graph.replays > 0
+    whole = feed_stream(eager_windows(sd.DeviceStreamingSession(
+        chunk_bytes=chunk, collect_filtered=True, device="cuda")), raw, chunk)
+    states_equal(resumed, whole)
+
+
+def test_capture_before_the_lazy_build_and_scratch():
+    """A program captured in a process whose kernel library, function
+    pointers, raster opt-in and scratch words were never made: its warm-up
+    makes them, outside the capture.  Scratch made under a capture raises,
+    and a capture that raises leaves no graph behind."""
+    from slam_process_tpu_torch.ops import _build
+    from slam_process_tpu_torch.pipeline.device import (
+        compiled_session_pipeline, device_lut, pad_bytes, session_pipeline)
+    from slam_process_tpu_torch.utils.graphs import GraphRunner
+
+    for fn in (_build.library, cuda_decode._fn, cuda_decode._fn_streams, cuda_correct._fn,
+               cuda_raster._fn, cuda_raster._ready):
+        fn.cache_clear()
+    _build._SCRATCH.clear()
+    raw = session(seed=46)
+    n = 3 << 16                                        # a bucket no other test uses
+    padded = torch.from_numpy(pad_bytes(raw, n)).cuda()
+    lut = device_lut(torch.device("cuda"))
+    fn = compiled_session_pipeline(n, device="cuda")
+    for _ in range(2):
+        fields_equal(fn(padded, lut), session_pipeline(padded, lut))
+
+    _build._SCRATCH.clear()
+    b = torch.zeros((1, 4096), dtype=torch.uint8, device="cuda")
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(g, stream=torch.cuda.Stream()):
+            cuda_decode.decode_rows_streams_cuda(b, None, 0xCC, 0x33)
+
+    calls = []
+
+    def body(x):
+        calls.append(1)
+        if len(calls) == 2:
+            raise ValueError("raised during the capture")
+        return x + 1
+
+    runner = GraphRunner(body, [torch.zeros(4, device="cuda")])
+    with pytest.raises(ValueError, match="during the capture"):
+        runner.run()
+    assert runner.graph is None
+    assert torch.equal(runner.run(), torch.ones(4, device="cuda"))       # warm-up, capture
+    assert torch.equal(runner(torch.full((4,), 2.0, device="cuda")), torch.full((4,), 3.0,
+                                                                              device="cuda"))
+
+
+def test_window_limit_at_the_window_length_equals_none():
+    """K1 with a limit equal to the window's length gives its result for no
+    limit: what lets full and short windows share one graph."""
+    b = torch.from_numpy(session(seed=47)[:1 << 14]).cuda()[None].contiguous()
+    got = cuda_decode.decode_rows_streams_cuda(
+        b, torch.tensor([b.shape[1]], dtype=torch.int64, device="cuda"), 0xCC, 0x33)
+    for g, w in zip(got, cuda_decode.decode_rows_streams_cuda(b, None, 0xCC, 0x33)):
+        assert torch.equal(g, w)
+
+
+def test_measure_device_time_places_graph_replays():
+    """The kernels of a graph replay carry the graph launch's correlation id:
+    ``measure_device_time`` places every one of them in its run."""
+    from slam_process_tpu_torch.pipeline.device import (
+        bucket_size, compiled_session_pipeline, device_lut, pad_bytes)
+    from slam_process_tpu_torch.utils.device_timing import measure_device_time
+
+    raw = session(seed=48)
+    n = bucket_size(len(raw))
+    padded = torch.from_numpy(pad_bytes(raw, n)).cuda()
+    lut = device_lut(torch.device("cuda"))
+    fn = compiled_session_pipeline(n, device="cuda")
+    fn(padded, lut)
+    t = measure_device_time(lambda i: fn(padded, lut), n=3)
+    assert len(t.runs) == 3 and min(t.runs) > 0
+    assert any("decode_rows_kernel" in name for name in t.all_modules)

@@ -140,6 +140,16 @@ def test_entry_points_need_cuda_without_falling_back(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_session_on_device(raw, device="cuda")
     assert int(run_session_on_device(raw, device="cpu").n_frames) == 64
+    # The compiled programs (CUDA graphs on the card) raise too, and build
+    # their eager bodies only where the caller names the CPU.
+    from slam_process_tpu_torch.pipeline.device import (
+        compiled_session_pipeline, compiled_text_session_pipeline)
+
+    for factory in (compiled_session_pipeline, compiled_text_session_pipeline):
+        for device in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                factory(3 << 18, device=device)
+        assert factory(3 << 18, device="cpu").device == torch.device("cpu")
 
     from slam_process_tpu_torch.utils.synthetic import write_angle_table
 

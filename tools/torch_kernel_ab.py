@@ -119,8 +119,10 @@ def k5_window(dev):
                                   emit_capacity=len(raw) // 11 + 1, device=dev)
     s.feed(raw[:REPLAY_CHUNK])
     lo = REPLAY_CHUNK - sd.CARRY_BYTES
-    piece = torch.from_numpy(raw[lo:lo + REPLAY_CHUNK].copy()).to(dev)
-    w = s._close_groups(piece, piece.numel())
+    piece = raw[lo:lo + REPLAY_CHUNK]
+    if not hasattr(s, "_load_window"):     # a checkout whose windows were device tensors
+        piece = torch.from_numpy(piece.copy()).to(dev)
+    w = s._close_groups(piece, len(piece))
     return (w, sd._kept_rows(w.combined, w.corrected), s._state.emit_buf.clone(),
             s._state.emit_count, s._ecap)
 
