@@ -7,13 +7,14 @@ NVIDIA GPU.
 Phases, each printing one JSON line:
 
   1. env        the card (nvidia-smi name and power limit), torch and CUDA.
-  2. build      nvcc builds kernels K1-K6 from ``slam_process_tpu_torch/csrc``.
+  2. build      nvcc builds kernels K1-K7 from ``slam_process_tpu_torch/csrc``.
   3. kernels    each kernel against its plain PyTorch version on the card, at
                 the main path's shapes and on edge cases: K1, K2, K4, K5 and
                 K6 equal element for element; K3 ``blurred`` bit-equal,
                 ``norm_t`` within 1e-4 absolute, the same NaN pattern, LUT-bin
-                flips in under 0.1 % of cells, premultiplied rgba within 1e-3.
-                K2's cases: the full session, a planted exact-tol table and
+                flips in under 0.1 % of cells, premultiplied rgba within 1e-3;
+                K7 as its contract says (below).  K2's cases: the full
+                session, a planted exact-tol table and
                 every input of ``utils/synthetic.verdict_edge_cases`` (blocks
                 over three and over more than four groups, empty groups, gid
                 out of range and negative CLK, residues straddling 0 / cycle,
@@ -47,8 +48,16 @@ Phases, each printing one JSON line:
                 test).  K6's: 65 lanes (33 live) from a carry, 9 lanes,
                 planted ties at the gate, m_eff = 0, T * K = 40, T = 16 and K
                 = 20 (uniform and on a grid of exact ties), 600 lanes at K = 3
-                and at K = 20, m_eff = s1 - 1, m_eff > s1.  The stream
-                axis, at the first round of a ``MultiStreamingSession`` over
+                and at K = 20, m_eff = s1 - 1, m_eff > s1.  K7's: the NN-OMP
+                refits of the paths streams' second full window (the
+                replay's 65 lanes and the live feed's 9, each iteration
+                warm-started, the lanes past the closed sweeps dead),
+                ``utils/synthetic.nnls_edge_cases`` (cold and warm starts,
+                near-collinear atoms, all-zero dead lanes, a 0/0 step-back
+                ratio) at K = 3 and 20 under both solvers, K = 2 and K = 32,
+                each also cold with max_outer 2: bit-equal for "auto" at K
+                >= 3, else equal passive sets and x within rtol 1e-6.  The
+                stream axis, at the first round of a ``MultiStreamingSession`` over
                 the 19 dataset-scale sessions (recorded from its wrappers):
                 K1 over [19, 1 MiB] (twice on one stream, ragged limits; S
                 and N at the row blocks' edges), K5's carry and kept-row
@@ -59,7 +68,7 @@ Phases, each printing one JSON line:
                 streams; 12 tiny sessions whose 256-row blocks span
                 sessions) and K4 call (19 x 65 sweep lanes) against 19
                 separate kernel calls.  Then one device
-                activity per ``decode_rows``, K4, K5 and K6 wrapper call,
+                activity per ``decode_rows``, K4, K5, K6 and K7 wrapper call,
                 under ``torch.profiler`` (no fill, no second kernel), and one
                 K4 kernel per ``intensity_per_sweep_sums`` call (whose row
                 filter is plain torch; its activities are reported).
@@ -79,14 +88,15 @@ Phases, each printing one JSON line:
                 run.
   5. sweep_paths ``Session.sweep_paths`` (per-sweep NN-OMP, 886 x 886 grids)
                 on the 21 CUDA sessions of phase 4 with a seeded 64-beam
-                angle table, K4's launch counter set to 0 just before and
-                read just after; each result against the same session's
+                angle table, K4's and K7's launch counters set to 0 just
+                before and read just after (both must launch, with no NNLS
+                host sync); each result against the same session's
                 ``device="cpu"`` run: sweep_valid, n_iters, indices and valid
                 equal, power within rtol 2e-4 / atol 1e-6, and
                 ``sweep_intensity`` counts and mean (NaN included) equal.
   6. streaming  ``DeviceStreamingSession`` on the card, the launch counters
-                set to 0 just before and read just after (K1, K2, K4, K5 and
-                K6 must launch): (1) the live feed, the full multipath
+                set to 0 just before and read just after (K1, K2, K4, K5, K6
+                and K7 must launch): (1) the live feed, the full multipath
                 session in 64 KiB chunks with s_step=8, ``collect_filtered``
                 and ``collect_paths`` at full width (64 x 64 beams, 886 x 886
                 grids, K = 3, T = 8); (2) the dataset replay, the 19 dataset
@@ -108,9 +118,11 @@ Phases, each printing one JSON line:
                 window (synchronized around each), the host syncs of (1),
                 (2) and (3) by source line under
                 ``torch.cuda.set_sync_debug_mode``, which must equal the
-                counters' sum, and the device busy share of (1) under
-                ``torch.profiler``, where the K1, K4, K5 and K6 device
-                kernels must equal the wrapper calls.  Across the five
+                counters' sum and be 0 (every window, paths included, is a
+                CUDA graph replay that reads nothing back), and the device
+                busy share of (1) under ``torch.profiler``, where the K1,
+                K4, K5, K6 and K7 device kernels must equal the wrapper
+                calls.  Across the five
                 streams K5 runs twice per window (the carry; one fused call
                 for the kept rows) and once per flush, or the run fails.
   7. cli        the user surface, on the card and then with ``--device
@@ -158,7 +170,8 @@ Phases, each printing one JSON line:
                 the bare ``run_nn_omp``, ``estimate_sessions`` in
                 sessions/s, the RBF on the card and in numpy, LU against
                 Gauss-Jordan NNLS at K = 20 for one session and for 21;
-                NNLS host syncs per call; one profiled ``run_estimator``.
+                NNLS host syncs per call, which must be 0 (K7); one
+                profiled ``run_estimator``.
  8b. est_forms  the session estimator's comparator forms: the 21 logs
                 decoded anew (``Session.from_log``: K1-K3 counted), their
                 v1-7 scenes (0.1 deg grids, K = 20) packed once on the card
@@ -176,7 +189,8 @@ Phases, each printing one JSON line:
                 device ms and activities from
                 ``utils/device_timing.measure_device_time`` (median of 3,
                 one run of the per-session form), the top activity names,
-                and ``device_profile``'s busy ms beside it.
+                and ``device_profile``'s busy ms beside it; no NNLS host
+                sync in any timed form.
   9. replay     the ``replay --paths --changes`` command's steps
                 (``cli.replay_stream``, ``render()``, ``cli.replay_exports``;
                 the PNG needs matplotlib) on the card, counted (every kernel
@@ -270,9 +284,10 @@ Phases, each printing one JSON line:
                 captures (capture 0 finalized alone) against ``--device
                 cpu``; ms per round and flush and bytes/s (median of 5 after
                 a warm-up), host syncs by source line in sync debug mode
-                equal to the counters, the device's busy share.
+                equal to the counters (one count read a round and flush, no
+                NNLS sync), the device's busy share.
  18. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
-                (K1, K4, K5, K6 through their wrappers, K1 also as the bare
+                (K1, K4, K5, K6, K7 through their wrappers, K1 also as the bare
                 launch; K2, K3 as the bare launch, K3 also with vmin /
                 vmax), its plain version on the
                 card, K1 and K2 at three stream windows (the second full
@@ -281,7 +296,9 @@ Phases, each printing one JSON line:
                 the replay's (S = 65), the stream-axis K1, K5 and K6 at the 19
                 streams' round and the flattened K2 / K4 calls against 19
                 separate calls, the library yardsticks
-                (K4: two ``torch.bincount`` calls; K5: ``rows[mask]``), K5's
+                (K4: two ``torch.bincount`` calls; K5: ``rows[mask]``), K7
+                at the replay's 65 lanes and beside it at the live feed's 9
+                lanes and at 65 lanes of K = 20 under both solvers, K5's
                 fused kept-row call against the two calls it replaced, the
                 whole ``run_session_on_device`` in frames/s at both sizes, and
                 ``sweep_paths`` in sweeps/s (a cleared memo: the host prep,
@@ -300,15 +317,20 @@ Phases, each printing one JSON line:
                 bucket alternated, at full size and at dataset scale, and
                 the window graph of a stream without paths (the live feed at
                 64 KiB, the straddle at 16 KiB, the 19 dataset logs replayed
-                at 1 MiB) against the eager round, the whole state; then
+                at 1 MiB) against the eager round, the whole state; the
+                paths window graph (the live feed at 64 KiB with s_step 8,
+                the 19 logs replayed at 1 MiB with s_step 64) against the
+                eager round after every feed and after the flush; then
                 eager against graph: wall ms, frames/s, device ms and
-                activities a session call, capture ms and pool bytes, ms per
-                window, and ``cli.replay_stream`` timed as phase 6 times
-                streams (``graphs_phase``).
+                activities a session call, capture ms and pool bytes, ms
+                per window (device ms per window too with paths), and
+                ``cli.replay_stream`` with and without ``--paths``, every
+                window a graph replay, timed as phase 6 times streams
+                (``graphs_phase``).
 
-On CUDA the session entry points and a stream without paths run CUDA
-graphs (``utils/graphs.py``): a replay calls no wrapper, so it adds to each
-kernel's counter the launches its capture recorded.  Every kernel's
+On CUDA the session entry points and a single stream, with or without
+paths, run CUDA graphs (``utils/graphs.py``): a replay calls no wrapper, so
+it adds to each kernel's counter the launches its capture recorded.  Every kernel's
 launches are counted on each path (phases 4 to 17, 8b, 19 to 21,
 the counters set to 0 just before and read just after), reported in the
 ``kernels`` line as ``launches_by_path``; ``launches`` is the count on the
@@ -406,19 +428,20 @@ def run(tmp: Path) -> None:
     import torch
 
     from slam_process_tpu_torch.ops import (
-        _build, compact, correct, cuda_compact, cuda_correct, cuda_decode, cuda_raster,
-        cuda_sweep_sums, cuda_tracker, decode, nnls, raster, scene, tracker)
+        _build, compact, correct, cuda_compact, cuda_correct, cuda_decode, cuda_nnls,
+        cuda_raster, cuda_sweep_sums, cuda_tracker, decode, nnls, raster, scene, tracker)
     from slam_process_tpu_torch.parallel import streaming_device as sd
     from slam_process_tpu_torch.pipeline.device import (
         bucket_size, pad_bytes, run_session_on_device)
     from slam_process_tpu_torch.pipeline.session import Session
     from slam_process_tpu_torch.utils.synthetic import (
-        decode_edge_cases, sweep_sums_edge_cases, synthetic_session_bytes, to_hex_text,
-        verdict_edge_cases, write_angle_table)
+        decode_edge_cases, nnls_edge_cases, sweep_sums_edge_cases, synthetic_session_bytes,
+        to_hex_text, verdict_edge_cases, write_angle_table)
 
     dev = torch.device("cuda")
     counted = {"K1": cuda_decode, "K2": cuda_correct, "K3": cuda_raster,
-               "K4": cuda_sweep_sums, "K5": cuda_compact, "K6": cuda_tracker}
+               "K4": cuda_sweep_sums, "K5": cuda_compact, "K6": cuda_tracker,
+               "K7": cuda_nnls}
 
     def zero_counts():
         for m in counted.values():
@@ -469,7 +492,7 @@ def run(tmp: Path) -> None:
     torch.cuda.synchronize()
 
     # -- 3. kernels against their plain versions --------------------------------
-    err = {key: 0.0 for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K1s", "K5s",
+    err = {key: 0.0 for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K1s", "K5s",
                                 "K6s")}                               # exact ones stay 0
     cases = []
 
@@ -632,6 +655,38 @@ def run(tmp: Path) -> None:
     # The stream axis: K1, K5 and K6 over the 19 dataset streams' first
     # round (recorded from a MultiStreamingSession), K2 and K4 flattened.
     angles = write_angle_table(tmp / "beam_angle.xlsx")
+    # K7: the NN-OMP refits of the paths streams' second full window
+    # (recorded from an eager stream: the replay's 65 lanes, the live feed's
+    # 9, each iteration warm-started from the one before, the lanes past the
+    # window's closed sweeps dead), then nnls_edge_cases at K = 3 and 20
+    # under both solvers, K = 2 and the limit K = 32: bit-equal for "auto"
+    # at K >= 3, else equal passive sets and x within rtol 1e-6.
+    k7 = {}
+    for name, raw_k7, chunk, s_step in (
+            ("replay", raw_ds, REPLAY_CHUNK, 64),
+            ("live", synthetic_session_bytes(**MULTIPATH), LIVE_CHUNK, 8)):
+        for it, call in enumerate(k7_stream_calls(sd, raw_k7, chunk, dev,
+                                                  sd.make_paths_spec(angles, s_step=s_step))):
+            k7[f"{name}_{call[0].shape[0]}_lanes_iter{it}"] = call
+    for k, solver in ((3, "auto"), (3, "lu"), (20, "auto"), (20, "lu"), (2, "auto"),
+                      (32, "auto")):
+        G, b, x0, P0 = (torch.from_numpy(a).to(dev) for a in nnls_edge_cases(k, seed=k))
+        k7[f"edges_K{k}_{solver}"] = (G, b, 64, solver, x0, P0)
+        k7[f"edges_K{k}_{solver}_cold_max_outer_2"] = (G, b, 2, solver, None, None)
+    for case, args in k7.items():
+        got = cuda_nnls.nnls_gram_cuda(*args)
+        want = nnls.nnls_gram_plain(*args)
+        k_n, solver = args[0].shape[1], args[3]
+        if not (torch.equal(got[1], want[1]) and torch.isfinite(got[0]).all()):
+            fail(f"K7 {case}: passive sets differ from the plain version, or x is not finite")
+        if k_n == 3 or (k_n > 3 and solver == "auto"):
+            if not torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)):
+                fail(f"K7 {case}: x differs from the plain version")
+        elif not torch.allclose(got[0], want[0], rtol=1e-6, atol=0.0):
+            fail(f"K7 {case}: x beyond rtol 1e-6 of the plain version")
+        err["K7"] = max(err["K7"], float((got[0] - want[0]).abs().max()))
+        cases.append(f"K7:{case}")
+    k7_main = k7["replay_65_lanes_iter2"]
     raws_ds = [synthetic_session_bytes(**c) for c in DATASET]
     multi_ecap = -(-(max(len(r) for r in raws_ds) // 11 + 1) // (1 << 16)) * (1 << 16)
     multi = multi_round_inputs(sd, raws_ds, dev, sd.make_paths_spec(angles, s_step=64),
@@ -652,7 +707,8 @@ def run(tmp: Path) -> None:
             ("K5_fused", lambda: cuda_compact.compact_rows_multi_cuda(k5["kept"], k5["keep"],
                                                                       fused)),
             ("K6", lambda: cuda_tracker.track_block_cuda(*k6["main_65_lanes"][0],
-                                                         k6["main_65_lanes"][1]))):
+                                                         k6["main_65_lanes"][1])),
+            ("K7", lambda: cuda_nnls.nnls_gram_cuda(*k7_main))):
         fn()
         torch.cuda.synchronize()
         per_call[case] = device_profile(torch, lambda: [fn() for _ in range(10)])[1] / 10
@@ -736,14 +792,17 @@ def run(tmp: Path) -> None:
 
     # -- 5. sweep_paths: per-sweep NN-OMP on the phase-4 sessions ----------------
     zero_counts()
+    nnls.HOST_SYNCS = 0
     t0 = time.perf_counter()
     results = [s.sweep_paths(angles) for s in sessions]
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
     by_path["sweep_paths"] = read_counts()
     launches["K4"] = by_path["sweep_paths"]["K4"]
-    if launches["K4"] == 0:
-        fail("K4 never launched on the per-sweep path")
+    if launches["K4"] == 0 or by_path["sweep_paths"]["K7"] == 0:
+        fail("K4 or K7 never launched on the per-sweep path")
+    if nnls.HOST_SYNCS:
+        fail(f"sweep_paths: {nnls.HOST_SYNCS} NNLS host syncs on the card, not 0")
 
     n_sweeps_all = 0
     for (name, _), s, (got, got_valid) in zip(specs, sessions, results):
@@ -767,7 +826,8 @@ def run(tmp: Path) -> None:
     mp_paths = results[MP][0]
     emit({"phase": "sweep_paths", "sessions": len(sessions), "sweeps": n_sweeps_all,
           "full_session_sweeps": len(results[0][1]), "seconds": sweep_s,
-          "launches": launches["K4"], "compared_with_cpu": len(sessions),
+          "launches": launches["K4"], "nnls_host_syncs": 0,
+          "compared_with_cpu": len(sessions),
           "grid": [full_dict.aoa_grid.size, full_dict.aod_grid.size],
           **{f"{key}_valid_paths": int(results[i][0].valid.sum())
              for key, i in (("full_session", 0), ("multipath", MP))},
@@ -952,6 +1012,15 @@ def run(tmp: Path) -> None:
     ms["K6"] = cuda_ms(lambda: cuda_tracker.track_block_cuda(*k6_args, k6_gate), inner=20)
     plain_ms["K5"] = cuda_ms(lambda: compact.compact_rows_plain(k5["rows"], k5["open"], GCAP))
     plain_ms["K6"] = cuda_ms(lambda: tracker.track_block_plain(*k6_args, k6_gate))
+    # K7 at the replay's 65 lanes (its last NN-OMP refit), and beside it the
+    # live feed's 9 lanes and 65 lanes of K = 20 under both solvers.
+    ms["K7"] = cuda_ms(lambda: cuda_nnls.nnls_gram_cuda(*k7_main), inner=20)
+    plain_ms["K7"] = cuda_ms(lambda: nnls.nnls_gram_plain(*k7_main))
+    k7_ms = {}
+    for case in ("live_9_lanes_iter2", "edges_K20_auto", "edges_K20_lu"):
+        k7_ms[case] = {
+            "ms": cuda_ms(lambda: cuda_nnls.nnls_gram_cuda(*k7[case]), inner=20),
+            "plain_ms": cuda_ms(lambda: nnls.nnls_gram_plain(*k7[case]))}
     # The stream's kept-row compaction at the same window: the fused call
     # (emit ring + the paths' fresh buffer) against the two calls it replaced.
     k5_kept_ms = {
@@ -1089,7 +1158,7 @@ def run(tmp: Path) -> None:
                        "device_activities": acts_w, "top_us": top_w[:5]}})
 
     emit({"phase": "timing", "kernel_ms": ms, "kernel_bare_ms": bare_ms, "plain_ms": plain_ms,
-          "library_ms": library_ms,
+          "library_ms": library_ms, "k7_ms": k7_ms,
           "k5_kept_rows_1MiB_window_ms": k5_kept_ms, "stream_windows": stream_windows,
           "flattened_ms": flattened_ms,
           "discard_count_ms": discard_ms,
@@ -1158,6 +1227,11 @@ def run(tmp: Path) -> None:
     # The fused kept-row call: every mask byte, the 16 B payload of the kept
     # rows read once and written to the ring, and the fresh [F, 4] buffer.
     k5_fused_bytes = n_w + n_kept_w * 16 * 2 + n_w * 16
+    # K7: G, b, x0 and P0 read once, x and P written once (13 B per lane
+    # and atom besides G); the float32 operations of the outer steps and
+    # solves that this call's lanes take (``k7_work``).
+    k7_lanes, k7_k = k7_main[0].shape[:2]
+    k7_outer, k7_solves = k7_work(nnls, k7_main)
     bounds = {
         "K1": (n_bytes + rows * 21 + 4, n_bytes * 3 + flag_positions * 30 + n_starts * 28,
                PEAK_INT32_PER_S),
@@ -1170,6 +1244,8 @@ def run(tmp: Path) -> None:
                2 * k5["rows"].shape[0], PEAK_INT32_PER_S),
         "K6": (k6_bytes(k6_args), 6 * k6_live(k6_args) * k6_args[0].shape[1] ** 2
                * k6_args[5].shape[0], PEAK_F32_PER_S),
+        "K7": (k7_lanes * k7_k * (4 * k7_k + 4 + 4 + 1 + 4 + 1),
+               k7_ops(k7_k, k7_main[3], k7_outer, k7_solves), PEAK_F32_PER_S),
     }
     # The stream axis at the 19 streams' round, counted as above per stream
     # and summed: K1 with each stream's limit, K5's carry, K6's live lanes.
@@ -1193,6 +1269,7 @@ def run(tmp: Path) -> None:
                      PEAK_F32_PER_S)
     for key, base in (("K1s", "K1"), ("K5s", "K5"), ("K6s", "K6")):
         launches[key] = by_path["batch"][base] * (key == "K1s") + by_path["multi_stream"][base]
+    launches["K7"] = by_path["streaming"]["K7"]
     meta = {
         "K1": ("decode_rows", "decode.cu", "slam_process_tpu/ops/pallas_decode.py:130"),
         "K2": ("correct_verdicts", "correct.cu", "slam_process_tpu/ops/pallas_correct.py:109"),
@@ -1200,6 +1277,8 @@ def run(tmp: Path) -> None:
         "K4": ("sweep_sums", "sweep_sums.cu", "slam_process_tpu/ops/pallas_sweep_sums.py:158"),
         "K5": ("compact_rows", "compact.cu", "slam_process_tpu/ops/pallas_compact.py:117"),
         "K6": ("track_block", "tracker.cu", "slam_process_tpu/ops/pallas_tracker.py:183"),
+        "K7": ("nnls_gram", "nnls.cu", "slam_process_tpu/ops/nnls.py:168, :179 (two "
+               "lax.while_loop; no pl.pallas_call)"),
         "K1s": ("decode_rows_streams (stream axis)", "decode.cu",
                 "slam_process_tpu/ops/pallas_decode.py:130"),
         "K5s": ("compact_rows_streams (stream axis)", "compact.cu",
@@ -1208,7 +1287,7 @@ def run(tmp: Path) -> None:
                 "slam_process_tpu/ops/pallas_tracker.py:183"),
     }
     rows_out = []
-    meta_single = ("K1", "K2", "K3", "K4", "K5", "K6")
+    meta_single = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
     for key, (name, src, replaces) in meta.items():
         n_b, n_ops, peak = bounds[key]
         t_bytes, t_ops = n_b / PEAK_BYTES_PER_S * 1e3, n_ops / peak * 1e3
@@ -1242,7 +1321,9 @@ def run(tmp: Path) -> None:
           "K5s_masked": k5s_masked, "K5s_bytes_ops": bounds["K5s"][:2],
           "K6s_streams_lanes_live": [len(k6s_per), k6s_args[0].shape[1],
                                      sum(k6_live(a) for a in k6s_per)],
-          "K6s_bytes_ops": bounds["K6s"][:2]})
+          "K6s_bytes_ops": bounds["K6s"][:2],
+          "K7_lanes_atoms_outer_steps_solves": [k7_lanes, k7_k, k7_outer, k7_solves],
+          "K7_bytes_ops": bounds["K7"][:2]})
     print(smi, flush=True)
     emit({"kernels": rows_out})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1593,8 +1674,11 @@ def estimate_phase(np, torch, nnls, tmp, log, sessions, angles, zero_counts, rea
         return statistics.median(times)
 
     def syncs(fn):
+        """``fn()`` on the card and its NNLS host syncs, which K7 makes 0."""
         nnls.HOST_SYNCS = 0
         out = fn()
+        if nnls.HOST_SYNCS:
+            fail(f"estimate: {nnls.HOST_SYNCS} NNLS host syncs in a call on the card, not 0")
         return out, nnls.HOST_SYNCS
 
     def call(argv):
@@ -1826,6 +1910,7 @@ def est_forms_phase(np, torch, tmp, logs, angles, zero_counts, read_counts, dev,
         OmpPaths, nn_omp_batch, nn_omp_gram_batch, nn_omp_np)
     from slam_process_tpu_torch.models.sweep_estimation import _fill_per_sweep, path_power
     from slam_process_tpu_torch.models.tracking import Tracks, track_paths
+    from slam_process_tpu_torch.ops import nnls
     from slam_process_tpu_torch.pipeline.session import Session
     from slam_process_tpu_torch.utils.device_timing import measure_device_time, op_device_counts
 
@@ -1834,9 +1919,12 @@ def est_forms_phase(np, torch, tmp, logs, angles, zero_counts, read_counts, dev,
         device activities per call and the top activity names by device us
         per call from its kept trace; with ``profile`` one device_profile run
         beside it (busy ms, activities: the two measures side by side); and
-        the host seconds of each step."""
+        the host seconds of each step.  Its NNLS host syncs must be 0 (K7)."""
+        nnls.HOST_SYNCS = 0
         t0 = time.perf_counter()
         out = {"wall_ms": event_ms(torch, fn, EST_TIMED)}
+        if nnls.HOST_SYNCS:
+            fail(f"est_forms {name}: {nnls.HOST_SYNCS} NNLS host syncs on the card, not 0")
         t1 = time.perf_counter()
         trace_dir = tmp / f"est_forms_{name}"
         t = measure_device_time(lambda i: fn(), n=runs, device=dev, trace_dir=trace_dir)
@@ -3062,6 +3150,84 @@ def stream_window_inputs(sd, raw, chunk, dev, paths_spec=None):
     return {k: c[1] for k, c in calls.items()}
 
 
+def k7_stream_calls(sd, raw, chunk, dev, spec) -> list:
+    """K7's calls in a paths stream's second full window of ``chunk``
+    bytes, one per NN-OMP iteration: (G, b, max_outer, solver, x0, P0),
+    copies of what the stream passed, recorded from the ``cuda_nnls``
+    wrapper of the package that ``sd`` belongs to while the stream runs by
+    its eager body (``eager_windows``; the first feed runs one full window,
+    the second a full and a 20-byte one)."""
+    import importlib
+
+    mod = importlib.import_module(f"{sd.__name__.split('.')[0]}.ops.cuda_nnls")
+    real, windows = mod.nnls_gram_cuda, []
+
+    def record(G, b, max_outer=64, solver="auto", x0=None, P0=None):
+        windows.append((G.clone(), b.clone(), max_outer, solver,
+                        None if x0 is None else x0.clone(), None if P0 is None else P0.clone()))
+        return real(G, b, max_outer, solver, x0, P0)
+
+    mod.nnls_gram_cuda = record
+    try:
+        s = eager_windows(sd, sd.DeviceStreamingSession(chunk_bytes=chunk, collect_paths=spec,
+                                                        device=dev))
+        s.feed(raw[:chunk])
+        per_window = len(windows)
+        s.feed(raw[chunk:2 * chunk])
+    finally:
+        mod.nnls_gram_cuda = real
+    if not per_window or len(windows) != 3 * per_window:
+        fail(f"paths stream of {chunk}-byte windows: {len(windows)} NNLS calls in three "
+             "windows, not the same number in each")
+    return windows[per_window:2 * per_window]
+
+
+def k7_work(nnls, args) -> tuple:
+    """(outer steps, passive solves) that K7's lanes take on ``args`` =
+    (G, b, max_outer, solver, x0, P0): each lane run alone through the plain
+    version with its loop bodies counted (a lane alone stops at its own
+    end, as it does in the kernel)."""
+    G, b, max_outer, solver, x0, P0 = args
+    n = {"outer": 0, "solves": 0}
+    matvec, solve = nnls._matvec, nnls._solve_passive
+
+    def counted_matvec(*a):
+        n["outer"] += 1
+        return matvec(*a)
+
+    def counted_solve(*a):
+        n["solves"] += 1
+        return solve(*a)
+
+    def lane(t, i):
+        return None if t is None else t[i:i + 1]
+
+    nnls._matvec, nnls._solve_passive = counted_matvec, counted_solve
+    try:
+        for i in range(G.shape[0]):
+            nnls.nnls_gram_plain(lane(G, i), lane(b, i), max_outer, solver, lane(x0, i),
+                                 lane(P0, i))
+    finally:
+        nnls._matvec, nnls._solve_passive = matvec, solve
+    return n["outer"], n["solves"]
+
+
+def k7_ops(k: int, solver: str, outer: int, solves: int) -> int:
+    """K7's arithmetic for ``outer`` outer steps and ``solves`` passive
+    solves at K = k: an outer step's G x and gradient (2 k^2 + k) and
+    argmax (k); a solve's masked tile (2 k^2 + k), its elimination (the
+    adjugate's 54 at K = 3; Gauss-Jordan's k (k + 1) (2 k + 1); LU's 2 k^3 /
+    3 + 2 k^2 in float64, counted at the float32 rate) and the step back
+    (6 k)."""
+    if k == 3:
+        elim = 54
+    elif k > 3 and solver == "auto":
+        elim = k * (k + 1) * (2 * k + 1)
+    else:
+        elim = 2 * k ** 3 // 3 + 2 * k ** 2
+    return outer * (2 * k * k + 2 * k) + solves * (2 * k * k + k + elim + 6 * k)
+
+
 def k4_cases(np, torch, dev, p, bs, val, n_sweeps):
     """K4's inputs {case: (p, bs, val, max_sweeps)} on the card: (a) the
     full session's rows; (b) an unsorted stream over 65 sweeps (the TPU
@@ -3251,7 +3417,7 @@ def streaming_phase(np, torch, sd, nnls, tmp, angles, raw_live, raw_ds, raw_stra
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {k: m.LAUNCHES for k, m in kernels.items()}
-    if min(launches[k] for k in ("K1", "K2", "K4", "K5", "K6")) == 0:
+    if min(launches[k] for k in ("K1", "K2", "K4", "K5", "K6", "K7")) == 0:
         fail(f"a kernel of the streaming path never launched: {launches}")
     # Two K5 calls per window (K1 decodes once per window: the carry, and one
     # fused call for the kept rows), and the fused one at each stream's flush.
@@ -3412,6 +3578,8 @@ def streaming_phase(np, torch, sd, nnls, tmp, angles, raw_live, raw_ds, raw_stra
         if synced != sum(counted.values()):
             fail(f"stream {name}: {synced} host syncs in sync debug mode, the counters say "
                  f"{counted}: {sites}")
+        if synced:     # every window reads nothing back, with paths too (K7)
+            fail(f"stream {name}: {synced} host syncs in feed / finalize, not 0: {sites}")
         timing[name] = {"windows": windows, "host_syncs": synced, "host_sync_sites": sites,
                         "sync_debug_mode_notes": notes,
                         "host_syncs_per_window": {k: v / windows for k, v in counted.items()}}
@@ -3426,7 +3594,7 @@ def streaming_phase(np, torch, sd, nnls, tmp, angles, raw_live, raw_ds, raw_stra
     for m in kernels.values():
         m.LAUNCHES = 0
     names = {"K1": "decode_rows_kernel", "K4": "sweep_sums_kernel", "K5": "compact_kernel",
-             "K6": "track_block_kernel"}
+             "K6": "track_block_kernel", "K7": "nnls_kernel"}
     busy, acts, top, named = device_profile(torch, lambda: live_feed().block_until_ready(),
                                             count=tuple(names.values()))
     calls = {k: kernels[k].LAUNCHES for k in names}
@@ -3874,6 +4042,9 @@ def multi_stream_phase(np, torch, sd, nnls, tmp, angles, raws, zero_counts, read
     if sum(sites.values()) != sum(counted.values()):
         fail(f"multi_stream: {sum(sites.values())} host syncs in sync debug mode, the counters "
              f"say {counted}: {sites}")
+    if counted != {"m_eff_reads": len(rounds) + 1, "nnls": 0}:
+        fail(f"multi_stream: host syncs {counted} in {len(rounds)} rounds and a flush, not "
+             "one count read a round and flush and no NNLS sync")
     busy, acts, top = device_profile(torch, lambda: run_multi().block_until_ready())
 
     steady = steady_rounds(np, torch, sd, raws, spec, ecap, check, dev)
@@ -4340,7 +4511,9 @@ def graphs_phase(np, torch, sd, tmp, raws, paths, angles, zero_counts, read_coun
     the eager round (``eager_windows``), the whole state after the feed and
     after the flush: the live feed (the multipath log in 64 KiB feeds), the
     straddle (the full session at 16 KiB) and the 19 dataset logs replayed at
-    1 MiB (a short last window).  Each replay adds its capture's launches to
+    1 MiB (a short last window); the paths window graph against the eager
+    round after every feed and after the flush: the live feed with s_step 8
+    and the replay with s_step 64.  Each replay adds its capture's launches to
     the counters (checked: one K1, K2 and K3 a session call).
 
     Times (the card's name and power limit printed beside them): per session
@@ -4352,9 +4525,11 @@ def graphs_phase(np, torch, sd, tmp, raws, paths, angles, zero_counts, read_coun
     ``run_session_on_device`` on the full session; ms per window of the live
     feed and the replay, eager and graph (CUDA events around feed, finalize
     and ``block_until_ready``, median of 5 after a warm-up) and the windows
-    whose staging copy made the host wait; ``cli.replay_stream`` as the
-    command runs it (64 KiB windows, the multipath log; with and without
-    ``--paths``), timed the same way."""
+    whose staging copy made the host wait; with paths also the device ms a
+    window (``measure_device_time`` over whole streams, median of 3);
+    ``cli.replay_stream`` as the command runs it (64 KiB windows, the
+    multipath log; with and without ``--paths``, each window a graph
+    replay), timed the same way."""
 
     from slam_process_tpu_torch.ops.tokenize import prepare_text, stride3_offset, text_bucket
     from slam_process_tpu_torch.pipeline import cli
@@ -4477,8 +4652,8 @@ def graphs_phase(np, torch, sd, tmp, raws, paths, angles, zero_counts, read_coun
     raw_ds = np.concatenate([raws[i] for i in ds])
     n_kept_max = len(raw_ds) // 11 + 1
 
-    def stream(raw, chunk, eager=False, replay=False):
-        kw = dict(chunk_bytes=chunk, collect_filtered=True, device=dev)
+    def stream(raw, chunk, eager=False, replay=False, spec=None):
+        kw = dict(chunk_bytes=chunk, collect_filtered=True, collect_paths=spec, device=dev)
         if replay:
             if eager:
                 s = eager_windows(sd, sd.DeviceStreamingSession(
@@ -4544,6 +4719,53 @@ def graphs_phase(np, torch, sd, tmp, raws, paths, angles, zero_counts, read_coun
         streams[name].update(row, window_ratio_graph_over_eager=row["graph"]["ms"]
                              / row["eager"]["ms"])
 
+    # Streams with paths (the live feed at 64 KiB with s_step 8, the 19 logs
+    # replayed at 1 MiB with s_step 64): graph windows and eager windows fed
+    # side by side, the whole state equal after every feed and after the
+    # flush; then wall and device ms a window, eager and graph.
+    paths_streams = {}
+    for name, raw, chunk, replay, s_step in (
+            ("live_paths_64KiB", raws[-1], LIVE_CHUNK, False, 8),
+            ("replay_paths_1MiB", raw_ds, REPLAY_CHUNK, True, 64)):
+        spec = sd.make_paths_spec(angles, s_step=s_step)
+        kw = dict(chunk_bytes=chunk, collect_filtered=True, collect_paths=spec, device=dev)
+        if replay:
+            kw["emit_capacity"] = -(-n_kept_max // (1 << 16)) * (1 << 16)
+        k1 = read_counts()["K1"]
+        got = sd.DeviceStreamingSession(**kw)
+        want = eager_windows(sd, sd.DeviceStreamingSession(**kw))
+        feeds = 0
+        for off in range(0, len(raw), chunk):
+            got.feed(raw[off:off + chunk])
+            want.feed(raw[off:off + chunk])
+            feeds += 1
+            if not same_state(got, want):
+                fail(f"graphs {name}: the paths window graph's state differs from the eager "
+                     f"round's after feed {feeds}")
+        got.finalize()
+        want.finalize()
+        windows = read_counts()["K1"] - k1
+        if (not same_state(got, want) or got._graph is None or got._graph.replays < 1
+                or got.n_sweeps_closed < 1):
+            fail(f"graphs {name}: the state differs after the flush, or no window replayed, "
+                 "or no sweep closed")
+        row = {"bytes": len(raw), "windows_each": windows // 2, "feeds_compared": feeds,
+               "sweeps": got.n_sweeps_closed, "graph_replays": got._graph.replays,
+               "capture_ms": got._graph.capture_ms, "pool_bytes": got._graph.pool_bytes}
+        n_win = windows // 2
+        for form, eager in (("eager", True), ("graph", False)):
+            def run_stream(eager=eager):
+                return stream(raw, chunk, eager=eager, replay=replay, spec=spec)
+
+            ms = stream_ms(run_stream)
+            dev_ms, acts = device(lambda: run_stream().block_until_ready(), f"{name}_{form}")
+            row[form] = {"ms": ms, "ms_per_window": ms / n_win,
+                         "device_ms_per_window": dev_ms / n_win,
+                         "device_activities_per_window": acts / n_win,
+                         "bytes_per_s": len(raw) / (ms / 1e3)}
+        row["window_ratio_graph_over_eager"] = row["graph"]["ms"] / row["eager"]["ms"]
+        paths_streams[name] = row
+
     # cli.replay_stream as the command runs it: the multipath log at the
     # command's 64 KiB windows, timed as the streaming phase times streams.
     replay = {}
@@ -4558,8 +4780,11 @@ def graphs_phase(np, torch, sd, tmp, raws, paths, angles, zero_counts, read_coun
         replay[tag] = {"ms": ms, "windows": windows, "ms_per_window": ms / windows,
                        "frames_per_s": s.n_frames / (ms / 1e3),
                        "window_graph": s._graph is not None}
+        if s._graph is None:
+            fail(f"graphs: cli.replay_stream ({tag}) ran its windows eagerly")
     return {"card": smi, "sessions": sessions, "streams": streams,
-            "cli_replay_stream_64KiB": replay, "launches": read_counts()}
+            "paths_streams": paths_streams, "cli_replay_stream_64KiB": replay,
+            "launches": read_counts()}
 
 
 MULTIHOST_TIMEOUT_S = 300            # each process of the multihost phase
@@ -4641,7 +4866,7 @@ def multihost_phase(np, torch, sd, tmp, angles, raws, sessions, dev) -> dict:
                 fail(f"multihost: {name} process {k} exited {rc}: {err[-2000:]}")
         lines[name] = [json.loads(out.strip().splitlines()[-1]) for _, out, _ in procs]
     launches = {k: sum(ln["launches"][k] for v in lines.values() for ln in v)
-                for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+                for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7")}
     if min(launches.values()) == 0:
         fail(f"multihost: a kernel never launched in the worker processes: {launches}")
 

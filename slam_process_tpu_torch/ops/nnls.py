@@ -2,14 +2,18 @@
 
 The port of ``slam_process_tpu/ops/nnls.py::nnls_gram`` with the vmap axis
 written out: G [S, K, K], b [S, K] hold S independent problems min ||A x -
-y||, x >= 0, given G = A^T A and b = A^T y.  JAX's two nested bounded
-``while_loop``s become Python loops that run all lanes in lockstep: each
-lane keeps its own ``done`` flag and takes updates only while it is not
-done (what ``jnp.where`` does under vmap), and a loop ends when every lane
-is done or at ``max_outer`` / ``MAX_INNER``.  Each loop step asks the
-device once whether every lane is done (``HOST_SYNCS`` counts them); these
-are the solver's only host syncs (constants are Python scalars, not tensors
-copied to the device).
+y||, x >= 0, given G = A^T A and b = A^T y.  ``nnls_gram`` launches kernel
+K7 (``ops/cuda_nnls.py``, ``csrc/nnls.cu``) on CUDA tensors, where each
+lane runs JAX's two nested bounded ``while_loop``s on the device and the
+host reads nothing, and runs ``nnls_gram_plain`` on CPU tensors.
+
+``nnls_gram_plain`` is K7's plain version: the loops become Python loops
+that run all lanes in lockstep: each lane keeps its own ``done`` flag and
+takes updates only while it is not done (what ``jnp.where`` does under
+vmap), and a loop ends when every lane is done or at ``max_outer`` /
+``MAX_INNER``.  Each loop step asks the device once whether every lane is
+done (``HOST_SYNCS`` counts them: the plain version's only host syncs;
+constants are Python scalars, not tensors copied to the device).
 
 Arithmetic is float32 as in JAX, with JAX's guards: ``jnp.maximum(x - z,
 1e-300)`` is ``max(x - z, 0)`` in float32 (1e-300 flushes to zero), and
@@ -23,7 +27,9 @@ from __future__ import annotations
 
 import torch
 
-HOST_SYNCS = 0   # lockstep-loop host syncs since the caller last set it to 0
+from slam_process_tpu_torch.ops import cuda_nnls
+
+HOST_SYNCS = 0   # the plain version's lockstep-loop host syncs since the caller set it to 0
 
 MAX_INNER = 16   # bound on the inner (feasibility) loop's steps
 TOL = 1e-10      # coefficient threshold
@@ -123,11 +129,25 @@ def nnls_gram(G: torch.Tensor, b: torch.Tensor, max_outer: int = 64, solver: str
     G x is proportional to |b|); the coefficient tests keep ``TOL``.
     ``x0`` / ``P0`` warm-start the active set from a previous solution of
     the same lanes when one atom joined (x0 >= 0, zero off P0, optimal on
-    P0).
+    P0).  Kernel K7 on CUDA tensors (K <= 32), ``nnls_gram_plain`` on CPU
+    tensors.
     """
     if G.dim() != 3 or b.dim() != 2 or G.shape[:2] != b.shape or G.shape[1] != G.shape[2]:
         raise ValueError(f"nnls_gram takes G [S, K, K] and b [S, K], got "
                          f"{tuple(G.shape)} and {tuple(b.shape)}")
+    if G.is_cuda:
+        return cuda_nnls.nnls_gram_cuda(
+            G.contiguous(), b.contiguous(), max_outer, solver,
+            None if x0 is None else x0.contiguous(), None if P0 is None else P0.contiguous())
+    if G.device.type != "cpu":
+        raise ValueError(f"NNLS runs on CUDA or CPU tensors, got {G.device}")
+    return nnls_gram_plain(G, b, max_outer, solver, x0, P0)
+
+
+def nnls_gram_plain(G: torch.Tensor, b: torch.Tensor, max_outer: int = 64,
+                    solver: str = "auto", x0=None, P0=None):
+    """``nnls_gram`` as lockstep Python loops on any device (K7's plain
+    version; the module docstring)."""
     k = G.shape[2]
     w_tol = TOL + TOL_REL * b.abs().amax(dim=1)
     x = torch.zeros_like(b) if x0 is None else x0.clone()

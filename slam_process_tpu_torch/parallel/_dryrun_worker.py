@@ -46,11 +46,13 @@ def synthetic_stream_bytes(n_frames: int, seed: int) -> bytes:
 def launch_counts() -> dict:
     """Each hand kernel's launches in this process (0 on the CPU)."""
     from slam_process_tpu_torch.ops import (
-        cuda_compact, cuda_correct, cuda_decode, cuda_raster, cuda_sweep_sums, cuda_tracker)
+        cuda_compact, cuda_correct, cuda_decode, cuda_nnls, cuda_raster, cuda_sweep_sums,
+        cuda_tracker)
 
     return {k: m.LAUNCHES for k, m in (("K1", cuda_decode), ("K2", cuda_correct),
                                        ("K3", cuda_raster), ("K4", cuda_sweep_sums),
-                                       ("K5", cuda_compact), ("K6", cuda_tracker))}
+                                       ("K5", cuda_compact), ("K6", cuda_tracker),
+                                       ("K7", cuda_nnls))}
 
 
 def main() -> None:

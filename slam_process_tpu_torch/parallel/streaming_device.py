@@ -43,14 +43,18 @@ integer (the JAX package passes ``SceneConfig()`` there), so K4 runs.
 Where the port differs: the running intensity sums are int64 (exact at any
 stream length; the JAX package's float32 sums are exact below 2^24 per
 cell), or float64 for the pre-log scene, and the state is updated in
-place (the counterpart of JAX's donated state).  A window reads the
-device only with ``collect_paths``: once to read the count of sweeps it
-closed, which sizes the estimator's batch (``HOST_SYNCS``), and, when it
-closed any, at each step of the NNLS solver's lockstep loops
-(``ops/nnls.HOST_SYNCS``).  Without ``collect_paths`` a window reads
-nothing back, and on CUDA the single stream's window is one CUDA graph
-replay (``DeviceStreamingSession``); its host waits only for the copy out
-of its staging buffer before refilling it (``STAGING_WAITS``).
+place (the counterpart of JAX's donated state).  The single stream's
+window reads nothing back, with or without ``collect_paths``: its paths
+step runs the estimator on every sweep lane and writes the lanes' block of
+ring rows at ``n_closed`` on the device, as the JAX package's step does,
+and the estimator's NNLS loops run on the device (kernel K7).  So on CUDA
+each of its windows is one CUDA graph replay (``DeviceStreamingSession``);
+its host waits only for the copy out of its staging buffer before
+refilling it (``STAGING_WAITS``).  ``MultiStreamingSession`` with
+``collect_paths`` reads its S closed-sweep counts once a round
+(``HOST_SYNCS``) and runs the estimator on the closed lanes only.  On CPU
+tensors the NNLS plain version syncs nothing with a device but counts its
+lockstep steps (``ops/nnls.HOST_SYNCS``).
 ``render()`` reads the sums back, builds the grid on the host as
 ``intensity()`` does and rasterizes it on the session's device (K3).
 """
@@ -275,7 +279,8 @@ def _map_state(st: DeviceStreamState, fn) -> DeviceStreamState:
 
 
 def _paths_substep(p: PathsState, kr: torch.Tensor, n_keep: torch.Tensor,
-                   spec: StreamPathsSpec, dict_args, beam_ids, close_all: bool):
+                   spec: StreamPathsSpec, dict_args, beam_ids, close_all: bool,
+                   every_lane: bool):
     """Advance S streams' online-estimation state by one window round's
     kept rows: ``kr`` [S, T, 4], compacted in stream order (K5), the first
     ``n_keep[s]`` of stream s.  A generator: it yields once, just before
@@ -288,9 +293,20 @@ def _paths_substep(p: PathsState, kr: torch.Tensor, n_keep: torch.Tensor,
     closes (and at the flush, ``close_all``, the open one if it has cells)
     go through the per-sweep estimator and the tracker block; the open
     sweep's sums carry to the next window.  One K4 launch over the S s1
-    sweep lanes (sweep ids offset by ``s * s1``), one host read of the S
-    closed-sweep counts, the estimator once on every stream's closed sweeps
-    and one K6 launch for the S trackers.
+    sweep lanes (sweep ids offset by ``s * s1``), the estimator once and
+    one K6 launch for the S trackers (which takes the closed-sweep counts
+    on the device).
+
+    Where the estimator's lanes come from is the only difference between
+    the two forms.  ``every_lane`` (the single stream): all S s1 lanes, each
+    lane's results written to ring row ``n_closed + j`` (the JAX package's
+    block write; the rings hold ``capacity + s1`` rows, and rows past the
+    new ``n_closed`` are slack that no reader reads and a later window
+    overwrites), the open lane taken by a device index: no host read.  The
+    lanes past a stream's count are empty sweeps (the estimator fills them
+    with 0) or its open sweep, and change no row below ``n_closed``.
+    Otherwise (``MultiStreamingSession``): one host read of the S counts
+    (``HOST_SYNCS``) and the estimator on the closed lanes only.
     """
     global HOST_SYNCS
     dev = kr.device
@@ -328,24 +344,30 @@ def _paths_substep(p: PathsState, kr: torch.Tensor, n_keep: torch.Tensor,
         has_open = torch.gather(in_lane, 1, m.clamp(max=s1 - 1).long()[:, None])[:, 0] > 0
         m_eff_t = m + has_open.to(torch.int32)
     yield
-    HOST_SYNCS += 1
-    live = np.minimum(m_eff_t.cpu().numpy(), s1).astype(np.int64)   # the estimator's batch
-    lane_s = np.repeat(np.arange(s_n), live)
-    lane_j = np.arange(len(lane_s)) - np.repeat(np.cumsum(live) - live, live)
-    flat = lane_s * s1 + lane_j                              # each live lane's flat lane
-    flat_mc = np.arange(s_n) * s1 + np.minimum(live, s1 - 1)  # each stream's open lane
     k_n = p.est_rings.aoa.shape[-1]
     p_n = p.valid_ring.shape[1]
-    # One copy: the live lanes' streams, flat lanes and ring rows less each
-    # stream's n_closed, and the open lanes.
-    lane_s_t, flat_t, ring_idx, flat_mc_t = _host_to(dev, np.concatenate(
-        [lane_s, flat, lane_s * p_n + lane_j, flat_mc])).split([len(flat)] * 3 + [s_n])
-    ring_idx = ring_idx + p.n_closed.long().index_select(0, lane_s_t)
-    at = _rows(flat, flat_t)
+    if every_lane:
+        n_lanes, at = s_n * s1, slice(None)
+        ring_idx = (_steps(s_n, p_n, dev)[:, None] + p.n_closed[:, None]
+                    + _steps(s1, 1, dev)[None]).flatten().long()
+        at_mc = (_steps(s_n, s1, dev) + m.clamp(max=s1 - 1)).long()   # each open lane
+    else:
+        HOST_SYNCS += 1
+        live = np.minimum(m_eff_t.cpu().numpy(), s1).astype(np.int64)   # the estimator's batch
+        lane_s = np.repeat(np.arange(s_n), live)
+        lane_j = np.arange(len(lane_s)) - np.repeat(np.cumsum(live) - live, live)
+        flat = lane_s * s1 + lane_j                              # each live lane's flat lane
+        flat_mc = np.arange(s_n) * s1 + np.minimum(live, s1 - 1)  # each stream's open lane
+        # One copy: the live lanes' streams, flat lanes and ring rows less
+        # each stream's n_closed, and the open lanes.
+        lane_s_t, flat_t, ring_idx, flat_mc_t = _host_to(dev, np.concatenate(
+            [lane_s, flat, lane_s * p_n + lane_j, flat_mc])).split([len(flat)] * 3 + [s_n])
+        ring_idx = ring_idx + p.n_closed.long().index_select(0, lane_s_t)
+        n_lanes, at, at_mc = len(flat), _rows(flat, flat_t), _rows(flat_mc, flat_mc_t)
 
     lanes = [torch.zeros((s_n * s1, k_n), dtype=torch.float32, device=dev) for _ in range(3)]
     val_l = torch.zeros((s_n * s1, k_n), dtype=torch.bool, device=dev)
-    if len(flat):
+    if n_lanes:
         counts_l = _take(counts, at)
         mean = torch.where(counts_l > 0, _take(sums, at) / counts_l.clamp(min=1.0),
                            float("nan"))
@@ -376,7 +398,6 @@ def _paths_substep(p: PathsState, kr: torch.Tensor, n_keep: torch.Tensor,
         p.open_counts.zero_()
         p.open_time.fill_(-1)
     else:
-        at_mc = _rows(flat_mc, flat_mc_t)
         open_counts = _take(counts, at_mc)
         p.open_sums.copy_(_take(sums, at_mc))
         p.open_counts.copy_(open_counts)
@@ -429,6 +450,10 @@ class _WindowRound:
     and the window round on an [S, ...] state, one launch per stage for
     all S streams.  ``DeviceStreamingSession`` runs it at S = 1 on a view
     of its state."""
+
+    # The paths step's form (``_paths_substep``): the estimator on every
+    # lane with no host read, or on the closed lanes after one.
+    _every_lane = False
 
     def _setup(self, config, chunk_bytes, group_capacity, max_groups,
                max_baselines_per_group, n_beams, collect_paths, device) -> None:
@@ -522,7 +547,7 @@ class _WindowRound:
         if st.paths is None:
             return iter(())
         return _paths_substep(st.paths, outs[-1], n, self._paths_spec, self._dict_args,
-                              self._beam_ids, close_all)
+                              self._beam_ids, close_all, self._every_lane)
 
     def _flush(self, st: DeviceStreamState) -> None:
         """Close the open group of every stream of ``st``, in place."""
@@ -578,16 +603,20 @@ class DeviceStreamingSession(_WindowRound):
 
     Every window, full or the short last piece of a feed, is one static
     input: its bytes, zero-padded to ``chunk_bytes``, and K1's limit (their
-    count), in one device buffer that one pinned staging buffer fills.  So
-    on CUDA, without ``collect_paths``, the round is one CUDA graph (the
-    counterpart of the JAX package's jitted step with a donated state): the
-    first window runs it once and captures it, every later window, whatever
-    its length, replays it.  A grown emit ring drops the graph and the next
-    window captures anew.  With ``collect_paths`` the round stays eager: its
-    paths step reads the closed-sweep counts on the host.  ``finalize``
-    runs once a stream and stays eager too (the JAX package jits its flush;
-    a graph of a single call would save nothing).
+    count), in one device buffer that one pinned staging buffer fills.  The
+    paths step takes the read-free form (``_paths_substep`` with
+    ``every_lane``: the estimator on all s_step + 1 lanes, NNLS in kernel
+    K7), so a window reads nothing back, with or without ``collect_paths``.
+    So on CUDA the round is one CUDA graph (the counterpart of the JAX
+    package's jitted step with a donated state): the first window runs it
+    once and captures it, every later window, whatever its length, replays
+    it.  A grown emit ring drops the graph and the next window captures
+    anew.  ``finalize`` runs once a stream and stays eager, in the same
+    read-free form (the JAX package jits its flush; a graph of a single
+    call would save nothing).
     """
+
+    _every_lane = True
 
     def __init__(self, config: Optional[PipelineConfig] = None, chunk_bytes: int = 1 << 20,
                  group_capacity: int = 8192, max_groups: int = 128,
@@ -695,9 +724,9 @@ class DeviceStreamingSession(_WindowRound):
     def _step(self, piece: np.ndarray, n_bytes: int) -> None:
         """One window (the ``n_bytes`` <= ``chunk_bytes`` bytes of
         ``piece``): the S = 1 round on the lifted state, in place; a CUDA
-        graph on CUDA without ``collect_paths`` (the class docstring)."""
+        graph on CUDA (the class docstring)."""
         self._load_window(piece, n_bytes)
-        if self._paths_spec is not None or self.device.type != "cuda":
+        if self.device.type != "cuda":
             self._round(_map_state(self._state, _lift), *self._window_inputs())
             return
         if self._graph is None:
@@ -995,8 +1024,9 @@ class MultiStreamingSession(_WindowRound):
     sweeps and K6 with the stream axis.  Per-stream results equal S
     independent ``DeviceStreamingSession`` replays of the same bytes
     exactly.  With ``collect_paths`` a round reads the S closed-sweep counts
-    once (``HOST_SYNCS``) and the NNLS solver keeps its lockstep syncs
-    (``ops/nnls.HOST_SYNCS``); without it a round never waits.
+    once (``HOST_SYNCS``) and runs the estimator on the closed lanes only
+    (the NNLS loops on the device, kernel K7, on CUDA); without it a round
+    never waits.
 
     With ``mesh`` (``parallel/mesh.py``) the S streams pad with inert
     streams (never fed, never flushed, never read) to a multiple of the

@@ -23,7 +23,12 @@ PyTorch operations captured once and replayed by one launch.
   * ``pool_bytes`` (the graph's private memory pool) and ``capture_ms``.
 
 It refuses CPU tensors: on the CPU callers run the eager body.  A capture
-that fails raises; nothing falls back to the eager body.  Replays of one
+that fails raises; nothing falls back to the eager body.  The one retry: a
+dead graph's private pool stays cached in the allocator, which frees
+cached memory to satisfy an allocation only outside a capture, so a
+capture that runs out of memory empties the cache (``empty_cache``, which
+waits for the device) and captures once more.  ``torch.cuda.graph`` empties
+it before every capture; a runner does so only when the capture needs it.  Replays of one
 device's graphs share the kernels' scratch words of its capture stream, so
 they must run in order on one stream, as the port's entry points run them.
 
@@ -44,7 +49,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 
 _KERNEL_MODULES = ("cuda_decode", "cuda_correct", "cuda_raster", "cuda_sweep_sums",
-                   "cuda_compact", "cuda_tracker")
+                   "cuda_compact", "cuda_tracker", "cuda_nnls")
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,23 +148,16 @@ class GraphRunner:
         modules = _kernel_modules()
         with torch.cuda.stream(side):
             out = self._fn(*self.inputs)                      # the warm-up: this run's work
-            before = [m.LAUNCHES for m in modules]
-            graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
-            graph.capture_begin()
             try:
-                static = self._fn(*self.inputs)
-            except BaseException:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass                                      # the capture was already broken
-                raise
-            finally:
-                counted = [m.LAUNCHES - b for m, b in zip(modules, before)]
-                for m, b in zip(modules, before):
-                    m.LAUNCHES = b                            # a capture launches nothing
-            graph.capture_end()
+                captured = self._capture(modules)
+            except torch.OutOfMemoryError:
+                captured = None         # the failed capture is freed with its traceback
+            if captured is None:
+                torch.cuda.empty_cache()                      # dead graphs' pools (docstring)
+                t0 = time.perf_counter()
+                captured = self._capture(modules)
+            graph, static, counted = captured
             self.capture_ms = (time.perf_counter() - t0) * 1e3
         caller.wait_stream(side)
         self.graph, self.outputs = graph, static
@@ -169,6 +167,27 @@ class GraphRunner:
         self._scratch = _build.scratch_tensors()
         self.pool_bytes = pool_bytes(graph.pool())
         return out
+
+    def _capture(self, modules):
+        """(graph, static outputs, launches by module) of one capture of the
+        program on the current stream."""
+        before = [m.LAUNCHES for m in modules]
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            static = self._fn(*self.inputs)
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass                                          # the capture was already broken
+            raise
+        finally:
+            counted = [m.LAUNCHES - b for m, b in zip(modules, before)]
+            for m, b in zip(modules, before):
+                m.LAUNCHES = b                                # a capture launches nothing
+        graph.capture_end()
+        return graph, static, counted
 
 
 class _Field(NamedTuple):

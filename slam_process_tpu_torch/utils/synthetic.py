@@ -19,7 +19,9 @@ row's RSS and carry the true BS beam.  Beyond that generator it adds:
     with unmapped beams);
   * ``with_flag_junk``: bursts of bytes dense in flag bytes spliced into a
     stream, so the decoder discards (and ``legacy_stream_bytes``, streams
-    in the older v1 / v2 wire formats).
+    in the older v1 / v2 wire formats);
+  * the kernels' edge cases (``verdict_edge_cases``, ``decode_edge_cases``,
+    ``sweep_sums_edge_cases``, ``nnls_edge_cases``).
 
 All randomness comes from ``numpy.random.default_rng(seed)`` (the
 multipath scene from a second stream of the same seed, so the default
@@ -402,3 +404,41 @@ def sweep_sums_edge_cases(seed: int = 0) -> dict:
                                          rng.integers(-1, nb + 1, f),
                                          rng.integers(0, 1 << 18, f), s, nb)
     return out
+
+
+def nnls_edge_cases(k: int, lanes: int = 65, seed: int = 0):
+    """Inputs of the batched NNLS at its edges: (G [lanes, k, k] f32, b
+    [lanes, k] f32, x0 [lanes, k] f32, P0 [lanes, k] bool), from
+    ``default_rng(seed)``.  A quarter of the lanes are cold starts on Gram
+    systems A^T A, A^T y with half the planted coefficients negative (atoms
+    drop); a quarter are warm-started from the previous step of the OMP
+    refit (the last atom's column zero there), solved by the plain version;
+    a quarter hold two near-collinear atoms (columns 1e-6 apart); the rest
+    are all-zero dead lanes (the stream's empty sweep lanes) but, for k >=
+    2, the last: G = I, b = e_1 warm-started from P0 = {0}, x0 = 0, whose
+    first step-back ratio is 0/0."""
+    import torch
+
+    from slam_process_tpu_torch.ops.nnls import nnls_gram_plain
+
+    rng = np.random.default_rng(seed)
+    q, m = lanes // 4, 4 * k + 8
+    A = np.abs(rng.normal(size=(lanes, m, k))) + 0.01
+    y = (np.einsum("smk,sk->sm", A, rng.normal(size=(lanes, k)))
+         + 0.1 * rng.normal(size=(lanes, m)))
+    if k >= 2:
+        A[2 * q:3 * q, :, 1] = A[2 * q:3 * q, :, 0] * (1 + 1e-6 * rng.normal(size=(q, m)))
+    G = np.einsum("smk,sml->skl", A, A).astype(np.float32)
+    b = np.einsum("smk,sm->sk", A, y).astype(np.float32)
+    x0 = np.zeros((lanes, k), np.float32)
+    P0 = np.zeros((lanes, k), bool)
+    prev = A[q:2 * q].copy()
+    prev[:, :, -1] = 0.0
+    xw, pw = nnls_gram_plain(
+        torch.from_numpy(np.einsum("smk,sml->skl", prev, prev).astype(np.float32)),
+        torch.from_numpy(np.einsum("smk,sm->sk", prev, y[q:2 * q]).astype(np.float32)))
+    x0[q:2 * q], P0[q:2 * q] = xw.numpy(), pw.numpy()
+    G[3 * q:], b[3 * q:] = 0.0, 0.0
+    if k >= 2:
+        G[-1], b[-1, 1], P0[-1, 0] = np.eye(k, dtype=np.float32), 1.0, True
+    return G, b, x0, P0

@@ -1,4 +1,4 @@
-"""Kernels K1-K6 against their plain PyTorch versions, on the card.
+"""Kernels K1-K7 against their plain PyTorch versions, on the card.
 
 Marked ``cuda`` and skipped where ``torch.cuda.is_available()`` is False
 (the condition is evaluated when each test is set up).  On a machine with
@@ -58,7 +58,14 @@ trace read back by ``module_device_times``); ``_batched_nn_omp`` "vmap" and
 "gram" and ``nn_omp_sessions_device`` on one packed input equal to "vmap"
 and to their CPU runs; ``nn_omp_batch`` over a session's sweeps equal to
 ``nn_omp_gram_batch`` and to the CPU; ``detect_scene_changes`` on the card's
-K6 tracks bit-equal to ``detect_scene_changes_np``.
+K6 tracks bit-equal to ``detect_scene_changes_np``.  The sixteenth slice:
+K7 (batched NNLS) against its plain version on
+``utils/synthetic.nnls_edge_cases`` at K = 1, 2, 3, 20 and 32 under both
+solvers (bit-equal for "auto" at K >= 3, else equal passive sets and x
+within rtol 1e-6), no host sync; the paths window as one CUDA graph
+bit-equal to its eager round after every feed; a paths stream that syncs
+nothing in ``feed``, equal to its CPU run and to the offline
+``Session.sweep_paths`` / ``path_tracks`` on the card.
 """
 
 import numpy as np
@@ -1600,6 +1607,27 @@ def test_capture_before_the_lazy_build_and_scratch():
                                                                               device="cuda"))
 
 
+def test_capture_out_of_memory_empties_the_cache_and_captures_again():
+    """A capture cannot free the allocator's cached memory (dead graphs'
+    pools): one that runs out of memory empties the cache and captures
+    once more, leaving one graph whose replays are right."""
+    from slam_process_tpu_torch.utils.graphs import GraphRunner
+
+    capturing = []
+
+    def body(x):
+        capturing.append(torch.cuda.is_current_stream_capturing())
+        if len(capturing) == 2:
+            raise torch.OutOfMemoryError("CUDA out of memory (raised by the test)")
+        return x * 2
+
+    runner = GraphRunner(body, [torch.ones(4, device="cuda")])
+    assert torch.equal(runner.run(), torch.full((4,), 2.0, device="cuda"))    # the warm-up
+    assert capturing == [False, True, True] and runner.graph is not None
+    assert torch.equal(runner(torch.full((4,), 3.0, device="cuda")),
+                       torch.full((4,), 6.0, device="cuda"))
+
+
 def test_window_limit_at_the_window_length_equals_none():
     """K1 with a limit equal to the window's length gives its result for no
     limit: what lets full and short windows share one graph."""
@@ -1626,3 +1654,142 @@ def test_measure_device_time_places_graph_replays():
     t = measure_device_time(lambda i: fn(padded, lut), n=3)
     assert len(t.runs) == 3 and min(t.runs) > 0
     assert any("decode_rows_kernel" in name for name in t.all_modules)
+
+
+# -- the sixteenth slice: K7 and the paths window as one CUDA graph ---------------------------
+
+
+def nnls_close(got, want, exact):
+    """K7's contract against its plain version: bit-equal (``"auto"`` at K >=
+    3), else equal passive sets and x within rtol 1e-6; never a NaN."""
+    (x, p), (xw, pw) = got, want
+    assert torch.equal(p, pw)
+    if exact:
+        assert torch.equal(x.view(torch.int32), xw.view(torch.int32))
+    else:
+        torch.testing.assert_close(x, xw, rtol=1e-6, atol=0)
+    assert torch.isfinite(x).all()
+
+
+@pytest.mark.parametrize("k,solver", [(3, "auto"), (3, "lu"), (20, "auto"), (20, "lu"),
+                                      (2, "auto"), (1, "lu"), (32, "auto")])
+def test_nnls_kernel_matches_plain(k, solver):
+    """K7 on ``utils/synthetic.nnls_edge_cases`` (cold and warm starts,
+    near-collinear atoms, all-zero dead lanes, a 0/0 step-back ratio) and
+    on the same lanes cold with max_outer = 2, one launch a call, no host
+    sync."""
+    from slam_process_tpu_torch.ops import cuda_nnls, nnls
+    from slam_process_tpu_torch.utils.synthetic import nnls_edge_cases
+
+    G, b, x0, P0 = (torch.from_numpy(a).cuda() for a in nnls_edge_cases(k, seed=k))
+    exact = k == 3 or (k > 3 and solver == "auto")
+    cuda_nnls.LAUNCHES = nnls.HOST_SYNCS = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = nnls.nnls_gram(G, b, solver=solver, x0=x0, P0=P0)
+        cold = nnls.nnls_gram(G, b, max_outer=2, solver=solver)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cuda_nnls.LAUNCHES == 2 and nnls.HOST_SYNCS == 0
+    nnls_close(got, nnls.nnls_gram_plain(G, b, solver=solver, x0=x0, P0=P0), exact)
+    nnls_close(cold, nnls.nnls_gram_plain(G, b, max_outer=2, solver=solver), exact)
+    dead = slice(3 * (65 // 4), 64)
+    assert not got[0][dead].any() and not got[1][dead].any()
+
+
+def test_nnls_kernel_refuses_more_than_32_atoms():
+    from slam_process_tpu_torch.ops import cuda_nnls, nnls
+
+    cuda_nnls.LAUNCHES = 0
+    with pytest.raises(ValueError, match="1..32 atoms"):
+        nnls.nnls_gram(torch.zeros((2, 33, 33), device="cuda"),
+                       torch.zeros((2, 33), device="cuda"))
+    assert cuda_nnls.LAUNCHES == 0
+
+
+def paths_stream_inputs(tmp_path):
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+    from slam_process_tpu_torch.utils.synthetic import write_angle_table
+
+    raw = synthetic_session_bytes(n_groups=8, frames_per_beam=8, baselines_per_group=9,
+                                  junk_frac=0.05, seed=3, n_paths=3)
+    angles = write_angle_table(tmp_path / "angles.xlsx")
+    return raw, angles, sd.make_paths_spec(angles, s_step=4, grid_res=0.5)
+
+
+def test_paths_graph_equals_eager_body_alternating(tmp_path):
+    """The paths window as one graph against the eager round: the whole
+    state bit for bit (the rings' slack rows too) after every feed, with
+    windows that close a sweep alternating with windows that close none,
+    and after the flush."""
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+
+    raw, _, spec = paths_stream_inputs(tmp_path)
+    chunk = 1 << 12                       # a sweep is ~5.7 KB: windows close 0 or 1
+    kw = dict(chunk_bytes=chunk, collect_filtered=True, collect_paths=spec, device="cuda")
+    got = sd.DeviceStreamingSession(**kw)
+    want = eager_windows(sd.DeviceStreamingSession(**kw))
+    closed = []
+    for off in range(0, len(raw), chunk):
+        before = int(want._state.paths.n_closed)
+        got.feed(raw[off:off + chunk])
+        want.feed(raw[off:off + chunk])
+        closed.append(int(want._state.paths.n_closed) - before)
+        states_equal(got, want)
+    assert 0 in closed and max(closed) > 0
+    assert got._graph is not None and got._graph.replays > 0 and want._graph is None
+    got.finalize()
+    want.finalize()
+    states_equal(got, want)
+
+
+def test_paths_stream_on_card_reads_nothing_and_equals_cpu_and_offline(tmp_path):
+    """A stream with ``collect_paths`` on the card: its windows sync nothing
+    (``set_sync_debug_mode("error")``), both counters stay 0, K7 launches,
+    and its paths equal the same stream with ``device="cpu"`` (power within
+    rtol 2e-4) and the offline ``Session.sweep_paths`` / ``path_tracks`` on
+    the card exactly."""
+    from slam_process_tpu_torch.models.tracking import Tracks
+    from slam_process_tpu_torch.ops import cuda_nnls, nnls
+    from slam_process_tpu_torch.ops.decode import decode_frames_np
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+    from slam_process_tpu_torch.pipeline.session import Session
+
+    raw, angles, spec = paths_stream_inputs(tmp_path)
+    chunk = 1 << 13
+    kw = dict(chunk_bytes=chunk, collect_paths=spec)
+    sd.HOST_SYNCS = nnls.HOST_SYNCS = cuda_nnls.LAUNCHES = 0
+    s = sd.DeviceStreamingSession(device="cuda", **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        feed_stream(s, raw, chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    s.finalize()
+    assert sd.HOST_SYNCS == nnls.HOST_SYNCS == 0 and cuda_nnls.LAUNCHES > 0
+    assert s._graph is not None and s._graph.replays > 0
+    cpu = feed_stream(sd.DeviceStreamingSession(device="cpu", **kw), raw, chunk)
+    cpu.finalize()
+    (paths, valid), (ref, ref_valid) = s.sweep_paths(), cpu.sweep_paths()
+    np.testing.assert_array_equal(valid, ref_valid)
+    np.testing.assert_array_equal(s.sweep_times(), cpu.sweep_times())
+    for field in paths._fields:
+        if field == "power":
+            np.testing.assert_allclose(paths.power, ref.power, rtol=2e-4, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(getattr(paths, field), getattr(ref, field))
+    off = Session("offline")
+    off.frames = decode_frames_np(raw).frames
+    beam_ids = (spec[0].ue_ids, spec[0].bs_ids)
+    want, want_valid = off.sweep_paths(angles, beam_ids=beam_ids, device="cuda", grid_res=0.5)
+    np.testing.assert_array_equal(valid, want_valid)
+    for field in paths._fields:
+        np.testing.assert_array_equal(getattr(paths, field), getattr(want, field))
+    tracks = s.path_tracks()[0]
+    want_tracks = off.path_tracks(angles, beam_ids=beam_ids, engine="device", device="cuda",
+                                  grid_res=0.5)[0]
+    for name in Tracks._fields:
+        np.testing.assert_array_equal(getattr(tracks, name), getattr(want_tracks, name))
+    assert len(valid) == 8 and tracks.n_tracks > 0

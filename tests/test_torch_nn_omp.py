@@ -70,6 +70,39 @@ def test_nnls_gram_batched_matches_jax_vmap(k, solver):
     assert p.any() and (~p).any()   # atoms are both kept and dropped
 
 
+def edge_lanes(k):
+    """Two ordinary lanes (cold starts), three all-zero dead lanes (what the
+    stream's read-free paths step feeds for its empty sweep lanes) and a
+    lane whose first step-back ratio is 0/0: G = I, b = e_1, warm-started
+    from P0 = {0} with x0 = 0, so the solve on {0, 1} leaves z_0 = 0 <= TOL
+    with x_0 = 0.  That NaN ratio empties the passive set, and the lane
+    ends at x = e_1, P = {1}."""
+    _, _, G, b = gram_systems(k, 2, k)
+    b_nan = np.zeros(k, np.float32)
+    b_nan[1] = 1.0
+    G = np.concatenate([G, np.zeros((3, k, k), np.float32), np.eye(k, dtype=np.float32)[None]])
+    b = np.concatenate([b, np.zeros((3, k), np.float32), b_nan[None]])
+    x0 = np.zeros((6, k), np.float32)
+    P0 = np.zeros((6, k), bool)
+    P0[5, 0] = True
+    return G, b, x0, P0
+
+
+@pytest.mark.parametrize("k,solver", [(3, "auto"), (5, "auto"), (5, "lu"), (2, "auto")],
+                         ids=["K3_adjugate", "K5_gauss_jordan", "K5_lu", "K2_lu"])
+def test_nnls_gram_dead_and_zero_over_zero_lanes_match_jax(k, solver):
+    G, b, x0, P0 = edge_lanes(k)
+    want_x, want_p = jax_nnls(G, b, solver, x0=x0, P0=P0)
+    x, p = nnls_gram(*(torch.from_numpy(a) for a in (G, b)), solver=solver,
+                     x0=torch.from_numpy(x0), P0=torch.from_numpy(P0))
+    np.testing.assert_array_equal(p.numpy(), want_p)
+    np.testing.assert_allclose(x.numpy(), want_x, rtol=1e-5)
+    assert torch.isfinite(x).all()
+    assert not p[2:5].any() and not x[2:5].any()             # dead lanes: x = 0
+    np.testing.assert_array_equal(x[5].numpy(), np.eye(k, dtype=np.float32)[1])
+    np.testing.assert_array_equal(p[5].numpy(), np.arange(k) == 1)
+
+
 def test_nnls_gram_warm_start_matches_jax():
     """The OMP growth pattern: atoms join one at a time (zero columns for
     future slots) and each refit starts from the previous solution."""

@@ -421,10 +421,11 @@ def test_path_tracks_defaults_to_the_device_tracker(monkeypatch, tmp_path):
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     from slam_process_tpu_torch.ops import (
-        cuda_compact, cuda_correct, cuda_decode, cuda_raster, cuda_sweep_sums, cuda_tracker)
+        cuda_compact, cuda_correct, cuda_decode, cuda_nnls, cuda_raster, cuda_sweep_sums,
+        cuda_tracker)
 
     kernels = (cuda_decode, cuda_correct, cuda_raster, cuda_sweep_sums, cuda_compact,
-               cuda_tracker)
+               cuda_tracker, cuda_nnls)
     for m in kernels:
         m.LAUNCHES = 0
     with pytest.raises(ValueError, match="CUDA"):
@@ -446,7 +447,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         cuda_tracker.track_block_cuda(f32, f32, f32, f32 > 0, torch.tensor(3, dtype=torch.int32),
                                       torch.zeros(4, 2), torch.zeros(4, dtype=torch.bool),
                                       torch.tensor(0, dtype=torch.int32), 10.0)
-    assert [m.LAUNCHES for m in kernels] == [0] * 6
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_nnls.nnls_gram_cuda(torch.eye(3)[None], torch.ones(1, 3))
+    assert [m.LAUNCHES for m in kernels] == [0] * 7
 
 
 def test_dispatch_refuses_other_devices():
