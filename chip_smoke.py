@@ -62,8 +62,10 @@ Phases, each printing one JSON line:
                 K1 over [19, 1 MiB] (twice on one stream, ragged limits; S
                 and N at the row blocks' edges), K5's carry and kept-row
                 calls (19 streams, offsets at capacity, rings that fill, no
-                rows, 4 streams of 1 M rows at 50 % 100 times: the
-                look-back's race test at S > 1), K6 over 19 trackers and
+                rows, 2 and 64 streams whose rings at nonzero offsets and
+                zero-tailed buffers overflow, 4 streams of 1 M rows at 50 %
+                100 times: the look-back's race test at S > 1), K6 over 19
+                trackers and
                 over stacks of the cases above; the flattened K2 call (19
                 streams; 12 tiny sessions whose 256-row blocks span
                 sessions) and K4 call (19 x 65 sweep lanes) against 19
@@ -189,8 +191,16 @@ Phases, each printing one JSON line:
                 device ms and activities from
                 ``utils/device_timing.measure_device_time`` (median of 3,
                 one run of the per-session form), the top activity names,
-                and ``device_profile``'s busy ms beside it; no NNLS host
-                sync in any timed form.
+                and ``device_profile``'s busy ms beside it, K7's device ms
+                and share of the form's device time (``op_device_times``;
+                ``run_estimator("nn_omp")`` on the multipath session too);
+                no NNLS host sync in any timed form.
+ 8c. k7_estimator K7's calls where the session estimator makes them,
+                recorded from the wrapper (``estimator_k7_calls``):
+                ``run_estimator("nn_omp")`` on the full multipath session
+                (1 lane) and the "vmap" form over the 21 sessions (21
+                lanes), K = 20 under "lu", one call an NN-OMP iteration;
+                each call held to K7's contract.
   9. replay     the ``replay --paths --changes`` command's steps
                 (``cli.replay_stream``, ``render()``, ``cli.replay_exports``;
                 the PNG needs matplotlib) on the card, counted (every kernel
@@ -298,7 +308,9 @@ Phases, each printing one JSON line:
                 separate calls, the library yardsticks
                 (K4: two ``torch.bincount`` calls; K5: ``rows[mask]``), K7
                 at the replay's 65 lanes and beside it at the live feed's 9
-                lanes and at 65 lanes of K = 20 under both solvers, K5's
+                lanes, at 65 lanes of K = 20 under both solvers and on phase
+                8c's refits (a run's 20 calls back to back, and each alone),
+                each with its outer steps, solves and bound, K5's
                 fused kept-row call against the two calls it replaced, the
                 whole ``run_session_on_device`` in frames/s at both sizes, and
                 ``sweep_paths`` in sweeps/s (a cleared memo: the host prep,
@@ -336,7 +348,9 @@ the counters set to 0 just before and read just after), reported in the
 ``kernels`` line as ``launches_by_path``; ``launches`` is the count on the
 kernel's own path.  The stream-axis entries add to their kernel's counter
 and have rows of their own (K1s, K5s, K6s: launches on the batch and
-multi_stream paths, times at the 19 streams' round).  Then the ``bounds`` and ``kernels`` JSON lines, and as
+multi_stream paths, times at the 19 streams' round).  K7's row also splits
+its launches by K (``launches_by_k``, on the paths where the split adds up).
+Then the ``bounds`` and ``kernels`` JSON lines, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.  Data
 is synthetic, made from fixed seeds; temporary logs go under ``build/``.
 """
@@ -365,6 +379,7 @@ REPO = Path(__file__).resolve().parent
 # IMAD) on an NVIDIA H100 80GB HBM3 at 700.00 W, so 64 is not a peak.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_F64_PER_S = 34e12               # float64 outside the tensor cores (NVIDIA's data sheet)
 PEAK_INT32_PER_S = 132 * 128 * 1.98e9
 
 FULL = dict(n_groups=58, frames_per_beam=43, baselines_per_group=93, junk_frac=0.02,
@@ -443,12 +458,24 @@ def run(tmp: Path) -> None:
                "K4": cuda_sweep_sums, "K5": cuda_compact, "K6": cuda_tracker,
                "K7": cuda_nnls}
 
+    k7_split = {}                 # K7's launches by K at the last read_counts()
+    by_path, k7_by_k = {}, {}     # each path's launches, and K7's by K
+
     def zero_counts():
         for m in counted.values():
             m.LAUNCHES = 0
+        cuda_nnls.LAUNCHES_BY_K.clear()
 
     def read_counts():
+        k7_split.clear()
+        k7_split.update(cuda_nnls.LAUNCHES_BY_K)
         return {k: m.LAUNCHES for k, m in counted.items()}
+
+    def counted_path(name, counts, split=None):
+        """A path's launches, and K7's split by K where it adds up to them."""
+        by_path[name] = counts
+        split = dict(k7_split) if split is None else split
+        k7_by_k[name] = split if sum(split.values()) == counts["K7"] else None
 
     # -- 1. env ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -673,7 +700,7 @@ def run(tmp: Path) -> None:
         G, b, x0, P0 = (torch.from_numpy(a).to(dev) for a in nnls_edge_cases(k, seed=k))
         k7[f"edges_K{k}_{solver}"] = (G, b, 64, solver, x0, P0)
         k7[f"edges_K{k}_{solver}_cold_max_outer_2"] = (G, b, 2, solver, None, None)
-    for case, args in k7.items():
+    def check_k7(case, args):
         got = cuda_nnls.nnls_gram_cuda(*args)
         want = nnls.nnls_gram_plain(*args)
         k_n, solver = args[0].shape[1], args[3]
@@ -686,6 +713,9 @@ def run(tmp: Path) -> None:
             fail(f"K7 {case}: x beyond rtol 1e-6 of the plain version")
         err["K7"] = max(err["K7"], float((got[0] - want[0]).abs().max()))
         cases.append(f"K7:{case}")
+
+    for case, args in k7.items():
+        check_k7(case, args)
     k7_main = k7["replay_65_lanes_iter2"]
     raws_ds = [synthetic_session_bytes(**c) for c in DATASET]
     multi_ecap = -(-(max(len(r) for r in raws_ds) // 11 + 1) // (1 << 16)) * (1 << 16)
@@ -743,7 +773,7 @@ def run(tmp: Path) -> None:
     sessions = [Session.from_log(p) for p in paths]
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    by_path = {"main_path": read_counts()}
+    counted_path("main_path", read_counts())
     launches = {k: by_path["main_path"][k] for k in ("K1", "K2", "K3")}
     if min(launches.values()) == 0:
         fail(f"a kernel of the main path never launched: {launches}")
@@ -797,7 +827,7 @@ def run(tmp: Path) -> None:
     results = [s.sweep_paths(angles) for s in sessions]
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
-    by_path["sweep_paths"] = read_counts()
+    counted_path("sweep_paths", read_counts())
     launches["K4"] = by_path["sweep_paths"]["K4"]
     if launches["K4"] == 0 or by_path["sweep_paths"]["K7"] == 0:
         fail("K4 or K7 never launched on the per-sweep path")
@@ -839,7 +869,7 @@ def run(tmp: Path) -> None:
     # -- 6. streaming ------------------------------------------------------------
     stream_out = streaming_phase(np, torch, sd, nnls, tmp, angles, raws[MP], raw_ds, raws[0],
                                  counted, dev)
-    by_path["streaming"] = stream_out["launches"]
+    counted_path("streaming", stream_out["launches"], stream_out.pop("k7_by_k"))
     launches.update(K5=stream_out["launches"]["K5"], K6=stream_out["launches"]["K6"])
     emit({"phase": "streaming", **stream_out})
 
@@ -847,7 +877,7 @@ def run(tmp: Path) -> None:
     t0 = time.perf_counter()
     cli_out = cli_phase(np, torch, tmp, paths[0], angles, zero_counts, read_counts,
                         raster_close, lut, taps, dev)
-    by_path["cli"] = cli_out.pop("launches")
+    counted_path("cli", cli_out.pop("launches"))
     print(smi, flush=True)
     emit({"phase": "cli", "seconds": time.perf_counter() - t0, "launches": by_path["cli"],
           **cli_out})
@@ -856,7 +886,7 @@ def run(tmp: Path) -> None:
     t0 = time.perf_counter()
     est_out = estimate_phase(np, torch, nnls, tmp, paths[MP], sessions, angles, zero_counts,
                              read_counts, dev, smi)
-    by_path["estimate"] = est_out.pop("launches")
+    counted_path("estimate", est_out.pop("launches"))
     print(smi, flush=True)
     emit({"phase": "estimate", "seconds": time.perf_counter() - t0,
           "launches": by_path["estimate"], **est_out})
@@ -865,16 +895,33 @@ def run(tmp: Path) -> None:
     t0 = time.perf_counter()
     forms_out = est_forms_phase(np, torch, tmp, paths, angles, zero_counts, read_counts, dev,
                                 smi)
-    by_path["est_forms"] = forms_out.pop("launches")
+    counted_path("est_forms", forms_out.pop("launches"))
     print(smi, flush=True)
     emit({"phase": "est_forms", "seconds": time.perf_counter() - t0,
           "launches": by_path["est_forms"], **forms_out})
+
+    # -- 8c. k7_estimator: K7 on the session estimator's own refits ---------------
+    # Recorded from the wrapper: run_estimator("nn_omp") on the full multipath
+    # session (1 lane) and the "vmap" form over the 21 sessions (21 lanes),
+    # K = 20 under "lu", one call an NN-OMP iteration; each held to K7's
+    # contract (timed in phase 18).
+    t0 = time.perf_counter()
+    k7_est = estimator_k7_calls(sd, sessions, angles)
+    n_cases = len(cases)
+    for name, calls in k7_est.items():
+        for it, args in enumerate(calls):
+            check_k7(f"{name}_iter{it}", args)
+    emit({"phase": "k7_estimator", "seconds": time.perf_counter() - t0,
+          "cases": len(cases) - n_cases, "max_abs_err": err["K7"],
+          "sets": {name: {"calls": len(calls), "lanes": calls[0][0].shape[0],
+                          "k": calls[0][0].shape[1], "solver": calls[0][3],
+                          "max_outer": calls[0][2]} for name, calls in k7_est.items()}})
 
     # -- 9. replay: the replay command's steps, card against cpu and host ------------
     t0 = time.perf_counter()
     rep_out = replay_phase(np, torch, tmp, paths[MP], paths[DS], angles, zero_counts,
                            read_counts)
-    by_path["replay"] = rep_out.pop("launches")
+    counted_path("replay", rep_out.pop("launches"))
     print(smi, flush=True)
     emit({"phase": "replay", "seconds": time.perf_counter() - t0, "launches": by_path["replay"],
           **rep_out})
@@ -882,7 +929,7 @@ def run(tmp: Path) -> None:
     # -- 10. watch: a growing file, a checkpoint resume, card against cpu and host --
     t0 = time.perf_counter()
     watch_out = watch_phase(np, torch, sd, tmp, paths[MP], angles, zero_counts, read_counts, dev)
-    by_path["watch"] = watch_out.pop("launches")
+    counted_path("watch", watch_out.pop("launches"))
     print(smi, flush=True)
     emit({"phase": "watch", "seconds": time.perf_counter() - t0, "launches": by_path["watch"],
           **watch_out})
@@ -890,7 +937,7 @@ def run(tmp: Path) -> None:
     # -- 11. run_config: three named configs, card against cpu ---------------------
     t0 = time.perf_counter()
     cfg_out = run_config_phase(np, tmp, paths[DS], angles, zero_counts, read_counts)
-    by_path["run_config"] = cfg_out.pop("launches")
+    counted_path("run_config", cfg_out.pop("launches"))
     emit({"phase": "run_config", "seconds": time.perf_counter() - t0,
           "launches": by_path["run_config"], **cfg_out})
 
@@ -898,7 +945,7 @@ def run(tmp: Path) -> None:
     t0 = time.perf_counter()
     ing_out = ingest_phase(np, torch, tmp, [raws[0]] + raws[DS], [paths[0]] + paths[DS],
                            zero_counts, read_counts, dev)
-    by_path["ingest"] = ing_out.pop("launches")
+    counted_path("ingest", ing_out.pop("launches"))
     print(smi, flush=True)
     emit({"phase": "ingest", "seconds": time.perf_counter() - t0, "launches": by_path["ingest"],
           **ing_out})
@@ -907,7 +954,7 @@ def run(tmp: Path) -> None:
     t0 = time.perf_counter()
     pre_out = prelog_phase(np, torch, sd, tmp, raw_full, sessions[0].filtered, raws[MP],
                            sessions[MP].filtered, zero_counts, read_counts, dev)
-    by_path["prelog"] = pre_out.pop("launches")
+    counted_path("prelog", pre_out.pop("launches"))
     emit({"phase": "prelog", "seconds": time.perf_counter() - t0, "launches": by_path["prelog"],
           **pre_out})
 
@@ -915,7 +962,7 @@ def run(tmp: Path) -> None:
     t0 = time.perf_counter()
     sm_out = sm_sic_phase(np, torch, sd, sessions, results, angles, raws[MP], zero_counts,
                           read_counts, dev)
-    by_path["sm_sic"] = sm_out.pop("launches")
+    counted_path("sm_sic", sm_out.pop("launches"))
     emit({"phase": "sm_sic", "seconds": time.perf_counter() - t0, "launches": by_path["sm_sic"],
           **sm_out})
 
@@ -923,13 +970,13 @@ def run(tmp: Path) -> None:
     t0 = time.perf_counter()
     est7 = estimators_phase(np, torch, {"multipath": paths[MP], "noise": paths[0]}, angles,
                             zero_counts, read_counts, dev)
-    by_path["estimators"] = est7.pop("launches")
+    counted_path("estimators", est7.pop("launches"))
     print(smi, flush=True)
     emit({"phase": "estimators", "seconds": time.perf_counter() - t0,
           "launches": by_path["estimators"], **est7})
 
-    def cuda_ms(fn, inner=1, primed=True):
-        """Median ms per call over N_TIMED event-timed runs of ``inner``
+    def cuda_ms(fn, inner=1, primed=True, runs=N_TIMED):
+        """Median ms per call over ``runs`` event-timed runs of ``inner``
         calls.  ``primed``: a ~20 ms device sleep queued first lets the
         calls reach the card back to back, so device work is timed without
         host gaps; whole sessions are timed unprimed, host work included."""
@@ -937,7 +984,7 @@ def run(tmp: Path) -> None:
             fn()
         torch.cuda.synchronize()
         times = []
-        for _ in range(N_TIMED):
+        for _ in range(runs):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             if primed:
@@ -953,7 +1000,7 @@ def run(tmp: Path) -> None:
     # -- 16. batch: run_dataset over the 21 sessions, both forms -----------------
     t0 = time.perf_counter()
     batch_out = batch_phase(np, torch, raws, zero_counts, read_counts, raster_close, cuda_ms, dev)
-    by_path["batch"] = batch_out.pop("launches")
+    counted_path("batch", batch_out.pop("launches"))
     print(smi, flush=True)
     emit({"phase": "batch", "seconds": time.perf_counter() - t0, "launches": by_path["batch"],
           **batch_out})
@@ -962,7 +1009,7 @@ def run(tmp: Path) -> None:
     t0 = time.perf_counter()
     multi_out = multi_stream_phase(np, torch, sd, nnls, tmp, angles, raws[DS], zero_counts,
                                    read_counts, dev)
-    by_path["multi_stream"] = multi_out.pop("launches")
+    counted_path("multi_stream", multi_out.pop("launches"))
     print(smi, flush=True)
     emit({"phase": "multi_stream", "seconds": time.perf_counter() - t0,
           "launches": by_path["multi_stream"], **multi_out})
@@ -1013,14 +1060,28 @@ def run(tmp: Path) -> None:
     plain_ms["K5"] = cuda_ms(lambda: compact.compact_rows_plain(k5["rows"], k5["open"], GCAP))
     plain_ms["K6"] = cuda_ms(lambda: tracker.track_block_plain(*k6_args, k6_gate))
     # K7 at the replay's 65 lanes (its last NN-OMP refit), and beside it the
-    # live feed's 9 lanes and 65 lanes of K = 20 under both solvers.
+    # live feed's 9 lanes, 65 lanes of K = 20 under both solvers and the
+    # session estimator's own refits (phase 8c: all of a run's calls back to
+    # back, and each call alone), each with its work and bound (k7_bound).
     ms["K7"] = cuda_ms(lambda: cuda_nnls.nnls_gram_cuda(*k7_main), inner=20)
     plain_ms["K7"] = cuda_ms(lambda: nnls.nnls_gram_plain(*k7_main))
     k7_ms = {}
-    for case in ("live_9_lanes_iter2", "edges_K20_auto", "edges_K20_lu"):
+    k7_sets = {case: [k7[case]] for case in ("live_9_lanes_iter2", "edges_K20_auto",
+                                             "edges_K20_lu")}
+    k7_sets.update(k7_est)
+    for case, calls in k7_sets.items():
+        one = len(calls) == 1
         k7_ms[case] = {
-            "ms": cuda_ms(lambda: cuda_nnls.nnls_gram_cuda(*k7[case]), inner=20),
-            "plain_ms": cuda_ms(lambda: nnls.nnls_gram_plain(*k7[case]))}
+            "calls": len(calls), "lanes": calls[0][0].shape[0], "k": calls[0][0].shape[1],
+            "solver": calls[0][3],
+            "ms": cuda_ms(lambda: [cuda_nnls.nnls_gram_cuda(*c) for c in calls],
+                          inner=20 if one else 1),
+            "plain_ms": cuda_ms(lambda: [nnls.nnls_gram_plain(*c) for c in calls],
+                                runs=N_TIMED if one else 3),
+            **({} if one else {"ms_per_call": [
+                cuda_ms(lambda c=c: cuda_nnls.nnls_gram_cuda(*c), inner=5, runs=5)
+                for c in calls]}),
+            **k7_bound(nnls, calls)}
     # The stream's kept-row compaction at the same window: the fused call
     # (emit ring + the paths' fresh buffer) against the two calls it replaced.
     k5_kept_ms = {
@@ -1183,7 +1244,7 @@ def run(tmp: Path) -> None:
     # -- 19. mesh: the mesh forms on positions of cuda:0 ----------------------------
     t0 = time.perf_counter()
     mesh_out = mesh_phase(np, torch, sd, angles, raws, sessions, zero_counts, read_counts, dev)
-    by_path["mesh"] = mesh_out.pop("launches")
+    counted_path("mesh", mesh_out.pop("launches"))
     print(smi, flush=True)
     emit({"phase": "mesh", "seconds": time.perf_counter() - t0, "launches": by_path["mesh"],
           **mesh_out})
@@ -1191,7 +1252,7 @@ def run(tmp: Path) -> None:
     # -- 20. multihost: two-process gloo clusters on cuda:0 --------------------------
     t0 = time.perf_counter()
     host_out = multihost_phase(np, torch, sd, tmp, angles, raws, sessions, dev)
-    by_path["multihost"] = host_out.pop("launches")
+    counted_path("multihost", host_out.pop("launches"))
     print(smi, flush=True)
     emit({"phase": "multihost", "seconds": time.perf_counter() - t0,
           "launches": by_path["multihost"], **host_out})
@@ -1200,7 +1261,7 @@ def run(tmp: Path) -> None:
     t0 = time.perf_counter()
     graph_out = graphs_phase(np, torch, sd, tmp, raws, paths, angles, zero_counts, read_counts,
                              dev, smi)
-    by_path["graphs"] = graph_out.pop("launches")
+    counted_path("graphs", graph_out.pop("launches"))
     print(smi, flush=True)
     emit({"phase": "graphs", "seconds": time.perf_counter() - t0,
           "launches": by_path["graphs"], **graph_out})
@@ -1245,7 +1306,7 @@ def run(tmp: Path) -> None:
         "K6": (k6_bytes(k6_args), 6 * k6_live(k6_args) * k6_args[0].shape[1] ** 2
                * k6_args[5].shape[0], PEAK_F32_PER_S),
         "K7": (k7_lanes * k7_k * (4 * k7_k + 4 + 4 + 1 + 4 + 1),
-               k7_ops(k7_k, k7_main[3], k7_outer, k7_solves), PEAK_F32_PER_S),
+               k7_ops(k7_k, k7_main[3], k7_outer, k7_solves)[0], PEAK_F32_PER_S),
     }
     # The stream axis at the 19 streams' round, counted as above per stream
     # and summed: K1 with each stream's limit, K5's carry, K6's live lanes.
@@ -1305,6 +1366,14 @@ def run(tmp: Path) -> None:
             "plain_ms": plain_ms[key], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms.get(key)})
+    # K7's launches by K over the paths whose split adds up to their count
+    # (paths[path] is null where it does not).
+    k7_total = {}
+    for split in k7_by_k.values():
+        for k_n, n in (split or {}).items():
+            k7_total[k_n] = k7_total.get(k_n, 0) + n
+    rows_out[meta_single.index("K7")].update(
+        launches_by_k={"all_paths": k7_total, "paths": k7_by_k})
     emit({"phase": "bounds", "k1_flag_positions": flag_positions, "k1_starts": n_starts,
           "k2_candidates": k2_cand, "k2_search_steps": k2_steps,
           "K1_bytes_ops": bounds["K1"][:2], "K2_bytes_ops": bounds["K2"][:2],
@@ -1912,7 +1981,8 @@ def est_forms_phase(np, torch, tmp, logs, angles, zero_counts, read_counts, dev,
     from slam_process_tpu_torch.models.tracking import Tracks, track_paths
     from slam_process_tpu_torch.ops import nnls
     from slam_process_tpu_torch.pipeline.session import Session
-    from slam_process_tpu_torch.utils.device_timing import measure_device_time, op_device_counts
+    from slam_process_tpu_torch.utils.device_timing import (
+        measure_device_time, op_device_counts, op_device_times)
 
     def timed(name, fn, runs=EST_FORM_DEVICE_RUNS, profile=True):
         """Wall ms; device ms per call from measure_device_time, with the
@@ -1930,9 +2000,13 @@ def est_forms_phase(np, torch, tmp, logs, angles, zero_counts, read_counts, dev,
         t = measure_device_time(lambda i: fn(), n=runs, device=dev, trace_dir=trace_dir)
         per_call = {k: sum(v) / len(v) * 1e6 for k, v in t.all_modules.items()}
         counts = op_device_counts(trace_dir)
+        op_s = op_device_times(trace_dir)
+        k7_s = sum(v for name, v in op_s.items() if "nnls" in name)
         shutil.rmtree(trace_dir)
         t2 = time.perf_counter()
         out.update(device_ms=t.median * 1e3, device_ms_runs=[r * 1e3 for r in t.runs],
+                   k7_device_ms=k7_s / runs * 1e3, k7_share_of_device=k7_s / sum(op_s.values()),
+                   k7_kernels=sum(n for name, n in counts.items() if "nnls" in name) / runs,
                    device_activities=sum(counts.values()) / runs,
                    activity_names=len(per_call),
                    top_us=sorted(((k[:60], v) for k, v in per_call.items()),
@@ -2057,6 +2131,10 @@ def est_forms_phase(np, torch, tmp, logs, angles, zero_counts, read_counts, dev,
                                        if name == "sessions_device" else {}))
               for name, fn in forms.items()}
     sweep_timing = {name: timed(name, fn) for name, fn in sweep_forms.items()}
+    # The flagship estimator on the multipath session: K7's share of its
+    # device time (its K = 20 refits, one lane).
+    timing["run_estimator_nn_omp"] = timed(
+        "run_estimator_nn_omp", lambda: registry.run_estimator("nn_omp", sessions[MP], angles))
     changes_ms = event_ms(torch, lambda: detect_scene_changes(tracks), EST_TIMED)
     return {"card": smi, "launches": launches, "sessions": len(sessions),
             "packed": list(p.phi_rx.shape[:1]) + [p.matrices.shape[1], p.matrices.shape[2],
@@ -3150,36 +3228,69 @@ def stream_window_inputs(sd, raw, chunk, dev, paths_spec=None):
     return {k: c[1] for k, c in calls.items()}
 
 
-def k7_stream_calls(sd, raw, chunk, dev, spec) -> list:
-    """K7's calls in a paths stream's second full window of ``chunk``
-    bytes, one per NN-OMP iteration: (G, b, max_outer, solver, x0, P0),
-    copies of what the stream passed, recorded from the ``cuda_nnls``
-    wrapper of the package that ``sd`` belongs to while the stream runs by
-    its eager body (``eager_windows``; the first feed runs one full window,
-    the second a full and a 20-byte one)."""
+def k7_calls(pkg: str, fn) -> list:
+    """K7's calls while ``fn()`` runs: (G, b, max_outer, solver, x0, P0),
+    copies of what the ``cuda_nnls`` wrapper of the package ``pkg`` was
+    given."""
     import importlib
 
-    mod = importlib.import_module(f"{sd.__name__.split('.')[0]}.ops.cuda_nnls")
-    real, windows = mod.nnls_gram_cuda, []
+    mod = importlib.import_module(f"{pkg}.ops.cuda_nnls")
+    real, calls = mod.nnls_gram_cuda, []
 
     def record(G, b, max_outer=64, solver="auto", x0=None, P0=None):
-        windows.append((G.clone(), b.clone(), max_outer, solver,
-                        None if x0 is None else x0.clone(), None if P0 is None else P0.clone()))
+        calls.append((G.clone(), b.clone(), max_outer, solver,
+                      None if x0 is None else x0.clone(), None if P0 is None else P0.clone()))
         return real(G, b, max_outer, solver, x0, P0)
 
     mod.nnls_gram_cuda = record
     try:
-        s = eager_windows(sd, sd.DeviceStreamingSession(chunk_bytes=chunk, collect_paths=spec,
-                                                        device=dev))
-        s.feed(raw[:chunk])
-        per_window = len(windows)
-        s.feed(raw[chunk:2 * chunk])
+        fn()
     finally:
         mod.nnls_gram_cuda = real
-    if not per_window or len(windows) != 3 * per_window:
-        fail(f"paths stream of {chunk}-byte windows: {len(windows)} NNLS calls in three "
-             "windows, not the same number in each")
-    return windows[per_window:2 * per_window]
+    return calls
+
+
+def k7_stream_calls(sd, raw, chunk, dev, spec) -> list:
+    """K7's calls in a paths stream's second full window of ``chunk``
+    bytes, one per NN-OMP iteration (``k7_calls``), recorded while the
+    stream of the package that ``sd`` belongs to runs by its eager body
+    (``eager_windows``; the first feed runs one full window, the second a
+    full and a 20-byte one)."""
+    pkg = sd.__name__.split(".")[0]
+    s = eager_windows(sd, sd.DeviceStreamingSession(chunk_bytes=chunk, collect_paths=spec,
+                                                    device=dev))
+    first = k7_calls(pkg, lambda: s.feed(raw[:chunk]))
+    rest = k7_calls(pkg, lambda: s.feed(raw[chunk:2 * chunk]))
+    if not first or len(rest) != 2 * len(first):
+        fail(f"paths stream of {chunk}-byte windows: {len(first) + len(rest)} NNLS calls in "
+             "three windows, not the same number in each")
+    return rest[:len(first)]
+
+
+def estimator_k7_calls(sd, sessions, angles, device=None) -> dict:
+    """K7's calls where the session estimator makes them (K = 20, one call
+    an NN-OMP iteration, ``k7_calls``), in the package that ``sd`` belongs
+    to: ``run_estimator("nn_omp")`` on the full multipath session
+    (``sessions[MP]``: 1 lane) and the "vmap" form of
+    ``batch_estimation._batched_nn_omp`` over the sessions packed at the
+    v1-7 flavor (one lane a session), on ``device`` (None: CUDA)."""
+    import importlib
+
+    pkg = sd.__name__.split(".")[0]
+    registry = importlib.import_module(f"{pkg}.models.registry")
+    est = importlib.import_module(f"{pkg}.models.batch_estimation")
+    dictionary = importlib.import_module(f"{pkg}.models.dictionary")
+    dict_cfg, cfg, log_t, keep, stop = est.flavor_config("v1-7")
+    mats, dicts = [], []
+    for sess in sessions:
+        m, u, b = registry.build_scene(sess, angles, log_t)
+        mats.append(m)
+        dicts.append(dictionary.make_dictionary(u, b, dict_cfg))
+    packed = est.pack_scenes(mats, dicts)
+    return {"estimate_1_lane": k7_calls(pkg, lambda: registry.run_estimator(
+                "nn_omp", sessions[MP], angles, device=device)),
+            f"vmap_{len(sessions)}_lanes": k7_calls(pkg, lambda: est._batched_nn_omp(
+                packed, cfg, keep, stop, device=device))}
 
 
 def k7_work(nnls, args) -> tuple:
@@ -3212,20 +3323,43 @@ def k7_work(nnls, args) -> tuple:
     return n["outer"], n["solves"]
 
 
-def k7_ops(k: int, solver: str, outer: int, solves: int) -> int:
+def k7_ops(k: int, solver: str, outer: int, solves: int) -> tuple:
     """K7's arithmetic for ``outer`` outer steps and ``solves`` passive
-    solves at K = k: an outer step's G x and gradient (2 k^2 + k) and
-    argmax (k); a solve's masked tile (2 k^2 + k), its elimination (the
-    adjugate's 54 at K = 3; Gauss-Jordan's k (k + 1) (2 k + 1); LU's 2 k^3 /
-    3 + 2 k^2 in float64, counted at the float32 rate) and the step back
-    (6 k)."""
+    solves at K = k, as (float32, float64) operations: an outer step's G x
+    and gradient (2 k^2 + k) and argmax (k); a solve's masked tile (2 k^2 +
+    k), its elimination (the adjugate's 54 at K = 3; Gauss-Jordan's k (k + 1)
+    (2 k + 1); LU's 2 k^3 / 3 + 2 k^2, in float64) and the step back (6 k)."""
+    f64 = 0
     if k == 3:
         elim = 54
     elif k > 3 and solver == "auto":
         elim = k * (k + 1) * (2 * k + 1)
     else:
-        elim = 2 * k ** 3 // 3 + 2 * k ** 2
-    return outer * (2 * k * k + 2 * k) + solves * (2 * k * k + k + elim + 6 * k)
+        elim, f64 = 0, 2 * k ** 3 // 3 + 2 * k ** 2
+    return outer * (2 * k * k + 2 * k) + solves * (2 * k * k + k + elim + 6 * k), solves * f64
+
+
+def k7_bound(nnls, calls) -> dict:
+    """The work of K7's ``calls`` (each (G, b, max_outer, solver, x0, P0)):
+    outer steps and solves (``k7_work``), bytes (G, b, x0 and P0 read once, x
+    and P written once), float32 and float64 operations (``k7_ops``), and
+    the least time: the larger of the bytes at the memory rate and the
+    operations at their type's peak (the float32 and float64 units side by
+    side)."""
+    n = {"outer_steps": 0, "solves": 0, "bytes": 0, "f32_ops": 0, "f64_ops": 0}
+    for args in calls:
+        lanes, k = args[0].shape[:2]
+        outer, solves = k7_work(nnls, args)
+        f32, f64 = k7_ops(k, args[3], outer, solves)
+        n["outer_steps"] += outer
+        n["solves"] += solves
+        n["bytes"] += lanes * k * (4 * k + 4 + 4 + 1 + 4 + 1)
+        n["f32_ops"] += f32
+        n["f64_ops"] += f64
+    t_bytes = n["bytes"] / PEAK_BYTES_PER_S
+    t_ops = max(n["f32_ops"] / PEAK_F32_PER_S, n["f64_ops"] / PEAK_F64_PER_S)
+    return {**n, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def k4_cases(np, torch, dev, p, bs, val, n_sweeps):
@@ -3411,12 +3545,14 @@ def streaming_phase(np, torch, sd, nnls, tmp, angles, raw_live, raw_ds, raw_stra
 
     for m in kernels.values():
         m.LAUNCHES = 0
+    kernels["K7"].LAUNCHES_BY_K.clear()
     t0 = time.perf_counter()
     streams = {"live_feed": live_feed(), "dataset_replay": dataset_replay(),
                "straddle": straddle(), "checkpoint": resumed(), "dataset_grow": dataset_grow()}
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {k: m.LAUNCHES for k, m in kernels.items()}
+    k7_by_k = dict(kernels["K7"].LAUNCHES_BY_K)
     if min(launches[k] for k in ("K1", "K2", "K4", "K5", "K6", "K7")) == 0:
         fail(f"a kernel of the streaming path never launched: {launches}")
     # Two K5 calls per window (K1 decodes once per window: the carry, and one
@@ -3605,7 +3741,7 @@ def streaming_phase(np, torch, sd, nnls, tmp, angles, raw_live, raw_ds, raw_stra
                                device_activities=acts, top_us=top[:6],
                                windows_profiled=kernels["K1"].LAUNCHES,
                                wrapper_calls=calls, device_kernels=named)
-    return {"seconds": run_s, "launches": launches, "streams": summary,
+    return {"seconds": run_s, "launches": launches, "k7_by_k": k7_by_k, "streams": summary,
             "compared_with_cpu": sorted(cpu), "timing": timing,
             "emit_ring_rows": {k: streams[k]._ecap for k in ("dataset_replay", "dataset_grow")}}
 
@@ -3757,6 +3893,26 @@ def stream_axis_cases(np, torch, dev, exact, decode, compact, correct, scene, tr
     want_o, want_n = compact.compact_rows_streams_plain(
         empty.cpu(), torch.zeros((3, 0), dtype=torch.bool), [(GCAP, None, None)])
     exact("K5s", "no_rows", (*got_o, got_n), (*want_o, want_n))
+    # S = 2 and 64 (one chunk a block at S = 2, chunks of several tiles at
+    # 64): rings at nonzero offsets that overflow, and a zero-tailed buffer
+    # smaller than the masked count.
+    for s_n, f in ((2, 70_000), (64, 9_000)):
+        gen_s = torch.Generator(device=dev).manual_seed(40 + s_n)
+        rows = torch.randint(-(1 << 30), 1 << 30, (s_n, f, 5), generator=gen_s,
+                             dtype=torch.int32, device=dev)
+        mask = torch.rand((s_n, f), generator=gen_s, device=dev) < 0.4
+        cap = f // 3
+        ring = torch.randint(0, 9, (s_n, cap, 5), generator=gen_s, dtype=torch.int32,
+                             device=dev)
+        offs = torch.randint(0, cap + 1, (s_n,), generator=gen_s, dtype=torch.int32,
+                             device=dev)
+        got_o, got_n = cuda_compact.compact_rows_streams_cuda(
+            rows, mask, [(cap, ring.clone(), offs), (f // 4, None, None)])
+        want_o, want_n = compact.compact_rows_streams_plain(
+            rows, mask, [(cap, ring.clone(), offs), (f // 4, None, None)])
+        if not bool((offs + want_n > cap).any()) or int(want_n.max()) <= f // 4:
+            fail(f"K5s S{s_n}_overflow_offsets: no destination overflows")
+        exact("K5s", f"S{s_n}_overflow_offsets", (*got_o, got_n), (*want_o, want_n))
     f = 1 << 20
     gen_d = torch.Generator(device=dev).manual_seed(9)
     rows = torch.randint(-(1 << 30), 1 << 30, (4, f, 5), generator=gen_d, dtype=torch.int32,
@@ -4536,7 +4692,8 @@ def graphs_phase(np, torch, sd, tmp, raws, paths, angles, zero_counts, read_coun
     from slam_process_tpu_torch.pipeline.device import (
         bucket_size, compiled_session_pipeline, compiled_text_session_pipeline, device_lut,
         pad_bytes, run_session_on_device, session_pipeline, session_pipeline_from_text)
-    from slam_process_tpu_torch.utils.device_timing import measure_device_time, op_device_counts
+    from slam_process_tpu_torch.utils.device_timing import (
+        measure_device_time, op_device_counts, op_device_times)
     from slam_process_tpu_torch.utils.synthetic import to_hex_text
 
     lut = device_lut(dev)

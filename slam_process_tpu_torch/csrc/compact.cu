@@ -49,15 +49,28 @@
 // The stream axis (slam_compact_rows_streams): S independent compactions of
 // one shape in one launch, rows [S, f, width] and mask [S, f]; stream s
 // writes at out_k + s stride_k from offset_k[s] up to the same capacity,
-// and its total to total[s].  Each stream has its own decoupled look-back
-// chain: the grid is S segments of (tiles + tail blocks), handed out in
-// ticket order, and block g works on tile g mod (tiles + tail) of stream g
-// div (tiles + tail), publishing into the stream's own segment of status
-// words.  A block waits only on tiles of its own stream with lower tickets,
-// so the progress argument above holds per stream; the epoch tag is the
-// call's, so every segment is ready for the next launch with no reset.  The
-// single-stream entry is the case S = 1 (strides unused, offsets read while
-// the ticket is taken, as before).
+// and its total to total[s].  S = 1 is the single stream's schedule above
+// (the single entry; offsets read while the ticket is taken).  For S > 1
+// the tile-a-block schedule made each stream a look-back chain of f / 1,024
+// tiles and the round many waves of blocks (19 streams of 103,518 rows:
+// ~2,000 blocks, one resident a SM at 64 registers a thread, ~16 waves),
+// 20x its bytes bound (~6.1 MB moved, ~1.8 us at 3.35 TB/s): the schedule,
+// not the bytes, bounded it.  So the stream axis has a schedule of its own
+// (compact_chunks_kernel): a block takes a chunk of consecutive tiles of
+// one stream, sized so that the S streams' chunks fit one resident wave
+// (at most kMaxChunk tiles); it reads the chunk's mask bytes 8 tiles at a
+// time, ranks every row by warp ballots and a scan of each tile's 32 warp
+// counts (one warp a tile, in parallel), keeps a running count over the
+// tiles, publishes one look-back word for the whole chunk, and writes its
+// masked rows 4 tiles at a time (their payloads loaded together).  Each
+// stream's chain is then a few chunks long.  The tail blocks are handed out
+// after every chunk of every stream, so they hold no slot a chunk needs;
+// each waits for its stream's last chunk (zeroing the tails in that last
+// chunk instead, with no tail blocks, measured 11 % slower at 19 streams on
+// an H100: one block's serial stores end the launch).  The status
+// words, the ticket's epoch and the tags are the single stream's: every
+// stream's segment is ready for the next launch with no reset, and the
+// same launch is safe to capture in a CUDA graph.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -69,6 +82,10 @@ constexpr int kWarps = kBlock / 32;
 constexpr int kLook = 4;          // predecessors each lane of warp 0 reads per look-back round
 constexpr int kMaxDests = 2;
 constexpr int kPrefetch = 8;      // row widths whose payload is loaded before the look-back
+constexpr int kMaxChunk = 64;     // tiles a block of the stream axis takes at most
+constexpr int kMaskGroup = 8;     // tiles whose mask bytes a thread loads together
+constexpr int kRowGroup = 4;      // tiles whose masked rows' payloads a thread loads together
+constexpr int kRowPrefetch = 5;   // row widths loaded together in a row group
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNone = 0xffffffffu;
 constexpr unsigned long long kInclusive = 0x80000000ull;
@@ -142,53 +159,69 @@ __device__ unsigned look_back(const unsigned long long* status, int tile, int la
   }
 }
 
+// A tail block's share of each zero-tailed destination's tail [offset +
+// total, capacity): the tail blocks b = 0 .. n_tail - 1 split it evenly.
+__device__ __forceinline__ void zero_tails(const Dests& dests, int* const* outs,
+                                           const long long* off, unsigned total, int width,
+                                           long long b, long long n_tail) {
+#pragma unroll
+  for (int k = 0; k < kMaxDests; ++k) {
+    if (k >= dests.n || !dests.d[k].zero_tail) continue;
+    const long long hi = dests.d[k].capacity * width;
+    const long long lo = min(hi, (off[k] + total) * width);
+    const long long chunk = (hi - lo + n_tail - 1) / n_tail;
+    const long long e1 = min(hi, lo + (b + 1) * chunk);
+    int* o = outs[k];
+    for (long long e = lo + b * chunk + threadIdx.x; e < e1; e += kBlock) o[e] = 0;
+  }
+}
+
+// The ticket word: the call's epoch in the high half, the next index in the
+// low half.  The block that takes the last index starts the next epoch at 0.
+// Returns the index; ``tag`` = 2 * epoch + 1.
+__device__ __forceinline__ unsigned take_ticket(unsigned long long* ticket, int n_grid,
+                                                unsigned& tag) {
+  const unsigned long long old = atomicAdd(ticket, 1ull);
+  const unsigned epoch = static_cast<unsigned>(old >> 32);
+  if (static_cast<unsigned>(old) == static_cast<unsigned>(n_grid - 1)) {
+    atomicExch(ticket, static_cast<unsigned long long>(epoch + 1u) << 32);
+  }
+  tag = 2u * epoch + 1u;
+  return static_cast<unsigned>(old);
+}
+
+// A tail block's wait: the inclusive prefix of status word ``last``, the
+// stream's total.
+__device__ __forceinline__ unsigned wait_total(const unsigned long long* status, unsigned tag) {
+  unsigned long long w;
+  do {
+    w = load_status(status);
+  } while (static_cast<unsigned>(w >> 32) != tag || !(w & kInclusive));
+  return static_cast<unsigned>(w) & 0x7fffffffu;
+}
+
+// The single stream (S = 1): a tile of 1,024 rows a block, then the tail
+// blocks, in ticket order.
 __global__ void __launch_bounds__(kBlock) compact_kernel(
     const int* __restrict__ rows, const uint8_t* __restrict__ mask, long long f, int width,
-    int n_streams, int n_tiles, int per_stream, int n_grid, Dests dests,
-    unsigned long long* __restrict__ ticket, unsigned long long* __restrict__ status,
-    int* __restrict__ total_out) {
-  __shared__ int s_tile, s_stream;
+    int n_tiles, int n_grid, Dests dests, unsigned long long* __restrict__ ticket,
+    unsigned long long* __restrict__ status, int* __restrict__ total_out) {
+  __shared__ int s_tile;
   __shared__ unsigned s_tag, s_excl, s_total;
   __shared__ long long s_off[kMaxDests];
   __shared__ int warp_cnt[kWarps], warp_off[kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  // The ticket word: the call's epoch in the high half, the next tile in
-  // the low half.  The block that takes the last index starts the next
-  // epoch at tile 0.
-  if (threadIdx.x == 0) {
-    const unsigned long long old = atomicAdd(ticket, 1ull);
-    const unsigned epoch = static_cast<unsigned>(old >> 32);
-    if (static_cast<unsigned>(old) == static_cast<unsigned>(n_grid - 1)) {
-      atomicExch(ticket, static_cast<unsigned long long>(epoch + 1u) << 32);
-    }
-    const unsigned g = static_cast<unsigned>(old);
-    s_stream = static_cast<int>(g / static_cast<unsigned>(per_stream));
-    s_tile = static_cast<int>(g % static_cast<unsigned>(per_stream));
-    s_tag = 2u * epoch + 1u;
-  }
-  if (n_streams == 1) {
-    if (threadIdx.x == 32) s_off[0] = dests.d[0].offset ? *dests.d[0].offset : 0;
-    if (threadIdx.x == 64) s_off[1] = dests.d[1].offset ? *dests.d[1].offset : 0;
-  }
+  if (threadIdx.x == 0) s_tile = static_cast<int>(take_ticket(ticket, n_grid, s_tag));
+  if (threadIdx.x == 32) s_off[0] = dests.d[0].offset ? *dests.d[0].offset : 0;
+  if (threadIdx.x == 64) s_off[1] = dests.d[1].offset ? *dests.d[1].offset : 0;
   __syncthreads();
   const int tile = s_tile;
   const unsigned tag = s_tag;
-  const long long st = s_stream;
-  if (n_streams > 1) {
-    if (threadIdx.x == 32) s_off[0] = dests.d[0].offset ? dests.d[0].offset[st] : 0;
-    if (threadIdx.x == 64) s_off[1] = dests.d[1].offset ? dests.d[1].offset[st] : 0;
-    __syncthreads();
-  }
-  // This block's stream: its rows, mask, status segment, total and outputs.
-  rows += st * f * width;
-  mask += st * f;
-  status += st * n_tiles;
-  total_out += st;
   int* outs[kMaxDests];
 #pragma unroll
-  for (int k = 0; k < kMaxDests; ++k) outs[k] = dests.d[k].out + st * dests.d[k].stride;
+  for (int k = 0; k < kMaxDests; ++k) outs[k] = dests.d[k].out;
 
   if (tile < n_tiles) {
     const long long i = static_cast<long long>(tile) * kBlock + threadIdx.x;
@@ -240,29 +273,161 @@ __global__ void __launch_bounds__(kBlock) compact_kernel(
     }
   } else {
     // A tail block: wait for the last tile's inclusive prefix, the total,
-    // then zero its share of each zero-tailed destination's tail, which the
-    // tail blocks split evenly.
-    if (threadIdx.x == 0) {
-      unsigned long long w;
-      do {
-        w = load_status(status + n_tiles - 1);
-      } while (static_cast<unsigned>(w >> 32) != tag || !(w & kInclusive));
-      s_total = static_cast<unsigned>(w) & 0x7fffffffu;
-    }
+    // then zero its share of the tails.
+    if (threadIdx.x == 0) s_total = wait_total(status + n_tiles - 1, tag);
     __syncthreads();
-    const long long b = tile - n_tiles;
-    const long long n_tail = per_stream - n_tiles;
+    zero_tails(dests, outs, s_off, s_total, width, tile - n_tiles, n_grid - n_tiles);
+  }
+}
+
+// The stream axis (S > 1): ticket g < S n_chunks is chunk g mod n_chunks of
+// stream g div n_chunks (tiles [chunk c, chunk (c + 1)) of that stream),
+// then S n_tail tail blocks, n_tail a stream.
+__global__ void __launch_bounds__(kBlock) compact_chunks_kernel(
+    const int* __restrict__ rows, const uint8_t* __restrict__ mask, long long f, int width,
+    int n_tiles, int chunk, int n_chunks, int n_streams, int n_tail, int n_grid, Dests dests,
+    unsigned long long* __restrict__ ticket, unsigned long long* __restrict__ status,
+    int* __restrict__ total_out) {
+  __shared__ int s_unit, s_stream;
+  __shared__ unsigned s_tag, s_excl, s_total;
+  __shared__ long long s_off[kMaxDests];
+  __shared__ unsigned s_ballot[kMaxChunk][kWarps];   // tile j, warp w: its rows' mask bits
+  __shared__ int s_woff[kMaxChunk][kWarps];          // masked rows of tile j before warp w
+  __shared__ int s_cnt[kMaxChunk];                   // masked rows of tile j
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    const unsigned g = take_ticket(ticket, n_grid, s_tag);
+    const unsigned n_units = static_cast<unsigned>(n_streams) * n_chunks;
+    const bool tail = g >= n_units;
+    const unsigned per = tail ? static_cast<unsigned>(n_tail) : static_cast<unsigned>(n_chunks);
+    const unsigned u = tail ? g - n_units : g;
+    s_stream = static_cast<int>(u / per);
+    // A tail block's unit is -1 - its index among its stream's tails.
+    s_unit = tail ? -1 - static_cast<int>(u % per) : static_cast<int>(u % per);
+  }
+  __syncthreads();
+  const int unit = s_unit;
+  const unsigned tag = s_tag;
+  const long long st = s_stream;
+  if (threadIdx.x == 32) s_off[0] = dests.d[0].offset ? dests.d[0].offset[st] : 0;
+  if (threadIdx.x == 64) s_off[1] = dests.d[1].offset ? dests.d[1].offset[st] : 0;
+  // This block's stream: its rows, mask, status segment, total and outputs.
+  rows += st * f * width;
+  mask += st * f;
+  status += st * n_tiles;
+  total_out += st;
+  int* outs[kMaxDests];
 #pragma unroll
-    for (int k = 0; k < kMaxDests; ++k) {
-      if (k >= dests.n || !dests.d[k].zero_tail) continue;
-      const long long hi = dests.d[k].capacity * width;
-      const long long lo = min(hi, (s_off[k] + s_total) * width);
-      const long long chunk = (hi - lo + n_tail - 1) / n_tail;
-      const long long e1 = min(hi, lo + (b + 1) * chunk);
-      int* o = outs[k];
-      for (long long e = lo + b * chunk + threadIdx.x; e < e1; e += kBlock) o[e] = 0;
+  for (int k = 0; k < kMaxDests; ++k) outs[k] = dests.d[k].out + st * dests.d[k].stride;
+
+  if (unit < 0) {
+    if (threadIdx.x == 0) s_total = wait_total(status + n_chunks - 1, tag);
+    __syncthreads();
+    zero_tails(dests, outs, s_off, s_total, width, -1 - unit, n_tail);
+    return;
+  }
+  const int t0 = unit * chunk;
+  const int nt = min(chunk, n_tiles - t0);
+  const long long row0 = static_cast<long long>(t0) * kBlock + threadIdx.x;
+  // The chunk's mask bytes, kMaskGroup tiles at a time (the loads of a group
+  // in flight together), ranked by warp ballots.
+  for (int j0 = 0; j0 < nt; j0 += kMaskGroup) {
+    bool m[kMaskGroup];
+#pragma unroll
+    for (int j = 0; j < kMaskGroup; ++j) {
+      const long long i = row0 + static_cast<long long>(j0 + j) * kBlock;
+      m[j] = j0 + j < nt && i < f && mask[i] != 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kMaskGroup; ++j) {
+      const unsigned ballot = __ballot_sync(kFull, m[j]);
+      if (lane == 0 && j0 + j < nt) s_ballot[j0 + j][warp] = ballot;
     }
   }
+  __syncthreads();
+  // Warp w scans the 32 warp counts of tiles w, w + 32, ...
+  for (int j = warp; j < nt; j += kWarps) {
+    const int v = __popc(s_ballot[j][lane]);
+    int incl = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int n = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += n;
+    }
+    s_woff[j][lane] = incl - v;
+    if (lane == 31) s_cnt[j] = incl;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    unsigned count = 0;
+    for (int j = lane; j < nt; j += 32) count += static_cast<unsigned>(s_cnt[j]);
+    count = __reduce_add_sync(kFull, count);
+    unsigned excl = 0;
+    if (unit > 0) {
+      if (lane == 0) store_status(status + unit, tag, false, count);
+      excl = look_back(status, unit, lane, tag);
+    }
+    if (lane == 0) {
+      store_status(status + unit, tag, true, excl + count);
+      s_excl = excl;
+      if (unit == n_chunks - 1) *total_out = static_cast<int>(excl + count);
+    }
+  }
+  __syncthreads();
+  // The masked rows, kRowGroup tiles at a time: their payloads loaded
+  // together, then written to offset + rank of every destination.
+  long long base = s_excl;
+  const unsigned below = (1u << lane) - 1u;
+  for (int j0 = 0; j0 < nt; j0 += kRowGroup) {
+    int payload[kRowGroup][kRowPrefetch];
+    bool m[kRowGroup];
+#pragma unroll
+    for (int j = 0; j < kRowGroup; ++j) {
+      m[j] = j0 + j < nt && ((s_ballot[j0 + j][warp] >> lane) & 1u);
+      const int* src = rows + (row0 + static_cast<long long>(j0 + j) * kBlock) * width;
+#pragma unroll
+      for (int c = 0; c < kRowPrefetch; ++c) payload[j][c] = m[j] && c < width ? src[c] : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kRowGroup; ++j) {
+      if (j0 + j >= nt) break;
+      if (m[j]) {
+        const long long i = row0 + static_cast<long long>(j0 + j) * kBlock;
+        const unsigned ballot = s_ballot[j0 + j][warp];
+        const long long rank = base + s_woff[j0 + j][warp] + __popc(ballot & below);
+        const int* src = rows + i * width;
+#pragma unroll
+        for (int k = 0; k < kMaxDests; ++k) {
+          const long long dst = s_off[k] + rank;
+          if (k < dests.n && dst < dests.d[k].capacity) {
+            int* o = outs[k] + dst * width;
+#pragma unroll
+            for (int c = 0; c < kRowPrefetch; ++c) {
+              if (c < width) o[c] = payload[j][c];
+            }
+            for (int c = kRowPrefetch; c < width; ++c) o[c] = src[c];
+          }
+        }
+      }
+      base += s_cnt[j0 + j];
+    }
+  }
+}
+
+// The S = 1 schedule, or the stream axis's chunks.  Resident blocks of
+// compact_chunks_kernel on the card (once a process; a host query, so a
+// graph capture may call it).
+int resident_blocks() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, compact_chunks_kernel, kBlock, 0);
+    n = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return n;
 }
 
 int launch(const void* rows, const void* mask, long long n_streams, long long f, int width,
@@ -282,14 +447,28 @@ int launch(const void* rows, const void* mask, long long n_streams, long long f,
   dests.d[1] = Dest{static_cast<int*>(out1), static_cast<const int*>(offset1), capacity1,
                     stride1, n_dest > 1 ? zero_tail1 : 0};
   const int n_tiles = f > 0 ? static_cast<int>((f + kBlock - 1) / kBlock) : 1;
-  const long long per_stream = n_tiles + n_tail;
-  if (per_stream * n_streams > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_grid = static_cast<int>(per_stream * n_streams);
   unsigned long long* words = static_cast<unsigned long long*>(scratch);
-  compact_kernel<<<n_grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(rows), static_cast<const uint8_t*>(mask), f, width,
-      static_cast<int>(n_streams), n_tiles, static_cast<int>(per_stream), n_grid, dests, words,
-      words + 1, static_cast<int*>(total));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_streams == 1) {
+    const int n_grid = n_tiles + n_tail;
+    compact_kernel<<<n_grid, kBlock, 0, st>>>(
+        static_cast<const int*>(rows), static_cast<const uint8_t*>(mask), f, width, n_tiles,
+        n_grid, dests, words, words + 1, static_cast<int*>(total));
+    return static_cast<int>(cudaGetLastError());
+  }
+  // Chunks of equal tiles, as many a stream as one resident wave holds.
+  const long long per_stream = resident_blocks() / n_streams;
+  long long chunk = per_stream > 0 ? (n_tiles + per_stream - 1) / per_stream : n_tiles;
+  chunk = chunk < 1 ? 1 : (chunk > kMaxChunk ? kMaxChunk : chunk);
+  const long long n_chunks = (n_tiles + chunk - 1) / chunk;
+  if ((n_chunks + n_tail) * n_streams > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_grid = static_cast<int>((n_chunks + n_tail) * n_streams);
+  compact_chunks_kernel<<<n_grid, kBlock, 0, st>>>(
+      static_cast<const int*>(rows), static_cast<const uint8_t*>(mask), f, width, n_tiles,
+      static_cast<int>(chunk), static_cast<int>(n_chunks), static_cast<int>(n_streams), n_tail,
+      n_grid, dests, words, words + 1, static_cast<int*>(total));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,7 +11,9 @@ look-back; see the source note in ``csrc/compact.cu``.
 
 ``compact_rows_streams_cuda`` is the stream axis: S compactions of rows [S,
 F, W] and masks [S, F] into per-stream destinations [S, capacity, W] at
-per-stream offsets [S], one launch with one look-back chain per stream
+per-stream offsets [S], one launch with one look-back chain per stream (at S
+= 1 the single stream's schedule; for S > 1 a block takes a chunk of tiles
+of one stream, the chunks sized to one resident wave)
 (``ops/compact.compact_rows_streams``; its plain version is the single
 stream's per stream).  Both entries add to ``LAUNCHES``.
 """

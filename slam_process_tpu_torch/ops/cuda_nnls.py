@@ -6,8 +6,9 @@ NNLS loops (``slam_process_tpu/ops/nnls.py::nnls_gram``, its two bounded
 asks the host once a loop step whether every lane is done.  Same inputs
 (G [S, K, K] f32, b [S, K] f32, ``max_outer``, ``solver``, the warm start
 x0 [S, K] f32 / P0 [S, K] bool or None) and outputs (x [S, K] f32, P [S,
-K] bool), with each lane's loops on the device: one launch of S blocks of
-one warp, no host read.  ``ops/nnls.nnls_gram`` dispatches here for CUDA
+K] bool), with each lane's loops on the device: one launch of S blocks (one
+warp at K <= 3, a warp per 32 elements of the [K, K+1] solve tile above),
+no host read.  ``ops/nnls.nnls_gram`` dispatches here for CUDA
 tensors; see the source note in ``csrc/nnls.cu``.
 """
 
@@ -22,6 +23,7 @@ import torch
 from slam_process_tpu_torch.ops import _build
 
 LAUNCHES = 0   # kernel launches since the caller last set it to 0
+LAUNCHES_BY_K = {}   # the same launches by K, since the caller last cleared it
 MAX_K = 32
 SOLVERS = {"auto": 0, "lu": 1}
 
@@ -72,4 +74,5 @@ def nnls_gram_cuda(G: torch.Tensor, b: torch.Tensor, max_outer: int = 64, solver
                     SOLVERS[solver], x.data_ptr(), P.data_ptr(), _build.stream_of(G))
     _build.check(err, "NNLS kernel")
     LAUNCHES += 1
+    LAUNCHES_BY_K[k_n] = LAUNCHES_BY_K.get(k_n, 0) + 1
     return x, P

@@ -18,8 +18,9 @@ PyTorch operations captured once and replayed by one launch.
     be run this way;
   * its static outputs (``outputs``), which every replay overwrites;
   * the kernel wrappers' launch counters: a replay calls no wrapper, so each
-    replay adds to every ``LAUNCHES`` what its capture recorded, and the
-    capture, which ran nothing, takes its own additions back;
+    replay adds to every ``LAUNCHES`` (and ``LAUNCHES_BY_K``, where a
+    wrapper keeps one) what its capture recorded, and the capture, which ran
+    nothing, takes its own additions back;
   * ``pool_bytes`` (the graph's private memory pool) and ``capture_ms``.
 
 It refuses CPU tensors: on the CPU callers run the eager body.  A capture
@@ -98,6 +99,7 @@ class GraphRunner:
         self.outputs = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: dict = {}        # kernel module -> launches a replay makes
+        self.launches_by_k: dict = {}   # kernel module -> {K: launches} a replay makes
         self.capture_ms: Optional[float] = None
         self.pool_bytes: Optional[int] = None
         self.replays = 0
@@ -136,6 +138,9 @@ class GraphRunner:
             self.graph.replay()
         for m, n in self.launches.items():
             m.LAUNCHES += n
+        for m, by_k in self.launches_by_k.items():
+            for k, n in by_k.items():
+                m.LAUNCHES_BY_K[k] = m.LAUNCHES_BY_K.get(k, 0) + n
         self.replays += 1
         return self.outputs
 
@@ -157,11 +162,12 @@ class GraphRunner:
                 torch.cuda.empty_cache()                      # dead graphs' pools (docstring)
                 t0 = time.perf_counter()
                 captured = self._capture(modules)
-            graph, static, counted = captured
+            graph, static, counted, counted_k = captured
             self.capture_ms = (time.perf_counter() - t0) * 1e3
         caller.wait_stream(side)
         self.graph, self.outputs = graph, static
         self.launches = {m: n for m, n in zip(modules, counted) if n}
+        self.launches_by_k = {m: by_k for m, by_k in counted_k.items() if by_k}
         # A later call may grow a scratch the graph was captured with: keep
         # the tensors it reads alive for as long as the graph lives.
         self._scratch = _build.scratch_tensors()
@@ -169,9 +175,10 @@ class GraphRunner:
         return out
 
     def _capture(self, modules):
-        """(graph, static outputs, launches by module) of one capture of the
-        program on the current stream."""
+        """(graph, static outputs, launches by module, launches by K by
+        module) of one capture of the program on the current stream."""
         before = [m.LAUNCHES for m in modules]
+        before_k = {m: dict(m.LAUNCHES_BY_K) for m in modules if hasattr(m, "LAUNCHES_BY_K")}
         graph = torch.cuda.CUDAGraph()
         graph.capture_begin()
         try:
@@ -186,8 +193,13 @@ class GraphRunner:
             counted = [m.LAUNCHES - b for m, b in zip(modules, before)]
             for m, b in zip(modules, before):
                 m.LAUNCHES = b                                # a capture launches nothing
+            counted_k = {m: {k: n - b.get(k, 0) for k, n in m.LAUNCHES_BY_K.items()
+                             if n != b.get(k, 0)} for m, b in before_k.items()}
+            for m, b in before_k.items():
+                m.LAUNCHES_BY_K.clear()
+                m.LAUNCHES_BY_K.update(b)
         graph.capture_end()
-        return graph, static, counted
+        return graph, static, counted, counted_k
 
 
 class _Field(NamedTuple):

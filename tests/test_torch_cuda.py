@@ -65,7 +65,12 @@ solvers (bit-equal for "auto" at K >= 3, else equal passive sets and x
 within rtol 1e-6), no host sync; the paths window as one CUDA graph
 bit-equal to its eager round after every feed; a paths stream that syncs
 nothing in ``feed``, equal to its CPU run and to the offline
-``Session.sweep_paths`` / ``path_tracks`` on the card.
+``Session.sweep_paths`` / ``path_tracks`` on the card.  The seventeenth
+slice: K7's element path (K > 3) against its plain version at every K
+from 4 to 32, at 1, 21, 65 and 300 lanes, both solvers, warm and cold
+starts, NaN lanes and the 0/0 lane; K5's stream axis at S = 1, 2, 19 and
+64 (capacity overflow, nonzero offsets, a zero tail) equal to its plain
+version.
 """
 
 import numpy as np
@@ -1793,3 +1798,76 @@ def test_paths_stream_on_card_reads_nothing_and_equals_cpu_and_offline(tmp_path)
     for name in Tracks._fields:
         np.testing.assert_array_equal(getattr(tracks, name), getattr(want_tracks, name))
     assert len(valid) == 8 and tracks.n_tracks > 0
+
+
+# -- the seventeenth slice: K7's element path (K > 3) and K5's stream-axis chunks -------------
+
+
+def nnls_lanes(k, lanes, seed):
+    """``utils/synthetic.nnls_edge_cases`` at ``lanes`` lanes on the card,
+    with a NaN in one cold lane's b and another's G (each ends at its first
+    gradient test, as the plain version's lockstep lanes do)."""
+    from slam_process_tpu_torch.utils.synthetic import nnls_edge_cases
+
+    G, b, x0, P0 = nnls_edge_cases(k, lanes=lanes, seed=seed)
+    if lanes >= 8:
+        b[1, k // 2] = np.nan
+        G[2, 0, k - 1] = np.nan
+    return [torch.from_numpy(a).cuda() for a in (G, b, x0, P0)]
+
+
+@pytest.mark.parametrize("k", range(4, 33))
+def test_nnls_element_path_matches_plain_at_every_k(k):
+    """K7's element path (K > 3: a block of ceil(K (K+1) / 32) warps a lane)
+    against its plain version: 1, 21, 65 and 300 lanes, "auto" bit-equal and
+    "lu" within rtol 1e-6 with equal passive sets, warm starts and cold
+    starts at max_outer 64 and 2, NaN lanes and the 0/0 step-back lane; one
+    launch a call and no host sync."""
+    from slam_process_tpu_torch.ops import cuda_nnls, nnls
+
+    sets = {65: nnls_lanes(k, 65, seed=100 + k), 300: nnls_lanes(k, 300, seed=200 + k)}
+    sets[1] = [t[:1] for t in sets[65]]
+    sets[21] = [t[:21] for t in sets[65]]
+    for solver in ("auto", "lu"):
+        for lanes, (G, b, x0, P0) in sorted(sets.items()):
+            calls = [dict(x0=x0, P0=P0), dict(max_outer=2), dict()]
+            cuda_nnls.LAUNCHES = nnls.HOST_SYNCS = 0
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = [nnls.nnls_gram(G, b, solver=solver, **kw) for kw in calls]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert cuda_nnls.LAUNCHES == len(calls) and nnls.HOST_SYNCS == 0
+            for g, kw in zip(got, calls):
+                nnls_close(g, nnls.nnls_gram_plain(G, b, solver=solver, **kw), solver == "auto")
+
+
+@pytest.mark.parametrize("s_n", [1, 2, 19, 64])
+def test_stream_axis_compaction_chunks_match_plain(s_n):
+    """K5's stream axis against its plain version at S = 1 (the single
+    stream's schedule), 2, 19 and 64 (chunks of tiles a block): the 19
+    streams at the round's 103,518 rows, two destinations (a ring at
+    nonzero offsets that overflows its capacity, and a fresh zero-tailed
+    buffer smaller than the masked count), called twice on one stream (the
+    epoch-tagged scratch needs no reset)."""
+    gen = torch.Generator().manual_seed(30 + s_n)
+    f = {1: 103_518, 2: 70_000, 19: 103_518, 64: 9_000}[s_n]
+    rows = torch.randint(-(1 << 30), 1 << 30, (s_n, f, 5), generator=gen, dtype=torch.int32)
+    mask = torch.rand((s_n, f), generator=gen) < 0.4
+    cap = f // 3
+    ring = torch.randint(0, 9, (s_n, cap, 5), generator=gen, dtype=torch.int32)
+    offs = torch.randint(0, cap + 1, (s_n,), generator=gen, dtype=torch.int32)
+
+    def dests(d):
+        return [(cap, ring.clone().to(d), offs.to(d)), (f // 4, None, None)]
+
+    want_o, want_n = compact.compact_rows_streams_plain(rows, mask, dests("cpu"))
+    assert int((offs + want_n > cap).sum()) > 0 and int(want_n.max()) > f // 4
+    rows_c, mask_c = rows.cuda(), mask.cuda()
+    for rep in range(2):
+        cuda_compact.LAUNCHES = 0
+        got_o, got_n = cuda_compact.compact_rows_streams_cuda(rows_c, mask_c, dests("cuda"))
+        assert cuda_compact.LAUNCHES == 1
+        for g, w in zip((*got_o, got_n), (*want_o, want_n)):
+            assert torch.equal(g.cpu(), w)

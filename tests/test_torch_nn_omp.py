@@ -15,6 +15,9 @@
   batch is one.
 * The dictionary: ``make_dictionary`` equal to JAX's, and
   ``dictionary_from_reference`` carrying JAX's dictionary across.
+* The session estimator's K = 20 refits (its ``nnls_gram`` calls, recorded
+  from ``nn_omp_scenes`` at the v1-7 flavor on one and on six planted
+  scenes) against JAX's ``nnls_gram`` under vmap.
 """
 
 import functools
@@ -257,3 +260,40 @@ def test_make_dictionary_matches_jax(kind):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w, np.float32))
     with pytest.raises(ValueError, match="grid_kind"):
         dictionary.make_dictionary(ue, bs, DictionaryConfig(grid_kind="log"))
+
+
+@pytest.mark.parametrize("lanes", [1, 6], ids=["run_estimator_1_lane", "vmap_6_lanes"])
+def test_estimator_k20_refits_match_jax_vmap(lanes, monkeypatch):
+    """The session estimator's own NNLS inputs (what ``chip_smoke.py``
+    times K7 on): ``nn_omp_scenes`` at the v1-7 flavor's settings (K = 20,
+    "lu"; the chain that ``run_estimator("nn_omp")`` runs on one scene and
+    the "vmap" form on several) over planted scenes, its ``nnls_gram``
+    calls recorded as ``chip_smoke.k7_calls`` records them (copies of G, b,
+    max_outer, solver, x0, P0; one call an NN-OMP iteration).  Each call
+    through JAX's ``nnls_gram`` under vmap: passive sets equal, x within
+    rtol 1e-5."""
+    from slam_process_tpu_torch.models import nn_omp
+    from slam_process_tpu_torch.models.batch_estimation import flavor_config
+
+    _, cfg, _, keep, stop = flavor_config("v1-7")
+    d = dictionary.make_dictionary(UE_ANG, BS_ANG, DictionaryConfig(grid_res=0.5,
+                                                                    beam_width=3.0))
+    mats = torch.from_numpy(planted_scenes(60 + lanes, lanes).astype(np.float32))
+    phi = [torch.from_numpy(np.asarray(x, np.float32))[None].expand(lanes, *np.shape(x))
+           .contiguous() for x in (d.phi_rx, d.phi_tx, d.aoa_grid, d.aod_grid)]
+    real, calls = nn_omp.nnls_gram, []
+
+    def record(G, b, max_outer=64, solver="auto", x0=None, P0=None):
+        calls.append((G.clone(), b.clone(), max_outer, solver,
+                      None if x0 is None else x0.clone(), None if P0 is None else P0.clone()))
+        return real(G, b, max_outer, solver, x0, P0)
+
+    monkeypatch.setattr(nn_omp, "nnls_gram", record)
+    out = nn_omp.nn_omp_scenes(*phi, mats, cfg, keep, stop)
+    assert len(calls) == cfg.max_paths == 20 and int(out.n_iters.max()) > 3
+    for G, b, max_outer, solver, x0, P0 in calls:
+        assert G.shape == (lanes, 20, 20) and (max_outer, solver) == (64, "lu")
+        want_x, want_p = jax_nnls(G.numpy(), b.numpy(), solver, x0=x0.numpy(), P0=P0.numpy())
+        x, p = real(G, b, max_outer, solver, x0, P0)
+        np.testing.assert_array_equal(p.numpy(), want_p)
+        np.testing.assert_allclose(x.numpy(), want_x, rtol=1e-5)

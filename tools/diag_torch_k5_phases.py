@@ -46,8 +46,8 @@ def variant_source(src: str) -> str:
     edits = [
         ("__global__ void __launch_bounds__(kBlock) compact_kernel(",
          "template <int kPhase>\n__global__ void __launch_bounds__(kBlock) compact_kernel("),
-        ("  const unsigned tag = s_tag;\n",
-         "  const unsigned tag = s_tag;\n  if (kPhase == 1) return;\n"),
+        ("  const unsigned tag = s_tag;\n  int* outs[kMaxDests];\n",
+         "  const unsigned tag = s_tag;\n  if (kPhase == 1) return;\n  int* outs[kMaxDests];\n"),
         ("      if (tile > 0) {\n        if (lane == 0) store_status(status + tile, tag, false, count);",
          "      if (kPhase == 2) {\n      } else if (tile > 0) {\n"
          "        if (lane == 0) store_status(status + tile, tag, false, count);"),
@@ -60,15 +60,7 @@ def variant_source(src: str) -> str:
         if src.count(old) != 1:
             raise SystemExit(f"diag_torch_k5_phases: the kernel source changed near {old!r}")
         src = src.replace(old, new)
-    # A kernel with the stream axis takes the stream count and each
-    # stream's grid share, and each destination a stride: one stream here.
-    axis = "int n_streams, int n_tiles, int per_stream" in src
-    fill = {"STRIDE": "0, " if axis else "", "STREAMS": "1, " if axis else "",
-            "GRID": "n_grid, " if axis else ""}
-    tail = TAIL
-    for key, value in fill.items():
-        tail = tail.replace(key, value)
-    return src + tail
+    return src + TAIL
 
 
 TAIL = r'''
@@ -81,8 +73,8 @@ extern "C" int k5_phase(int phase, const void* rows, const void* mask, long long
                         void* stream) {
   Dests dests;
   dests.n = 1;
-  dests.d[0] = Dest{static_cast<int*>(out), nullptr, capacity, STRIDEn_tail > 0};
-  dests.d[1] = Dest{nullptr, nullptr, 0, STRIDE0};
+  dests.d[0] = Dest{static_cast<int*>(out), nullptr, capacity, 0, n_tail > 0};
+  dests.d[1] = Dest{nullptr, nullptr, 0, 0, 0};
   const int n_tiles = static_cast<int>((f + kBlock - 1) / kBlock);
   const int n_grid = n_tiles + n_tail;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -92,10 +84,10 @@ extern "C" int k5_phase(int phase, const void* rows, const void* mask, long long
   int* t = static_cast<int*>(total);
   switch (phase) {
     case 0: empty_kernel<<<n_grid, kBlock, 0, s>>>(); break;
-    case 1: compact_kernel<1><<<n_grid, kBlock, 0, s>>>(r, m, f, width, STREAMSn_tiles, GRIDn_grid, dests, words, words + 1, t); break;
-    case 2: compact_kernel<2><<<n_grid, kBlock, 0, s>>>(r, m, f, width, STREAMSn_tiles, GRIDn_grid, dests, words, words + 1, t); break;
-    case 3: compact_kernel<3><<<n_grid, kBlock, 0, s>>>(r, m, f, width, STREAMSn_tiles, GRIDn_grid, dests, words, words + 1, t); break;
-    default: compact_kernel<4><<<n_grid, kBlock, 0, s>>>(r, m, f, width, STREAMSn_tiles, GRIDn_grid, dests, words, words + 1, t);
+    case 1: compact_kernel<1><<<n_grid, kBlock, 0, s>>>(r, m, f, width, n_tiles, n_grid, dests, words, words + 1, t); break;
+    case 2: compact_kernel<2><<<n_grid, kBlock, 0, s>>>(r, m, f, width, n_tiles, n_grid, dests, words, words + 1, t); break;
+    case 3: compact_kernel<3><<<n_grid, kBlock, 0, s>>>(r, m, f, width, n_tiles, n_grid, dests, words, words + 1, t); break;
+    default: compact_kernel<4><<<n_grid, kBlock, 0, s>>>(r, m, f, width, n_tiles, n_grid, dests, words, words + 1, t);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time kernels K1-K6 of two checkouts of the PyTorch / CUDA port on one
+"""Time kernels K1-K7 of two checkouts of the PyTorch / CUDA port on one
 NVIDIA GPU, in turns: base, change, change, base (``--rounds N``: that
 pattern N times).
 
     git archive <base-commit> | tar -x -C build/ab_base     # a directory .gitignore lists
-    python3 tools/torch_kernel_ab.py build/ab_base . [--rounds N]
+    python3 tools/torch_kernel_ab.py build/ab_base . [--rounds N] [--only k7,k5s]
 
 Each turn is a fresh process that imports ``slam_process_tpu_torch`` from
 one checkout (its kernels built from that checkout's sources) and times,
@@ -56,6 +56,26 @@ events around feed, finalize and ``block_until_ready``, median of 3 after a
 warm-up), and one live feed under ``torch.profiler``: the device busy time
 (the union of the device activities), the activities counted in all and
 by name, and the K5 and K6 kernels' count and device microseconds.
+
+Then K7 and K5's stream axis on inputs recorded once, before the turns,
+by the change's checkout (``--record``, into a file under ``build/``) and
+loaded by every turn:
+
+  * K7 ``estimate_1_lane`` and ``vmap_21_lanes``: the session estimator's
+    own refits (K = 20, "lu", one call an NN-OMP iteration), recorded from
+    the wrapper while ``run_estimator("nn_omp")`` runs on the full
+    multipath session and the "vmap" form runs over the 21 sessions packed
+    (``chip_smoke.estimator_k7_calls``), all of a run's calls back to back;
+    ``edges_65_lanes_K20_auto`` / ``_lu``: ``utils/synthetic.nnls_edge_cases``
+    at K = 20, 65 lanes (``chip_smoke.py``'s ``edges_K20_*``);
+  * K5 ``streams_19_carry``: the 19 streams' carry compaction in the first
+    round of a ``MultiStreamingSession`` over the dataset's logs at 1 MiB
+    windows (``chip_smoke.multi_round_inputs``), and ``streams_1_carry``:
+    the replay's second 1 MiB window's carry through the stream-axis entry
+    at S = 1 (what a single stream calls).
+
+``--only SECTION[,SECTION]`` runs only those sections of each turn (k5, k6,
+k2k3, k1k4, session, streams, k7, k5s; all by default).
 
 Prints one JSON line per turn, then a summary line of the medians per
 checkout and each key's spread (the smallest and largest turn).  Needs a GPU; the data is synthetic, made from fixed seeds.
@@ -127,24 +147,44 @@ def k5_window(dev):
             s._state.emit_count, s._ecap)
 
 
-def turn(root: str) -> dict:
-    """One checkout's times, in this process."""
-    sys.path.insert(0, str(Path(root).resolve()))
-    import numpy as np
-    import torch
+SECTIONS = ("k5", "k6", "k2k3", "k1k4", "session", "streams", "k7", "k5s")
 
-    from slam_process_tpu_torch.ops import cuda_compact, cuda_tracker
+
+def turn(root: str, only=SECTIONS, inputs=None) -> dict:
+    """One checkout's times for the sections ``only``, in this process;
+    ``inputs``: the file ``record`` wrote (sections k7 and k5s)."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: no CUDA device")
     dev = torch.device("cuda")
+    out = {"root": root, "device": torch.cuda.get_device_name(0)}
+    if "k5" in only:
+        out.update(k5(dev))
+    if "k6" in only:
+        out.update(k6(dev))
+    if "k2k3" in only:
+        out.update(k2_k3(dev))
+    if "k1k4" in only:
+        out.update(k1_k4(dev, Path(root)))
+    if "session" in only:
+        out.update(session_ms(dev))
+    if "streams" in only:
+        out.update(streams(dev, Path(root)))
+    if "k7" in only or "k5s" in only:
+        out.update(recorded(dev, torch.load(inputs), only))
+    return out
 
-    # K5: the dataset replay's second 1 MiB window.
+
+def k5(dev) -> dict:
+    """K5 at the dataset replay's second 1 MiB window: the carry, and the
+    kept rows as two calls and as the fused call."""
+    from slam_process_tpu_torch.ops import cuda_compact
+
     w, kept, ring, offset, ecap = k5_window(dev)
     n_w = len(kept)
-
-    out = {"root": root, "device": torch.cuda.get_device_name(0),
-           "k5_rows": int(w.combined.shape[0]), "k5_masked": int(w.open_mask.sum()),
+    out = {"k5_rows": int(w.combined.shape[0]), "k5_masked": int(w.open_mask.sum()),
            "k5_kept": int(w.keep.sum())}
     out["K5_carry_1MiB_window_ms"] = cuda_ms(
         lambda: cuda_compact.compact_rows_cuda(w.combined, w.open_mask, GCAP))
@@ -155,8 +195,16 @@ def turn(root: str) -> dict:
         dests = [(ecap, ring, offset), (n_w, None, None)]
         out["K5_kept_rows_fused_ms"] = cuda_ms(
             lambda: cuda_compact.compact_rows_multi_cuda(kept, w.keep, dests))
+    return out
 
-    # K6: chip_smoke.py's main_65_lanes (the first draw of its seed).
+
+def k6(dev) -> dict:
+    """K6 at chip_smoke.py's main_65_lanes (the first draw of its seed)."""
+    import numpy as np
+    import torch
+
+    from slam_process_tpu_torch.ops import cuda_tracker
+
     rng = np.random.default_rng(17)
     lanes = [torch.from_numpy(rng.uniform(a, b, (65, 3)).astype(np.float32)).to(dev)
              for a, b in ((-45, 45), (-45, 45), (0, 1))]
@@ -164,11 +212,79 @@ def turn(root: str) -> dict:
     args = (*lanes, torch.from_numpy(rng.random((65, 3)) < 0.7).to(dev),
             torch.tensor(33, dtype=torch.int32, device=dev), pos,
             torch.arange(8, device=dev) < 3, torch.tensor(3, dtype=torch.int32, device=dev))
-    out["K6_main_65_lanes_ms"] = cuda_ms(lambda: cuda_tracker.track_block_cuda(*args, 10.0))
-    out.update(k2_k3(dev))
-    out.update(k1_k4(dev, Path(root)))
-    out.update(session_ms(dev))
-    out.update(streams(dev, Path(root)))
+    return {"K6_main_65_lanes_ms": cuda_ms(lambda: cuda_tracker.track_block_cuda(*args, 10.0))}
+
+
+def record(path: str) -> None:
+    """The k7 and k5s sections' inputs, made by the ``slam_process_tpu_torch``
+    of this repository and saved to ``path`` (CPU tensors): K7's calls per
+    set and K5's stream-axis carry calls at S = 19 and S = 1."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+    from slam_process_tpu_torch.pipeline.session import Session
+    from slam_process_tpu_torch.utils.synthetic import (
+        nnls_edge_cases, synthetic_session_bytes, to_hex_text, write_angle_table)
+
+    cs = smoke()
+    dev = torch.device("cuda")
+
+    def cpu(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        angles = write_angle_table(Path(tmp) / "beam_angle.xlsx")
+        raws = [synthetic_session_bytes(**c) for c in [cs.FULL, *cs.DATASET, cs.MULTIPATH]]
+        logs = []
+        for i, raw in enumerate(raws):
+            logs.append(Path(tmp) / f"log_{i:02d}.txt")
+            logs[-1].write_bytes(to_hex_text(raw))
+        sessions = [Session.from_log(p) for p in logs]
+        k7 = cs.estimator_k7_calls(sd, sessions, angles)
+        for solver in ("auto", "lu"):
+            G, b, x0, P0 = (torch.from_numpy(a) for a in nnls_edge_cases(20, seed=20))
+            k7[f"edges_65_lanes_K20_{solver}"] = [(G, b, 64, solver, x0, P0)]
+        raws_ds = raws[cs.DS]
+        ecap = -(-(max(len(r) for r in raws_ds) // 11 + 1) // (1 << 16)) * (1 << 16)
+        multi = cs.multi_round_inputs(sd, raws_ds, dev, sd.make_paths_spec(angles, s_step=64),
+                                      ecap)
+    rows, mask, dests = multi["K5s"][0][0]
+    w = k5_window(dev)[0]
+    k5s = {"streams_19_carry": (rows, mask, dests),
+           "streams_1_carry": (w.combined[None], w.open_mask[None], [(GCAP, None, None)])}
+    torch.save({"k7": {name: [tuple(cpu(a) for a in c) for c in calls]
+                       for name, calls in k7.items()},
+                "k5s": {name: (cpu(r), cpu(m), [(c, cpu(o), cpu(off)) for c, o, off in d])
+                        for name, (r, m, d) in k5s.items()}}, path)
+
+
+def recorded(dev, data, only) -> dict:
+    """K7 on each recorded set (all of its calls back to back) and K5's
+    stream axis on each recorded carry call, through the wrappers."""
+    from slam_process_tpu_torch.ops import cuda_compact, cuda_nnls
+
+    def put(x):
+        return x.to(dev) if hasattr(x, "to") else x
+
+    out = {}
+    if "k7" in only:
+        for name, calls in data["k7"].items():
+            calls = [tuple(put(a) for a in c) for c in calls]
+            out[f"k7_{name}_calls_lanes"] = [len(calls), int(calls[0][0].shape[0])]
+            out[f"K7_{name}_ms"] = cuda_ms(
+                lambda: [cuda_nnls.nnls_gram_cuda(*c) for c in calls])
+    if "k5s" in only:
+        for name, (rows, mask, dests) in data["k5s"].items():
+            rows, mask = put(rows), put(mask)
+            dests = [(c, put(o), put(off)) for c, o, off in dests]
+            out[f"k5s_{name}_streams_rows_masked"] = [*rows.shape[:2], int(mask.sum())]
+            out[f"K5s_{name}_ms"] = cuda_ms(
+                lambda: cuda_compact.compact_rows_streams_cuda(rows, mask, dests))
     return out
 
 
@@ -475,25 +591,41 @@ def device_activities(fn):
 
 
 def main() -> None:
-    if len(sys.argv) == 3 and sys.argv[1] == "--turn":
-        print(json.dumps(turn(sys.argv[2])), flush=True)
+    if len(sys.argv) == 5 and sys.argv[1] == "--turn":
+        only, inputs = sys.argv[3].split(","), sys.argv[4]
+        print(json.dumps(turn(sys.argv[2], only, None if inputs == "-" else inputs)),
+              flush=True)
+        return
+    if len(sys.argv) == 3 and sys.argv[1] == "--record":
+        record(sys.argv[2])
         return
     args = sys.argv[1:]
-    rounds = 1
-    if len(args) == 4 and args[2] == "--rounds":
-        rounds = int(args.pop())
-        args.pop()
-    if len(args) != 2 or rounds < 1:
+    rounds, only = 1, SECTIONS
+    while len(args) > 2 and args[-2] in ("--rounds", "--only"):
+        value = args.pop()
+        if args.pop() == "--rounds":
+            rounds = int(value)
+        else:
+            only = tuple(value.split(","))
+    if len(args) != 2 or rounds < 1 or not set(only) <= set(SECTIONS):
         raise SystemExit(__doc__)
     base, change = args
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    inputs = "-"
+    if "k7" in only or "k5s" in only:
+        inputs = str(REPO / "build" / "torch_kernel_ab_inputs.pt")
+        (REPO / "build").mkdir(exist_ok=True)
+        res = subprocess.run([sys.executable, __file__, "--record", inputs],
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise SystemExit(f"recording the inputs failed:\n{res.stdout}\n{res.stderr}")
     runs = {base: [], change: []}
     for root in (base, change, change, base) * rounds:
-        res = subprocess.run([sys.executable, __file__, "--turn", root], capture_output=True,
-                             text=True, timeout=900)
+        res = subprocess.run([sys.executable, __file__, "--turn", root, ",".join(only), inputs],
+                             capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             raise SystemExit(f"turn {root} failed:\n{res.stdout}\n{res.stderr}")
         line = json.loads(res.stdout.strip().splitlines()[-1])
