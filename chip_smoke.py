@@ -721,9 +721,10 @@ def run(tmp: Path) -> None:
     multi_ecap = -(-(max(len(r) for r in raws_ds) // 11 + 1) // (1 << 16)) * (1 << 16)
     multi = multi_round_inputs(sd, raws_ds, dev, sd.make_paths_spec(angles, s_step=64),
                                multi_ecap)
+    k1s = k1s_calls(torch, sd, dev, angles, multi)
     stream_axis_cases(np, torch, dev, exact, decode, compact, correct, scene, tracker,
                       cuda_decode, cuda_compact, cuda_correct, cuda_sweep_sums, cuda_tracker,
-                      multi, k6)
+                      multi, k6, k1s)
     torch.cuda.synchronize()
     # One device kernel per wrapper call, whatever the form: ten calls each
     # under torch.profiler (before any other profiling in this process).
@@ -1166,6 +1167,19 @@ def run(tmp: Path) -> None:
         "K4_19_calls": cuda_ms(lambda: [cuda_sweep_sums.sweep_sums_cuda(*a, k4f_s1, k4f_nb)
                                         for a in k4f_sep], inner=5),
         "rows_per_stream": {"K2": k2f_per, "K4": k4f_per}, "sweep_lanes": k4f_s}
+    # K1's stream axis at each of its recorded calls (``k1s_calls``), beside
+    # its bytes bound: the bytes below each stream's limit read once, every
+    # row, valid byte and count written once.
+    k1s_ms = {}
+    for name, (bb, ll) in k1s.items():
+        s_k, n_k = bb.shape
+        below = s_k * n_k if ll is None else ll.clamp(0, n_k).sum()
+        k1s_bytes = int(below) + s_k * (-(-n_k // 11) * 21 + 4)
+        k1s_ms[name] = {
+            "streams_bytes": [s_k, n_k], "bytes_below_limits": int(below),
+            "ms": cuda_ms(lambda: cuda_decode.decode_rows_streams_cuda(bb, ll, 0xCC, 0x33),
+                          inner=20),
+            "bound_ms_bytes": k1s_bytes / PEAK_BYTES_PER_S * 1e3}
     session_ms = cuda_ms(lambda: run_session_on_device(raw_full, device=dev), primed=False)
     # The decoder's discard count inside the session (plain torch on K1's
     # rows): its device time (primed) and what a caller pays (unprimed).
@@ -1221,7 +1235,7 @@ def run(tmp: Path) -> None:
     emit({"phase": "timing", "kernel_ms": ms, "kernel_bare_ms": bare_ms, "plain_ms": plain_ms,
           "library_ms": library_ms, "k7_ms": k7_ms,
           "k5_kept_rows_1MiB_window_ms": k5_kept_ms, "stream_windows": stream_windows,
-          "flattened_ms": flattened_ms,
+          "flattened_ms": flattened_ms, "k1s_ms": k1s_ms,
           "discard_count_ms": discard_ms,
           "full_session": {"frames": n_full, "ms": session_ms,
                            "frames_per_s": n_full / (session_ms / 1e3)},
@@ -1390,6 +1404,10 @@ def run(tmp: Path) -> None:
           "K5s_masked": k5s_masked, "K5s_bytes_ops": bounds["K5s"][:2],
           "K6s_streams_lanes_live": [len(k6s_per), k6s_args[0].shape[1],
                                      sum(k6_live(a) for a in k6s_per)],
+          "K6s_live_lanes_per_stream": [k6_live(a) for a in k6s_per],
+          "K6s_us_per_live_lane_of_slowest_stream":
+              ms["K6s"] * 1e3 / max(1, max(k6_live(a) for a in k6s_per)),
+          "K6_us_per_live_lane": ms["K6"] * 1e3 / max(1, k6_live(k6_args)),
           "K6s_bytes_ops": bounds["K6s"][:2],
           "K7_lanes_atoms_outer_steps_solves": [k7_lanes, k7_k, k7_outer, k7_solves],
           "K7_bytes_ops": bounds["K7"][:2]})
@@ -3845,13 +3863,83 @@ def multi_round_inputs(sd, raws, dev, spec, ecap):
     return calls
 
 
+def recorded_calls(mod, attr, fn) -> list:
+    """The (args, kwargs) of every call of ``mod.attr`` while ``fn()`` runs."""
+    calls, original = [], getattr(mod, attr)
+
+    def call(*args, **kw):
+        calls.append((args, kw))
+        return original(*args, **kw)
+
+    setattr(mod, attr, call)
+    try:
+        fn()
+    finally:
+        setattr(mod, attr, original)
+    return calls
+
+
+def k1s_calls(torch, sd, dev, angles, multi=None) -> dict:
+    """{name: (bytes [S, N], limits int64 [S] or None)}: K1's stream-axis
+    calls where the package makes them, recorded from the wrapper of the
+    ``slam_process_tpu_torch`` that ``sd`` belongs to: grids of several
+    waves of blocks, ``streams_19_1MiB``, the 19 dataset streams' first 1
+    MiB round (from ``multi``, ``multi_round_inputs``, or a round run here),
+    and ``batch_<S>x<N>``, ``run_dataset``'s largest bucket group over phase
+    4's 21 sessions; grids of one wave, ``streams_19_64KiB``, the 19
+    streams' second 64 KiB round (the steady round), ``S1_full_session``
+    (the full session's padded bytes, as ``run_session_on_device`` decodes
+    them) and ``S1_64KiB_window`` (the live feed's second full 64 KiB
+    window)."""
+    import importlib
+
+    from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes
+
+    pkg = sd.__name__.split(".")[0]
+    cuda_decode = importlib.import_module(f"{pkg}.ops.cuda_decode")
+    batch = importlib.import_module(f"{pkg}.parallel.batch")
+    device = importlib.import_module(f"{pkg}.pipeline.device")
+    raws_ds = [synthetic_session_bytes(**c) for c in DATASET]
+    raw_full, raw_mp = synthetic_session_bytes(**FULL), synthetic_session_bytes(**MULTIPATH)
+    spec = sd.make_paths_spec(angles, s_step=64)
+    ecap = -(-(max(len(r) for r in raws_ds) // 11 + 1) // (1 << 16)) * (1 << 16)
+    if multi is None:
+        multi = multi_round_inputs(sd, raws_ds, dev, spec, ecap)
+    out = {"streams_19_1MiB": tuple(multi["K1s"][0][0][:2])}
+    calls = recorded_calls(cuda_decode, "decode_rows_streams_cuda",
+                           lambda: batch.run_dataset(None, [raw_full, *raws_ds, raw_mp]))
+    b, lim = max((c[0][:2] for c in calls), key=lambda c: c[0].numel())
+    out[f"batch_{b.shape[0]}x{b.shape[1]}"] = (b, lim)
+
+    feeds = [one_round_feeds(r, LIVE_CHUNK, sd.CARRY_BYTES)[:2] for r in raws_ds]
+    ms = sd.MultiStreamingSession(len(raws_ds), chunk_bytes=LIVE_CHUNK, collect_paths=spec,
+                                  emit_capacity=ecap, device=dev)
+    calls = recorded_calls(cuda_decode, "decode_rows_streams_cuda",
+                           lambda: [ms.feed([f[k] for f in feeds]) for k in range(2)])
+    out["streams_19_64KiB"] = tuple(calls[-1][0][:2])
+    padded = torch.from_numpy(device.pad_bytes(raw_full, device.bucket_size(len(raw_full))))
+    out["S1_full_session"] = (padded.to(dev)[None], None)
+    (b, lim, *_), _ = stream_window_inputs(sd, raw_mp, LIVE_CHUNK, dev)["K1"]
+    out["S1_64KiB_window"] = (b[None], torch.tensor([lim], dtype=torch.int64, device=dev))
+    for name, (b, lim) in out.items():
+        if b.dtype != torch.uint8 or b.dim() != 2 or not b.is_contiguous():
+            fail(f"K1s {name}: recorded bytes are not a contiguous uint8 [S, N]")
+    return out
+
+
 def stream_axis_cases(np, torch, dev, exact, decode, compact, correct, scene, tracker,
                       cuda_decode, cuda_compact, cuda_correct, cuda_sweep_sums, cuda_tracker,
-                      multi, k6):
+                      multi, k6, k1s):
     """The stream-axis kernels (K1, K5, K6) against their plain versions,
     and the flattened K2 and K4 calls against S separate kernel calls, at
-    the multi-stream round's shapes (``multi``: ``multi_round_inputs``) and
-    on edge cases."""
+    the multi-stream round's shapes (``multi``: ``multi_round_inputs``), at
+    K1's recorded calls (``k1s``: ``k1s_calls``) and on edge cases."""
+    from slam_process_tpu_torch.utils.synthetic import decode_stream_cases, track_stream_cases
+
+    def bits(xs):
+        """Float tensors as their int32 bits (NaN equal to the same NaN)."""
+        return tuple(x.view(torch.int32) if x.is_floating_point() else x for x in xs)
+
     # K1: the 19 streams' window, twice on one stream (the S ticket words
     # reset); ragged limits; widths at the row blocks' edges; S = 1.
     (b, lim, ft, ff), _ = multi["K1s"][0]
@@ -3867,6 +3955,53 @@ def stream_axis_cases(np, torch, dev, exact, decode, compact, correct, scene, tr
         bb[:, ::13] = 0xCC
         exact("K1s", f"S{s_n}_N{n}", cuda_decode.decode_rows_streams_cuda(bb, None, ft, ff),
               decode.decode_rows_streams_plain(bb))
+    # K1 on the stream-axis calls the package makes (the batch's largest
+    # bucket, the 1 MiB and 64 KiB rounds, the S = 1 calls); the seeded stream cases
+    # (ragged limits of 0, mid-frame, exactly n and past n; n = 2^20 - 5,
+    # a multiple of neither 11 nor 16; one stream of 19.9 MB, S = 1); a view
+    # at an odd byte offset; a multi-wave call captured in a CUDA graph and
+    # replayed twice, its S ticket words zero after each replay.
+    for name, (bb, ll) in k1s.items():
+        exact("K1s", f"recorded_{name}", cuda_decode.decode_rows_streams_cuda(bb, ll, ft, ff),
+              decode.decode_rows_streams_plain(bb, n_valid=ll))
+    # (The seeded cases' plain versions run on the same inputs on the host:
+    # on the card their temporaries would stay cached in this process.)
+    seeded = decode_stream_cases()
+    plain = {}
+    for name, (bn, ln) in seeded.items():
+        lc = None if ln is None else torch.from_numpy(ln)
+        plain[name] = decode.decode_rows_streams_plain(torch.from_numpy(bn), n_valid=lc)
+        exact("K1s", f"seeded_{name}", cuda_decode.decode_rows_streams_cuda(
+            torch.from_numpy(bn).to(dev), None if lc is None else lc.to(dev), ft, ff),
+            plain[name])
+    bn, ln = seeded["ragged_limits"]
+    ll = torch.from_numpy(ln).to(dev)
+    want = plain["ragged_limits"]
+    flat = torch.zeros(bn.size + 16, dtype=torch.uint8, device=dev)
+    bb = flat[1:1 + bn.size].view(bn.shape)
+    bb.copy_(torch.from_numpy(bn))
+    exact("K1s", "unaligned_view_19_streams_1MiB", cuda_decode.decode_rows_streams_cuda(
+        bb, ll, ft, ff), want)
+    del flat, bb
+    bb = torch.from_numpy(bn).to(dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_decode.decode_rows_streams_cuda(bb, ll, ft, ff)      # its scratch, before capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = cuda_decode.decode_rows_streams_cuda(bb, ll, ft, ff)
+    tickets = cuda_decode.tickets_for(bb.device, side.cuda_stream, bb.shape[0])
+    for rep in range(2):
+        for t in got:
+            t.fill_(1)
+        graph.replay()
+        torch.cuda.synchronize()
+        exact("K1s", f"graph_replay_{rep}_19_streams_1MiB", got, want)
+        if int(tickets.count_nonzero()) != 0:
+            fail(f"K1s graph replay {rep}: the ticket words are not left zero")
+    del graph, got
 
     # K5: the round's two calls (the carry; the emit rings + the paths'
     # buffers at the rings' counts), then rings that fill and the race test
@@ -3945,6 +4080,14 @@ def stream_axis_cases(np, torch, dev, exact, decode, compact, correct, scene, tr
                 for j in range(8))
     exact("K6s", "2_streams_T16_K20", cuda_tracker.track_block_streams_cuda(*big, 15.0),
           tracker.track_block_streams_plain(*big, 15.0))
+    # Chains over several staging tiles, T = 16 with K = 20 at m_eff 0, s1 -
+    # 1, s1 and past s1, planted ties and a NaN cost: bit for bit (the plain
+    # version's lane loop on the same inputs on the host, where it is fast).
+    for name, (*arrays, gate) in track_stream_cases().items():
+        args = [torch.from_numpy(a) for a in arrays]
+        exact("K6s", f"seeded_{name}",
+              bits(cuda_tracker.track_block_streams_cuda(*(a.to(dev) for a in args), gate)),
+              bits(tracker.track_block_streams_plain(*args, gate)))
 
     # K2 flattened: the round's one call (19 streams' rows, ids offset by
     # s * max_groups) against 19 calls of the single-stream kernel; and tiny
@@ -4971,6 +5114,12 @@ def multihost_phase(np, torch, sd, tmp, angles, raws, sessions, dev) -> dict:
     from slam_process_tpu_torch.pipeline import cli
     from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes, to_hex_text
 
+    # The six worker processes share the card with this one: release the
+    # blocks this process's allocator keeps cached but no tensor holds.
+    reserved = {"before": torch.cuda.memory_reserved(dev) if dev.type == "cuda" else 0}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    reserved["after"] = torch.cuda.memory_reserved(dev) if dev.type == "cuda" else 0
     work = tmp / "multihost"
     work.mkdir()
     worker = work / "chip_smoke_multihost_worker.py"
@@ -5113,7 +5262,8 @@ def multihost_phase(np, torch, sd, tmp, angles, raws, sessions, dev) -> dict:
     for x in summaries[:2] + summaries[3:4]:
         if x["frames"] != int(frames[names.index(x["session"])]):
             fail(f"multihost: watch summary {x} differs from one process")
-    return {"processes": 6, "clusters": list(clusters), "wall_s": wall_s,
+    return {"processes": 6, "main_process_reserved_bytes": reserved,
+            "clusters": list(clusters), "wall_s": wall_s,
             "launches": launches, "events": len(got_ev),
             "watch_summaries": summaries,
             "launches_by_process": {name: [ln["launches"] for ln in v]

@@ -51,7 +51,16 @@
 // writes rows [s R, s R + R), its valid bytes and count[s], and keeps its
 // own ticket word, so its blocks meet only each other.  The single-stream
 // entry is the case S = 1.  A batch of sessions and a round of S live
-// streams decode in one launch instead of S.
+// streams decode in one launch instead of S.  A block whose rows lie
+// wholly past its stream's limit (none of its windows can end by the
+// limit) neither stages nor tests its bytes: it writes its zero rows and
+// its count, 0.  In the 19 streams' first 1 MiB round 41 % of the blocks
+// are such (each stream is shorter than its window).  One schedule serves
+// every size: on an H100, persistent blocks (a ring of tiles staged with
+// cp.async a block or a warp, or a strided walk with a register prefetch)
+// saved the ~6 us of launching 7,087 blocks but lost more in their loads
+// and tests, and were slower than a block per tile at the batch's
+// 19 x 786,432 bytes (tools/torch_kernel_ab.py; PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -89,10 +98,12 @@ __global__ void __launch_bounds__(kRows) decode_rows_kernel(
   if (limits != nullptr) limit = limits[st] < n ? limits[st] : n;
   const long long r0 = static_cast<long long>(blockIdx.x) * kRows;
   const long long base = r0 * kFrame;
+  // No window of the block's rows can end by the limit: nothing to stage or test.
+  const bool skip = limit - r0 * kFrame - kFrame < 0;
 
   // Stage the block's bytes.
   const bool aligned = (reinterpret_cast<uintptr_t>(b) & 15) == 0;
-  for (int i = tid; i < kVecs; i += kRows) {
+  for (int i = tid; i < (skip ? 0 : kVecs); i += kRows) {
     const long long g = base + 16LL * i;
     uint4 v;
     if (aligned && g + 16 <= n) {
@@ -110,49 +121,51 @@ __global__ void __launch_bounds__(kRows) decode_rows_kernel(
 
   // This thread's row: its 21 bytes as words a[0..5] (a[5]: byte 20 only).
   const long long r = r0 + tid;
-  const int off = kFrame * tid;
-  const unsigned* s_words = reinterpret_cast<const unsigned*>(s_vec);
-  const int k0 = off >> 2;
-  const unsigned sh = 8u * (off & 3);
-  unsigned a[6];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) a[i] = __funnelshift_r(s_words[k0 + i], s_words[k0 + i + 1], sh);
-  a[5] = s_words[k0 + 5] >> sh;
-  const unsigned ft4 = static_cast<unsigned>(flag_true) * 0x01010101u;
-  const unsigned ff4 = static_cast<unsigned>(flag_false) * 0x01010101u;
-  unsigned cand = flags4(a[0], ft4, ff4) | (flags4(a[1], ft4, ff4) << 4) |
-                  (flags4(a[2], ft4, ff4) << 8);
-  // Position 11 r + q starts a frame only if its window ends at or below limit.
-  const long long room = limit - r * kFrame - kFrame;    // the largest q allowed
-  cand &= room < 0 ? 0u : (room >= kFrame - 1 ? 0x7FFu : (2u << room) - 1u);
-
   unsigned f[5] = {0u, 0u, 0u, 0u, 0u};
   int found = 0;
-  while (cand) {
-    const int q = __ffs(cand) - 1;
-    cand &= cand - 1;
-    // Bytes q..q+11 of the row as x0, x1, x2 (x2's top byte unused).
-    const int k = q >> 2;
-    const unsigned s = 8u * (q & 3);
-    const unsigned y0 = k == 0 ? a[0] : (k == 1 ? a[1] : a[2]);
-    const unsigned y1 = k == 0 ? a[1] : (k == 1 ? a[2] : a[3]);
-    const unsigned y2 = k == 0 ? a[2] : (k == 1 ? a[3] : a[4]);
-    const unsigned y3 = k == 0 ? a[3] : (k == 1 ? a[4] : a[5]);
-    const unsigned x0 = __funnelshift_r(y0, y1, s);
-    const unsigned x1 = __funnelshift_r(y1, y2, s);
-    const unsigned x2 = __funnelshift_r(y2, y3, s);
-    // Tag classes (top two bits): UE 00, BS 11, CLK 01 x5, RSS 10 x3.
-    if ((x0 & 0xC0C0C000u) != 0x40C00000u || (x1 & 0xC0C0C0C0u) != 0x40404040u ||
-        (x2 & 0x00C0C0C0u) != 0x00808080u) {
-      continue;
+  if (!skip) {
+    const int off = kFrame * tid;
+    const unsigned* s_words = reinterpret_cast<const unsigned*>(s_vec);
+    const int k0 = off >> 2;
+    const unsigned sh = 8u * (off & 3);
+    unsigned a[6];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) a[i] = __funnelshift_r(s_words[k0 + i], s_words[k0 + i + 1], sh);
+    a[5] = s_words[k0 + 5] >> sh;
+    const unsigned ft4 = static_cast<unsigned>(flag_true) * 0x01010101u;
+    const unsigned ff4 = static_cast<unsigned>(flag_false) * 0x01010101u;
+    unsigned cand = flags4(a[0], ft4, ff4) | (flags4(a[1], ft4, ff4) << 4) |
+                    (flags4(a[2], ft4, ff4) << 8);
+    // Position 11 r + q starts a frame only if its window ends at or below limit.
+    const long long room = limit - r * kFrame - kFrame;    // the largest q allowed
+    cand &= room < 0 ? 0u : (room >= kFrame - 1 ? 0x7FFu : (2u << room) - 1u);
+
+    while (cand) {
+      const int q = __ffs(cand) - 1;
+      cand &= cand - 1;
+      // Bytes q..q+11 of the row as x0, x1, x2 (x2's top byte unused).
+      const int k = q >> 2;
+      const unsigned s = 8u * (q & 3);
+      const unsigned y0 = k == 0 ? a[0] : (k == 1 ? a[1] : a[2]);
+      const unsigned y1 = k == 0 ? a[1] : (k == 1 ? a[2] : a[3]);
+      const unsigned y2 = k == 0 ? a[2] : (k == 1 ? a[3] : a[4]);
+      const unsigned y3 = k == 0 ? a[3] : (k == 1 ? a[4] : a[5]);
+      const unsigned x0 = __funnelshift_r(y0, y1, s);
+      const unsigned x1 = __funnelshift_r(y1, y2, s);
+      const unsigned x2 = __funnelshift_r(y2, y3, s);
+      // Tag classes (top two bits): UE 00, BS 11, CLK 01 x5, RSS 10 x3.
+      if ((x0 & 0xC0C0C000u) != 0x40C00000u || (x1 & 0xC0C0C0C0u) != 0x40404040u ||
+          (x2 & 0x00C0C0C0u) != 0x00808080u) {
+        continue;
+      }
+      f[0] += (x0 & 0xFFu) == static_cast<unsigned>(flag_true);
+      f[1] += (x0 >> 8) & 0x3Fu;
+      f[2] += (x0 >> 16) & 0x3Fu;
+      f[3] += (x2 & 0x3Fu) | ((x2 >> 2) & 0xFC0u) | ((x2 >> 4) & 0x3F000u);
+      f[4] += ((x0 >> 24) & 0x3Fu) | ((x1 & 0x3Fu) << 6) | ((x1 << 4) & 0x3F000u) |
+              ((x1 << 2) & 0xFC0000u) | (x1 & 0x3F000000u);
+      ++found;
     }
-    f[0] += (x0 & 0xFFu) == static_cast<unsigned>(flag_true);
-    f[1] += (x0 >> 8) & 0x3Fu;
-    f[2] += (x0 >> 16) & 0x3Fu;
-    f[3] += (x2 & 0x3Fu) | ((x2 >> 2) & 0xFC0u) | ((x2 >> 4) & 0x3F000u);
-    f[4] += ((x0 >> 24) & 0x3Fu) | ((x1 & 0x3Fu) << 6) | ((x1 << 4) & 0x3F000u) |
-            ((x1 << 2) & 0xFC0000u) | (x1 & 0x3F000000u);
-    ++found;
   }
 #pragma unroll
   for (int c = 0; c < 5; ++c) s_rows[5 * tid + c] = static_cast<int>(f[c]);

@@ -26,23 +26,35 @@
 // Bound on an H100: not bytes (~13 B per live (lane, path) read and per
 // (lane, track) written, about 8 KB at s1 = 65, 33 live, K = 3, T = 8: a
 // few ns) and not operations, but the lanes' serial dependence through the
-// carry, and the launch.  Design: one warp carries the whole chain, for
-// every legal shape (T <= 16, K <= 20): thread l holds the (track, path)
-// pairs l, l + 32, ... (at most ten) with their costs in registers, and
-// thread t < T holds track t (position, matched power, observed).  The
-// assigned / used / created / valid sets are 32-bit masks that every thread
-// keeps alike.  A round is a thread-local min over its pairs and two warp
-// reductions (__reduce_min_sync: the cost key, then the flat index among
-// the threads that hold it), so every thread knows the winner and applies
-// it to its own copy of the state: no shared memory, no barrier.  Leftover
-// paths open tracks by rank: path k's slot is count + popc(free & (1 << k)
-// - 1), the oracle's order.  The cost matrix is static within a lane (a
-// matched track is masked out in the round that moves it), so each lane
-// costs its pairs once.  The other warps of the block stage the live
-// lanes' inputs into shared memory with coalesced loads, a tile of lanes
-// ahead of the chain (two buffers; a __syncthreads separates one tile's
-// chain from the next tile's staging), so no lane waits on a dependent
-// global load, and s1 may be any length.  The chain stops at the last live
+// carry: the live lanes of the slowest stream times the latency of one
+// lane, plus the launch.  So the design keeps on the chain only what
+// depends on the carry.  One warp carries the whole chain, for every legal
+// shape (T <= 16, K <= 20): thread l holds the (track, path) pairs l, l +
+// 32, ... (at most ten), each with its own copy of its track's position
+// and the lane's path, and thread t < T holds track t (position, matched
+// power, observed).  The assigned / used / created / valid sets are 32-bit
+// masks that every thread keeps alike.  Per lane:
+//   * costs: each pair's cost from registers alone (no shuffle, no load);
+//   * rounds: a thread-local min over its pairs and two warp reductions
+//     (__reduce_min_sync: the cost key, then (t << 5 | k) among the threads
+//     that hold it, which orders as the flat index t * K + k does), so every
+//     thread knows the winner (t, k) and notes it in its own state; a pair
+//     past the gate is keyed out when its cost is taken, so no round tests
+//     the gate;
+//   * when track t moves to path k (a round's winner, or a leftover path
+//     opening track count + r: the r-th free path, the oracle's order),
+//     each pair of track t loads its new position and thread t loads the
+//     path (one 16-byte shared load) right then, so the loads land under
+//     the rounds that follow; then the columns go out.
+// The cost matrix is static within a lane (a matched track is masked out in
+// the round that moves it), so each lane costs its pairs once, and a
+// track's new position is needed only by the next lane.  The carry-free
+// work is off the chain: the other warps of the block stage the live
+// lanes a tile ahead (two buffers; a __syncthreads separates one tile's
+// chain from the next tile's staging) as one float4 (aoa, aod, power) per
+// (lane, path) and the lane's valid paths as one mask word, and the chain
+// loads lane i + 1's mask and its pairs' paths into registers while lane
+// i's rounds run.  s1 may be any length.  The chain stops at the last live
 // lane; once the carry is final, the whole block writes the dead lanes
 // [live, s1) in one parallel pass.
 //
@@ -61,25 +73,46 @@ namespace {
 constexpr int kMaxT = 16;
 constexpr int kMaxK = 20;
 constexpr int kThreads = 256;     // warp 0: the chain; warps 1-7 stage the next tile
-constexpr int kSlots = 1536;      // (lane, path) slots in one staging buffer
+constexpr int kSlots = 1024;      // (lane, path) slots in one staging buffer
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNone = 0xffffffffu;
 
 struct Staged {
-  float a[2][kSlots], d[2][kSlots], p[2][kSlots];
-  uint8_t v[2][kSlots];
+  float4 q[2][kSlots];            // (aoa, aod, power, 0) per (lane, path)
+  unsigned m[2][kSlots];          // per lane: bit k set iff path k is valid
 };
 
+// The position of the r-th (from 0) set bit of m, which has more than r:
+// a binary search by population counts (__fns takes ~260 cycles on an
+// H100, tools/warp_op_latency.py).
+__device__ __forceinline__ int nth_set_bit(unsigned m, int r) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(m & ((1u << w) - 1u));
+    if (r >= c) {
+      r -= c;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// Lanes [l0, l0 + n_lanes) of the block's stream into buffer `buf`.
 __device__ __forceinline__ void stage(Staged& s, int buf, const float* __restrict__ aoa,
                                       const float* __restrict__ aod,
                                       const float* __restrict__ pw,
-                                      const uint8_t* __restrict__ val, long long q0, int n,
-                                      int tid, int n_threads) {
-  for (int j = tid; j < n; j += n_threads) {
-    s.a[buf][j] = __ldg(aoa + q0 + j);
-    s.d[buf][j] = __ldg(aod + q0 + j);
-    s.p[buf][j] = __ldg(pw + q0 + j);
-    s.v[buf][j] = __ldg(val + q0 + j);
+                                      const uint8_t* __restrict__ val, long long l0,
+                                      int n_lanes, int k_n, int tid, int n_threads) {
+  const long long q0 = l0 * k_n;
+  for (int j = tid; j < n_lanes * k_n; j += n_threads) {
+    s.q[buf][j] = make_float4(__ldg(aoa + q0 + j), __ldg(aod + q0 + j), __ldg(pw + q0 + j), 0.0f);
+  }
+  for (int l = tid; l < n_lanes; l += n_threads) {
+    unsigned m = 0;
+    for (int k = 0; k < k_n; ++k) m |= (__ldg(val + q0 + l * k_n + k) != 0 ? 1u : 0u) << k;
+    s.m[buf][l] = m;
   }
 }
 
@@ -123,12 +156,14 @@ __global__ void __launch_bounds__(kThreads) track_block_kernel(
   const int tile_lanes = kSlots / k_n;
   const int n_tiles = (live + tile_lanes - 1) / tile_lanes;
 
-  // The chain's state (warp 0): track `lane` and this thread's pairs.
-  float my_a = 0.0f, my_d = 0.0f, my_p = 0.0f;
-  uint8_t my_o = 0;
+  // The chain's state (warp 0): track `lane`, and this thread's pairs with
+  // their tracks' positions.
+  float my_a = 0.0f, my_d = 0.0f;
   unsigned created = 0;
   int count = 0;
   int pt[P], pk[P];
+  unsigned tk[P];
+  float pa[P], pd[P];
   if (warp == 0) {
     if (lane < t_n) {
       my_a = pos_in[2 * lane];
@@ -141,10 +176,13 @@ __global__ void __launch_bounds__(kThreads) track_block_kernel(
       const int f = lane + 32 * j;
       pt[j] = f < t_n * k_n ? f / k_n : -1;
       pk[j] = f < t_n * k_n ? f - (f / k_n) * k_n : 0;
+      tk[j] = pt[j] < 0 ? kNone : (static_cast<unsigned>(pt[j]) << 5) | pk[j];
+      pa[j] = pt[j] < 0 ? 0.0f : pos_in[2 * pt[j]];
+      pd[j] = pt[j] < 0 ? 0.0f : pos_in[2 * pt[j] + 1];
     }
   }
 
-  if (n_tiles > 0) stage(st, 0, aoa, aod, pw, val, 0, min(live, tile_lanes) * k_n, tid, kThreads);
+  if (n_tiles > 0) stage(st, 0, aoa, aod, pw, val, 0, min(live, tile_lanes), k_n, tid, kThreads);
   __syncthreads();
 
   for (int tile = 0; tile < n_tiles; ++tile) {
@@ -152,62 +190,104 @@ __global__ void __launch_bounds__(kThreads) track_block_kernel(
     const int i0 = tile * tile_lanes;
     const int i1 = min(live, i0 + tile_lanes);
     if (warp == 0) {
+      const float4* q = st.q[buf];
+      // Lane i0's valid mask and this thread's pairs' paths.
+      unsigned vm = st.m[buf][0];
+      float qa[P], qd[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float2 v = *reinterpret_cast<const float2*>(q + pk[j]);
+        qa[j] = v.x;
+        qd[j] = v.y;
+      }
       for (int i = i0; i < i1; ++i) {
-        const float* qa = st.a[buf] + (i - i0) * k_n;
-        const float* qd = st.d[buf] + (i - i0) * k_n;
-        const float* qp = st.p[buf] + (i - i0) * k_n;
-        const uint8_t* qv = st.v[buf] + (i - i0) * k_n;
-        unsigned free_k = __ballot_sync(kFull, lane < k_n && qv[lane] != 0);   // valid & unused
-        unsigned free_t = created;                                              // & unassigned
-
+        const int li = i - i0;
+        const float4* ql = q + li * k_n;
         unsigned key[P];
 #pragma unroll
         for (int j = 0; j < P; ++j) {
-          const float pa = __shfl_sync(kFull, my_a, pt[j] < 0 ? 0 : pt[j]);
-          const float pd = __shfl_sync(kFull, my_d, pt[j] < 0 ? 0 : pt[j]);
-          const float da = __fsub_rn(pa, qa[pk[j]]);
-          const float dd = __fsub_rn(pd, qd[pk[j]]);
+          const float da = __fsub_rn(pa[j], qa[j]);
+          const float dd = __fsub_rn(pd[j], qd[j]);
           const float cost = __fadd_rn(__fmul_rn(da, da), __fmul_rn(dd, dd));
-          key[j] = pt[j] < 0 ? kNone : (isnan(cost) ? 0u : __float_as_uint(cost) + 1u);
+          // A pair past the gate can never be taken, and it is the smallest
+          // free pair only when every free pair is past the gate: it takes
+          // kNone, so a round that finds kNone ends the lane's rounds.
+          key[j] = pt[j] < 0 ? kNone
+                             : (isnan(cost) ? 0u
+                                            : (cost <= gate2 ? __float_as_uint(cost) + 1u : kNone));
+        }
+        // Lane i + 1's mask and paths, loaded while this lane's rounds run.
+        const bool more = i + 1 < i1;
+        const unsigned vm_next = more ? st.m[buf][li + 1] : 0u;
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          if (more) {
+            const float2 v = *reinterpret_cast<const float2*>(ql + k_n + pk[j]);
+            qa[j] = v.x;
+            qd[j] = v.y;
+          }
         }
 
+        unsigned free_k = vm;        // valid & unused
+        unsigned free_t = created;   // & unassigned
+        float my_p = 0.0f;           // track `lane`'s matched power this lane
+        bool my_o = false;           // and whether it was observed
         while (free_t != 0u && free_k != 0u) {
-          unsigned best = kNone, best_f = kNone;
+          unsigned best = kNone, best_tk = kNone;
 #pragma unroll
           for (int j = 0; j < P; ++j) {
             if (pt[j] >= 0 && ((free_t >> pt[j]) & 1u) && ((free_k >> pk[j]) & 1u) &&
                 key[j] < best) {
               best = key[j];
-              best_f = static_cast<unsigned>(lane + 32 * j);
+              best_tk = tk[j];
             }
           }
           const unsigned g = __reduce_min_sync(kFull, best);
-          if (g == kNone || g == 0u || !(__uint_as_float(g - 1u) <= gate2)) break;
-          const int w = static_cast<int>(__reduce_min_sync(kFull, best == g ? best_f : kNone));
-          const int bt = w / k_n;
-          const int bk = w - bt * k_n;
+          if (g - 1u >= kNone - 1u) break;   // kNone: none passes the gate; 0: a NaN cost first
+          const unsigned w = __reduce_min_sync(kFull, best == g ? best_tk : kNone);
+          const int bt = static_cast<int>(w >> 5);
+          const int bk = static_cast<int>(w & 31u);
+          // Track bt moves to path bk: its pairs and its owner load the path
+          // now, and the loads land under the rounds that follow.
+#pragma unroll
+          for (int j = 0; j < P; ++j) {
+            if (pt[j] == bt) {
+              const float2 v = *reinterpret_cast<const float2*>(ql + bk);
+              pa[j] = v.x;
+              pd[j] = v.y;
+            }
+          }
           if (lane == bt) {
-            my_a = qa[bk];
-            my_d = qd[bk];
-            my_p = qp[bk];
-            my_o = 1;
+            const float4 v = ql[bk];
+            my_a = v.x;
+            my_d = v.y;
+            my_p = v.z;
+            my_o = true;
           }
           free_t &= ~(1u << bt);
           free_k &= ~(1u << bk);
         }
 
-        // Leftover valid paths open tracks count, count + 1, ... in path order.
+        // Leftover valid paths open tracks count, count + 1, ... in path
+        // order: track count + r takes the r-th free path.
         const int n_new = count >= 0 ? min(__popc(free_k), max(t_n - count, 0)) : 0;
         if (n_new > 0) {
+#pragma unroll
+          for (int j = 0; j < P; ++j) {
+            const int r = pt[j] - count;
+            if (r >= 0 && r < n_new) {
+              const float2 v = *reinterpret_cast<const float2*>(ql + nth_set_bit(free_k, r));
+              pa[j] = v.x;
+              pd[j] = v.y;
+            }
+          }
           const int r = lane - count;
           if (r >= 0 && r < n_new) {
-            unsigned b = free_k;
-            for (int s = 0; s < r; ++s) b &= b - 1u;
-            const int k = __ffs(b) - 1;
-            my_a = qa[k];
-            my_d = qd[k];
-            my_p = qp[k];
-            my_o = 1;
+            const float4 v = ql[nth_set_bit(free_k, r)];
+            my_a = v.x;
+            my_d = v.y;
+            my_p = v.z;
+            my_o = true;
           }
           created |= ((1u << n_new) - 1u) << count;
           count += n_new;
@@ -218,15 +298,13 @@ __global__ void __launch_bounds__(kThreads) track_block_kernel(
           c_aoa[o] = my_a;
           c_aod[o] = my_d;
           c_pow[o] = my_p;
-          c_obs[o] = my_o;
+          c_obs[o] = my_o ? 1 : 0;
         }
-        my_p = 0.0f;
-        my_o = 0;
+        vm = vm_next;
       }
     } else if (tile + 1 < n_tiles) {
       const int j1 = min(live, i1 + tile_lanes);
-      stage(st, buf ^ 1, aoa, aod, pw, val, static_cast<long long>(i1) * k_n, (j1 - i1) * k_n,
-            tid - 32, kThreads - 32);
+      stage(st, buf ^ 1, aoa, aod, pw, val, i1, j1 - i1, k_n, tid - 32, kThreads - 32);
     }
     __syncthreads();
   }

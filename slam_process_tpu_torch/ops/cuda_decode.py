@@ -10,7 +10,9 @@ bytes (N read, 21 R + 4 written); see the source note in ``csrc/decode.cu``.
 ``decode_rows_streams_cuda`` is the stream axis: S byte streams [S, N], each
 with its own limit, in one launch (``ops/decode.decode_rows_streams``; its
 plain version is ``decode_rows_plain`` per stream).  Both entries add to
-``LAUNCHES``.
+``LAUNCHES``.  A block whose rows lie wholly past its stream's limit reads
+and tests nothing and writes zeros; every launch leaves the ticket words
+zero, so a CUDA graph replays the call as it is.
 """
 
 from __future__ import annotations

@@ -7,8 +7,10 @@ f32 [T, 2], created [T], count int32) and outputs (four [s1, T] column
 blocks and the new carry).  The plain PyTorch version it is held against
 is ``ops/tracker.py::track_block_plain``; ``ops/tracker.track_block``
 dispatches here for CUDA tensors.  One launch of one block: one warp runs
-the live lanes in order while the others stage their inputs, then the
-block writes the dead lanes; see the source note in ``csrc/tracker.cu``.
+the live lanes in order, with only the carry-dependent work on its chain,
+while the others stage their inputs (a float4 a path, a mask word a lane),
+then the block writes the dead lanes; see the source note in
+``csrc/tracker.cu``.
 
 ``track_block_streams_cuda`` is the stream axis: S independent blocks of
 lanes ([S, s1, K] inputs, [S] m_eff and counts, [S, T, 2] / [S, T]

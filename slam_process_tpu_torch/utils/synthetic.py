@@ -21,7 +21,8 @@ row's RSS and carry the true BS beam.  Beyond that generator it adds:
     stream, so the decoder discards (and ``legacy_stream_bytes``, streams
     in the older v1 / v2 wire formats);
   * the kernels' edge cases (``verdict_edge_cases``, ``decode_edge_cases``,
-    ``sweep_sums_edge_cases``, ``nnls_edge_cases``).
+    ``sweep_sums_edge_cases``, ``nnls_edge_cases``) and their stream axes'
+    (``decode_stream_cases``, ``track_stream_cases``).
 
 All randomness comes from ``numpy.random.default_rng(seed)`` (the
 multipath scene from a second stream of the same seed, so the default
@@ -442,3 +443,94 @@ def nnls_edge_cases(k: int, lanes: int = 65, seed: int = 0):
     if k >= 2:
         G[-1], b[-1, 1], P0[-1, 0] = np.eye(k, dtype=np.float32), 1.0, True
     return G, b, x0, P0
+
+
+def decode_stream_cases(n_streams: int = 19, width: int = 1 << 20, seed: int = 0) -> dict:
+    """Inputs of the stream-axis frame decode, {case: (bytes uint8 [S, n],
+    limits int64 [S] or None)}, from ``default_rng(seed)``; at the default
+    sizes (the 19 streams' 1 MiB round) their grids take more than one
+    resident wave of the card.  The S streams are one run of session bytes
+    (junk between copies of a short session cut at every offset mod 11)
+    cut into rows of n, so each stream starts at its own phase.
+
+    ``ragged_limits``: stream s's limit is, by s mod 6, 0, five bytes into
+    a frame (mid-frame), exactly a frame's end, exactly n, past n, or a
+    random byte; ``no_limits``; ``width_not_multiple_of_16``: n = width -
+    5 (a multiple of neither 11 nor 16, so most streams start unaligned),
+    the same kinds of limit; ``one_stream``: the S streams end to end as
+    one stream (S = 1), its limit mid-frame."""
+    from slam_process_tpu_torch.ops.decode import frame_start_mask
+
+    rng = np.random.default_rng(seed)
+    unit = synthetic_session_bytes(n_groups=2, frames_per_beam=3, baselines_per_group=6,
+                                   junk_frac=0.3, seed=seed)
+    pieces, total = [], 0
+    while total < n_streams * width:
+        cut = int(rng.integers(0, 11))
+        junk = rng.choice(_JUNK, int(rng.integers(0, 24)))
+        pieces += [junk, unit[cut:]]
+        total += len(junk) + len(unit) - cut
+    flat = np.concatenate(pieces).astype(np.uint8)[:n_streams * width]
+
+    def limits(b):
+        n = b.shape[1]
+        out = []
+        for s in range(b.shape[0]):
+            starts = np.flatnonzero(frame_start_mask(b[s]))
+            p = int(starts[len(starts) // 2]) if len(starts) else 0
+            out.append((0, p + 5, p + 11, n, n + 1000, int(rng.integers(0, n + 1)))[s % 6])
+        return np.asarray(out, np.int64)
+
+    b = flat.reshape(n_streams, width)
+    short = np.ascontiguousarray(b[:, :width - 5])
+    one = flat.reshape(1, -1)
+    starts = np.flatnonzero(frame_start_mask(one[0]))
+    return {"ragged_limits": (b, limits(b)), "no_limits": (b, None),
+            "width_not_multiple_of_16": (short, limits(short)),
+            "one_stream": (one, np.asarray([int(starts[-len(starts) // 3]) + 5], np.int64))}
+
+
+def track_stream_cases(seed: int = 0) -> dict:
+    """Inputs of the stream-axis tracker block, {case: (aoa, aod, power f32
+    [S, s1, K], valid bool [S, s1, K], m_eff int32 [S], pos f32 [S, T, 2],
+    created bool [S, T], count int32 [S], gate_deg)}, from
+    ``default_rng(seed)``.  Each stream starts from a carry of ``count``
+    created tracks at random positions.
+
+    ``long_chains_K3``: 700 lanes of K = 3, T = 8, m_eff 700, 613 and 0
+    (chains over several staging tiles of the kernel); ``long_chains_T16_K20``:
+    130 lanes of K = 20, T = 16, on an integer grid (exact cost ties
+    across the kernel's threads), m_eff 130 and 100; ``T16_K20_m_eff_edges``:
+    40 lanes, m_eff 0, s1 - 1, s1 and past s1; ``planted_ties_and_nan``: the
+    planted ties at the gate of ``tests/test_torch_tracker.py`` (T = 4, K =
+    3, gate 5), and the same lanes with one valid path's AoA NaN in lane 1
+    (its costs NaN: no round assigns, the NaN path opens a track, and later
+    lanes' costs against that track are NaN)."""
+    rng = np.random.default_rng(seed)
+
+    def streams(s1, k_n, t_n, m_eff, counts, gate, grid=False):
+        s_n = len(m_eff)
+        if grid:
+            ang = [rng.integers(-4, 5, (s_n, s1, k_n)).astype(np.float32) for _ in range(2)]
+        else:
+            ang = [rng.uniform(-45, 45, (s_n, s1, k_n)).astype(np.float32) for _ in range(2)]
+        pw = rng.uniform(0, 1, (s_n, s1, k_n)).astype(np.float32)
+        counts = np.asarray(counts, np.int32)
+        pos = rng.uniform(-45, 45, (s_n, t_n, 2)).astype(np.float32)
+        return (*ang, pw, rng.random((s_n, s1, k_n)) < 0.7, np.asarray(m_eff, np.int32), pos,
+                np.arange(t_n)[None] < counts[:, None], counts, gate)
+
+    f32 = np.float32
+    aoa = np.array([[0, 10, 0], [5, 3, 13], [8, 2, 5], [0, 0, 0]], f32)
+    aod = np.array([[0, 0, 0], [0, 4.0001, 4], [4, -4, 5], [0, 0, 0]], f32)
+    pw = np.array([[1, 2, 3], [4, 5, 6], [7, 8, 9], [0, 0, 0]], f32)
+    val = np.array([[1, 1, 0], [1, 1, 1], [1, 1, 1], [0, 0, 0]], bool)
+    aoa_nan = aoa.copy()
+    aoa_nan[1, 1] = np.nan
+    planted = (np.stack([aoa, aoa_nan]), np.stack([aod, aod]), np.stack([pw, pw]),
+               np.stack([val, val]), np.asarray([3, 4], np.int32),
+               np.zeros((2, 4, 2), f32), np.zeros((2, 4), bool), np.zeros(2, np.int32), 5.0)
+    return {"long_chains_K3": streams(700, 3, 8, [700, 613, 0], [3, 0, 5], 10.0),
+            "long_chains_T16_K20": streams(130, 20, 16, [130, 100], [0, 7], 6.0, grid=True),
+            "T16_K20_m_eff_edges": streams(40, 20, 16, [0, 39, 40, 57], [5, 0, 16, 2], 15.0),
+            "planted_ties_and_nan": planted}

@@ -70,8 +70,18 @@ slice: K7's element path (K > 3) against its plain version at every K
 from 4 to 32, at 1, 21, 65 and 300 lanes, both solvers, warm and cold
 starts, NaN lanes and the 0/0 lane; K5's stream axis at S = 1, 2, 19 and
 64 (capacity overflow, nonzero offsets, a zero tail) equal to its plain
-version.
+version.  The eighteenth slice: K1's stream axis, whose blocks past a
+stream's limit read nothing, on ``utils/synthetic.decode_stream_cases``
+(ragged limits of 0, mid-frame, exactly n and past n; n a multiple of
+neither 11 nor 16; one 19.9 MB stream), the batch's 19 sessions at their
+786,432-byte bucket,
+a view at an odd byte offset, and a multi-wave call captured in a CUDA
+graph and replayed twice with its ticket words left zero; K6's stream axis
+on ``track_stream_cases`` (chains over several staging tiles, T = 16 with K
+= 20, m_eff 0 and past s1, planted ties, a NaN cost), bit for bit.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -1871,3 +1881,99 @@ def test_stream_axis_compaction_chunks_match_plain(s_n):
         assert cuda_compact.LAUNCHES == 1
         for g, w in zip((*got_o, got_n), (*want_o, want_n)):
             assert torch.equal(g.cpu(), w)
+
+
+# -- the eighteenth slice: K1's and K6's stream axes redesigned ---------------------------------
+
+@functools.lru_cache(maxsize=None)
+def decode_streams():
+    from slam_process_tpu_torch.utils.synthetic import decode_stream_cases
+
+    return decode_stream_cases()
+
+
+@pytest.mark.parametrize("name", ["ragged_limits", "no_limits", "width_not_multiple_of_16",
+                                  "one_stream"])
+def test_stream_axis_decode_cases_match_plain(name):
+    """K1 over [S, n] equal to its plain version, one launch a call, called
+    twice on one stream (the S ticket words reset)."""
+    bn, ln = decode_streams()[name]
+    b = torch.from_numpy(bn).cuda()
+    lim = None if ln is None else torch.from_numpy(ln).cuda()
+    want = decode.decode_rows_streams_plain(b, n_valid=lim)
+    for _ in range(2):
+        cuda_decode.LAUNCHES = 0
+        got = cuda_decode.decode_rows_streams_cuda(b, lim, 0xCC, 0x33)
+        assert cuda_decode.LAUNCHES == 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert int(want[2].max()) > 0
+
+
+def test_stream_axis_decode_batch_bucket_matches_plain():
+    """The batch's largest bucket group as ``run_dataset`` stacks it: the
+    19 dataset sessions padded to 786,432 bytes, no limits."""
+    from slam_process_tpu_torch.parallel.batch import stack_sessions
+    from slam_process_tpu_torch.pipeline.device import bucket_size
+
+    raws = [synthetic_session_bytes(n_groups=20, frames_per_beam=44, baselines_per_group=93,
+                                    junk_frac=0.02, big_group=0, seed=100 + i)
+            for i in range(19)]
+    bucket = bucket_size(max(len(r) for r in raws))
+    assert bucket == 786_432
+    b = torch.from_numpy(stack_sessions(raws, bucket)[0]).cuda()
+    got = cuda_decode.decode_rows_streams_cuda(b, None, 0xCC, 0x33)
+    for g, w in zip(got, decode.decode_rows_streams_plain(b)):
+        assert torch.equal(g, w)
+
+
+def test_stream_axis_decode_unaligned_and_graph_replay():
+    """The 19 streams' 1 MiB bytes at an odd byte offset; then the aligned
+    call captured in a CUDA graph (its scratch made on the capture stream
+    first) and replayed twice into outputs overwritten in between: equal to
+    the plain version each time, the ticket words zero after each replay."""
+    bn, ln = decode_streams()["ragged_limits"]
+    lim = torch.from_numpy(ln).cuda()
+    flat = torch.zeros(bn.size + 16, dtype=torch.uint8, device="cuda")
+    odd = flat[1:1 + bn.size].view(bn.shape)
+    odd.copy_(torch.from_numpy(bn))
+    want = decode.decode_rows_streams_plain(odd, n_valid=lim)
+    for g, w in zip(cuda_decode.decode_rows_streams_cuda(odd, lim, 0xCC, 0x33), want):
+        assert torch.equal(g, w)
+    b = torch.from_numpy(bn).cuda()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_decode.decode_rows_streams_cuda(b, lim, 0xCC, 0x33)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = cuda_decode.decode_rows_streams_cuda(b, lim, 0xCC, 0x33)
+    tickets = cuda_decode.tickets_for(b.device, side.cuda_stream, b.shape[0])
+    for _ in range(2):
+        for t in got:
+            t.fill_(1)
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert int(tickets.count_nonzero()) == 0
+
+
+@pytest.mark.parametrize("name", ["long_chains_K3", "long_chains_T16_K20", "T16_K20_m_eff_edges",
+                                  "planted_ties_and_nan"])
+def test_stream_axis_tracker_cases_match_plain(name):
+    """K6 over S streams equal to its plain version bit for bit (NaN
+    positions included), one launch."""
+    from slam_process_tpu_torch.utils.synthetic import track_stream_cases
+
+    *arrays, gate = track_stream_cases()[name]
+    args = [torch.from_numpy(a) for a in arrays]
+    want = tracker.track_block_streams_plain(*args, gate)
+    cuda_tracker.LAUNCHES = 0
+    got = cuda_tracker.track_block_streams_cuda(*(a.cuda() for a in args), gate)
+    assert cuda_tracker.LAUNCHES == 1
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
+                           w.view(torch.int32) if w.is_floating_point() else w)

@@ -72,10 +72,21 @@ loaded by every turn:
     round of a ``MultiStreamingSession`` over the dataset's logs at 1 MiB
     windows (``chip_smoke.multi_round_inputs``), and ``streams_1_carry``:
     the replay's second 1 MiB window's carry through the stream-axis entry
-    at S = 1 (what a single stream calls).
+    at S = 1 (what a single stream calls);
+  * K1 through the stream-axis entry (``k1s``) at its calls as
+    ``chip_smoke.k1s_calls`` records them: ``streams_19_1MiB`` (the same
+    first round), ``batch_<S>x<N>`` (``run_dataset``'s largest bucket
+    group), ``streams_19_64KiB`` (the 19 streams' second 64 KiB round),
+    ``S1_full_session`` and ``S1_64KiB_window``, each beside its bytes
+    bound (``k1s_<name>_bound_ms_bytes``: the bytes below each stream's
+    limit read once, every row, valid byte and count written once);
+  * K6 through the stream-axis entry (``k6s``): ``streams_19_65_lanes``,
+    the 19 trackers of the same first round, and ``S1_65_lanes_33_live``,
+    ``chip_smoke.py``'s ``main_65_lanes`` as S = 1 (what a single stream's
+    paths window calls), each with its live lanes per stream.
 
 ``--only SECTION[,SECTION]`` runs only those sections of each turn (k5, k6,
-k2k3, k1k4, session, streams, k7, k5s; all by default).
+k2k3, k1k4, session, streams, k7, k5s, k1s, k6s; all by default).
 
 Prints one JSON line per turn, then a summary line of the medians per
 checkout and each key's spread (the smallest and largest turn).  Needs a GPU; the data is synthetic, made from fixed seeds.
@@ -147,12 +158,13 @@ def k5_window(dev):
             s._state.emit_count, s._ecap)
 
 
-SECTIONS = ("k5", "k6", "k2k3", "k1k4", "session", "streams", "k7", "k5s")
+SECTIONS = ("k5", "k6", "k2k3", "k1k4", "session", "streams", "k7", "k5s", "k1s", "k6s")
+RECORDED = ("k7", "k5s", "k1s", "k6s")     # sections on inputs recorded once
 
 
 def turn(root: str, only=SECTIONS, inputs=None) -> dict:
     """One checkout's times for the sections ``only``, in this process;
-    ``inputs``: the file ``record`` wrote (sections k7 and k5s)."""
+    ``inputs``: the file ``record`` wrote (the sections in ``RECORDED``)."""
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
@@ -172,7 +184,7 @@ def turn(root: str, only=SECTIONS, inputs=None) -> dict:
         out.update(session_ms(dev))
     if "streams" in only:
         out.update(streams(dev, Path(root)))
-    if "k7" in only or "k5s" in only:
+    if set(only) & set(RECORDED):
         out.update(recorded(dev, torch.load(inputs), only))
     return out
 
@@ -215,10 +227,11 @@ def k6(dev) -> dict:
     return {"K6_main_65_lanes_ms": cuda_ms(lambda: cuda_tracker.track_block_cuda(*args, 10.0))}
 
 
-def record(path: str) -> None:
-    """The k7 and k5s sections' inputs, made by the ``slam_process_tpu_torch``
-    of this repository and saved to ``path`` (CPU tensors): K7's calls per
-    set and K5's stream-axis carry calls at S = 19 and S = 1."""
+def record(path: str, only=RECORDED) -> None:
+    """The inputs of the sections ``only`` of ``RECORDED``, made by the
+    ``slam_process_tpu_torch`` of this repository and saved to ``path`` (CPU
+    tensors): K7's calls per set, K5's stream-axis carry calls at S = 19 and
+    S = 1, K1's stream-axis calls and K6's at S = 19 and S = 1."""
     import tempfile
 
     import numpy as np
@@ -237,36 +250,49 @@ def record(path: str) -> None:
         return x.cpu() if isinstance(x, torch.Tensor) else x
 
     (REPO / "build").mkdir(exist_ok=True)
+    data = {}
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         angles = write_angle_table(Path(tmp) / "beam_angle.xlsx")
         raws = [synthetic_session_bytes(**c) for c in [cs.FULL, *cs.DATASET, cs.MULTIPATH]]
-        logs = []
-        for i, raw in enumerate(raws):
-            logs.append(Path(tmp) / f"log_{i:02d}.txt")
-            logs[-1].write_bytes(to_hex_text(raw))
-        sessions = [Session.from_log(p) for p in logs]
-        k7 = cs.estimator_k7_calls(sd, sessions, angles)
-        for solver in ("auto", "lu"):
-            G, b, x0, P0 = (torch.from_numpy(a) for a in nnls_edge_cases(20, seed=20))
-            k7[f"edges_65_lanes_K20_{solver}"] = [(G, b, 64, solver, x0, P0)]
+        if "k7" in only:
+            logs = []
+            for i, raw in enumerate(raws):
+                logs.append(Path(tmp) / f"log_{i:02d}.txt")
+                logs[-1].write_bytes(to_hex_text(raw))
+            sessions = [Session.from_log(p) for p in logs]
+            k7 = cs.estimator_k7_calls(sd, sessions, angles)
+            for solver in ("auto", "lu"):
+                G, b, x0, P0 = (torch.from_numpy(a) for a in nnls_edge_cases(20, seed=20))
+                k7[f"edges_65_lanes_K20_{solver}"] = [(G, b, 64, solver, x0, P0)]
+            data["k7"] = {name: [tuple(cpu(a) for a in c) for c in calls]
+                          for name, calls in k7.items()}
         raws_ds = raws[cs.DS]
         ecap = -(-(max(len(r) for r in raws_ds) // 11 + 1) // (1 << 16)) * (1 << 16)
         multi = cs.multi_round_inputs(sd, raws_ds, dev, sd.make_paths_spec(angles, s_step=64),
                                       ecap)
-    rows, mask, dests = multi["K5s"][0][0]
-    w = k5_window(dev)[0]
-    k5s = {"streams_19_carry": (rows, mask, dests),
-           "streams_1_carry": (w.combined[None], w.open_mask[None], [(GCAP, None, None)])}
-    torch.save({"k7": {name: [tuple(cpu(a) for a in c) for c in calls]
-                       for name, calls in k7.items()},
-                "k5s": {name: (cpu(r), cpu(m), [(c, cpu(o), cpu(off)) for c, o, off in d])
-                        for name, (r, m, d) in k5s.items()}}, path)
+        if "k1s" in only:
+            data["k1s"] = {name: (cpu(b), cpu(lim)) for name, (b, lim) in
+                           cs.k1s_calls(torch, sd, dev, angles, multi).items()}
+    if "k5s" in only:
+        rows, mask, dests = multi["K5s"][0][0]
+        w = k5_window(dev)[0]
+        k5s = {"streams_19_carry": (rows, mask, dests),
+               "streams_1_carry": (w.combined[None], w.open_mask[None], [(GCAP, None, None)])}
+        data["k5s"] = {name: (cpu(r), cpu(m), [(c, cpu(o), cpu(off)) for c, o, off in d])
+                       for name, (r, m, d) in k5s.items()}
+    if "k6s" in only:
+        args6, kw6 = multi["K6s"][0]
+        one, gate = cs.k6_cases(np, torch, dev)["main_65_lanes"]
+        data["k6s"] = {"streams_19_65_lanes": tuple(cpu(a) for a in (*args6, *kw6.values())),
+                       "S1_65_lanes_33_live": (*(cpu(x[None]) for x in one[:8]), gate)}
+    torch.save(data, path)
 
 
 def recorded(dev, data, only) -> dict:
-    """K7 on each recorded set (all of its calls back to back) and K5's
-    stream axis on each recorded carry call, through the wrappers."""
-    from slam_process_tpu_torch.ops import cuda_compact, cuda_nnls
+    """K7 on each recorded set (all of its calls back to back), K5's stream
+    axis on each recorded carry call, and K1's and K6's stream axes on
+    their recorded calls, through the wrappers."""
+    from slam_process_tpu_torch.ops import cuda_compact, cuda_decode, cuda_nnls, cuda_tracker
 
     def put(x):
         return x.to(dev) if hasattr(x, "to") else x
@@ -285,6 +311,22 @@ def recorded(dev, data, only) -> dict:
             out[f"k5s_{name}_streams_rows_masked"] = [*rows.shape[:2], int(mask.sum())]
             out[f"K5s_{name}_ms"] = cuda_ms(
                 lambda: cuda_compact.compact_rows_streams_cuda(rows, mask, dests))
+    if "k1s" in only:
+        for name, (b, lim) in data["k1s"].items():
+            b, lim = put(b), put(lim)
+            s_n, n = b.shape
+            below = s_n * n if lim is None else int(lim.clamp(0, n).sum())
+            out[f"k1s_{name}_streams_bytes_below"] = [s_n, n, below]
+            out[f"k1s_{name}_bound_ms_bytes"] = (below + s_n * (-(-n // 11) * 21 + 4)) / 3.35e9
+            out[f"K1s_{name}_ms"] = cuda_ms(
+                lambda: cuda_decode.decode_rows_streams_cuda(b, lim, 0xCC, 0x33))
+    if "k6s" in only:
+        for name, args in data["k6s"].items():
+            args = tuple(put(a) for a in args)
+            out[f"k6s_{name}_live_lanes"] = [max(0, min(int(m), args[0].shape[1]))
+                                             for m in args[4].tolist()]
+            out[f"K6s_{name}_ms"] = cuda_ms(
+                lambda: cuda_tracker.track_block_streams_cuda(*args))
     return out
 
 
@@ -596,8 +638,8 @@ def main() -> None:
         print(json.dumps(turn(sys.argv[2], only, None if inputs == "-" else inputs)),
               flush=True)
         return
-    if len(sys.argv) == 3 and sys.argv[1] == "--record":
-        record(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--record":
+        record(sys.argv[2], tuple(sys.argv[3].split(",")))
         return
     args = sys.argv[1:]
     rounds, only = 1, SECTIONS
@@ -615,10 +657,11 @@ def main() -> None:
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     inputs = "-"
-    if "k7" in only or "k5s" in only:
+    if set(only) & set(RECORDED):
         inputs = str(REPO / "build" / "torch_kernel_ab_inputs.pt")
         (REPO / "build").mkdir(exist_ok=True)
-        res = subprocess.run([sys.executable, __file__, "--record", inputs],
+        res = subprocess.run([sys.executable, __file__, "--record", inputs,
+                              ",".join(set(only) & set(RECORDED))],
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             raise SystemExit(f"recording the inputs failed:\n{res.stdout}\n{res.stderr}")
