@@ -295,7 +295,8 @@ Phases, each printing one JSON line:
                 cpu``; ms per round and flush and bytes/s (median of 5 after
                 a warm-up), host syncs by source line in sync debug mode
                 equal to the counters (one count read a round and flush, no
-                NNLS sync), the device's busy share.
+                NNLS sync), K7 once per 8-lane block and NN-OMP iteration
+                (the block form), the device's busy share.
  18. timing     CUDA-event medians of 20 runs after a warm-up: each kernel
                 (K1, K4, K5, K6, K7 through their wrappers, K1 also as the bare
                 launch; K2, K3 as the bare launch, K3 also with vmin /
@@ -338,10 +339,20 @@ Phases, each printing one JSON line:
                 per window (device ms per window too with paths), and
                 ``cli.replay_stream`` with and without ``--paths``, every
                 window a graph replay, timed as phase 6 times streams
-                (``graphs_phase``).
+                (``graphs_phase``); the batch's programs, both forms and
+                both ``outputs``, two buckets alternated, and ``run_dataset``
+                against their eager bodies, then eager against graph
+                (``batch_graphs``); the 19 streams' rounds at 1 MiB and at
+                steady 64 KiB (and a (2, 1) mesh of cuda:0) against the
+                eager rounds after every feed, a ragged flush and the
+                flush, ms and device ms a round eager and graph, the graphs
+                by block count with capture ms and pool bytes, and the
+                blocks as one call and private pools beside them
+                (``multi_graphs``).
 
-On CUDA the session entry points and a single stream, with or without
-paths, run CUDA graphs (``utils/graphs.py``): a replay calls no wrapper, so
+On CUDA the session entry points, the batch, a single stream with or
+without paths and the multi-stream round run CUDA graphs
+(``utils/graphs.py``): a replay calls no wrapper, so
 it adds to each kernel's counter the launches its capture recorded.  Every kernel's
 launches are counted on each path (phases 4 to 17, 8b, 19 to 21,
 the counters set to 0 just before and read just after), reported in the
@@ -369,6 +380,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor f32.
 # int32: 128 instructions per SM per clock (four schedulers, one 32-lane
@@ -406,6 +418,9 @@ GCAP = 8192                          # DeviceStreamingSession's default group_ca
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -3832,8 +3847,9 @@ MULTI_WRAPPERS = {"K1s": ("cuda_decode", "decode_rows_streams_cuda"),
 def multi_round_inputs(sd, raws, dev, spec, ecap):
     """{key: [(args, kwargs), ...]} of the wrapper calls in the first round
     of a ``MultiStreamingSession`` over ``raws`` (one stream each, each
-    shorter than a window) at 1 MiB windows with ``collect_paths``: K1, K2,
-    K4, K5 (the carry, then the kept rows), K6."""
+    shorter than a window) at 1 MiB windows with ``collect_paths``, run by
+    its eager halves (``eager_rounds``): K1, K2, K4, K5 (the carry, then the
+    kept rows), K6."""
     import importlib
 
     pkg = sd.__name__.split(".")[0]
@@ -3851,8 +3867,9 @@ def multi_round_inputs(sd, raws, dev, spec, ecap):
     for key, (mod, attr) in mods.items():
         setattr(mod, attr, recorder(key))
     try:
-        ms = sd.MultiStreamingSession(len(raws), chunk_bytes=MULTI_CHUNK, collect_paths=spec,
-                                      emit_capacity=ecap, device=dev)
+        ms = eager_rounds(sd.MultiStreamingSession(len(raws), chunk_bytes=MULTI_CHUNK,
+                                                   collect_paths=spec, emit_capacity=ecap,
+                                                   device=dev))
         ms.feed(raws)
     finally:
         for key, (mod, attr) in mods.items():
@@ -3906,14 +3923,15 @@ def k1s_calls(torch, sd, dev, angles, multi=None) -> dict:
     if multi is None:
         multi = multi_round_inputs(sd, raws_ds, dev, spec, ecap)
     out = {"streams_19_1MiB": tuple(multi["K1s"][0][0][:2])}
-    calls = recorded_calls(cuda_decode, "decode_rows_streams_cuda",
-                           lambda: batch.run_dataset(None, [raw_full, *raws_ds, raw_mp]))
+    with eager_batch(batch):
+        calls = recorded_calls(cuda_decode, "decode_rows_streams_cuda",
+                               lambda: batch.run_dataset(None, [raw_full, *raws_ds, raw_mp]))
     b, lim = max((c[0][:2] for c in calls), key=lambda c: c[0].numel())
     out[f"batch_{b.shape[0]}x{b.shape[1]}"] = (b, lim)
 
     feeds = [one_round_feeds(r, LIVE_CHUNK, sd.CARRY_BYTES)[:2] for r in raws_ds]
-    ms = sd.MultiStreamingSession(len(raws_ds), chunk_bytes=LIVE_CHUNK, collect_paths=spec,
-                                  emit_capacity=ecap, device=dev)
+    ms = eager_rounds(sd.MultiStreamingSession(len(raws_ds), chunk_bytes=LIVE_CHUNK,
+                                               collect_paths=spec, emit_capacity=ecap, device=dev))
     calls = recorded_calls(cuda_decode, "decode_rows_streams_cuda",
                            lambda: [ms.feed([f[k] for f in feeds]) for k in range(2)])
     out["streams_19_64KiB"] = tuple(calls[-1][0][:2])
@@ -4224,9 +4242,10 @@ def multi_stream_phase(np, torch, sd, nnls, tmp, angles, raws, zero_counts, read
         ms.finalize()
         return ms
 
-    rounds = []
-    step = sd.MultiStreamingSession._window
+    rounds, blocks = [], []
+    step, count_blocks = sd.MultiStreamingSession._window, sd._WindowRound._blocks
     sd.MultiStreamingSession._window = lambda self, *a: rounds.append(1) or step(self, *a)
+    sd._WindowRound._blocks = lambda self, mid: blocks.append(count_blocks(self, mid)) or blocks[-1]
     try:
         zero_counts()
         t0 = time.perf_counter()
@@ -4235,12 +4254,20 @@ def multi_stream_phase(np, torch, sd, nnls, tmp, angles, raws, zero_counts, read
         launches = read_counts()
     finally:
         sd.MultiStreamingSession._window = step
+        sd._WindowRound._blocks = count_blocks
     if min(launches[k] for k in ("K1", "K2", "K4", "K5", "K6")) == 0:
         fail(f"multi_stream: a kernel never launched: {launches}")
     if launches["K1"] != len(rounds) or launches["K6"] != len(rounds) + 1 or \
             launches["K5"] != 2 * len(rounds) + 1:
         fail(f"multi_stream: {launches} in {len(rounds)} rounds and one flush, not one launch "
              "per stage (K5 twice) for all 19 streams")
+    # The block form: one estimator call per 8-lane block, each of its
+    # NN-OMP iterations one K7 launch.
+    s1, iters = spec[0].s_step + 1, spec[0].est_key[1].max_paths
+    k7_want = sum(len(sd._lane_groups(n, s1, False)) for n in blocks) * iters
+    if launches["K7"] != k7_want or len(blocks) != len(rounds) + 1:
+        fail(f"multi_stream: K7 launched {launches['K7']} times for blocks {blocks}, not "
+             f"{k7_want} (a launch per block and NN-OMP iteration)")
 
     def single(raw, chunk=MULTI_CHUNK, **kw):
         s = sd.DeviceStreamingSession(chunk_bytes=chunk, collect_filtered=True,
@@ -4349,7 +4376,8 @@ def multi_stream_phase(np, torch, sd, nnls, tmp, angles, raws, zero_counts, read
     steady = steady_rounds(np, torch, sd, raws, spec, ecap, check, dev)
     watch = multi_watch_check(np, torch, tmp, angles, dev)
     n_rounds = len(rounds)
-    return {"first_run_s": run_s, "launches": launches, "streams": len(raws), "rounds": n_rounds,
+    return {"first_run_s": run_s, "launches": launches, "blocks_per_round_and_flush": blocks,
+            "streams": len(raws), "rounds": n_rounds,
             "flushes": 1, "bytes": n_bytes, "sweeps": sweeps, "emit_ring_rows": ecap,
             "compared_with": ["19 DeviceStreamingSession on the card", "ragged + reset",
                               "checkpoint resume", "watch --logs vs --device cpu"],
@@ -4857,9 +4885,11 @@ def graphs_phase(np, torch, sd, tmp, raws, paths, angles, zero_counts, read_coun
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    def device(fn, name):
+    def device(fn, name, per_run=False):
+        """Device ms (median of 3 runs) and activities a run of ``fn()``, or
+        of ``fn(i)`` for runs i = 0, 1, 2 with ``per_run``."""
         trace = tmp / f"graphs_trace_{name}"
-        t = measure_device_time(lambda i: fn(), n=3, trace_dir=trace)
+        t = measure_device_time(fn if per_run else (lambda i: fn()), n=3, trace_dir=trace)
         acts = sum(op_device_counts(trace).values()) / 3
         shutil.rmtree(trace, ignore_errors=True)
         return t.median * 1e3, acts
@@ -5082,9 +5112,283 @@ def graphs_phase(np, torch, sd, tmp, raws, paths, angles, zero_counts, read_coun
                        "window_graph": s._graph is not None}
         if s._graph is None:
             fail(f"graphs: cli.replay_stream ({tag}) ran its windows eagerly")
+    t0 = time.perf_counter()
+    batch_out = batch_graphs(torch, raws, read_counts, wall_ms, device, dev)
+    t1 = time.perf_counter()
+    multi_out = multi_graphs(np, torch, sd, raws[DS], angles, device, dev)
+    batch_out["seconds"], multi_out["seconds"] = t1 - t0, time.perf_counter() - t1
     return {"card": smi, "sessions": sessions, "streams": streams,
             "paths_streams": paths_streams, "cli_replay_stream_64KiB": replay,
-            "launches": read_counts()}
+            "batch": batch_out, "multi_stream": multi_out, "launches": read_counts()}
+
+
+class EagerRunner:
+    """``utils/graphs.GraphRunner``'s interface with the body run eagerly at
+    every call: patched into ``parallel/batch.py``, the batch's eager
+    comparator (same packing, same single host copy)."""
+
+    def __init__(self, fn, inputs=(), device=None, pool=None):
+        self._fn = fn
+
+    def __call__(self, *inputs):
+        return self._fn(*inputs)
+
+
+def eager_batch(batch):
+    """``parallel/batch.py`` with every program's body run eagerly (a
+    context manager; the program cache is cleared on entry and exit).  A
+    checkout from before the batch's graphs is eager already."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def patched():
+        if not hasattr(batch, "GraphRunner"):
+            yield
+            return
+        batch.batched_session_pipeline.cache_clear()
+        graph_runner, batch.GraphRunner = batch.GraphRunner, EagerRunner
+        try:
+            yield
+        finally:
+            batch.GraphRunner = graph_runner
+            batch.batched_session_pipeline.cache_clear()
+    return patched()
+
+
+def eager_rounds(ms):
+    """``ms`` (a ``MultiStreamingSession``) with every shard's round run by
+    its eager halves, ``_round_pre`` / ``_round_post``, in place of its CUDA
+    graphs: the multi-stream graphs' comparator, and a session whose kernel
+    calls can be recorded (a graph replay calls no wrapper).  A checkout
+    from before these graphs is eager already and is returned as it is."""
+    if not hasattr(ms, "_init_rounds"):
+        return ms
+    for sh in ms._shards:
+        sh._pre = lambda sh=sh: sh._round_pre(sh._state, *sh._win_inputs())
+        sh._post = lambda mid, nblk, sh=sh: None if mid is None else sh._round_post(
+            sh._state, mid, nblk)
+    return ms
+
+
+def same_multi_state(torch, sd, a, b) -> bool:
+    """Two multi-stream sessions' whole state, shard by shard, tensor for
+    tensor, bit for bit."""
+    la = [x for sh in a._shards for x in sd._leaves(sh._state)]
+    lb = [x for sh in b._shards for x in sd._leaves(sh._state)]
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def batch_graphs(torch, raws, read_counts, wall_ms, device, dev) -> dict:
+    """Phase 21, the batch: ``batched_session_pipeline`` in both forms and
+    both ``outputs``, the 21 sessions in their two buckets alternated, each
+    call against the eager body (every field bit for bit) and adding K1, K2
+    and K3 once per bucket (vmap) or session (scan); ``run_dataset`` against
+    its eager bodies; then eager against graph: ``run_dataset`` wall ms,
+    sessions/s and device ms, each graph's capture ms and pool bytes."""
+    from slam_process_tpu_torch.parallel import batch
+    from slam_process_tpu_torch.pipeline.device import bucket_size, device_lut
+
+    lut = device_lut(dev)
+    groups = {}
+    for r in raws:
+        groups.setdefault(bucket_size(len(r)), []).append(r)
+    if len(groups) != 2:
+        fail(f"graphs batch: the 21 sessions fall in {len(groups)} buckets, not 2")
+    stacked = {b: batch.stack_sessions(rs, b) for b, rs in groups.items()}
+    order = sorted(groups) * 2
+    counted = ("K1", "K2", "K3")
+    forms = {}
+    for axis in ("vmap", "scan"):
+        for outputs in ("full", "summary"):
+            fns = {b: batch.batched_session_pipeline(None, b, outputs=outputs, session_axis=axis,
+                                                     device=dev) for b in groups}
+            for b in order:
+                before = read_counts()
+                got = fns[b](*stacked[b], lut)
+                after = read_counts()
+                per = 1 if axis == "vmap" else len(groups[b])
+                if any(after[k] - before[k] != per for k in counted):
+                    fail(f"graphs batch {axis} {outputs}: a call added "
+                         f"{[after[k] - before[k] for k in counted]} K1-K3 launches, not {per}")
+                want = fns[b]._body(torch.from_numpy(stacked[b][0]).to(dev), lut)
+                bad = outputs_differ(torch, got, want)
+                if bad:
+                    fail(f"graphs batch {axis} {outputs}: bucket {b}'s graph differs from the "
+                         f"eager body in {bad}")
+            runners = [r for fn in fns.values() for _, r, _ in fn.runners.values()]
+            forms[f"{axis}_{outputs}"] = {
+                "replays": sum(r.replays for r in runners),
+                "capture_ms": [r.capture_ms for r in runners],
+                "pool_bytes": [r.pool_bytes for r in runners]}
+    fns = {b: batch.batched_session_pipeline(None, b, outputs="summary", device=dev)
+           for b in groups}
+    want = {b: fns[b]._body(torch.from_numpy(stacked[b][0]).to(dev), lut) for b in groups}
+    for _ in range(2):
+        got = batch.run_dataset(None, raws)
+        for i, r in enumerate(raws):
+            b = bucket_size(len(r))
+            row = [j for j, x in enumerate(groups[b]) if x is r][0]
+            for f in batch.SessionSummaryOut._fields:
+                g, w = getattr(got[i], f), getattr(want[b], f)[row].cpu().numpy()
+                if g.dtype != w.dtype or g.shape != w.shape or g.tobytes() != w.tobytes():
+                    fail(f"graphs batch: run_dataset session {i} {f} differs from the eager body")
+    def call():
+        return batch.run_dataset(None, raws)
+
+    # Eager, graph, graph, eager: wall ms of each turn; device ms once each.
+    turns = {"eager": [], "graph": []}
+    timed = {}
+    for form in ("eager", "graph", "graph", "eager"):
+        if form == "eager":
+            with eager_batch(batch):
+                turns[form].append(wall_ms(call))
+                if form not in timed:
+                    timed[form] = device(call, "batch_eager")
+        else:
+            turns[form].append(wall_ms(call))
+            if form not in timed:
+                timed[form] = device(call, "batch_graph")
+    for form in ("eager", "graph"):
+        ms = statistics.median(turns[form])
+        timed[form] = {"wall_ms": ms, "wall_ms_turns": turns[form],
+                       "sessions_per_s": len(raws) / (ms / 1e3), "device_ms": timed[form][0],
+                       "device_activities": timed[form][1]}
+    timed["wall_ratio_graph_over_eager"] = timed["graph"]["wall_ms"] / timed["eager"]["wall_ms"]
+    return {"buckets": {str(b): len(rs) for b, rs in sorted(groups.items())},
+            "calls_compared": 4 * len(order), "forms": forms, "run_dataset": timed}
+
+
+MULTI_RAGGED = (0, 7, 13)            # streams finalized alone in phase 21's multi-stream check
+
+
+def multi_graphs(np, torch, sd, raws, angles, device, dev) -> dict:
+    """Phase 21, the multi-stream round: the 19 dataset logs as 19 streams
+    (each stream several logs back to back, so that there are rounds to
+    replay) at 1 MiB and at steady 64 KiB rounds with s_step 64, one round a
+    feed; a graph session and an eager one (``eager_rounds``) fed the same
+    rounds, the whole state equal after every feed, and after a ragged flush
+    (``MULTI_RAGGED``) and the final one; the same with a mesh of two
+    positions of cuda:0 at 64 KiB.  Then eager against graph: ms per round
+    (CUDA events around each feed, median over the rounds that captured
+    nothing), device ms per round (``measure_device_time``, 3 rounds), host
+    syncs and staging waits per round; the graphs by block count with their
+    capture ms and pool bytes."""
+    from slam_process_tpu_torch.parallel.mesh import make_mesh
+
+    spec = sd.make_paths_spec(angles, s_step=64)
+    out = {}
+    for name, chunk, n_logs, compare, timed_n in (("1MiB", MULTI_CHUNK, 20, 2, 5),
+                                                  ("steady_64KiB", LIVE_CHUNK, 2, 6, 10)):
+        streams = [np.concatenate([raws[(i + k) % len(raws)] for k in range(n_logs)])
+                   for i in range(len(raws))]
+        feeds = [one_round_feeds(r, chunk, sd.CARRY_BYTES) for r in streams]
+        rounds = [[f[k] if k < len(f) else b"" for f in feeds]
+                  for k in range(min(len(f) for f in feeds))]
+        if len(rounds) < compare + timed_n + 3 + 1:
+            fail(f"graphs multi_stream {name}: {len(rounds)} rounds are too few")
+        ecap = -(-(max(len(r) for r in streams) // 11 + 1) // (1 << 16)) * (1 << 16)
+
+        def session(mesh=None):
+            return sd.MultiStreamingSession(len(raws), chunk_bytes=chunk, collect_paths=spec,
+                                            emit_capacity=ecap, mesh=mesh,
+                                            device=None if mesh is not None else dev)
+
+        meshes = {"mesh_none": None}
+        if name == "steady_64KiB":
+            meshes["mesh_2x1_cuda0"] = make_mesh((2, 1), devices=[torch.device(dev.type, 0)] * 2)
+        row = {}
+        for tag, mesh in meshes.items():
+            g, e = session(mesh), eager_rounds(session(mesh))
+            for k in range(compare):
+                g.feed(rounds[k])
+                e.feed(rounds[k])
+                if not same_multi_state(torch, sd, g, e):
+                    fail(f"graphs multi_stream {name} {tag}: the graphs' state differs from the "
+                         f"eager rounds' after feed {k + 1}")
+            used = compare
+            if tag == "mesh_none":
+                row.update(timed_rounds(torch, sd, g, e, rounds[compare:], timed_n, device,
+                                        f"multi_{name}"))
+                used += timed_n + 3
+            for x in (g, e):
+                x.finalize_streams(list(MULTI_RAGGED))
+            if not same_multi_state(torch, sd, g, e):
+                fail(f"graphs multi_stream {name} {tag}: the state differs after the ragged flush")
+            for x in (g, e):
+                x.feed([b"" if i in MULTI_RAGGED else p for i, p in enumerate(rounds[used])])
+                x.finalize()
+            if (not same_multi_state(torch, sd, g, e)
+                    or any(sh._pre_graph is None or not sh._post_graphs for sh in g._shards)):
+                fail(f"graphs multi_stream {name} {tag}: the state differs after the flush, or "
+                     "a shard has no graphs")
+            row[tag] = graphs_of(g)
+            del g, e
+        out[name] = {"streams": len(raws), "logs_per_stream": n_logs, "rounds": len(rounds),
+                     "rounds_compared": compare, "window_bytes": chunk, **row}
+    return out
+
+
+def graphs_of(ms) -> dict:
+    """A multi-stream session's graphs: per shard the pre-read graph's and
+    each post-read graph's (by block count) replays, capture ms and pool
+    bytes, and the pools' bytes counted once each."""
+    from slam_process_tpu_torch.utils.graphs import pool_bytes
+
+    shards, pools = [], {}
+    for sh in ms._shards:
+        graphs = {"pre": sh._pre_graph, **{f"post_nblk_{k}": g
+                                           for k, g in sorted(sh._post_graphs.items())}}
+        shards.append({k: None if g is None else {
+            "replays": g.replays, "capture_ms": g.capture_ms, "pool_bytes": g.pool_bytes}
+            for k, g in graphs.items()})
+        for g in graphs.values():
+            if g is not None:
+                pools[tuple(g.graph.pool())] = None
+    return {"graphs": shards,
+            "pool_bytes_total": sum(pool_bytes(p) for p in pools),
+            "pools": len(pools)}
+
+
+def timed_rounds(torch, sd, g, e, rounds, timed_n, device, name) -> dict:
+    """Eager against graph on ``rounds`` (each form fed the same rounds, in
+    turn): ms per round from CUDA events around each feed, the median over
+    the graph rounds that captured nothing (and the same rounds eager); then
+    3 more rounds each under ``measure_device_time``; host syncs and
+    staging waits per round."""
+    row = {}
+    for form, x in (("eager", e), ("graph", g)):
+        syncs, waits = sd.HOST_SYNCS, sd.STAGING_WAITS
+        times, captured = [], []
+        for pieces in rounds[:timed_n]:
+            n_graphs = len(x._post_graphs) + (x._pre_graph is not None)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            x.feed(pieces)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            captured.append(len(x._post_graphs) + (x._pre_graph is not None) != n_graphs)
+        row[form] = {"ms_per_round_all": times,
+                     "host_syncs_per_round": (sd.HOST_SYNCS - syncs) / timed_n,
+                     "staging_waits_per_round": (sd.STAGING_WAITS - waits) / timed_n}
+        row[form]["captured"] = captured
+    keep = [k for k, c in enumerate(row["graph"]["captured"]) if not c]
+    if not keep:
+        fail(f"graphs {name}: every timed round captured a graph")
+    for form in ("eager", "graph"):
+        row[form]["ms_per_round"] = statistics.median(row[form]["ms_per_round_all"][k]
+                                                      for k in keep)
+    prof = rounds[timed_n:timed_n + 3]
+    for form, x in (("eager", e), ("graph", g)):
+        dev_ms, acts = device(lambda i, x=x: x.feed(prof[i]), f"{name}_{form}", per_run=True)
+        row[form].update(device_ms_per_round=dev_ms, device_activities_per_round=acts)
+    row["round_ratio_graph_over_eager"] = (row["graph"]["ms_per_round"]
+                                           / row["eager"]["ms_per_round"])
+    return row
 
 
 MULTIHOST_TIMEOUT_S = 300            # each process of the multihost phase

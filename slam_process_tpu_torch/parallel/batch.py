@@ -17,12 +17,21 @@ row's first device: K1 over its [S / dp, N] bytes, K2 once on its rows, the
 sums and K3 over its tiles, issued device after device.  The JAX package
 shards only ``data`` here (``P("data", None)``) and replicates the batch
 over ``model``, so each shard runs once.  Results equal ``mesh=None`` bit
-for bit.  There is nothing to compile, so ``batched_session_pipeline``
-returns a plain callable and nothing is cached.
+for bit.
+
+As in the JAX package, ``batched_session_pipeline`` is one program per
+(mesh, bucket, config), cached (32 at most): on a CUDA device each data
+shard's batch body is a CUDA graph (``utils/graphs.py``), captured at its
+first call and replayed, shard after shard, at every later call of the
+same row count; a call with another row count captures anew and drops the
+shard's old graph with its memory pool, so a program holds one graph per
+shard.  On the CPU the body runs eagerly.  ``run_dataset`` goes through
+it and copies each shard's flat output buffer to the host once.
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import NamedTuple, Optional, Sequence
 
@@ -33,6 +42,7 @@ from slam_process_tpu_torch.parallel.mesh import placement, shard_rows
 from slam_process_tpu_torch.pipeline.device import (
     DeviceSessionOut, bucket_size, device_lut, pad_bytes, session_pipeline,
     session_pipeline_batch)
+from slam_process_tpu_torch.utils.graphs import FlatOutputs, GraphRunner
 
 
 class SessionSummaryOut(NamedTuple):
@@ -56,7 +66,11 @@ def _stack_outputs(outs: Sequence[DeviceSessionOut]) -> DeviceSessionOut:
 class _BatchedPipeline:
     """What ``batched_session_pipeline`` returns: called, the outputs of
     every row on the first row's device; ``shards`` gives each data shard's
-    outputs on its own device."""
+    outputs on its own device.  On CUDA each data shard has one
+    ``GraphRunner`` of ``_body``, for the row count of its last call, whose
+    outputs are one flat buffer (``FlatOutputs``); a call returns tensors
+    of its own (one clone of that buffer), as ``pipeline/device._Program``
+    does."""
 
     def __init__(self, rows, n_bytes_padded: int, outputs: str, session_axis: str, kw: dict):
         self.rows = rows
@@ -64,6 +78,7 @@ class _BatchedPipeline:
         self.outputs = outputs
         self.session_axis = session_axis
         self.kw = kw
+        self.runners: dict = {}         # shard -> (rows, GraphRunner, FlatOutputs)
 
     def _body(self, b: torch.Tensor, lut: torch.Tensor):
         if self.session_axis == "scan":
@@ -75,11 +90,12 @@ class _BatchedPipeline:
             return SessionSummaryOut(*(getattr(out, f) for f in SessionSummaryOut._fields))
         return out
 
-    def shards(self, byte_batch, n_bytes, lut) -> list:
-        """One output per data shard (rows ``[r * per, (r + 1) * per)`` of
-        the batch padded with empty sessions to a multiple of the shard
-        count), each on its row's first device, issued shard after shard."""
-        del n_bytes
+    def _issue(self, byte_batch, lut) -> list:
+        """Each data shard's rows (``[r * per, (r + 1) * per)`` of the batch
+        padded with empty sessions to a multiple of the shard count) run on
+        its row's first device, shard after shard: per shard (the eager
+        body's outputs, None) on the CPU, or on CUDA (the graph's flat
+        output buffer, which its next replay overwrites, and its layout)."""
         b = torch.as_tensor(byte_batch, dtype=torch.uint8)
         if b.dim() != 2 or b.shape[1] != self.n_bytes_padded:
             raise ValueError(f"byte_batch must be [S, {self.n_bytes_padded}], got "
@@ -88,8 +104,27 @@ class _BatchedPipeline:
         if s_pad > b.shape[0]:
             b = torch.cat([b, b.new_zeros((s_pad - b.shape[0], b.shape[1]))])
         lut = torch.as_tensor(lut, dtype=torch.float32)
-        return [self._body(b[r * per:(r + 1) * per].to(devs[0]), lut.to(devs[0]))
-                for r, devs in enumerate(self.rows)]
+        out = []
+        for r, devs in enumerate(self.rows):
+            x, lut_r = b[r * per:(r + 1) * per].to(devs[0]), lut.to(devs[0])
+            if devs[0].type != "cuda":
+                out.append((self._body(x, lut_r), None))
+                continue
+            if self.runners.get(r, (None,))[0] != per:
+                self.runners.pop(r, None)       # the old graph and its pool go first
+                flat, body = FlatOutputs(), self._body
+                self.runners[r] = (per, GraphRunner(lambda *xs: flat.pack(body(*xs)),
+                                                    [x, lut_r]), flat)
+            _, runner, flat = self.runners[r]
+            out.append((runner(x, lut_r), flat))
+        return out
+
+    def shards(self, byte_batch, n_bytes, lut) -> list:
+        """One output per data shard, each on its row's first device,
+        issued shard after shard (``_issue``)."""
+        del n_bytes
+        return [out if flat is None else flat.unpack(out.clone())
+                for out, flat in self._issue(byte_batch, lut)]
 
     def __call__(self, byte_batch, n_bytes, lut):
         """The S sessions' outputs, every field with a leading S axis, on
@@ -103,6 +138,7 @@ class _BatchedPipeline:
             [x.to(first) for x in fs])[:s] for fs in zip(*outs)))
 
 
+@functools.lru_cache(maxsize=32)
 def batched_session_pipeline(mesh, n_bytes_padded: int, blur_sigma: float = 1.0,
                              use_log: bool = True, max_groups: int = 128,
                              max_baselines_per_group: int = 192, outputs: str = "full",
@@ -119,6 +155,8 @@ def batched_session_pipeline(mesh, n_bytes_padded: int, blur_sigma: float = 1.0,
     padding is inert, as in the JAX package.  ``session_axis="vmap"`` runs
     the batch (one launch per kernel and shard), ``"scan"`` a loop of the
     single-session pipeline (S launches per kernel), bit-equal to it.
+    Cached per argument set (module docstring): on CUDA the first call of
+    a row count captures, later calls of that count replay.
     """
     if outputs not in ("full", "summary"):
         raise ValueError(f"outputs must be 'full' or 'summary', got {outputs!r}")
@@ -140,9 +178,11 @@ def stack_sessions(raw_list: Sequence[np.ndarray], n_bytes_padded: Optional[int]
 
 
 def _bucket_groups(mesh, raw_list, quantum: int, device, pipeline_kwargs) -> list:
-    """[(indices, pipeline, per-shard outputs)] per byte bucket, in bucket
-    order: each group padded with empty sessions to a multiple of the data
-    axis, every shard of every group issued before any is read."""
+    """[(indices, pipeline, per-shard (output, layout) from ``_issue``)] per
+    byte bucket, in bucket order: each group padded with empty sessions to
+    a multiple of the data axis, every shard of every group issued before
+    any is read (each bucket has its own program, so no replay overwrites
+    another group's outputs)."""
     groups: dict = {}
     for i, r in enumerate(raw_list):
         groups.setdefault(bucket_size(len(r), quantum), []).append(i)
@@ -153,8 +193,8 @@ def _bucket_groups(mesh, raw_list, quantum: int, device, pipeline_kwargs) -> lis
         sessions = [raw_list[i] for i in idxs]
         sessions += [np.zeros(0, np.uint8)] * (shard_rows(len(idxs), len(fn.rows))[0]
                                                - len(idxs))
-        batch, lengths = stack_sessions(sessions, bucket)
-        results.append((idxs, fn, fn.shards(batch, lengths, device_lut(fn.rows[0][0]))))
+        batch, _ = stack_sessions(sessions, bucket)
+        results.append((idxs, fn, fn._issue(batch, device_lut(fn.rows[0][0]))))
     return results
 
 
@@ -172,7 +212,8 @@ def run_dataset_batched_grouped(mesh, raw_list: Sequence[np.ndarray], quantum: i
     are the padding (zero frames), as in the JAX package.
     """
     out = []
-    for idxs, fn, shards in _bucket_groups(mesh, raw_list, quantum, device, pipeline_kwargs):
+    for idxs, fn, issued in _bucket_groups(mesh, raw_list, quantum, device, pipeline_kwargs):
+        shards = [x if flat is None else flat.unpack(x.clone()) for x, flat in issued]
         if len(shards) == 1:
             out.append((idxs, shards[0]))
             continue
@@ -192,8 +233,8 @@ def run_dataset(mesh, raw_list: Sequence[np.ndarray], *, device=None, **pipeline
     grouped = _bucket_groups(mesh, raw_list, pipeline_kwargs.pop("quantum", 1 << 18), device,
                              pipeline_kwargs)
     results: list = [None] * len(raw_list)
-    for idxs, _, shards in grouped:
-        host = [_to_host(out) for out in shards]
+    for idxs, _, issued in grouped:
+        host = [_to_host(out, flat) for out, flat in issued]
         fields = SessionSummaryOut(*(np.concatenate(fs) for fs in zip(*host)))
         for row, orig in enumerate(idxs):
             results[orig] = SessionSummaryOut(*(x[row] for x in fields))
@@ -206,18 +247,10 @@ def run_dataset(mesh, raw_list: Sequence[np.ndarray], *, device=None, **pipeline
     return results
 
 
-def _to_host(out: SessionSummaryOut) -> SessionSummaryOut:
-    """One device-to-host copy of a bucket's outputs: the fields are packed
-    into one byte buffer on the device, copied once and split on the
-    host."""
-    flat = [x.reshape(-1) for x in out]
-    if flat[0].device.type == "cpu":
-        return SessionSummaryOut(*(x.numpy() for x in out))
-    packed = torch.cat([x.view(torch.uint8) for x in flat]).cpu().numpy()
-    fields, pos = [], 0
-    for x in out:
-        n = x.numel() * x.element_size()
-        dtype = np.dtype(str(x.dtype).replace("torch.", ""))
-        fields.append(packed[pos:pos + n].view(dtype).reshape(tuple(x.shape)))
-        pos += n
-    return SessionSummaryOut(*fields)
+def _to_host(out, flat: Optional[FlatOutputs]) -> SessionSummaryOut:
+    """A shard's outputs as numpy arrays: eager outputs (``flat`` None)
+    field by field, or a graph's flat buffer in ONE device-to-host copy,
+    split on the host by its layout (views of one host buffer)."""
+    if flat is None:
+        return SessionSummaryOut(*(x.cpu().numpy() for x in out))
+    return SessionSummaryOut(*(x.numpy() for x in flat.unpack(out.cpu())))

@@ -51,8 +51,11 @@ and the estimator's NNLS loops run on the device (kernel K7).  So on CUDA
 each of its windows is one CUDA graph replay (``DeviceStreamingSession``);
 its host waits only for the copy out of its staging buffer before
 refilling it (``STAGING_WAITS``).  ``MultiStreamingSession`` with
-``collect_paths`` reads its S closed-sweep counts once a round
-(``HOST_SYNCS``) and runs the estimator on the closed lanes only.  On CPU
+``collect_paths`` reads its S closed-sweep counts once a round and shard
+(``HOST_SYNCS``) and runs the estimator as the JAX package's vmapped step
+does: in 8-lane blocks up to the largest count, the lanes' results written
+on the device.  On CUDA its round is one graph before that read and one
+after it per block count (one graph without ``collect_paths``).  On CPU
 tensors the NNLS plain version syncs nothing with a device but counts its
 lockstep steps (``ops/nnls.HOST_SYNCS``).
 ``render()`` reads the sums back, builds the grid on the host as
@@ -87,7 +90,7 @@ from slam_process_tpu_torch.ops.tracker import track_block_streams
 from slam_process_tpu_torch.parallel.mesh import placement, shard_rows
 from slam_process_tpu_torch.pipeline.device import resolve_device
 from slam_process_tpu_torch.render.heatmap import RenderedHeatmap, render_intensity
-from slam_process_tpu_torch.utils.graphs import GraphRunner
+from slam_process_tpu_torch.utils.graphs import GraphRunner, new_pool
 from slam_process_tpu_torch.utils.timestamps import unwrap_clk_anchors
 
 _LOGGER = logging.getLogger("slam_process_tpu_torch.streaming_device")
@@ -278,37 +281,30 @@ def _map_state(st: DeviceStreamState, fn) -> DeviceStreamState:
     return pick(st)
 
 
-def _paths_substep(p: PathsState, kr: torch.Tensor, n_keep: torch.Tensor,
-                   spec: StreamPathsSpec, dict_args, beam_ids, close_all: bool,
-                   every_lane: bool):
-    """Advance S streams' online-estimation state by one window round's
-    kept rows: ``kr`` [S, T, 4], compacted in stream order (K5), the first
-    ``n_keep[s]`` of stream s.  A generator: it yields once, just before
-    the host read of the closed-sweep counts, so that a mesh issues every
-    shard's work up to that read before it reads any (``_drain``).
+class _PathsMid(NamedTuple):
+    """The paths step's values between its two halves
+    (``_paths_before_read``, ``_paths_after_read``)."""
+
+    sums: torch.Tensor      # [S s1, nb, nb] f32: each sweep lane's cells, the open sweep's added
+    counts: torch.Tensor    # [S s1, nb, nb] f32
+    times: torch.Tensor     # [S s1] i32: CLK of each lane's first kept row (-1: none)
+    m: torch.Tensor         # [S] i32 sweeps closed by a boundary
+    m_eff: torch.Tensor     # [S] i32 sweeps that close (at the flush also the open one)
+    last_ue: torch.Tensor   # [S] i32 the last kept row's UE
+
+
+def _paths_before_read(p: PathsState, kr: torch.Tensor, n_keep: torch.Tensor,
+                       spec: StreamPathsSpec, close_all: bool) -> _PathsMid:
+    """The first half of the paths step for S streams, up to the closed-
+    sweep counts: ``kr`` [S, T, 4] holds one window round's kept rows,
+    compacted in stream order (K5), the first ``n_keep[s]`` of stream s.
 
     They are exactly the offline filtered table's rows, so segmenting them
     by UE decrease, seeded with ``last_kept_ue``, reproduces
-    ``detect_groups_np(filtered[:, 0])``.  The sweeps a stream's window
-    closes (and at the flush, ``close_all``, the open one if it has cells)
-    go through the per-sweep estimator and the tracker block; the open
-    sweep's sums carry to the next window.  One K4 launch over the S s1
-    sweep lanes (sweep ids offset by ``s * s1``), the estimator once and
-    one K6 launch for the S trackers (which takes the closed-sweep counts
-    on the device).
-
-    Where the estimator's lanes come from is the only difference between
-    the two forms.  ``every_lane`` (the single stream): all S s1 lanes, each
-    lane's results written to ring row ``n_closed + j`` (the JAX package's
-    block write; the rings hold ``capacity + s1`` rows, and rows past the
-    new ``n_closed`` are slack that no reader reads and a later window
-    overwrites), the open lane taken by a device index: no host read.  The
-    lanes past a stream's count are empty sweeps (the estimator fills them
-    with 0) or its open sweep, and change no row below ``n_closed``.
-    Otherwise (``MultiStreamingSession``): one host read of the S counts
-    (``HOST_SYNCS``) and the estimator on the closed lanes only.
-    """
-    global HOST_SYNCS
+    ``detect_groups_np(filtered[:, 0])``.  One K4 launch gives the sums of
+    the S s1 sweep lanes (sweep ids offset by ``s * s1``); lane 0 of each
+    stream adds the open sweep's sums.  At the flush (``close_all``) the
+    open sweep closes too if it has cells.  Reads ``p`` only."""
     dev = kr.device
     s_n, t = kr.shape[:2]
     s1 = spec.s_step + 1
@@ -338,70 +334,103 @@ def _paths_substep(p: PathsState, kr: torch.Tensor, n_keep: torch.Tensor,
     times = times[:-1]
     times[::s1] = torch.where(p.open_time >= 0, p.open_time, times[::s1])
 
-    m_eff_t = m
+    m_eff = m
     if close_all:
         in_lane = counts.view(s_n, s1, nb, nb).sum(dim=(2, 3))
         has_open = torch.gather(in_lane, 1, m.clamp(max=s1 - 1).long()[:, None])[:, 0] > 0
-        m_eff_t = m + has_open.to(torch.int32)
-    yield
+        m_eff = m + has_open.to(torch.int32)
+    return _PathsMid(sums, counts, times, m, m_eff, last_ue)
+
+
+def _lane_groups(nblk: int, s1: int, one_call: bool) -> tuple:
+    """The estimator's calls for ``nblk`` of the JAX package's 8-lane blocks
+    (``blk = min(8, s1)``, block i starting at ``min(blk i, s1 - blk)``):
+    ((first lane, lanes), ...), block after block, or with ``one_call`` one
+    call over lanes [0, min(blk nblk, s1)), the blocks' union."""
+    blk = min(8, s1)
+    if one_call:
+        return ((0, min(blk * nblk, s1)),) if nblk else ()
+    return tuple((min(blk * i, s1 - blk), blk) for i in range(nblk))
+
+
+def _paths_after_read(p: PathsState, mid: _PathsMid, spec: StreamPathsSpec, dict_args,
+                      beam_ids, close_all: bool, groups: tuple, own_blocks: bool) -> None:
+    """The second half of the paths step, in place: the per-sweep estimator
+    on the lanes of ``groups`` (``_lane_groups``) of every stream, the
+    tracker block (one K6 launch for the S trackers, which takes the
+    closed-sweep counts on the device), the ring writes and the open
+    sweep's carry.  Reads nothing back.
+
+    The JAX package's block write: each lane j's results go to ring row
+    ``n_closed + j`` of its stream (the rings hold ``capacity + s1`` rows),
+    the time ring and the track columns for all s1 lanes.  Rows past the
+    new ``n_closed`` are slack that no reader reads and a later round
+    overwrites: the groups cover every stream's closing sweeps, and the
+    lanes past a stream's count are empty sweeps or its open sweep, which
+    change no row below ``n_closed`` (a block's clamped start recomputes
+    lanes an earlier block wrote, with the same values).  With
+    ``own_blocks`` (the multi-stream round) a stream's estimator rings take
+    only the lanes of its own blocks, ``[0, min(blk ceil(min(m_eff, s1) /
+    blk), s1))``, as under the JAX package's ``vmap`` of its block loop,
+    so that its slack rows do not depend on the other streams of its shard.
+    The open lanes are taken by a device index."""
+    s_n = p.n_closed.shape[0]
+    dev = p.n_closed.device
+    s1 = spec.s_step + 1
+    nb = p.open_sums.shape[-1]
     k_n = p.est_rings.aoa.shape[-1]
     p_n = p.valid_ring.shape[1]
-    if every_lane:
-        n_lanes, at = s_n * s1, slice(None)
-        ring_idx = (_steps(s_n, p_n, dev)[:, None] + p.n_closed[:, None]
-                    + _steps(s1, 1, dev)[None]).flatten().long()
-        at_mc = (_steps(s_n, s1, dev) + m.clamp(max=s1 - 1)).long()   # each open lane
-    else:
-        HOST_SYNCS += 1
-        live = np.minimum(m_eff_t.cpu().numpy(), s1).astype(np.int64)   # the estimator's batch
-        lane_s = np.repeat(np.arange(s_n), live)
-        lane_j = np.arange(len(lane_s)) - np.repeat(np.cumsum(live) - live, live)
-        flat = lane_s * s1 + lane_j                              # each live lane's flat lane
-        flat_mc = np.arange(s_n) * s1 + np.minimum(live, s1 - 1)  # each stream's open lane
-        # One copy: the live lanes' streams, flat lanes and ring rows less
-        # each stream's n_closed, and the open lanes.
-        lane_s_t, flat_t, ring_idx, flat_mc_t = _host_to(dev, np.concatenate(
-            [lane_s, flat, lane_s * p_n + lane_j, flat_mc])).split([len(flat)] * 3 + [s_n])
-        ring_idx = ring_idx + p.n_closed.long().index_select(0, lane_s_t)
-        n_lanes, at, at_mc = len(flat), _rows(flat, flat_t), _rows(flat_mc, flat_mc_t)
-
-    lanes = [torch.zeros((s_n * s1, k_n), dtype=torch.float32, device=dev) for _ in range(3)]
-    val_l = torch.zeros((s_n * s1, k_n), dtype=torch.bool, device=dev)
-    if n_lanes:
-        counts_l = _take(counts, at)
-        mean = torch.where(counts_l > 0, _take(sums, at) / counts_l.clamp(min=1.0),
-                           float("nan"))
+    ring_idx = (_steps(s_n, p_n, dev)[:, None] + p.n_closed[:, None]
+                + _steps(s1, 1, dev)[None]).long()                     # [S, s1] flat ring rows
+    lanes = [torch.zeros((s_n, s1, k_n), dtype=torch.float32, device=dev) for _ in range(3)]
+    val_l = torch.zeros((s_n, s1, k_n), dtype=torch.bool, device=dev)
+    if own_blocks:
+        blk = min(8, s1)
+        own = ((mid.m_eff.clamp(max=s1) + blk - 1) // blk * blk).clamp(max=s1)   # [S] lanes
+    for start, width in groups:
+        at = slice(start, start + width)
+        counts_l = mid.counts.view(s_n, s1, nb, nb)[:, at].reshape(-1, nb, nb)
+        sums_l = mid.sums.view(s_n, s1, nb, nb)[:, at].reshape(-1, nb, nb)
+        mean = torch.where(counts_l > 0, sums_l / counts_l.clamp(min=1.0), float("nan"))
         sub = mean[:, beam_ids[0]][:, :, beam_ids[1]]
         est, sv = sweep_estimator_body(spec.est_key)(sub, *dict_args)
-        for ring, block in zip(p.est_rings, est):
-            ring.flatten(0, 1).index_copy_(0, ring_idx, block)
-        p.valid_ring.flatten(0, 1).index_copy_(0, ring_idx, sv)
-        p.time_ring.flatten(0, 1).index_copy_(0, ring_idx, _take(times, at))
+        rows = ring_idx[:, at].flatten()
+        if own_blocks:
+            mine = ((_steps(width, 1, dev) + start)[None] < own[:, None]).flatten()
+        for ring, block in zip((*p.est_rings, p.valid_ring), (*est, sv)):
+            flat = ring.flatten(0, 1)
+            if own_blocks:
+                block = torch.where(mine.view((-1,) + (1,) * (block.dim() - 1)), block,
+                                    flat.index_select(0, rows))
+            flat.index_copy_(0, rows, block)
         for lane, x in zip((*lanes, val_l), (est.aoa, est.aod, path_power(est),
                                              est.valid & sv[:, None])):
-            _put(lane, at, x)
+            lane[:, at] = x.view(s_n, width, k_n)
+    rows = ring_idx.flatten()
+    p.time_ring.flatten(0, 1).index_copy_(0, rows, mid.times)
 
     c_aoa, c_aod, c_pow, c_obs, pos, created, count = track_block_streams(        # K6
-        *(x.view(s_n, s1, k_n) for x in (*lanes, val_l)), m_eff_t, p.trk_pos, p.trk_created,
-        p.trk_count, spec.gate_deg)
+        *lanes, val_l, mid.m_eff, p.trk_pos, p.trk_created, p.trk_count, spec.gate_deg)
     for ring, col in ((p.trk_aoa, c_aoa), (p.trk_aod, c_aod), (p.trk_pow, c_pow),
                       (p.trk_obs, c_obs)):
-        ring.flatten(0, 1).index_copy_(0, ring_idx, _take(col.flatten(0, 1), at))
+        ring.flatten(0, 1).index_copy_(0, rows, col.flatten(0, 1))
     for x, new in ((p.trk_pos, pos), (p.trk_created, created), (p.trk_count, count)):
         x.copy_(new)
 
-    p.overflow |= (m_eff_t > spec.s_step) | (p.n_closed + m_eff_t > spec.capacity)
-    p.n_closed.add_(m_eff_t).clamp_(max=spec.capacity)
-    p.last_kept_ue.copy_(last_ue)
+    p.overflow |= (mid.m_eff > spec.s_step) | (p.n_closed + mid.m_eff > spec.capacity)
+    p.n_closed.add_(mid.m_eff).clamp_(max=spec.capacity)
+    p.last_kept_ue.copy_(mid.last_ue)
     if close_all:
         p.open_sums.zero_()
         p.open_counts.zero_()
         p.open_time.fill_(-1)
     else:
-        open_counts = _take(counts, at_mc)
-        p.open_sums.copy_(_take(sums, at_mc))
+        at_mc = (_steps(s_n, s1, dev) + mid.m.clamp(max=s1 - 1)).long()   # each open lane
+        open_counts = mid.counts.index_select(0, at_mc)
+        p.open_sums.copy_(mid.sums.index_select(0, at_mc))
         p.open_counts.copy_(open_counts)
-        p.open_time.copy_(torch.where(open_counts.sum(dim=(1, 2)) > 0, _take(times, at_mc), -1))
+        p.open_time.copy_(torch.where(open_counts.sum(dim=(1, 2)) > 0,
+                                      mid.times.index_select(0, at_mc), -1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -409,28 +438,6 @@ def _steps(n: int, step: int, dev: torch.device) -> torch.Tensor:
     """int32 [n]: 0, step, 2 step, ... on ``dev``, made once per (n, step,
     device); callers must not write to it."""
     return torch.arange(0, n * step, step, dtype=torch.int32, device=dev)
-
-
-def _rows(host: np.ndarray, dev_idx: torch.Tensor):
-    """Increasing row indices: a slice where they are contiguous (one
-    stream's lanes; a view, no device operation), else ``dev_idx``, their
-    copy on the device."""
-    if len(host) and host[-1] - host[0] == len(host) - 1:
-        return slice(int(host[0]), int(host[-1]) + 1)
-    return dev_idx
-
-
-def _take(x: torch.Tensor, rows) -> torch.Tensor:
-    """``x``'s rows ``rows`` (from ``_rows``) along dim 0."""
-    return x[rows] if isinstance(rows, slice) else x.index_select(0, rows)
-
-
-def _put(x: torch.Tensor, rows, value: torch.Tensor) -> None:
-    """Write ``value`` to ``x``'s rows ``rows`` (from ``_rows``)."""
-    if isinstance(rows, slice):
-        x[rows] = value
-    else:
-        x.index_copy_(0, rows, value)
 
 
 class _Window(NamedTuple):
@@ -451,8 +458,10 @@ class _WindowRound:
     all S streams.  ``DeviceStreamingSession`` runs it at S = 1 on a view
     of its state."""
 
-    # The paths step's form (``_paths_substep``): the estimator on every
-    # lane with no host read, or on the closed lanes after one.
+    # The paths step's lanes (``_paths_after_read``): every lane in one
+    # estimator call with no host read (the single stream), or the JAX
+    # package's 8-lane blocks, block after block, up to the largest count
+    # after one read of the S counts.
     _every_lane = False
 
     def _setup(self, config, chunk_bytes, group_capacity, max_groups,
@@ -502,12 +511,15 @@ class _WindowRound:
                lens: Optional[torch.Tensor]) -> None:
         """One window round for the S streams of ``st``, in place: the JAX
         package's ``_step_body`` with a leading S axis."""
-        _drain([self._round_steps(st, pieces, lens)])
+        _drain([(self, functools.partial(self._round_pre, st, pieces, lens),
+                 functools.partial(self._round_post, st))])
 
-    def _round_steps(self, st: DeviceStreamState, pieces: torch.Tensor,
-                     lens: Optional[torch.Tensor]):
-        """``_round`` as a generator that stops once before the host read
-        of the closed-sweep counts (``_paths_substep``)."""
+    def _round_pre(self, st: DeviceStreamState, pieces: torch.Tensor,
+                   lens: Optional[torch.Tensor]) -> Optional[_PathsMid]:
+        """A round up to the host read of the closed-sweep counts: K1, K2,
+        the sums, K5 twice, the counters and the paths step's first half
+        (K4), whose values it returns (None without ``collect_paths``: the
+        round is then whole)."""
         w = self._close_streams(st, pieces, lens)
         d_sums, d_counts = intensity_cell_sums(w.combined[..., 1], w.corrected,
                                                w.combined[..., 3], w.keep, w.combined[..., 0],
@@ -516,45 +528,76 @@ class _WindowRound:
         st.counts += d_counts
         (new_carry,), n_carry = compact_rows_streams(                                      # K5
             w.combined, w.open_mask, [(self._gcap, None, None)])
-        paths = self._emit_and_paths(st, _kept_rows(w.combined, w.corrected), w.keep,
-                                     close_all=False)
+        emitted = self._emit(st, _kept_rows(w.combined, w.corrected), w.keep)
         st.carry_frames.copy_(new_carry)
         st.carry_count.copy_(n_carry.clamp(max=self._gcap))
         st.n_frames += w.n_new
         st.n_kept += w.keep.sum(dim=1, dtype=torch.int32)
         st.n_groups += w.boundary.sum(dim=1, dtype=torch.int32)
         st.overflow |= w.c_overflow | (n_carry > self._gcap)
-        yield from paths
+        return self._paths_pre(st, emitted, close_all=False)
 
-    def _emit_and_paths(self, st: DeviceStreamState, kept: torch.Tensor, keep: torch.Tensor,
-                        close_all: bool):
+    def _round_post(self, st: DeviceStreamState, mid: Optional[_PathsMid], nblk: int,
+                    close_all: bool = False) -> None:
+        """The rest of a round (or of a flush) after the count read: the
+        paths step's second half on ``nblk`` blocks (``_blocks``)."""
+        if mid is not None:
+            _paths_after_read(st.paths, mid, self._paths_spec, self._dict_args,
+                              self._beam_ids, close_all, self._groups(nblk),
+                              not self._every_lane)
+
+    def _blocks(self, mid: Optional[_PathsMid]) -> int:
+        """The estimator's 8-lane blocks for this round: all of them for the
+        single stream, which reads nothing; else the JAX package's
+        ``ceil(min(max_s m_eff, s1) / blk)``, from one host read of the S
+        counts (``HOST_SYNCS``).  0 without ``collect_paths``."""
+        global HOST_SYNCS
+        if mid is None:
+            return 0
+        s1 = self._paths_spec.s_step + 1
+        if self._every_lane:
+            m_max = s1
+        else:
+            HOST_SYNCS += 1
+            m_max = min(int(mid.m_eff.amax()), s1)
+        return -(-m_max // min(8, s1))
+
+    def _groups(self, nblk: int) -> tuple:
+        """The estimator's calls for ``nblk`` blocks (``_lane_groups``): every
+        lane in one call for the single stream."""
+        return _lane_groups(nblk, self._paths_spec.s_step + 1, self._every_lane)
+
+    def _emit(self, st: DeviceStreamState, kept: torch.Tensor, keep: torch.Tensor):
         """One compaction of the kept rows (K5) for both their consumers:
         each stream's emit ring at its count (offsets read on the device;
         rows past the capacity are dropped and flagged) and the online
-        paths' fresh buffers.  Returns the paths step (``_paths_substep``'s
-        generator; empty without ``collect_paths``) for the caller to run."""
+        paths' fresh buffers, which it returns with their counts (None
+        without ``collect_paths``)."""
         dests = []
         if self._ecap:
             dests.append((self._ecap, st.emit_buf, st.emit_count))
         if st.paths is not None:
             dests.append((kept.shape[1], None, None))
         if not dests:
-            return iter(())
+            return None
         outs, n = compact_rows_streams(kept, keep, dests)                                 # K5
         if self._ecap:
             st.emit_overflow |= st.emit_count + n > self._ecap
             st.emit_count.add_(n).clamp_(max=self._ecap)
-        if st.paths is None:
-            return iter(())
-        return _paths_substep(st.paths, outs[-1], n, self._paths_spec, self._dict_args,
-                              self._beam_ids, close_all, self._every_lane)
+        return None if st.paths is None else (outs[-1], n)
+
+    def _paths_pre(self, st: DeviceStreamState, emitted, close_all: bool):
+        if emitted is None:
+            return None
+        return _paths_before_read(st.paths, *emitted, self._paths_spec, close_all)
 
     def _flush(self, st: DeviceStreamState) -> None:
         """Close the open group of every stream of ``st``, in place."""
-        _drain([self._flush_steps(st)])
+        _drain([(self, functools.partial(self._flush_pre, st),
+                 functools.partial(self._round_post, st, close_all=True))])
 
-    def _flush_steps(self, st: DeviceStreamState):
-        """``_flush`` as a generator, as ``_round_steps`` is."""
+    def _flush_pre(self, st: DeviceStreamState) -> Optional[_PathsMid]:
+        """``_flush`` up to the count read, as ``_round_pre`` is."""
         cfg = self.config
         valid = _steps(self._gcap, 1, self.device)[None] < st.carry_count[:, None]
         corrected, keep, c_overflow = correct_rows(st.carry_frames, valid, self._mg,
@@ -564,24 +607,111 @@ class _WindowRound:
                                                cf[..., 0], cfg.scene)
         st.sums += d_sums
         st.counts += d_counts
-        paths = self._emit_and_paths(st, _kept_rows(cf, corrected), keep, close_all=True)
+        emitted = self._emit(st, _kept_rows(cf, corrected), keep)
         st.n_kept += keep.sum(dim=1, dtype=torch.int32)
         st.n_groups += (st.carry_count > 0).to(torch.int32)
         st.overflow |= c_overflow
         st.carry_frames.zero_()
         st.carry_count.zero_()
-        yield from paths
+        return self._paths_pre(st, emitted, close_all=True)
+
+    # -- the multi-stream round's window buffer and CUDA graphs ----------------
+
+    def _init_rounds(self, n_rows: int) -> None:
+        """The static window input of a shard of ``n_rows`` streams: K1's
+        limits as int64 at the buffer's start, the [n_rows, chunk_bytes]
+        pieces from ``_win_off`` (a multiple of 128 bytes), filled from one
+        pinned staging buffer on CUDA; and no graph yet (the state is
+        written in place by every path, so a graph lives as long as the
+        shard)."""
+        self._win_off = -(-8 * n_rows // 128) * 128
+        size = self._win_off + n_rows * self.chunk_bytes
+        self._win = torch.zeros(size, dtype=torch.uint8, device=self.device)
+        if self.device.type == "cuda":
+            self._win_staging = torch.zeros(size, dtype=torch.uint8, pin_memory=True)
+            self._win_staged = torch.cuda.Event()
+        else:
+            self._win_staging, self._win_staged = self._win, None
+        self._win_np = self._win_staging.numpy()
+        self._pre_graph: Optional[GraphRunner] = None
+        self._post_graphs: dict = {}          # nblk -> GraphRunner
+        self._pool = None
+
+    def _win_inputs(self):
+        """(pieces [n_rows, chunk_bytes] u8, K1's limits [n_rows] int64):
+        views of the window buffer."""
+        n_rows = self._state.n_frames.shape[0]
+        return (self._win[self._win_off:].view(n_rows, -1),
+                self._win[:8 * n_rows].view(torch.int64))
+
+    def _staged(self):
+        """(lens [n_rows] int64, pieces [n_rows, chunk_bytes] u8): numpy
+        views of the staging buffer, to be filled with a round's windows.
+        On CUDA the host first waits for the previous round's copy out of
+        it (``STAGING_WAITS``), as ``DeviceStreamingSession._load_window``
+        does."""
+        global STAGING_WAITS
+        if self._win_staged is not None and not self._win_staged.query():
+            STAGING_WAITS += 1
+            self._win_staged.synchronize()
+        n_rows = self._state.n_frames.shape[0]
+        return (self._win_np[:8 * n_rows].view(np.int64),
+                self._win_np[self._win_off:].reshape(n_rows, -1))
+
+    def _send(self) -> None:
+        """The staged round into the window buffer: on CUDA one copy that
+        does not wait (the CPU stages in the window buffer itself)."""
+        if self._win_staged is not None:
+            self._win.copy_(self._win_staging, non_blocking=True)
+            self._win_staged.record()
+
+    def _pre(self) -> Optional[_PathsMid]:
+        """The loaded round up to the count read: eager on the CPU; on CUDA
+        one graph, captured at the first round, whose static outputs hold
+        the values the post-read graphs read (after the capture the warm-up
+        run's values are copied into them)."""
+        if self.device.type != "cuda":
+            return self._round_pre(self._state, *self._win_inputs())
+        if self._pre_graph is None:
+            this, st, inputs = weakref.ref(self), self._state, self._win_inputs()
+            self._pool = new_pool()
+            self._pre_graph = GraphRunner(lambda: this()._round_pre(st, *inputs),
+                                          device=self.device, pool=self._pool)
+        mid = self._pre_graph.run()
+        static = self._pre_graph.outputs
+        if mid is not static:                 # the first run returns the warm-up's values
+            for x, y in zip(static, mid):
+                x.copy_(y)
+        return static
+
+    def _post(self, mid: Optional[_PathsMid], nblk: int) -> None:
+        """The round after the count read: eager on the CPU; on CUDA the
+        graph of ``nblk`` blocks, captured at its first use, reading the
+        pre-read graph's static outputs."""
+        if mid is None:
+            return
+        if self.device.type != "cuda":
+            self._round_post(self._state, mid, nblk)
+            return
+        graph = self._post_graphs.get(nblk)
+        if graph is None:
+            this, st = weakref.ref(self), self._state
+            graph = self._post_graphs[nblk] = GraphRunner(
+                lambda: this()._round_post(st, mid, nblk), device=self.device, pool=self._pool)
+        graph.run()
 
 
-def _drain(steps: list) -> None:
-    """Run window steps (``_round_steps`` / ``_flush_steps``, one per mesh
-    shard) to their ends: each up to its host read first, so every shard's
-    work is queued on its device before the host waits on any."""
-    for g in steps:
-        next(g, None)
-    for g in steps:
-        for _ in g:
-            pass
+def _drain(jobs: list) -> None:
+    """Run one window step (a round or a flush) of each mesh shard: ``jobs``
+    holds (shard, its part up to the count read, its part after:
+    ``post(mid, nblk)``).  Every shard's first part runs first, so that
+    every shard's work is queued on its device before the host waits on
+    any; then each shard's count read (``_WindowRound._blocks``); then each
+    shard's second part."""
+    mids = [pre() for _, pre, _ in jobs]
+    nblks = [sh._blocks(mid) for (sh, _, _), mid in zip(jobs, mids)]
+    for (_, _, post), mid, nblk in zip(jobs, mids, nblks):
+        post(mid, nblk)
 
 
 def _lift(x: torch.Tensor) -> torch.Tensor:
@@ -604,16 +734,15 @@ class DeviceStreamingSession(_WindowRound):
     Every window, full or the short last piece of a feed, is one static
     input: its bytes, zero-padded to ``chunk_bytes``, and K1's limit (their
     count), in one device buffer that one pinned staging buffer fills.  The
-    paths step takes the read-free form (``_paths_substep`` with
-    ``every_lane``: the estimator on all s_step + 1 lanes, NNLS in kernel
-    K7), so a window reads nothing back, with or without ``collect_paths``.
-    So on CUDA the round is one CUDA graph (the counterpart of the JAX
-    package's jitted step with a donated state): the first window runs it
-    once and captures it, every later window, whatever its length, replays
-    it.  A grown emit ring drops the graph and the next window captures
-    anew.  ``finalize`` runs once a stream and stays eager, in the same
-    read-free form (the JAX package jits its flush; a graph of a single
-    call would save nothing).
+    paths step takes the read-free form (``_every_lane``: the estimator on
+    all s_step + 1 lanes in one call, NNLS in kernel K7), so a window reads
+    nothing back, with or without ``collect_paths``.  So on CUDA the round
+    is one CUDA graph (the counterpart of the JAX package's jitted step
+    with a donated state): the first window runs it once and captures it,
+    every later window, whatever its length, replays it.  A grown emit
+    ring drops the graph and the next window captures anew.  ``finalize``
+    runs once a stream and stays eager, in the same read-free form (the JAX
+    package jits its flush; a graph of a single call would save nothing).
     """
 
     _every_lane = True
@@ -1000,13 +1129,25 @@ def _next_windows(bufs, offs, n_rows: int, c: int):
     none left), advancing ``offs`` in place."""
     pieces = np.zeros((n_rows, c), np.uint8)
     lens = np.zeros(n_rows, np.int64)
-    for i, (b, off) in enumerate(zip(bufs, offs)):
-        if len(b) - off > CARRY_BYTES:
-            piece = b[off:off + c]
-            pieces[i, :len(piece)] = piece
-            lens[i] = len(piece)
-            offs[i] = min(off + c, len(b)) - CARRY_BYTES
+    _fill_windows(bufs, offs, c, [(pieces[i], lens[i:i + 1]) for i in range(len(bufs))])
     return pieces, lens
+
+
+def _fill_windows(bufs, offs, c: int, rows) -> None:
+    """Write the next lockstep round into ``rows``, one (piece [c] u8, length
+    [1] int64) pair of arrays per stream of ``bufs``, which hold the round
+    before, zero past its length: each stream's next 10-byte-overlap
+    window, zero-padded, or length 0 where it has none left (so only the
+    previous round's bytes past the new length are cleared); advances
+    ``offs`` in place."""
+    for i, (b, (row, n)) in enumerate(zip(bufs, rows)):
+        off, prev = offs[i], int(n[0])
+        m = min(c, len(b) - off) if len(b) - off > CARRY_BYTES else 0
+        row[:m] = b[off:off + m]
+        row[m:prev] = 0
+        n[0] = m
+        if m:
+            offs[i] = min(off + c, len(b)) - CARRY_BYTES
 
 
 class MultiStreamingSession(_WindowRound):
@@ -1020,13 +1161,30 @@ class MultiStreamingSession(_WindowRound):
     per stream), the S intensity grids in one ``index_add_``, K5 with the
     stream axis for the carries and again for the kept rows (the per-stream
     emit rings and, with ``collect_paths``, the paths' buffers), then K4
-    over the S s1 sweep lanes, the estimator once on every stream's closed
+    over the S s1 sweep lanes, the estimator on every stream's closing
     sweeps and K6 with the stream axis.  Per-stream results equal S
     independent ``DeviceStreamingSession`` replays of the same bytes
     exactly.  With ``collect_paths`` a round reads the S closed-sweep counts
-    once (``HOST_SYNCS``) and runs the estimator on the closed lanes only
+    once (``HOST_SYNCS``) and runs the estimator as the JAX package's
+    vmapped step does (``_paths_after_read``): on the lanes of ``nblk =
+    ceil(min(max_s m_eff, s1) / blk)`` blocks of ``blk = min(8, s1)``
+    lanes of every stream, block i from lane ``min(blk i, s1 - blk)``, each
+    lane's results written to ring row ``n_closed + lane`` on the device
     (the NNLS loops on the device, kernel K7, on CUDA); without it a round
     never waits.
+
+    Each shard's window, its bytes and K1's limits, is one static device
+    buffer, filled from one pinned staging buffer a round
+    (``STAGING_WAITS`` counts the rounds whose host waited for the previous
+    copy out of it).  On CUDA a shard's round is CUDA graphs (the
+    counterpart of the JAX package's jitted vmapped step with a donated
+    state): one of the round up to the count read (``_round_pre``), whose
+    static outputs hold what the rest reads, and one of the rest
+    (``_round_post``) per block count, captured at its first use; without
+    ``collect_paths`` the round is one graph.  A shard's graphs share one
+    memory pool.  The state is written in place by every path (the rounds,
+    the flushes, ``reset_streams``), so the graphs live as long as the
+    session.  Flushes run eagerly, through the same two halves.
 
     With ``mesh`` (``parallel/mesh.py``) the S streams pad with inert
     streams (never fed, never flushed, never read) to a multiple of the
@@ -1064,6 +1222,8 @@ class MultiStreamingSession(_WindowRound):
             self._shards = [self]
         else:
             self._shards = [self._new_shard(devs[0]) for devs in rows]
+        for sh in self._shards:
+            sh._init_rounds(self._per)
         self._byte_carry = [np.zeros(0, np.uint8) for _ in range(self.n_streams)]
         self._finalized = False
         self._stream_finalized = np.zeros(self.n_streams, bool)
@@ -1128,33 +1288,50 @@ class MultiStreamingSession(_WindowRound):
                     "streams)")
             bufs.append(np.concatenate([self._byte_carry[i], chunk]))
         while _has_window(bufs, offs):
-            self._window(*_next_windows(bufs, offs, self._n_pad, self.chunk_bytes))
+            # Each round's windows go straight into the shards' staging buffers.
+            rows = []
+            for sh, _, m in self._parts():
+                lens, pieces = sh._staged()
+                rows += [(pieces[j], lens[j:j + 1]) for j in range(m)]
+            _fill_windows(bufs, offs, self.chunk_bytes, rows)
+            self._window()
         self._byte_carry = [b[o:].copy() for b, o in zip(bufs, offs)]
 
-    def _window(self, pieces: np.ndarray, lens: np.ndarray) -> None:
-        """One window round of every shard: pieces [S_pad, chunk_bytes]."""
+    def _window(self, pieces: Optional[np.ndarray] = None,
+                lens: Optional[np.ndarray] = None) -> None:
+        """One window round of every shard: pieces [S_pad, chunk_bytes],
+        lens [S_pad] int64, or None where ``feed`` has staged the round
+        (class docstring)."""
         self._forget_host()
-        _drain([sh._round_steps(sh._state, _host_to(sh.device, pieces[lo:lo + self._per]),
-                                _host_to(sh.device, lens[lo:lo + self._per]))
-                for sh, lo, _ in self._parts()])
+        parts = self._parts()
+        for sh, lo, _ in parts:
+            if pieces is not None:
+                staged_lens, staged_pieces = sh._staged()
+                staged_lens[:] = lens[lo:lo + self._per]
+                staged_pieces[:] = pieces[lo:lo + self._per]
+            sh._send()
+        _drain([(sh, sh._pre, sh._post) for sh, _, _ in parts])
 
     def _masked_flush(self, mask: np.ndarray) -> None:
-        """Flush the streams of ``mask`` and leave the others as they are: a
-        shard flushes whole when every one of its streams is selected, else
-        the selected streams' state is gathered, flushed and written back."""
-        steps, writes = [], []
+        """Flush the streams of ``mask`` and leave the others as they are,
+        eagerly: a shard flushes whole when every one of its streams is
+        selected, else the selected streams' state is gathered, flushed and
+        written back.  Every state tensor is written in place, so the
+        shards' graphs stay valid."""
+        jobs, writes = [], []
         for sh, lo, _ in self._parts():
             idx = np.nonzero(mask[lo:lo + self._per])[0]
             if not len(idx):
                 continue
             if len(idx) == self._per:
-                steps.append(sh._flush_steps(sh._state))
-                continue
-            idx_t = _host_to(sh.device, idx.astype(np.int64))
-            sub = _map_state(sh._state, lambda x: x.index_select(0, idx_t))
-            steps.append(sh._flush_steps(sub))
-            writes.append((sh._state, idx_t, sub))
-        _drain(steps)
+                st = sh._state
+            else:
+                idx_t = _host_to(sh.device, idx.astype(np.int64))
+                st = _map_state(sh._state, lambda x, i=idx_t: x.index_select(0, i))
+                writes.append((sh._state, idx_t, st))
+            jobs.append((sh, functools.partial(sh._flush_pre, st),
+                         functools.partial(sh._round_post, st, close_all=True)))
+        _drain(jobs)
         for whole_st, idx_t, sub in writes:
             for whole, part in zip(_leaves(whole_st), _leaves(sub)):
                 whole.index_copy_(0, idx_t, part)

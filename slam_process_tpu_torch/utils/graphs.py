@@ -21,7 +21,17 @@ PyTorch operations captured once and replayed by one launch.
     replay adds to every ``LAUNCHES`` (and ``LAUNCHES_BY_K``, where a
     wrapper keeps one) what its capture recorded, and the capture, which ran
     nothing, takes its own additions back;
-  * ``pool_bytes`` (the graph's private memory pool) and ``capture_ms``.
+  * ``pool_bytes`` (the graph's memory pool) and ``capture_ms``.
+
+A runner's graph allocates from a private memory pool, or from ``pool``
+(``new_pool()``), which it shares with the other graphs given the same one.
+Share a pool only among the graphs of one program that replay in order on
+one stream and keep nothing alive but the first graph's static outputs (a
+session's round: its graph before the count read, then one of those after
+it): a later capture may take a block that an earlier graph's replay
+writes as scratch, so graphs that share a pool must never both hold live
+outputs, and a graph captured after the others were dropped needs a new
+pool.  ``pool_bytes`` is then the shared pool's.
 
 It refuses CPU tensors: on the CPU callers run the eager body.  A capture
 that fails raises; nothing falls back to the eager body.  The one retry: a
@@ -67,6 +77,11 @@ def _kernel_modules() -> list:
     return [importlib.import_module(f"slam_process_tpu_torch.ops.{m}") for m in _KERNEL_MODULES]
 
 
+def new_pool() -> tuple:
+    """A memory pool id for ``GraphRunner(pool=...)`` (module docstring)."""
+    return torch.cuda.graph_pool_handle()
+
+
 def pool_bytes(pool) -> int:
     """Bytes of the caching allocator's segments that belong to a graph's
     private pool (``CUDAGraph.pool()``)."""
@@ -78,10 +93,11 @@ class GraphRunner:
     """``fn(*inputs)`` as one CUDA graph, captured on the first ``run``
     (module docstring).  ``inputs`` are CUDA tensors on one device (the
     static inputs start as their copies); with no inputs, ``device`` names
-    the device and ``fn`` reads tensors it owns."""
+    the device and ``fn`` reads tensors it owns.  ``pool``: a shared
+    memory pool (``new_pool``), or None for a private one."""
 
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor] = (),
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, pool: Optional[tuple] = None):
         inputs = tuple(inputs)
         for x in inputs:
             if not isinstance(x, torch.Tensor) or not x.is_cuda:
@@ -95,6 +111,7 @@ class GraphRunner:
         if self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self._fn = fn
+        self._pool = pool
         self.inputs = tuple(x.clone() for x in inputs)
         self.outputs = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -180,7 +197,7 @@ class GraphRunner:
         before = [m.LAUNCHES for m in modules]
         before_k = {m: dict(m.LAUNCHES_BY_K) for m in modules if hasattr(m, "LAUNCHES_BY_K")}
         graph = torch.cuda.CUDAGraph()
-        graph.capture_begin()
+        graph.capture_begin(pool=self._pool)
         try:
             static = self._fn(*self.inputs)
         except BaseException:

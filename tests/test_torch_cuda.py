@@ -82,6 +82,8 @@ on ``track_stream_cases`` (chains over several staging tiles, T = 16 with K
 """
 
 import functools
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -93,6 +95,9 @@ from slam_process_tpu_torch.ops import (
 from slam_process_tpu_torch.pipeline.device import run_session_on_device
 from slam_process_tpu_torch.utils.synthetic import (
     decode_edge_cases, sweep_sums_edge_cases, synthetic_session_bytes, verdict_edge_cases)
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from chip_smoke import eager_rounds  # noqa: E402  (the multi-stream graphs' comparator)
 
 pytestmark = [pytest.mark.cuda,
               pytest.mark.skipif("not torch.cuda.is_available()",
@@ -1977,3 +1982,191 @@ def test_stream_axis_tracker_cases_match_plain(name):
         g = g.cpu()
         assert torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
                            w.view(torch.int32) if w.is_floating_point() else w)
+
+
+def test_batch_graph_equals_eager_body_alternating():
+    """``batched_session_pipeline`` on the card, both forms and both
+    ``outputs``: two buckets alternated, each call's graph replay against
+    the eager body, every field bit for bit, K1-K3 once per bucket (vmap)
+    or session (scan); two calls share no storage; ``run_dataset`` equal to
+    the eager bodies' rows."""
+    from slam_process_tpu_torch.parallel import batch
+    from slam_process_tpu_torch.pipeline.device import bucket_size, device_lut
+
+    raws = [synthetic_session_bytes(n_groups=2 + 3 * i, frames_per_beam=3, baselines_per_group=6,
+                                    junk_frac=0.05, seed=110 + i) for i in range(4)]
+    groups = {}
+    for r in raws:
+        groups.setdefault(bucket_size(len(r), 1 << 13), []).append(r)
+    assert len(groups) >= 2
+    lut = device_lut(torch.device("cuda"))
+    stacked = {b: batch.stack_sessions(rs, b) for b, rs in groups.items()}
+    kernels = (cuda_decode, cuda_correct, cuda_raster)
+    for axis in ("vmap", "scan"):
+        for outputs in ("full", "summary"):
+            fns = {b: batch.batched_session_pipeline(None, b, outputs=outputs,
+                                                     session_axis=axis) for b in groups}
+            last = {}
+            for b in sorted(groups) * 2:
+                before = [k.LAUNCHES for k in kernels]
+                got = fns[b](*stacked[b], lut)
+                per = 1 if axis == "vmap" else len(groups[b])
+                assert [k.LAUNCHES - n for k, n in zip(kernels, before)] == [per] * 3
+                want = fns[b]._body(torch.from_numpy(stacked[b][0]).cuda(), lut)
+                for f, g, w in zip(want._fields, got, want):
+                    if w is None:
+                        assert g is None
+                        continue
+                    assert g.dtype == w.dtype and torch.equal(
+                        g.reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8)), f
+                if b in last:
+                    assert all(x.untyped_storage().data_ptr() != y.untyped_storage().data_ptr()
+                               for x, y in zip(got, last[b]) if x is not None)
+                last[b] = got
+            assert all(r.replays >= 1 for fn in fns.values() for _, r, _ in fn.runners.values())
+    got = batch.run_dataset(None, raws, quantum=1 << 13)
+    fns = {b: batch.batched_session_pipeline(None, b, outputs="summary") for b in groups}
+    for i, r in enumerate(raws):
+        b = bucket_size(len(r), 1 << 13)
+        row = [j for j, x in enumerate(groups[b]) if x is r][0]
+        want = fns[b]._body(torch.from_numpy(stacked[b][0]).cuda(), lut)
+        for f in batch.SessionSummaryOut._fields:
+            assert getattr(got[i], f).tobytes() == getattr(want, f)[row].cpu().numpy().tobytes()
+
+
+def test_batch_program_keeps_one_graph_a_shard():
+    """``run_dataset`` with another session count in one bucket captures
+    anew and drops the program's old graph: the program holds one runner,
+    and after ``empty_cache`` every dropped graph's pool holds no bytes;
+    each call's rows equal the eager body's."""
+    import gc
+
+    from slam_process_tpu_torch.parallel import batch
+    from slam_process_tpu_torch.pipeline.device import bucket_size, device_lut
+    from slam_process_tpu_torch.utils.graphs import pool_bytes
+
+    raws = [synthetic_session_bytes(n_groups=3, frames_per_beam=3, baselines_per_group=6,
+                                    junk_frac=0.05, seed=130 + i) for i in range(5)]
+    (b,) = {bucket_size(len(r), 1 << 13) for r in raws}
+    fn = batch.batched_session_pipeline(None, b, outputs="summary", device=None)
+    lut = device_lut(torch.device("cuda"))
+    dropped = []
+    for n in (2, 3, 5, 3, 3):
+        got = batch.run_dataset(None, raws[:n], quantum=1 << 13)
+        ((rows, runner, _),) = fn.runners.values()
+        assert rows == n
+        pool = tuple(runner.graph.pool())
+        if dropped and dropped[-1] == pool:
+            dropped.pop()                   # the same graph replayed
+        want = fn._body(torch.from_numpy(batch.stack_sessions(raws[:n], b)[0]).cuda(), lut)
+        for i in range(n):
+            for f in batch.SessionSummaryOut._fields:
+                assert getattr(got[i], f).tobytes() == getattr(want, f)[i].cpu().numpy().tobytes()
+        del want
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        assert pool_bytes(pool) > 0
+        assert all(pool_bytes(p) == 0 for p in dropped), [pool_bytes(p) for p in dropped]
+        dropped.append(pool)
+    assert runner.replays == 1
+
+
+def multi_states_equal(a, b):
+    """Two multi-stream sessions' whole state, shard by shard, bit for bit."""
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+
+    la = [x for sh in a._shards for x in sd._leaves(sh._state)]
+    lb = [x for sh in b._shards for x in sd._leaves(sh._state)]
+    assert len(la) == len(lb)
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert x.dtype == y.dtype and x.shape == y.shape, i
+        assert torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)), i
+
+
+def multi_stream_inputs(tmp_path, s_step=8):
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+    from slam_process_tpu_torch.utils.synthetic import write_angle_table
+
+    spec = sd.make_paths_spec(write_angle_table(tmp_path / "angles.xlsx"), s_step=s_step,
+                              grid_res=1.0)
+    raws = [synthetic_session_bytes(n_groups=3 + 2 * i, frames_per_beam=2, baselines_per_group=6,
+                                    junk_frac=0.05, seed=120 + i, n_paths=3) for i in range(3)]
+    return raws, spec
+
+
+@pytest.mark.parametrize("mesh_shape", [None, (2, 1)], ids=["mesh_none", "mesh_2x1_cuda0"])
+def test_multi_stream_graphs_equal_eager_rounds(tmp_path, mesh_shape):
+    """``MultiStreamingSession`` on the card, its rounds CUDA graphs (one
+    before the count read, one after per block count), against the same
+    session run by the eager halves: the whole state bit for bit after
+    every feed, a ragged flush and the final flush; one count read a round
+    and shard; with a mesh of two positions of cuda:0 too."""
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+
+    raws, spec = multi_stream_inputs(tmp_path)
+    mesh = None if mesh_shape is None else card_mesh(mesh_shape)
+    kw = dict(chunk_bytes=1 << 12, collect_paths=spec, emit_capacity=1 << 14, mesh=mesh,
+              device="cuda" if mesh is None else None)
+    got = sd.MultiStreamingSession(3, **kw)
+    want = eager_rounds(sd.MultiStreamingSession(3, **kw))
+    step = 6000
+    n_rounds = []
+    for off in range(0, max(len(r) for r in raws), step):
+        pieces = [r[off:off + step] if i != 1 or off < 2 * step else b""
+                  for i, r in enumerate(raws)]
+        sd.HOST_SYNCS = 0
+        got.feed(pieces)
+        n_rounds.append(sd.HOST_SYNCS)
+        want.feed(pieces)
+        multi_states_equal(got, want)
+        if off == step:
+            for x in (got, want):
+                x.finalize_streams([1])
+            multi_states_equal(got, want)
+    for x in (got, want):
+        x.finalize()
+    multi_states_equal(got, want)
+    assert sum(n_rounds) % len(got._shards) == 0 and sum(n_rounds) > 0
+    for sh in got._shards:
+        assert sh._pre_graph is not None and sh._pre_graph.replays > 0
+        assert sh._post_graphs and sum(g.replays for g in sh._post_graphs.values()) > 0
+    assert all(sh._pre_graph is None for sh in want._shards)
+
+
+def test_multi_stream_graphs_after_reset_and_restore(tmp_path):
+    """The round's graphs write the state in place, so ``reset_streams``
+    keeps them (the same graphs replay after it), and a session restored
+    from a checkpoint captures graphs of its own; each equals the eager
+    rounds bit for bit."""
+    from slam_process_tpu_torch.parallel import streaming_device as sd
+
+    raws, spec = multi_stream_inputs(tmp_path)
+    kw = dict(chunk_bytes=1 << 12, collect_paths=spec, emit_capacity=1 << 14, device="cuda")
+    got = sd.MultiStreamingSession(3, **kw)
+    want = eager_rounds(sd.MultiStreamingSession(3, **kw))
+    step = 6000
+    for x in (got, want):
+        x.feed([r[:2 * step] for r in raws])
+        x.finalize_streams([0])
+        x.reset_streams([0])
+    pre, posts = got._pre_graph, dict(got._post_graphs)
+    replays = pre.replays
+    for x in (got, want):
+        x.feed([raws[2][:step], raws[1][2 * step:3 * step], raws[2][2 * step:3 * step]])
+    multi_states_equal(got, want)
+    assert got._pre_graph is pre and got._pre_graph.replays > replays
+    assert all(got._post_graphs.get(k) is g for k, g in posts.items())
+    got.save_checkpoint(tmp_path / "multi.npz")
+    back = sd.MultiStreamingSession.restore(tmp_path / "multi.npz", device="cuda")
+    back_eager = eager_rounds(sd.MultiStreamingSession.restore(tmp_path / "multi.npz",
+                                                               device="cuda"))
+    assert back._pre_graph is None and not back._post_graphs
+    rest = [raws[2][step:], raws[1][3 * step:], raws[2][3 * step:]]
+    for x in (got, want, back, back_eager):
+        x.feed(rest)
+        x.finalize()
+    multi_states_equal(got, want)
+    multi_states_equal(back, back_eager)
+    multi_states_equal(back, got)
+    assert back._pre_graph is not None and back._pre_graph is not pre

@@ -1,17 +1,18 @@
-"""The single stream's read-free paths step against the counted form.
+"""The single stream's read-free paths step against the block form.
 
 ``DeviceStreamingSession`` runs its paths step in the read-free form
-(``parallel/streaming_device._paths_substep`` with ``every_lane``): the
-estimator on all s_step + 1 sweep lanes, each lane's results written to
-ring row ``n_closed + j`` on the device, the open lane taken by a device
-index, so a window reads nothing back and can be a CUDA graph.
-``MultiStreamingSession`` keeps the counted form (one host read of the
-closed-sweep counts, the estimator on the closed lanes only).  On the CPU
-(every kernel's plain version) the two forms, fed the same windows, must
-leave the same state: every leaf equal, the rings on their rows below
-``n_closed`` (the rows past it are the read-free form's slack, which no
-reader reads), after every feed and after the flush.  The cases cover
-windows that close 0 sweeps, 1, ``s_step`` and ``s_step + 1`` (an
+(``parallel/streaming_device._paths_after_read`` on every lane,
+``_every_lane``): the estimator on all s_step + 1 sweep lanes, each lane's
+results written to ring row ``n_closed + j`` on the device, the open lane
+taken by a device index, so a window reads nothing back and can be a CUDA
+graph.  ``MultiStreamingSession`` takes the block form (one host read of
+the closed-sweep counts, then the estimator on the JAX package's 8-lane
+blocks up to the largest count; ``counted`` below is a single stream with
+``_every_lane`` off).  On the CPU (every kernel's plain version) the two
+forms, fed the same windows, must leave the same state: every leaf equal,
+the rings on their rows below ``n_closed`` (the rows past it are slack,
+which no reader reads), after every feed and after the flush.  The cases
+cover windows that close 0 sweeps, 1, ``s_step`` and ``s_step + 1`` (an
 overflow) and a capacity overflow.
 """
 
