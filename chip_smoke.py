@@ -348,11 +348,24 @@ Phases, each printing one JSON line:
                 flush, ms and device ms a round eager and graph, the graphs
                 by block count with capture ms and pool bytes, and the
                 blocks as one call and private pools beside them
-                (``multi_graphs``).
+                (``multi_graphs``); the estimator programs
+                (``estimator_graphs``: NN-OMP's session program, the
+                batched "vmap" and "gram" programs, SM-SIC, fusion's NLoS
+                stage, omp_dense, the peak mask, the LASSO's set-up and
+                sweep graphs, the per-sweep NN-OMP and SM-SIC programs, the
+                tracker) against their eager bodies, floats bit for bit, on
+                two inputs of one shape alternated and on a second shape,
+                K7 and K6 launched by each replay as by the body; eager,
+                first-call and warm graph wall ms, device ms, capture ms
+                and pool bytes per program; ``run_estimator("nn_omp")``
+                with exactly one host sync a call; svd's host syncs (it
+                stays eager); ``sweep_paths_dataset`` over the 21 sessions
+                under the sweep buckets, each equal to its own
+                ``sweep_paths``, and the shapes it captured.
 
 On CUDA the session entry points, the batch, a single stream with or
-without paths and the multi-stream round run CUDA graphs
-(``utils/graphs.py``): a replay calls no wrapper, so
+without paths, the multi-stream round and the estimator programs run CUDA
+graphs (``utils/graphs.py``): a replay calls no wrapper, so
 it adds to each kernel's counter the launches its capture recorded.  Every kernel's
 launches are counted on each path (phases 4 to 17, 8b, 19 to 21,
 the counters set to 0 just before and read just after), reported in the
@@ -2015,7 +2028,7 @@ def est_forms_phase(np, torch, tmp, logs, angles, zero_counts, read_counts, dev,
     from slam_process_tpu_torch.ops import nnls
     from slam_process_tpu_torch.pipeline.session import Session
     from slam_process_tpu_torch.utils.device_timing import (
-        measure_device_time, op_device_counts, op_device_times)
+        TraceLostError, measure_device_time, op_device_counts, op_device_times)
 
     def timed(name, fn, runs=EST_FORM_DEVICE_RUNS, profile=True):
         """Wall ms; device ms per call from measure_device_time, with the
@@ -2030,7 +2043,12 @@ def est_forms_phase(np, torch, tmp, logs, angles, zero_counts, read_counts, dev,
             fail(f"est_forms {name}: {nnls.HOST_SYNCS} NNLS host syncs on the card, not 0")
         t1 = time.perf_counter()
         trace_dir = tmp / f"est_forms_{name}"
-        t = measure_device_time(lambda i: fn(), n=runs, device=dev, trace_dir=trace_dir)
+        try:
+            t = measure_device_time(lambda i: fn(), n=runs, device=dev, trace_dir=trace_dir)
+        except TraceLostError as e:
+            shutil.rmtree(trace_dir, ignore_errors=True)
+            out.update(device_ms=None, busy_share=None, device_trace_lost=str(e))
+            return out
         per_call = {k: sum(v) / len(v) * 1e6 for k, v in t.all_modules.items()}
         counts = op_device_counts(trace_dir)
         op_s = op_device_times(trace_dir)
@@ -3302,7 +3320,8 @@ def k7_stream_calls(sd, raw, chunk, dev, spec) -> list:
 
 def estimator_k7_calls(sd, sessions, angles, device=None) -> dict:
     """K7's calls where the session estimator makes them (K = 20, one call
-    an NN-OMP iteration, ``k7_calls``), in the package that ``sd`` belongs
+    an NN-OMP iteration, ``k7_calls``; the programs run eagerly,
+    ``eager_programs``), in the package that ``sd`` belongs
     to: ``run_estimator("nn_omp")`` on the full multipath session
     (``sessions[MP]``: 1 lane) and the "vmap" form of
     ``batch_estimation._batched_nn_omp`` over the sessions packed at the
@@ -3320,10 +3339,11 @@ def estimator_k7_calls(sd, sessions, angles, device=None) -> dict:
         mats.append(m)
         dicts.append(dictionary.make_dictionary(u, b, dict_cfg))
     packed = est.pack_scenes(mats, dicts)
-    return {"estimate_1_lane": k7_calls(pkg, lambda: registry.run_estimator(
-                "nn_omp", sessions[MP], angles, device=device)),
-            f"vmap_{len(sessions)}_lanes": k7_calls(pkg, lambda: est._batched_nn_omp(
-                packed, cfg, keep, stop, device=device))}
+    with eager_programs(pkg):
+        return {"estimate_1_lane": k7_calls(pkg, lambda: registry.run_estimator(
+                    "nn_omp", sessions[MP], angles, device=device)),
+                f"vmap_{len(sessions)}_lanes": k7_calls(pkg, lambda: est._batched_nn_omp(
+                    packed, cfg, keep, stop, device=device))}
 
 
 def k7_work(nnls, args) -> tuple:
@@ -4864,7 +4884,7 @@ def graphs_phase(np, torch, sd, tmp, raws, paths, angles, zero_counts, read_coun
         bucket_size, compiled_session_pipeline, compiled_text_session_pipeline, device_lut,
         pad_bytes, run_session_on_device, session_pipeline, session_pipeline_from_text)
     from slam_process_tpu_torch.utils.device_timing import (
-        measure_device_time, op_device_counts, op_device_times)
+        TraceLostError, measure_device_time, op_device_counts, op_device_times)
     from slam_process_tpu_torch.utils.synthetic import to_hex_text
 
     lut = device_lut(dev)
@@ -4885,11 +4905,22 @@ def graphs_phase(np, torch, sd, tmp, raws, paths, angles, zero_counts, read_coun
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    lost = {}
+
     def device(fn, name, per_run=False):
         """Device ms (median of 3 runs) and activities a run of ``fn()``, or
-        of ``fn(i)`` for runs i = 0, 1, 2 with ``per_run``."""
+        of ``fn(i)`` for runs i = 0, 1, 2 with ``per_run``; the sentinel
+        activities its trace lost go into ``lost[name]``.  Where the trace
+        lost a run's activities (``TraceLostError``): (None, None), and the
+        error in ``lost[name]``."""
         trace = tmp / f"graphs_trace_{name}"
-        t = measure_device_time(fn if per_run else (lambda i: fn()), n=3, trace_dir=trace)
+        try:
+            t = measure_device_time(fn if per_run else (lambda i: fn()), n=3, trace_dir=trace)
+        except TraceLostError as e:
+            shutil.rmtree(trace, ignore_errors=True)
+            lost[name] = str(e)
+            return None, None
+        lost[name] = t.lost
         acts = sum(op_device_counts(trace).values()) / 3
         shutil.rmtree(trace, ignore_errors=True)
         return t.median * 1e3, acts
@@ -5090,8 +5121,8 @@ def graphs_phase(np, torch, sd, tmp, raws, paths, angles, zero_counts, read_coun
             ms = stream_ms(run_stream)
             dev_ms, acts = device(lambda: run_stream().block_until_ready(), f"{name}_{form}")
             row[form] = {"ms": ms, "ms_per_window": ms / n_win,
-                         "device_ms_per_window": dev_ms / n_win,
-                         "device_activities_per_window": acts / n_win,
+                         "device_ms_per_window": None if dev_ms is None else dev_ms / n_win,
+                         "device_activities_per_window": None if acts is None else acts / n_win,
                          "bytes_per_s": len(raw) / (ms / 1e3)}
         row["window_ratio_graph_over_eager"] = row["graph"]["ms"] / row["eager"]["ms"]
         paths_streams[name] = row
@@ -5116,22 +5147,59 @@ def graphs_phase(np, torch, sd, tmp, raws, paths, angles, zero_counts, read_coun
     batch_out = batch_graphs(torch, raws, read_counts, wall_ms, device, dev)
     t1 = time.perf_counter()
     multi_out = multi_graphs(np, torch, sd, raws[DS], angles, device, dev)
-    batch_out["seconds"], multi_out["seconds"] = t1 - t0, time.perf_counter() - t1
+    t2 = time.perf_counter()
+    # The estimator programs on the full and the multipath session (one scene
+    # shape, 58 sweeps each), two dataset sessions (20 sweeps each), and
+    # sweep_paths_dataset over all 21.
+    from slam_process_tpu_torch.pipeline.session import Session
+
+    est_sessions = [Session.from_log(p, device=dev) for p in [paths[0], paths[-1], *paths[1:-1]]]
+    est_out = estimator_graphs(np, torch, est_sessions, angles, read_counts, device, dev)
+    batch_out["seconds"], multi_out["seconds"] = t1 - t0, t2 - t1
+    est_out["seconds"] = time.perf_counter() - t2
     return {"card": smi, "sessions": sessions, "streams": streams,
             "paths_streams": paths_streams, "cli_replay_stream_64KiB": replay,
-            "batch": batch_out, "multi_stream": multi_out, "launches": read_counts()}
+            "batch": batch_out, "multi_stream": multi_out, "estimators": est_out,
+            "profiler_sentinel_lost": lost, "launches": read_counts()}
 
 
 class EagerRunner:
     """``utils/graphs.GraphRunner``'s interface with the body run eagerly at
     every call: patched into ``parallel/batch.py``, the batch's eager
-    comparator (same packing, same single host copy)."""
+    comparator (same packing, same single host copy), and into
+    ``utils/graphs.py`` by ``eager_programs``.  Host tensors move to the
+    device of the inputs it was made with."""
 
     def __init__(self, fn, inputs=(), device=None, pool=None):
         self._fn = fn
+        self._device = inputs[0].device if inputs else device
 
     def __call__(self, *inputs):
-        return self._fn(*inputs)
+        return self._fn(*(x.to(self._device) if hasattr(x, "to") else x for x in inputs))
+
+
+def eager_programs(pkg: str):
+    """The compiled programs of package ``pkg`` (``utils/graphs.GraphProgram``:
+    the session and estimator programs) with their bodies run eagerly at
+    every call, so that a recorder of a kernel wrapper sees every call (a
+    replay calls no wrapper, and a capture's calls launch nothing).  A
+    context manager; the program caches are emptied on entry and exit."""
+    import contextlib
+    import importlib
+
+    graphs = importlib.import_module(f"{pkg}.utils.graphs")
+    clear = getattr(graphs, "clear_programs", lambda: None)
+
+    @contextlib.contextmanager
+    def patched():
+        clear()
+        graph_runner, graphs.GraphRunner = graphs.GraphRunner, EagerRunner
+        try:
+            yield
+        finally:
+            graphs.GraphRunner = graph_runner
+            clear()
+    return patched()
 
 
 def eager_batch(batch):
@@ -5391,6 +5459,362 @@ def timed_rounds(torch, sd, g, e, rounds, timed_n, device, name) -> dict:
     return row
 
 
+def estimator_program_cases(np, torch, sessions, angles, dev) -> list:
+    """Phase 21's estimator programs, each with inputs of two shapes and two
+    inputs of each shape, as the entry points pass them (numpy, or the
+    per-sweep path's device tensors): ``sessions[0]`` and ``[1]`` share
+    their scene's shape and their sweep count, and so do ``[2]`` and
+    ``[3]``.  The scene programs (NN-OMP's session program at v1-7, the
+    batched "vmap" and "gram" programs over the two scenes packed in both
+    orders, SM-SIC, fusion's NLoS stage with two LoS seeds, omp_dense, the
+    peak mask, the LASSO) take the two scenes of sessions 0 and 1, then the
+    same scenes cut (beams, measurements or peaks dropped); the per-sweep
+    programs (NN-OMP, SM-SIC) and the tracker sessions 2 and 3, then 0 and
+    1.  A list of {name, program, kernels, shapes: [(tag, (inputs a,
+    inputs b))]}."""
+    from slam_process_tpu_torch.config import SmSicConfig
+    from slam_process_tpu_torch.models import (
+        batch_estimation, fusion, lasso_refine, omp_dense, peak_picking, sm_sic,
+        sweep_estimation, tracking)
+    from slam_process_tpu_torch.models.dictionary import make_dictionary
+    from slam_process_tpu_torch.models.nn_omp import nn_omp_program
+    from slam_process_tpu_torch.models.registry import build_scene
+    from slam_process_tpu_torch.config import DictionaryConfig
+
+    f32, f64 = np.float32, np.float64
+
+    def same_shapes(name, a, b):
+        if [tuple(np.shape(x)) for x in a] != [tuple(np.shape(x)) for x in b]:
+            fail(f"graphs estimators {name}: the two inputs of a shape differ in shape")
+        return a, b
+
+    def scenes(log_t, cut_u=9, cut_b=5):
+        full = [build_scene(x, angles, log_t, device=dev) for x in sessions[:2]]
+        return {"full": full, "cut": [(m[:-cut_u, :-cut_b], u[:-cut_u], b[:-cut_b])
+                                      for m, u, b in full]}
+
+    cases = []
+    dict_cfg, cfg, log_t, keep, stop = batch_estimation.flavor_config("v1-7")
+    v17 = scenes(log_t)
+    shapes, packed = [], []
+    for tag, pair in v17.items():
+        ins = []
+        for m, u, b in pair:
+            d = make_dictionary(u, b, dict_cfg)
+            ins.append(tuple(np.asarray(x, f32)[None] for x in (d.phi_rx, d.phi_tx, d.aoa_grid,
+                                                                d.aod_grid, m)))
+        shapes.append((tag, same_shapes("nn_omp", *ins)))
+        both = [tuple(np.concatenate(xs) for xs in zip(*order)) for order in (ins, ins[::-1])]
+        packed.append((tag, tuple(both)))
+    cases.append({"name": "nn_omp", "program": nn_omp_program(cfg, keep, stop, dev),
+                  "kernels": ("K7",), "shapes": shapes})
+    for form in ("vmap", "gram"):
+        cases.append({"name": f"batched_{form}",
+                      "program": batch_estimation.batched_program(cfg, keep, stop, form, dev),
+                      "kernels": ("K7",), "shapes": packed})
+
+    linear = scenes(False)
+    sm_cfg = SmSicConfig()
+    shapes, fshapes = [], []
+    for tag, pair in linear.items():
+        ins, fins = [], []
+        for k, (m, u, b) in enumerate(pair):
+            d = make_dictionary(u, b, DictionaryConfig(grid_res=sm_cfg.grid_res,
+                                                       beam_width=sm_cfg.beam_width,
+                                                       grid_kind="arange_inclusive"))
+            ins.append((np.asarray(d.phi_rx, f32), np.asarray(d.phi_tx, f32),
+                        np.asarray(d.aoa_grid, f64), np.asarray(d.aod_grid, f64),
+                        np.asarray(m, f32)))
+            d = make_dictionary(u, b, DictionaryConfig(grid_res=0.1, beam_width=1.4,
+                                                       grid_kind="arange_inclusive"))
+            los = (d.aoa_grid[len(d.aoa_grid) // (3 + k)], d.aod_grid[len(d.aod_grid) // (2 + k)])
+            fins.append(tuple(np.asarray(x, f64) for x in (d.phi_rx, d.phi_tx, d.aoa_grid,
+                                                           d.aod_grid, m, *los)))
+        shapes.append((tag, same_shapes("sm_sic", *ins)))
+        fshapes.append((tag, same_shapes("fusion", *fins)))
+    cases.append({"name": "sm_sic", "program": sm_sic.sm_sic_program(sm_cfg, dev),
+                  "kernels": (), "shapes": shapes})
+    cases.append({"name": "fusion_nlos", "program": fusion.fusion_program(True, device=dev),
+                  "kernels": (), "shapes": fshapes})
+
+    # The two sessions' samples and maps are cut to their common sizes (the
+    # observed pairs may differ), the grids are the first session's.
+    samples, heats = [], []
+    for x in sessions[:2]:
+        aoa, aod, rss = peak_picking.mapped_pair_means(x, angles, dev)
+        samples.append((aoa, aod, rss))
+        heats.append(peak_picking.build_heatmap_grid(aoa, aod, rss)[2])
+    aoa0, aod0 = samples[0][:2]
+    grids = (np.arange(aoa0.min(), aoa0.max(), 0.5), np.arange(aod0.min(), aod0.max(), 0.5))
+    m = min(len(x[0]) for x in samples)
+    h, w = (min(x.shape[i] for x in heats) for i in (0, 1))
+    cases.append({"name": "omp_dense", "program": omp_dense.omp_dense_program(device=dev),
+                  "kernels": (), "shapes": [
+                      (tag, same_shapes("omp_dense", *[tuple(np.asarray(y, f64) for y in (
+                          *(v[:k] for v in x), *grids)) for x in samples]))
+                      for tag, k in (("full", m), ("cut", 3 * m // 4))]})
+    cases.append({"name": "peak_mask", "program": peak_picking.peak_program(90.0, dev),
+                  "kernels": (), "shapes": [
+                      (tag, same_shapes("peaks", *[(x[:h - c, :w - c],) for x in heats]))
+                      for tag, c in (("full", 0), ("cut", 3))]})
+
+    cases.append({"name": "lasso", "program": lasso_refine.lasso_program(10.0, 0.1, device=dev),
+                  "kernels": (), "shapes": [(tag, same_shapes("lasso", *pair)) for tag, pair
+                                            in lasso_program_inputs(sessions, angles, dev)]})
+
+    for est in ("nn_omp", "sm_sic"):
+        shapes, key = [], None
+        for tag, pair in (("dataset", sessions[2:4]), ("full", sessions[:2])):
+            ins = []
+            for x in pair:
+                sub, d, key, _ = x._sweep_estimation_inputs(angles, est, None, dev)
+                ins.append((sub, d.phi_rx, d.phi_tx, d.aoa_grid, d.aod_grid))
+            shapes.append((tag, same_shapes(f"sweep {est}", *ins)))
+        cases.append({"name": f"sweep_{est}", "program": sweep_estimation.sweep_program(key, dev),
+                      "kernels": ("K7",) if est == "nn_omp" else (), "shapes": shapes})
+    shapes = []
+    for tag, pair in (("dataset", sessions[2:4]), ("full", sessions[:2])):
+        ins = []
+        for x in pair:
+            paths, valid = x.sweep_paths(angles, device=dev)
+            ins.append((paths.aoa, paths.aod, paths.power, paths.valid & valid[:, None]))
+        shapes.append((tag, same_shapes("tracker", *ins)))
+    cases.append({"name": "tracker", "program": tracking.track_program(8, 10.0, dev),
+                  "kernels": ("K6",), "shapes": shapes})
+    return cases
+
+
+def lasso_program_inputs(sessions, angles, dev) -> list:
+    """The LASSO program's inputs from ``sessions[0]`` and ``[1]`` (their
+    samples and peaks from session rows read on ``dev``), as phase 21 makes
+    them: [(tag, (inputs of session 0, of session 1))] for "full" (their
+    common count of peaks, up to 20) and "cut" (3 fewer), each as
+    ``models/lasso_refine.patch_inputs`` gives them (CPU float64 tensors),
+    the samples cut to the shorter session's count."""
+    from slam_process_tpu_torch.models import lasso_refine
+
+    patches = []
+    for x in sessions[:2]:
+        aoa, aod, rss = lasso_refine.mapped_row_means(x, angles, dev)
+        ga, gd, heat = lasso_refine.make_heatmap_interpolated(aoa, aod, rss)
+        patches.append((aoa, aod, rss, ga, gd, heat.shape,
+                        lasso_refine.peak_regions_np(heat, 65.0)))
+    n_peaks = min(20, *(len(p[-1]) for p in patches))
+    m = min(len(p[0]) for p in patches)
+    return [(tag, tuple(tuple(x[:m] if i < 3 else x for i, x in enumerate(
+        lasso_refine.patch_inputs(*p[:-1], p[-1][:n])[0])) for p in patches))
+            for tag, n in (("full", n_peaks), ("cut", max(1, n_peaks - 3)))]
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of a tree of tuples."""
+    if tree is None:
+        return []
+    if hasattr(tree, "dtype"):
+        return [tree]
+    return [x for item in tree for x in tree_leaves(item)]
+
+
+def leaves_differ(torch, got, want) -> list:
+    """Indices of the leaves of two output trees that differ in dtype, shape
+    or bits."""
+    a, b = tree_leaves(got), tree_leaves(want)
+    if len(a) != len(b):
+        return ["leaf count"]
+    return [i for i, (x, y) in enumerate(zip(a, b))
+            if x.dtype != y.dtype or x.shape != y.shape
+            or not torch.equal(x.reshape(-1).view(torch.uint8).cpu(),
+                               y.reshape(-1).view(torch.uint8).cpu())]
+
+
+def sync_sites_of(torch, fn) -> dict:
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: each host
+    sync torch reports, by the innermost frame of the package's own code (or
+    the innermost frame where none is)."""
+    import traceback
+    import warnings
+
+    sites = {}
+
+    def record(message, *_):
+        if "synchroniz" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if not f.filename.endswith("warnings.py")]
+        if stack and stack[-1].name == "set_sync_debug_mode":
+            return
+        pkg = REPO / "slam_process_tpu_torch"
+        ours = [f for f in stack if Path(f.filename).is_relative_to(pkg)] or stack[-1:]
+        f = ours[-1]
+        key = f"{Path(f.filename).name}:{f.lineno} {(f.line or '').strip()[:60]}"
+        sites[key] = sites.get(key, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sites
+
+
+def estimator_graphs(np, torch, sessions, angles, read_counts, device, dev) -> dict:
+    """Phase 21, the estimator programs: each program of
+    ``estimator_program_cases`` (sessions 0-3 of ``sessions``) against its
+    eager body (``program.body`` on the same inputs on the card), floats bit
+    for bit: two inputs of one shape alternated (a stale static input would
+    show), then the second shape, every call's K7 / K6 launches (a replay's
+    capture counts) equal to the eager body's.  Then per program: eager,
+    first-call (a fresh program: warm-up and capture) and warm graph wall ms
+    (CUDA events, median of ``ESTIMATOR_TIMED`` after a warm-up), device ms
+    of the warm call (``measure_device_time``, median of 3; None where its
+    trace lost activities, with the replay's CUDA-event ms under
+    ``replay_event_ms`` beside it; the LASSO's as its
+    set-up graph's plus ``N_SWEEPS`` of its sweep graph's, one profile
+    each), each graph's capture ms and pool bytes.  Then the entry points:
+    ``run_estimator("nn_omp")`` on session 1 with exactly one host sync a
+    call (``sync_sites_of``) and its wall ms beside ``build_scene``'s (the
+    scene it builds on the host); warm ``sweep_paths`` and ``run_estimator("lasso_refine")`` wall ms;
+    svd's host syncs (it stays eager); ``sweep_paths_dataset`` over every
+    session in ``sessions`` under the sweep buckets, each result equal to
+    its session's ``sweep_paths``, with the shapes it captured.  The
+    program caches are emptied at the end."""
+    from slam_process_tpu_torch.io.angles import load_angle_lut
+    from slam_process_tpu_torch.models import lasso_refine, svd_est
+    from slam_process_tpu_torch.models.registry import build_scene, run_estimator
+    from slam_process_tpu_torch.models.sweep_estimation import sweep_program
+    from slam_process_tpu_torch.ops import cuda_nnls, cuda_tracker
+    from slam_process_tpu_torch.pipeline.session import sweep_bucket, sweep_paths_dataset
+    from slam_process_tpu_torch.utils.graphs import GraphProgram, clear_programs
+
+    counted = {"K7": cuda_nnls, "K6": cuda_tracker}
+
+    def on_card(inputs):
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) if isinstance(x, np.ndarray)
+                else x.to(dev) for x in inputs]
+
+    def launches(kernels, fn):
+        before = {k: counted[k].LAUNCHES for k in kernels}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: counted[k].LAUNCHES - before[k] for k in kernels}
+
+    def fresh(prog):
+        if isinstance(prog, lasso_refine.LassoProgram):
+            return lasso_refine.LassoProgram(prog.beamwidth, prog.alpha, dev, 1)
+        return GraphProgram(prog.body, dev, 1)
+
+    def graphs_of(prog):
+        if isinstance(prog, lasso_refine.LassoProgram):
+            return [{part: {"capture_ms": r.capture_ms, "pool_bytes": r.pool_bytes,
+                            "replays": r.replays}
+                     for part, r in (("setup", g[0]), ("sweep", g[1]))}
+                    for g in prog.graphs.values()]
+        return [{"capture_ms": r.capture_ms, "pool_bytes": r.pool_bytes, "replays": r.replays}
+                for r, _ in prog.graphs.values()]
+
+    def device_of(call, replay, name):
+        """``device_ms``, the device ms of ``call()`` from
+        ``measure_device_time``; where its trace lost activities
+        (``device``: the error is in the phase's ``profiler_sentinel_lost``),
+        ``device_ms`` None and ``replay_event_ms``: CUDA events around
+        ``replay()`` (the graph's replay alone, median of
+        ``ESTIMATOR_TIMED``), which hold launch gaps and so are not device
+        time."""
+        ms = device(call, name)[0]
+        if ms is not None:
+            return {"device_ms": ms}
+        return {"device_ms": None, "replay_event_ms": event_ms(torch, replay, ESTIMATOR_TIMED)}
+
+    clear_programs()
+    out = {}
+    for case in estimator_program_cases(np, torch, sessions, angles, dev):
+        name, prog, kernels = case["name"], case["program"], case["kernels"]
+        row = {"shapes": {}}
+        for tag, pair in case["shapes"]:
+            want = [launches(kernels, lambda x=x: prog.body(*on_card(x))) for x in pair]
+            for k in (0, 1, 0, 1):
+                got, n = launches(kernels, lambda: prog(*pair[k]))
+                bad = leaves_differ(torch, got, want[k][0])
+                if bad or n != want[k][1]:
+                    fail(f"graphs estimators {name} ({tag}, input {k}): the graph differs from "
+                         f"the eager body in leaves {bad}, or launches {n} != {want[k][1]}")
+            row["shapes"][tag] = [list(np.shape(x)) for x in pair[0]]
+            row["launches_per_call"] = want[0][1]
+        a = case["shapes"][0][1][0]
+        a_card = on_card(a)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        new = fresh(prog)
+        t0.record()
+        new(*a)
+        t1.record()
+        t1.synchronize()
+        row["first_call_ms"] = t0.elapsed_time(t1)
+        row["fresh_graphs"] = graphs_of(new)
+        del new
+        row["eager_ms"] = event_ms(torch, lambda: prog.body(*a_card), ESTIMATOR_TIMED)
+        row["graph_ms"] = event_ms(torch, lambda: prog(*a), ESTIMATOR_TIMED)
+        if isinstance(prog, lasso_refine.LassoProgram):
+            setup, sweep, _, _ = prog.graphs[next(reversed(prog.graphs))]
+            prog(*a)
+            ms_setup = device_of(lambda: setup(*a), setup.run, "est_lasso_setup")
+            ms_sweep = device_of(sweep.run, sweep.run, "est_lasso_sweep")
+            n = lasso_refine.N_SWEEPS
+            row.update(device_ms=(None if None in (ms_setup["device_ms"], ms_sweep["device_ms"])
+                                  else ms_setup["device_ms"] + n * ms_sweep["device_ms"]),
+                       device_ms_setup=ms_setup, device_ms_sweep=ms_sweep, sweeps=n)
+        else:
+            prog(*a)
+            row.update(device_of(lambda: prog(*a), prog.runner.run, f"est_{name}"))
+        row["graphs"] = graphs_of(prog)
+        row["wall_ratio_graph_over_eager"] = row["graph_ms"] / row["eager_ms"]
+        out[name] = row
+
+    entry = {}
+    s = sessions[1]
+    run_estimator("nn_omp", s, angles)
+    sites = sync_sites_of(torch, lambda: run_estimator("nn_omp", s, angles))
+    if sum(sites.values()) != 1:
+        fail(f"graphs estimators: run_estimator('nn_omp') made {sites} host syncs, not one read")
+    entry["run_estimator_nn_omp"] = {
+        "host_syncs": sites, "wall_ms": event_ms(torch, lambda: run_estimator("nn_omp", s, angles),
+                                                  ESTIMATOR_TIMED),
+        "build_scene_ms": event_ms(torch, lambda: build_scene(s, angles, True), ESTIMATOR_TIMED)}
+    entry["sweep_paths_warm_ms"] = event_ms(torch, lambda: s.sweep_paths(angles), ESTIMATOR_TIMED)
+    entry["run_estimator_lasso_refine_ms"] = event_ms(
+        torch, lambda: run_estimator("lasso_refine", s, angles), ESTIMATOR_TIMED)
+    heat, grid_ue, grid_bs = svd_est.svd_upsample(*svd_est.build_raw_matrix(
+        *(s.filtered[:, i] for i in range(3)), load_angle_lut(angles)))
+    svd_in = [torch.from_numpy(np.asarray(x, np.float64)).to(dev) for x in (heat, grid_ue, grid_bs)]
+    svd_est.svd_paths_torch(*svd_in)
+    entry["svd_stays_eager_host_syncs"] = sync_sites_of(
+        torch, lambda: svd_est.svd_paths_torch(*svd_in))
+
+    clear_programs()
+    got = sweep_paths_dataset(sessions, angles)
+    key = s._sweep_host_prep(angles, "nn_omp")[5]
+    captured = sorted(tuple(sig[0][0]) for sig in sweep_program(key, dev).graphs)
+    for i, (x, res) in enumerate(zip(sessions, got)):
+        if not same_results(tuple(res), tuple(x.sweep_paths(angles))):
+            fail(f"graphs estimators: sweep_paths_dataset session {i} differs from its "
+                 "sweep_paths")
+    entry["sweep_paths_dataset"] = {
+        "sessions": len(sessions), "sweeps": [len(r[1]) for r in got],
+        "buckets": sorted({sweep_bucket(len(r[1])) for r in got}),
+        "shapes_captured": [list(c) for c in captured],
+        "ms": event_ms(torch, lambda: sweep_paths_dataset(sessions, angles), ESTIMATOR_TIMED)}
+    clear_programs()
+    torch.cuda.empty_cache()
+    return {"programs": out, **entry}
+
+
+ESTIMATOR_TIMED = 5                  # event-timed calls per median in phase 21's estimator part
+
+
 MULTIHOST_TIMEOUT_S = 300            # each process of the multihost phase
 MULTIHOST_WATCH = [dict(n_groups=n, frames_per_beam=12, baselines_per_group=40, junk_frac=0.02,
                         seed=500 + i, n_paths=3) for i, n in enumerate((2, 5, 6))]
@@ -5418,10 +5842,14 @@ def multihost_phase(np, torch, sd, tmp, angles, raws, sessions, dev) -> dict:
     from slam_process_tpu_torch.pipeline import cli
     from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes, to_hex_text
 
-    # The six worker processes share the card with this one: release the
-    # blocks this process's allocator keeps cached but no tensor holds.
+    # The six worker processes share the card with this one: drop the
+    # estimator programs' graphs (their pools) and release the blocks this
+    # process's allocator keeps cached but no tensor holds.
+    from slam_process_tpu_torch.utils.graphs import clear_programs
+
     reserved = {"before": torch.cuda.memory_reserved(dev) if dev.type == "cuda" else 0}
     if dev.type == "cuda":
+        clear_programs()
         torch.cuda.empty_cache()
     reserved["after"] = torch.cuda.memory_reserved(dev) if dev.type == "cuda" else 0
     work = tmp / "multihost"

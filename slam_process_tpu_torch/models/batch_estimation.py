@@ -11,7 +11,11 @@ the float64 scene (``registry.build_scene``) and its dictionary;
 ``pack_scenes`` pads them to the dataset's largest (U, B, Ga, Gd) with
 zeros; ``nn_omp_scenes`` runs all N scenes in lockstep on a device (the
 JAX package's production ``"vmap"`` program), so each iteration's
-correlation chain is one batched product per side.
+correlation chain is one batched product per side.  As in the JAX package
+each form is one compiled program per (config, form) and shape
+(``batched_program``; the per-session form replays the session program
+``models/nn_omp.nn_omp_program``): a CUDA graph on the card, the eager body
+on the CPU.
 
 Zero padding is exact: padded measurement rows multiply zero ``phi`` rows,
 and padded grid atoms have zero ``phi`` columns, so their correlation is
@@ -31,8 +35,10 @@ import torch
 
 from slam_process_tpu_torch.config import DictionaryConfig, OmpConfig
 from slam_process_tpu_torch.models.dictionary import BeamDictionary, make_dictionary
-from slam_process_tpu_torch.models.nn_omp import OmpPaths, nn_omp_gram_batch, nn_omp_scenes
+from slam_process_tpu_torch.models.nn_omp import (
+    OmpPaths, nn_omp_gram_batch, nn_omp_program, nn_omp_scenes)
 from slam_process_tpu_torch.pipeline.device import resolve_device
+from slam_process_tpu_torch.utils.graphs import GraphProgram, program_cache
 
 
 class PackedScenes(NamedTuple):
@@ -114,18 +120,42 @@ def packed_to_device(packed: PackedScenes, device) -> PackedScenes:
         for i, x in enumerate(packed)))
 
 
-def _device_packed(packed: PackedScenes, device) -> PackedScenes:
-    """``packed`` as tensors: numpy moved to ``device`` (None: CUDA), tensors
-    kept where they are unless ``device`` names another device."""
+def _program_inputs(packed: PackedScenes, device):
+    """(device, [phi_rx, phi_tx, aoa_grid, aod_grid, matrices], the float32
+    arrays a program takes) of ``packed``: numpy goes to ``device`` (None:
+    CUDA; the program loads it), tensors stay where they are unless
+    ``device`` names another device."""
+    fields = (packed.phi_rx, packed.phi_tx, packed.aoa_grid, packed.aod_grid, packed.matrices)
     if isinstance(packed.matrices, torch.Tensor):
-        return packed if device is None else PackedScenes(*(x.to(device) for x in packed))
-    return packed_to_device(packed, resolve_device(device))
+        dev = packed.matrices.device if device is None else resolve_device(device)
+        return dev, [x.to(dev, torch.float32) for x in fields]
+    return resolve_device(device), [np.ascontiguousarray(x, dtype=np.float32) for x in fields]
+
+
+FORMS = {"vmap": nn_omp_scenes, "gram": nn_omp_gram_batch}
+
+
+@program_cache(16)
+def batched_program(cfg: OmpConfig, keep_rule: str = "ratio", stop_np: bool = True,
+                    form: str = "vmap", device=None) -> GraphProgram:
+    """The batched program of one (cfg, keep rule, stopping rule, form) on
+    ``device`` (None: CUDA): the JAX package's ``_batched_nn_omp_fn``,
+    called as ``fn(phi_rx, phi_tx, aoa_grid, aod_grid, mats)`` on N packed
+    scenes; on CUDA one graph per shape, 16 at most, and 16 programs, as
+    JAX caches 16."""
+    if form not in FORMS:
+        raise ValueError(f"unknown form {form!r}; use 'vmap' or 'gram'")
+    est = FORMS[form]
+
+    def body(phi_rx, phi_tx, aoa_grid, aod_grid, mats):
+        return est(phi_rx, phi_tx, aoa_grid, aod_grid, mats, cfg, keep_rule, stop_np)
+    return GraphProgram(body, device, 16)
 
 
 def _batched_nn_omp(packed: PackedScenes, cfg: OmpConfig, keep_rule: str = "ratio",
                     stop_np: bool = True, form: str = "vmap", device=None) -> OmpPaths:
     """The N packed sessions in one batched run (the JAX package's
-    ``_batched_nn_omp_fn``), in one of two forms:
+    ``_batched_nn_omp_fn``, ``batched_program``), in one of two forms:
 
       * ``"vmap"``: ``nn_omp_scenes``, the chain recomputed from the
         residual every iteration, one batched product per side (what
@@ -142,30 +172,23 @@ def _batched_nn_omp(packed: PackedScenes, cfg: OmpConfig, keep_rule: str = "rati
     that device; both forms select alike (the JAX package's comparator
     contract: indices, ``n_iters`` and ``valid`` equal, power within
     float32 rounding)."""
-    p = _device_packed(packed, device)
-    args = (p.phi_rx, p.phi_tx, p.aoa_grid, p.aod_grid, p.matrices, cfg, keep_rule, stop_np)
-    if form == "vmap":
-        return nn_omp_scenes(*args)
-    if form == "gram":
-        return nn_omp_gram_batch(*args)
-    raise ValueError(f"unknown form {form!r}; use 'vmap' or 'gram'")
+    dev, args = _program_inputs(packed, device)
+    return batched_program(cfg, keep_rule, stop_np, form, dev)(*args)
 
 
 def nn_omp_sessions_device(packed: PackedScenes, cfg: OmpConfig, keep_rule: str = "ratio",
                            stop_nonpositive: bool = True, device=None) -> list:
-    """The N packed sessions as N runs of one program: ``nn_omp_scenes``
-    with N = 1 on each session's row of ``packed`` (padded as packed), the
-    JAX package's per-session dispatch, which it keeps as the yardstick of
-    the batched forms (``_batched_nn_omp``).  ``packed`` as
-    ``_batched_nn_omp``'s.  Returns a list of N OmpPaths of [K] tensors
-    (``n_iters`` 0-d) on the device, not read back."""
-    p = _device_packed(packed, device)
-    out = []
-    for i in range(p.matrices.shape[0]):
-        row = [x[i:i + 1] for x in (p.phi_rx, p.phi_tx, p.aoa_grid, p.aod_grid, p.matrices)]
-        one = nn_omp_scenes(*row, cfg, keep_rule, stop_nonpositive)
-        out.append(OmpPaths(*(x[0] for x in one)))
-    return out
+    """The N packed sessions as N runs of one program: the session program
+    ``nn_omp_program`` (JAX's ``_jitted_nn_omp``, N = 1) replayed on each
+    session's row of ``packed`` (padded as packed), the JAX package's
+    per-session dispatch, which it keeps as the yardstick of the batched
+    forms (``_batched_nn_omp``).  ``packed`` as ``_batched_nn_omp``'s.
+    Returns a list of N OmpPaths of [K] tensors (``n_iters`` 0-d) on the
+    device, not read back; each its own copy of the program's outputs."""
+    dev, args = _program_inputs(packed, device)
+    fn = nn_omp_program(cfg, keep_rule, stop_nonpositive, dev)
+    return [OmpPaths(*(x[0] for x in fn(*(a[i:i + 1] for a in args))))
+            for i in range(args[0].shape[0])]
 
 
 def nn_omp_sessions_sharded(packed: PackedScenes, cfg: OmpConfig, mesh,
@@ -175,9 +198,13 @@ def nn_omp_sessions_sharded(packed: PackedScenes, cfg: OmpConfig, mesh,
     None: CUDA; ``parallel.mesh.placement``): the sessions over ``data``
     (padded with zero scenes to a multiple of it: every correlation 0, so
     they select nothing that is kept, and are dropped), each data shard on
-    its row's devices with the AoA grid over ``model`` (``nn_omp_scenes``'s
+    its row's devices.  A row of one device runs the "vmap" form's
+    ``batched_program`` (a CUDA graph per shard shape on the card); a row
+    of several shards the AoA grid over ``model`` (``nn_omp_scenes``'s
     ``model_devices``: Ga pads to a multiple of ``model`` with zero phi_rx
-    columns and edge-repeated angles, as the JAX package pads it).
+    columns and edge-repeated angles, as the JAX package pads it), eagerly:
+    each iteration crosses the row's devices, which one device's graph
+    cannot.
 
     ``packed`` is ``pack_scenes``' numpy.  Returns an OmpPaths of [N, ...]
     numpy arrays, each shard read back once; equal to the unsharded run's.
@@ -191,7 +218,12 @@ def nn_omp_sessions_sharded(packed: PackedScenes, cfg: OmpConfig, mesh,
                             for x in packed))
     outs = []
     for r, devs in enumerate(rows):
-        p = packed_to_device(PackedScenes(*(x[r * per:(r + 1) * per] for x in padded)), devs[0])
+        shard = PackedScenes(*(x[r * per:(r + 1) * per] for x in padded))
+        if len(devs) == 1:
+            outs.append(_batched_nn_omp(shard, cfg, keep_rule, stop_nonpositive, "vmap",
+                                        devs[0]))
+            continue
+        p = packed_to_device(shard, devs[0])
         outs.append(nn_omp_scenes(p.phi_rx, p.phi_tx, p.aoa_grid, p.aod_grid, p.matrices, cfg,
                                   keep_rule, stop_nonpositive, model_devices=devs))
     host = [read_once([o])[0] for o in outs]

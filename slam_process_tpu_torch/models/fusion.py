@@ -13,7 +13,9 @@ second peak on (the LoS metric is not in that list).
   * ``fusion_nlos_torch``: the counterpart of ``fusion_nlos_jax``, on the
     inputs' device in float64 (JAX's is float32): the correlation
     ``phi_rx^T M phi_tx``, the LoS seed masks, and the K-step loop with
-    the stop rule kept on the device as masks; [K] tensors.
+    the stop rule kept on the device as masks; [K] tensors.  ``fusion_program``
+    compiles it per shape (a CUDA graph on the card), the LoS angles its
+    inputs.
 
 With ``engine="device"`` the LoS's angles are the float64 grid's at the
 NN-OMP's selected indices (the device NN-OMP returns its float32 grid), so
@@ -29,6 +31,7 @@ from slam_process_tpu_torch.config import DictionaryConfig, OmpConfig
 from slam_process_tpu_torch.models.dictionary import make_dictionary
 from slam_process_tpu_torch.models.nn_omp import run_nn_omp
 from slam_process_tpu_torch.models.registry import Table, build_scene
+from slam_process_tpu_torch.utils.graphs import GraphProgram, program_cache
 
 def nlos_table(ids, aoa, aod, metric) -> Table:
     """The NLoS rows as a Table, no columns where there is none."""
@@ -68,12 +71,13 @@ def fusion_nlos_np(dictionary, rss_matrix, los_aoa, los_aod, max_paths: int = 3,
 
 
 def fusion_nlos_torch(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torch.Tensor,
-                      aod_grid: torch.Tensor, rss_matrix: torch.Tensor, los_aoa: float,
-                      los_aod: float, has_los: bool, max_paths: int = 3,
-                      proximity: float = 10.0, cross: float = 10.0, local: float = 1.0,
-                      stop_ratio: float = 0.1):
+                      aod_grid: torch.Tensor, rss_matrix: torch.Tensor, los_aoa, los_aod,
+                      has_los: bool, max_paths: int = 3, proximity: float = 10.0,
+                      cross: float = 10.0, local: float = 1.0, stop_ratio: float = 0.1):
     """(aoa [K], aod [K], metric [K], valid [K]) of the NLoS loop on the
-    inputs' device in float64; the LoS seed masks apply when ``has_los``."""
+    inputs' device in float64; the LoS seed masks apply when ``has_los``.
+    ``los_aoa`` / ``los_aod`` are floats or 0-d float64 tensors on the
+    device (as ``fusion_program`` passes them: one graph for every LoS)."""
     f64 = torch.float64
     corr = phi_rx.to(f64).T @ rss_matrix.to(f64) @ phi_tx.to(f64)
     Gd = corr.shape[1]
@@ -100,6 +104,20 @@ def fusion_nlos_torch(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torc
         out.append((a, d, peak, ~stopped))
     aoa, aod, metric, valid = (torch.cat(col) for col in zip(*out))
     return aoa, aod, metric, valid
+
+
+@program_cache(8)
+def fusion_program(has_los: bool, max_paths: int = 3, proximity: float = 10.0,
+                   cross: float = 10.0, device=None) -> GraphProgram:
+    """``fusion_nlos_torch`` as one compiled program on ``device`` (None:
+    CUDA), the JAX package's jitted ``fusion_nlos_jax``, called as
+    ``fn(phi_rx, phi_tx, aoa_grid, aod_grid, matrix, los_aoa, los_aod)``
+    (float64; the LoS angles 0-d inputs): on CUDA one graph per shape.  JAX
+    builds a fresh jitted function per call; the port keeps 8 programs of
+    8 shapes."""
+    return GraphProgram(lambda *x: fusion_nlos_torch(
+        *x, has_los, max_paths=max_paths, proximity=proximity, cross=cross),
+        device, 8)
 
 
 def run_fusion(session, angle_file, output_path=None, **overrides) -> Table:
@@ -133,17 +151,11 @@ def run_fusion(session, angle_file, output_path=None, **overrides) -> Table:
               proximity=overrides.get("proximity_mask_radius", 10.0),
               cross=overrides.get("cross_mask_width", 10.0))
     if engine == "device":
-        from slam_process_tpu_torch.pipeline.device import resolve_device
-
-        dev = resolve_device(device)
-        res = fusion_nlos_torch(*(torch.from_numpy(np.asarray(x, dtype=np.float64)).to(dev)
-                                  for x in (d_nlos.phi_rx, d_nlos.phi_tx, d_nlos.aoa_grid,
-                                            d_nlos.aod_grid, matrix)),
-                                0.0 if los_aoa is None else los_aoa,
-                                0.0 if los_aod is None else los_aod, los_aoa is not None,
-                                **kw)
-        a, d, m, v = torch.stack([x.to(torch.float64) for x in res]).cpu().numpy()
-        keep = np.nonzero(v > 0)[0]
+        a, d, m, v = fusion_program(los_aoa is not None, **kw, device=device).host(
+            *(np.asarray(x, dtype=np.float64) for x in (
+                d_nlos.phi_rx, d_nlos.phi_tx, d_nlos.aoa_grid, d_nlos.aod_grid, matrix,
+                0.0 if los_aoa is None else los_aoa, 0.0 if los_aod is None else los_aod)))
+        keep = np.nonzero(v)[0]
         nlos = nlos_table(keep + 1, a[keep], d[keep], m[keep])
     else:
         nlos = fusion_nlos_np(d_nlos, matrix, los_aoa, los_aod, **kw)

@@ -15,9 +15,11 @@ strongest against the second (ratio 1.5).
     JAX package's numpy computes it.
   * ``refine_patches_device``: every patch padded to 7 x 7 (the columns
     outside the clamped bounds zero, which the descent leaves at zero) and
-    solved in one batched ``lasso_positive_torch`` call on the card in
-    float64 (a fixed 200 sweeps), with only the [P, 49] coefficients read
-    back.  The interpolation, the regions and the table stay on the host.
+    solved in one batched call on the card in float64 (a fixed 200 sweeps:
+    ``lasso_program``, JAX's jitted vmapped solve, a set-up graph and a
+    one-sweep graph replayed 200 times), with only the [P, 49]
+    coefficients read back.  The interpolation, the regions and the table
+    stay on the host.
 """
 
 from __future__ import annotations
@@ -27,8 +29,12 @@ import torch
 
 from slam_process_tpu_torch.io.angles import load_angle_lut
 from slam_process_tpu_torch.models.registry import Table, pair_means, session_rows
-from slam_process_tpu_torch.ops.lasso import lasso_positive_np, lasso_positive_torch
+from slam_process_tpu_torch.ops.lasso import lasso_gram, lasso_positive_np, lasso_sweep_
 from slam_process_tpu_torch.ops.peaks import peak_regions_np, savgol_rows
+from slam_process_tpu_torch.pipeline.device import resolve_device
+from slam_process_tpu_torch.utils.graphs import GraphProgram, GraphRunner, program_cache
+
+N_SWEEPS = 200   # the device engine's fixed sweep count (JAX's lasso_positive_jax)
 
 
 def beam_gain(angle_deg, center_deg, beamwidth_deg: float = 10.0):
@@ -104,49 +110,125 @@ def patch_layout(heat_shape, peaks, patch_half: int = 3, max_peaks: int = 20):
     return rows, cols, rows <= r2[:, None], cols <= c2[:, None]
 
 
-def patch_lasso_torch(meas_aoa: torch.Tensor, meas_aod: torch.Tensor, meas_rss: torch.Tensor,
-                      aoa_cent: torch.Tensor, aod_cent: torch.Tensor, ok: torch.Tensor,
-                      beamwidth: float = 10.0, alpha: float = 0.1) -> torch.Tensor:
-    """[P, 49] coefficients of the padded patches: the Gaussian design [P,
-    M, 49] (columns where ``ok`` is False zero), unit-norm columns, one
-    batched ``lasso_positive_torch``, rescaled; on the inputs' device in
-    float64."""
+def patch_setup(meas_aoa: torch.Tensor, meas_aod: torch.Tensor, meas_rss: torch.Tensor,
+                aoa_cent: torch.Tensor, aod_cent: torch.Tensor, ok: torch.Tensor,
+                beamwidth: float = 10.0):
+    """The padded patches' LASSO set-up: the Gaussian design [P, M, 49]
+    (columns where ``ok`` is False zero), its unit-norm columns and
+    ``ops/lasso.lasso_gram`` of them; returns (G, b, diag, live, safe,
+    norms [P, 49]) on the inputs' device in float64."""
     sigma = beamwidth / 2.355
     da = (meas_aoa[None, :, None] - aoa_cent[:, None, :]) / sigma
     dd = (meas_aod[None, :, None] - aod_cent[:, None, :]) / sigma
     G = torch.exp(-0.5 * (da * da + dd * dd)) * ok[:, None, :]
     norms = torch.linalg.vector_norm(G, dim=1) + 1e-8           # [P, 49]
     y = meas_rss[None, :].expand(G.shape[0], -1)
-    return lasso_positive_torch(G / norms[:, None, :], y, alpha) / norms
+    return (*lasso_gram(G / norms[:, None, :], y), norms)
+
+
+def patch_lasso_torch(meas_aoa: torch.Tensor, meas_aod: torch.Tensor, meas_rss: torch.Tensor,
+                      aoa_cent: torch.Tensor, aod_cent: torch.Tensor, ok: torch.Tensor,
+                      beamwidth: float = 10.0, alpha: float = 0.1) -> torch.Tensor:
+    """[P, 49] coefficients of the padded patches, eagerly: ``patch_setup``,
+    ``N_SWEEPS`` of ``ops/lasso.lasso_sweep_``, rescaled by the norms
+    (``lasso_positive_torch`` on the unit-norm design, divided by the
+    norms); on the inputs' device in float64.  ``LassoProgram``'s eager
+    body."""
+    *gram, norms = patch_setup(meas_aoa, meas_aod, meas_rss, aoa_cent, aod_cent, ok, beamwidth)
+    w = torch.zeros_like(gram[1])
+    for _ in range(N_SWEEPS):
+        lasso_sweep_(w, *gram, alpha)
+    return w / norms
+
+
+class LassoProgram(GraphProgram):
+    """``patch_lasso_torch`` as two compiled programs per input signature
+    (the JAX package's ``jit_highest(vmap(solve))``), through
+    ``utils/graphs.GraphProgram``: on a CUDA device the set-up
+    (``patch_setup``, which writes the fixed terms into buffers the program
+    owns and zeroes w) is one CUDA graph and one full sweep
+    (``lasso_sweep_`` on those buffers, w in place) another, replayed
+    ``N_SWEEPS`` times, so a solve is 1 + ``N_SWEEPS`` graph launches, not
+    ~``N_SWEEPS`` x 49 x 10 operations issued one by one.  A call returns
+    the coefficients w / norms after the last sweep as a tensor of its own.
+    On the CPU a call runs ``patch_lasso_torch``."""
+
+    def __init__(self, beamwidth: float, alpha: float, device, max_graphs: int):
+        super().__init__(lambda *x: patch_lasso_torch(*x, beamwidth, alpha), device, max_graphs)
+        self.beamwidth, self.alpha = beamwidth, alpha
+
+    def compile(self, xs: list):
+        """(set-up runner, sweep runner, w, norms) of one signature."""
+        p, k = xs[3].shape
+        dev, f64 = self.device, torch.float64
+        state = [torch.empty((p, k, k), dtype=f64, device=dev),
+                 *(torch.empty((p, k), dtype=d, device=dev)
+                   for d in (f64, f64, torch.bool, f64, f64))]
+        w = torch.empty((p, k), dtype=f64, device=dev)
+        beamwidth, alpha = self.beamwidth, self.alpha
+
+        def setup(*inputs):
+            for dst, src in zip(state, patch_setup(*inputs, beamwidth)):
+                dst.copy_(src)
+            w.zero_()
+
+        return (GraphRunner(setup, xs),
+                GraphRunner(lambda: lasso_sweep_(w, *state[:5], alpha), device=dev), w, state[5])
+
+    def replay(self, compiled, xs):
+        setup, sweep, w, norms = compiled
+        setup(*xs)
+        for _ in range(N_SWEEPS):
+            sweep.run()
+        return w / norms, None
+
+
+@program_cache(8)
+def lasso_program(beamwidth: float, alpha: float, device=None) -> LassoProgram:
+    """The LASSO program of one (beam width, alpha) on ``device`` (None:
+    CUDA).  The JAX package builds a fresh jitted solve per call; the port
+    keeps 8 programs of 8 signatures each."""
+    return LassoProgram(beamwidth, alpha, device, 8)
+
+
+def patch_inputs(meas_aoa, meas_aod, meas_rss, aoa_grid, aod_grid, heat_shape, peaks,
+                 patch_half: int = 3, max_peaks: int = 20):
+    """The device engine's inputs of up to ``max_peaks`` peaks' padded
+    patches: (meas_aoa, meas_aod, meas_rss [M], aoa_cent, aod_cent, ok [P,
+    s * s]) as float64 CPU tensors, cells in row-major (aod, aoa) order (the
+    host's cyclic-descent order), and ``patch_layout``'s (rows, cols,
+    row_ok, col_ok); None for no peak."""
+    layout = patch_layout(heat_shape, peaks, patch_half, max_peaks)
+    rows, cols, row_ok, col_ok = layout
+    P, s = rows.shape
+    if P == 0:
+        return None, layout
+    H, W = heat_shape
+    valid = (row_ok[:, :, None] & col_ok[:, None, :]).reshape(P, s * s)
+    aod_c = np.broadcast_to(aod_grid[np.minimum(rows, H - 1)][:, :, None], (P, s, s))
+    aoa_c = np.broadcast_to(aoa_grid[np.minimum(cols, W - 1)][:, None, :], (P, s, s))
+    return [torch.from_numpy(np.ascontiguousarray(x, dtype=np.float64)) for x in (
+        meas_aoa, meas_aod, meas_rss, aoa_c.reshape(P, s * s), aod_c.reshape(P, s * s),
+        valid)], layout
 
 
 def refine_patches_device(meas_aoa, meas_aod, meas_rss, aoa_grid, aod_grid, heat_shape, peaks,
                           patch_half: int = 3, beamwidth: float = 10.0, alpha: float = 0.1,
                           max_peaks: int = 20, device=None):
-    """Device engine of ``refine_patches``: the padded patches solved in
-    one batched call on ``device`` (None: CUDA), the [P, 49] coefficients
-    read back and added into the refined map on the host."""
-    from slam_process_tpu_torch.pipeline.device import resolve_device
-
+    """Device engine of ``refine_patches``: the padded patches
+    (``patch_inputs``) solved in one call of ``lasso_program`` on ``device``
+    (None: CUDA), the [P, 49] coefficients read back and added into the
+    refined map on the host."""
     dev = resolve_device(device)
     refined = np.zeros(heat_shape)
-    rows, cols, row_ok, col_ok = patch_layout(heat_shape, peaks, patch_half, max_peaks)
-    P, s = rows.shape
-    if P == 0:
+    inputs, (rows, cols, row_ok, col_ok) = patch_inputs(
+        meas_aoa, meas_aod, meas_rss, aoa_grid, aod_grid, heat_shape, peaks, patch_half,
+        max_peaks)
+    if inputs is None:
         return refined
-    H, W = heat_shape
-    # Row-major (aod, aoa) cell order: the host's cyclic-descent order.
-    valid = (row_ok[:, :, None] & col_ok[:, None, :]).reshape(P, s * s)
-    aod_c = np.broadcast_to(aod_grid[np.minimum(rows, H - 1)][:, :, None], (P, s, s))
-    aoa_c = np.broadcast_to(aoa_grid[np.minimum(cols, W - 1)][:, None, :], (P, s, s))
-
-    def t(x):
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float64)).to(dev)
-
-    coefs = patch_lasso_torch(t(meas_aoa), t(meas_aod), t(meas_rss),
-                              t(aoa_c.reshape(P, s * s)), t(aod_c.reshape(P, s * s)), t(valid),
-                              beamwidth, alpha).cpu().numpy()
-    for p in range(P):
+    coefs = lasso_program(beamwidth, alpha, device=dev)(*inputs).cpu().numpy()
+    s = rows.shape[1]
+    for p in range(rows.shape[0]):
         w = coefs[p].reshape(s, s)
         for i in np.nonzero(row_ok[p])[0]:
             for j in np.nonzero(col_ok[p])[0]:

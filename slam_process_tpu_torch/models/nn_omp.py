@@ -23,9 +23,12 @@ The port of ``slam_process_tpu/models/nn_omp.py``:
     dictionary in the chain form, each iteration's correlations as two
     whole-batch products ([Ga, U] x [U, S B], then [S Ga, B] x [B, Gd])
     with ``nn_omp_scenes``' arithmetic and refit.
-  * ``run_nn_omp``: one entry point, ``engine="device"`` (the chain form
-    with N = 1 on ``device``, None meaning CUDA, returned as numpy) or
-    ``engine="host"`` (``nn_omp_np``).
+  * ``nn_omp_program``: the chain form with the LU NNLS as one compiled
+    program per (cfg, keep rule, stopping rule) and shape, JAX's
+    ``_jitted_nn_omp`` (a CUDA graph on the card);
+  * ``run_nn_omp``: one entry point, ``engine="device"`` (that program
+    with N = 1 on ``device``, None meaning CUDA, read back once, returned
+    as numpy) or ``engine="host"`` (``nn_omp_np``).
   * ``nn_omp_gram_batch``: the per-sweep form, below; with one dictionary
     per scene it is also the dataset's Gram-domain comparator
     (``models/batch_estimation._batched_nn_omp(form="gram")``).
@@ -64,9 +67,9 @@ import numpy as np
 import torch
 
 from slam_process_tpu_torch.config import OmpConfig
-from slam_process_tpu_torch.models.dictionary import BeamDictionary, dictionary_to_device
+from slam_process_tpu_torch.models.dictionary import BeamDictionary
 from slam_process_tpu_torch.ops.nnls import nnls_gram
-from slam_process_tpu_torch.pipeline.device import resolve_device
+from slam_process_tpu_torch.utils.graphs import GraphProgram, program_cache
 
 
 class OmpPaths(NamedTuple):
@@ -348,24 +351,40 @@ def nn_omp_batch(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torch.Ten
                       aod_grid.expand(S, Gd), U, cfg, keep_rule, stop_nonpositive, nnls_solver)
 
 
+@program_cache(32)
+def nn_omp_program(cfg: OmpConfig, keep_rule: str = "ratio", stop_nonpositive: bool = True,
+                   device=None) -> GraphProgram:
+    """The session NN-OMP program of one (cfg, keep rule, stopping rule) on
+    ``device`` (None: CUDA): the JAX package's ``_jitted_nn_omp``, which
+    forces the LU NNLS solve.  Its body is ``nn_omp_scenes`` with ``"lu"``,
+    called as ``fn(phi_rx [N, U, Ga], phi_tx [N, B, Gd], aoa_grid [N, Ga],
+    aod_grid [N, Gd], mats [N, U, B])`` (float32; N = 1 for a session); on
+    CUDA one graph per shape (``utils/graphs.GraphProgram``), 32 at most,
+    and 32 programs, as JAX caches 32."""
+    def body(phi_rx, phi_tx, aoa_grid, aod_grid, mats):
+        return nn_omp_scenes(phi_rx, phi_tx, aoa_grid, aod_grid, mats, cfg, keep_rule,
+                             stop_nonpositive, nnls_solver="lu")
+    return GraphProgram(body, device, 32)
+
+
 def run_nn_omp(dictionary: BeamDictionary, rss_matrix: np.ndarray, cfg: OmpConfig = OmpConfig(),
                keep_rule: str = "ratio", stop_nonpositive: bool = True, engine: str = "device",
                device=None, logger=None) -> OmpPaths:
     """One entry point for every NN-OMP flavor: ``engine="device"`` runs
-    ``nn_omp_scenes`` on ``device`` (None: CUDA) with the dictionary and
-    the scene rounded once to float32, and returns numpy arrays of [K]
-    (``n_iters`` a numpy scalar); ``engine="host"`` is ``nn_omp_np``."""
+    ``nn_omp_program`` on ``device`` (None: CUDA) with the dictionary and
+    the scene rounded once to float32, reads the result back once and
+    returns numpy arrays of [K] (``n_iters`` a numpy scalar);
+    ``engine="host"`` is ``nn_omp_np``."""
     if engine == "host":
         return nn_omp_np(dictionary, rss_matrix, cfg, keep_rule=keep_rule,
                          stop_nonpositive=stop_nonpositive, logger=logger)
     if engine != "device":
         raise ValueError(f"unknown engine {engine!r}; use 'device' or 'host'")
-    dev = resolve_device(device)
-    d = dictionary_to_device(dictionary, dev)
-    mat = torch.from_numpy(np.asarray(rss_matrix, dtype=np.float32)).to(dev)
-    out = nn_omp_scenes(d.phi_rx[None], d.phi_tx[None], d.aoa_grid[None], d.aod_grid[None],
-                        mat[None], cfg, keep_rule, stop_nonpositive)
-    return OmpPaths(*(x.cpu().numpy()[0] for x in out))
+    fn = nn_omp_program(cfg, keep_rule, stop_nonpositive, device)
+    out = fn.host(*(np.asarray(x, dtype=np.float32)[None] for x in (
+        dictionary.phi_rx, dictionary.phi_tx, dictionary.aoa_grid, dictionary.aod_grid,
+        rss_matrix)))
+    return OmpPaths(*(x[0] for x in out))
 
 
 def _pick(x: torch.Tensor, lanes, *idx) -> torch.Tensor:

@@ -33,6 +33,7 @@ import torch
 from slam_process_tpu_torch.models.dictionary import gaussian_beam
 from slam_process_tpu_torch.models.peak_picking import mapped_pair_means
 from slam_process_tpu_torch.models.registry import Table
+from slam_process_tpu_torch.utils.graphs import GraphProgram, program_cache
 
 
 class DenseOmpPaths(NamedTuple):
@@ -110,33 +111,39 @@ def omp_dense_torch(rx: torch.Tensor, tx: torch.Tensor, y: torch.Tensor,
         active = slots <= it
         A = (rx[:, g] * tx[:, h] / norms[g, h][None, :]) * active[None, :]   # [M, K]
         G = A.T @ A + torch.diag(1.0 - active.to(torch.float64))
-        coeffs = torch.linalg.solve(G, A.T @ yf)
+        coeffs = torch.linalg.solve_ex(G, A.T @ yf)[0]      # no error check: no host read
         residual = yf - A @ coeffs
     g, h = sel // Gd, sel % Gd
     return DenseOmpPaths(aoa_grid[g], aod_grid[h], coeffs, coeffs > 0)
 
 
+@program_cache(8)
+def omp_dense_program(beam_width: float = 1.4, n_paths: int = 5, device=None) -> GraphProgram:
+    """The device engine of one (beam width, paths) as one compiled program
+    on ``device`` (None: CUDA), the JAX package's ``_jitted_omp_dense``
+    (8 cached): the Gaussian responses and ``omp_dense_torch``, called as
+    ``fn(meas_aoa, meas_aod, y, aoa_grid, aod_grid)`` (float64); on CUDA
+    one graph per shape, 8 at most."""
+    def body(ma, md, y, ga, gd):
+        rx = gaussian_beam_torch(ma[:, None], ga[None, :], beam_width)
+        tx = gaussian_beam_torch(md[:, None], gd[None, :], beam_width)
+        return omp_dense_torch(rx, tx, y, ga, gd, n_paths)
+    return GraphProgram(body, device, 8)
+
+
 def run_omp_dense(meas_aoa: np.ndarray, meas_aod: np.ndarray, y: np.ndarray,
                   aoa_grid: np.ndarray, aod_grid: np.ndarray, beam_width: float = 1.4,
                   n_paths: int = 5, engine: str = "device", device=None) -> DenseOmpPaths:
-    """One entry point for both engines, numpy results: ``"device"`` builds
-    the responses and runs ``omp_dense_torch`` on ``device`` (None: CUDA)
-    in float64 and reads the four [K] results back in one copy;
-    ``"host"`` is ``omp_dense_np``."""
+    """One entry point for both engines, numpy results: ``"device"`` runs
+    ``omp_dense_program`` on ``device`` (None: CUDA) in float64 and reads
+    the four [K] results back in one copy; ``"host"`` is
+    ``omp_dense_np``."""
     if engine == "host":
         return omp_dense_np(meas_aoa, meas_aod, y, aoa_grid, aod_grid, beam_width, n_paths)
     if engine != "device":
         raise ValueError(f"unknown engine {engine!r}; use 'device' or 'host'")
-    from slam_process_tpu_torch.pipeline.device import resolve_device
-
-    dev = resolve_device(device)
-    ma, md, yt, ga, gd = (torch.from_numpy(np.asarray(x, dtype=np.float64)).to(dev)
-                          for x in (meas_aoa, meas_aod, y, aoa_grid, aod_grid))
-    rx = gaussian_beam_torch(ma[:, None], ga[None, :], beam_width)
-    tx = gaussian_beam_torch(md[:, None], gd[None, :], beam_width)
-    out = omp_dense_torch(rx, tx, yt, ga, gd, n_paths)
-    host = torch.stack([out.aoa, out.aod, out.power, out.valid.to(torch.float64)]).cpu().numpy()
-    return DenseOmpPaths(host[0], host[1], host[2], host[3] > 0)
+    return omp_dense_program(beam_width, n_paths, device).host(
+        *(np.asarray(x, dtype=np.float64) for x in (meas_aoa, meas_aod, y, aoa_grid, aod_grid)))
 
 
 def run_omp_dense_estimator(session, angle_file, output_path=None, **overrides) -> Table:

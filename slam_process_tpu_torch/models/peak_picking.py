@@ -9,7 +9,8 @@ above the 90th percentile: the strongest is the LoS, up to three more
 within 8 dB are NLoS.
 
 ``engine="device"`` takes the percentile and the local-max mask on the
-card (``ops/peaks``, float64) and reads back only the mask; the peaks'
+card (``ops/peaks``, float64; ``peak_program``, a CUDA graph per shape) and
+reads back only the mask; the peaks'
 values come from the host grid, as in the JAX package's device engine.
 ``engine="host"`` is numpy / scipy.
 """
@@ -23,6 +24,7 @@ from slam_process_tpu_torch.io.angles import load_angle_lut
 from slam_process_tpu_torch.models.registry import Table, pair_means, session_rows
 from slam_process_tpu_torch.ops.interp import bicubic_spline_resample
 from slam_process_tpu_torch.ops.peaks import local_max_mask, percentile
+from slam_process_tpu_torch.utils.graphs import GraphProgram, program_cache
 
 
 def mapped_pair_means(session, angle_file, device=None):
@@ -74,6 +76,16 @@ def peak_mask_torch(heat: torch.Tensor, q: float) -> torch.Tensor:
     return local_max_mask(heat, 3) & (heat > percentile(heat, q))
 
 
+@program_cache(8)
+def peak_program(q: float, device=None) -> GraphProgram:
+    """``peak_mask_torch`` at one percentile as one compiled program on
+    ``device`` (None: CUDA), the JAX package's jitted mask (peak_picking's
+    device engine), called as ``fn(heat)``: on CUDA one graph per shape.
+    JAX builds a fresh jitted function per call; the port keeps 8 programs
+    of 8 shapes."""
+    return GraphProgram(lambda heat: peak_mask_torch(heat, q), device, 8)
+
+
 def run_peak_picking(session, angle_file, output_path=None, **overrides) -> Table:
     """The ``peak_picking`` entry: the table (AoD, AoA, Power, Type) of the
     LoS and its NLoS, no columns where no peak is found; with
@@ -85,11 +97,9 @@ def run_peak_picking(session, angle_file, output_path=None, **overrides) -> Tabl
                                                   resolution=overrides.get("resolution", 1.4))
     q = float(overrides.get("percentile", 90))
     if engine == "device":
-        from slam_process_tpu_torch.pipeline.device import resolve_device
-
-        mask = peak_mask_torch(torch.from_numpy(heat).to(resolve_device(device)), q)
+        mask = peak_program(q, device).host(heat)
         peaks = [(float(aod_grid[j]), float(aoa_grid[i]), float(heat[i, j]))
-                 for i, j in np.argwhere(mask.cpu().numpy())]
+                 for i, j in np.argwhere(mask)]
     elif engine == "host":
         peaks = detect_peaks(heat, aod_grid, aoa_grid, np.percentile(heat, q))
     else:

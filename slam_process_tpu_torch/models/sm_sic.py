@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from slam_process_tpu_torch.config import SmSicConfig
+from slam_process_tpu_torch.utils.graphs import GraphProgram, program_cache
 
 
 class SmSicPaths(NamedTuple):
@@ -132,21 +133,29 @@ def sm_sic(phi_rx: torch.Tensor, phi_tx: torch.Tensor, aoa_grid: torch.Tensor,
     return SmSicPaths(*(x[0] for x in paths)) if single else paths
 
 
+@program_cache(8)
+def sm_sic_program(cfg: SmSicConfig, device=None):
+    """``sm_sic`` of one config as one compiled program on ``device`` (None:
+    CUDA), the JAX package's ``jit_highest(sm_sic_jax)`` (``run_sm_sic``),
+    called as ``fn(phi_rx, phi_tx, aoa_grid, aod_grid, mat)``: on CUDA one
+    graph per shape.  JAX builds a fresh jitted function per call; the port
+    keeps 8 programs of 8 shapes."""
+    return GraphProgram(lambda phi_rx, phi_tx, aoa_grid, aod_grid, mat: sm_sic(
+        phi_rx, phi_tx, aoa_grid, aod_grid, mat, cfg), device, 8)
+
+
 def run_sm_sic(dictionary, rss_matrix: np.ndarray, cfg: SmSicConfig, engine: str = "device",
                device=None) -> SmSicPaths:
-    """One scene: ``engine="device"`` runs ``sm_sic`` on ``device`` (None:
-    CUDA) with the phi matrices and the scene rounded once to float32 and
-    the float64 grids, returned as numpy; ``engine="host"`` is
-    ``sm_sic_np``."""
+    """One scene: ``engine="device"`` runs ``sm_sic_program`` on ``device``
+    (None: CUDA) with the phi matrices and the scene rounded once to
+    float32 and the float64 grids, read back once as numpy;
+    ``engine="host"`` is ``sm_sic_np``."""
     if engine == "host":
         return sm_sic_np(dictionary, rss_matrix, cfg)
     if engine != "device":
         raise ValueError(f"unknown engine {engine!r}; use 'device' or 'host'")
-    from slam_process_tpu_torch.pipeline.device import resolve_device
-
-    dev = resolve_device(device)
-    phi_rx, phi_tx, mat = (torch.from_numpy(np.asarray(x, dtype=np.float32)).to(dev)
-                           for x in (dictionary.phi_rx, dictionary.phi_tx, rss_matrix))
-    grids = (torch.from_numpy(np.asarray(g, dtype=np.float64)).to(dev)
-             for g in (dictionary.aoa_grid, dictionary.aod_grid))
-    return SmSicPaths(*(x.cpu().numpy() for x in sm_sic(phi_rx, phi_tx, *grids, mat, cfg)))
+    f32, f64 = np.float32, np.float64
+    return sm_sic_program(cfg, device).host(
+        np.asarray(dictionary.phi_rx, f32), np.asarray(dictionary.phi_tx, f32),
+        np.asarray(dictionary.aoa_grid, f64), np.asarray(dictionary.aod_grid, f64),
+        np.asarray(rss_matrix, f32))

@@ -6,9 +6,11 @@ stop_nonpositive).  The body takes the per-sweep compact tensor mats [S,
 U, B] (NaN where a cell was not observed) and the session dictionary,
 fills each sweep's empty cells with that sweep's finite minimum (0 for a
 sweep with no finite cell) and runs the Gram-domain batched NN-OMP or
-SM-SIC over the sweeps.  ``estimator_dictionary`` gives the dictionary in
-the dtypes the body takes: float32 phi matrices, float32 grids for NN-OMP
-and float64 grids for SM-SIC (its masks' geometry, ``models/sm_sic.py``).
+SM-SIC over the sweeps; ``sweep_program`` makes it one compiled program per
+est_key and shape (a CUDA graph on the card).  ``estimator_dictionary``
+gives the dictionary in the dtypes the body takes: float32 phi matrices,
+float32 grids for NN-OMP and float64 grids for SM-SIC (its masks'
+geometry, ``models/sm_sic.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from slam_process_tpu_torch.config import DictionaryConfig, OmpConfig, SmSicConf
 from slam_process_tpu_torch.models.dictionary import BeamDictionary, make_dictionary
 from slam_process_tpu_torch.models.nn_omp import OmpPaths, nn_omp_gram_batch
 from slam_process_tpu_torch.models.sm_sic import SmSicPaths, sm_sic
+from slam_process_tpu_torch.utils.graphs import GraphProgram, program_cache
 
 
 def sweep_estimator_setup(estimator: str, ue_ang: np.ndarray, bs_ang: np.ndarray,
@@ -91,6 +94,17 @@ def sweep_estimator_body(est_key):
     else:
         raise ValueError(f"unknown sweep estimator {name!r}")
     return run_all
+
+
+@program_cache(16)
+def sweep_program(est_key, device=None) -> GraphProgram:
+    """The per-sweep estimator of ``est_key`` as one compiled program on
+    ``device`` (None: CUDA), the JAX package's ``_sweep_estimator_fn(est_key,
+    None)``: ``sweep_estimator_body`` called as ``fn(mats, phi_rx, phi_tx,
+    aoa_g, aod_g)``; on CUDA one graph per shape, 16 at most, and 16
+    programs, as JAX caches 16.  The mesh rows of several devices run the
+    body eagerly (``model_devices``)."""
+    return GraphProgram(sweep_estimator_body(est_key), device, 16)
 
 
 def zero_paths(est_key, rows: int, device) -> tuple:

@@ -4,7 +4,8 @@ A copy of ``slam_process_tpu/models/tracking.py``'s numpy code
 (``Tracks``, ``track_paths_np``, ``track_sweep_step_np``,
 ``track_velocities``), unchanged in behaviour, and ``track_paths``, the
 counterpart of ``track_paths_jax`` on tensors: one call of
-``ops/tracker.track_block`` over all S sweeps (kernel K6 on CUDA tensors).
+``ops/tracker.track_block`` over all S sweeps (kernel K6 on CUDA tensors),
+compiled per shape by ``track_program`` (a CUDA graph on the card).
 
 Association is greedy global-nearest-neighbour in angle space, one sweep
 at a time in CLK order:
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from slam_process_tpu_torch.ops.tracker import track_block
+from slam_process_tpu_torch.utils.graphs import GraphProgram, program_cache
 
 
 class Tracks(NamedTuple):
@@ -131,6 +133,18 @@ def track_paths(aoa: torch.Tensor, aod: torch.Tensor, power: torch.Tensor, valid
     c_aoa, c_aod, c_pow, c_obs, _, created, count = track_block(
         *f32, valid.to(torch.bool).contiguous(), m_eff, pos, created, count, gate_deg)
     return Tracks(c_aoa.T, c_aod.T, c_pow.T, c_obs.T, created, count)
+
+
+@program_cache(8)
+def track_program(max_tracks: int = 8, gate_deg: float = 10.0, device=None) -> GraphProgram:
+    """``track_paths`` of one (max_tracks, gate) as one compiled program on
+    ``device`` (None: CUDA), the JAX package's ``jax.jit(track_paths_jax)``
+    (``Session.path_tracks(engine="device")``), called as ``fn(aoa, aod,
+    power, valid)``: on CUDA one graph per shape (K6 inside).  JAX builds a
+    fresh jitted function per call; the port keeps 8 programs of 8 shapes."""
+    return GraphProgram(lambda aoa, aod, power, valid: track_paths(
+        aoa, aod, power, valid, max_tracks=max_tracks, gate_deg=gate_deg),
+        device, 8)
 
 
 def track_velocities(tracks: Tracks, times: np.ndarray, ticks_per_second: float = None

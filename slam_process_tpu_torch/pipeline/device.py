@@ -33,7 +33,7 @@ from slam_process_tpu_torch.ops.raster import colormap_lut, rasterize_tiles
 from slam_process_tpu_torch.ops.scene import cell_means, intensity_cell_sums
 from slam_process_tpu_torch.ops.tokenize import (
     prepare_text, stride3_offset, text_bucket, tokenize_stride3)
-from slam_process_tpu_torch.utils.graphs import FlatOutputs, GraphRunner
+from slam_process_tpu_torch.utils.graphs import GraphProgram
 
 
 class DeviceSessionOut(NamedTuple):
@@ -149,37 +149,24 @@ def device_lut(device: torch.device, name: str = "viridis") -> torch.Tensor:
     return torch.from_numpy(colormap_lut(name)).to(device)
 
 
-class _Program:
+class _Program(GraphProgram):
     """What ``compiled_session_pipeline`` and
     ``compiled_text_session_pipeline`` return: ``body`` for one static
-    shape, called as the JAX package's jitted function is.  On a CUDA
-    device the first call captures ``body`` as a CUDA graph (``GraphRunner``)
-    and every call replays it; on the CPU each call runs ``body``.  Every
-    call returns tensors of its own: on CUDA one clone of the graph's flat
-    output buffer (``FlatOutputs``), every field a view of it, which the
-    next replay does not overwrite."""
+    shape, called as the JAX package's jitted function is, through
+    ``utils/graphs.GraphProgram``: on a CUDA device the first call
+    captures ``body`` as a CUDA graph and every call replays it; on the CPU
+    each call runs ``body``.  Every call returns tensors of its own (on
+    CUDA one clone of the graph's flat output buffer)."""
 
     def __init__(self, body, device: torch.device, n_padded: int):
-        self._body = body
-        self.device = device
+        super().__init__(body, device, max_graphs=1)
         self.n_padded = n_padded
-        self.runner: Optional[GraphRunner] = None
-        self._flat = FlatOutputs()
 
     def __call__(self, *args):
-        args = tuple(int(a) if isinstance(a, np.integer) else a for a in args)
         if args[0].shape != (self.n_padded,):
             raise ValueError(f"this program takes [{self.n_padded}] inputs, got "
                              f"{list(args[0].shape)}")
-        if self.device.type != "cuda":
-            return self._body(*args)
-        if self.runner is None:
-            body, flat = self._body, self._flat
-            self.runner = GraphRunner(
-                lambda *xs: flat.pack(body(*xs)),
-                [torch.full((), a, dtype=torch.int32, device=args[0].device)
-                 if isinstance(a, int) else a for a in args])
-        return self._flat.unpack(self.runner(*args).clone())
+        return super().__call__(*args)
 
 
 @functools.lru_cache(maxsize=32)

@@ -53,9 +53,10 @@ from slam_process_tpu_torch.io.schemas import (
 from slam_process_tpu_torch.io.xlsx import write_xlsx_table
 from slam_process_tpu_torch.models.dictionary import BeamDictionary
 from slam_process_tpu_torch.models.sweep_estimation import (
-    estimator_dictionary, path_power, sweep_estimator_body, sweep_estimator_setup)
+    estimator_dictionary, path_power, sweep_estimator_body, sweep_estimator_setup,
+    sweep_program)
 from slam_process_tpu_torch.models.tracking import (
-    Tracks, track_paths, track_paths_np, track_velocities)
+    Tracks, track_paths_np, track_program, track_velocities)
 from slam_process_tpu_torch.ops.correct import (
     correct_bounds, correct_frames_np, correct_rows, detect_groups_np, group_counts)
 from slam_process_tpu_torch.ops.decode import decode_frames_np
@@ -69,6 +70,14 @@ from slam_process_tpu_torch.utils.timestamps import extract_timestamp, unwrap_cl
 
 MAX_GROUPS = 256
 MAX_BASELINES_PER_GROUP = 256
+
+
+def sweep_bucket(n: int, quantum: int = 8) -> int:
+    """A session's sweep count rounded up to a bucket, as the JAX package's
+    ``_sweep_bucket`` rounds it: a multiple of 8, at least 8.  Sessions of
+    one bucket share one shape, so ``sweep_paths_dataset`` runs a few
+    compiled programs where each session's own count would make one each."""
+    return max(quantum, ((n + quantum - 1) // quantum) * quantum)
 
 
 class Session:
@@ -410,21 +419,25 @@ class Session:
         grids and the compact tensor on the first row's device, the sweeps
         padded with all-NaN sweeps (valid False, dropped by the callers) to
         a multiple of the row count, and each shard's estimator on its row's
-        first device, NN-OMP's AoA grid over the row's devices
-        (``sweep_estimator_body``'s ``model_devices``)."""
+        first device: a row of one device runs ``sweep_program`` (a CUDA
+        graph per shape on the card; each call's outputs its own), a row of
+        several NN-OMP's AoA grid over them, eagerly
+        (``sweep_estimator_body``'s ``model_devices``: every iteration
+        crosses the row's devices)."""
         sub, d, est_key, n_sweeps = self._sweep_estimation_inputs(
             angle_file, estimator, max_sweeps, rows[0][0], beam_ids, pad_to, **overrides)
         s_pad, per = shard_rows(sub.shape[0], len(rows))
         if s_pad > sub.shape[0]:
             sub = torch.cat([sub, sub.new_full((s_pad - sub.shape[0],) + sub.shape[1:],
                                                float("nan"))])
-        body = sweep_estimator_body(est_key)
         outs = []
         for r, devs in enumerate(rows):
-            dd = BeamDictionary(*(x.to(devs[0]) for x in d))
-            out, valid = body(sub[r * per:(r + 1) * per].to(devs[0]), dd.phi_rx, dd.phi_tx,
-                              dd.aoa_grid, dd.aod_grid, model_devices=devs)
-            outs.append((out, valid))
+            args = (sub[r * per:(r + 1) * per].to(devs[0]),
+                    *(x.to(devs[0]) for x in (d.phi_rx, d.phi_tx, d.aoa_grid, d.aod_grid)))
+            if len(devs) == 1:
+                outs.append(sweep_program(est_key, devs[0])(*args))
+            else:
+                outs.append(sweep_estimator_body(est_key)(*args, model_devices=devs))
         return outs, n_sweeps
 
     def sweep_paths(self, angle_file: Union[str, Path], estimator: str = "nn_omp",
@@ -460,7 +473,8 @@ class Session:
         is NN-OMP's coefficient or SM-SIC's metric.
 
         ``engine`` picks the association: "device" (the default:
-        ``models/tracking.track_paths`` on ``device``, kernel K6 on CUDA) or
+        ``models/tracking.track_program`` on ``device``, read back once; a
+        CUDA graph around kernel K6 on the card) or
         "host" (``track_paths_np``, numpy); both give the same tracks.  Returns (tracks, times,
         (vel_aoa, vel_aod, vel_ok)) as numpy.
         """
@@ -472,11 +486,9 @@ class Session:
         valid = np.asarray(paths.valid, bool) & sweep_valid[:, None] & (times >= 0)[:, None]
         power = path_power(paths)
         if engine == "device":
-            dev = resolve_device(device)
-            t = track_paths(*(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-                              for x in (paths.aoa, paths.aod, power, valid)),
-                            max_tracks=max_tracks, gate_deg=gate_deg)
-            tracks = Tracks(*(x.cpu().numpy() for x in t[:5]), int(t.n_tracks))
+            t = track_program(max_tracks, gate_deg, device).host(paths.aoa, paths.aod, power,
+                                                                 valid)
+            tracks = Tracks(*t[:5], int(t.n_tracks))
         else:
             tracks = track_paths_np(paths.aoa, paths.aod, power, valid,
                                     max_tracks=max_tracks, gate_deg=gate_deg)
@@ -551,9 +563,11 @@ def sweep_paths_dataset(sessions, angle_file: Union[str, Path], estimator: str =
     Every session's per-sweep tensor and dictionary is padded to the
     dataset-common (U, B, Ga, Gd) (``Session._sweep_estimation_inputs``'s
     ``pad_to``, whose argument keeps each real sweep's paths those of the
-    session alone); the sweep axis keeps each session's own count.  The
-    estimators are queued session after session and the results of all of
-    them cross to the host in one read per device.  With ``mesh`` each
+    session alone), and its sweep axis to its ``sweep_bucket`` (all-NaN
+    sweeps, dropped), so the sessions of one bucket replay one compiled
+    program.  The estimators are queued session after session, each
+    call's outputs its own, and the results of all of them cross to the
+    host in one read per device.  With ``mesh`` each
     session's sweeps shard over ``data`` (padded to a multiple of it) and
     NN-OMP's AoA grid over ``model``, as in ``Session.sweep_paths``.
     Returns a list of (paths, sweep_valid) per session, equal to each
@@ -574,7 +588,7 @@ def sweep_paths_dataset(sessions, angle_file: Union[str, Path], estimator: str =
     for s, prep in zip(sessions, preps):
         if prep[5] != est_key:
             raise ValueError("the sessions' estimator settings differ")
-        pad_to = (prep[1], u_max, b_max, ga_max, gd_max)
+        pad_to = (sweep_bucket(prep[1]), u_max, b_max, ga_max, gd_max)
         shards, n_sweeps = s._sweep_estimate_shards(angle_file, estimator, None, rows,
                                                     pad_to=pad_to, **overrides)
         outs += [(*out, valid) for out, valid in shards]

@@ -19,10 +19,11 @@ synchronization between them: run i's kernels count for run i even where
 they run on the device after run i + 1 was issued.
 
   * ``measure_device_time(call, n)`` runs ``call(i)`` n times in one
-    profiler window, each inside ``annotate(RUN_RANGE)``, and returns the
-    per-run device seconds (``DeviceTiming``); ``device="cpu"`` gives wall
-    seconds per call on the host instead, as the JAX package's CPU branch
-    does.
+    profiler window, each inside ``annotate(RUN_RANGE)``, after a sentinel
+    of small device operations that shows what the window lost, and
+    returns the per-run device seconds (``DeviceTiming``);
+    ``device="cpu"`` gives wall seconds per call on the host instead, as
+    the JAX package's CPU branch does.
   * ``module_device_times(trace_dir)``: per-run device seconds of every
     named range in a trace that ``utils/profiling.trace`` or
     ``measure_device_time(trace_dir=...)`` wrote.
@@ -48,6 +49,7 @@ from slam_process_tpu_torch.utils.profiling import annotate
 
 __all__ = [
     "DeviceTiming",
+    "TraceLostError",
     "interval_union",
     "measure_device_time",
     "module_device_times",
@@ -58,6 +60,13 @@ __all__ = [
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
 RUN_RANGE = "measure_device_time"    # the range around each run of measure_device_time
+SENTINEL_RANGE = "measure_device_time_sentinel"   # the range before a window's runs
+SENTINEL_LAUNCHES = 256              # one-element adds in the sentinel range
+
+
+class TraceLostError(RuntimeError):
+    """The profiler's trace lost device activities of a window: every
+    sentinel activity, or every activity of some runs but not of others."""
 
 
 class DeviceTiming(NamedTuple):
@@ -66,6 +75,7 @@ class DeviceTiming(NamedTuple):
     runs: List[float]                      # device seconds per call, in order
     module: str                            # the activity-name filter ("<all>": none)
     all_modules: Dict[str, List[float]]    # activity name -> device seconds per call
+    lost: Optional[int] = None             # sentinel activities the trace lost (None: none run)
 
     @property
     def median(self) -> float:
@@ -161,20 +171,32 @@ def module_device_times(trace_dir) -> Dict[str, List[float]]:
     return {name: [_seconds(acts) for acts in occ] for name, occ in runs.items()}
 
 
+def _measured(events) -> List[_Activity]:
+    """The device activities of ``events`` but those launched inside a
+    ``measure_device_time`` sentinel range."""
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))) for e in events
+             if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+             and e.get("name") == SENTINEL_RANGE]
+    return [a for a in _activities(events)
+            if a.launch is None or not any(lo <= a.launch <= hi for lo, hi in spans)]
+
+
 def op_device_times(trace_dir) -> Dict[str, float]:
     """Total device seconds per activity name (kernel, copy, memset) across
-    the Chrome traces under ``trace_dir``."""
+    the Chrome traces under ``trace_dir``, but a ``measure_device_time``
+    sentinel's."""
     out: Dict[str, float] = defaultdict(float)
-    for a in _activities(_trace_dir_events(trace_dir)):
+    for a in _measured(_trace_dir_events(trace_dir)):
         out[a.name] += (a.end - a.start) / 1e6
     return dict(out)
 
 
 def op_device_counts(trace_dir) -> Dict[str, int]:
     """Device activities per activity name across the Chrome traces under
-    ``trace_dir`` (how many kernels, copies and memsets ran)."""
+    ``trace_dir`` (how many kernels, copies and memsets ran), but a
+    ``measure_device_time`` sentinel's."""
     out: Dict[str, int] = defaultdict(int)
-    for a in _activities(_trace_dir_events(trace_dir)):
+    for a in _measured(_trace_dir_events(trace_dir)):
         out[a.name] += 1
     return dict(out)
 
@@ -183,11 +205,20 @@ def _timing(events, n: int, module: Optional[str]) -> DeviceTiming:
     """``measure_device_time``'s result from its window's events."""
     runs, outside = _by_range(events)
     occ = runs.get(RUN_RANGE, [])
+    sentinel = runs.get(SENTINEL_RANGE)
+    lost = None if sentinel is None else SENTINEL_LAUNCHES - sum(map(len, sentinel))
+    if lost == SENTINEL_LAUNCHES:
+        raise TraceLostError(f"the trace lost all {SENTINEL_LAUNCHES} sentinel activities "
+                             "that ran before the runs, so it may have lost some of the runs'")
     if len(occ) != n:
         raise RuntimeError(f"the trace holds {len(occ)} '{RUN_RANGE}' ranges for {n} runs")
     if not any(occ):
         raise RuntimeError(f"no device activity captured in {n} runs; does the callable "
                            "launch work on the CUDA device?")
+    if not all(occ):
+        raise TraceLostError(f"no device activity captured in runs "
+                             f"{[i for i, acts in enumerate(occ) if not acts]} of {n} while "
+                             "the others hold some: the trace lost activities")
     if outside:
         names = sorted({a.name[:60] for a in outside})[:5]
         raise RuntimeError(f"{len(outside)} device activities could not be attributed to a run "
@@ -201,7 +232,8 @@ def _timing(events, n: int, module: Optional[str]) -> DeviceTiming:
     all_modules = {name: [_seconds([a for a in acts if a.name == name])
                           for acts in runs[RUN_RANGE]] for name in names}
     return DeviceTiming(runs=[_seconds(acts) for acts in occ],
-                        module="<all>" if module is None else module, all_modules=all_modules)
+                        module="<all>" if module is None else module, all_modules=all_modules,
+                        lost=lost)
 
 
 def measure_device_time(call: Callable[[int], object], n: int = 3, module: Optional[str] = None,
@@ -220,9 +252,20 @@ def measure_device_time(call: Callable[[int], object], n: int = 3, module: Optio
     the window's Chrome trace there (``trace.json``) for
     ``module_device_times`` / ``op_device_times``.
 
-    Raises where there is no CUDA device (unless ``device="cpu"``), where
-    the window captured no device activity, and where an activity cannot
-    be attributed to a run: it never returns host time for device time.
+    Late in a process, a ``torch.profiler`` window on the card has been
+    seen to drop the first device activities it records, a number that
+    grows with the process's age (``tools/diag_torch_profiler_window.py``).
+    So before the runs the window runs ``SENTINEL_LAUNCHES`` one-element
+    adds in the range ``SENTINEL_RANGE``: the runs' activities come after
+    them, and ``lost`` is how many of them the trace dropped.
+
+    Raises ``TraceLostError`` where the trace lost every sentinel activity
+    or every activity of some runs but not of others (every run of one
+    callable launches work), and ``RuntimeError`` where there is no CUDA
+    device (unless ``device="cpu"``), where the window captured no device
+    activity in any run, and where an activity cannot be attributed to a
+    run: it never returns host time for device time, nor a run's 0 for a
+    lost trace.
     ``device="cpu"`` gives wall seconds per call on the host (``module``
     "<cpu-wall>"), the JAX package's CPU measure.
     """
@@ -242,8 +285,12 @@ def measure_device_time(call: Callable[[int], object], n: int = 3, module: Optio
     own = trace_dir is None
     out_dir = Path(tempfile.mkdtemp(prefix="slam_devtime_")) if own else Path(trace_dir)
     try:
+        sentinel = torch.zeros(1, device=dev)
         torch.cuda.synchronize(dev)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with annotate(SENTINEL_RANGE):
+                for _ in range(SENTINEL_LAUNCHES):
+                    sentinel.add_(1.0)
             for i in range(n):
                 with annotate(RUN_RANGE):
                     call(i)

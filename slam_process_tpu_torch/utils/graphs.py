@@ -33,7 +33,9 @@ writes as scratch, so graphs that share a pool must never both hold live
 outputs, and a graph captured after the others were dropped needs a new
 pool.  ``pool_bytes`` is then the shared pool's.
 
-It refuses CPU tensors: on the CPU callers run the eager body.  A capture
+Its device is a CUDA device: it refuses CPU tensors at construction
+(``load`` also takes host tensors and copies them into the static
+inputs); on the CPU callers run the eager body.  A capture
 that fails raises; nothing falls back to the eager body.  The one retry: a
 dead graph's private pool stays cached in the allocator, which frees
 cached memory to satisfy an allocation only outside a capture, so a
@@ -46,6 +48,15 @@ they must run in order on one stream, as the port's entry points run them.
 ``FlatOutputs`` packs a program's outputs into one byte buffer, so that a
 caller who must not hand out the static outputs clones one tensor.
 
+``GraphProgram`` is a cached ``jax.jit``: a body with one ``GraphRunner``
+per input signature (a bounded number, the least recently called dropped
+first), static inputs loaded from device tensors or, through pinned
+memory, from host arrays, and each call's outputs its own (a clone of the
+flat buffer, or one host copy of it).  ``program_cache`` is the
+``lru_cache`` of the functions that make programs (one per estimator key,
+as the JAX package caches its jitted functions), and ``clear_programs``
+empties them all.
+
 The port's counterpart of the JAX package's ``jax.jit`` with
 ``utils/cache.py``; a graph lives in its process, so there is no persistent
 cache to port.
@@ -54,9 +65,12 @@ cache to port.
 from __future__ import annotations
 
 import functools
+import inspect
 import time
+from collections import OrderedDict
 from typing import Callable, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 _KERNEL_MODULES = ("cuda_decode", "cuda_correct", "cuda_raster", "cuda_sweep_sums",
@@ -124,13 +138,19 @@ class GraphRunner:
 
     def load(self, *inputs) -> None:
         """Copy ``inputs`` into the static inputs, in order on the current
-        stream: tensors of the static shape and dtype on the device, or a
+        stream: tensors of the static shape and dtype on the device or on
+        the CPU (copied through pinned memory without a host wait), or a
         Python int for a 0-d input."""
         if len(inputs) != len(self.inputs):
             raise ValueError(f"expected {len(self.inputs)} inputs, got {len(inputs)}")
         for static, x in zip(self.inputs, inputs):
             if isinstance(x, int) and static.dim() == 0:
                 static.fill_(x)
+                continue
+            if (isinstance(x, torch.Tensor) and x.device.type == "cpu"
+                    and x.dtype == static.dtype and x.shape == static.shape):
+                static.copy_(x if x.is_pinned() else x.contiguous().pin_memory(),
+                             non_blocking=True)
                 continue
             if (not isinstance(x, torch.Tensor) or x.device != self.device
                     or x.dtype != static.dtype or x.shape != static.shape):
@@ -275,3 +295,144 @@ class FlatOutputs:
             return type(node)(*items) if hasattr(node, "_fields") else type(node)(items)
 
         return build(self._template)
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every tensor leaf of a tree of tuples (NamedTuples
+    included) whose leaves are tensors or None."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if tree is None:
+        return None
+    items = [_tree_map(fn, item) for item in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+
+
+class GraphProgram:
+    """``body`` as one compiled program per input signature, the port's
+    counterpart of a cached ``jax.jit``.
+
+    On a CUDA device each signature (the inputs' shapes and dtypes; a
+    Python int is a 0-d int32 input) has its own ``GraphRunner`` of
+    ``body``, captured at the signature's first call and replayed after
+    it, with the outputs packed into one flat buffer (``FlatOutputs``).
+    At most ``max_graphs`` signatures keep their graphs: the least recently
+    called goes first, its graph and memory pool with it.  Inputs are
+    tensors on the program's device, CPU tensors or numpy arrays (loaded
+    into the static inputs through pinned memory, with no host wait), or
+    ints.  ``__call__`` returns tensors of the call's own (one clone of the
+    flat buffer, every field a view of it, which no later replay
+    overwrites); ``host`` makes one device-to-host copy of the flat buffer
+    and returns numpy arrays.  On the CPU ``body`` runs on the inputs, so
+    the graphs' eager body is also the CPU's program.  A capture that fails
+    raises (``GraphRunner``); nothing runs ``body`` eagerly on CUDA.  A
+    program of several graphs a signature overrides ``compile`` (its
+    runners from the first inputs) and ``replay`` (a call on them), as
+    ``models/lasso_refine.LassoProgram`` does."""
+
+    def __init__(self, body: Callable, device, max_graphs: int):
+        self.body = body
+        self.device = torch.device(device)
+        self.max_graphs = max_graphs
+        self.graphs: "OrderedDict[tuple, tuple]" = OrderedDict()   # signature -> compile()
+        self.runner: Optional[GraphRunner] = None      # the last call's
+
+    @staticmethod
+    def _inputs(inputs) -> list:
+        out = []
+        for x in inputs:
+            if isinstance(x, np.ndarray):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            elif isinstance(x, np.integer):
+                x = int(x)
+            out.append(x)
+        return out
+
+    def issue(self, *inputs):
+        """(outputs, None) of the eager body on the CPU; on CUDA ``replay``
+        of the signature's compiled program."""
+        xs = self._inputs(inputs)
+        if self.device.type != "cuda":
+            return self.body(*(x.to(self.device) if isinstance(x, torch.Tensor) else x
+                               for x in xs)), None
+        sig = tuple(("int",) if isinstance(x, int) else (tuple(x.shape), x.dtype) for x in xs)
+        if sig in self.graphs:
+            self.graphs.move_to_end(sig)
+        else:
+            while len(self.graphs) >= self.max_graphs:
+                self.graphs.popitem(last=False)
+            self.graphs[sig] = self.compile([
+                torch.full((), x, dtype=torch.int32, device=self.device) if isinstance(x, int)
+                else x.to(self.device) for x in xs])
+        return self.replay(self.graphs[sig], xs)
+
+    def compile(self, xs: list):
+        """The compiled program of one signature, from its first inputs on
+        the device: (``GraphRunner`` of the packed body, its
+        ``FlatOutputs``)."""
+        flat, body = FlatOutputs(), self.body
+        return GraphRunner(lambda *a: flat.pack(body(*a)), xs), flat
+
+    def replay(self, compiled, xs):
+        """(the graph's flat output buffer, which its next replay
+        overwrites, and its ``FlatOutputs``) of ``xs``."""
+        self.runner, flat = compiled
+        return self.runner(*xs), flat
+
+    def __call__(self, *inputs):
+        """The outputs as tensors of this call's own on the program's
+        device."""
+        out, flat = self.issue(*inputs)
+        return out if flat is None else flat.unpack(out.clone())
+
+    def host(self, *inputs):
+        """The outputs as numpy arrays, in one device-to-host copy on CUDA."""
+        out, flat = self.issue(*inputs)
+        if flat is None:
+            return _tree_map(lambda x: x.cpu().numpy(), out)
+        return _tree_map(lambda x: x.numpy(), flat.unpack(out.cpu()))
+
+
+_PROGRAM_CACHES: list = []
+
+
+def program_device(device) -> torch.device:
+    """``device`` as a program's cache key: ``pipeline/device.resolve_device``
+    (None means CUDA; with no CUDA device a CUDA request raises), a CUDA
+    device with its index."""
+    from slam_process_tpu_torch.pipeline.device import resolve_device
+
+    dev = resolve_device(device)
+    return torch.device("cuda", torch.cuda.current_device()) if dev == torch.device("cuda") else dev
+
+
+def program_cache(maxsize: int):
+    """``functools.lru_cache(maxsize)`` for a function that makes compiled
+    programs and takes a ``device`` argument, registered so that
+    ``clear_programs`` empties it.  The key is every argument by name, its
+    default where the call leaves it out, with ``device`` resolved by
+    ``program_device``: None, ``"cuda"`` and ``"cuda:0"`` on card 0 give one
+    program, so each card holds one program (and one set of graphs) per
+    key."""
+    def wrap(fn):
+        signature = inspect.signature(fn)
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def make(*args, **kwargs):
+            bound = signature.bind(*args, **kwargs)
+            bound.apply_defaults()
+            bound.arguments["device"] = program_device(bound.arguments["device"])
+            return cached(**bound.arguments)
+
+        make.cache_info, make.cache_clear = cached.cache_info, cached.cache_clear
+        _PROGRAM_CACHES.append(cached)
+        return make
+    return wrap
+
+
+def clear_programs() -> None:
+    """Empty every ``program_cache``: their programs, graphs and memory
+    pools go (the pools' memory returns to the allocator's cache)."""
+    for cached in _PROGRAM_CACHES:
+        cached.cache_clear()

@@ -2170,3 +2170,132 @@ def test_multi_stream_graphs_after_reset_and_restore(tmp_path):
     multi_states_equal(back, back_eager)
     multi_states_equal(back, got)
     assert back._pre_graph is not None and back._pre_graph is not pre
+
+
+ESTIMATOR_PROGRAMS = ("nn_omp", "batched_vmap", "batched_gram", "sm_sic", "fusion_nlos",
+                      "omp_dense", "peak_mask", "lasso", "sweep_nn_omp", "sweep_sm_sic",
+                      "tracker")
+
+
+@pytest.fixture(scope="module")
+def estimator_sessions_on_card(tmp_path_factory):
+    """Four sessions decoded and corrected on the card: 0 and 1 of one scene
+    shape and sweep count (6), 2 and 3 of another sweep count (3), and
+    their angle table."""
+    from slam_process_tpu_torch.pipeline.session import Session
+    from slam_process_tpu_torch.utils.synthetic import to_hex_text, write_angle_table
+
+    tmp = tmp_path_factory.mktemp("est_programs")
+    sessions = []
+    for i, (g, seed) in enumerate(((6, 1), (6, 2), (3, 3), (3, 4))):
+        path = tmp / f"s{i}.txt"
+        path.write_bytes(to_hex_text(synthetic_session_bytes(
+            n_groups=g, frames_per_beam=2, baselines_per_group=6, seed=seed, n_paths=3)))
+        sessions.append(Session.from_log(path))
+    return sessions, write_angle_table(tmp / "angles.xlsx")
+
+
+@pytest.mark.parametrize("name", ESTIMATOR_PROGRAMS)
+def test_estimator_program_graph_equals_eager_body(estimator_sessions_on_card, name):
+    """Each estimator program (``chip_smoke.estimator_program_cases``) on the
+    card: two inputs of one shape alternated, then a second shape, every
+    call bit-equal to the eager body on the same inputs, each call's
+    outputs its own, K7 / K6 launched as the body launches them."""
+    from chip_smoke import estimator_program_cases, leaves_differ
+    from slam_process_tpu_torch.ops import cuda_nnls, cuda_tracker
+    from slam_process_tpu_torch.utils.graphs import clear_programs
+
+    sessions, angles = estimator_sessions_on_card
+    dev = torch.device("cuda")
+    clear_programs()
+    (case,) = [c for c in estimator_program_cases(np, torch, sessions, angles, dev)
+               if c["name"] == name]
+    prog, kernels = case["program"], (cuda_nnls, cuda_tracker)
+
+    def run(fn):
+        before = [m.LAUNCHES for m in kernels]
+        out = fn()
+        return out, [m.LAUNCHES - b for m, b in zip(kernels, before)]
+
+    def card(xs):
+        return [torch.from_numpy(np.ascontiguousarray(x)).cuda() if isinstance(x, np.ndarray)
+                else x.cuda() for x in xs]
+
+    for tag, pair in case["shapes"]:
+        want = [run(lambda x=x: prog.body(*card(x))) for x in pair]
+        outs = []
+        for k in (0, 1, 0, 1):
+            got, n = run(lambda: prog(*pair[k]))
+            assert not leaves_differ(torch, got, want[k][0]) and n == want[k][1], (tag, k)
+            outs.append((k, got))
+        for k, got in outs:                       # no later replay overwrote a result
+            assert not leaves_differ(torch, got, want[k][0]), (tag, k)
+    assert len(prog.graphs) == len(case["shapes"])
+    clear_programs()
+
+
+def test_lasso_program_on_card_equals_cpu_on_sparse_sessions(estimator_sessions_on_card):
+    """The LASSO program's inputs from the fixture's sparse sessions (20
+    peaks, columns of raw norm down to ~1e-7 and coefficients up to ~1e10):
+    the card's graph equals the CPU body on the same inputs within rtol
+    1e-9, the contract of ``run_estimator("lasso_refine")``."""
+    from chip_smoke import estimator_program_cases
+    from slam_process_tpu_torch.utils.graphs import clear_programs
+
+    sessions, angles = estimator_sessions_on_card
+    clear_programs()
+    (case,) = [c for c in estimator_program_cases(np, torch, sessions, angles,
+                                                  torch.device("cuda")) if c["name"] == "lasso"]
+    for _, pair in case["shapes"]:
+        for x in pair:
+            got = case["program"](*x).cpu()
+            want = case["program"].body(*x)
+            assert want.abs().max() > 1e8
+            torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-9)
+    clear_programs()
+
+
+def test_run_nn_omp_reads_the_host_once_a_call(estimator_sessions_on_card):
+    """``run_estimator("nn_omp")``: the scene and the dictionary load into
+    the graph's static inputs through pinned memory, and the result comes
+    back in one read, the call's one host sync."""
+    from chip_smoke import sync_sites_of
+    from slam_process_tpu_torch.models.registry import run_estimator
+
+    sessions, angles = estimator_sessions_on_card
+    run_estimator("nn_omp", sessions[1], angles)
+    sites = sync_sites_of(torch, lambda: run_estimator("nn_omp", sessions[1], angles))
+    assert sum(sites.values()) == 1, sites
+
+
+def test_graph_program_keeps_at_most_max_graphs():
+    """A program of two graphs called with three shapes drops the least
+    recently called graph; every call equals the body."""
+    from slam_process_tpu_torch.utils.graphs import GraphProgram
+
+    prog = GraphProgram(lambda x: (x * 2.0, x.sum(dim=0)), "cuda", 2)
+    xs = {n: torch.arange(n * 3, dtype=torch.float32).reshape(n, 3) for n in (2, 4, 5)}
+    for n in (2, 4, 2, 5, 4):
+        got = prog(xs[n].numpy())
+        want = prog.body(xs[n].cuda())
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [sig[0][0] for sig in prog.graphs] == [(5, 3), (4, 3)]
+
+
+def test_svd_body_syncs_so_it_stays_eager():
+    """``torch.linalg.svd`` reads its error information on the host, which a
+    CUDA graph cannot capture: svd's device engine stays eager
+    (``ROADMAP.md``) and still equals its CPU run."""
+    from chip_smoke import sync_sites_of
+    from slam_process_tpu_torch.models.svd_est import svd_paths_torch
+
+    rng = np.random.default_rng(4)
+    heat = torch.from_numpy(rng.random((90, 180)) * 50)
+    grids = [torch.linspace(-45, 45, 90, dtype=torch.float64),
+             torch.linspace(-45, 45, 180, dtype=torch.float64)]
+    card = [heat.cuda(), *(g.cuda() for g in grids)]
+    svd_paths_torch(*card)
+    assert sum(sync_sites_of(torch, lambda: svd_paths_torch(*card)).values()) > 0
+    got, want = svd_paths_torch(*card), svd_paths_torch(heat, *grids)
+    assert torch.equal(got.valid.cpu(), want.valid)
+    torch.testing.assert_close(got.power.cpu(), want.power, rtol=1e-9, atol=1e-12)

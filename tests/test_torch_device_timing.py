@@ -150,6 +150,37 @@ def test_measure_refuses_what_it_cannot_attribute():
         device_timing._timing(lost, 2, None)
 
 
+def test_measure_refuses_a_run_whose_activities_the_trace_lost():
+    """A run with no device activity beside runs with some is a lost trace,
+    not a run of 0 s."""
+    kept = [e for e in handwritten(RUN_RANGE) if e.get("name") != "k_c"]
+    lost = [e for e in kept if e.get("cat") not in device_timing.DEVICE_CATEGORIES
+            or e.get("args", {}).get("correlation") not in (4, 5)]
+    with pytest.raises(device_timing.TraceLostError,
+                       match=r"runs \[1\] of 2 .* lost activities"):
+        device_timing._timing(lost, 2, None)
+
+
+def test_measure_counts_and_refuses_a_lost_sentinel(tmp_path):
+    """The sentinel range before the runs: how many of its activities the
+    trace dropped is ``lost``; a trace that dropped them all raises; the
+    per-name totals leave the sentinel out."""
+    kept = [e for e in handwritten(RUN_RANGE) if e.get("name") != "k_c"]
+    n = device_timing.SENTINEL_LAUNCHES
+    sentinel = [x("user_annotation", device_timing.SENTINEL_RANGE, 10.0, 50.0)]
+    for i in range(3):
+        sentinel += [launch("cudaLaunchKernel", 20.0 + i, 100 + i),
+                     x("kernel", "add", 500.0 + i, 0.5, correlation=100 + i)]
+    t = device_timing._timing(kept + sentinel, 2, None)
+    assert t.lost == n - 3 and t.runs == pytest.approx([20e-6, 12e-6], abs=1e-12)
+    write(tmp_path / "trace.json", kept + sentinel)
+    assert "add" not in op_device_counts(tmp_path) and "add" not in op_device_times(tmp_path)
+    assert device_timing._timing(kept, 2, None).lost is None
+    none_left = [e for e in sentinel if e.get("cat") != "kernel"]
+    with pytest.raises(device_timing.TraceLostError, match=f"lost all {n} sentinel"):
+        device_timing._timing(kept + none_left, 2, None)
+
+
 def test_annotate_ranges_in_a_cpu_trace(tmp_path):
     with trace(tmp_path):
         for _ in range(2):

@@ -397,9 +397,66 @@ def test_host_engine_makes_no_cuda_call(monkeypatch, tmp_path):
     assert r.render(load_angle_lut(angles)).rgba.shape[2] == 4
 
 
+def test_estimator_entry_points_need_cuda_without_falling_back(monkeypatch, tmp_path):
+    """The estimator programs and the entry points that run them (each a
+    CUDA graph per shape on the card) raise without a card at their
+    default device, naming ``device='cpu'``, and run their eager bodies
+    only where the caller names the CPU."""
+    from slam_process_tpu_torch.config import OmpConfig, SmSicConfig
+    from slam_process_tpu_torch.models import (
+        batch_estimation, fusion, lasso_refine, nn_omp, omp_dense, peak_picking, registry,
+        sm_sic, sweep_estimation, tracking)
+    from slam_process_tpu_torch.models.dictionary import make_dictionary
+    from slam_process_tpu_torch.pipeline.session import Session, sweep_paths_dataset
+    from slam_process_tpu_torch.utils.graphs import clear_programs
+    from slam_process_tpu_torch.utils.synthetic import (
+        synthetic_session_bytes, to_hex_text, write_angle_table)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    clear_programs()
+    factories = [(nn_omp.nn_omp_program, (OmpConfig(),)),
+                 (batch_estimation.batched_program, (OmpConfig(),)),
+                 (sweep_estimation.sweep_program, (("nn_omp", OmpConfig(), "positive", False),)),
+                 (sm_sic.sm_sic_program, (SmSicConfig(),)), (tracking.track_program, ()),
+                 (lasso_refine.lasso_program, (10.0, 0.1)),
+                 (omp_dense.omp_dense_program, ()), (fusion.fusion_program, (True,)),
+                 (peak_picking.peak_program, (90.0,))]
+    for factory, args in factories:
+        for device in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                factory(*args, device=device)
+        assert factory(*args, device="cpu").device == torch.device("cpu")
+
+    path = tmp_path / "s.txt"
+    path.write_bytes(to_hex_text(synthetic_session_bytes(
+        n_groups=2, frames_per_beam=2, baselines_per_group=3, seed=2, n_paths=3)))
+    angles = write_angle_table(tmp_path / "angles.xlsx")
+    s = Session.from_log(path, device="cpu")
+    matrix, ue, bs = registry.build_scene(s, angles, False)
+    d = make_dictionary(ue, bs)
+    packed = batch_estimation.pack_scenes([matrix], [d])
+    calls = [lambda: nn_omp.run_nn_omp(d, matrix),
+             lambda: sm_sic.run_sm_sic(d, matrix, SmSicConfig()),
+             lambda: batch_estimation._batched_nn_omp(packed, OmpConfig()),
+             lambda: batch_estimation.nn_omp_sessions_device(packed, OmpConfig()),
+             lambda: batch_estimation.estimate_sessions([s], angles),
+             lambda: sweep_paths_dataset([s], angles),
+             lambda: omp_dense.run_omp_dense(ue[:4], bs[:4], matrix[0, :4], ue, bs)]
+    calls += [lambda name=name: registry.run_estimator(name, s, angles)
+              for name in ("nn_omp", "nn_omp_v1", "sm_sic", "svd", "omp_dense",
+                           "lasso_refine", "peak_picking", "fusion", "nn_omp_v13")]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert len(registry.run_estimator("nn_omp", s, angles, device="cpu")) > 0
+    clear_programs()
+
+
 def test_path_tracks_defaults_to_the_device_tracker(monkeypatch, tmp_path):
     """With its defaults, ``Session.path_tracks`` associates through
-    ``models/tracking.track_paths`` (kernel K6 on CUDA), never numpy."""
+    ``models/tracking.track_paths`` (the body of ``track_program``: kernel
+    K6 in a CUDA graph on the card), never numpy."""
+    from slam_process_tpu_torch.models import tracking
     from slam_process_tpu_torch.pipeline import session as session_mod
     from slam_process_tpu_torch.utils.synthetic import (
         synthetic_session_bytes, to_hex_text, write_angle_table)
@@ -408,8 +465,8 @@ def test_path_tracks_defaults_to_the_device_tracker(monkeypatch, tmp_path):
     path.write_bytes(to_hex_text(synthetic_session_bytes(
         n_groups=2, frames_per_beam=2, baselines_per_group=3, seed=2, n_paths=3)))
     calls = []
-    real = session_mod.track_paths
-    monkeypatch.setattr(session_mod, "track_paths",
+    real = tracking.track_paths
+    monkeypatch.setattr(tracking, "track_paths",
                         lambda *a, **k: calls.append(a[0].device) or real(*a, **k))
     monkeypatch.setattr(session_mod, "track_paths_np",
                         lambda *a, **k: pytest.fail("the default went to the numpy tracker"))
