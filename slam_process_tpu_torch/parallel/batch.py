@@ -27,6 +27,14 @@ same row count; a call with another row count captures anew and drops the
 shard's old graph with its memory pool, so a program holds one graph per
 shard.  On the CPU the body runs eagerly.  ``run_dataset`` goes through
 it and copies each shard's flat output buffer to the host once.
+
+Each bucket's host steps are spans (``utils/profiling.annotate``), in
+this order: ``slam.batch.stack`` (the program lookup, the padding and
+``stack_sessions``), ``slam.batch.upload`` (the batch's copy to the
+device), ``slam.batch.replay`` (the graph's load and replay, or its
+capture), then, after every bucket was issued, ``slam.batch.readback``
+(the copy back) and ``slam.batch.split`` (the per-session numpy views and
+the overflow check); with a mesh, upload and replay once per data shard.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from slam_process_tpu_torch.pipeline.device import (
     DeviceSessionOut, bucket_size, device_lut, pad_bytes, session_pipeline,
     session_pipeline_batch)
 from slam_process_tpu_torch.utils.graphs import FlatOutputs, GraphRunner
+from slam_process_tpu_torch.utils.profiling import annotate
 
 
 class SessionSummaryOut(NamedTuple):
@@ -95,7 +104,9 @@ class _BatchedPipeline:
         padded with empty sessions to a multiple of the shard count) run on
         its row's first device, shard after shard: per shard (the eager
         body's outputs, None) on the CPU, or on CUDA (the graph's flat
-        output buffer, which its next replay overwrites, and its layout)."""
+        output buffer, which its next replay overwrites, and its layout).
+        Spans, once per shard: ``slam.batch.upload`` (the copies to the
+        device) and ``slam.batch.replay``."""
         b = torch.as_tensor(byte_batch, dtype=torch.uint8)
         if b.dim() != 2 or b.shape[1] != self.n_bytes_padded:
             raise ValueError(f"byte_batch must be [S, {self.n_bytes_padded}], got "
@@ -106,17 +117,19 @@ class _BatchedPipeline:
         lut = torch.as_tensor(lut, dtype=torch.float32)
         out = []
         for r, devs in enumerate(self.rows):
-            x, lut_r = b[r * per:(r + 1) * per].to(devs[0]), lut.to(devs[0])
-            if devs[0].type != "cuda":
-                out.append((self._body(x, lut_r), None))
-                continue
-            if self.runners.get(r, (None,))[0] != per:
-                self.runners.pop(r, None)       # the old graph and its pool go first
-                flat, body = FlatOutputs(), self._body
-                self.runners[r] = (per, GraphRunner(lambda *xs: flat.pack(body(*xs)),
-                                                    [x, lut_r]), flat)
-            _, runner, flat = self.runners[r]
-            out.append((runner(x, lut_r), flat))
+            with annotate("slam.batch.upload"):
+                x, lut_r = b[r * per:(r + 1) * per].to(devs[0]), lut.to(devs[0])
+            with annotate("slam.batch.replay"):
+                if devs[0].type != "cuda":
+                    out.append((self._body(x, lut_r), None))
+                    continue
+                if self.runners.get(r, (None,))[0] != per:
+                    self.runners.pop(r, None)       # the old graph and its pool go first
+                    flat, body = FlatOutputs(), self._body
+                    self.runners[r] = (per, GraphRunner(lambda *xs: flat.pack(body(*xs)),
+                                                        [x, lut_r]), flat)
+                _, runner, flat = self.runners[r]
+                out.append((runner(x, lut_r), flat))
         return out
 
     def shards(self, byte_batch, n_bytes, lut) -> list:
@@ -188,12 +201,13 @@ def _bucket_groups(mesh, raw_list, quantum: int, device, pipeline_kwargs) -> lis
         groups.setdefault(bucket_size(len(r), quantum), []).append(i)
     results = []
     for bucket, idxs in sorted(groups.items()):
-        fn = batched_session_pipeline(mesh, bucket, outputs="summary", device=device,
-                                      **pipeline_kwargs)
-        sessions = [raw_list[i] for i in idxs]
-        sessions += [np.zeros(0, np.uint8)] * (shard_rows(len(idxs), len(fn.rows))[0]
-                                               - len(idxs))
-        batch, _ = stack_sessions(sessions, bucket)
+        with annotate("slam.batch.stack"):
+            fn = batched_session_pipeline(mesh, bucket, outputs="summary", device=device,
+                                          **pipeline_kwargs)
+            sessions = [raw_list[i] for i in idxs]
+            sessions += [np.zeros(0, np.uint8)] * (shard_rows(len(idxs), len(fn.rows))[0]
+                                                   - len(idxs))
+            batch, _ = stack_sessions(sessions, bucket)
         results.append((idxs, fn, fn._issue(batch, device_lut(fn.rows[0][0]))))
     return results
 
@@ -233,24 +247,32 @@ def run_dataset(mesh, raw_list: Sequence[np.ndarray], *, device=None, **pipeline
     grouped = _bucket_groups(mesh, raw_list, pipeline_kwargs.pop("quantum", 1 << 18), device,
                              pipeline_kwargs)
     results: list = [None] * len(raw_list)
+    bad = []
     for idxs, _, issued in grouped:
-        host = [_to_host(out, flat) for out, flat in issued]
-        fields = SessionSummaryOut(*(np.concatenate(fs) for fs in zip(*host)))
-        for row, orig in enumerate(idxs):
-            results[orig] = SessionSummaryOut(*(x[row] for x in fields))
-    bad = [i for i, r in enumerate(results) if bool(r.correct_overflow)]
+        with annotate("slam.batch.readback"):
+            read = [_read_back(out, flat) for out, flat in issued]
+        with annotate("slam.batch.split"):
+            host = [_host_fields(r, flat) for r, (_, flat) in zip(read, issued)]
+            fields = SessionSummaryOut(*(np.concatenate(fs) for fs in zip(*host)))
+            for row, orig in enumerate(idxs):
+                results[orig] = SessionSummaryOut(*(x[row] for x in fields))
+            bad += [orig for row, orig in enumerate(idxs) if fields.correct_overflow[row]]
     if bad:
         warnings.warn(
-            f"corrector capacity exceeded on sessions {bad}: their rows "
+            f"corrector capacity exceeded on sessions {sorted(bad)}: their rows "
             "were silently truncated — re-run with larger max_groups/"
             "max_baselines_per_group", RuntimeWarning, stacklevel=2)
     return results
 
 
-def _to_host(out, flat: Optional[FlatOutputs]) -> SessionSummaryOut:
-    """A shard's outputs as numpy arrays: eager outputs (``flat`` None)
-    field by field, or a graph's flat buffer in ONE device-to-host copy,
-    split on the host by its layout (views of one host buffer)."""
-    if flat is None:
-        return SessionSummaryOut(*(x.cpu().numpy() for x in out))
-    return SessionSummaryOut(*(x.numpy() for x in flat.unpack(out.cpu())))
+def _read_back(out, flat: Optional[FlatOutputs]):
+    """A shard's outputs on the host: eager outputs (``flat`` None) field by
+    field, or a graph's flat buffer in ONE device-to-host copy."""
+    return [x.cpu() for x in out] if flat is None else out.cpu()
+
+
+def _host_fields(read, flat: Optional[FlatOutputs]) -> SessionSummaryOut:
+    """``_read_back``'s tensors as numpy arrays: a flat buffer split by its
+    layout (views of one host buffer)."""
+    return SessionSummaryOut(*(x.numpy() for x in (read if flat is None
+                                                    else flat.unpack(read))))

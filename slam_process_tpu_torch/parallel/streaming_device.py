@@ -60,6 +60,15 @@ tensors the NNLS plain version syncs nothing with a device but counts its
 lockstep steps (``ops/nnls.HOST_SYNCS``).
 ``render()`` reads the sums back, builds the grid on the host as
 ``intensity()`` does and rasterizes it on the session's device (K3).
+
+The host steps are spans (``utils/profiling.annotate``):
+``slam.stream.stage`` (a feed's concatenation of carry and chunk, the
+windows' fill), ``slam.stream.round`` (one window round: the copy to the
+device, the graphs or the eager stages), ``slam.stream.count_read`` and
+``slam.stream.staging_wait`` (where ``HOST_SYNCS`` and ``STAGING_WAITS``
+count), ``slam.stream.flush``, ``slam.stream.read``
+(``MultiStreamingSession``'s host copies of its state) and
+``slam.stream.reset``.
 """
 
 from __future__ import annotations
@@ -91,6 +100,7 @@ from slam_process_tpu_torch.parallel.mesh import placement, shard_rows
 from slam_process_tpu_torch.pipeline.device import resolve_device
 from slam_process_tpu_torch.render.heatmap import RenderedHeatmap, render_intensity
 from slam_process_tpu_torch.utils.graphs import GraphRunner, new_pool
+from slam_process_tpu_torch.utils.profiling import annotate
 from slam_process_tpu_torch.utils.timestamps import unwrap_clk_anchors
 
 _LOGGER = logging.getLogger("slam_process_tpu_torch.streaming_device")
@@ -559,7 +569,8 @@ class _WindowRound:
             m_max = s1
         else:
             HOST_SYNCS += 1
-            m_max = min(int(mid.m_eff.amax()), s1)
+            with annotate("slam.stream.count_read"):
+                m_max = min(int(mid.m_eff.amax()), s1)
         return -(-m_max // min(8, s1))
 
     def _groups(self, nblk: int) -> tuple:
@@ -593,8 +604,9 @@ class _WindowRound:
 
     def _flush(self, st: DeviceStreamState) -> None:
         """Close the open group of every stream of ``st``, in place."""
-        _drain([(self, functools.partial(self._flush_pre, st),
-                 functools.partial(self._round_post, st, close_all=True))])
+        with annotate("slam.stream.flush"):
+            _drain([(self, functools.partial(self._flush_pre, st),
+                     functools.partial(self._round_post, st, close_all=True))])
 
     def _flush_pre(self, st: DeviceStreamState) -> Optional[_PathsMid]:
         """``_flush`` up to the count read, as ``_round_pre`` is."""
@@ -653,7 +665,8 @@ class _WindowRound:
         global STAGING_WAITS
         if self._win_staged is not None and not self._win_staged.query():
             STAGING_WAITS += 1
-            self._win_staged.synchronize()
+            with annotate("slam.stream.staging_wait"):
+                self._win_staged.synchronize()
         n_rows = self._state.n_frames.shape[0]
         return (self._win_np[:8 * n_rows].view(np.int64),
                 self._win_np[self._win_off:].reshape(n_rows, -1))
@@ -811,7 +824,8 @@ class DeviceStreamingSession(_WindowRound):
                 "non-finalized session")
         if isinstance(chunk, (bytes, bytearray)):
             chunk = np.frombuffer(chunk, dtype=np.uint8)
-        buf = np.concatenate([self._byte_carry, np.asarray(chunk, dtype=np.uint8)])
+        with annotate("slam.stream.stage"):
+            buf = np.concatenate([self._byte_carry, np.asarray(chunk, dtype=np.uint8)])
         n = len(buf)
         c = self.chunk_bytes
         off = 0
@@ -836,11 +850,13 @@ class DeviceStreamingSession(_WindowRound):
         global STAGING_WAITS
         if self._staged is not None and not self._staged.query():
             STAGING_WAITS += 1
-            self._staged.synchronize()
-        buf = self._staging_np
-        buf[:8] = np.array([m], np.int64).view(np.uint8)
-        buf[16:16 + m] = piece[:m]
-        buf[16 + m:] = 0
+            with annotate("slam.stream.staging_wait"):
+                self._staged.synchronize()
+        with annotate("slam.stream.stage"):
+            buf = self._staging_np
+            buf[:8] = np.array([m], np.int64).view(np.uint8)
+            buf[16:16 + m] = piece[:m]
+            buf[16 + m:] = 0
         if self._staged is not None:
             self._window.copy_(self._staging, non_blocking=True)
             self._staged.record()
@@ -855,14 +871,16 @@ class DeviceStreamingSession(_WindowRound):
         ``piece``): the S = 1 round on the lifted state, in place; a CUDA
         graph on CUDA (the class docstring)."""
         self._load_window(piece, n_bytes)
-        if self.device.type != "cuda":
-            self._round(_map_state(self._state, _lift), *self._window_inputs())
-            return
-        if self._graph is None:
-            st, inputs = _map_state(self._state, _lift), self._window_inputs()
-            this = weakref.ref(self)      # the graph must not keep its session alive
-            self._graph = GraphRunner(lambda: this()._round(st, *inputs), device=self.device)
-        self._graph.run()
+        with annotate("slam.stream.round"):
+            if self.device.type != "cuda":
+                self._round(_map_state(self._state, _lift), *self._window_inputs())
+                return
+            if self._graph is None:
+                st, inputs = _map_state(self._state, _lift), self._window_inputs()
+                this = weakref.ref(self)      # the graph must not keep its session alive
+                self._graph = GraphRunner(lambda: this()._round(st, *inputs),
+                                          device=self.device)
+            self._graph.run()
 
     def _close_groups(self, piece: np.ndarray, n_bytes: int) -> _Window:
         """A window's decode and correction without the stream axis, the
@@ -1140,14 +1158,15 @@ def _fill_windows(bufs, offs, c: int, rows) -> None:
     window, zero-padded, or length 0 where it has none left (so only the
     previous round's bytes past the new length are cleared); advances
     ``offs`` in place."""
-    for i, (b, (row, n)) in enumerate(zip(bufs, rows)):
-        off, prev = offs[i], int(n[0])
-        m = min(c, len(b) - off) if len(b) - off > CARRY_BYTES else 0
-        row[:m] = b[off:off + m]
-        row[m:prev] = 0
-        n[0] = m
-        if m:
-            offs[i] = min(off + c, len(b)) - CARRY_BYTES
+    with annotate("slam.stream.stage"):
+        for i, (b, (row, n)) in enumerate(zip(bufs, rows)):
+            off, prev = offs[i], int(n[0])
+            m = min(c, len(b) - off) if len(b) - off > CARRY_BYTES else 0
+            row[:m] = b[off:off + m]
+            row[m:prev] = 0
+            n[0] = m
+            if m:
+                offs[i] = min(off + c, len(b)) - CARRY_BYTES
 
 
 class MultiStreamingSession(_WindowRound):
@@ -1257,8 +1276,9 @@ class MultiStreamingSession(_WindowRound):
     def _host_rows(self, get) -> list:
         """``get(state)``'s tensors of every shard, read back and joined
         along the stream axis, the padding streams dropped."""
-        per_shard = [[x.cpu().numpy() for x in get(sh._state)] for sh in self._shards]
-        return [np.concatenate(xs)[:self.n_streams] for xs in zip(*per_shard)]
+        with annotate("slam.stream.read"):
+            per_shard = [[x.cpu().numpy() for x in get(sh._state)] for sh in self._shards]
+            return [np.concatenate(xs)[:self.n_streams] for xs in zip(*per_shard)]
 
     def _forget_host(self) -> None:
         self._paths_host = None
@@ -1277,16 +1297,17 @@ class MultiStreamingSession(_WindowRound):
             raise ValueError(f"expected {self.n_streams} chunks")
         self._forget_host()
         bufs, offs = [], [0] * self.n_streams
-        for i, chunk in enumerate(chunks):
-            if isinstance(chunk, (bytes, bytearray)):
-                chunk = np.frombuffer(chunk, dtype=np.uint8)
-            chunk = np.asarray(chunk, np.uint8)
-            if len(chunk) and self._stream_finalized[i]:
-                raise RuntimeError(
-                    f"stream {i} already finalized: its flush closed the open sweep group, "
-                    "so feeding more bytes would mis-segment sweeps (pass b'' for ended "
-                    "streams)")
-            bufs.append(np.concatenate([self._byte_carry[i], chunk]))
+        with annotate("slam.stream.stage"):
+            for i, chunk in enumerate(chunks):
+                if isinstance(chunk, (bytes, bytearray)):
+                    chunk = np.frombuffer(chunk, dtype=np.uint8)
+                chunk = np.asarray(chunk, np.uint8)
+                if len(chunk) and self._stream_finalized[i]:
+                    raise RuntimeError(
+                        f"stream {i} already finalized: its flush closed the open sweep "
+                        "group, so feeding more bytes would mis-segment sweeps (pass b'' for "
+                        "ended streams)")
+                bufs.append(np.concatenate([self._byte_carry[i], chunk]))
         while _has_window(bufs, offs):
             # Each round's windows go straight into the shards' staging buffers.
             rows = []
@@ -1304,13 +1325,14 @@ class MultiStreamingSession(_WindowRound):
         (class docstring)."""
         self._forget_host()
         parts = self._parts()
-        for sh, lo, _ in parts:
-            if pieces is not None:
-                staged_lens, staged_pieces = sh._staged()
-                staged_lens[:] = lens[lo:lo + self._per]
-                staged_pieces[:] = pieces[lo:lo + self._per]
-            sh._send()
-        _drain([(sh, sh._pre, sh._post) for sh, _, _ in parts])
+        with annotate("slam.stream.round"):
+            for sh, lo, _ in parts:
+                if pieces is not None:
+                    staged_lens, staged_pieces = sh._staged()
+                    staged_lens[:] = lens[lo:lo + self._per]
+                    staged_pieces[:] = pieces[lo:lo + self._per]
+                sh._send()
+            _drain([(sh, sh._pre, sh._post) for sh, _, _ in parts])
 
     def _masked_flush(self, mask: np.ndarray) -> None:
         """Flush the streams of ``mask`` and leave the others as they are,
@@ -1318,26 +1340,27 @@ class MultiStreamingSession(_WindowRound):
         selected, else the selected streams' state is gathered, flushed and
         written back.  Every state tensor is written in place, so the
         shards' graphs stay valid."""
-        jobs, writes = [], []
-        for sh, lo, _ in self._parts():
-            idx = np.nonzero(mask[lo:lo + self._per])[0]
-            if not len(idx):
-                continue
-            if len(idx) == self._per:
-                st = sh._state
-            else:
-                idx_t = _host_to(sh.device, idx.astype(np.int64))
-                st = _map_state(sh._state, lambda x, i=idx_t: x.index_select(0, i))
-                writes.append((sh._state, idx_t, st))
-            jobs.append((sh, functools.partial(sh._flush_pre, st),
-                         functools.partial(sh._round_post, st, close_all=True)))
-        _drain(jobs)
-        for whole_st, idx_t, sub in writes:
-            for whole, part in zip(_leaves(whole_st), _leaves(sub)):
-                whole.index_copy_(0, idx_t, part)
-        for i in np.nonzero(mask)[0]:
-            self._byte_carry[i] = np.zeros(0, np.uint8)
-        self._forget_host()
+        with annotate("slam.stream.flush"):
+            jobs, writes = [], []
+            for sh, lo, _ in self._parts():
+                idx = np.nonzero(mask[lo:lo + self._per])[0]
+                if not len(idx):
+                    continue
+                if len(idx) == self._per:
+                    st = sh._state
+                else:
+                    idx_t = _host_to(sh.device, idx.astype(np.int64))
+                    st = _map_state(sh._state, lambda x, i=idx_t: x.index_select(0, i))
+                    writes.append((sh._state, idx_t, st))
+                jobs.append((sh, functools.partial(sh._flush_pre, st),
+                             functools.partial(sh._round_post, st, close_all=True)))
+            _drain(jobs)
+            for whole_st, idx_t, sub in writes:
+                for whole, part in zip(_leaves(whole_st), _leaves(sub)):
+                    whole.index_copy_(0, idx_t, part)
+            for i in np.nonzero(mask)[0]:
+                self._byte_carry[i] = np.zeros(0, np.uint8)
+            self._forget_host()
 
     def _checked(self, indices) -> np.ndarray:
         idx = np.atleast_1d(np.asarray(indices, dtype=np.int64))
@@ -1377,27 +1400,28 @@ class MultiStreamingSession(_WindowRound):
         """Return finalized streams to the zero state so new live feeds can
         attach.  Only finalized streams may reset (read their results
         first: their rings are zeroed)."""
-        idx = self._checked(indices)
-        if idx.size == 0:
-            return
-        live = idx[~self._stream_finalized[idx]]
-        if live.size:
-            raise RuntimeError(
-                f"streams {live.tolist()} are still live; finalize_streams them (and read "
-                "their results) before resetting")
-        for sh, lo, _ in self._parts():
-            local = idx[(idx >= lo) & (idx < lo + self._per)] - lo
-            if not len(local):
-                continue
-            idx_t = _host_to(sh.device, local.astype(np.int64))
-            for whole, zero in zip(_leaves(sh._state),
-                                   _leaves(self._zero_state(len(local), sh.device))):
-                whole.index_copy_(0, idx_t, zero)
-        for i in idx:
-            self._byte_carry[i] = np.zeros(0, np.uint8)
-        self._stream_finalized[idx] = False
-        self._finalized = False
-        self._forget_host()
+        with annotate("slam.stream.reset"):
+            idx = self._checked(indices)
+            if idx.size == 0:
+                return
+            live = idx[~self._stream_finalized[idx]]
+            if live.size:
+                raise RuntimeError(
+                    f"streams {live.tolist()} are still live; finalize_streams them (and read "
+                    "their results) before resetting")
+            for sh, lo, _ in self._parts():
+                local = idx[(idx >= lo) & (idx < lo + self._per)] - lo
+                if not len(local):
+                    continue
+                idx_t = _host_to(sh.device, local.astype(np.int64))
+                for whole, zero in zip(_leaves(sh._state),
+                                       _leaves(self._zero_state(len(local), sh.device))):
+                    whole.index_copy_(0, idx_t, zero)
+            for i in idx:
+                self._byte_carry[i] = np.zeros(0, np.uint8)
+            self._stream_finalized[idx] = False
+            self._finalized = False
+            self._forget_host()
 
     # -- results -------------------------------------------------------------
 

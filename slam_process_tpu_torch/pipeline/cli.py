@@ -14,6 +14,7 @@
     python -m slam_process_tpu_torch.pipeline.cli replay --logs A.txt [B.txt ...] --mapping ...
                                                  --outdir DIR [--engine device|host]
                                                  [--chunk-bytes N] [--paths [--changes]]
+                                                 [--profile DIR]
     python -m slam_process_tpu_torch.pipeline.cli watch --log LIVE.txt | --logs A.txt B.txt ...
                                                  --mapping ... --outdir DIR
                                                  [--engine device|host] [--paths [--changes]]
@@ -200,10 +201,15 @@ def _add_session(sub):
     p.add_argument("--engine", choices=["host", "device"], default="device",
                    help="device = decode and correct on --device; host = the numpy "
                         "decode and corrector (the heatmap runs on --device either way)")
-    p.add_argument("--profile", type=Path, default=None,
-                   help="write a torch.profiler trace into this directory")
+    _add_profile(p)
     _add_device(p)
     p.set_defaults(fn=_run_session)
+
+
+def _add_profile(p):
+    p.add_argument("--profile", type=Path, default=None,
+                   help="write a torch.profiler trace (trace.json, with the port's slam.* "
+                        "spans) into this directory")
 
 
 def _run_session(args):
@@ -430,6 +436,7 @@ def _add_replay(sub):
                    help="online per-sweep estimation + CLK tracks as sweeps close; writes "
                         "<name>_stream_tracks.xlsx per log")
     _add_change_args(p, gate="--paths")
+    _add_profile(p)
     _add_device(p)
     p.set_defaults(fn=_run_replay)
 
@@ -490,6 +497,13 @@ def _save_stream_png(rendered, out, title: str):
 
 
 def _run_replay(args):
+    from slam_process_tpu_torch.utils.profiling import trace
+
+    with trace(args.profile):
+        _run_replay_inner(args)
+
+
+def _run_replay_inner(args):
     from slam_process_tpu_torch.io.angles import load_angle_lut
 
     lut = load_angle_lut(args.mapping)

@@ -21,7 +21,9 @@ PyTorch operations captured once and replayed by one launch.
     replay adds to every ``LAUNCHES`` (and ``LAUNCHES_BY_K``, where a
     wrapper keeps one) what its capture recorded, and the capture, which ran
     nothing, takes its own additions back;
-  * ``pool_bytes`` (the graph's memory pool) and ``capture_ms``.
+  * ``pool_bytes`` (the graph's memory pool) and ``capture_ms``;
+  * a span ``slam.graph.capture`` (``utils/profiling.annotate``) around the
+    warm-up and capture, so that a capture shows in a profiler trace.
 
 A runner's graph allocates from a private memory pool, or from ``pool``
 (``new_pool()``), which it shares with the other graphs given the same one.
@@ -72,6 +74,8 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from slam_process_tpu_torch.utils.profiling import annotate
 
 _KERNEL_MODULES = ("cuda_decode", "cuda_correct", "cuda_raster", "cuda_sweep_sums",
                    "cuda_compact", "cuda_tracker", "cuda_nnls")
@@ -170,7 +174,8 @@ class GraphRunner:
         captures (returning the warm-up's outputs), every later one replays
         (returning the static outputs)."""
         if self.graph is None:
-            return self._warm_up_and_capture()
+            with annotate("slam.graph.capture"):
+                return self._warm_up_and_capture()
         with torch.cuda.device(self.device):
             self.graph.replay()
         for m, n in self.launches.items():

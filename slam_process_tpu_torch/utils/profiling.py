@@ -1,19 +1,31 @@
-"""Profiler traces of a pipeline run, and named regions in them.
+"""Profiler traces of a pipeline run, and named spans in them.
 
 The counterpart of ``slam_process_tpu/utils/profiling.py``'s ``trace`` and
 ``annotate``: a ``torch.profiler`` trace of the CPU and, where there is
 one, the CUDA device, written as a Chrome trace (``trace.json``) into a
-directory, for ``cli session --profile DIR``; and a named range in it
-(``utils/device_timing.module_device_times`` reads the ranges back).
+directory, for ``cli session --profile DIR`` and ``cli replay --profile
+DIR``; and a named span in it (``annotate``).
+
+The port's spans mark its layer boundaries, named ``slam.<layer>.<step>``
+(``slam.batch.stack``, ``slam.stream.round``, ``slam.graph.capture``, ...):
+each is a ``record_function`` range while a profiler runs, so it lands on
+the profiler's clock beside the device activities, and the device's idle
+gaps can be named by the host step they fell in.  Spans of one thread
+nest by time.  With no profiler running a span is one shared no-op
+context.  ``utils/device_timing.module_device_times`` reads the ranges
+back.
 """
 
 from __future__ import annotations
 
 import contextlib
 from pathlib import Path
-from typing import Iterator, Union
+from typing import ContextManager, Iterator, Union
 
 import torch
+
+# What ``annotate`` returns while no profiler runs: nothing to open or close.
+NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -34,13 +46,10 @@ def trace(log_dir: Union[str, Path, None]) -> Iterator[None]:
     prof.export_chrome_trace(str(log_dir / "trace.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named region of the trace: a ``torch.profiler.record_function``
-    range (a ``user_annotation`` event in the Chrome trace) and, where
-    there is a CUDA device, an NVTX range of the same name."""
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(torch.profiler.record_function(name))
-        if torch.cuda.is_available():
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        yield
+def annotate(name: str) -> ContextManager:
+    """A named span of the trace: while a profiler runs, a
+    ``torch.profiler.record_function`` range (a ``user_annotation`` event
+    in the Chrome trace), else ``NO_SPAN``, which costs one check."""
+    if not torch.autograd._profiler_enabled():
+        return NO_SPAN
+    return torch.profiler.record_function(name)

@@ -343,14 +343,15 @@ def test_batch_program_is_cached_and_run_dataset_goes_through_it(sessions, monke
 
 def test_flat_host_split_equals_field_copy_and_calls_share_nothing(sessions):
     """``run_dataset``'s split of a graph's flat output buffer (one copy,
-    ``_to_host`` with its ``FlatOutputs``) against the per-field copy, bit
-    for bit; two calls' outputs share no storage."""
+    ``_read_back`` and ``_host_fields`` with its ``FlatOutputs``) against
+    the per-field copy, bit for bit; two calls' outputs share no storage."""
     fn = batch.batched_session_pipeline(None, 1 << 14, outputs="summary", device="cpu", **BOUNDS)
     stacked = batch.stack_sessions(sessions, 1 << 14)
     out = fn(*stacked, batch.device_lut(torch.device("cpu")))
     layout = FlatOutputs()
     flat = layout.pack(out)
-    got, want = batch._to_host(flat, layout), batch._to_host(out, None)
+    got = batch._host_fields(batch._read_back(flat, layout), layout)
+    want = batch._host_fields(batch._read_back(out, None), None)
     for f in batch.SessionSummaryOut._fields:
         g, w = getattr(got, f), getattr(want, f)
         assert g.dtype == w.dtype and g.shape == w.shape and g.tobytes() == w.tobytes(), f
