@@ -25,16 +25,38 @@ shard's batch body is a CUDA graph (``utils/graphs.py``), captured at its
 first call and replayed, shard after shard, at every later call of the
 same row count; a call with another row count captures anew and drops the
 shard's old graph with its memory pool, so a program holds one graph per
-shard.  On the CPU the body runs eagerly.  ``run_dataset`` goes through
-it and copies each shard's flat output buffer to the host once.
+shard.  On the CPU the body runs eagerly.
+
+The bytes reach the device through one reused host buffer a data shard
+(``_Staging``, made at a program's first call and remade at a new row
+count): pinned memory on CUDA, plain memory on the CPU, where the eager
+body reads it in place.  ``run_dataset`` writes each session's bytes and
+the stale part of its zero tail straight into its row (``stage``), with
+no padded copy and no stacked batch; a ready [S, N] batch (``__call__``,
+``shards``) is copied into it.  On CUDA the graph's ``GraphRunner.load``
+copies the pinned rows into its static input without a host wait (a
+new graph is made from a device copy of them), and an event after the
+replay marks the copy done: the host waits on it before it next writes
+that buffer, and only if it has not passed (``STAGING_WAITS``).  For ``run_dataset`` each shard's
+flat output buffer is copied, right after its replay and without a host
+wait, into a reused pinned buffer, and an event marks that copy; once
+every bucket was issued, ``run_dataset`` waits on each bucket's events in
+turn (``READBACK_WAITS`` counts the copies still in flight) and splits it
+into per-session numpy arrays of their own (``np.concatenate`` copies out
+of the pinned buffer, which the next call overwrites), while the card
+runs the later buckets.
 
 Each bucket's host steps are spans (``utils/profiling.annotate``), in
-this order: ``slam.batch.stack`` (the program lookup, the padding and
-``stack_sessions``), ``slam.batch.upload`` (the batch's copy to the
-device), ``slam.batch.replay`` (the graph's load and replay, or its
-capture), then, after every bucket was issued, ``slam.batch.readback``
-(the copy back) and ``slam.batch.split`` (the per-session numpy views and
-the overflow check); with a mesh, upload and replay once per data shard.
+this order: ``slam.batch.stack`` (the program lookup and the bytes'
+writes into the staging buffers, with ``slam.batch.staging_wait`` inside
+it where the host waits for a copy out of them), ``slam.batch.upload``
+(the lookup table's move, and a new graph's runner with its device copy
+of the rows; on the CPU the eager body's inputs), ``slam.batch.replay``
+(the graph's load from the pinned rows and its replay, or its capture,
+and the launch of the copy back), then, after every bucket was issued,
+``slam.batch.readback`` (the wait for the copy back) and
+``slam.batch.split`` (the per-session numpy arrays and the overflow
+check); with a mesh, upload and replay once per data shard.
 """
 
 from __future__ import annotations
@@ -52,6 +74,9 @@ from slam_process_tpu_torch.pipeline.device import (
     session_pipeline_batch)
 from slam_process_tpu_torch.utils.graphs import FlatOutputs, GraphRunner
 from slam_process_tpu_torch.utils.profiling import annotate
+
+STAGING_WAITS = 0   # shard batches whose staging buffer was still being copied (the host waited)
+READBACK_WAITS = 0  # shard outputs whose copy back was still in flight when read (the host waited)
 
 
 class SessionSummaryOut(NamedTuple):
@@ -72,6 +97,53 @@ def _stack_outputs(outs: Sequence[DeviceSessionOut]) -> DeviceSessionOut:
         [getattr(o, f) for o in outs]) for f in DeviceSessionOut._fields))
 
 
+class _Staging:
+    """One data shard's reused host buffers (module docstring): ``bytes``
+    [rows, N] u8, the shard's next batch (pinned on CUDA), each row zero
+    past its first ``filled`` bytes, and ``sent``, the event after the
+    replay that read it; ``out``, the pinned copy of the graph's flat output
+    buffer (made at the first copy back), and ``read``, the event after
+    that copy.  On the CPU there are no events and no ``out``."""
+
+    def __init__(self, rows: int, n_bytes: int, device: torch.device):
+        cuda = device.type == "cuda"
+        self.rows = rows
+        self.bytes = torch.zeros((rows, n_bytes), dtype=torch.uint8, pin_memory=cuda)
+        self.bytes_np = self.bytes.numpy()
+        self.filled = [0] * rows
+        self.sent = torch.cuda.Event() if cuda else None
+        self.out: Optional[torch.Tensor] = None
+        self.read = torch.cuda.Event() if cuda else None
+
+    def write(self, rows: Sequence[np.ndarray]) -> None:
+        """Row j <- ``rows[j]`` padded with zeros, and the rows past them
+        all zeros: each row's bytes, then zeros where the last write left
+        bytes past them.  First the host waits for the previous batch's copy
+        out of ``bytes``, only if it is still in flight (``STAGING_WAITS``)."""
+        global STAGING_WAITS
+        if self.sent is not None and not self.sent.query():
+            STAGING_WAITS += 1
+            with annotate("slam.batch.staging_wait"):
+                self.sent.synchronize()
+        buf = self.bytes_np
+        for j in range(self.rows):
+            n = len(rows[j]) if j < len(rows) else 0
+            if n:
+                buf[j, :n] = rows[j]
+            if self.filled[j] > n:
+                buf[j, n:self.filled[j]] = 0
+            self.filled[j] = n
+
+    def copy_back(self, flat: torch.Tensor) -> torch.Tensor:
+        """Launch the copy of a graph's flat output buffer into ``out`` on
+        the current stream, record ``read`` after it, and return ``out``."""
+        if self.out is None or self.out.numel() != flat.numel():
+            self.out = torch.empty(flat.numel(), dtype=torch.uint8, pin_memory=True)
+        self.out.copy_(flat, non_blocking=True)
+        self.read.record(torch.cuda.current_stream(flat.device))
+        return self.out
+
+
 class _BatchedPipeline:
     """What ``batched_session_pipeline`` returns: called, the outputs of
     every row on the first row's device; ``shards`` gives each data shard's
@@ -79,7 +151,7 @@ class _BatchedPipeline:
     ``GraphRunner`` of ``_body``, for the row count of its last call, whose
     outputs are one flat buffer (``FlatOutputs``); a call returns tensors
     of its own (one clone of that buffer), as ``pipeline/device._Program``
-    does."""
+    does.  Each data shard stages its bytes in one ``_Staging``."""
 
     def __init__(self, rows, n_bytes_padded: int, outputs: str, session_axis: str, kw: dict):
         self.rows = rows
@@ -88,6 +160,7 @@ class _BatchedPipeline:
         self.session_axis = session_axis
         self.kw = kw
         self.runners: dict = {}         # shard -> (rows, GraphRunner, FlatOutputs)
+        self.staging: list = []         # shard -> _Staging, for the last call's row count
 
     def _body(self, b: torch.Tensor, lut: torch.Tensor):
         if self.session_axis == "scan":
@@ -99,45 +172,69 @@ class _BatchedPipeline:
             return SessionSummaryOut(*(getattr(out, f) for f in SessionSummaryOut._fields))
         return out
 
-    def _issue(self, byte_batch, lut) -> list:
-        """Each data shard's rows (``[r * per, (r + 1) * per)`` of the batch
-        padded with empty sessions to a multiple of the shard count) run on
-        its row's first device, shard after shard: per shard (the eager
-        body's outputs, None) on the CPU, or on CUDA (the graph's flat
-        output buffer, which its next replay overwrites, and its layout).
-        Spans, once per shard: ``slam.batch.upload`` (the copies to the
-        device) and ``slam.batch.replay``."""
-        b = torch.as_tensor(byte_batch, dtype=torch.uint8)
-        if b.dim() != 2 or b.shape[1] != self.n_bytes_padded:
-            raise ValueError(f"byte_batch must be [S, {self.n_bytes_padded}], got "
-                             f"{tuple(b.shape)}")
-        s_pad, per = shard_rows(b.shape[0], len(self.rows))
-        if s_pad > b.shape[0]:
-            b = torch.cat([b, b.new_zeros((s_pad - b.shape[0], b.shape[1]))])
+    def _shard_staging(self, n_sessions: int) -> int:
+        """Rows per shard of a batch of ``n_sessions`` (padded with empty
+        sessions to a multiple of the shard count); each shard's
+        ``_Staging`` made anew where it holds another row count."""
+        per = shard_rows(n_sessions, len(self.rows))[1]
+        if not self.staging or self.staging[0].rows != per:
+            self.staging = [_Staging(per, self.n_bytes_padded, devs[0]) for devs in self.rows]
+        return per
+
+    def stage(self, sessions: Sequence[np.ndarray]) -> None:
+        """Write ``sessions`` (u8 arrays of at most N bytes each, or the rows
+        of an [S, N] batch) into the staging buffers, shard ``r`` rows
+        ``[r * per, (r + 1) * per)`` and the padding rows all zeros, as
+        ``stack_sessions`` would stack them, for ``_issue``."""
+        per = self._shard_staging(len(sessions))
+        for r, st in enumerate(self.staging):
+            st.write(sessions[r * per:(r + 1) * per])
+
+    def _issue(self, lut, to_host: bool = False) -> list:
+        """Each data shard's rows, from its staging buffer (``stage``), run
+        on its row's first device, shard after shard.  Per shard (the eager
+        body's outputs, None, None) on the CPU, or on CUDA (the graph's
+        flat output buffer, which its next replay overwrites, its layout,
+        None), or with ``to_host`` (the buffer's pinned host copy, its
+        layout, the copy's event), the copy launched without a host wait.
+        Spans, once per shard: ``slam.batch.upload`` and
+        ``slam.batch.replay`` (module docstring)."""
         lut = torch.as_tensor(lut, dtype=torch.float32)
         out = []
-        for r, devs in enumerate(self.rows):
+        for r, (devs, st) in enumerate(zip(self.rows, self.staging)):
+            dev = devs[0]
             with annotate("slam.batch.upload"):
-                x, lut_r = b[r * per:(r + 1) * per].to(devs[0]), lut.to(devs[0])
-            with annotate("slam.batch.replay"):
-                if devs[0].type != "cuda":
-                    out.append((self._body(x, lut_r), None))
-                    continue
-                if self.runners.get(r, (None,))[0] != per:
+                lut_r = lut.to(dev)
+                if dev.type != "cuda":
+                    x = st.bytes.to(dev)
+                elif self.runners.get(r, (None,))[0] != st.rows:
                     self.runners.pop(r, None)       # the old graph and its pool go first
                     flat, body = FlatOutputs(), self._body
-                    self.runners[r] = (per, GraphRunner(lambda *xs: flat.pack(body(*xs)),
-                                                        [x, lut_r]), flat)
+                    self.runners[r] = (st.rows, GraphRunner(
+                        lambda *xs: flat.pack(body(*xs)),
+                        [st.bytes.to(dev, non_blocking=True), lut_r]), flat)
+            with annotate("slam.batch.replay"):
+                if dev.type != "cuda":
+                    out.append((self._body(x, lut_r), None, None))
+                    continue
                 _, runner, flat = self.runners[r]
-                out.append((runner(x, lut_r), flat))
+                res = runner(st.bytes, lut_r)
+                st.sent.record(torch.cuda.current_stream(dev))
+                out.append((st.copy_back(res), flat, st.read) if to_host else (res, flat, None))
         return out
 
     def shards(self, byte_batch, n_bytes, lut) -> list:
-        """One output per data shard, each on its row's first device,
-        issued shard after shard (``_issue``)."""
+        """One output per data shard, each on its row's first device:
+        ``byte_batch`` [S, N] (a device tensor is read back to the host)
+        staged, then issued shard after shard (``_issue``)."""
         del n_bytes
+        b = torch.as_tensor(byte_batch, dtype=torch.uint8).cpu().numpy()
+        if b.ndim != 2 or b.shape[1] != self.n_bytes_padded:
+            raise ValueError(f"byte_batch must be [S, {self.n_bytes_padded}], got "
+                             f"{tuple(b.shape)}")
+        self.stage(b)
         return [out if flat is None else flat.unpack(out.clone())
-                for out, flat in self._issue(byte_batch, lut)]
+                for out, flat, _ in self._issue(lut)]
 
     def __call__(self, byte_batch, n_bytes, lut):
         """The S sessions' outputs, every field with a leading S axis, on
@@ -190,12 +287,13 @@ def stack_sessions(raw_list: Sequence[np.ndarray], n_bytes_padded: Optional[int]
     return batch, lengths
 
 
-def _bucket_groups(mesh, raw_list, quantum: int, device, pipeline_kwargs) -> list:
-    """[(indices, pipeline, per-shard (output, layout) from ``_issue``)] per
-    byte bucket, in bucket order: each group padded with empty sessions to
-    a multiple of the data axis, every shard of every group issued before
-    any is read (each bucket has its own program, so no replay overwrites
-    another group's outputs)."""
+def _bucket_groups(mesh, raw_list, quantum: int, device, pipeline_kwargs,
+                   to_host: bool = False) -> list:
+    """[(indices, pipeline, per-shard (output, layout, event) from
+    ``_issue``)] per byte bucket, in bucket order: each group's bytes
+    written into its program's staging buffers (``stage``), every shard of
+    every group issued before any is read (each bucket has its own program,
+    so no replay overwrites another group's outputs)."""
     groups: dict = {}
     for i, r in enumerate(raw_list):
         groups.setdefault(bucket_size(len(r), quantum), []).append(i)
@@ -204,11 +302,8 @@ def _bucket_groups(mesh, raw_list, quantum: int, device, pipeline_kwargs) -> lis
         with annotate("slam.batch.stack"):
             fn = batched_session_pipeline(mesh, bucket, outputs="summary", device=device,
                                           **pipeline_kwargs)
-            sessions = [raw_list[i] for i in idxs]
-            sessions += [np.zeros(0, np.uint8)] * (shard_rows(len(idxs), len(fn.rows))[0]
-                                                   - len(idxs))
-            batch, _ = stack_sessions(sessions, bucket)
-        results.append((idxs, fn, fn._issue(batch, device_lut(fn.rows[0][0]))))
+            fn.stage([raw_list[i] for i in idxs])
+        results.append((idxs, fn, fn._issue(device_lut(fn.rows[0][0]), to_host)))
     return results
 
 
@@ -227,7 +322,7 @@ def run_dataset_batched_grouped(mesh, raw_list: Sequence[np.ndarray], quantum: i
     """
     out = []
     for idxs, fn, issued in _bucket_groups(mesh, raw_list, quantum, device, pipeline_kwargs):
-        shards = [x if flat is None else flat.unpack(x.clone()) for x, flat in issued]
+        shards = [x if flat is None else flat.unpack(x.clone()) for x, flat, _ in issued]
         if len(shards) == 1:
             out.append((idxs, shards[0]))
             continue
@@ -240,19 +335,21 @@ def run_dataset_batched_grouped(mesh, raw_list: Sequence[np.ndarray], quantum: i
 def run_dataset(mesh, raw_list: Sequence[np.ndarray], *, device=None, **pipeline_kwargs):
     """Every session through the per-bucket batches, ONE device-to-host copy
     per bucket and data shard, and per-session ``SessionSummaryOut`` of
-    numpy arrays in input order.  Warns (JAX's message) when a session
+    numpy arrays of their own in input order.  Every bucket is issued
+    before the first is read, and each copy back is waited for through its
+    event (module docstring).  Warns (JAX's message) when a session
     overflowed the corrector's bounds.  ``device`` None means CUDA; with
     ``mesh`` the shards run on its rows (module docstring).
     """
     grouped = _bucket_groups(mesh, raw_list, pipeline_kwargs.pop("quantum", 1 << 18), device,
-                             pipeline_kwargs)
+                             pipeline_kwargs, True)
     results: list = [None] * len(raw_list)
     bad = []
     for idxs, _, issued in grouped:
         with annotate("slam.batch.readback"):
-            read = [_read_back(out, flat) for out, flat in issued]
+            read = [_read_back(*shard) for shard in issued]
         with annotate("slam.batch.split"):
-            host = [_host_fields(r, flat) for r, (_, flat) in zip(read, issued)]
+            host = [_host_fields(r, flat) for r, (_, flat, _) in zip(read, issued)]
             fields = SessionSummaryOut(*(np.concatenate(fs) for fs in zip(*host)))
             for row, orig in enumerate(idxs):
                 results[orig] = SessionSummaryOut(*(x[row] for x in fields))
@@ -265,10 +362,16 @@ def run_dataset(mesh, raw_list: Sequence[np.ndarray], *, device=None, **pipeline
     return results
 
 
-def _read_back(out, flat: Optional[FlatOutputs]):
-    """A shard's outputs on the host: eager outputs (``flat`` None) field by
-    field, or a graph's flat buffer in ONE device-to-host copy."""
-    return [x.cpu() for x in out] if flat is None else out.cpu()
+def _read_back(out, flat: Optional[FlatOutputs], ready=None):
+    """A shard's outputs on the host: eager outputs of a CPU device
+    (``flat`` None), or a graph's flat buffer's pinned copy once ``ready``
+    (the copy's event) has passed: the host waits only if the copy is still
+    in flight (``READBACK_WAITS``)."""
+    global READBACK_WAITS
+    if ready is not None and not ready.query():
+        READBACK_WAITS += 1
+        ready.synchronize()
+    return out
 
 
 def _host_fields(read, flat: Optional[FlatOutputs]) -> SessionSummaryOut:

@@ -10,6 +10,12 @@ to each other.  ``run_dataset`` with a small ``quantum`` (three buckets, an
 empty session, one past the corrector's bounds) against JAX's, in input
 order, with JAX's warning.  The flattened corrector (K2's call for S
 sessions, ids offset by ``s * max_groups``) against S separate calls.
+The staging buffers: rows written in place equal ``stack_sessions`` byte
+for byte (after longer sessions, on a mesh shard with padding rows);
+``run_dataset``'s arrays and a call's tensors stay as they were after the
+next call and share no memory with the program's buffers; ``run_dataset``
+after a call of another row count in the same bucket equals each
+session's own pipeline.
 """
 
 import numpy as np
@@ -20,7 +26,8 @@ from slam_process_tpu_torch.ops import correct
 from slam_process_tpu_torch.ops.raster import colormap_lut
 from slam_process_tpu_torch.parallel import batch
 from slam_process_tpu_torch.parallel.mesh import make_mesh
-from slam_process_tpu_torch.pipeline.device import DeviceSessionOut, session_pipeline
+from slam_process_tpu_torch.pipeline.device import (
+    DeviceSessionOut, bucket_size, device_lut, pad_bytes, session_pipeline)
 from slam_process_tpu_torch.utils.synthetic import synthetic_session_bytes
 from test_torch_pipeline import EXACT, assert_outputs_match
 
@@ -224,3 +231,94 @@ def test_flattened_corrector_equals_separate_calls(stacked):
             n_groups=30, frames_per_beam=1, baselines_per_group=1, seed=5)], N_PADDED)[0])
     f2, v2, _ = decode_rows_streams(over)
     assert correct.correct_rows(f2, v2, g, 32)[2].tolist() == [False, True]
+
+
+def even_sessions(seeds, n_groups=3):
+    """Sessions without junk bytes: one byte length for every seed."""
+    return [synthetic_session_bytes(n_groups=n_groups, frames_per_beam=2, baselines_per_group=4,
+                                    junk_frac=0.0, seed=s) for s in seeds]
+
+
+def program_buffers(fn) -> list:
+    """The numpy views of a program's staging and copy-back buffers."""
+    return [x for st in fn.staging
+            for x in (st.bytes_np, None if st.out is None else st.out.numpy()) if x is not None]
+
+
+@pytest.mark.parametrize("data_rows", [1, 2])
+def test_staged_rows_equal_stack_sessions(data_rows):
+    """``stage`` writes each session and its zero tail into the staging
+    rows in place: after a call of longer sessions the rows equal
+    ``stack_sessions`` of the new ones, and on a mesh shard the padding
+    rows are all zeros."""
+    mesh = (None if data_rows == 1
+            else make_mesh((data_rows, 1), devices=[torch.device("cpu")] * data_rows))
+    fn = batch.batched_session_pipeline(mesh, N_PADDED, outputs="summary",
+                                        device="cpu" if mesh is None else None, **BOUNDS)
+    long = [synthetic_session_bytes(n_groups=4, frames_per_beam=3, baselines_per_group=6,
+                                    seed=10 + i) for i in range(3)]
+    short = [synthetic_session_bytes(**SESSIONS[i]) for i in (3, 1, 0)]
+    assert all(len(a) > len(b) for a, b in zip(long, short))
+    for sessions in (long, short, short[:1] + long[1:]):
+        fn.stage(sessions)
+        pad = -len(sessions) % data_rows
+        want, _ = batch.stack_sessions(sessions + [np.zeros(0, np.uint8)] * pad, N_PADDED)
+        got = np.concatenate([st.bytes_np for st in fn.staging])
+        assert got.shape == want.shape and got.tobytes() == want.tobytes()
+    if data_rows == 2:
+        assert len(fn.staging) == 2 and not fn.staging[1].bytes_np[-1].any()
+
+
+def test_run_dataset_calls_own_their_arrays():
+    """Two ``run_dataset`` calls on campaigns of the same byte lengths and
+    other bytes: the first call's arrays are unchanged after the second,
+    and no array shares memory with the other call's or the programs'
+    buffers; two calls of a program keep their own tensors too."""
+    quantum = 1 << 13
+    a_raws, b_raws = even_sessions((1, 2, 3)), even_sessions((4, 5, 6))
+    a_raws += even_sessions((7,), n_groups=6)
+    b_raws += even_sessions((8,), n_groups=6)
+    assert [len(r) for r in a_raws] == [len(r) for r in b_raws]
+    assert all(x.tobytes() != y.tobytes() for x, y in zip(a_raws, b_raws))
+    a = batch.run_dataset(None, a_raws, quantum=quantum, device="cpu", **BOUNDS)
+    kept = [{f: getattr(r, f).copy() for f in r._fields} for r in a]
+    b = batch.run_dataset(None, b_raws, quantum=quantum, device="cpu", **BOUNDS)
+    fns = {batch.batched_session_pipeline(None, bucket_size(len(r), quantum),
+                                          outputs="summary", device="cpu", **BOUNDS)
+           for r in a_raws}
+    assert len(fns) > 1
+    buffers = [x for fn in fns for x in program_buffers(fn)]
+    for x, y, k in zip(a, b, kept):
+        assert all(getattr(x, f).tobytes() == v.tobytes() for f, v in k.items())
+        assert any(getattr(x, f).tobytes() != getattr(y, f).tobytes()
+                   for f in ("counts", "mean_grid"))
+        for f in batch.SessionSummaryOut._fields:
+            assert not np.shares_memory(getattr(x, f), getattr(y, f)), f
+            assert not any(np.shares_memory(getattr(v, f), buf) for v in (x, y)
+                           for buf in buffers), f
+    # The program called directly: the first call's tensors stay its own.
+    fn = batch.batched_session_pipeline(None, N_PADDED, device="cpu", **BOUNDS)
+    lut = device_lut(torch.device("cpu"))
+    first = [x for x in fn(*batch.stack_sessions(a_raws, N_PADDED), lut) if x is not None]
+    again = [x.clone() for x in first]
+    fn(*batch.stack_sessions(b_raws, N_PADDED), lut)
+    assert all(same_bits(x, y) for x, y in zip(first, again))
+    assert not any(np.shares_memory(x.numpy(), buf) for x in first for buf in program_buffers(fn))
+
+
+def test_run_dataset_after_another_row_count_equals_each_session():
+    """One bucket called with 3, then 2, then 4 sessions: each call remakes
+    the staging rows and equals each session's own pipeline, bit for bit."""
+    quantum = 1 << 14
+    raws = even_sessions(range(20, 24))
+    (b,) = {bucket_size(len(r), quantum) for r in raws}
+    lut = device_lut(torch.device("cpu"))
+    fn = batch.batched_session_pipeline(None, b, outputs="summary", device="cpu", **BOUNDS)
+    for n in (3, 2, 4):
+        got = batch.run_dataset(None, raws[:n], quantum=quantum, device="cpu", **BOUNDS)
+        assert fn.staging[0].rows == n
+        for g, raw in zip(got, raws[:n]):
+            want = session_pipeline(torch.from_numpy(pad_bytes(raw, b)), lut, **BOUNDS)
+            for f in batch.SessionSummaryOut._fields:
+                w = getattr(want, f).numpy()
+                assert getattr(g, f).dtype == w.dtype and getattr(g, f).tobytes() == w.tobytes(), f

@@ -78,7 +78,13 @@ neither 11 nor 16; one 19.9 MB stream), the batch's 19 sessions at their
 a view at an odd byte offset, and a multi-wave call captured in a CUDA
 graph and replayed twice with its ticket words left zero; K6's stream axis
 on ``track_stream_cases`` (chains over several staging tiles, T = 16 with K
-= 20, m_eff 0 and past s1, planted ties, a NaN cost), bit for bit.
+= 20, m_eff 0 and past s1, planted ties, a NaN cost), bit for bit.  The
+batch's staging: after a warm call ``run_dataset`` makes no staging
+buffer, waits on none and copies its bytes once a bucket from pinned
+memory (no pageable or device-to-device copy of them, by the profiler's
+memcpy activities), equal to the eager body row by row; two calls of a
+program back to back each equal the call alone, the second waiting once
+for the staging buffer.
 """
 
 import functools
@@ -2070,6 +2076,95 @@ def test_batch_program_keeps_one_graph_a_shard():
         assert all(pool_bytes(p) == 0 for p in dropped), [pool_bytes(p) for p in dropped]
         dropped.append(pool)
     assert runner.replays == 1
+
+
+def test_run_dataset_stages_in_place_without_pageable_copies(tmp_path):
+    """After a warm call, ``run_dataset`` of a campaign keeps every
+    program's staging and copy-back buffers (no new pinned allocation),
+    waits on no staging buffer, and copies the bytes once a bucket from
+    pinned memory, with no pageable host-to-device copy and no
+    device-to-device copy of the bytes (the memcpy activities of a
+    ``torch.profiler`` trace, after ``utils/device_timing``'s sentinel,
+    which takes the first activities a late window may lose); every
+    session equals its row of the eager body, bit for bit."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam_process_tpu_torch.parallel import batch
+    from slam_process_tpu_torch.pipeline.device import bucket_size, device_lut
+    from slam_process_tpu_torch.utils.device_timing import SENTINEL_LAUNCHES
+
+    raws = [synthetic_session_bytes(n_groups=2 + 3 * i, frames_per_beam=3, baselines_per_group=6,
+                                    junk_frac=0.05, seed=150 + i) for i in range(6)]
+    quantum = 1 << 13
+    groups = {}
+    for i, r in enumerate(raws):
+        groups.setdefault(bucket_size(len(r), quantum), []).append(i)
+    assert len(groups) >= 2
+    batch.run_dataset(None, raws, quantum=quantum)
+    fns = {b: batch.batched_session_pipeline(None, b, outputs="summary", device=None)
+           for b in groups}
+
+    def buffers():
+        return {b: [(st.bytes.data_ptr(), st.out.data_ptr()) for st in fn.staging]
+                for b, fn in fns.items()}
+
+    before, waits, reads = buffers(), batch.STAGING_WAITS, batch.READBACK_WAITS
+    sentinel = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(SENTINEL_LAUNCHES):
+            sentinel.add_(1.0)
+        got = batch.run_dataset(None, raws, quantum=quantum)
+    assert buffers() == before and batch.STAGING_WAITS == waits
+    assert batch.READBACK_WAITS - reads <= len(groups)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    copies = [(e["name"], e.get("args", {}).get("bytes")) for e in events
+              if e.get("cat") == "gpu_memcpy"]
+    sizes = {fn.staging[0].bytes.numel() for fn in fns.values()}
+    assert not [c for c in copies if "HtoD" in c[0] and "Pageable" in c[0]], copies
+    assert not [c for c in copies if "DtoD" in c[0] and c[1] in sizes], copies
+    assert sorted(n for name, n in copies if "HtoD" in name) == sorted(
+        fn.staging[0].bytes.numel() for fn in fns.values()), copies
+    lut = device_lut(torch.device("cuda"))
+    for b, idxs in groups.items():
+        want = fns[b]._body(torch.from_numpy(
+            batch.stack_sessions([raws[i] for i in idxs], b)[0]).cuda(), lut)
+        for row, i in enumerate(idxs):
+            for f in batch.SessionSummaryOut._fields:
+                assert getattr(got[i], f).tobytes() == getattr(want, f)[row].cpu().numpy().tobytes()
+
+
+def test_batch_calls_back_to_back_keep_their_inputs():
+    """Two calls of a program back to back, the first's copy held behind a
+    long kernel: the second waits for the staging buffer once
+    (``STAGING_WAITS``), and each call equals the call alone and the eager
+    body, bit for bit."""
+    from slam_process_tpu_torch.parallel import batch
+    from slam_process_tpu_torch.pipeline.device import bucket_size, device_lut
+
+    raws = [synthetic_session_bytes(n_groups=3, frames_per_beam=3, baselines_per_group=6,
+                                    junk_frac=0.05, seed=170 + i) for i in range(6)]
+    (b,) = {bucket_size(len(r), 1 << 13) for r in raws}
+    fn = batch.batched_session_pipeline(None, b, outputs="summary")
+    lut = device_lut(torch.device("cuda"))
+    b1, b2 = batch.stack_sessions(raws[:3], b), batch.stack_sessions(raws[3:], b)
+    alone = [fn(*x, lut) for x in (b1, b2)]
+    torch.cuda.synchronize()
+    waits = batch.STAGING_WAITS
+    torch.cuda._sleep(200_000_000)          # ~0.1 s: the first call's copy waits behind it
+    got = [fn(*x, lut) for x in (b1, b2)]
+    assert batch.STAGING_WAITS == waits + 1
+
+    def bits(x):
+        return x.reshape(-1).view(torch.uint8)
+
+    for x, g, a in zip((b1, b2), got, alone):
+        want = fn._body(torch.from_numpy(x[0]).cuda(), lut)
+        for f, gv, av, wv in zip(want._fields, g, a, want):
+            assert torch.equal(bits(gv), bits(av)) and torch.equal(bits(gv), bits(wv)), f
 
 
 def multi_states_equal(a, b):
